@@ -1,0 +1,132 @@
+"""Command-line entry points ``train`` and ``test`` (the train/test subset
+of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
+
+Usage:
+    python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
+        -g 0.125 --engine block
+    python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="dpsvm-tpu-torch",
+        description="block-engine SVM trainer (PyTorch/CUDA port)")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("train", help="train a binary C-SVC")
+    p.add_argument("-f", "--file-path", required=True,
+                   help="training data: CSV (label,f1,...,fd)")
+    p.add_argument("-m", "--model", required=True,
+                   help="output model path (.txt or .npz)")
+    p.add_argument("-a", "--num-att", type=int, default=None,
+                   help="number of features (inferred from file if omitted)")
+    p.add_argument("-x", "--num-ex", type=int, default=None,
+                   help="number of training examples (inferred if omitted)")
+    p.add_argument("-c", "--cost", type=float, default=1.0)
+    p.add_argument("-g", "--gamma", type=float, default=None,
+                   help="RBF gamma (default 1/num_features)")
+    p.add_argument("-e", "--epsilon", type=float, default=1e-3)
+    p.add_argument("-n", "--max-iter", type=int, default=150_000)
+    p.add_argument("--engine", choices=["xla", "pallas", "block"],
+                   default="xla",
+                   help="compute engine; the port runs 'block' only")
+    p.add_argument("--working-set-size", type=int, default=128)
+    p.add_argument("--inner-iters", type=int, default=0,
+                   help="pair updates per block (0 = 2 * working-set-size)")
+    p.add_argument("--selection", choices=["mvp", "second_order"],
+                   default="mvp")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32", help="storage dtype of X")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+
+    p = sub.add_parser("test", help="evaluate a trained model on a CSV")
+    p.add_argument("-f", "--file-path", required=True)
+    p.add_argument("-m", "--model", required=True,
+                   help="model path (.txt or .npz)")
+    p.add_argument("-a", "--num-att", type=int, default=None)
+    p.add_argument("-x", "--num-ex", type=int, default=None)
+    p.add_argument("-g", "--gamma", type=float, default=None,
+                   help="override the model file's gamma")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    return parser
+
+
+def _cmd_train(args) -> int:
+    from dpsvm_tpu_torch.config import SVMConfig
+    from dpsvm_tpu_torch.data.loader import load_csv
+    from dpsvm_tpu_torch.predict import accuracy
+    from dpsvm_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    x, y = load_csv(args.file_path, args.num_ex, args.num_att)
+    print(f"loaded {x.shape[0]} examples x {x.shape[1]} features "
+          f"in {time.perf_counter() - t0:.2f}s")
+    try:
+        config = SVMConfig(
+            c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
+            max_iter=args.max_iter, selection=args.selection,
+            engine=args.engine, working_set_size=args.working_set_size,
+            inner_iters=args.inner_iters, dtype=args.dtype)
+        config.check_ported()
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    model, result = train(x, y, config, device=args.device)
+    if result.converged:
+        print(f"converged at iteration {result.iterations}")
+    else:
+        print(f"stopped at max-iter {result.iterations} without converging")
+    print(f"training took {result.train_seconds:.2f}s "
+          f"({result.stats['outer_rounds']} rounds on {result.stats['device']})")
+    print(f"b: {result.b:.6f}")
+    print(f"support vectors: {result.n_sv}")
+    print(f"train accuracy: {accuracy(model, x, y, device=args.device):.4f}")
+    model.save(args.model)
+    print(f"model written to {args.model}")
+    return 0
+
+
+def _cmd_test(args) -> int:
+    from dpsvm_tpu_torch.data.loader import load_csv
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+    from dpsvm_tpu_torch.predict import decision_function
+
+    model = SVMModel.load(args.model)
+    if args.gamma is not None:
+        model.kernel = KernelParams(model.kernel.kind, args.gamma,
+                                    model.kernel.degree, model.kernel.coef0)
+    x, y = load_csv(args.file_path, args.num_ex,
+                    args.num_att or model.num_features)
+    if not set(np.unique(y).tolist()) <= {-1, 1}:
+        print(f"error: {args.model} is a binary +-1 model but the test "
+              f"file's labels are {np.unique(y).tolist()[:6]}",
+              file=sys.stderr)
+        return 2
+    dec = decision_function(model, x, precision="auto", device=args.device)
+    acc = float(np.mean(np.where(dec >= 0, 1, -1) == y))
+    print(f"loaded model: {model.n_sv} SVs, gamma={model.kernel.gamma}, "
+          f"b={model.b:.6f}")
+    print(f"test accuracy: {acc:.4f} ({x.shape[0]} examples)")
+    return 0
+
+
+def main(argv=None) -> int:
+    args = _build_parser().parse_args(argv)
+    if args.command == "train":
+        return _cmd_train(args)
+    return _cmd_test(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""Typed training configuration (counterpart of dpsvm_tpu/config.py).
+
+Only the fields the block engine's path reads are carried, with the same
+names and defaults as the JAX package's ``SVMConfig``. Knobs whose
+engines are not ported yet stay settable so a config written for the JAX
+package reads the same here, but ``check_ported`` (called by every entry
+point) refuses them with ``NotImplementedError`` naming the ROADMAP item
+that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+KERNELS = ("rbf", "linear", "poly", "sigmoid", "precomputed")
+
+
+@dataclasses.dataclass(frozen=True)
+class SVMConfig:
+    """Hyper-parameters and block-engine knobs for SMO training."""
+
+    c: float = 1.0
+    gamma: Optional[float] = None
+    epsilon: float = 1e-3
+    max_iter: int = 150_000
+    # The block engine has no row cache; kept so configs carry across.
+    cache_lines: int = 0
+
+    kernel: str = "rbf"
+    degree: int = 3
+    coef0: float = 0.0
+
+    # Per-class C multipliers (LibSVM -w1 / -w-1).
+    weight_pos: float = 1.0
+    weight_neg: float = 1.0
+
+    selection: str = "mvp"
+    engine: str = "xla"
+    working_set_size: int = 128
+    inner_iters: int = 0
+    pair_batch: int = 1
+
+    # Knobs of engines that are not ported yet (see check_ported).
+    fused_fold: Optional[bool] = None
+    fused_round: Optional[bool] = None
+    pipeline_rounds: Optional[bool] = None
+    active_set_size: int = 0
+    ooc: bool = False
+    gram_resident: Optional[bool] = None
+    bf16_gram: bool = False
+
+    # Kahan-compensated gradient carry (solver/smo.py kahan_add).
+    compensated: bool = False
+    # Run exactly max_iter pair updates; `converged` is still reported at
+    # the real epsilon.
+    budget_mode: bool = False
+
+    tau: float = 1e-12  # eta clamp
+    dtype: str = "float32"  # storage dtype for X ("float32" | "bfloat16")
+
+    def c_bounds(self) -> tuple:
+        """(c_pos, c_neg): per-class box upper bounds."""
+        return (self.c * self.weight_pos, self.c * self.weight_neg)
+
+    def resolve_gamma(self, num_features: int) -> float:
+        """Default gamma = 1/d computed in float."""
+        if self.gamma is not None:
+            return float(self.gamma)
+        return 1.0 / float(num_features)
+
+    def __post_init__(self):
+        if self.kernel not in KERNELS:
+            raise ValueError(
+                f"unknown kernel {self.kernel!r}; expected one of {KERNELS}")
+        if self.c <= 0:
+            raise ValueError("c must be > 0")
+        if self.epsilon <= 0:
+            raise ValueError("epsilon must be > 0")
+        if self.cache_lines < 0:
+            raise ValueError("cache_lines must be >= 0")
+        if self.weight_pos <= 0 or self.weight_neg <= 0:
+            raise ValueError("class weights must be > 0")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError("dtype must be 'float32' or 'bfloat16'")
+        if self.selection not in ("mvp", "second_order", "nu"):
+            raise ValueError(
+                "selection must be 'mvp' or 'second_order' (selection='nu' "
+                "is internal to the nu trainers)")
+        if self.engine not in ("xla", "pallas", "block"):
+            raise ValueError("engine must be 'xla', 'pallas' or 'block'")
+        if self.working_set_size < 2:
+            raise ValueError("working_set_size must be >= 2")
+        if self.inner_iters < 0:
+            raise ValueError("inner_iters must be >= 0 (0 = 2 * working_set_size)")
+        if self.pair_batch not in (1, 2, 4, 8):
+            raise ValueError("pair_batch must be 1, 2, 4 or 8")
+        if self.active_set_size < 0:
+            raise ValueError("active_set_size must be >= 0 (0 = shrinking off)")
+        if self.max_iter > 2 ** 31 - 1:
+            raise ValueError("max_iter must fit int32")
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError for any knob set to a value whose
+        engine the port does not have yet; the message names the
+        ROADMAP.md item that ports it."""
+        unported = (
+            (self.engine != "block",
+             f"engine={self.engine!r} (per-pair engines: ROADMAP queue A "
+             "item 5; the port runs engine='block')"),
+            (self.selection == "nu",
+             "selection='nu' (nu duals: ROADMAP queue A item 7)"),
+            (self.pair_batch > 1,
+             "pair_batch>1 (ROADMAP queue A item 5)"),
+            (bool(self.fused_fold),
+             "fused_fold=True (kernel B2: ROADMAP queue A item 4)"),
+            (bool(self.fused_round),
+             "fused_round=True (kernels B4/B5: ROADMAP queue A item 4)"),
+            (bool(self.pipeline_rounds),
+             "pipeline_rounds=True (kernel B3: ROADMAP queue A item 4)"),
+            (self.active_set_size > 0,
+             "active_set_size>0 (ROADMAP queue A item 4)"),
+            (self.ooc, "ooc=True (ROADMAP queue A item 8)"),
+            (bool(self.gram_resident),
+             "gram_resident=True (ROADMAP queue A item 6)"),
+            (self.bf16_gram, "bf16_gram=True (ROADMAP queue A item 6)"),
+            (self.kernel == "precomputed",
+             "kernel='precomputed' (ROADMAP queue A item 6)"),
+        )
+        for bad, what in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported to dpsvm_tpu_torch yet")
+
+    def replace(self, **kw) -> "SVMConfig":
+        return dataclasses.replace(self, **kw)

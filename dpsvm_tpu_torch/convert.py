@@ -1,0 +1,49 @@
+"""State carried across from the JAX package.
+
+The JAX package is never imported here: both converters read plain
+attributes (numpy-convertible arrays and scalars), so any object with the
+JAX package's field names works — a dpsvm_tpu SVMModel / BlockState, or a
+namespace rebuilt from saved arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dpsvm_tpu_torch.models.svm_model import SVMModel
+from dpsvm_tpu_torch.ops.kernels import KernelParams
+from dpsvm_tpu_torch.solver.block import BlockState
+
+
+def model_from_reference(m) -> SVMModel:
+    """A port SVMModel from the JAX package's model fields (sv_x,
+    sv_alpha, sv_y, b, kernel.{kind, gamma, degree, coef0})."""
+    k = m.kernel
+    return SVMModel(
+        sv_x=np.ascontiguousarray(np.asarray(m.sv_x), np.float32),
+        sv_alpha=np.asarray(m.sv_alpha, np.float32),
+        sv_y=np.asarray(m.sv_y, np.int32),
+        b=float(m.b),
+        kernel=KernelParams(str(k.kind), float(k.gamma), int(k.degree),
+                            float(k.coef0)))
+
+
+def block_state_from_reference(st, device) -> BlockState:
+    """A port BlockState on `device` from the JAX package's BlockState
+    arrays (alpha, f, f_err, b_hi, b_lo, pairs, rounds)."""
+    dev = torch.device(device)
+
+    def vec(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def scalar(a, dtype):
+        return torch.tensor(np.asarray(a).item(), dtype=dtype, device=dev)
+
+    return BlockState(
+        alpha=vec(st.alpha), f=vec(st.f),
+        b_hi=scalar(st.b_hi, torch.float32),
+        b_lo=scalar(st.b_lo, torch.float32),
+        pairs=scalar(st.pairs, torch.int32),
+        rounds=scalar(st.rounds, torch.int32),
+        f_err=None if st.f_err is None else vec(st.f_err))

@@ -1,0 +1,297 @@
+// Block-engine subproblem solve for Hopper (sm_90a).
+//
+// Replaces the TPU kernel dpsvm_tpu/ops/pallas_subproblem.py
+// solve_subproblem_pallas (kernel _subproblem_kernel): the whole
+// q-variable SMO subproblem of one block round in ONE launch. Per trip:
+// argmin f over I_up and argmax f over I_low (lowest slot wins ties), or
+// LibSVM's WSS2 partner by second-order gain; the pair_alpha_update
+// algebra; f_W += dalpha * y * K(W, W) rows. Stops when the local gap
+// b_lo <= b_hi + 2 eps or after `limit` pairs.
+//
+// What bounds it on this card: not bytes and not arithmetic. Each trip
+// moves two Gram rows (2 * q * 4 bytes) and does O(q) flops; what it
+// cannot avoid is the serial chain of dependent block-wide reductions and
+// L2 reads, one trip after another, with a data-dependent exit.
+//
+// What the design does about it: one CTA holds the whole chain, so a trip
+// costs one barrier (two for second_order) and no launch. The per-slot
+// state (alpha, f, y, kd, ok) lives in registers, each thread owning
+// slots tid, tid + blockDim, ... so any q up to 4096 works. Each
+// reduction is warp shuffles, then one shared-memory slot per warp that
+// every thread reads and reduces itself (double-buffered by trip parity,
+// so no second barrier), so all threads hold the same pair, run the
+// scalar update redundantly and leave the loop together. K(W, W) stays in
+// global memory and is read from L2 (256 KiB at q=256 is over the 227 KB
+// a block can have in shared memory). `limit` and the pair count stay on
+// the device, so a round needs no host sync before the launch.
+//
+// Numerics: built with -fmad=false and IEEE division so every expression
+// rounds per operation in the JAX package's order (solver/smo.py
+// pair_alpha_update, solver/block.py _solve_subproblem), except the f_W
+// update, which is two explicit fused multiply-adds: XLA on the CPU
+// contracts that expression, and the reference's trajectory follows it.
+// The snap constants arrive precomputed from the host exactly as the JAX
+// package rounds them.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <limits.h>
+
+namespace {
+
+constexpr int kMvp = 0;
+constexpr int kSecondOrder = 1;
+
+struct BoxConsts {
+  float c_pos, c_neg;        // box upper bounds per class
+  float snap_pos, snap_neg;  // 1e-6 * C, rounded as the reference rounds it
+  float cms_pos, cms_neg;    // C - snap
+  float two_eps;             // 2 * eps in float32
+  float tau;                 // eta clamp
+};
+
+// (value, slot) total order for argmin / argmax with lowest-slot ties.
+__device__ __forceinline__ bool better_min(float v2, int i2, float v1, int i1) {
+  return v2 < v1 || (v2 == v1 && i2 < i1);
+}
+__device__ __forceinline__ bool better_max(float v2, int i2, float v1, int i1) {
+  return v2 > v1 || (v2 == v1 && i2 < i1);
+}
+
+// Candidate with its payload (f and alpha at the winning slot).
+struct Cand {
+  float v;
+  int i;
+  float f;
+  float a;
+};
+
+template <bool kMin>
+__device__ __forceinline__ void take_if_better(Cand& c, const Cand& o) {
+  bool b = kMin ? better_min(o.v, o.i, c.v, c.i) : better_max(o.v, o.i, c.v, c.i);
+  if (b) c = o;
+}
+
+template <bool kMin>
+__device__ __forceinline__ Cand warp_reduce(Cand c) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Cand o;
+    o.v = __shfl_xor_sync(0xffffffffu, c.v, off);
+    o.i = __shfl_xor_sync(0xffffffffu, c.i, off);
+    o.f = __shfl_xor_sync(0xffffffffu, c.f, off);
+    o.a = __shfl_xor_sync(0xffffffffu, c.a, off);
+    take_if_better<kMin>(c, o);
+  }
+  return c;
+}
+
+template <int S>
+__global__ void __launch_bounds__(1024, 1)
+subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_in,
+                  const float* __restrict__ y_in, const float* __restrict__ f_in,
+                  const float* __restrict__ kd_in, const float* __restrict__ ok_in,
+                  const int* __restrict__ limit_p, float* __restrict__ alpha_out,
+                  int* __restrict__ t_out, int q, int rule, BoxConsts k) {
+  extern __shared__ float smem[];  // y_s[q], kd_s[q]: read-only after setup
+  float* y_s = smem;
+  float* kd_s = smem + q;
+  // [trip parity][warp]: per-warp winners of phase 1 (up-min, low-max)
+  // and phase 2 (second_order gain).
+  __shared__ Cand red_up[2][32];
+  __shared__ Cand red_lo[2][32];
+  __shared__ Cand red_g[2][32];
+
+  const float inf = INFINITY;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = (nt + 31) >> 5;
+
+  float a[S], f[S], yv[S], kdv[S], cv[S];
+  bool ok[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int slot = tid + s * nt;
+    if (slot < q) {
+      a[s] = alpha_in[slot];
+      f[s] = f_in[slot];
+      yv[s] = y_in[slot];
+      kdv[s] = kd_in[slot];
+      ok[s] = ok_in[slot] > 0.0f;
+      y_s[slot] = yv[s];
+      kd_s[slot] = kdv[s];
+    } else {
+      a[s] = 0.0f;
+      f[s] = 0.0f;
+      yv[s] = 1.0f;
+      kdv[s] = 1.0f;
+      ok[s] = false;
+    }
+    cv[s] = yv[s] > 0.0f ? k.c_pos : k.c_neg;
+  }
+  const int limit = *limit_p;
+  __syncthreads();
+
+  int t = 0;
+  int par = 0;
+  while (t < limit) {
+    // ---- phase 1: b_hi / argmin over I_up, b_lo / argmax over I_low.
+    Cand up{inf, INT_MAX, 0.0f, 0.0f};
+    Cand lo{-inf, INT_MAX, 0.0f, 0.0f};
+    bool low_s[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int slot = tid + s * nt;
+      const bool pos = yv[s] > 0.0f;
+      const bool in_up = ok[s] && (pos ? a[s] < cv[s] : a[s] > 0.0f);
+      low_s[s] = ok[s] && (pos ? a[s] > 0.0f : a[s] < cv[s]);
+      if (slot < q) {
+        take_if_better<true>(up, Cand{in_up ? f[s] : inf, slot, f[s], a[s]});
+        take_if_better<false>(lo, Cand{low_s[s] ? f[s] : -inf, slot, f[s], a[s]});
+      }
+    }
+    up = warp_reduce<true>(up);
+    lo = warp_reduce<false>(lo);
+    if (lane == 0) {
+      red_up[par][warp] = up;
+      red_lo[par][warp] = lo;
+    }
+    __syncthreads();
+    up = red_up[par][0];
+    lo = red_lo[par][0];
+    for (int w = 1; w < nwarps; ++w) {
+      take_if_better<true>(up, red_up[par][w]);
+      take_if_better<false>(lo, red_lo[par][w]);
+    }
+    const float b_hi = up.v;
+    const int i = up.i;
+    // Same float32 expression as the JAX package: b_lo > b_hi + 2 eps.
+    const bool gap_open = lo.v > b_hi + k.two_eps;
+    if (!gap_open) break;  // uniform: every thread reduced the same data
+
+    const float* row_i = kb + (size_t)i * q;
+    float ri[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int slot = tid + s * nt;
+      ri[s] = slot < q ? row_i[slot] : 0.0f;
+    }
+    Cand jc = lo;  // mvp partner: the max violator
+    if (rule == kSecondOrder) {
+      // ---- phase 2: WSS2 partner j by max (f_j - b_hi)^2 / eta_ij.
+      const float kd_i = kd_s[i];
+      Cand g{-inf, INT_MAX, 0.0f, 0.0f};
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int slot = tid + s * nt;
+        if (slot < q) {
+          const float diff = f[s] - b_hi;
+          const float eta_j = fmaxf((kd_i + kdv[s]) - 2.0f * ri[s], k.tau);
+          const float gain = (low_s[s] && diff > 0.0f) ? (diff * diff) / eta_j : -inf;
+          take_if_better<false>(g, Cand{gain, slot, f[s], a[s]});
+        }
+      }
+      g = warp_reduce<false>(g);
+      if (lane == 0) red_g[par][warp] = g;
+      __syncthreads();
+      g = red_g[par][0];
+      for (int w = 1; w < nwarps; ++w) take_if_better<false>(g, red_g[par][w]);
+      if (!(g.v > -inf)) {
+        // No eligible partner (only reachable in budget mode, whose eps
+        // keeps the gap open): a counted no-op trip, as in the JAX rule.
+        ++t;
+        par ^= 1;
+        continue;
+      }
+      jc = g;
+    }
+    const int j = jc.i;
+    const float b_lo = jc.f;
+    const float* row_j = kb + (size_t)j * q;
+    float rj[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int slot = tid + s * nt;
+      rj[s] = slot < q ? row_j[slot] : 0.0f;
+    }
+    const float k_ij = row_i[j];
+
+    // ---- pair_alpha_update, redundantly in every thread.
+    const float y_i = y_s[i], y_j = y_s[j];
+    const float a_i_old = up.a, a_j_old = jc.a;
+    const float eta = fmaxf((kd_s[i] + kd_s[j]) - 2.0f * k_ij, k.tau);
+    const bool pi = y_i > 0.0f, pj = y_j > 0.0f;
+    const float c_i = pi ? k.c_pos : k.c_neg;
+    const float c_j = pj ? k.c_pos : k.c_neg;
+    const float snap_i = pi ? k.snap_pos : k.snap_neg;
+    const float snap_j = pj ? k.snap_pos : k.snap_neg;
+    const float cms_i = pi ? k.cms_pos : k.cms_neg;
+    const float cms_j = pj ? k.cms_pos : k.cms_neg;
+    const bool upd = isfinite(b_hi) && isfinite(b_lo);
+    const float sgn = y_i * y_j;
+    const float w = a_i_old + sgn * a_j_old;
+    const float lo_b = sgn > 0.0f ? fmaxf(0.0f, w - c_i) : fmaxf(0.0f, -w);
+    const float hi_b = sgn > 0.0f ? fminf(c_j, w) : fminf(c_j, c_i - w);
+    float aj = a_j_old + (y_j * (b_hi - b_lo)) / eta;
+    aj = fminf(fmaxf(aj, lo_b), hi_b);
+    aj = aj < snap_j ? 0.0f : (aj > cms_j ? c_j : aj);
+    float ai = a_i_old + sgn * (a_j_old - aj);
+    ai = fminf(fmaxf(ai, 0.0f), c_i);
+    ai = ai < snap_i ? 0.0f : (ai > cms_i ? c_i : ai);
+    if (!upd) {
+      ai = a_i_old;
+      aj = a_j_old;
+    }
+    const float di = (ai - a_i_old) * y_i;
+    const float dj = (aj - a_j_old) * y_j;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int slot = tid + s * nt;
+      if (slot == i) a[s] = ai;
+      if (slot == j) a[s] = aj;  // j written last, as in the JAX rule
+      // Two fused multiply-adds, as XLA contracts the JAX package's
+      // f + (da_i y_i) row_i + (da_j y_j) row_j on the CPU.
+      f[s] = __fmaf_rn(dj, rj[s], __fmaf_rn(di, ri[s], f[s]));
+    }
+    ++t;
+    par ^= 1;
+  }
+
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int slot = tid + s * nt;
+    if (slot < q) alpha_out[slot] = a[s];
+  }
+  if (tid == 0) *t_out = t;
+}
+
+}  // namespace
+
+extern "C" int dpsvm_subproblem(const float* kb, const float* alpha, const float* y,
+                                const float* f, const float* kd, const float* ok,
+                                const int* limit, float* alpha_out, int* t_out, int q,
+                                int rule, float c_pos, float c_neg, float snap_pos,
+                                float snap_neg, float cms_pos, float cms_neg,
+                                float two_eps, float tau, void* stream) {
+  if (q < 1 || q > 4096 || (rule != kMvp && rule != kSecondOrder)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const BoxConsts k{c_pos, c_neg, snap_pos, snap_neg, cms_pos, cms_neg, two_eps, tau};
+  const int nt = q < 1024 ? ((q + 31) / 32) * 32 : 1024;
+  const int slots = (q + nt - 1) / nt;
+  const size_t shm = 2 * (size_t)q * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (slots == 1) {
+    subproblem_kernel<1><<<1, nt, shm, st>>>(kb, alpha, y, f, kd, ok, limit, alpha_out,
+                                             t_out, q, rule, k);
+  } else if (slots == 2) {
+    subproblem_kernel<2><<<1, nt, shm, st>>>(kb, alpha, y, f, kd, ok, limit, alpha_out,
+                                             t_out, q, rule, k);
+  } else {
+    subproblem_kernel<4><<<1, nt, shm, st>>>(kb, alpha, y, f, kd, ok, limit, alpha_out,
+                                             t_out, q, rule, k);
+  }
+  return (int)cudaGetLastError();
+}

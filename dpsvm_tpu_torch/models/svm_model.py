@@ -1,0 +1,104 @@
+"""Trained-model container and serialization (counterpart of
+dpsvm_tpu/models/svm_model.py; the two packages read each other's files).
+
+* ``.txt``: the reference text format — gamma, b, then one
+  ``alpha,y,x_1,...,x_d`` row per support vector; a 1-line header (no b)
+  is tolerated on load. RBF only.
+* ``.npz``: sv_x, sv_alpha, sv_y, b and the kernel fields, any kernel.
+
+Decision convention: f(q) = sum_j alpha_j y_j K(x_j, q) - b.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from dpsvm_tpu_torch.ops.kernels import KernelParams
+
+
+@dataclasses.dataclass
+class SVMModel:
+    sv_x: np.ndarray  # (n_sv, d) support vectors
+    sv_alpha: np.ndarray  # (n_sv,) alpha_i > 0
+    sv_y: np.ndarray  # (n_sv,) labels in {-1, +1}
+    b: float
+    kernel: KernelParams
+
+    @property
+    def n_sv(self) -> int:
+        return int(self.sv_x.shape[0])
+
+    @property
+    def num_features(self) -> int:
+        return int(self.sv_x.shape[1])
+
+    @property
+    def dual_coef(self) -> np.ndarray:
+        """alpha_j * y_j, the weights of the decision sum."""
+        return (self.sv_alpha * self.sv_y).astype(np.float32)
+
+    @classmethod
+    def from_dense(cls, x, y, alpha, b, kernel: KernelParams) -> "SVMModel":
+        """Extract the support vectors (alpha > 0) from full training
+        arrays."""
+        alpha = np.asarray(alpha, np.float32)
+        mask = alpha > 0
+        return cls(
+            sv_x=np.ascontiguousarray(np.asarray(x)[mask], np.float32),
+            sv_alpha=alpha[mask],
+            sv_y=np.asarray(y, np.int32)[mask],
+            b=float(b),
+            kernel=kernel,
+        )
+
+    def save(self, path: str) -> None:
+        if path.endswith(".npz"):
+            np.savez_compressed(
+                path, format_version=1, sv_x=self.sv_x,
+                sv_alpha=self.sv_alpha, sv_y=self.sv_y,
+                b=np.float32(self.b), **self.kernel.npz_fields())
+            return
+        if self.kernel.kind != "rbf":
+            raise ValueError(
+                "the text model format only expresses RBF; save non-RBF "
+                "models to .npz")
+        with open(path, "w") as fh:
+            fh.write(f"{self.kernel.gamma}\n")
+            fh.write(f"{self.b}\n")
+            for i in range(self.n_sv):
+                row = ",".join(repr(float(v)) for v in self.sv_x[i])
+                fh.write(f"{float(self.sv_alpha[i])!r},{int(self.sv_y[i])},{row}\n")
+
+    @classmethod
+    def load(cls, path: str) -> "SVMModel":
+        if path.endswith(".npz"):
+            with np.load(path, allow_pickle=False) as z:
+                return cls(sv_x=z["sv_x"].astype(np.float32),
+                           sv_alpha=z["sv_alpha"].astype(np.float32),
+                           sv_y=z["sv_y"].astype(np.int32),
+                           b=float(z["b"]),
+                           kernel=KernelParams.from_npz(z))
+        with open(path) as fh:
+            lines = [ln.strip() for ln in fh if ln.strip()]
+        if len(lines) < 2:
+            raise ValueError(f"{path}: not a model file")
+        gamma = float(lines[0])
+        # 2-line header vs 1-line header: an SV row has >= 3
+        # comma-separated fields, a b line exactly one.
+        if "," in lines[1]:
+            b, first_sv = 0.0, 1
+        else:
+            b, first_sv = float(lines[1]), 2
+        alphas, ys, xs = [], [], []
+        for ln in lines[first_sv:]:
+            parts = ln.split(",")
+            alphas.append(float(parts[0]))
+            ys.append(int(float(parts[1])))
+            xs.append([float(v) for v in parts[2:]])
+        return cls(sv_x=np.asarray(xs, np.float32),
+                   sv_alpha=np.asarray(alphas, np.float32),
+                   sv_y=np.asarray(ys, np.int32),
+                   b=b,
+                   kernel=KernelParams(kind="rbf", gamma=gamma))

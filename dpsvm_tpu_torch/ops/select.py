@@ -1,0 +1,90 @@
+"""Working-set set definitions for modified SMO (counterpart of
+dpsvm_tpu/ops/select.py).
+
+  I_up  = {y=+1, a<C} u {y=-1, a>0}
+  I_low = {y=+1, a>0} u {y=-1, a<C}
+
+b_hi = min f over I_up, b_lo = max f over I_low; converged when
+b_lo <= b_hi + 2 eps. Ties resolve to the lowest index, as in the JAX
+package (torch.argmin/argmax return the first extremum).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_INF = float("inf")
+
+
+def split_c(c) -> tuple:
+    """Normalize a scalar-or-(c_pos, c_neg) box bound to the pair form."""
+    return c if isinstance(c, tuple) else (c, c)
+
+
+def c_of(y: torch.Tensor, c_pos: float, c_neg: float):
+    """Per-row upper bound C_i = C * w_{y_i}; the plain scalar when the
+    class weights are equal (so the comparisons see the same float32
+    constant the JAX package compiles)."""
+    if c_pos == c_neg:
+        return c_pos
+    return torch.where(y > 0, c_pos, c_neg)
+
+
+def up_mask(alpha: torch.Tensor, y: torch.Tensor, c_pos: float,
+            c_neg: float | None = None) -> torch.Tensor:
+    """Membership in I_up."""
+    c = c_of(y, c_pos, c_pos if c_neg is None else c_neg)
+    return torch.where(y > 0, alpha < c, alpha > 0)
+
+
+def low_mask(alpha: torch.Tensor, y: torch.Tensor, c_pos: float,
+             c_neg: float | None = None) -> torch.Tensor:
+    """Membership in I_low."""
+    c = c_of(y, c_pos, c_pos if c_neg is None else c_neg)
+    return torch.where(y > 0, alpha > 0, alpha < c)
+
+
+def stopping_extrema(f, alpha, y, c, valid=None, rule: str = "mvp"):
+    """Device-side (b_hi, b_lo) of the current state as 0-d float32
+    tensors (the C-SVC rules share the stopping extrema)."""
+    if rule not in ("mvp", "second_order"):
+        raise NotImplementedError(
+            f"rule={rule!r} is not ported (nu duals: ROADMAP queue A item 7)")
+    cp, cn = split_c(c)
+    f = f.float()
+    up = up_mask(alpha, y, cp, cn)
+    low = low_mask(alpha, y, cp, cn)
+    if valid is not None:
+        up = up & valid
+        low = low & valid
+    return (torch.where(up, f, _INF).min(),
+            torch.where(low, f, -_INF).max())
+
+
+def extrema_np(f, alpha, y, c, rule: str = "mvp"):
+    """Host-side (NumPy) stopping extrema (b_hi, b_lo) of a final state,
+    as Python floats. A float64 f is kept as is."""
+    if rule not in ("mvp", "second_order"):
+        raise NotImplementedError(
+            f"rule={rule!r} is not ported (nu duals: ROADMAP queue A item 7)")
+    cp, cn = split_c(c)
+    f = np.asarray(f)
+    if f.dtype != np.float64:
+        f = f.astype(np.float32)
+    alpha = np.asarray(alpha)
+    y = np.asarray(y)
+    c_row = cp if cp == cn else np.where(y > 0, cp, cn)
+    up = np.where(y > 0, alpha < c_row, alpha > 0)
+    low = np.where(y > 0, alpha > 0, alpha < c_row)
+    b_hi = float(np.min(np.where(up, f, np.inf)))
+    b_lo = float(np.max(np.where(low, f, -np.inf)))
+    return b_hi, b_lo
+
+
+def refresh_extrema_host(f, alpha, y, c, epsilon: float, rule: str = "mvp"):
+    """Budget-exit refresh: the block engine's carried extrema are one
+    fold behind when the loop exits on the pair budget, so recompute
+    (b_hi, b_lo, converged) exactly from the pulled final state."""
+    b_hi, b_lo = extrema_np(f, alpha, y, c, rule)
+    return b_hi, b_lo, not (b_lo > b_hi + 2.0 * epsilon)

@@ -1,0 +1,114 @@
+"""Batched inference (counterpart of dpsvm_tpu/predict.py).
+
+f(q) = sum_j alpha_j y_j K(x_j, q) - b, evaluated in float32 on the
+device in query blocks, or exactly in float64 on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dpsvm_tpu_torch.device import resolve_device
+from dpsvm_tpu_torch.models.svm_model import SVMModel
+from dpsvm_tpu_torch.ops.kernels import KernelParams, kernel_matrix
+
+# decision_risk at or above this routes precision='auto' to the float64
+# host path (the JAX package's calibration, predict.AUTO_F64_RISK).
+AUTO_F64_RISK = 0.1
+
+
+def decision_function(model: SVMModel, q, block: int = 8192,
+                      precision: str = "float32", device=None) -> np.ndarray:
+    """f(q_i) for a batch of query points, in query blocks of `block`.
+
+    precision: "float32" (device), "float64" (exact, host) or "auto"
+    (float64 when decision_risk(model) >= AUTO_F64_RISK)."""
+    # Resolved before the precision branch, so every path refuses
+    # device=None on a machine without CUDA.
+    dev = resolve_device(device)
+    if precision == "auto":
+        precision = resolve_precision(model)
+    if precision == "float64":
+        return gram_matvec_f64(model.sv_x, model.dual_coef, model.kernel,
+                               np.asarray(q, np.float64), block) - model.b
+    if precision != "float32":
+        raise ValueError("precision must be 'auto', 'float32' or 'float64'")
+    q = np.asarray(q, np.float32)
+    sv = torch.as_tensor(model.sv_x, device=dev)
+    coef = torch.as_tensor(model.dual_coef, device=dev)
+    out = []
+    for s in range(0, q.shape[0], block):
+        qb = torch.as_tensor(q[s:s + block], device=dev)
+        dec = kernel_matrix(qb, sv, model.kernel) @ coef - model.b
+        out.append(dec.cpu().numpy())
+    return np.concatenate(out) if out else np.zeros((0,), np.float32)
+
+
+def gram_matvec_f64(x, coef, kp: KernelParams, queries,
+                    block: int = 4096) -> np.ndarray:
+    """K(queries, x_active) @ coef_active in float64 on the host, blocked
+    so at most a (block, n_active) kernel tile is live; only nonzero-coef
+    columns are evaluated. (The query form of dpsvm_tpu/solver/
+    reconstruct.py gram_matvec_f64.)"""
+    coef = np.asarray(coef, np.float64)
+    x64 = np.asarray(x, np.float32).astype(np.float64)
+    xq = np.asarray(queries, np.float64)
+    m = xq.shape[0]
+    active = np.nonzero(coef != 0.0)[0]
+    if active.size == 0:
+        return np.zeros(m, np.float64)
+    xa = x64[active]
+    ca = coef[active]
+    out = np.empty(m, np.float64)
+    if kp.kind == "rbf":
+        sq = np.einsum("nd,nd->n", xq, xq)
+        sqa = np.einsum("nd,nd->n", xa, xa)
+    for s in range(0, m, block):
+        t = xq[s:s + block]
+        dots = t @ xa.T
+        if kp.kind == "linear":
+            k = dots
+        elif kp.kind == "rbf":
+            d2 = np.maximum(sq[s:s + block, None] + sqa[None, :]
+                            - 2.0 * dots, 0.0)
+            k = np.exp(-kp.gamma * d2)
+        elif kp.kind == "poly":
+            k = (kp.gamma * dots + kp.coef0) ** kp.degree
+        elif kp.kind == "sigmoid":
+            k = np.tanh(kp.gamma * dots + kp.coef0)
+        else:
+            raise ValueError(f"unknown kernel kind {kp.kind!r}")
+        out[s:s + block] = k @ ca
+    return out
+
+
+def decision_risk(model: SVMModel) -> float:
+    """A-priori estimate of float32 decision-evaluation noise:
+    sqrt(n_sv) * eps_f32 * rms|coef|."""
+    coef = np.asarray(model.dual_coef, np.float64)
+    if coef.size == 0:
+        return 0.0
+    return float(np.sqrt(coef.size) * 2.0 ** -23
+                 * np.sqrt(np.mean(coef ** 2)))
+
+
+def resolve_precision(model: SVMModel) -> str:
+    """The path precision='auto' resolves to: 'float64' when the float32
+    noise estimate reaches AUTO_F64_RISK, else 'float32'."""
+    return ("float64" if decision_risk(model) >= AUTO_F64_RISK
+            else "float32")
+
+
+def predict(model: SVMModel, q, block: int = 8192, precision: str = "auto",
+            device=None) -> np.ndarray:
+    """Class labels in {-1, +1}; sign(0) maps to +1."""
+    d = decision_function(model, q, block, precision=precision, device=device)
+    return np.where(d >= 0, 1, -1).astype(np.int32)
+
+
+def accuracy(model: SVMModel, q, y, block: int = 8192,
+             precision: str = "auto", device=None) -> float:
+    """Fraction of labels predicted correctly."""
+    pred = predict(model, q, block, precision=precision, device=device)
+    return float(np.mean(pred == np.asarray(y)))

@@ -1,0 +1,78 @@
+"""The port's SVMConfig against the JAX package's: field names, defaults,
+validation, and the knobs the port refuses until their engines land."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from dpsvm_tpu.config import SVMConfig as JaxConfig
+from dpsvm_tpu_torch import SVMConfig, solve
+
+PORT_FIELDS = [f.name for f in dataclasses.fields(SVMConfig)]
+
+
+@pytest.mark.parametrize("name", PORT_FIELDS)
+def test_field_name_and_default_match_jax(name):
+    jax_fields = {f.name: f for f in dataclasses.fields(JaxConfig)}
+    assert name in jax_fields, f"{name} is not a dpsvm_tpu SVMConfig field"
+    assert getattr(SVMConfig(), name) == getattr(JaxConfig(), name)
+
+
+def test_block_path_fields_present():
+    needed = {"c", "gamma", "epsilon", "max_iter", "kernel", "degree",
+              "coef0", "weight_pos", "weight_neg", "selection", "engine",
+              "working_set_size", "inner_iters", "pair_batch",
+              "compensated", "budget_mode", "tau", "dtype", "cache_lines"}
+    assert needed <= set(PORT_FIELDS)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(c=10.0, weight_pos=2.0, weight_neg=0.5),
+    dict(c=3.0),
+])
+def test_c_bounds_and_gamma_match_jax(kw):
+    assert SVMConfig(**kw).c_bounds() == JaxConfig(**kw).c_bounds()
+    for d in (1, 7, 784):
+        assert SVMConfig(**kw).resolve_gamma(d) == JaxConfig(**kw).resolve_gamma(d)
+        assert SVMConfig(gamma=0.125).resolve_gamma(d) == 0.125
+    assert SVMConfig(**kw).replace(c=2.0).c == 2.0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(c=0.0), dict(epsilon=-1.0), dict(kernel="cubic"),
+    dict(dtype="float16"), dict(selection="wss3"), dict(engine="gpu"),
+    dict(working_set_size=1), dict(pair_batch=3), dict(weight_neg=0.0),
+    dict(inner_iters=-1),
+])
+def test_invalid_values_raise_like_jax(kw):
+    with pytest.raises(ValueError):
+        JaxConfig(**kw)
+    with pytest.raises(ValueError):
+        SVMConfig(**kw)
+
+
+UNPORTED = [
+    dict(engine="xla"), dict(engine="pallas"), dict(selection="nu"),
+    dict(pair_batch=2), dict(fused_fold=True), dict(fused_round=True),
+    dict(pipeline_rounds=True), dict(active_set_size=64), dict(ooc=True),
+    dict(gram_resident=True), dict(bf16_gram=True),
+    dict(kernel="precomputed"),
+]
+
+
+@pytest.mark.parametrize("kw", UNPORTED)
+def test_unported_knobs_raise(kw):
+    cfg = SVMConfig(**{"engine": "block", **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.check_ported()
+    x = np.zeros((4, 2), np.float32)
+    y = np.array([1, -1, 1, -1], np.int32)
+    with pytest.raises(NotImplementedError):
+        solve(x, y, cfg, device="cpu")
+
+
+def test_ported_block_config_passes():
+    SVMConfig(engine="block", selection="second_order", compensated=True,
+              budget_mode=True, dtype="bfloat16", fused_fold=False,
+              pipeline_rounds=False).check_ported()

@@ -1,0 +1,122 @@
+"""The port stands alone: no module of dpsvm_tpu_torch (nor chip_smoke.py)
+imports jax or the JAX package, and its entry points refuse to fall back
+to the CPU when no CUDA device is there.
+
+The check is an AST scan of the import statements: this container may
+import jax at interpreter start, so sys.modules proves nothing. The
+top-level name is compared exactly, because "dpsvm_tpu_torch" starts
+with "dpsvm_tpu"."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import dpsvm_tpu_torch
+from dpsvm_tpu_torch import (SVMConfig, SVMModel, accuracy,
+                             decision_function, predict, solve, train)
+from dpsvm_tpu_torch import cli
+from dpsvm_tpu_torch.ops.kernels import KernelParams
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(dpsvm_tpu_torch.__file__)
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(top: str) -> bool:
+    return top == "dpsvm_tpu" or top == "jax" or top.startswith("jax")
+
+
+def _imported_tops(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_scan_covers_the_package():
+    srcs = _sources()
+    assert len(srcs) >= 15
+    names = {os.path.relpath(p, ROOT) for p in srcs}
+    assert "chip_smoke.py" in names
+    assert os.path.join("dpsvm_tpu_torch", "ops", "subproblem.py") in names
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    bad = [(t, ln) for t, ln in _imported_tops(path) if _forbidden(t)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_matches_names_exactly():
+    assert _forbidden("dpsvm_tpu") and _forbidden("jax")
+    assert _forbidden("jaxlib")
+    assert not _forbidden("dpsvm_tpu_torch")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _data():
+    x = np.random.default_rng(0).random((8, 3)).astype(np.float32)
+    y = np.array([1, -1] * 4, np.int32)
+    return x, y
+
+
+def test_default_device_raises_without_cuda(no_cuda, tmp_path):
+    x, y = _data()
+    cfg = SVMConfig(engine="block", working_set_size=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve(x, y, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(x, y, cfg)
+    model = SVMModel(x[:2], np.ones(2, np.float32), y[:2], 0.0,
+                     KernelParams("rbf", 0.5))
+    for fn in (decision_function, predict):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(model, x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        accuracy(model, x, y)
+    csv = tmp_path / "t.csv"
+    csv.write_text("".join(f"{int(b)},{a[0]},{a[1]},{a[2]}\n"
+                           for a, b in zip(x, y)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["train", "-f", str(csv), "-m", str(tmp_path / "m.txt"),
+                  "--engine", "block", "--working-set-size", "4"])
+
+
+@pytest.mark.parametrize("fn", [decision_function, predict, accuracy])
+@pytest.mark.parametrize("precision", ["float64", "auto"])
+def test_host_precision_paths_raise_without_cuda(no_cuda, fn, precision):
+    """The float64 host path (taken by 'auto' when decision_risk is
+    high, as with these large coefficients) also refuses device=None."""
+    x, y = _data()
+    model = SVMModel(x[:2], np.full(2, 1e7, np.float32), y[:2], 0.0,
+                     KernelParams("rbf", 0.5))
+    args = (model, x, y) if fn is accuracy else (model, x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(*args, precision=precision)
+    out = fn(*args, precision=precision, device="cpu")
+    assert np.all(np.isfinite(out))
+
+
+def test_explicit_cpu_runs(no_cuda):
+    x, y = _data()
+    res = solve(x, y, SVMConfig(engine="block", working_set_size=4),
+                device="cpu")
+    assert res.stats["device"] == "cpu"
+    assert res.iterations > 0

@@ -1,0 +1,173 @@
+"""The port's block subproblem (kernel B1's plain version and its
+wrapper) against the JAX package: the XLA while_loop
+(solver/block.py _solve_subproblem) and the Pallas kernel in interpret
+mode (ops/pallas_subproblem.py solve_subproblem_pallas), on working sets
+that select_block picks. Same pair count; alpha within rtol 1e-6 /
+atol 1e-7, the tolerance tests/test_block_engine.py holds the Pallas
+kernel to.
+
+The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py
+holds it against the plain version there."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpsvm_tpu.ops.kernels import KernelParams, kernel_matrix
+from dpsvm_tpu.ops.pallas_subproblem import solve_subproblem_pallas
+from dpsvm_tpu.solver import block as jblock
+from dpsvm_tpu_torch.ops import subproblem as tsub
+
+C, EPS, TAU = 1.0, 1e-3, 1e-12
+RTOL, ATOL = 1e-6, 1e-7
+
+
+def _inputs(q, c=C, seed=0):
+    """(kb, kd, ok, a, y, f) float32 numpy for a real working set of
+    mid-solve blobs."""
+    from dpsvm_tpu.data.synth import make_blobs_binary
+
+    x, y = make_blobs_binary(n=300, d=10, seed=3, sep=1.2)
+    cp, cn = c if isinstance(c, tuple) else (c, c)
+    rng = np.random.default_rng(seed)
+    alpha = np.clip(rng.normal(0.5, 0.5, len(y)), 0, min(cp, cn)).astype(np.float32)
+    K = np.asarray(kernel_matrix(x, x, KernelParams("rbf", 0.2)))
+    f = ((alpha * y) @ K - y).astype(np.float32)
+    yf = y.astype(np.float32)
+    w, ok, _, _ = jblock.select_block(jnp.asarray(f), jnp.asarray(alpha),
+                                      jnp.asarray(yf), c, q)
+    w = np.asarray(w)
+    return (K[np.ix_(w, w)].astype(np.float32),
+            np.diag(K)[w].astype(np.float32), np.asarray(ok), alpha[w],
+            yf[w], f[w])
+
+
+def _port(kb, kd, ok, a, y, f, limit, rule, c=C, eps=EPS):
+    a_t, _, t = tsub._solve_subproblem(
+        *map(torch.as_tensor, (kb, kd, ok, a, y, f)), c, eps, TAU, limit,
+        rule)
+    return a_t.numpy(), int(t)
+
+
+@pytest.mark.parametrize("rule", ["mvp", "second_order"])
+@pytest.mark.parametrize("q", [32, 100, 128])
+def test_plain_matches_jax_xla_and_pallas(q, rule):
+    kb, kd, ok, a, y, f = _inputs(q)
+    limit = 2 * q
+    a_t, t_t = _port(kb, kd, ok, a, y, f, limit, rule)
+    a_x, _, t_x = jblock._solve_subproblem(
+        *map(jnp.asarray, (kb, kd, ok, a, y, f)), C, EPS, TAU,
+        jnp.int32(limit), rule=rule)
+    a_p, t_p = solve_subproblem_pallas(
+        *map(jnp.asarray, (kb, a, y, f, kd)), jnp.asarray(ok, jnp.float32),
+        jnp.int32(limit), C, EPS, TAU, rule=rule, interpret=True)
+    assert t_t == int(t_x) == int(t_p) > 0
+    np.testing.assert_allclose(a_t, np.asarray(a_x), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(a_t, np.asarray(a_p), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("limit", [0, 1, 7])
+@pytest.mark.parametrize("c", [0.3, (0.9, 0.4)])
+def test_budget_and_weighted_box_match_jax(c, limit):
+    kb, kd, ok, a, y, f = _inputs(64, c=c, seed=1)
+    for rule in ("mvp", "second_order"):
+        a_t, t_t = _port(kb, kd, ok, a, y, f, limit, rule, c=c)
+        a_x, _, t_x = jblock._solve_subproblem(
+            *map(jnp.asarray, (kb, kd, ok, a, y, f)), c, EPS, TAU,
+            jnp.int32(limit), rule=rule)
+        assert t_t == int(t_x) == limit
+        np.testing.assert_allclose(a_t, np.asarray(a_x), rtol=RTOL, atol=ATOL)
+
+
+def test_budget_mode_eps_counts_no_op_trips_like_jax():
+    """eps = -1e30 keeps the gap open; second_order then counts trips
+    without an eligible partner as no-ops instead of stalling."""
+    kb, kd, ok, a, y, f = _inputs(32)
+    for rule in ("mvp", "second_order"):
+        a_t, t_t = _port(kb, kd, ok, a, y, f, 300, rule, eps=-1e30)
+        a_x, _, t_x = jblock._solve_subproblem(
+            *map(jnp.asarray, (kb, kd, ok, a, y, f)), C, -1e30, TAU,
+            jnp.int32(300), rule=rule)
+        assert t_t == int(t_x) == 300
+        np.testing.assert_allclose(a_t, np.asarray(a_x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("rule", ["mvp", "second_order"])
+def test_rows_read_collects_the_visited_gram_rows(rule):
+    """The set of rows the plain solve reads (the bound's bytes count):
+    live slots only, at most two per pair, covering every slot whose
+    alpha moved, and collecting it leaves the result unchanged."""
+    kb, kd, ok, a, y, f = _inputs(100)
+    rows = set()
+    a_t, _, t = tsub._solve_subproblem(
+        *map(torch.as_tensor, (kb, kd, ok, a, y, f)), C, EPS, TAU, 200,
+        rule, rows_read=rows)
+    a_p, t_p = _port(kb, kd, ok, a, y, f, 200, rule)
+    assert int(t) == t_p > 0
+    np.testing.assert_array_equal(a_t.numpy(), a_p)
+    assert 2 <= len(rows) <= min(2 * t_p, 100)
+    assert all(ok[r] for r in rows)
+    assert set(np.nonzero(a_p != a)[0]) <= rows
+
+
+def test_wrapper_takes_plain_path_on_cpu():
+    kb, kd, ok, a, y, f = _inputs(100)
+    tsub.solve_subproblem.launches = 0
+    a_w, t = tsub.solve_subproblem(
+        *map(torch.as_tensor, (kb, a, y, f, kd)),
+        torch.as_tensor(ok.astype(np.float32)), torch.tensor(200, dtype=torch.int32),
+        C, EPS, TAU, rule="second_order")
+    assert tsub.solve_subproblem.launches == 0
+    assert t.dtype == torch.int32 and t.dim() == 0
+    a_p, t_p = _port(kb, kd, ok, a, y, f, 200, "second_order")
+    assert int(t) == t_p
+    np.testing.assert_array_equal(a_w.numpy(), a_p)
+
+
+def test_unported_rules_raise():
+    kb, kd, ok, a, y, f = _inputs(32)
+    args = (*map(torch.as_tensor, (kb, a, y, f, kd)),
+            torch.as_tensor(ok.astype(np.float32)), 10, C, EPS, TAU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsub.solve_subproblem(*args, rule="mvp", pair_batch=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsub.solve_subproblem(*args, rule="nu")
+
+
+def test_wrapper_rejects_bad_inputs():
+    kb, kd, ok, a, y, f = _inputs(32)
+    t = [torch.as_tensor(v) for v in (kb, a, y, f, kd)]
+    okf = torch.as_tensor(ok.astype(np.float32))
+    with pytest.raises(ValueError, match="float32"):
+        tsub.solve_subproblem(t[0].double(), *t[1:], okf, 10, C, EPS, TAU)
+    with pytest.raises(ValueError, match="float32"):
+        tsub.solve_subproblem(t[0], t[1][:31], *t[2:], okf, 10, C, EPS, TAU)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsub.solve_subproblem(t[0].t(), *t[1:], okf, 10, C, EPS, TAU)
+
+
+def test_box_constants_round_like_pair_alpha_update():
+    """Equal weights: the snap constants are Python-double products
+    rounded once; unequal: float32 arithmetic on the per-row bound."""
+    c1, c2, s1, s2, m1, m2 = tsub._box_consts(3.0)
+    assert c1 == c2 == np.float32(3.0)
+    assert s1 == s2 == np.float32(3e-6) and m1 == np.float32(3.0 - 3e-6)
+    c1, c2, s1, s2, m1, m2 = tsub._box_consts((0.3, 0.7))
+    assert s1 == np.float32(1e-6) * np.float32(0.3)
+    assert m2 == np.float32(0.7) - np.float32(np.float32(1e-6) * np.float32(0.7))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    """No silent fallback: where nvcc is missing the build raises, and the
+    library it would build lives under the checkout's build/ directory."""
+    from dpsvm_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+    path = _build._lib_path("subproblem")
+    assert path.startswith(_build.BUILD_DIR)
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
