@@ -8,26 +8,43 @@ result line is printed:
 
   1. device  -- the card's name and power limit (nvidia-smi); no CUDA
                 device is a failure;
-  2. build   -- every kernel of the main path built from csrc/ with nvcc;
+  2. build   -- every kernel built from csrc/ with nvcc (subproblem.cu,
+                fold_select.cu, gather_gram.cu; one nvcc each, in
+                parallel);
   3. headline -- the block-engine headline configuration (c=10,
                 gamma=0.125, eps=0.01, q=256, bfloat16 X) on the 60000 x
                 784 MNIST-shaped data, trained through dpsvm_tpu_torch.train
                 with every launch count set to 0 just before: it must
-                converge, and the kernel launch count must equal the outer
-                rounds (every round dispatches the subproblem);
+                converge, and the subproblem kernel (B1) must have run once
+                per outer round and no other kernel at all;
   4. kernels -- each kernel held against its plain PyTorch version on the
-                card, on working sets that select_block picks from the
+                card. B1 on working sets that select_block picks from the
                 same data at the start point and at the headline's end
                 state (q = 128 and 256, both selection rules): same pair
-                count, alpha within rtol 1e-6 / atol 1e-7; times of
-                kernel and plain version; then the headline solved once
-                more with the round loop's four stage functions timed
-                by CUDA events;
-  5. oracle  -- float32 at eps=5e-4 against the committed LibSVM oracle
-                (artifacts/oracle60k.{json,npz}): converged, SV count
-                within 3% of the oracle's, decision-sign agreement
-                >= 99.8%; the model saved as .txt and .npz and reloaded
-                decides the same.
+                count, alpha within rtol 1e-6 / atol 1e-7. B2-B5 on a real
+                round's inputs at the headline shapes (n_pad 60416, q 256)
+                at the same two states, for float32 and bfloat16 X and
+                compensation off/on: B2 (fold_select) and B3 (select_rows)
+                bitwise; B5 (fold_rows_select) f' within rtol 1e-6 plus
+                2e-6 of the contraction's absolute sum, candidates bitwise
+                those the plain emission gives from the kernel's own f';
+                B4 (gather_gram) max |dK| within the dots' worst-case
+                rounding bound. Times of kernel, plain version and, for B4,
+                the library product, with L2 flushed before every launch;
+                then the headline solved once more with the round loop's
+                four stage functions timed by CUDA events;
+  5. engines -- the headline trained with fused_fold=True,
+                fused_round=True and pipeline_rounds=True, each with every
+                count set to 0 just before: converged, and launches exactly
+                B1 = B2 = rounds (fused fold), B1 = B4 = B5 = rounds (fused
+                round), B1 = rounds and B3 = rounds + 1 (pipelined: one
+                prefetch per round plus the seed); then the fused-round
+                engine once more with its four stage functions timed;
+  6. oracle  -- float32 at eps=5e-4 against the committed LibSVM oracle
+                (artifacts/oracle60k.{json,npz}), with the plain engine and
+                with fused_round=True: converged, SV count within 3% of the
+                oracle's, decision-sign agreement >= 99.8%; the plain
+                model saved as .txt and .npz and reloaded decides the same.
 
 The second-to-last lines are the per-kernel JSON record and the card's
 name and power limit; the last line is
@@ -48,6 +65,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+SOURCES = ("subproblem", "fold_select", "gather_gram")
 
 HEADLINE = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=150_000,
                 engine="block", working_set_size=256, dtype="bfloat16")
@@ -73,6 +92,57 @@ def time_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def time_cold_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() between CUDA events, with a 256 MB
+    write before every call so its inputs start out of the 50 MB L2, as
+    they do inside a round that has just streamed X or the kernel rows."""
+    import torch
+
+    flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def bound(nbytes: float, flops: float, peak: float) -> tuple:
+    """(least ms for the work, what bounds it): the bytes moved over the
+    device memory rate against the operations over their peak rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def counters() -> dict:
+    """Every kernel wrapper of the port by kernel name (B1-B5)."""
+    from dpsvm_tpu_torch.ops import fold_select as fs
+    from dpsvm_tpu_torch.ops import round as rnd
+    from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
+
+    return {"solve_subproblem": solve_subproblem,
+            "fold_select": fs.fold_select, "select_rows": fs.select_rows,
+            "gather_gram": rnd.gather_gram,
+            "fold_rows_select": rnd.fold_rows_select}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def subproblem_inputs(x_dev, y_dev, x_sq, k_diag, alpha, f, c, q, kp):
@@ -149,26 +219,39 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
     return rec
 
 
-STAGES = ("select_block", "gather_block", "dispatch_subproblem",
-          "fold_block")
+PLAIN_STAGES = (("solver.block", "select_block"),
+                ("solver.block", "gather_block"),
+                ("solver.block", "dispatch_subproblem"),
+                ("solver.block", "fold_block"))
+# The stage functions ops/round.py fused_round calls (dispatch_subproblem
+# it imports from solver/block.py at call time).
+FUSED_ROUND_STAGES = (("ops.round", "gather_gram"),
+                      ("solver.block", "dispatch_subproblem"),
+                      ("ops.round", "fold_rows_select"),
+                      ("ops.round", "assemble_working_set"))
 
 
-def phase_stages(x, y, cfg) -> None:
-    """The headline solve once more through dpsvm_tpu_torch.train, with
-    the four stage functions its round loop calls (solver/block.py
-    select_block, gather_block, dispatch_subproblem, fold_block) wrapped
-    in CUDA events. Prints each stage's device time per round and the
-    stages' share of train_seconds; the rest is the round's own small
-    ops, host work and the once-per-round gap read."""
+def phase_stages(x, y, cfg, stages, label: str) -> dict:
+    """Solve once more through dpsvm_tpu_torch.train with the stage
+    functions the round loop calls wrapped in CUDA events. Prints each
+    stage's device time per round and the stages' share of
+    train_seconds; the rest is the round's own small ops, host work and
+    the once-per-round gap read. Returns {stage: ms per round}."""
+    import importlib
+
     import torch
 
     from dpsvm_tpu_torch import train
-    from dpsvm_tpu_torch.solver import block
 
-    events = {name: [] for name in STAGES}
-    originals = {name: getattr(block, name) for name in STAGES}
+    mods = {m: importlib.import_module(f"dpsvm_tpu_torch.{m}")
+            for m, _ in stages}
+    events = {name: [] for _, name in stages}
+    originals = {(m, name): getattr(mods[m], name) for m, name in stages}
 
     def timed(name, fn):
+        # functools.wraps also copies a kernel wrapper's launch count, so
+        # the wrapped call's own count update lands on this stand-in.
+        @functools.wraps(fn)
         def run(*args, **kwargs):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -179,27 +262,269 @@ def phase_stages(x, y, cfg) -> None:
             return out
         return run
 
-    for name, fn in originals.items():
-        setattr(block, name, timed(name, fn))
+    for (m, name), fn in originals.items():
+        setattr(mods[m], name, timed(name, fn))
     try:
         _, res = train(x, y, cfg)
     finally:
-        for name, fn in originals.items():
-            setattr(block, name, fn)
+        for (m, name), fn in originals.items():
+            setattr(mods[m], name, fn)
     torch.cuda.synchronize()
     rounds = res.stats["outer_rounds"]
     if not res.converged or any(len(e) != rounds for e in events.values()):
-        raise AssertionError("stage-timed headline solve did not run every "
+        raise AssertionError(f"stage-timed {label} solve did not run every "
                              "stage once per round to convergence")
     ms = {name: sum(e0.elapsed_time(e1) for e0, e1 in evs)
           for name, evs in events.items()}
     total = sum(ms.values())
-    print(f"[stages] headline: rounds={rounds} pairs={res.iterations} "
+    print(f"[stages] {label}: rounds={rounds} pairs={res.iterations} "
           f"train_seconds={res.train_seconds:.4f} "
           f"stage_share_of_train={100 * total / (1e3 * res.train_seconds):.1f}%"
           " | " + " ".join(
               f"{k}={v / rounds:.4f}ms({100 * v / total:.1f}%)"
               for k, v in ms.items()), flush=True)
+    return {k: v / rounds for k, v in ms.items()}
+
+
+def pad_rows(a, n_pad: int, fill: float):
+    """a (n, ...) on the card, padded to n_pad rows with `fill`."""
+    import torch
+
+    out = torch.full((n_pad, *a.shape[1:]), fill, dtype=a.dtype,
+                     device=a.device)
+    out[:a.shape[0]] = a
+    return out
+
+
+def round_inputs(x, y, x_sq, k_diag, valid, alpha, f, c, q, kp, tau):
+    """A real round's inputs at (alpha, f): select_block's working set
+    (padded rows masked), its subproblem solved by kernel B1, the fold
+    coefficients, the working set's kernel rows (plain, cuBLAS) and alpha
+    after the scatter. Returns (w int32, qsq, coef, k_rows, alpha_new)."""
+    import torch
+
+    from dpsvm_tpu_torch.solver.block import (dispatch_subproblem,
+                                              gather_block, scatter_alpha,
+                                              select_block)
+    from dpsvm_tpu_torch.ops.kernels import kernel_rows
+
+    w, ok, _, _ = select_block(f, alpha, y, c, q, valid=valid)
+    qx, qsq, kb, kd, a0, yw, f0 = gather_block(x, y, x_sq, k_diag, f, alpha,
+                                               w, kp)
+    limit = torch.tensor(2 * q, dtype=torch.int32, device=x.device)
+    a_w, coef, _ = dispatch_subproblem(kb, kd, ok, a0, yw, f0, c, 1e-3, tau,
+                                       limit, "mvp")
+    k_rows = kernel_rows(x, x_sq, qx, qsq, kp)
+    return (w.to(torch.int32), qsq, coef, k_rows,
+            scatter_alpha(alpha, w, ok, a_w))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
+                        q: int, reps: int) -> dict:
+    """Kernels B2-B5 against their plain versions on a real round's
+    inputs at the headline shapes, for every (state, X dtype, Kahan)
+    case; timed at the headline's own case (start point, bfloat16 X, no
+    compensation). Returns {kernel: JSON fields measured here}."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import fold_select as fs
+    from dpsvm_tpu_torch.ops import round as rnd
+    from dpsvm_tpu_torch.ops.kernels import kernel_diag, squared_norms
+    from dpsvm_tpu_torch.ops.kernels import mm_f32
+    from dpsvm_tpu_torch.solver.smo import kahan_add
+
+    n_pad, d = xs["bfloat16"].shape
+    rows = n_pad // 128
+    shp = (rows, 128)
+    y2d = y.view(shp)
+    valid2d = valid.float().view(shp)
+    worst = {k: 0.0 for k in ("fold_select", "select_rows", "gather_gram",
+                              "fold_rows_select")}
+    rec = {}
+    for sname, (alpha, f) in states.items():
+        for dname, x in xs.items():
+            x_sq = squared_norms(x)
+            k_diag = kernel_diag(x_sq, kp)
+            w, qsq, coef, k_rows, alpha_n = round_inputs(
+                x, y, x_sq, k_diag, valid, alpha, f, c, q, kp, tau)
+            a2d, f2d = alpha_n.view(shp), f.view(shp)
+            # B4: the kernel rows and Gram block of the same working set.
+            kr_k, kb_k = rnd.gather_gram(x, w, x_sq, qsq, kp)
+            kr_p, kb_p = rnd._gather_gram(x, w, x_sq, qsq, kp)
+            dk = max(float((kr_k - kr_p).abs().max()),
+                     float((kb_k - kb_p).abs().max()))
+            # |dots| differ by at most 2 d 2^-24 max|x|^2 between two float32
+            # sums of the same products; rbf's slope in the dot is 2 gamma
+            # (K <= 1), and exp adds a few ulps.
+            dk_bound = (2 * kp.gamma * 2 * d * 2.0 ** -24
+                        * float(x_sq.max()) + 4 * 2.0 ** -23)
+            worst["gather_gram"] = max(worst["gather_gram"], dk)
+            print(f"[kernels] gather_gram {sname} {dname}: max|dK|={dk:.3g} "
+                  f"(bound {dk_bound:.3g})", flush=True)
+            if not dk <= dk_bound:
+                raise AssertionError(f"gather_gram {sname} {dname}: max|dK| "
+                                     f"{dk} over {dk_bound}")
+            # B3: candidates from f as it stands.
+            got = fs.select_rows(f2d, a2d, y2d, valid2d, c)
+            want = fs._select_rows(f2d, a2d, y2d, valid2d, c)
+            if not all(same_bits(g, h) for g, h in zip(got, want)):
+                raise AssertionError(f"select_rows {sname} {dname} differs "
+                                     "from its plain version")
+            delta = coef @ k_rows
+            for comp in (False, True):
+                err2d = (kahan_add(f, torch.zeros_like(f), delta)[1].view(shp)
+                         if comp else None)
+                # B2: the delta read from memory.
+                got = fs.fold_select(f2d, err2d, a2d, y2d, valid2d,
+                                     delta.view(shp), c, compensated=comp)
+                want = fs._fold_select(f2d, err2d, a2d, y2d, valid2d,
+                                       delta.view(shp), c, comp)
+                if not all(same_bits(g, h) for g, h in zip(got, want)):
+                    raise AssertionError(f"fold_select {sname} {dname} "
+                                         f"comp={comp} differs from plain")
+                # B5: the delta contracted from the kernel rows.
+                got = rnd.fold_rows_select(k_rows, coef, f2d, err2d, a2d,
+                                           y2d, valid2d, c, compensated=comp)
+                want = rnd._fold_rows_select(k_rows, coef, f2d, err2d, a2d,
+                                             y2d, valid2d, c, comp)
+                scale = (coef.abs() @ k_rows).view(shp)
+                df = (got[0] - want[0]).abs()
+                ok = bool((df <= 1e-6 * want[0].abs() + 2e-6 * scale).all())
+                f_sel = got[0] if not comp else got[0] - got[1]
+                emitted = fs.emit_row_candidates(f_sel, a2d, y2d, valid2d, c)
+                same = all(same_bits(g, h) for g, h in zip(got[2:], emitted))
+                agree = float((got[3] == want[3]).float().mean())
+                worst["fold_rows_select"] = max(worst["fold_rows_select"],
+                                                float(df.max()))
+                print(f"[kernels] fold_rows_select {sname} {dname} "
+                      f"comp={comp}: max|df|={float(df.max()):.3g} "
+                      f"up ids as plain {100 * agree:.2f}%", flush=True)
+                if not (ok and same):
+                    raise AssertionError(f"fold_rows_select {sname} {dname} "
+                                         f"comp={comp}: f' ok={ok}, "
+                                         f"candidates as emitted={same}")
+            if sname != "start":
+                continue
+            # ---- times at the headline's case.
+            esz = x.element_size()
+            vec = 4 * n_pad
+            cand = 4 * 4 * rows
+            args3 = (f2d, a2d, y2d, valid2d, c)
+            args2 = (f2d, None, a2d, y2d, valid2d, delta.view(shp), c)
+            args5 = (k_rows, coef, f2d, None, a2d, y2d, valid2d, c)
+            cases = {
+                "fold_select": (functools.partial(fs.fold_select, *args2),
+                                functools.partial(fs._fold_select, *args2),
+                                None, bound(6 * vec + cand, n_pad,
+                                            F32_FLOPS)),
+                "select_rows": (functools.partial(fs.select_rows, *args3),
+                                functools.partial(fs._select_rows, *args3),
+                                None, bound(4 * vec + cand, 0, F32_FLOPS)),
+                "fold_rows_select": (
+                    functools.partial(rnd.fold_rows_select, *args5),
+                    functools.partial(rnd._fold_rows_select, *args5),
+                    None, bound(4 * q * n_pad + 4 * q + 5 * vec + cand,
+                                2 * q * n_pad + n_pad, F32_FLOPS)),
+                "gather_gram": (
+                    functools.partial(rnd.gather_gram, x, w, x_sq, qsq, kp),
+                    functools.partial(rnd._gather_gram, x, w, x_sq, qsq, kp),
+                    functools.partial(lambda x, w: mm_f32(x[w], x.t()), x, w),
+                    bound(n_pad * d * esz + 4 * (n_pad + 2 * q)
+                          + 4 * q * (n_pad + q),
+                          2 * q * d * (n_pad + q),
+                          BF16_FLOPS if esz == 2 else F32_FLOPS)),
+            }
+            if dname == "float32":  # B4 also timed with float32 X
+                cases = {"gather_gram/float32": cases["gather_gram"]}
+            for name, (kern, plain, libf, (b_ms, b_by)) in cases.items():
+                ms = time_cold_ms(kern, reps)
+                plain_ms = time_cold_ms(plain, max(1, reps // 4))
+                lib_ms = time_cold_ms(libf, reps) if libf else None
+                rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms)
+                print(f"[kernels] {name} {sname} {dname} timed: ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+                      f"({b_by}) library_ms="
+                      f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}",
+                      flush=True)
+    for name, v in worst.items():
+        rec[name]["max_abs_err"] = v
+    return rec
+
+
+# Launches each engine's round must make, from its loop: (kernel, count
+# as a function of the outer rounds).
+ENGINES = {
+    "fused_fold": {"solve_subproblem": lambda r: r,
+                   "fold_select": lambda r: r},
+    "fused_round": {"solve_subproblem": lambda r: r,
+                    "gather_gram": lambda r: r,
+                    "fold_rows_select": lambda r: r},
+    "pipeline_rounds": {"solve_subproblem": lambda r: r,
+                        "select_rows": lambda r: r + 1},
+}
+
+
+def train_counted(x, y, cfg, label: str, want: dict) -> tuple:
+    """Train with every launch count set to 0 just before and read just
+    after; the run must converge and launch exactly `want` (kernel ->
+    count from the rounds), every other kernel not at all. Returns
+    (model, result, counts)."""
+    from dpsvm_tpu_torch import train
+
+    reset_counts()
+    model, res = train(x, y, cfg)
+    counts = read_counts()
+    rounds = res.stats["outer_rounds"]
+    expect = {k: want.get(k, lambda r: 0)(rounds) for k in counts}
+    engine = [k for k in ("fused_fold", "fused_round", "pipelined")
+              if res.stats[k]]
+    print(f"[{label}] engine={engine or ['plain']} converged={res.converged} "
+          f"pairs={res.iterations} outer_rounds={rounds} "
+          f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
+          f"b={res.b:.6f} launches={counts}", flush=True)
+    if not res.converged:
+        raise AssertionError(f"{label} solve did not converge")
+    if counts != expect or rounds == 0:
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{expect}: the path did not run through its "
+                             "kernels as derived")
+    return model, res, counts
+
+
+def check_oracle(model, res, x, oracle, sk_dec, label: str):
+    """The LibSVM oracle contract; returns the decision values."""
+    from dpsvm_tpu_torch import decision_function
+
+    dec = decision_function(model, x)
+    sv_dev = abs(res.n_sv - oracle["n_sv"]) / oracle["n_sv"]
+    agree = float(np.mean(np.sign(dec) == np.sign(sk_dec)))
+    print(f"[oracle] {label}: converged={res.converged} "
+          f"pairs={res.iterations} outer_rounds={res.stats['outer_rounds']} "
+          f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
+          f"(oracle {oracle['n_sv']}, dev {100 * sv_dev:.2f}%) "
+          f"sign_agree={100 * agree:.3f}%", flush=True)
+    if not res.converged:
+        raise AssertionError(f"oracle-contract {label} solve did not "
+                             "converge")
+    if sv_dev > SV_TOL:
+        raise AssertionError(f"{label}: n_sv {res.n_sv} is "
+                             f"{100 * sv_dev:.2f}% off the oracle's "
+                             f"{oracle['n_sv']}")
+    if agree < SIGN_TOL:
+        raise AssertionError(f"{label}: decision sign agreement "
+                             f"{agree:.4f} < {SIGN_TOL}")
+    return dec
 
 
 def main() -> int:
@@ -214,7 +539,6 @@ def main() -> int:
     from dpsvm_tpu_torch.ops import _build
     from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                              squared_norms)
-    from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
     from dpsvm_tpu_torch.solver.smo import init_state
 
     # ---- 1. device
@@ -228,8 +552,9 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["subproblem"])
-    print(f"[build] subproblem in {time.perf_counter() - t0:.2f}s", flush=True)
+    reports = _build.build(SOURCES)
+    print(f"[build] {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f}s",
+          flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -243,6 +568,7 @@ def main() -> int:
     kp = KernelParams("rbf", cfg.gamma)
     c = cfg.c_bounds()
     tau = float(cfg.tau)
+    q = cfg.working_set_size
     x_dev = torch.as_tensor(x, device=dev).to(torch.bfloat16)
     y_dev = torch.as_tensor(y.astype(np.float32), device=dev)
     x_sq = squared_norms(x_dev)
@@ -250,56 +576,63 @@ def main() -> int:
     alpha0, f0, _, _ = init_state(y_dev)
 
     # ---- 3. headline solve (its end state feeds phase 4), after a short
-    # warm-up solve so train_seconds leaves out one-time CUDA set-up.
+    # warm-up solve with each engine so train_seconds leaves out one-time
+    # CUDA set-up.
     t0 = time.perf_counter()
-    train(x[:4096], y[:4096], cfg.replace(max_iter=2048))
-    print(f"[headline] warm-up solve on 4096 rows in "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
-    solve_subproblem.launches = 0
-    model, res = train(x, y, cfg)
-    launches = solve_subproblem.launches
-    rounds = res.stats["outer_rounds"]
-    print(f"[headline] converged={res.converged} pairs={res.iterations} "
-          f"outer_rounds={rounds} launches={launches} "
-          f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
-          f"b={res.b:.6f}", flush=True)
-    if not res.converged:
-        raise AssertionError("headline solve did not converge")
-    if launches != rounds or launches == 0:
-        raise AssertionError(
-            f"subproblem kernel launched {launches} times over {rounds} "
-            "rounds: the main path did not run through it")
+    for knob in (None, *ENGINES):  # 16384 rows: q/2 <= n_pad/128 holds
+        kw = {knob: True} if knob else {}
+        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **kw))
+    print(f"[headline] warm-up solves on 16384 rows (plain and each fused "
+          f"engine) in {time.perf_counter() - t0:.2f}s", flush=True)
+    model, res, counts = train_counted(
+        x, y, cfg, "headline", {"solve_subproblem": lambda r: r})
+    launches = {"solve_subproblem": counts["solve_subproblem"]}
     f_end = torch.as_tensor(res.stats["f"], device=dev)
     a_end = torch.as_tensor(res.alpha, device=dev)
     # ---- 4. kernels against their plain versions
     states = {"start": (alpha0, f0, cfg.epsilon),
               "converged@eps1e-3": (a_end, f_end, 1e-3)}
-    rec = phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c,
-                        tau, reps=20)
-    phase_stages(x, y, cfg)
+    rec = {"solve_subproblem": phase_kernels(
+        dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau, reps=20)}
+    n_pad = -(-len(y) // 1024) * 1024
+    y_pad = pad_rows(y_dev, n_pad, 1.0)
+    valid = pad_rows(torch.ones_like(y_dev, dtype=torch.bool), n_pad, 0)
+    xs = {"bfloat16": pad_rows(x_dev, n_pad, 0.0),
+          "float32": pad_rows(torch.as_tensor(x, device=dev), n_pad, 0.0)}
+    padded = {"start": (pad_rows(alpha0, n_pad, 0.0),
+                        pad_rows(f0, n_pad, -1.0)),
+              "converged@eps1e-3": (pad_rows(a_end, n_pad, 0.0),
+                                    pad_rows(f_end, n_pad, -1.0))}
+    rec.update(phase_fused_kernels(xs, y_pad, valid, padded, kp, c, tau, q,
+                                   reps=10))
+    del xs, padded
+    stages = {"plain": phase_stages(x, y, cfg, PLAIN_STAGES, "headline")}
 
-    # ---- 5. oracle
+    # ---- 5. the fused engines on the headline
+    for knob, want in ENGINES.items():
+        _, eres, counts = train_counted(x, y, cfg.replace(**{knob: True}),
+                                        f"engines {knob}", want)
+        for name in want:
+            if name != "solve_subproblem":
+                launches[name] = counts[name]
+        print(f"[engines] {knob}: pairs={eres.iterations} (plain "
+              f"{res.iterations}) rounds={eres.stats['outer_rounds']} (plain "
+              f"{res.stats['outer_rounds']}) train_seconds="
+              f"{eres.train_seconds:.4f} (plain {res.train_seconds:.4f})",
+              flush=True)
+    stages["fused_round"] = phase_stages(
+        x, y, cfg.replace(fused_round=True), FUSED_ROUND_STAGES,
+        "fused_round")
+
+    # ---- 6. oracle
     with open(os.path.join(ROOT, "artifacts", "oracle60k.json")) as fh:
         oracle = json.load(fh)
     with np.load(os.path.join(ROOT, "artifacts", "oracle60k.npz")) as z:
         sk_dec = np.asarray(z["dec"])
-    model, res = train(x, y, SVMConfig(**ORACLE_RUN))
-    dec = decision_function(model, x)
-    sv_dev = abs(res.n_sv - oracle["n_sv"]) / oracle["n_sv"]
-    agree = float(np.mean(np.sign(dec) == np.sign(sk_dec)))
-    print(f"[oracle] converged={res.converged} pairs={res.iterations} "
-          f"outer_rounds={res.stats['outer_rounds']} "
-          f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
-          f"(oracle {oracle['n_sv']}, dev {100 * sv_dev:.2f}%) "
-          f"sign_agree={100 * agree:.3f}%", flush=True)
-    if not res.converged:
-        raise AssertionError("oracle-contract solve did not converge")
-    if sv_dev > SV_TOL:
-        raise AssertionError(f"n_sv {res.n_sv} is {100 * sv_dev:.2f}% off "
-                             f"the oracle's {oracle['n_sv']}")
-    if agree < SIGN_TOL:
-        raise AssertionError(f"decision sign agreement {agree:.4f} < "
-                             f"{SIGN_TOL}")
+    for knob in ("fused_round", None):  # the plain model is saved below
+        kw = {knob: True} if knob else {}
+        model, ores = train(x, y, SVMConfig(**ORACLE_RUN, **kw))
+        dec = check_oracle(model, ores, x, oracle, sk_dec, knob or "plain")
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     for ext in ("txt", "npz"):
@@ -312,20 +645,29 @@ def main() -> int:
         if diff > 1e-6:
             raise AssertionError(f".{ext} round trip changed decisions")
 
-    kernels = [{
-        "name": "solve_subproblem",
-        "route": "cuda",
-        "source": "dpsvm_tpu_torch/csrc/subproblem.cu",
-        "replaces": "dpsvm_tpu/ops/pallas_subproblem.py:253",
-        "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"],
-        "serial_trips": rec["serial_trips"],
-        "library_ms": None,
-    }]
+    meta = {
+        "solve_subproblem": ("subproblem.cu",
+                             "dpsvm_tpu/ops/pallas_subproblem.py:253"),
+        "fold_select": ("fold_select.cu",
+                        "dpsvm_tpu/ops/pallas_fold_select.py:143"),
+        "select_rows": ("fold_select.cu",
+                        "dpsvm_tpu/ops/pallas_fold_select.py:196"),
+        "gather_gram": ("gather_gram.cu", "dpsvm_tpu/ops/pallas_round.py:158"),
+        "fold_rows_select": ("fold_select.cu",
+                             "dpsvm_tpu/ops/pallas_round.py:234"),
+    }
+    kernels = []
+    for name, (src, replaces) in meta.items():
+        r = rec[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"dpsvm_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
+            **({"serial_trips": r["serial_trips"]}
+               if "serial_trips" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

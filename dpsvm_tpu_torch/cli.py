@@ -45,6 +45,18 @@ def _build_parser() -> argparse.ArgumentParser:
                    default="mvp")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="storage dtype of X")
+    p.add_argument("--fused-round", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="block engine: one-pass rounds (gather, kernel "
+                        "rows and Gram block in one pass over X, fold and "
+                        "next selection in one pass over f; "
+                        "SVMConfig.fused_round). auto = off")
+    p.add_argument("--pipeline-rounds", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="block engine: select, gather and build the next "
+                        "round's Gram block from the pre-fold gradient "
+                        "(stale selection, exact updates; "
+                        "SVMConfig.pipeline_rounds). auto = off")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
 
@@ -59,6 +71,9 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     return parser
+
+
+_TRI = {"auto": None, "on": True, "off": False}
 
 
 def _cmd_train(args) -> int:
@@ -76,7 +91,9 @@ def _cmd_train(args) -> int:
             c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
             max_iter=args.max_iter, selection=args.selection,
             engine=args.engine, working_set_size=args.working_set_size,
-            inner_iters=args.inner_iters, dtype=args.dtype)
+            inner_iters=args.inner_iters, dtype=args.dtype,
+            fused_round=_TRI[args.fused_round],
+            pipeline_rounds=_TRI[args.pipeline_rounds])
         config.check_ported()
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)

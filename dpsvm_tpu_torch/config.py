@@ -41,10 +41,12 @@ class SVMConfig:
     inner_iters: int = 0
     pair_batch: int = 1
 
-    # Knobs of engines that are not ported yet (see check_ported).
+    # Fused block-round engines (solver/block.py): True runs the engine,
+    # None (auto) and False the plain one. No H100 gate decides auto yet.
     fused_fold: Optional[bool] = None
     fused_round: Optional[bool] = None
     pipeline_rounds: Optional[bool] = None
+    # Knobs of engines that are not ported yet (see check_ported).
     active_set_size: int = 0
     ooc: bool = False
     gram_resident: Optional[bool] = None
@@ -99,6 +101,42 @@ class SVMConfig:
             raise ValueError("active_set_size must be >= 0 (0 = shrinking off)")
         if self.max_iter > 2 ** 31 - 1:
             raise ValueError("max_iter must fit int32")
+        self._check_round_knobs()
+
+    def _check_round_knobs(self) -> None:
+        """The JAX package's validation of pipeline_rounds / fused_round
+        (dpsvm_tpu/config.py), same conditions and key phrases."""
+        if self.pipeline_rounds and self.engine != "block":
+            raise ValueError("pipeline_rounds is a block-engine knob; use "
+                             "engine='block'")
+        if self.pipeline_rounds and self.active_set_size:
+            raise ValueError("pipeline_rounds does not compose with "
+                             "active_set_size — use one or the other")
+        if self.pipeline_rounds and self.selection == "nu":
+            raise ValueError("pipeline_rounds supports selection in "
+                             "{'mvp', 'second_order'}")
+        if not self.fused_round:
+            return
+        clashes = (
+            (self.engine != "block",
+             "fused_round is a block-engine knob; use engine='block'"),
+            (self.kernel == "precomputed",
+             "fused_round supports feature kernels only"),
+            (bool(self.gram_resident),
+             "fused_round does not compose with gram_resident=True"),
+            (bool(self.pipeline_rounds),
+             "fused_round does not compose with pipeline_rounds=True — "
+             "use one or the other"),
+            (self.active_set_size > 0,
+             "fused_round does not compose with active_set_size — use "
+             "one or the other"),
+            (self.ooc,
+             "fused_round does not compose with ooc — use one or the "
+             "other"),
+        )
+        for bad, what in clashes:
+            if bad:
+                raise ValueError(what)
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for any knob set to a value whose
@@ -112,14 +150,9 @@ class SVMConfig:
              "selection='nu' (nu duals: ROADMAP queue A item 7)"),
             (self.pair_batch > 1,
              "pair_batch>1 (ROADMAP queue A item 5)"),
-            (bool(self.fused_fold),
-             "fused_fold=True (kernel B2: ROADMAP queue A item 4)"),
-            (bool(self.fused_round),
-             "fused_round=True (kernels B4/B5: ROADMAP queue A item 4)"),
-            (bool(self.pipeline_rounds),
-             "pipeline_rounds=True (kernel B3: ROADMAP queue A item 4)"),
             (self.active_set_size > 0,
-             "active_set_size>0 (ROADMAP queue A item 4)"),
+             "active_set_size>0 (the active-set engine: ROADMAP queue A "
+             "item 4)"),
             (self.ooc, "ooc=True (ROADMAP queue A item 8)"),
             (bool(self.gram_resident),
              "gram_resident=True (ROADMAP queue A item 6)"),

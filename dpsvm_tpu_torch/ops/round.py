@@ -1,0 +1,201 @@
+"""The one-pass block round (counterpart of dpsvm_tpu/ops/pallas_round.py,
+kernels B4 and B5).
+
+A round of the fused-round engine is two passes with the subproblem
+between them:
+
+``gather_gram`` (B4)
+    one pass over X: gather the q working-set rows, emit the (q, n_pad)
+    kernel rows K(W, :) and the (q, q) Gram block K(W, W) from the same
+    rows.
+
+``fold_rows_select`` (B5)
+    one pass over the kernel rows and the (R, 128) views: the fold delta
+    coef @ K(W, :) is contracted inside the pass, folded into f (Kahan
+    when compensated) and the next round's per-row candidates are
+    emitted, exactly as ops/fold_select.py fold_select does with a delta
+    read from memory.
+
+``fused_round`` composes them: gather_gram -> dispatch_subproblem ->
+alpha scatter -> fold_rows_select -> assemble_working_set.
+
+Each kernel function launches its Hopper kernel (csrc/gather_gram.cu,
+csrc/fold_select.cu) for CUDA tensors and runs its plain PyTorch version
+(``_gather_gram``, ``_fold_rows_select``) for CPU tensors; any other
+device raises. The plain versions are stage for stage what the fused-fold
+engine computes (``x[w]``, ``kernel_rows``, ``coef @ k_rows``,
+``fold_select``), so on the CPU the fused-round trajectory equals the
+fused-fold one bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dpsvm_tpu_torch.ops import fold_select as fs
+from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
+                                             check_views)
+from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
+                                         kernel_rows, mm_f32)
+
+_KINDS = {"rbf": 0, "linear": 1, "poly": 2, "sigmoid": 3}
+
+
+def _gather_gram(x, w, x_sq, qsq, kp: KernelParams):
+    """Plain PyTorch version of kernel B4: same contract as gather_gram."""
+    qx = x[w]
+    k_rows = kernel_rows(x, x_sq, qx, qsq, kp)
+    kb = kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
+    return k_rows, kb
+
+
+def _gather_lib():
+    import ctypes
+
+    from dpsvm_tpu_torch.ops import _build
+
+    fn = _build.load("gather_gram").dpsvm_gather_gram
+    if fn.argtypes is None:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ptr, i32] + [ptr] * 5 + [i32] * 4 + [f32, f32, i32,
+                                                           ptr])
+    return fn
+
+
+def gather_gram(x, w, x_sq, qsq, kp: KernelParams):
+    """The round's pass over X (kernel B4): the (q, n_pad) float32 kernel
+    rows K(W, :) and the (q, q) Gram block K(W, W) of the working set.
+
+    x (n_pad, d) float32 or bfloat16; w (q,) int32 row ids (dead slots
+    carry in-range filler); x_sq (n_pad,) and qsq (q,) = x_sq[w] float32
+    squared norms. Returns (k_rows, kb)."""
+    dev = x.device
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be 2-D float32 or bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, d = x.shape
+    q = w.shape[0]
+    if (w.dim() != 1 or w.dtype != torch.int32 or x_sq.shape != (n,)
+            or qsq.shape != (q,) or x_sq.dtype != torch.float32
+            or qsq.dtype != torch.float32):
+        raise ValueError("gather_gram takes w (q,) int32 and float32 x_sq "
+                         "(n,), qsq (q,)")
+    if any(t.device != dev or not t.is_contiguous()
+           for t in (x, w, x_sq, qsq)):
+        raise ValueError(f"gather_gram inputs must be contiguous on {dev}")
+    if kp.kind not in _KINDS:
+        raise ValueError(f"gather_gram takes feature kernels only, got "
+                         f"{kp.kind!r}")
+    if dev.type == "cpu":
+        return _gather_gram(x, w, x_sq, qsq, kp)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k_rows = torch.empty((q, n), dtype=torch.float32, device=dev)
+    kb = torch.empty((q, q), dtype=torch.float32, device=dev)
+    err = _gather_lib()(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+        x_sq.data_ptr(), qsq.data_ptr(), k_rows.data_ptr(), kb.data_ptr(),
+        n, d, q, _KINDS[kp.kind], float(kp.gamma), float(kp.coef0),
+        int(kp.degree), torch.cuda.current_stream(dev).cuda_stream)
+    fs.raise_on(err, "gather_gram")
+    gather_gram.launches += 1
+    return k_rows, kb
+
+
+def _fold_rows_select(k_rows, coef, f2d, err2d, alpha2d, y2d, valid2d, c,
+                      compensated: bool = False):
+    """Plain PyTorch version of kernel B5: same contract as
+    fold_rows_select."""
+    delta2d = (coef @ k_rows).view(f2d.shape)
+    return fs._fold_select(f2d, err2d, alpha2d, y2d, valid2d, delta2d, c,
+                           compensated)
+
+
+def fold_rows_select(k_rows, coef, f2d, err2d, alpha2d, y2d, valid2d, c,
+                     compensated: bool = False):
+    """Fold coef @ K(W, :) into f (Kahan when compensated) and emit the
+    next round's per-row candidates, the delta contracted inside the pass
+    (kernel B5).
+
+    k_rows (q, n_pad) float32; coef (q,) float32 fold coefficients (dead
+    slots zeroed); the rest are the (n_pad / 128, 128) views fold_select
+    takes. Returns fold_select's (f_new2d, err_new2d or None, up_vals,
+    up_ids, low_vals, low_ids)."""
+    dev = check_views(f2d, alpha2d, y2d, valid2d,
+                      *((err2d,) if compensated else ()))
+    rows = f2d.shape[0]
+    q = coef.shape[0]
+    if (k_rows.shape != (q, rows * LANES) or coef.dim() != 1
+            or k_rows.dtype != torch.float32 or coef.dtype != torch.float32
+            or k_rows.device != dev or coef.device != dev
+            or not k_rows.is_contiguous() or not coef.is_contiguous()):
+        raise ValueError(f"fold_rows_select takes float32 k_rows "
+                         f"({q}, {rows * LANES}) and coef ({q},) on {dev}")
+    if dev.type == "cpu":
+        return _fold_rows_select(k_rows, coef, f2d, err2d, alpha2d, y2d,
+                                 valid2d, c, compensated)
+    if k_rows.data_ptr() % 16:
+        raise ValueError("k_rows must be 16-byte aligned")
+    f_out = torch.empty_like(f2d)
+    err_out = torch.empty_like(f2d) if compensated else None
+    cands = fs.cand_outputs(rows, dev)
+    fs.raise_on(fs.lib().dpsvm_fold_rows_select(
+        k_rows.data_ptr(), coef.data_ptr(), f2d.data_ptr(),
+        err2d.data_ptr() if compensated else None, alpha2d.data_ptr(),
+        y2d.data_ptr(), valid2d.data_ptr(), f_out.data_ptr(),
+        None if err_out is None else err_out.data_ptr(),
+        *(t.data_ptr() for t in cands), q, rows, int(compensated),
+        *fs.c_consts(c), torch.cuda.current_stream(dev).cuda_stream),
+        "fold_rows_select")
+    fold_rows_select.launches += 1
+    return (f_out, err_out, *cands)
+
+
+#: Kernel launches (CPU calls never count).
+gather_gram.launches = 0
+fold_rows_select.launches = 0
+
+
+def fused_round(x, y, x_sq, k_diag, y2d, valid2d, alpha, f, f_err, w,
+                slot_ok, b_hi, b_lo, budget_left, kp: KernelParams, c,
+                eps: float, tau: float, q: int, inner_iters: int,
+                selection: str):
+    """ONE block round as gather_gram -> dispatch_subproblem -> scatter ->
+    fold_rows_select -> assemble_working_set: the fused-fold round with
+    its gather, Gram, kernel-row and contraction stages in the two
+    passes.
+
+    (w, slot_ok, b_hi, b_lo) is the working set the previous round's
+    pass selected, with its exact post-fold extrema. Returns (alpha, f,
+    f_err, b_hi_n, b_lo_n, w_n, ok_n, t): the updated state, the next
+    round's working set and the executed pair count."""
+    from dpsvm_tpu_torch.solver.block import dispatch_subproblem, scatter_alpha
+
+    n_pad = y.shape[0]
+    shp = (n_pad // LANES, LANES)
+    compensated = f_err is not None
+    gap_open = b_lo > b_hi + 2.0 * eps
+    qsq = x_sq[w]
+    kd_w = k_diag[w]
+    a_w0 = alpha[w]
+    y_w = y[w]
+    f_w0 = f[w] if f_err is None else f[w] - f_err[w]  # eff_f at W
+    k_rows, kb_w = gather_gram(x, w, x_sq, qsq, kp)
+    # Per-round pair budget, clamped to what the solve has left and gated
+    # to 0 on the terminal round.
+    limit = torch.clamp(budget_left, max=inner_iters)
+    limit = torch.where(gap_open, limit, 0).to(torch.int32)
+    a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0,
+                                       c, eps, tau, limit, selection)
+    # Scatter alpha BEFORE the pass: its masks must see the new box
+    # membership.
+    alpha = scatter_alpha(alpha, w, slot_ok, a_w)
+    f2d, err2d, upv, upi, lov, loi = fold_rows_select(
+        k_rows, coef, f.view(shp), f_err.view(shp) if compensated else None,
+        alpha.view(shp), y2d, valid2d, c, compensated=compensated)
+    w_n, ok_n, b_hi_n, b_lo_n = assemble_working_set(upv, upi, lov, loi,
+                                                     q // 2)
+    return (alpha, f2d.view(n_pad),
+            err2d.view(n_pad) if compensated else None,
+            b_hi_n, b_lo_n, w_n, ok_n, t)

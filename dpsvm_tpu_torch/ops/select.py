@@ -45,6 +45,27 @@ def low_mask(alpha: torch.Tensor, y: torch.Tensor, c_pos: float,
     return torch.where(y > 0, alpha > 0, alpha < c)
 
 
+def order_key(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 whose signed order is the float total order
+    (-0.0 below +0.0, as lax.top_k and XLA's min / max see it). The map
+    is its own inverse: ``from_order_key`` undoes it."""
+    bits = v.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def from_order_key(k: torch.Tensor) -> torch.Tensor:
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def candidate_live_mask(alpha_w, y_w, c) -> torch.Tensor:
+    """Handoff gate of the pipelined block rounds: a working set picked
+    from the pre-fold gradient keeps a slot live only while its point is
+    still in I_up or I_low under the CURRENT alpha (a candidate the
+    previous round saturated out of both sets is masked, not replaced)."""
+    cp, cn = split_c(c)
+    return up_mask(alpha_w, y_w, cp, cn) | low_mask(alpha_w, y_w, cp, cn)
+
+
 def stopping_extrema(f, alpha, y, c, valid=None, rule: str = "mvp"):
     """Device-side (b_hi, b_lo) of the current state as 0-d float32
     tensors (the C-SVC rules share the stopping extrema)."""

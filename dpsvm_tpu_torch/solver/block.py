@@ -13,8 +13,27 @@ Each outer round:
      kernel-row pass, f += (dalpha * y)_W @ K(W, :), and scatters alpha_W.
 
 run_local_round is the JAX package's _round_core and run_local_round in
-one (the JAX split serves engines the port does not have yet), built
-from the four stage functions so each stage can also be timed alone.
+one, built from the four stage functions so each stage can also be timed
+alone.
+
+The fused engines (counterparts of _run_chunk_block_fused,
+_run_chunk_block_fusedround and _run_chunk_block_pipelined) pad n to a
+multiple of 1024 with `valid` marking real rows (solver/solve.py) and
+carry the NEXT round's working set in the loop:
+
+  run_chunk_block_fused       the fold and the next selection are one pass
+                              over f (ops/fold_select.py fold_select, B2);
+  run_chunk_block_fusedround  that, with gather, Gram, kernel rows and the
+                              fold contraction in two passes
+                              (ops/round.py fused_round, B4 + B5);
+  run_chunk_block_pipelined   the next working set is selected, gathered
+                              and its Gram block built from the PRE-fold
+                              carry (prefetch_working_set; with
+                              pallas_select, ops/fold_select.py
+                              select_rows, B3).
+
+Each engine seeds its carry once per call and reads its loop condition
+on the host once per round, as run_chunk_block does.
 """
 
 from __future__ import annotations
@@ -23,11 +42,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
+                                             fold_select, select_rows)
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
                                          kernel_rows, mm_f32)
-from dpsvm_tpu_torch.ops.select import low_mask, split_c, up_mask
+from dpsvm_tpu_torch.ops.round import fused_round
+from dpsvm_tpu_torch.ops.select import (candidate_live_mask, low_mask,
+                                        order_key, split_c, up_mask)
 from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
-from dpsvm_tpu_torch.solver.smo import maybe_kahan
+from dpsvm_tpu_torch.solver.smo import eff_f, maybe_kahan
 
 
 class BlockState(NamedTuple):
@@ -49,8 +72,7 @@ def _top_h(scores: torch.Tensor, h: int):
     index first). torch.topk promises no order among ties, so each score
     is made unique: its total-order int32 key in the high 32 bits, the
     complement of its index in the low 32 bits."""
-    bits = scores.contiguous().view(torch.int32)
-    okey = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # signed order == total order
+    okey = order_key(scores)
     n = scores.shape[-1]
     low = (2 ** 32 - 1) - torch.arange(n, dtype=torch.int64,
                                        device=scores.device)
@@ -68,11 +90,12 @@ def combine_halves(up_idx, up_ok, low_idx, low_ok):
     return torch.cat([up_idx, low_idx]), torch.cat([up_ok, low_ok])
 
 
-def select_block(f, alpha, y, c, q: int, rule: str = "mvp"):
+def select_block(f, alpha, y, c, q: int, valid=None, rule: str = "mvp"):
     """Pick the q most-violating points: q/2 from I_up (smallest f) and
     q/2 from I_low (largest f). Returns (w, slot_ok, b_hi, b_lo): w (q,)
     int64 row ids (filler where a side ran short), slot_ok (q,) bool, and
-    the exact float32 extrema of f over I_up / I_low."""
+    the exact float32 extrema of f over I_up / I_low. `valid` (bool, n)
+    masks padded rows out of both sets."""
     if rule not in ("mvp", "second_order"):
         raise NotImplementedError(
             f"selection={rule!r} is not ported (nu duals: ROADMAP queue A "
@@ -80,6 +103,9 @@ def select_block(f, alpha, y, c, q: int, rule: str = "mvp"):
     cp, cn = split_c(c)
     up = up_mask(alpha, y, cp, cn)
     low = low_mask(alpha, y, cp, cn)
+    if valid is not None:
+        up = up & valid
+        low = low & valid
     neg_inf = -float("inf")
     scores = torch.stack([torch.where(up, -f, neg_inf),
                           torch.where(low, f, neg_inf)])
@@ -116,14 +142,19 @@ def fold_block(x, x_sq, qx, qsq, kp: KernelParams, f, f_err, coef,
     live slots of a_w into alpha. Returns (alpha, f, f_err)."""
     k_rows = kernel_rows(x, x_sq, qx, qsq, kp)  # (q, n) float32
     f, f_err = maybe_kahan(f, f_err, coef @ k_rows)
-    # Only live slots may write: a dead slot's id is a real row (possibly
-    # the same row as a live slot). Dead slots are sent to a scratch
-    # element past the end, so the scatter needs no host sync.
+    return scatter_alpha(alpha, w, slot_ok, a_w), f, f_err
+
+
+def scatter_alpha(alpha, w, slot_ok, a_w):
+    """alpha with the live slots of a_w written at w. Only live slots may
+    write: a dead slot's id is a real row (possibly the same row as a
+    live slot). Dead slots are sent to a scratch element past the end,
+    so the scatter needs no host sync."""
     n = alpha.shape[0]
     safe_w = torch.where(slot_ok, w, n)
     buf = torch.cat([alpha, alpha.new_zeros(1)])
     buf[safe_w] = a_w
-    return buf[:n], f, f_err
+    return buf[:n]
 
 
 def run_local_round(x, y, x_sq, k_diag, alpha, f, f_err, budget_left,
@@ -164,4 +195,168 @@ def run_chunk_block(x, y, x_sq, k_diag, state: BlockState, max_iter: int,
             selection)
         state = BlockState(alpha, f, b_hi, b_lo, state.pairs + t,
                            state.rounds + 1, f_err)
+    return state
+
+
+def run_chunk_block_fused(x, y, x_sq, k_diag, valid, state: BlockState,
+                          max_iter: int, kp: KernelParams, c, eps: float,
+                          tau: float, q: int, inner_iters: int,
+                          selection: str = "mvp") -> BlockState:
+    """Fused-fold rounds: each round's fold and the NEXT round's
+    selection are one pass over f (fold_select). One plain select_block
+    seeds the carried working set; the carried (b_hi, b_lo) are then the
+    exact post-fold extrema, not one fold behind.
+
+    Needs n padded to a multiple of 1024 with `valid` (bool) marking real
+    rows, selection in {"mvp", "second_order"} and q/2 <= n_pad/128."""
+    n_pad = y.shape[0]
+    shp = (n_pad // LANES, LANES)
+    y2d = y.view(shp)
+    valid2d = valid.float().view(shp)
+    compensated = state.f_err is not None
+    w, slot_ok, b_hi, b_lo = select_block(eff_f(state), state.alpha, y, c,
+                                          q, valid=valid, rule=selection)
+    w = w.to(torch.int32)
+    state = state._replace(b_hi=b_hi, b_lo=b_lo)
+    while bool((state.pairs < max_iter)
+               & (state.b_lo > state.b_hi + 2.0 * eps)):
+        gap_open = state.b_lo > state.b_hi + 2.0 * eps
+        qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0 = gather_block(
+            x, y, x_sq, k_diag, eff_f(state), state.alpha, w, kp)
+        limit = torch.clamp(max_iter - state.pairs, max=inner_iters)
+        limit = torch.where(gap_open, limit, 0).to(torch.int32)
+        a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w,
+                                           f_w0, c, eps, tau, limit,
+                                           selection)
+        delta2d = (coef @ kernel_rows(x, x_sq, qx, qsq, kp)).view(shp)
+        # Scatter alpha BEFORE the fused pass: its masks must see the new
+        # box membership.
+        alpha = scatter_alpha(state.alpha, w, slot_ok, a_w)
+        f2d, err2d, upv, upi, lov, loi = fold_select(
+            state.f.view(shp),
+            state.f_err.view(shp) if compensated else None,
+            alpha.view(shp), y2d, valid2d, delta2d, c,
+            compensated=compensated)
+        w, slot_ok, b_hi, b_lo = assemble_working_set(upv, upi, lov, loi,
+                                                      q // 2)
+        state = BlockState(alpha, f2d.view(n_pad), b_hi, b_lo,
+                           state.pairs + t, state.rounds + 1,
+                           err2d.view(n_pad) if compensated else None)
+    return state
+
+
+def run_chunk_block_fusedround(x, y, x_sq, k_diag, valid, state: BlockState,
+                               max_iter: int, kp: KernelParams, c,
+                               eps: float, tau: float, q: int,
+                               inner_iters: int,
+                               selection: str = "mvp") -> BlockState:
+    """One-pass fused rounds (ops/round.py fused_round): the fused-fold
+    engine's loop, seed and carry with each round's gather, Gram, kernel
+    rows and fold contraction in the two passes gather_gram and
+    fold_rows_select. Same padding contract as run_chunk_block_fused,
+    feature kernels only."""
+    n_pad = y.shape[0]
+    shp = (n_pad // LANES, LANES)
+    y2d = y.view(shp)
+    valid2d = valid.float().view(shp)
+    w, slot_ok, b_hi, b_lo = select_block(eff_f(state), state.alpha, y, c,
+                                          q, valid=valid, rule=selection)
+    w = w.to(torch.int32)
+    state = state._replace(b_hi=b_hi, b_lo=b_lo)
+    while bool((state.pairs < max_iter)
+               & (state.b_lo > state.b_hi + 2.0 * eps)):
+        alpha, f, f_err, b_hi, b_lo, w, slot_ok, t = fused_round(
+            x, y, x_sq, k_diag, y2d, valid2d, state.alpha, state.f,
+            state.f_err, w, slot_ok, state.b_hi, state.b_lo,
+            max_iter - state.pairs, kp, c, eps, tau, q, inner_iters,
+            selection)
+        state = BlockState(alpha, f, b_hi, b_lo, state.pairs + t,
+                           state.rounds + 1, f_err)
+    return state
+
+
+class PipelinedCand(NamedTuple):
+    """The pipelined engine's carried prefetch: the NEXT round's working
+    set and what about it does not depend on the in-flight round (rows,
+    norms, Gram block, kernel diagonal: functions of X and the ids only,
+    so exact however stale the selection). Per-slot alpha and f are
+    gathered fresh at the handoff."""
+
+    w: torch.Tensor  # (q,) int row ids
+    ok: torch.Tensor  # (q,) bool live slots of the selection
+    b_hi: torch.Tensor  # float32 extrema of the f the selection saw
+    b_lo: torch.Tensor
+    qx: torch.Tensor  # (q, d) rows, X's dtype
+    qsq: torch.Tensor  # (q,) squared norms
+    kb: torch.Tensor  # (q, q) float32 K(W, W)
+    kd: torch.Tensor  # (q,) float32 kernel diagonal at W
+
+
+def prefetch_working_set(x, y, x_sq, k_diag, f, alpha, valid, kp, c,
+                         q: int, selection: str,
+                         pallas_select: bool = False) -> PipelinedCand:
+    """Select the NEXT round's working set from (f, alpha) and stage its
+    rows and Gram block: a function of the pre-fold carry only.
+    pallas_select=True selects with the one-pass candidate kernel
+    (select_rows + assemble_working_set), which needs the fused path's
+    padding contract (n % 1024 == 0 with `valid`, q/2 <= n/128)."""
+    if pallas_select:
+        shp = (y.shape[0] // LANES, LANES)
+        upv, upi, lov, loi = select_rows(
+            f.view(shp), alpha.view(shp), y.view(shp),
+            valid.float().view(shp), c)
+        w, ok, b_hi, b_lo = assemble_working_set(upv, upi, lov, loi, q // 2)
+    else:
+        w, ok, b_hi, b_lo = select_block(f, alpha, y, c, q, valid=valid,
+                                         rule=selection)
+    qx = x[w]
+    qsq = x_sq[w]
+    kb = kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
+    return PipelinedCand(w, ok, b_hi, b_lo, qx, qsq, kb, k_diag[w])
+
+
+def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
+                              max_iter: int, kp: KernelParams, c,
+                              eps: float, tau: float, q: int,
+                              inner_iters: int, selection: str = "mvp",
+                              pallas_select: bool = False) -> BlockState:
+    """Pipelined rounds: round t+1's working set is selected, gathered
+    and its Gram block built from round t's PRE-fold carry, so nothing in
+    that stage waits on round t's subproblem.
+
+    Selection may be stale; every executed update is exact: the handoff
+    gathers each slot's CURRENT alpha and f and drops slots the previous
+    round saturated out of both sets (candidate_live_mask). A round whose
+    stale set absorbs no pair folds a zero delta, so the next prefetch
+    sees the exact gradient: staleness can waste a round but never
+    cycle, and the loop exits only on extrema of a gradient the exiting
+    round did not change."""
+    def prefetch(f, alpha):
+        return prefetch_working_set(x, y, x_sq, k_diag, f, alpha, valid,
+                                    kp, c, q, selection,
+                                    pallas_select=pallas_select)
+
+    cand = prefetch(eff_f(state), state.alpha)
+    state = state._replace(b_hi=cand.b_hi, b_lo=cand.b_lo)
+    while bool((state.pairs < max_iter)
+               & (state.b_lo > state.b_hi + 2.0 * eps)):
+        f_cur = eff_f(state)
+        a_w0 = state.alpha[cand.w]
+        y_w = y[cand.w]
+        f_w0 = f_cur[cand.w]
+        slot_ok = cand.ok & candidate_live_mask(a_w0, y_w, c)
+        # No gap gate on `limit`: the loop condition already holds the
+        # carried gap open, and this body's extrema ARE the carry.
+        limit = torch.clamp(max_iter - state.pairs,
+                            max=inner_iters).to(torch.int32)
+        a_w, coef, t = dispatch_subproblem(cand.kb, cand.kd, slot_ok, a_w0,
+                                           y_w, f_w0, c, eps, tau, limit,
+                                           selection)
+        nxt = prefetch(f_cur, state.alpha)
+        k_rows = kernel_rows(x, x_sq, cand.qx, cand.qsq, kp)
+        f, f_err = maybe_kahan(state.f, state.f_err, coef @ k_rows)
+        alpha = scatter_alpha(state.alpha, cand.w, slot_ok, a_w)
+        state = BlockState(alpha, f, nxt.b_hi, nxt.b_lo, state.pairs + t,
+                           state.rounds + 1, f_err)
+        cand = nxt
     return state

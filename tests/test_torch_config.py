@@ -54,8 +54,10 @@ def test_invalid_values_raise_like_jax(kw):
 
 UNPORTED = [
     dict(engine="xla"), dict(engine="pallas"), dict(selection="nu"),
-    dict(pair_batch=2), dict(fused_fold=True), dict(fused_round=True),
-    dict(pipeline_rounds=True), dict(active_set_size=64), dict(ooc=True),
+    dict(pair_batch=2), dict(fused_fold=True, selection="nu"),
+    dict(fused_round=True, bf16_gram=True),
+    dict(pipeline_rounds=True, gram_resident=True),
+    dict(active_set_size=64), dict(ooc=True),
     dict(gram_resident=True), dict(bf16_gram=True),
     dict(kernel="precomputed"),
 ]
@@ -76,3 +78,10 @@ def test_ported_block_config_passes():
     SVMConfig(engine="block", selection="second_order", compensated=True,
               budget_mode=True, dtype="bfloat16", fused_fold=False,
               pipeline_rounds=False).check_ported()
+
+
+@pytest.mark.parametrize("kw", [dict(fused_fold=True),
+                                dict(fused_round=True),
+                                dict(pipeline_rounds=True)])
+def test_fused_round_knobs_are_ported(kw):
+    SVMConfig(engine="block", **kw).check_ported()

@@ -13,8 +13,11 @@ import torch
 
 from dpsvm_tpu_torch import SVMConfig, solve
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
+from dpsvm_tpu_torch.ops import fold_select as tfs
+from dpsvm_tpu_torch.ops import round as tround
 from dpsvm_tpu_torch.ops import subproblem as tsub
-from dpsvm_tpu_torch.ops.kernels import KernelParams, kernel_matrix
+from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_matrix,
+                                         squared_norms)
 from dpsvm_tpu_torch.solver.block import select_block
 
 C, EPS, TAU = 1.0, 1e-3, 1e-12
@@ -72,6 +75,156 @@ def test_solve_on_card_matches_cpu(cuda, dtype):
     assert tsub.solve_subproblem.launches == rg.stats["outer_rounds"] > 0
     rc = solve(x, y, cfg, device="cpu")
     assert rg.converged and rc.converged
+
+    def obj(r):
+        a, f = r.alpha.astype(np.float64), r.stats["f"].astype(np.float64)
+        return float(a.sum() - 0.5 * np.sum(a * y * (f + y)))
+
+    assert abs(obj(rg) - obj(rc)) <= 1e-4 * abs(obj(rc))
+    assert abs(rg.n_sv - rc.n_sv) <= 0.02 * rc.n_sv
+
+
+def _views(dev, rows, seed, c=(2.0, 0.5)):
+    """(f, err, alpha, y, valid, delta) (rows, 128) float32 on `dev`, with
+    alpha at 0, at C and inside the box, and a padded tail."""
+    rng = np.random.default_rng(seed)
+    n = rows * 128
+    cp, cn = c if isinstance(c, tuple) else (c, c)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    c_row = np.where(y > 0, cp, cn).astype(np.float32)
+    pick = rng.integers(0, 3, n)
+    alpha = np.where(pick == 0, 0.0, np.where(pick == 1, c_row,
+                     rng.random(n) * c_row)).astype(np.float32)
+    f = rng.normal(size=n).astype(np.float32)
+    f[:300] = np.round(f[:300] * 4) / 4  # ties inside and across rows
+    err = (rng.normal(size=n) * 1e-7).astype(np.float32)
+    delta = (rng.normal(size=n) * 0.05).astype(np.float32)
+    valid = np.ones(n, np.float32)
+    valid[-150:] = 0.0
+    return [torch.as_tensor(a.reshape(rows, 128), device=dev)
+            for a in (f, err, alpha, y, valid, delta)]
+
+
+def _same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("rows", [1, 37, 472])
+@pytest.mark.parametrize("c", [1.0, (2.0, 0.5)])
+def test_fold_select_and_select_rows_kernels_bitwise(cuda, rows,
+                                                     compensated, c):
+    """B2 and B3 against their plain versions on the same CUDA tensors,
+    bit for bit (one Kahan step or one add per element, comparisons
+    only). rows 1 and 37 leave a block half empty."""
+    f, err, alpha, y, valid, delta = _views(cuda, rows, rows, c)
+    tfs.fold_select.launches = tfs.select_rows.launches = 0
+    got = tfs.fold_select(f, err, alpha, y, valid, delta, c,
+                          compensated=compensated)
+    want = tfs._fold_select(f, err, alpha, y, valid, delta, c, compensated)
+    sel = tfs.select_rows(f, alpha, y, valid, c)
+    torch.cuda.synchronize()
+    assert tfs.fold_select.launches == tfs.select_rows.launches == 1
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert all(_same_bits(g, w) for g, w in
+               zip(sel, tfs._select_rows(f, alpha, y, valid, c)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("q,rows", [(16, 8), (100, 37), (256, 472)])
+def test_fold_rows_select_kernel_matches_plain(cuda, q, rows, compensated):
+    """B5: f' within rtol 1e-6 of the plain version plus 2e-6 of the
+    contraction's absolute sum (the kernel sums coef @ K in order k, the
+    GEMM in its own); candidates bitwise those of the plain emission from
+    the kernel's own f' (and err')."""
+    f, err, alpha, y, valid, _ = _views(cuda, rows, q)
+    g = torch.Generator(device="cpu").manual_seed(q)
+    k_rows = torch.rand((q, rows * 128), generator=g).to(cuda)
+    coef = (torch.randn(q, generator=g) * 0.1).to(cuda)
+    coef[::7] = 0.0  # dead slots
+    tround.fold_rows_select.launches = 0
+    got = tround.fold_rows_select(k_rows, coef, f, err, alpha, y, valid,
+                                  1.0, compensated=compensated)
+    want = tround._fold_rows_select(k_rows, coef, f, err, alpha, y, valid,
+                                    1.0, compensated)
+    torch.cuda.synchronize()
+    assert tround.fold_rows_select.launches == 1
+    scale = (coef.abs() @ k_rows).view(f.shape)
+    assert bool(((got[0] - want[0]).abs()
+                 <= 1e-6 * want[0].abs() + 2e-6 * scale).all())
+    f_sel = got[0] if not compensated else got[0] - got[1]
+    emitted = tfs.emit_row_candidates(f_sel, alpha, y, valid, 1.0)
+    assert all(_same_bits(a, b) for a, b in zip(got[2:], emitted))
+
+
+def dot_error_bound(x, d):
+    """Worst-case |difference| between two float32 sums of the same d
+    products of rows of x (each within d * 2^-24 * sum |x_i y_i| of the
+    exact dot, and sum |x_i y_i| <= max |x|^2)."""
+    return 2.0 * d * 2.0 ** -24 * float(squared_norms(x).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,gamma,degree,coef0", [
+    ("rbf", 0.3, 3, 0.0), ("linear", 1.0, 3, 0.0), ("poly", 0.2, 3, 0.5),
+    ("sigmoid", 0.1, 3, 0.25)])
+@pytest.mark.parametrize("n,d,q", [(1000, 37, 72), (4096, 784, 256)])
+def test_gather_gram_kernel_matches_plain(cuda, n, d, q, kind, gamma,
+                                          degree, coef0, dtype):
+    """B4 against x[w] + kernel_rows + the Gram expression on the card:
+    the sums run in another order than cuBLAS, so |dK| is held to the
+    dots' worst-case rounding carried through each family's slope, plus
+    4 ulps of K for exp / tanh / pow."""
+    rng = np.random.default_rng(n + d)
+    x = torch.as_tensor(rng.random((n, d)).astype(np.float32),
+                        device=cuda).to(dtype)
+    x_sq = squared_norms(x)
+    w = torch.as_tensor(rng.integers(0, n, q).astype(np.int32),
+                        device=cuda)
+    kp = KernelParams(kind, gamma, degree, coef0)
+    tround.gather_gram.launches = 0
+    k_rows, kb = tround.gather_gram(x, w, x_sq, x_sq[w], kp)
+    p_rows, p_kb = tround._gather_gram(x, w, x_sq, x_sq[w], kp)
+    torch.cuda.synchronize()
+    assert tround.gather_gram.launches == 1
+    e = dot_error_bound(x, d)
+    vmax = gamma * float(x_sq.max()) + coef0
+    slope = {"rbf": 2 * gamma, "linear": 1.0, "sigmoid": gamma,
+             "poly": degree * vmax ** (degree - 1) * gamma}[kind]
+    for got, want in ((k_rows, p_rows), (kb, p_kb)):
+        assert bool(((got - want).abs()
+                     <= slope * e + 4 * 2.0 ** -23 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["fused_fold", "fused_round",
+                                  "pipeline_rounds"])
+def test_fused_engine_on_card_reaches_cpu_optimum(cuda, knob):
+    """A fused engine on the card (kernels B1-B5 as the engine uses them)
+    reaches the optimum of the CPU plain engine: dual objective within
+    rel 1e-4, SVs within 2%; every round launched its kernels."""
+    x, y = make_blobs_binary(n=1500, d=24, seed=11, sep=1.0)
+    cfg = SVMConfig(c=1.0, gamma=0.1, engine="block", working_set_size=32)
+    counters = (tsub.solve_subproblem, tfs.fold_select, tfs.select_rows,
+                tround.gather_gram, tround.fold_rows_select)
+    for fn in counters:
+        fn.launches = 0
+    rg = solve(x, y, cfg.replace(**{knob: True}))
+    rc = solve(x, y, cfg, device="cpu")
+    rounds = rg.stats["outer_rounds"]
+    assert rg.converged and rc.converged and rounds > 0
+    assert rg.stats["n_pad"] == 2048
+    want = {"fused_fold": (rounds, rounds, 0, 0, 0),
+            "fused_round": (rounds, 0, 0, rounds, rounds),
+            "pipeline_rounds": (rounds, 0, rounds + 1, 0, 0)}[knob]
+    assert tuple(fn.launches for fn in counters) == want
 
     def obj(r):
         a, f = r.alpha.astype(np.float64), r.stats["f"].astype(np.float64)
