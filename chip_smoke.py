@@ -9,8 +9,8 @@ result line is printed:
   1. device  -- the card's name and power limit (nvidia-smi); no CUDA
                 device is a failure;
   2. build   -- every kernel built from csrc/ with nvcc (subproblem.cu,
-                fold_select.cu, gather_gram.cu; one nvcc each, in
-                parallel);
+                fold_select.cu, gather_gram.cu, fused_update.cu; one nvcc
+                each, in parallel);
   3. headline -- the block-engine headline configuration (c=10,
                 gamma=0.125, eps=0.01, q=256, bfloat16 X) on the 60000 x
                 784 MNIST-shaped data, trained through dpsvm_tpu_torch.train
@@ -40,11 +40,27 @@ result line is printed:
                 round), B1 = rounds and B3 = rounds + 1 (pipelined: one
                 prefetch per round plus the seed); then the fused-round
                 engine once more with its four stage functions timed;
-  6. oracle  -- float32 at eps=5e-4 against the committed LibSVM oracle
-                (artifacts/oracle60k.{json,npz}), with the plain engine and
-                with fused_round=True: converged, SV count within 3% of the
-                oracle's, decision-sign agreement >= 99.8%; the plain
-                model saved as .txt and .npz and reloaded decides the same.
+  6. perpair -- the per-pair engines on the headline data and
+                hyper-parameters, after warm-ups on 16384 rows, each with
+                every count set to 0 just before: engine="xla" (on the
+                resident Gram, which auto turns on at this size), "xla"
+                with the row cache (gram_resident=False, cache_lines=512),
+                "xla" with pair_batch=8, "xla" with second_order, and
+                "pallas": converged; no kernel launched but B6 on
+                "pallas", once per pair update. Then the xla and pallas
+                runs once more with the host time of their stages;
+  7. b6      -- kernel B6 against its plain version at the padded shape
+                (n_pad 65536) on the dot rows of a real pair at the start
+                point and at the per-pair headline's end state, rbf and
+                linear: f' within 2 ulps of the update's scale, extrema
+                and ids exactly those the plain reduction gives from the
+                kernel's own f'; kernel and plain times with L2 flushed;
+  8. oracle  -- float32 at eps=5e-4 against the committed LibSVM oracle
+                (artifacts/oracle60k.{json,npz}), with the plain engine,
+                fused_round=True, engine="xla" and engine="pallas":
+                converged, SV count within 3% of the oracle's,
+                decision-sign agreement >= 99.8%; the plain model saved as
+                .txt and .npz and reloaded decides the same.
 
 The second-to-last lines are the per-kernel JSON record and the card's
 name and power limit; the last line is
@@ -66,12 +82,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
-SOURCES = ("subproblem", "fold_select", "gather_gram")
+SOURCES = ("subproblem", "fold_select", "gather_gram", "fused_update")
 
 HEADLINE = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=150_000,
                 engine="block", working_set_size=256, dtype="bfloat16")
 ORACLE_RUN = dict(c=10.0, gamma=0.125, epsilon=5e-4, max_iter=2_000_000,
                   engine="block", working_set_size=256)
+# Oracle runs, the plain engine last (its model is saved and reloaded).
+ORACLE_ENGINES = (("fused_round", dict(fused_round=True)),
+                  ("xla", dict(engine="xla")),
+                  ("pallas", dict(engine="pallas")),
+                  ("plain", {}))
 SV_TOL = 0.03
 SIGN_TOL = 0.998
 RTOL, ATOL = 1e-6, 1e-7
@@ -125,15 +146,17 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 
 
 def counters() -> dict:
-    """Every kernel wrapper of the port by kernel name (B1-B5)."""
+    """Every kernel wrapper of the port by kernel name (B1-B6)."""
     from dpsvm_tpu_torch.ops import fold_select as fs
     from dpsvm_tpu_torch.ops import round as rnd
+    from dpsvm_tpu_torch.ops.fused_update import fused_update_select
     from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
 
     return {"solve_subproblem": solve_subproblem,
             "fold_select": fs.fold_select, "select_rows": fs.select_rows,
             "gather_gram": rnd.gather_gram,
-            "fold_rows_select": rnd.fold_rows_select}
+            "fold_rows_select": rnd.fold_rows_select,
+            "fused_update_select": fused_update_select}
 
 
 def reset_counts() -> None:
@@ -510,7 +533,8 @@ def check_oracle(model, res, x, oracle, sk_dec, label: str):
     sv_dev = abs(res.n_sv - oracle["n_sv"]) / oracle["n_sv"]
     agree = float(np.mean(np.sign(dec) == np.sign(sk_dec)))
     print(f"[oracle] {label}: converged={res.converged} "
-          f"pairs={res.iterations} outer_rounds={res.stats['outer_rounds']} "
+          f"pairs={res.iterations} "
+          f"outer_rounds={res.stats.get('outer_rounds', 'none')} "
           f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
           f"(oracle {oracle['n_sv']}, dev {100 * sv_dev:.2f}%) "
           f"sign_agree={100 * agree:.3f}%", flush=True)
@@ -525,6 +549,168 @@ def check_oracle(model, res, x, oracle, sk_dec, label: str):
         raise AssertionError(f"{label}: decision sign agreement "
                              f"{agree:.4f} < {SIGN_TOL}")
     return dec
+
+
+# The per-pair runs of phase 6: (label, knobs on top of the headline's).
+PER_PAIR = (("xla", dict(engine="xla")),
+            ("xla cache512", dict(engine="xla", gram_resident=False,
+                                  cache_lines=512)),
+            ("xla pair_batch8", dict(engine="xla", pair_batch=8)),
+            ("xla second_order", dict(engine="xla",
+                                      selection="second_order")),
+            ("pallas", dict(engine="pallas")))
+# Their host-timed stages (module under dpsvm_tpu_torch, function).
+PAIR_STAGES = {
+    "xla": (("solver.smo", "select_working_set"),
+            ("solver.smo", "apply_pair_update"),
+            ("solver.smo", "read_obs")),
+    "pallas": (("solver.smo", "pallas_pair_update"),
+               ("solver.smo", "pair_dots"),  # runs inside the stage above
+               ("ops.fused_update", "fused_update_select"),
+               ("solver.smo", "read_obs")),
+}
+
+
+def train_pair_counted(x, y, cfg, label: str) -> tuple:
+    """Train a per-pair engine with every launch count set to 0 just
+    before and read just after: it must converge, and launch B6 once per
+    pair update on engine="pallas" and no kernel at all otherwise.
+    Returns (model, result, counts)."""
+    from dpsvm_tpu_torch import train
+
+    reset_counts()
+    model, res = train(x, y, cfg)
+    counts = read_counts()
+    expect = {k: 0 for k in counts}
+    if cfg.engine == "pallas":
+        expect["fused_update_select"] = res.iterations
+    st = res.stats
+    print(f"[perpair] {label}: converged={res.converged} "
+          f"pairs={res.iterations} train_seconds={res.train_seconds:.4f} "
+          f"us_per_pair={1e6 * res.train_seconds / max(res.iterations, 1):.2f}"
+          f" gram_resident={st['gram_resident']} cache_lookups="
+          f"{st['cache_lookups']} cache_hit_rate={st['cache_hit_rate']:.4f} "
+          f"n_sv={res.n_sv} b={res.b:.6f} launches={counts}", flush=True)
+    if not res.converged:
+        raise AssertionError(f"per-pair {label} solve did not converge")
+    if counts != expect:
+        raise AssertionError(f"per-pair {label}: launches {counts}, "
+                             f"expected {expect}")
+    return model, res, counts
+
+
+def phase_pair_stages(x, y, cfg, stages, label: str) -> dict:
+    """Solve once more with the per-pair loop's stage functions timed on
+    the host clock (the loop reads its observations once a trip, so
+    read_obs holds the wait for the device). Prints each stage's host
+    ms per pair update and share of train_seconds (a stage called from
+    inside another is part of that one's time too); the rest is the
+    loop's own Python and small ops. Returns {stage: ms per pair}."""
+    import importlib
+
+    from dpsvm_tpu_torch import train
+
+    mods = {m: importlib.import_module(f"dpsvm_tpu_torch.{m}")
+            for m, _ in stages}
+    spent = {name: 0.0 for _, name in stages}
+    originals = {(m, name): getattr(mods[m], name) for m, name in stages}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[name] += time.perf_counter() - t
+            return out
+        return run
+
+    for (m, name), fn in originals.items():
+        setattr(mods[m], name, timed(name, fn))
+    try:
+        _, res = train(x, y, cfg)
+    finally:
+        for (m, name), fn in originals.items():
+            setattr(mods[m], name, fn)
+    if not res.converged:
+        raise AssertionError(f"stage-timed {label} solve did not converge")
+    pairs = res.iterations
+    print(f"[pair stages] {label}: pairs={pairs} "
+          f"train_seconds={res.train_seconds:.4f} | " + " ".join(
+              f"{k}={1e3 * v / pairs:.4f}ms"
+              f"({100 * v / res.train_seconds:.1f}%)"
+              for k, v in spent.items()), flush=True)
+    return {k: 1e3 * v / pairs for k, v in spent.items()}
+
+
+def phase_b6(x, y, valid, states: dict, c, tau, reps: int) -> dict:
+    """Kernel B6 against its plain version on a real trip's inputs at the
+    padded per-pair shape: the pair the state selects, its dot rows, and
+    its coefficients from the pallas engine's own pre-B6 step. Timed at
+    the start point with rbf. Returns the JSON record's measured fields."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import fold_select as fs
+    from dpsvm_tpu_torch.ops import fused_update as fu
+    from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
+                                             squared_norms)
+    from dpsvm_tpu_torch.ops.select import select_working_set
+    from dpsvm_tpu_torch.solver.smo import pallas_pair_update, read_obs
+
+    n_pad = y.shape[0]
+    shp = (n_pad // 128, 128)
+    x_sq = squared_norms(x)
+    y2d, valid2d, x_sq2d = y.view(shp), valid.float().view(shp), x_sq.view(shp)
+    worst = 0.0
+    rec = {}
+    for sname, (alpha, f) in states.items():
+        for kind in ("rbf", "linear"):
+            kp = KernelParams(kind, 0.125)
+            i_hi, b_hi, i_lo, b_lo = select_working_set(f, alpha, y, c, valid)
+            (ih, il), _ = read_obs((i_hi, i_lo))
+            a = alpha.clone()
+            d_hi, d_lo, sc, _ = pallas_pair_update(
+                x, y, x_sq, kp, c, tau, None, a, ih, il, b_hi, b_lo, 0)
+            args = (f.view(shp), a.view(shp), y2d, valid2d, d_hi.view(shp),
+                    d_lo.view(shp), x_sq2d, sc, kp, c)
+            got = fu.fused_update_select(*args)
+            want = fu._fused_update_select(*args)
+            k_hi = kernel_from_dots(d_hi.view(shp), x_sq2d, sc[2], kp)
+            k_lo = kernel_from_dots(d_lo.view(shp), x_sq2d, sc[3], kp)
+            scale = f.view(shp).abs() + (sc[0] * k_hi).abs() + \
+                (sc[1] * k_lo).abs()
+            df = (got[0] - want[0]).abs()
+            within = bool((df <= 2.0 ** -22 * scale).all())
+            own = fu.reduce_candidates(*fs.emit_row_candidates(
+                got[0], a.view(shp), y2d, valid2d, c))
+            exact = all(same_bits(g, h) for g, h in zip(got[1:], own))
+            as_plain = (int(got[2]), int(got[4])) == (int(want[2]),
+                                                      int(want[4]))
+            worst = max(worst, float(df.max()))
+            print(f"[b6] {sname} {kind}: pair=({ih}, {il}) "
+                  f"max|df'|={float(df.max()):.3g} "
+                  f"bitwise={same_bits(got[0], want[0])} "
+                  f"selection exact on own f'={exact} ids as plain="
+                  f"{as_plain} next=({int(got[2])}, {int(got[4])})",
+                  flush=True)
+            if not (within and exact):
+                raise AssertionError(f"B6 {sname} {kind}: f' within 2 ulps="
+                                     f"{within}, selection exact={exact}")
+            if (sname, kind) != ("start", "rbf"):
+                continue
+            # 7 vectors in, f' out, 4 scalars each way; per element two
+            # kernel evaluations (5 flops and an exp each) and two FMAs.
+            b_ms, b_by = bound(8 * 4 * n_pad + 32, 14 * n_pad, F32_FLOPS)
+            ms = time_cold_ms(functools.partial(fu.fused_update_select,
+                                                *args), reps)
+            plain_ms = time_cold_ms(functools.partial(
+                fu._fused_update_select, *args), reps)
+            rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+            print(f"[b6] timed ({sname}, n_pad {n_pad}): ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+                  "library_ms=none", flush=True)
+    rec["max_abs_err"] = worst
+    return rec
 
 
 def main() -> int:
@@ -624,15 +810,48 @@ def main() -> int:
         x, y, cfg.replace(fused_round=True), FUSED_ROUND_STAGES,
         "fused_round")
 
-    # ---- 6. oracle
+    # ---- 6. the per-pair engines on the headline
+    t0 = time.perf_counter()
+    for _, kw in PER_PAIR:
+        train(x[:16384], y[:16384], cfg.replace(max_iter=300, **kw))
+    print(f"[perpair] warm-up solves on 16384 rows in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    pair_res = {}
+    for label, kw in PER_PAIR:
+        _, pres, counts = train_pair_counted(x, y, cfg.replace(**kw), label)
+        pair_res[label] = pres
+        if label == "pallas":
+            launches["fused_update_select"] = counts["fused_update_select"]
+    if not pair_res["xla"].stats["gram_resident"]:
+        raise AssertionError("engine='xla' did not run on the resident Gram "
+                             "at 60000 rows")
+    if pair_res["xla cache512"].stats["cache_lookups"] == 0:
+        raise AssertionError("the cached per-pair run made no lookups")
+    for eng in ("xla", "pallas"):
+        phase_pair_stages(x, y, cfg.replace(engine=eng), PAIR_STAGES[eng],
+                          eng)
+
+    # ---- 7. kernel B6 at the padded per-pair shape
+    n_pad6 = -(-len(y) // 8192) * 8192
+    y_pad6 = pad_rows(y_dev, n_pad6, 1.0)
+    valid6 = pad_rows(torch.ones_like(y_dev, dtype=torch.bool), n_pad6, 0)
+    a_pp = torch.as_tensor(pair_res["xla"].alpha, device=dev)
+    f_pp = torch.as_tensor(pair_res["xla"].stats["f"], device=dev)
+    rec["fused_update_select"] = phase_b6(
+        pad_rows(x_dev, n_pad6, 0.0), y_pad6, valid6,
+        {"start": (pad_rows(alpha0, n_pad6, 0.0), pad_rows(f0, n_pad6, -1.0)),
+         "perpair_end": (pad_rows(a_pp, n_pad6, 0.0),
+                         pad_rows(f_pp, n_pad6, -1.0))},
+        c, tau, reps=20)
+
+    # ---- 8. oracle
     with open(os.path.join(ROOT, "artifacts", "oracle60k.json")) as fh:
         oracle = json.load(fh)
     with np.load(os.path.join(ROOT, "artifacts", "oracle60k.npz")) as z:
         sk_dec = np.asarray(z["dec"])
-    for knob in ("fused_round", None):  # the plain model is saved below
-        kw = {knob: True} if knob else {}
-        model, ores = train(x, y, SVMConfig(**ORACLE_RUN, **kw))
-        dec = check_oracle(model, ores, x, oracle, sk_dec, knob or "plain")
+    for label, kw in ORACLE_ENGINES:  # the plain model is saved below
+        model, ores = train(x, y, SVMConfig(**{**ORACLE_RUN, **kw}))
+        dec = check_oracle(model, ores, x, oracle, sk_dec, label)
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     for ext in ("txt", "npz"):
@@ -655,6 +874,8 @@ def main() -> int:
         "gather_gram": ("gather_gram.cu", "dpsvm_tpu/ops/pallas_round.py:158"),
         "fold_rows_select": ("fold_select.cu",
                              "dpsvm_tpu/ops/pallas_round.py:234"),
+        "fused_update_select": ("fused_update.cu",
+                                "dpsvm_tpu/ops/pallas_fused.py:105"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -3,7 +3,7 @@ of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
 
 Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
-        -g 0.125 --engine block
+        -g 0.125 [--engine xla|pallas|block]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt
 """
 
@@ -19,7 +19,7 @@ import numpy as np
 def _build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="dpsvm-tpu-torch",
-        description="block-engine SVM trainer (PyTorch/CUDA port)")
+        description="SMO SVM trainer (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("train", help="train a binary C-SVC")
     p.add_argument("-f", "--file-path", required=True,
@@ -35,14 +35,26 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="RBF gamma (default 1/num_features)")
     p.add_argument("-e", "--epsilon", type=float, default=1e-3)
     p.add_argument("-n", "--max-iter", type=int, default=150_000)
+    p.add_argument("-s", "--cache-size", type=int, default=0,
+                   help="kernel-row cache lines of the per-pair engines "
+                        "(default 0 = off; SVMConfig.cache_lines)")
     p.add_argument("--engine", choices=["xla", "pallas", "block"],
                    default="xla",
-                   help="compute engine; the port runs 'block' only")
+                   help="single-device engine: xla = per-pair SMO (row "
+                        "cache, resident Gram, micro-batching); pallas = "
+                        "per-pair SMO on the fused update+select kernel; "
+                        "block = blockwise decomposition, the fastest "
+                        "path")
     p.add_argument("--working-set-size", type=int, default=128)
     p.add_argument("--inner-iters", type=int, default=0,
                    help="pair updates per block (0 = 2 * working-set-size)")
     p.add_argument("--selection", choices=["mvp", "second_order"],
                    default="mvp")
+    p.add_argument("--pair-batch", type=int, default=1,
+                   choices=[1, 2, 4, 8],
+                   help="pair updates per inner-loop trip (mvp only; see "
+                        "SVMConfig.pair_batch). On --engine xla, 2/4/8 "
+                        "select the micro-batched per-pair executor")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="storage dtype of X")
     p.add_argument("--fused-round", choices=["auto", "on", "off"],
@@ -89,7 +101,8 @@ def _cmd_train(args) -> int:
     try:
         config = SVMConfig(
             c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
-            max_iter=args.max_iter, selection=args.selection,
+            max_iter=args.max_iter, cache_lines=args.cache_size,
+            selection=args.selection, pair_batch=args.pair_batch,
             engine=args.engine, working_set_size=args.working_set_size,
             inner_iters=args.inner_iters, dtype=args.dtype,
             fused_round=_TRI[args.fused_round],
@@ -103,8 +116,12 @@ def _cmd_train(args) -> int:
         print(f"converged at iteration {result.iterations}")
     else:
         print(f"stopped at max-iter {result.iterations} without converging")
-    print(f"training took {result.train_seconds:.2f}s "
-          f"({result.stats['outer_rounds']} rounds on {result.stats['device']})")
+    rounds = result.stats.get("outer_rounds")
+    print(f"training took {result.train_seconds:.2f}s on "
+          f"{result.stats['device']}"
+          + (f" ({rounds} rounds)" if rounds is not None else ""))
+    if result.stats.get("cache_lookups"):
+        print(f"cache hit rate: {result.stats['cache_hit_rate']:.4f}")
     print(f"b: {result.b:.6f}")
     print(f"support vectors: {result.n_sv}")
     print(f"train accuracy: {accuracy(model, x, y, device=args.device):.4f}")

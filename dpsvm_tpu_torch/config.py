@@ -1,11 +1,11 @@
 """Typed training configuration (counterpart of dpsvm_tpu/config.py).
 
-Only the fields the block engine's path reads are carried, with the same
-names and defaults as the JAX package's ``SVMConfig``. Knobs whose
-engines are not ported yet stay settable so a config written for the JAX
-package reads the same here, but ``check_ported`` (called by every entry
-point) refuses them with ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+Only the fields the ported engines read are carried, with the same names
+and defaults as the JAX package's ``SVMConfig``. Knobs whose engines are
+not ported yet stay settable so a config written for the JAX package
+reads the same here, but ``check_ported`` (called by every entry point)
+refuses them with ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -18,13 +18,13 @@ KERNELS = ("rbf", "linear", "poly", "sigmoid", "precomputed")
 
 @dataclasses.dataclass(frozen=True)
 class SVMConfig:
-    """Hyper-parameters and block-engine knobs for SMO training."""
+    """Hyper-parameters and engine knobs for SMO training."""
 
     c: float = 1.0
     gamma: Optional[float] = None
     epsilon: float = 1e-3
     max_iter: int = 150_000
-    # The block engine has no row cache; kept so configs carry across.
+    # Per-pair engines: lines of the LRU cache of dot rows (0 = off).
     cache_lines: int = 0
 
     kernel: str = "rbf"
@@ -46,10 +46,13 @@ class SVMConfig:
     fused_fold: Optional[bool] = None
     fused_round: Optional[bool] = None
     pipeline_rounds: Optional[bool] = None
+    # engine="xla": hold the (n, n) float32 Gram on the device. None =
+    # auto (n >= 8192 and it fits 70% of the card's memory; never on the
+    # CPU).
+    gram_resident: Optional[bool] = None
     # Knobs of engines that are not ported yet (see check_ported).
     active_set_size: int = 0
     ooc: bool = False
-    gram_resident: Optional[bool] = None
     bf16_gram: bool = False
 
     # Kahan-compensated gradient carry (solver/smo.py kahan_add).
@@ -101,7 +104,44 @@ class SVMConfig:
             raise ValueError("active_set_size must be >= 0 (0 = shrinking off)")
         if self.max_iter > 2 ** 31 - 1:
             raise ValueError("max_iter must fit int32")
+        self._check_pair_knobs()
         self._check_round_knobs()
+
+    def _check_pair_knobs(self) -> None:
+        """The JAX package's validation of the per-pair engines' knobs
+        (dpsvm_tpu/config.py), same conditions and key phrases."""
+        clashes = (
+            (self.kernel == "precomputed" and self.engine == "pallas",
+             "kernel='precomputed' is not implemented for the fused "
+             "pallas per-pair engine; use engine='xla' or 'block'"),
+            (self.kernel == "precomputed" and self.cache_lines > 0,
+             "kernel='precomputed' has nothing to cache (rows are "
+             "gathers, not matvecs); set cache_lines=0"),
+            (self.engine == "pallas" and self.selection != "mvp",
+             "engine='pallas' supports selection='mvp' only (use "
+             "engine='xla' or engine='block')"),
+            (self.pair_batch > 1 and self.selection != "mvp",
+             "pair_batch > 1 is an mvp-selection feature"),
+            (self.pair_batch > 1 and self.engine == "pallas",
+             "pair_batch > 1 is not implemented for the fused pallas "
+             "per-pair engine (use engine='xla' or 'block')"),
+            (self.pair_batch > 4 and self.engine == "block",
+             "the block subproblem implements pair_batch up to 4; "
+             "pair_batch=8 is the per-pair micro-batch executor only "
+             "(engine='xla')"),
+            (self.compensated and self.engine == "pallas",
+             "compensated gradient carry is implemented for the xla and "
+             "block engines; use engine='xla' or 'block'"),
+            (bool(self.gram_resident) and self.engine == "pallas",
+             "gram_resident is not implemented for the fused pallas "
+             "per-pair engine; use engine='xla' or 'block'"),
+            (bool(self.gram_resident) and self.kernel == "precomputed",
+             "kernel='precomputed' already IS a resident Gram; leave "
+             "gram_resident unset"),
+        )
+        for bad, what in clashes:
+            if bad:
+                raise ValueError(what)
 
     def _check_round_knobs(self) -> None:
         """The JAX package's validation of pipeline_rounds / fused_round
@@ -143,19 +183,18 @@ class SVMConfig:
         engine the port does not have yet; the message names the
         ROADMAP.md item that ports it."""
         unported = (
-            (self.engine != "block",
-             f"engine={self.engine!r} (per-pair engines: ROADMAP queue A "
-             "item 5; the port runs engine='block')"),
             (self.selection == "nu",
              "selection='nu' (nu duals: ROADMAP queue A item 7)"),
-            (self.pair_batch > 1,
-             "pair_batch>1 (ROADMAP queue A item 5)"),
+            (self.pair_batch > 1 and self.engine == "block",
+             "pair_batch>1 on engine='block' (the block subproblem's "
+             "pair batch: ROADMAP queue A item 5b)"),
             (self.active_set_size > 0,
              "active_set_size>0 (the active-set engine: ROADMAP queue A "
              "item 4)"),
             (self.ooc, "ooc=True (ROADMAP queue A item 8)"),
-            (bool(self.gram_resident),
-             "gram_resident=True (ROADMAP queue A item 6)"),
+            (bool(self.gram_resident) and self.engine == "block",
+             "gram_resident=True on engine='block' (ROADMAP queue A "
+             "item 6)"),
             (self.bf16_gram, "bf16_gram=True (ROADMAP queue A item 6)"),
             (self.kernel == "precomputed",
              "kernel='precomputed' (ROADMAP queue A item 6)"),

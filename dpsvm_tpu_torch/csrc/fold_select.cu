@@ -44,9 +44,7 @@
 // with no member of a set reports +inf (up) / -inf (low) with the row's
 // first flat id. NaN in f is not supported.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <limits.h>
+#include "common.cuh"
 
 namespace {
 
@@ -55,50 +53,6 @@ constexpr int kRowsPerBlock = 2;  // one warp per row
 constexpr int kThreads = kRowsPerBlock * 32;
 
 enum Mode { kFold = 0, kSelect = 1, kRows = 2 };
-
-struct Cand {
-  float v;
-  int i;
-};
-
-// (value, id) reductions. Equal values keep the lowest id; of two equal
-// zeros the minimum keeps -0.0 and the maximum +0.0 (IEEE minimum and
-// maximum, as XLA reduces), so the result does not depend on the order
-// the reduction meets the elements in.
-__device__ __forceinline__ void take_min(Cand& c, float v, int i) {
-  if (v < c.v) {
-    c.v = v;
-    c.i = i;
-  } else if (v == c.v) {
-    if (i < c.i) c.i = i;
-    if (signbit(v)) c.v = v;
-  }
-}
-
-__device__ __forceinline__ void take_max(Cand& c, float v, int i) {
-  if (v > c.v) {
-    c.v = v;
-    c.i = i;
-  } else if (v == c.v) {
-    if (i < c.i) c.i = i;
-    if (!signbit(v)) c.v = v;
-  }
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void unpack(const float4 v, float (&o)[4]) {
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
 
 template <int M, bool kComp>
 __global__ void __launch_bounds__(kThreads)

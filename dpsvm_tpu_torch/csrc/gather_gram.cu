@@ -31,9 +31,9 @@
 // multiply-adds. The sum order differs from cuBLAS and from the CPU, so
 // kernel values agree with the plain version within rounding only.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <math.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -42,37 +42,8 @@ constexpr int kBN = 128;  // data rows per CTA
 constexpr int kBK = 16;   // depth per shared-memory stage
 constexpr int kThreads = 256;
 
-enum Kind { kRbf = 0, kLinear = 1, kPoly = 2, kSigmoid = 3 };
-
-struct KParams {
-  int kind;
-  float neg_gamma;  // float32(-gamma), as torch rounds the scalar
-  float gamma;
-  float coef0;
-  int degree;
-};
-
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// ops/kernels.py kernel_from_dots for one element: `bsq` is the data
-// row's squared norm, `asq` the working-set row's.
-__device__ __forceinline__ float from_dot(float dot, float bsq, float asq,
-                                          const KParams& kp) {
-  if (kp.kind == kLinear) return dot;
-  if (kp.kind == kRbf) {
-    float s = bsq + asq;
-    s = s - 2.0f * dot;
-    s = fmaxf(s, 0.0f);
-    return expf(kp.neg_gamma * s);
-  }
-  const float v = kp.gamma * dot + kp.coef0;
-  if (kp.kind == kSigmoid) return tanhf(v);
-  if (kp.degree == 1) return v;
-  if (kp.degree == 2) return v * v;
-  if (kp.degree == 3) return v * v * v;
-  return powf(v, (float)kp.degree);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

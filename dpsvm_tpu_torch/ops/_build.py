@@ -4,9 +4,10 @@ with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout (a directory .gitignore lists), for ``sm_90a``. The hash covers
-the source and the flags, so an edited kernel is rebuilt and a finished
-build is reused. Nothing here runs at import time: the CPU tests import
-every module, and a machine without the CUDA toolkit has no nvcc.
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited kernel is rebuilt and a finished build is reused. Nothing here
+runs at import time: the CPU tests import every module, and a machine
+without the CUDA toolkit has no nvcc.
 """
 
 from __future__ import annotations
@@ -42,8 +43,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The source and every shared header (csrc/*.cuh) it may include.
+    for fname in [f"{name}.cu"] + sorted(
+            f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -77,6 +77,10 @@ def kernel_from_dots(dots: torch.Tensor, x_sq: torch.Tensor, q_sq,
     operation order is the JAX package's: x_sq + q_sq, then - 2 dots,
     then max(., 0), then exp(-gamma .)."""
     dots = dots.float()
+    if params.kind == "precomputed":
+        raise ValueError(
+            "precomputed kernels have no dot-product form; gather rows of "
+            "the Gram matrix instead (kernel_rows handles this)")
     if params.kind == "linear":
         return dots
     if params.kind == "rbf":
@@ -101,8 +105,28 @@ def kernel_diag(x_sq: torch.Tensor, params: KernelParams) -> torch.Tensor:
 
 def kernel_rows(x: torch.Tensor, x_sq: torch.Tensor, q: torch.Tensor,
                 q_sq, params: KernelParams) -> torch.Tensor:
-    """Full kernel rows K(q_k, x_i): (k, n) or (n,)."""
+    """Full kernel rows K(q_k, x_i): (k, n) or (n,).
+
+    kind="precomputed": `x` IS the (n, n) Gram matrix, so a gathered
+    query row already holds its kernel values and is returned as is."""
+    if params.kind == "precomputed":
+        return q.float()
     return kernel_from_dots(row_dots(x, q), x_sq, q_sq, params)
+
+
+def resident_gram(x: torch.Tensor, x_sq: torch.Tensor, params: KernelParams,
+                  tile: int = 2048) -> torch.Tensor:
+    """The whole (n, n) float32 Gram matrix on x's device, built in
+    tiles of `tile` rows of kernel_rows (one (tile, n) block live at a
+    time besides the result). The last tile starts at n - tile and
+    recomputes the rows it overlaps, as the JAX package does."""
+    n = x.shape[0]
+    t = min(tile, n)
+    g = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    for i in range(-(-n // t)):
+        s = min(i * t, n - t)
+        g[s:s + t] = kernel_rows(x, x_sq, x[s:s + t], x_sq[s:s + t], params)
+    return g
 
 
 def kernel_matrix(a: torch.Tensor, b: torch.Tensor,

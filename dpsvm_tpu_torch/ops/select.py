@@ -57,6 +57,44 @@ def from_order_key(k: torch.Tensor) -> torch.Tensor:
     return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
 
 
+def ieee_max(v: torch.Tensor) -> torch.Tensor:
+    """max(v) as XLA reduces it: a +-0 tie gives +0.0 whatever the order
+    (torch.amax keeps whichever zero it meets first). NaN unsupported."""
+    return from_order_key(order_key(v).amax())
+
+
+def set_masks(alpha, y, c, valid=None) -> tuple:
+    """(up, low): membership in I_up and I_low; `valid` (bool) masks
+    padded rows out of both."""
+    cp, cn = split_c(c)
+    up = up_mask(alpha, y, cp, cn)
+    low = low_mask(alpha, y, cp, cn)
+    if valid is not None:
+        up = up & valid
+        low = low & valid
+    return up, low
+
+
+def select_working_set(f, alpha, y, c, valid=None) -> tuple:
+    """The maximal violating pair (i_up, b_hi, i_low, b_lo) as 0-d
+    tensors (int64 ids, float32 values). Ties go to the lowest index;
+    each value is the element at its index (f_up[i_up]), not an IEEE
+    min, as in the JAX package."""
+    up, low = set_masks(alpha, y, c, valid)
+    f = f.float()
+    f_up = torch.where(up, f, _INF)
+    f_low = torch.where(low, f, -_INF)
+    i_up = torch.argmin(f_up)
+    i_low = torch.argmax(f_low)
+    return i_up, take(f_up, i_up), i_low, take(f_low, i_low)
+
+
+def take(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """v[i] for a 0-d index tensor, as a 0-d tensor gathered on the
+    device (indexing with a 0-d tensor may read it on the host)."""
+    return v.index_select(0, i.reshape(1)).reshape(())
+
+
 def candidate_live_mask(alpha_w, y_w, c) -> torch.Tensor:
     """Handoff gate of the pipelined block rounds: a working set picked
     from the pre-fold gradient keeps a slot live only while its point is
@@ -72,13 +110,8 @@ def stopping_extrema(f, alpha, y, c, valid=None, rule: str = "mvp"):
     if rule not in ("mvp", "second_order"):
         raise NotImplementedError(
             f"rule={rule!r} is not ported (nu duals: ROADMAP queue A item 7)")
-    cp, cn = split_c(c)
     f = f.float()
-    up = up_mask(alpha, y, cp, cn)
-    low = low_mask(alpha, y, cp, cn)
-    if valid is not None:
-        up = up & valid
-        low = low & valid
+    up, low = set_masks(alpha, y, c, valid)
     return (torch.where(up, f, _INF).min(),
             torch.where(low, f, -_INF).max())
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.ops.select import c_of, low_mask, split_c, up_mask
-from dpsvm_tpu_torch.solver.smo import pair_alpha_update
+from dpsvm_tpu_torch.solver.smo import fma32, pair_alpha_update
 
 _RULES = {"mvp": 0, "second_order": 1}
 _MAX_Q = 4096  # csrc/subproblem.cu: up to four slots for each of 1024 threads
@@ -25,21 +25,11 @@ def _check_rule(rule: str, pair_batch: int) -> None:
     if pair_batch != 1:
         raise NotImplementedError(
             "pair_batch>1 in the block subproblem is not ported "
-            "(ROADMAP queue A item 5)")
+            "(ROADMAP queue A item 5b)")
     if rule not in _RULES:
         raise NotImplementedError(
             f"subproblem rule {rule!r} is not ported (the nu rule: ROADMAP "
             "queue A item 7)")
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once to float32, as XLA on the CPU computes the
-    JAX package's f_W update f + ((da * y) * row) (it contracts both
-    adds into fused multiply-adds). The float64 product of two float32
-    values is exact; the float64 sum then rounds twice (to float64, then
-    float32), which differs from one rounding only at exact float32
-    midpoints of the float64 result."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
@@ -98,8 +88,8 @@ def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
             c_of(y_i, cp, cn), c_of(y_j, cp, cn), gate=upd_ok)
         alpha_w = torch.where(lanes == i, a_i_new, alpha_w)
         alpha_w = torch.where(lanes == j, a_j_new, alpha_w)
-        f_w = _fma((a_j_new - a_j_old) * y_j, row_j,
-                   _fma((a_i_new - a_i_old) * y_i, row_i, f_w))
+        f_w = fma32((a_j_new - a_j_old) * y_j, row_j,
+                    fma32((a_i_new - a_i_old) * y_i, row_i, f_w))
         t += 1
     return alpha_w, f_w, torch.tensor(t, dtype=torch.int32,
                                       device=alpha_w.device)

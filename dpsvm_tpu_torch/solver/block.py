@@ -47,8 +47,8 @@ from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
                                          kernel_rows, mm_f32)
 from dpsvm_tpu_torch.ops.round import fused_round
-from dpsvm_tpu_torch.ops.select import (candidate_live_mask, low_mask,
-                                        order_key, split_c, up_mask)
+from dpsvm_tpu_torch.ops.select import (candidate_live_mask, order_key,
+                                        set_masks)
 from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
 from dpsvm_tpu_torch.solver.smo import eff_f, maybe_kahan
 
@@ -100,12 +100,7 @@ def select_block(f, alpha, y, c, q: int, valid=None, rule: str = "mvp"):
         raise NotImplementedError(
             f"selection={rule!r} is not ported (nu duals: ROADMAP queue A "
             "item 7)")
-    cp, cn = split_c(c)
-    up = up_mask(alpha, y, cp, cn)
-    low = low_mask(alpha, y, cp, cn)
-    if valid is not None:
-        up = up & valid
-        low = low & valid
+    up, low = set_masks(alpha, y, c, valid)
     neg_inf = -float("inf")
     scores = torch.stack([torch.where(up, -f, neg_inf),
                           torch.where(low, f, neg_inf)])

@@ -1,5 +1,5 @@
-"""Single-device block-engine solve (counterpart of the block branch of
-dpsvm_tpu/solver/smo.py solve / _solve_impl)."""
+"""Single-device solve (counterpart of dpsvm_tpu/solver/smo.py solve /
+_solve_impl): the block engines and the per-pair engines."""
 
 from __future__ import annotations
 
@@ -10,9 +10,11 @@ import torch
 
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import resolve_device, synchronize
-from dpsvm_tpu_torch.ops.kernels import KernelParams, kernel_diag, squared_norms
+from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
+                                         resident_gram, squared_norms)
 from dpsvm_tpu_torch.ops.select import refresh_extrema_host
 from dpsvm_tpu_torch.solver import block
+from dpsvm_tpu_torch.solver import smo
 from dpsvm_tpu_torch.solver.block import BlockState
 from dpsvm_tpu_torch.solver.result import SolveResult
 from dpsvm_tpu_torch.solver.smo import eff_f, init_state
@@ -21,6 +23,17 @@ from dpsvm_tpu_torch.solver.smo import eff_f, init_state
 # then never closes, so the loop runs to exactly max_iter pairs; finite
 # so b_hi + 2 eps stays inf-free.
 _BUDGET_EPS = -1e30
+
+# Auto resident Gram (gram_resident=None, engine="xla"): the (n, n)
+# float32 Gram may take this share of the card's memory
+# (torch.cuda.get_device_properties().total_memory), and is not worth
+# building below _GRAM_MIN_N rows. The CPU has no budget: auto stays off.
+_GRAM_BUDGET_FRACTION = 0.70
+_GRAM_MIN_N = 8192
+
+# engine="pallas" pads rows to whole (64, 128) blocks of the JAX kernel's
+# grid, so both packages solve the same padded problem.
+_PALLAS_ROWS = 64 * 128
 
 
 def block_height(config: SVMConfig, n: int) -> tuple:
@@ -56,43 +69,99 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device) -> dict:
             "pad": pad, "n_pad": n_pad_fused if pad else n}
 
 
-def solve(x, y, config: SVMConfig, device=None) -> SolveResult:
-    """Train binary C-SVC with the block engine on one device.
+def gram_budget_bytes(dev: torch.device) -> int:
+    """The bytes an auto resident Gram may take on `dev`: a share of the
+    card's total memory on CUDA, 0 elsewhere."""
+    if dev.type != "cuda":
+        return 0
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return int(_GRAM_BUDGET_FRACTION * total)
 
-    `device=None` means the CUDA card (raises without one); pass
-    device="cpu" for the plain PyTorch path. X is stored in
-    config.dtype; the solver state (alpha, f) is float32. The fused
-    engines pad the rows to a multiple of 1024 (padded rows: y = 1,
-    alpha = 0, f = -1, zero features, masked out of every selection);
-    alpha and f come back trimmed to n."""
-    config.check_ported()
-    dev = resolve_device(device)
-    x = np.asarray(x, np.float32)
-    y_np = np.asarray(y, np.int32)
+
+def resolve_gram(config: SVMConfig, n: int, dev: torch.device) -> bool:
+    """Whether this solve runs on the resident Gram (the JAX package's
+    _resolve_gram): never on engine="pallas"; True / False as set; auto
+    on engine="xla" when n >= 8192 and the Gram fits the budget."""
+    if config.engine == "pallas":
+        return False
+    if config.gram_resident is not None:
+        return bool(config.gram_resident)
+    return (config.engine == "xla" and n >= _GRAM_MIN_N
+            and 4 * n * n <= gram_budget_bytes(dev))
+
+
+def _stage(x, y_np, n_pad: int, config: SVMConfig, dev, masked: bool):
+    """X (stored in config.dtype), y (float32) and `valid` on the device,
+    padded to n_pad rows (padded rows: zero features, y = 1, valid False;
+    valid is None unless `masked`, which padding implies)."""
     n, d = x.shape
-    kp = KernelParams(config.kernel, config.resolve_gamma(d),
-                      config.degree, config.coef0)
-    eng = choose_engine(config, n, dev)
-    n_pad = eng["n_pad"]
     x_p, y_p, valid = x, y_np.astype(np.float32), None
-    if eng["pad"]:
+    if n_pad != n:
         x_p = np.zeros((n_pad, d), np.float32)
         x_p[:n] = x
         y_p = np.ones((n_pad,), np.float32)
         y_p[:n] = y_np
+    if masked or n_pad != n:
         valid = torch.zeros(n_pad, dtype=torch.bool, device=dev)
         valid[:n] = True
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
-    x_dev = torch.as_tensor(x_p, device=dev).to(dtype)
+    return (torch.as_tensor(x_p, device=dev).to(dtype),
+            torch.as_tensor(y_p, device=dev), valid)
+
+
+def _finish(state, y_np, n: int, config: SVMConfig, eps_run: float,
+            refresh: bool) -> tuple:
+    """(alpha, f, b_hi, b_lo, converged) of a finished loop, trimmed to
+    n. `converged` is the host test at the run's epsilon; where it fails
+    and `refresh` holds, the extrema are recomputed from the final state
+    at the real epsilon."""
+    b_hi = float(state.b_hi)
+    b_lo = float(state.b_lo)
+    converged = not (b_lo > b_hi + 2.0 * eps_run)
+    alpha = state.alpha[:n].cpu().numpy()
+    f_final = eff_f(state)[:n].cpu().numpy()
+    if refresh and not converged:
+        b_hi, b_lo, converged = refresh_extrema_host(
+            f_final, alpha, y_np, config.c_bounds(), config.epsilon,
+            rule=config.selection)
+    return alpha, f_final, b_hi, b_lo, converged
+
+
+def solve(x, y, config: SVMConfig, device=None) -> SolveResult:
+    """Train binary C-SVC on one device with the engine config.engine
+    names: "block" (and its fused variants), or the per-pair engines
+    "xla" (with the row cache, the resident Gram and micro-batching) and
+    "pallas" (kernel B6).
+
+    `device=None` means the CUDA card (raises without one); pass
+    device="cpu" for the plain PyTorch path. X is stored in
+    config.dtype; the solver state (alpha, f) is float32. Engines that
+    pad the rows mask the padding out of every selection; alpha and f
+    come back trimmed to n."""
+    config.check_ported()
+    dev = resolve_device(device)
+    x = np.asarray(x, np.float32)
+    y_np = np.asarray(y, np.int32)
+    kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
+                      config.degree, config.coef0)
+    eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)
+    if config.engine == "block":
+        return _solve_block(x, y_np, config, kp, dev, eps_run)
+    return _solve_pair(x, y_np, config, kp, dev, eps_run)
+
+
+def _solve_block(x, y_np, config, kp, dev, eps_run) -> SolveResult:
+    n = x.shape[0]
+    eng = choose_engine(config, n, dev)
+    n_pad = eng["n_pad"]
+    x_dev, y_dev, valid = _stage(x, y_np, n_pad, config, dev, eng["pad"])
     x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
     k_diag = kernel_diag(x_sq, kp)
-    y_dev = torch.as_tensor(y_p, device=dev)
     q, inner = block_height(config, n_pad)
     alpha0, f0, b_hi0, b_lo0 = init_state(y_dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     state = BlockState(alpha0, f0, b_hi0, b_lo0, zero, zero,
                        torch.zeros_like(f0) if config.compensated else None)
-    eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)
     c = config.c_bounds()
     synchronize(dev)
     t0 = time.perf_counter()
@@ -110,27 +179,85 @@ def solve(x, y, config: SVMConfig, device=None) -> SolveResult:
         state = block.run_chunk_block(*args, state, *rest)
     synchronize(dev)
     train_seconds = time.perf_counter() - t0
-    it = int(state.pairs)
-    b_hi = float(state.b_hi)
-    b_lo = float(state.b_lo)
-    converged = not (b_lo > b_hi + 2.0 * eps_run)
-    alpha = state.alpha[:n].cpu().numpy()
-    f_final = eff_f(state)[:n].cpu().numpy()
-    if not converged:
-        # Budget exits report the stopping rule at the REAL epsilon on the
-        # final state (the carried extrema are one fold behind).
-        b_hi, b_lo, converged = refresh_extrema_host(
-            f_final, alpha, y_np, c, config.epsilon, rule=config.selection)
+    # Budget exits report the stopping rule at the REAL epsilon on the
+    # final state (the carried extrema are one fold behind).
+    alpha, f_final, b_hi, b_lo, converged = _finish(
+        state, y_np, n, config, eps_run, refresh=True)
     return SolveResult(
         alpha=alpha,
         b=float((b_lo + b_hi) / 2.0),
         b_hi=b_hi,
         b_lo=b_lo,
-        iterations=it,
+        iterations=int(state.pairs),
         converged=converged,
         train_seconds=train_seconds,
         stats={"f": f_final, "outer_rounds": int(state.rounds),
                "device": str(dev), "n_pad": n_pad,
                **{k: eng[k] for k in ("pipelined", "fused_fold",
                                       "fused_round")}},
+    )
+
+
+def _solve_pair(x, y_np, config, kp, dev, eps_run) -> SolveResult:
+    """The per-pair branch of the JAX package's _solve_impl."""
+    n = x.shape[0]
+    use_pallas = config.engine == "pallas"
+    use_gram = resolve_gram(config, n, dev)
+    n_pad = -(-n // _PALLAS_ROWS) * _PALLAS_ROWS if use_pallas else n
+    x_dev, y_dev, valid = _stage(x, y_np, n_pad, config, dev, use_pallas)
+    x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
+    k_diag = kernel_diag(x_sq, kp)
+    if use_gram:
+        # The (n, n) kernel matrix replaces X: each pair's kernel rows
+        # are row views of it. The diagonal comes from the features.
+        x_dev = resident_gram(x_dev, x_sq, kp)
+        kp = KernelParams("precomputed")
+        x_sq = torch.zeros_like(x_sq)
+    cache_lines = min(config.cache_lines, n_pad)
+    use_micro = config.pair_batch > 1
+    # The resident Gram supersedes the cache; micro has none.
+    use_cache = cache_lines > 0 and not use_gram and not use_micro
+    state = smo.init_pair_state(y_dev, cache_lines if use_cache else 0,
+                                config.compensated)
+    c = config.c_bounds()
+    tau = float(config.tau)
+    max_iter = int(config.max_iter)
+    synchronize(dev)  # the Gram build is done before the clock starts
+    t0 = time.perf_counter()
+    if use_pallas:
+        state = smo.run_chunk_pallas(x_dev, y_dev, x_sq, valid, state,
+                                     max_iter, kp, c, eps_run, tau)
+    elif use_micro:
+        state = smo.run_chunk_micro(x_dev, y_dev, x_sq, k_diag, valid, state,
+                                    max_iter, kp, c, eps_run, tau,
+                                    config.pair_batch)
+    else:
+        state = smo.run_chunk(x_dev, y_dev, x_sq, k_diag, valid, state,
+                              max_iter, kp, c, eps_run, tau,
+                              config.selection)
+    synchronize(dev)
+    train_seconds = time.perf_counter() - t0
+    del x_dev  # the resident Gram goes with the solve
+    alpha, f_final, b_hi, b_lo, converged = _finish(
+        state, y_np, n, config, eps_run, refresh=config.budget_mode)
+    lookups = 2 * state.it if use_cache else 0
+    evictions = 0
+    if use_cache:
+        # Every miss fills a line and a line leaves "empty" at most once,
+        # so evictions = misses - lines filled from empty.
+        filled = int(np.count_nonzero(state.cache.keys >= 0))
+        evictions = max(0, lookups - state.hits - filled)
+    return SolveResult(
+        alpha=alpha,
+        b=float((b_lo + b_hi) / 2.0),
+        b_hi=b_hi,
+        b_lo=b_lo,
+        iterations=state.it,
+        converged=converged,
+        train_seconds=train_seconds,
+        stats={"f": f_final, "device": str(dev), "n_pad": n_pad,
+               "gram_resident": use_gram, "cache_hits": state.hits,
+               "cache_lookups": lookups,
+               "cache_hit_rate": state.hits / lookups if lookups else 0.0,
+               "cache_evictions": evictions},
     )

@@ -14,8 +14,9 @@ from dpsvm_tpu_torch.solver.solve import solve
 
 def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "single",
           device=None) -> tuple[SVMModel, SolveResult]:
-    """Train binary C-SVC with the block engine. Labels must be in
-    {-1, +1}. `device=None` means the CUDA card; the tests pass "cpu"."""
+    """Train binary C-SVC with the engine config.engine names. Labels
+    must be in {-1, +1}. `device=None` means the CUDA card; the tests
+    pass "cpu"."""
     if backend != "single":
         raise NotImplementedError(
             f"backend={backend!r} is not ported (multi-GPU: ROADMAP queue A "

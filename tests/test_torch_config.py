@@ -53,7 +53,8 @@ def test_invalid_values_raise_like_jax(kw):
 
 
 UNPORTED = [
-    dict(engine="xla"), dict(engine="pallas"), dict(selection="nu"),
+    dict(engine="xla", selection="nu"),
+    dict(engine="xla", kernel="precomputed"), dict(selection="nu"),
     dict(pair_batch=2), dict(fused_fold=True, selection="nu"),
     dict(fused_round=True, bf16_gram=True),
     dict(pipeline_rounds=True, gram_resident=True),
@@ -85,3 +86,53 @@ def test_ported_block_config_passes():
                                 dict(pipeline_rounds=True)])
 def test_fused_round_knobs_are_ported(kw):
     SVMConfig(engine="block", **kw).check_ported()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(engine="xla", selection="second_order"),
+    dict(engine="pallas"), dict(engine="pallas", cache_lines=256),
+    dict(engine="xla", pair_batch=2), dict(engine="xla", pair_batch=4),
+    dict(engine="xla", pair_batch=8, gram_resident=True),
+    dict(engine="xla", gram_resident=True, compensated=True),
+    dict(engine="xla", gram_resident=False, cache_lines=512),
+    dict(engine="xla", cache_lines=64, selection="second_order"),
+])
+def test_per_pair_knobs_are_ported(kw):
+    """The per-pair engines and their knobs pass check_ported (and the
+    JAX package's validation)."""
+    JaxConfig(**kw)
+    SVMConfig(**kw).check_ported()
+
+
+PAIR_CLASHES = [
+    (dict(engine="pallas", selection="second_order"), "mvp"),
+    (dict(engine="pallas", compensated=True), "compensated"),
+    (dict(engine="pallas", gram_resident=True), "gram_resident"),
+    (dict(engine="pallas", pair_batch=2), "pallas"),
+    (dict(engine="xla", pair_batch=4, selection="second_order"), "mvp"),
+    (dict(engine="block", pair_batch=8), "block subproblem"),
+    (dict(engine="xla", kernel="precomputed", cache_lines=8),
+     "nothing to cache"),
+    (dict(engine="pallas", kernel="precomputed"), "pallas"),
+    (dict(engine="xla", kernel="precomputed", gram_resident=True),
+     "already IS a resident Gram"),
+]
+
+
+@pytest.mark.parametrize("kw,match", PAIR_CLASHES)
+def test_per_pair_validation_matches_jax(kw, match):
+    with pytest.raises(ValueError, match=match):
+        JaxConfig(**kw)
+    with pytest.raises(ValueError, match=match):
+        SVMConfig(**kw)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(engine="block", pair_batch=2), "item 5b"),
+    (dict(engine="block", gram_resident=True), "item 6"),
+    (dict(engine="xla", selection="nu"), "item 7"),
+    (dict(engine="xla", bf16_gram=True), "item 6"),
+])
+def test_still_refused_knobs_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        SVMConfig(**kw).check_ported()

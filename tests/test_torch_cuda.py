@@ -14,10 +14,11 @@ import torch
 from dpsvm_tpu_torch import SVMConfig, solve
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
 from dpsvm_tpu_torch.ops import fold_select as tfs
+from dpsvm_tpu_torch.ops import fused_update as tfu
 from dpsvm_tpu_torch.ops import round as tround
 from dpsvm_tpu_torch.ops import subproblem as tsub
-from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_matrix,
-                                         squared_norms)
+from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
+                                         kernel_matrix, squared_norms)
 from dpsvm_tpu_torch.solver.block import select_block
 
 C, EPS, TAU = 1.0, 1e-3, 1e-12
@@ -225,6 +226,107 @@ def test_fused_engine_on_card_reaches_cpu_optimum(cuda, knob):
             "fused_round": (rounds, 0, 0, rounds, rounds),
             "pipeline_rounds": (rounds, 0, rounds + 1, 0, 0)}[knob]
     assert tuple(fn.launches for fn in counters) == want
+
+    def obj(r):
+        a, f = r.alpha.astype(np.float64), r.stats["f"].astype(np.float64)
+        return float(a.sum() - 0.5 * np.sum(a * y * (f + y)))
+
+    assert abs(obj(rg) - obj(rc)) <= 1e-4 * abs(obj(rc))
+    assert abs(rg.n_sv - rc.n_sv) <= 0.02 * rc.n_sv
+
+
+def _ulp_scale(f, scalars, k_hi, k_lo):
+    """|f'| plus the two update terms' magnitudes: the scale an ulp of
+    exp (or of one rounding) in either kernel value moves f' by."""
+    return (f.abs() + (scalars[0] * k_hi).abs()
+            + (scalars[1] * k_lo).abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rbf", "linear", "poly", "sigmoid"])
+@pytest.mark.parametrize("rows", [1, 37, 512])
+def test_fused_update_kernel_matches_plain(cuda, rows, kind):
+    """B6 against its plain version on the same CUDA tensors: f' within
+    two ulps of the update's scale (expf / tanhf / powf built with
+    -fmad=false may differ from torch's by an ulp); the extrema and ids
+    exactly those the plain reduction gives from the kernel's own f'."""
+    f, _, alpha, y, valid, _ = _views(cuda, rows, rows + 5, c=(2.0, 0.5))
+    rng = np.random.default_rng(rows)
+    shp = f.shape
+    d_hi, d_lo = (torch.as_tensor(rng.normal(size=shp).astype(np.float32),
+                                  device=cuda) for _ in range(2))
+    x_sq = torch.as_tensor(np.abs(rng.normal(size=shp)).astype(np.float32)
+                           * 3, device=cuda)
+    scalars = torch.tensor([0.37, -0.21, 1.3, 0.8], device=cuda)
+    kp = KernelParams(kind, 0.3, 3, 0.5)
+    c = (2.0, 0.5)
+    tfu.fused_update_select.launches = 0
+    got = tfu.fused_update_select(f, alpha, y, valid, d_hi, d_lo, x_sq,
+                                  scalars, kp, c)
+    want = tfu._fused_update_select(f, alpha, y, valid, d_hi, d_lo, x_sq,
+                                    scalars, kp, c)
+    torch.cuda.synchronize()
+    assert tfu.fused_update_select.launches == 1
+    scale = _ulp_scale(f, scalars,
+                       kernel_from_dots(d_hi, x_sq, scalars[2], kp),
+                       kernel_from_dots(d_lo, x_sq, scalars[3], kp))
+    assert bool(((got[0] - want[0]).abs() <= 2.0 ** -22 * scale).all())
+    own = tfu.reduce_candidates(*tfs.emit_row_candidates(got[0], alpha, y,
+                                                         valid, c))
+    assert all(_same_bits(g, w) for g, w in zip(got[1:], own))
+
+
+@pytest.mark.cuda
+def test_fused_update_kernel_ties_and_empty_sets(cuda):
+    """Equal extrema in different blocks go to the lowest flat id, +-0
+    ties report -0.0 (min) / +0.0 (max), and a set with no member
+    reports +-inf with id 0 -- the rules of the plain version."""
+    rows = 64
+    shp = (rows, 128)
+    z = torch.zeros(shp, device=cuda)
+    f = torch.zeros(shp, device=cuda)
+    f.view(-1)[5000] = -0.0
+    f.view(-1)[3] = 0.0
+    alpha = torch.full(shp, 0.5, device=cuda)
+    y = torch.ones(shp, device=cuda)
+    valid = torch.ones(shp, device=cuda)
+    kp = KernelParams("linear")
+    sc = torch.zeros(4, device=cuda)
+    got = tfu.fused_update_select(f, alpha, y, valid, z, z, z, sc, kp, 1.0)
+    want = tfu._fused_update_select(f, alpha, y, valid, z, z, z, sc, kp, 1.0)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert int(got[2]) == 0 and int(got[4]) == 0
+    got = tfu.fused_update_select(f, alpha, y, torch.zeros_like(valid), z,
+                                  z, z, sc, kp, 1.0)
+    assert (float(got[1]), int(got[2]), float(got[3]), int(got[4])) == (
+        float("inf"), 0, -float("inf"), 0)
+
+
+PER_PAIR = [dict(engine="xla"), dict(engine="xla", gram_resident=True),
+            dict(engine="xla", cache_lines=64),
+            dict(engine="xla", selection="second_order", cache_lines=64),
+            dict(engine="xla", pair_batch=8),
+            dict(engine="xla", compensated=True),
+            dict(engine="pallas"), dict(engine="pallas", cache_lines=64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", PER_PAIR,
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
+def test_per_pair_engine_on_card_reaches_cpu_optimum(cuda, kw):
+    """Each per-pair variant on the card converges to the optimum of the
+    same variant on the CPU: dual objective within rel 1e-4, SVs within
+    2%; engine="pallas" launches B6 once per pair update."""
+    x, y = make_blobs_binary(n=3000, d=24, seed=11, sep=1.0)
+    cfg = SVMConfig(c=1.0, gamma=0.1, **kw)
+    tfu.fused_update_select.launches = 0
+    rg = solve(x, y, cfg)
+    launches = tfu.fused_update_select.launches
+    rc = solve(x, y, cfg, device="cpu")
+    assert rg.converged and rc.converged
+    assert launches == (rg.iterations if kw["engine"] == "pallas" else 0)
+    assert rg.stats["gram_resident"] == bool(kw.get("gram_resident"))
 
     def obj(r):
         a, f = r.alpha.astype(np.float64), r.stats["f"].astype(np.float64)

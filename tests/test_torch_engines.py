@@ -195,6 +195,22 @@ def test_pipelined_pallas_select_chunk_matches_jax(blobs_small):
     assert abs(obj(ta, tf) - obj(ja, jf)) <= 1e-4 * abs(obj(ja, jf))
 
 
+@pytest.mark.parametrize("knob", ["fused_fold", "fused_round"])
+def test_fused_engines_at_a_whole_number_of_tiles(knob):
+    """n = 1024 needs no padding rows, but the fused engines still carry
+    their `valid` mask: the same optimum as the plain engine."""
+    from dpsvm_tpu.data.synth import make_blobs_binary
+
+    x, y = make_blobs_binary(n=1024, d=6, seed=2, sep=1.5)
+    cfg = SVMConfig(**BASE, working_set_size=16)
+    rf = solve(x, y, cfg.replace(**{knob: True}), device="cpu")
+    rp = solve(x, y, cfg, device="cpu")
+    assert rf.stats[knob] and rf.stats["n_pad"] == 1024
+    assert rf.converged and rp.converged
+    assert abs(_dual_obj(rf, y) - _dual_obj(rp, y)) <= 1e-4 * abs(
+        _dual_obj(rp, y))
+
+
 def test_small_n_falls_back_to_the_plain_engine():
     """q/2 > n_pad/128: every slot cannot find a per-row candidate, so
     the plain engine runs even with the knobs forced on, as in JAX."""

@@ -50,7 +50,9 @@ def test_scan_covers_the_package():
     assert len(srcs) >= 15
     names = {os.path.relpath(p, ROOT) for p in srcs}
     assert "chip_smoke.py" in names
-    assert os.path.join("dpsvm_tpu_torch", "ops", "subproblem.py") in names
+    for mod in (("ops", "subproblem.py"), ("ops", "fused_update.py"),
+                ("solver", "cache.py"), ("solver", "smo.py")):
+        assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -125,7 +125,8 @@ def test_cli_refuses_unported_engine(tmp_path, capsys):
     csv = str(tmp_path / "d.csv")
     save_csv(csv, x, y)
     rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
-                   "--device", "cpu"])
+                   "--engine", "block", "--pair-batch", "2", "--device",
+                   "cpu"])
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err
 
