@@ -9,8 +9,8 @@ result line is printed:
   1. device  -- the card's name and power limit (nvidia-smi); no CUDA
                 device is a failure;
   2. build   -- every kernel built from csrc/ with nvcc (subproblem.cu,
-                fold_select.cu, gather_gram.cu, fused_update.cu; one nvcc
-                each, in parallel);
+                fold_select.cu, gather_gram.cu, fused_update.cu, ring.cu;
+                one nvcc each, in parallel);
   3. headline -- the block-engine headline configuration (c=10,
                 gamma=0.125, eps=0.01, q=256, bfloat16 X) on the 60000 x
                 784 MNIST-shaped data, trained through dpsvm_tpu_torch.train
@@ -20,7 +20,8 @@ result line is printed:
   4. kernels -- each kernel held against its plain PyTorch version on the
                 card. B1 on working sets that select_block picks from the
                 same data at the start point and at the headline's end
-                state (q = 128 and 256, both selection rules): same pair
+                state (q = 128 and 256, both selection rules, and mvp with
+                pair_batch 2 and 4, which must be bitwise): same pair
                 count, alpha within rtol 1e-6 / atol 1e-7. B2-B5 on a real
                 round's inputs at the headline shapes (n_pad 60416, q 256)
                 at the same two states, for float32 and bfloat16 X and
@@ -55,7 +56,32 @@ result line is printed:
                 linear: f' within 2 ulps of the update's scale, extrema
                 and ids exactly those the plain reduction gives from the
                 kernel's own f'; kernel and plain times with L2 flushed;
-  8. oracle  -- float32 at eps=5e-4 against the committed LibSVM oracle
+  8. ring    -- kernels B7 and B8 on logical shards of the card. B7
+                (ring_gather) at P = 2, 4, 8 on seeded (256, 792) blocks:
+                every rank's output bitwise torch.stack(blocks), twice in a
+                row on the same flag words. B8 (ring_fold_window) at P = 2, 4
+                and R = 1, 2 with q = 256, d = 784, n_loc = 60000 / P, X in
+                bfloat16 and float32, rbf and linear, plain and
+                compensated, on the windows real local rounds produce from
+                a mid-solve state: the gathered windows bitwise the stack,
+                f' (less err') held against the fold carried in float64:
+                off it by no more than rtol 1e-6 plus 2e-6 of the
+                contraction's absolute sum plus 4 times the largest error
+                of the float32 plain version against the same yardstick; a
+                window of zero coefs leaves f bitwise. Both timed with L2
+                flushed, beside the plain version and the library calls;
+  9. mesh    -- the headline on Mesh([cuda:0] * 4), four logical shards of
+                the card, each run with every count set to 0 just before:
+                (a) the global runner with ring_exchange=False, (b) with
+                ring_exchange=True (B1 and B7 once a round),
+                (c) local_working_sets=4, sync_rounds=2, ring_exchange=True
+                (B1 per shard per local round, B8 once a sync, then the
+                demotion to the global runner). Each converges; (a) and
+                (b) take the same pairs and rounds and give bitwise the
+                same alpha; the launch counts are those the loops derive;
+ 10. mesh oracle -- run (b) at the oracle configuration: the oracle
+                contract of phase 11;
+ 11. oracle  -- float32 at eps=5e-4 against the committed LibSVM oracle
                 (artifacts/oracle60k.{json,npz}), with the plain engine,
                 fused_round=True, engine="xla" and engine="pallas":
                 converged, SV count within 3% of the oracle's,
@@ -82,7 +108,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
-SOURCES = ("subproblem", "fold_select", "gather_gram", "fused_update")
+SOURCES = ("subproblem", "fold_select", "gather_gram", "fused_update",
+           "ring")
 
 HEADLINE = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=150_000,
                 engine="block", working_set_size=256, dtype="bfloat16")
@@ -146,8 +173,9 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 
 
 def counters() -> dict:
-    """Every kernel wrapper of the port by kernel name (B1-B6)."""
+    """Every kernel wrapper of the port by kernel name (B1-B8)."""
     from dpsvm_tpu_torch.ops import fold_select as fs
+    from dpsvm_tpu_torch.ops import ring
     from dpsvm_tpu_torch.ops import round as rnd
     from dpsvm_tpu_torch.ops.fused_update import fused_update_select
     from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
@@ -156,7 +184,9 @@ def counters() -> dict:
             "fold_select": fs.fold_select, "select_rows": fs.select_rows,
             "gather_gram": rnd.gather_gram,
             "fold_rows_select": rnd.fold_rows_select,
-            "fused_update_select": fused_update_select}
+            "fused_update_select": fused_update_select,
+            "ring_gather": ring.ring_gather,
+            "ring_fold_window": ring.ring_fold_window}
 
 
 def reset_counts() -> None:
@@ -192,32 +222,38 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
     rec = {}
     for sname, (alpha, f, eps) in states.items():
         for q, limit in ((128, 256), (128, 512), (256, 512)):
-            for rule in ("mvp", "second_order"):
+            for rule, pb in (("mvp", 1), ("second_order", 1), ("mvp", 2),
+                             ("mvp", 4)):
                 kb, a0, yw, f0, kd, ok = subproblem_inputs(
                     x_dev, y_dev, x_sq, k_diag, alpha, f, c, q, kp)
                 lim = torch.tensor(limit, dtype=torch.int32, device=dev)
                 a_k, t_k = solve_subproblem(kb, a0, yw, f0, kd, ok, lim, c,
-                                            eps, tau, rule=rule)
+                                            eps, tau, rule=rule,
+                                            pair_batch=pb)
                 rows = set()
                 a_p, _, t_p = _solve_subproblem(kb, kd, ok > 0, a0, yw, f0,
-                                                c, eps, tau, limit, rule,
+                                                c, eps, tau, limit, rule, pb,
                                                 rows_read=rows)
                 t_k, t_p = int(t_k), int(t_p)
                 err = float((a_k - a_p).abs().max())
                 worst = max(worst, err)
                 if t_k != t_p:
                     raise AssertionError(
-                        f"{sname} q={q} {rule}: kernel ran {t_k} pairs, "
-                        f"plain {t_p}")
+                        f"{sname} q={q} {rule} pair_batch={pb}: kernel ran "
+                        f"{t_k} pairs, plain {t_p}")
                 np.testing.assert_allclose(a_k.cpu().numpy(),
                                            a_p.cpu().numpy(),
                                            rtol=RTOL, atol=ATOL)
+                if pb > 1 and not same_bits(a_k, a_p):
+                    raise AssertionError(
+                        f"{sname} q={q} pair_batch={pb}: the kernel's alpha "
+                        "is not bitwise its plain version's")
                 ms = time_ms(functools.partial(
                     solve_subproblem, kb, a0, yw, f0, kd, ok, lim, c, eps,
-                    tau, rule=rule), reps)
+                    tau, rule=rule, pair_batch=pb), reps)
                 plain_ms = time_ms(functools.partial(
                     _solve_subproblem, kb, kd, ok > 0, a0, yw, f0, c, eps,
-                    tau, limit, rule), 1)
+                    tau, limit, rule, pb), 1)
                 # Least time for the same work: each distinct Gram row the
                 # solve reads (once; the kernel re-reads them from L2),
                 # five vectors in and alpha out, over the device memory
@@ -230,12 +266,14 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
                 bound_ms = max(bytes_ms, ops_ms)
                 bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
                 print(f"[kernels] subproblem {sname} q={q} limit={limit} "
-                      f"{rule}: pairs={t_k} rows_read={len(rows)} "
+                      f"{rule} pair_batch={pb}: pairs={t_k} "
+                      f"rows_read={len(rows)} "
                       f"max_abs_err={err:.3g} ms={ms:.4f} "
                       f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} "
                       f"({bound_by}) us_per_pair="
                       f"{1e3 * ms / max(t_k, 1):.3f}", flush=True)
-                if (sname, q, limit, rule) == ("start", 256, 512, "mvp"):
+                if (sname, q, limit, rule, pb) == ("start", 256, 512, "mvp",
+                                                   1):
                     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, serial_trips=t_k)
     rec["max_abs_err"] = worst
@@ -713,6 +751,323 @@ def phase_b6(x, y, valid, states: dict, c, tau, reps: int) -> dict:
     return rec
 
 
+def phase_ring_gather(dev, reps: int) -> dict:
+    """Kernel B7 on P logical shards of the card at the headline block
+    shape (2h = 256 rows of d + 5 + 3 = 792 lanes): every rank's output
+    bitwise torch.stack(blocks), twice in a row on the same flag words
+    (they carry the call's sequence number). Timed at P = 4 against the
+    plain version and the library's stack plus one copy per further rank.
+    Returns the JSON record's measured fields."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import ring
+
+    shape = (256, 792)
+    rec = {}
+    for p_dev in (2, 4, 8):
+        g = torch.Generator(device="cpu").manual_seed(100 + p_dev)
+        blocks = [torch.randn(shape, generator=g).to(dev)
+                  for _ in range(p_dev)]
+        err = 0.0
+        for call in (1, 2):
+            got = ring.ring_gather(blocks)
+            torch.cuda.synchronize()
+            want = torch.stack(blocks)
+            err = max(err, *(float((r - want).abs().max()) for r in got))
+            if not all(same_bits(r, want) for r in got):
+                raise AssertionError(f"ring_gather P={p_dev} call {call}: a "
+                                     "rank's output is not the stack")
+            blocks = [b * 2.0 + 1.0 for b in blocks]
+
+        def library():
+            first = torch.stack(blocks)
+            return [first] + [first.clone() for _ in range(p_dev - 1)]
+
+        ms = time_cold_ms(functools.partial(ring.ring_gather, blocks), reps)
+        plain_ms = time_cold_ms(functools.partial(ring.ring_gather_plain,
+                                                  blocks), reps)
+        lib_ms = time_cold_ms(library, reps)
+        # P blocks read once, P ranks' (P, L, lanes) outputs written once.
+        nbytes = 4 * shape[0] * shape[1] * (p_dev + p_dev * p_dev)
+        b_ms, b_by = bound(nbytes, 0, F32_FLOPS)
+        print(f"[kernels] ring_gather P={p_dev} blocks {shape}: bitwise the "
+              f"stack on both calls (max abs err {err:g}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
+        if p_dev == 4:
+            rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return rec
+
+
+def shard_rows(a, p_dev: int) -> list:
+    """a (n, ...) on the card cut into P equal row shards (views)."""
+    n_loc = a.shape[0] // p_dev
+    return [a[r * n_loc:(r + 1) * n_loc].contiguous() for r in range(p_dev)]
+
+
+def phase_ring_fold(x_f32, x_bf16, y_dev, c, tau, q: int, reps: int) -> dict:
+    """Kernel B8 on P logical shards against its plain version, on the
+    windows that R real local rounds per shard produce from a mid-solve
+    state (20 global mesh rounds from the start point). Returns the JSON
+    record's measured fields, timed at P = 4, R = 1, bfloat16 X, rbf."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import ring
+    from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
+                                             kernel_rows, mm_f32,
+                                             squared_norms)
+    from dpsvm_tpu_torch.parallel.dist_block import (MeshBlockState,
+                                                     make_block_chunk_runner)
+    from dpsvm_tpu_torch.parallel.mesh import Mesh
+    from dpsvm_tpu_torch.solver.block import run_local_round
+
+    dev = y_dev.device
+    d = x_f32.shape[1]
+    eps, inner = 0.01, 2 * q
+    rec, worst = {}, 0.0
+    for p_dev in (2, 4):
+        mesh = Mesh([dev] * p_dev)
+        y_s = shard_rows(y_dev, p_dev)
+        valid = [torch.ones_like(t, dtype=torch.bool) for t in y_s]
+        for dname, x_all in (("bfloat16", x_bf16), ("float32", x_f32)):
+            x_s = shard_rows(x_all, p_dev)
+            x_sq = [squared_norms(t) for t in x_s]
+            for kind in ("rbf", "linear"):
+                kp = KernelParams(kind, 0.125)
+                cc = c
+                k_diag = [kernel_diag(s, kp) for s in x_sq]
+                zero = [torch.zeros((), dtype=torch.int32, device=dev)]
+                st = MeshBlockState(
+                    [torch.zeros_like(t) for t in y_s], [-t for t in y_s],
+                    [torch.tensor(-float("inf"), device=dev)],
+                    [torch.tensor(float("inf"), device=dev)], zero, zero)
+                st = make_block_chunk_runner(
+                    mesh, kp, cc, eps, tau, q, inner, 20)(
+                        x_s, y_s, x_sq, k_diag, valid, st, 10 ** 6)
+                for r_sync in (1, 2):
+                    for comp in (False, True):
+                        pends, fs, errs = [], [], ([] if comp else None)
+                        budget = torch.tensor(10 ** 6, dtype=torch.int32,
+                                              device=dev)
+                        for r in range(p_dev):
+                            a_r, f_r = st.alpha[r], st.f[r]
+                            e_r = torch.zeros_like(f_r) if comp else None
+                            blks = []
+                            for _ in range(r_sync):
+                                (a_r, f_r, e_r, _, _, t, coef, qx,
+                                 qsq) = run_local_round(
+                                    x_s[r], y_s[r], x_sq[r], k_diag[r],
+                                    valid[r], a_r, f_r, e_r, budget, kp, cc,
+                                    eps, tau, q, inner, "mvp")
+                                tcol = torch.zeros(q, device=dev)
+                                tcol[0] = t.float()
+                                blks.append(torch.cat(
+                                    [qx.float(), qsq[:, None], coef[:, None],
+                                     tcol[:, None]], dim=1))
+                            pends.append(torch.cat(blks))
+                            fs.append(f_r)
+                            if comp:
+                                errs.append(e_r)
+                        args = (pends, x_s, x_sq, fs, errs, kp)
+                        gath, f_k, e_k = ring.ring_fold_window(*args)
+                        torch.cuda.synchronize()
+                        _, f_p, e_p = ring.ring_fold_window_plain(*args)
+                        want_g = torch.stack(pends)
+                        # The kernel and the library sum each dot and the
+                        # contraction in their own orders, so both are held
+                        # against the fold carried in float64: the kernel
+                        # may be off it by rtol 1e-6, 2e-6 of the
+                        # contraction's absolute sum, and 4 times the
+                        # largest error the plain version itself makes.
+                        df_max, dp_max, tol_max = 0.0, 0.0, 0.0
+                        bitwise, live = True, 0
+                        for r in range(p_dev):
+                            if not same_bits(gath[r], want_g):
+                                raise AssertionError(
+                                    f"ring_fold_window P={p_dev}: rank {r}'s "
+                                    "gathered windows are not the stack")
+                            scale = torch.zeros_like(fs[r])
+                            for i in range(p_dev - 1):
+                                blk = want_g[(r + 1 + i) % p_dev]
+                                live += int((blk[:, d + 1] != 0).sum())
+                                scale += blk[:, d + 1].abs() @ kernel_rows(
+                                    x_s[r], x_sq[r],
+                                    blk[:, :d].to(x_s[r].dtype), blk[:, d],
+                                    kp).abs()
+                            ref = ring.fold_window_peers_f64(
+                                want_g, r, x_s[r], x_sq[r], fs[r],
+                                errs[r] if comp else None, kp)
+                            got, plain = f_k[r].double(), f_p[r].double()
+                            if comp:
+                                got = got - e_k[r].double()
+                                plain = plain - e_p[r].double()
+                            dp = float((plain - ref).abs().max())
+                            tol = 1e-6 * ref.abs() + 2e-6 * scale + 4 * dp
+                            df = (got - ref).abs()
+                            df_max = max(df_max, float(df.max()))
+                            dp_max = max(dp_max, dp)
+                            worst = max(worst,
+                                        float((got - plain).abs().max()))
+                            tol_max = max(tol_max, float(tol.max()))
+                            if not bool((df <= tol).all()):
+                                raise AssertionError(
+                                    f"ring_fold_window P={p_dev} R={r_sync} "
+                                    f"{dname} {kind} comp={comp}: f' off the "
+                                    f"float64 fold by {float(df.max()):.3g}, "
+                                    f"the plain version by {dp:.3g}")
+                            bitwise &= same_bits(f_k[r], f_p[r])
+                        print(f"[kernels] ring_fold_window P={p_dev} "
+                              f"R={r_sync} {dname} {kind} comp={comp}: "
+                              f"gathered bitwise; live coefs {live}; against "
+                              f"the float64 fold max|df'|={df_max:.3g} "
+                              f"(plain version {dp_max:.3g}; largest "
+                              f"tolerance {tol_max:.3g} = rtol 1e-6 + 2e-6 "
+                              f"|coef| @ |K| + 4 x the plain version's); f' "
+                              f"bitwise the plain version={bitwise}",
+                              flush=True)
+                        if live == 0:
+                            raise AssertionError("the windows carry no "
+                                                 "update: not a mid-solve "
+                                                 "state")
+                        if comp:
+                            continue
+                        # A window of zero coefs folds nothing.
+                        dead = [p.clone() for p in pends]
+                        for p in dead:
+                            p[:, d + 1] = 0.0
+                        _, f_z, _ = ring.ring_fold_window(dead, x_s, x_sq,
+                                                          fs, None, kp)
+                        if not all(same_bits(a, b) for a, b in zip(f_z, fs)):
+                            raise AssertionError(
+                                "ring_fold_window: a zero-coef window "
+                                "changed f")
+                        if (r_sync, kind) != (1, "rbf") or p_dev != 4:
+                            continue
+                        rq, n_loc = q * r_sync, x_s[0].shape[0]
+                        esz = x_s[0].element_size()
+                        win = 4 * rq * (d + 3)
+                        nbytes = (p_dev * win + p_dev * p_dev * win
+                                  + p_dev * n_loc * (d * esz + 4 * 3))
+                        flops = p_dev * (p_dev - 1) * 2 * rq * d * n_loc
+                        b_ms, b_by = bound(
+                            nbytes, flops,
+                            BF16_FLOPS if esz == 2 else F32_FLOPS)
+
+                        def library():
+                            # The products of the plain fold: per rank and
+                            # peer, rows @ x_loc^T and coef @ K.
+                            for r in range(p_dev):
+                                for i in range(p_dev - 1):
+                                    blk = want_g[(r + 1 + i) % p_dev]
+                                    k = mm_f32(blk[:, :d].to(x_s[r].dtype),
+                                               x_s[r].t())
+                                    blk[:, d + 1] @ k
+
+                        ms = time_cold_ms(functools.partial(
+                            ring.ring_fold_window, *args), reps)
+                        plain_ms = time_cold_ms(functools.partial(
+                            ring.ring_fold_window_plain, *args), reps)
+                        lib_ms = time_cold_ms(library, reps)
+                        print(f"[kernels] ring_fold_window timed (P=4, R=1, "
+                              f"n_loc {n_loc}, {dname}): ms={ms:.4f} "
+                              f"plain_ms={plain_ms:.4f} library_ms="
+                              f"{lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
+                              f"{flops / 1e9:.1f} GFLOP, "
+                              f"{nbytes / 1e6:.1f} MB)", flush=True)
+                        if dname == "bfloat16":
+                            rec = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+    rec["max_abs_err"] = worst  # kernel against the float32 plain version
+    return rec
+
+
+MESH_RUNS = (
+    ("a global", dict(ring_exchange=False)),
+    ("b global ring", dict(ring_exchange=True)),
+    ("c shardlocal ring", dict(local_working_sets=4, sync_rounds=2,
+                               ring_exchange=True)),
+)
+
+
+def train_mesh_counted(x, y, cfg, mesh, label: str) -> tuple:
+    """Train on the mesh with every launch count set to 0 just before and
+    read just after: it must converge and launch what its loops derive.
+    Global rounds: B1 once a round (replicated values are computed once a
+    device), B7 once a round with the ring. Shard-local rounds: B1 once a
+    shard and local round, B8 once a sync. Returns (model, result,
+    counts)."""
+    from dpsvm_tpu_torch import train
+
+    reset_counts()
+    model, res = train(x, y, cfg, backend="mesh", mesh=mesh)
+    counts = read_counts()
+    st = res.stats
+    rounds = st["outer_rounds"]
+    syncs = st.get("shardlocal_syncs", 0)
+    local = syncs * cfg.sync_rounds
+    expect = {k: 0 for k in counts}
+    expect["solve_subproblem"] = mesh.size * local + (rounds - local)
+    if st.get("ring_exchange"):
+        expect["ring_gather"] = rounds - local
+        expect["ring_fold_window"] = syncs
+    print(f"[mesh] {label}: devices={st['mesh_devices']} "
+          f"converged={res.converged} pairs={res.iterations} "
+          f"outer_rounds={rounds} syncs={syncs} demoted="
+          f"{st.get('shardlocal_demotion', 'none')} "
+          f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
+          f"b={res.b:.6f} launches={counts}", flush=True)
+    if not res.converged:
+        raise AssertionError(f"mesh run {label} did not converge")
+    if counts != expect or rounds == 0:
+        raise AssertionError(f"mesh run {label}: launches {counts}, "
+                             f"expected {expect}")
+    return model, res, counts
+
+
+def phase_mesh(x, y, cfg, dev) -> tuple:
+    """The headline on four logical shards of the card. Returns
+    ({kernel: launches}, the mesh)."""
+    from dpsvm_tpu_torch import train
+    from dpsvm_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([dev] * 4)
+    if mesh.describe() != ["cuda:0"] * 4:
+        raise AssertionError(f"the mesh is {mesh.describe()}, not four "
+                             "logical shards of cuda:0")
+    t0 = time.perf_counter()
+    for _, kw in MESH_RUNS:
+        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **kw),
+              backend="mesh", mesh=mesh)
+    print(f"[mesh] warm-up solves on 16384 rows in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    results = {}
+    launches = {}
+    for label, kw in MESH_RUNS:
+        _, res, counts = train_mesh_counted(x, y, cfg.replace(**kw), mesh,
+                                            label)
+        results[label[0]] = res
+        for name in ("ring_gather", "ring_fold_window"):
+            if counts[name]:
+                launches.setdefault(name, counts[name])
+    a, b, c_run = results["a"], results["b"], results["c"]
+    same = (a.iterations == b.iterations
+            and a.stats["outer_rounds"] == b.stats["outer_rounds"]
+            and np.array_equal(a.alpha.view(np.uint32),
+                               b.alpha.view(np.uint32)))
+    print(f"[mesh] ring on == ring off: pairs, rounds and alpha bitwise="
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("the ring exchange changed the global runner's "
+                             "trajectory")
+    if not c_run.stats["shardlocal_syncs"] > 0:
+        raise AssertionError("the shard-local run made no sync")
+    if set(launches) != {"ring_gather", "ring_fold_window"}:
+        raise AssertionError(f"the mesh runs launched {launches}")
+    return launches, mesh
+
+
 def main() -> int:
     import torch
 
@@ -726,6 +1081,12 @@ def main() -> int:
     from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                              squared_norms)
     from dpsvm_tpu_torch.solver.smo import init_state
+
+    t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"[time] {phase} done at "
+              f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # ---- 1. device
     smi = subprocess.run(
@@ -794,6 +1155,8 @@ def main() -> int:
     del xs, padded
     stages = {"plain": phase_stages(x, y, cfg, PLAIN_STAGES, "headline")}
 
+    lap("headline, kernels B1-B5, stages")
+
     # ---- 5. the fused engines on the headline
     for knob, want in ENGINES.items():
         _, eres, counts = train_counted(x, y, cfg.replace(**{knob: True}),
@@ -809,6 +1172,8 @@ def main() -> int:
     stages["fused_round"] = phase_stages(
         x, y, cfg.replace(fused_round=True), FUSED_ROUND_STAGES,
         "fused_round")
+
+    lap("fused engines")
 
     # ---- 6. the per-pair engines on the headline
     t0 = time.perf_counter()
@@ -844,11 +1209,38 @@ def main() -> int:
                          pad_rows(f_pp, n_pad6, -1.0))},
         c, tau, reps=20)
 
-    # ---- 8. oracle
+    lap("per-pair engines, B6")
+
+    # ---- 8. the ring kernels on logical shards
+    rec["ring_gather"] = phase_ring_gather(dev, reps=20)
+    x_f32 = torch.as_tensor(x, device=dev)
+    rec["ring_fold_window"] = phase_ring_fold(x_f32, x_dev, y_dev, c, tau, q,
+                                              reps=5)
+    del x_f32
+
+    lap("ring kernels B7, B8")
+
+    # ---- 9. the mesh block engines on four logical shards
+    mesh_launches, mesh = phase_mesh(x, y, cfg, dev)
+    launches.update(mesh_launches)
+
+    lap("mesh runs")
+
+    # ---- 10, 11. oracle
     with open(os.path.join(ROOT, "artifacts", "oracle60k.json")) as fh:
         oracle = json.load(fh)
     with np.load(os.path.join(ROOT, "artifacts", "oracle60k.npz")) as z:
         sk_dec = np.asarray(z["dec"])
+    reset_counts()
+    model, ores = train(x, y, SVMConfig(**ORACLE_RUN, ring_exchange=True),
+                        backend="mesh", mesh=mesh)
+    counts = read_counts()
+    if not (counts["ring_gather"] == counts["solve_subproblem"]
+            == ores.stats["outer_rounds"] > 0):
+        raise AssertionError(f"mesh oracle: launches {counts} over "
+                             f"{ores.stats['outer_rounds']} rounds")
+    check_oracle(model, ores, x, oracle, sk_dec,
+                 f"mesh {ores.stats['mesh_devices']} ring")
     for label, kw in ORACLE_ENGINES:  # the plain model is saved below
         model, ores = train(x, y, SVMConfig(**{**ORACLE_RUN, **kw}))
         dec = check_oracle(model, ores, x, oracle, sk_dec, label)
@@ -876,6 +1268,8 @@ def main() -> int:
                              "dpsvm_tpu/ops/pallas_round.py:234"),
         "fused_update_select": ("fused_update.cu",
                                 "dpsvm_tpu/ops/pallas_fused.py:105"),
+        "ring_gather": ("ring.cu", "dpsvm_tpu/ops/ring.py:139"),
+        "ring_fold_window": ("ring.cu", "dpsvm_tpu/ops/ring.py:241"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -889,6 +1283,7 @@ def main() -> int:
             "library_ms": r.get("library_ms"),
             **({"serial_trips": r["serial_trips"]}
                if "serial_trips" in r else {})})
+    lap("oracle runs")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

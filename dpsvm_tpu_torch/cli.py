@@ -3,7 +3,8 @@ of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
 
 Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
-        -g 0.125 [--engine xla|pallas|block]
+        -g 0.125 [--engine xla|pallas|block] [--backend mesh \
+        --num-devices 4 --ring-exchange on]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt
 """
 
@@ -69,8 +70,37 @@ def _build_parser() -> argparse.ArgumentParser:
                         "round's Gram block from the pre-fold gradient "
                         "(stale selection, exact updates; "
                         "SVMConfig.pipeline_rounds). auto = off")
+    p.add_argument("--local-working-sets", type=int, default=0,
+                   help="mesh block engine: 0 = auto (off), 1 = one "
+                        "global working set per round, >= 2 = shard-"
+                        "parallel working sets: every shard solves a "
+                        "subproblem selected from its OWN rows, "
+                        "reconciling at syncs, with an endgame demotion "
+                        "to the exact global runner "
+                        "(SVMConfig.local_working_sets)")
+    p.add_argument("--sync-rounds", type=int, default=1,
+                   help="shard-parallel working sets: local rounds "
+                        "between cross-shard syncs (needs "
+                        "--local-working-sets >= 2; default 1)")
+    p.add_argument("--ring-exchange", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="mesh block engine: route the candidate exchange "
+                        "and the shard-local sync through the ring "
+                        "kernels (ops/ring.py); bit-identical "
+                        "trajectories (SVMConfig.ring_exchange). auto = "
+                        "off")
+    p.add_argument("--backend", choices=["auto", "single", "mesh"],
+                   default="auto",
+                   help="single device, or the data mesh over the "
+                        "visible cards; auto = the mesh when more than "
+                        "one card is visible and --engine block")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="devices in the data mesh (default: all visible)")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card)")
+                   help="torch device (default: the CUDA card); with "
+                        "--backend mesh and --num-devices N, the device "
+                        "every one of the N shards lives on (N logical "
+                        "shards of it)")
 
     p = sub.add_parser("test", help="evaluate a trained model on a CSV")
     p.add_argument("-f", "--file-path", required=True)
@@ -106,19 +136,37 @@ def _cmd_train(args) -> int:
             engine=args.engine, working_set_size=args.working_set_size,
             inner_iters=args.inner_iters, dtype=args.dtype,
             fused_round=_TRI[args.fused_round],
-            pipeline_rounds=_TRI[args.pipeline_rounds])
+            pipeline_rounds=_TRI[args.pipeline_rounds],
+            local_working_sets=args.local_working_sets or None,
+            sync_rounds=args.sync_rounds,
+            ring_exchange=_TRI[args.ring_exchange])
         config.check_ported()
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    model, result = train(x, y, config, device=args.device)
+    mesh = None
+    if args.backend == "mesh" and args.device is not None:
+        from dpsvm_tpu_torch.parallel.mesh import Mesh
+
+        mesh = Mesh([args.device] * (args.num_devices or 1))
+    try:
+        model, result = train(x, y, config, backend=args.backend,
+                              device=args.device,
+                              num_devices=args.num_devices, mesh=mesh)
+    except (ValueError, NotImplementedError) as e:
+        hint = ""
+        if args.backend == "mesh" and args.device is None:
+            hint = (" (--device cuda:0 runs --num-devices logical shards of "
+                    "one card)")
+        print(f"error: {e}{hint}", file=sys.stderr)
+        return 2
     if result.converged:
         print(f"converged at iteration {result.iterations}")
     else:
         print(f"stopped at max-iter {result.iterations} without converging")
     rounds = result.stats.get("outer_rounds")
-    print(f"training took {result.train_seconds:.2f}s on "
-          f"{result.stats['device']}"
+    where = result.stats.get("mesh_devices") or result.stats["device"]
+    print(f"training took {result.train_seconds:.2f}s on {where}"
           + (f" ({rounds} rounds)" if rounds is not None else ""))
     if result.stats.get("cache_lookups"):
         print(f"cache hit rate: {result.stats['cache_hit_rate']:.4f}")

@@ -46,6 +46,16 @@ class SVMConfig:
     fused_fold: Optional[bool] = None
     fused_round: Optional[bool] = None
     pipeline_rounds: Optional[bool] = None
+    # Mesh block engine (parallel/dist_block.py). local_working_sets:
+    # None = auto (off: no H100 measurement decides it yet), 1 = one
+    # global working set a round, >= 2 = every shard selects and solves
+    # a working set from its own rows, reconciled every sync_rounds local
+    # rounds. ring_exchange: the candidate exchange (global runner) and
+    # the sync (shard-local runner) through the ring kernels of
+    # ops/ring.py; None = auto (off), bit-identical either way.
+    local_working_sets: Optional[int] = None
+    sync_rounds: int = 1
+    ring_exchange: Optional[bool] = None
     # engine="xla": hold the (n, n) float32 Gram on the device. None =
     # auto (n >= 8192 and it fits 70% of the card's memory; never on the
     # CPU).
@@ -106,6 +116,7 @@ class SVMConfig:
             raise ValueError("max_iter must fit int32")
         self._check_pair_knobs()
         self._check_round_knobs()
+        self._check_mesh_knobs()
 
     def _check_pair_knobs(self) -> None:
         """The JAX package's validation of the per-pair engines' knobs
@@ -178,6 +189,60 @@ class SVMConfig:
             if bad:
                 raise ValueError(what)
 
+    def _check_mesh_knobs(self) -> None:
+        """The JAX package's validation of local_working_sets /
+        sync_rounds / ring_exchange (dpsvm_tpu/config.py), same conditions
+        and key phrases."""
+        lws = self.local_working_sets
+        if lws is not None and lws < 1:
+            raise ValueError(
+                "local_working_sets must be None (auto), 1 (global working "
+                "set) or >= 2 (shard-parallel working sets)")
+        clashes = []
+        if lws is not None and lws >= 2:
+            clashes += [
+                (self.engine != "block",
+                 "local_working_sets >= 2 is a mesh block-engine knob; use "
+                 "engine='block'"),
+                (self.kernel == "precomputed",
+                 "local_working_sets >= 2 supports feature kernels only"),
+                (self.active_set_size > 0,
+                 "local_working_sets >= 2 does not compose with "
+                 "active_set_size — use one or the other"),
+                (bool(self.pipeline_rounds),
+                 "local_working_sets >= 2 does not compose with "
+                 "pipeline_rounds=True — use one or the other"),
+                (self.budget_mode,
+                 "local_working_sets >= 2 does not compose with "
+                 "budget_mode: P shards spend the pair budget concurrently, "
+                 "so the exact-max_iter contract cannot hold — use the "
+                 "global working set there"),
+            ]
+        if self.ring_exchange:
+            clashes += [
+                (self.engine != "block",
+                 "ring_exchange is a mesh block-engine knob; use "
+                 "engine='block'"),
+                (self.kernel == "precomputed",
+                 "ring_exchange supports feature kernels only"),
+                (self.ooc, "ring_exchange does not compose with ooc"),
+                (self.active_set_size > 0,
+                 "ring_exchange does not compose with active_set_size — use "
+                 "one or the other"),
+                (bool(self.fused_fold),
+                 "ring_exchange does not compose with fused_fold=True — use "
+                 "one or the other"),
+            ]
+        for bad, what in clashes:
+            if bad:
+                raise ValueError(what)
+        if self.sync_rounds < 1:
+            raise ValueError("sync_rounds must be >= 1")
+        if self.sync_rounds > 1 and (lws is None or lws < 2):
+            raise ValueError(
+                "sync_rounds > 1 amortizes the shard-local engine's sync "
+                "collectives; it needs local_working_sets >= 2")
+
     def check_ported(self) -> None:
         """Raise NotImplementedError for any knob set to a value whose
         engine the port does not have yet; the message names the
@@ -185,9 +250,6 @@ class SVMConfig:
         unported = (
             (self.selection == "nu",
              "selection='nu' (nu duals: ROADMAP queue A item 7)"),
-            (self.pair_batch > 1 and self.engine == "block",
-             "pair_batch>1 on engine='block' (the block subproblem's "
-             "pair batch: ROADMAP queue A item 5b)"),
             (self.active_set_size > 0,
              "active_set_size>0 (the active-set engine: ROADMAP queue A "
              "item 4)"),

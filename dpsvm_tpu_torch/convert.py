@@ -47,3 +47,31 @@ def block_state_from_reference(st, device) -> BlockState:
         pairs=scalar(st.pairs, torch.int32),
         rounds=scalar(st.rounds, torch.int32),
         f_err=None if st.f_err is None else vec(st.f_err))
+
+
+def shard_state(alpha, f, f_err, mesh) -> tuple:
+    """A solver state of n_pad rows (JAX or numpy arrays; n_pad divisible
+    by the mesh's size) as the port's per-shard lists: (alpha, f, f_err),
+    each a list of P float32 tensors, shard r on mesh.devices[r]; f_err
+    None when not carried."""
+    def cut(a):
+        if a is None:
+            return None
+        a = np.asarray(a, np.float32)
+        if a.shape[0] % mesh.size:
+            raise ValueError(f"{a.shape[0]} rows do not divide over "
+                             f"{mesh.size} shards")
+        n_loc = a.shape[0] // mesh.size
+        return [torch.tensor(a[r * n_loc:(r + 1) * n_loc], device=dev)
+                for r, dev in enumerate(mesh.devices)]
+
+    return cut(alpha), cut(f), cut(f_err)
+
+
+def unshard_state(alpha, f, f_err=None) -> tuple:
+    """The per-shard lists back as host arrays of n_pad rows:
+    (alpha, f, f_err or None)."""
+    from dpsvm_tpu_torch.parallel.mesh import unshard
+
+    return (unshard(alpha), unshard(f),
+            None if f_err is None else unshard(f_err))

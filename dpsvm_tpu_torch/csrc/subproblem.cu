@@ -6,7 +6,13 @@
 // argmin f over I_up and argmax f over I_low (lowest slot wins ties), or
 // LibSVM's WSS2 partner by second-order gain; the pair_alpha_update
 // algebra; f_W += dalpha * y * K(W, W) rows. Stops when the local gap
-// b_lo <= b_hi + 2 eps or after `limit` pairs.
+// b_lo <= b_hi + 2 eps or after `limit` pairs. With pair_batch 2 or 4 (rule
+// mvp) a trip goes on to pair_batch - 1 further coordinate-disjoint pairs:
+// each is SELECTED by rank from the trip's pre-update f over I_up / I_low
+// with the earlier pairs' slots excluded (stale), and UPDATED exactly from
+// the current f_W. An attempted slot counts while the budget lasts even
+// when its update is gated to a no-op (empty stale set, or the corrected
+// pair no longer violating: the margin-free b_lo > b_hi gate).
 //
 // What bounds it on this card: not bytes and not arithmetic. Each trip
 // moves two Gram rows (2 * q * 4 bytes) and does O(q) flops; what it
@@ -18,7 +24,7 @@
 // state (alpha, f, y, kd, ok) lives in registers, each thread owning
 // slots tid, tid + blockDim, ... so any q up to 4096 works. Each
 // reduction is warp shuffles, then one shared-memory slot per warp that
-// every thread reads and reduces itself (double-buffered by trip parity,
+// every thread reads and reduces itself (double-buffered by parity,
 // so no second barrier), so all threads hold the same pair, run the
 // scalar update redundantly and leave the loop together. K(W, W) stays in
 // global memory and is read from L2 (256 KiB at q=256 is over the 227 KB
@@ -86,18 +92,72 @@ __device__ __forceinline__ Cand warp_reduce(Cand c) {
   return c;
 }
 
+// Block-wide (up-min, low-max): warp shuffles, one shared slot per warp,
+// one barrier; every thread then reduces the per-warp winners itself, so
+// all threads hold the same pair.
+__device__ __forceinline__ void block_reduce(Cand& up, Cand& lo, Cand* red_up,
+                                             Cand* red_lo, int lane, int warp,
+                                             int nwarps) {
+  up = warp_reduce<true>(up);
+  lo = warp_reduce<false>(lo);
+  if (lane == 0) {
+    red_up[warp] = up;
+    red_lo[warp] = lo;
+  }
+  __syncthreads();
+  up = red_up[0];
+  lo = red_lo[0];
+  for (int w = 1; w < nwarps; ++w) {
+    take_if_better<true>(up, red_up[w]);
+    take_if_better<false>(lo, red_lo[w]);
+  }
+}
+
+// solver/smo.py pair_alpha_update for slots i (up side) and j (low side):
+// the new (a_i, a_j), unchanged when `gate` is false or a pair value is not
+// finite. Every thread runs it redundantly on the same scalars.
+__device__ __forceinline__ void pair_update(const BoxConsts& k, float a_i_old,
+                                            float a_j_old, float y_i, float y_j,
+                                            float b_hi, float b_lo, float eta, bool gate,
+                                            float& ai, float& aj) {
+  const bool pi = y_i > 0.0f, pj = y_j > 0.0f;
+  const float c_i = pi ? k.c_pos : k.c_neg;
+  const float c_j = pj ? k.c_pos : k.c_neg;
+  const float snap_i = pi ? k.snap_pos : k.snap_neg;
+  const float snap_j = pj ? k.snap_pos : k.snap_neg;
+  const float cms_i = pi ? k.cms_pos : k.cms_neg;
+  const float cms_j = pj ? k.cms_pos : k.cms_neg;
+  const bool upd = gate && isfinite(b_hi) && isfinite(b_lo);
+  const float sgn = y_i * y_j;
+  const float w = a_i_old + sgn * a_j_old;
+  const float lo_b = sgn > 0.0f ? fmaxf(0.0f, w - c_i) : fmaxf(0.0f, -w);
+  const float hi_b = sgn > 0.0f ? fminf(c_j, w) : fminf(c_j, c_i - w);
+  aj = a_j_old + (y_j * (b_hi - b_lo)) / eta;
+  aj = fminf(fmaxf(aj, lo_b), hi_b);
+  aj = aj < snap_j ? 0.0f : (aj > cms_j ? c_j : aj);
+  ai = a_i_old + sgn * (a_j_old - aj);
+  ai = fminf(fmaxf(ai, 0.0f), c_i);
+  ai = ai < snap_i ? 0.0f : (ai > cms_i ? c_i : ai);
+  if (!upd) {
+    ai = a_i_old;
+    aj = a_j_old;
+  }
+}
+
 template <int S>
 __global__ void __launch_bounds__(1024, 1)
 subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_in,
                   const float* __restrict__ y_in, const float* __restrict__ f_in,
                   const float* __restrict__ kd_in, const float* __restrict__ ok_in,
                   const int* __restrict__ limit_p, float* __restrict__ alpha_out,
-                  int* __restrict__ t_out, int q, int rule, BoxConsts k) {
+                  int* __restrict__ t_out, int q, int rule, int pair_batch,
+                  BoxConsts k) {
   extern __shared__ float smem[];  // y_s[q], kd_s[q]: read-only after setup
   float* y_s = smem;
   float* kd_s = smem + q;
-  // [trip parity][warp]: per-warp winners of phase 1 (up-min, low-max)
-  // and phase 2 (second_order gain).
+  // [reduction parity][warp]: per-warp winners of a reduction (up-min and
+  // low-max, or the second_order gain). `par` flips after every reduction,
+  // so the next one writes the other buffer and needs no second barrier.
   __shared__ Cand red_up[2][32];
   __shared__ Cand red_lo[2][32];
   __shared__ Cand red_g[2][32];
@@ -141,30 +201,22 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
     Cand up{inf, INT_MAX, 0.0f, 0.0f};
     Cand lo{-inf, INT_MAX, 0.0f, 0.0f};
     bool low_s[S];
+    float fup[S], flo[S];  // f over I_up / I_low as this trip's selection saw it
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int slot = tid + s * nt;
       const bool pos = yv[s] > 0.0f;
       const bool in_up = ok[s] && (pos ? a[s] < cv[s] : a[s] > 0.0f);
       low_s[s] = ok[s] && (pos ? a[s] > 0.0f : a[s] < cv[s]);
+      fup[s] = in_up ? f[s] : inf;
+      flo[s] = low_s[s] ? f[s] : -inf;
       if (slot < q) {
-        take_if_better<true>(up, Cand{in_up ? f[s] : inf, slot, f[s], a[s]});
-        take_if_better<false>(lo, Cand{low_s[s] ? f[s] : -inf, slot, f[s], a[s]});
+        take_if_better<true>(up, Cand{fup[s], slot, f[s], a[s]});
+        take_if_better<false>(lo, Cand{flo[s], slot, f[s], a[s]});
       }
     }
-    up = warp_reduce<true>(up);
-    lo = warp_reduce<false>(lo);
-    if (lane == 0) {
-      red_up[par][warp] = up;
-      red_lo[par][warp] = lo;
-    }
-    __syncthreads();
-    up = red_up[par][0];
-    lo = red_lo[par][0];
-    for (int w = 1; w < nwarps; ++w) {
-      take_if_better<true>(up, red_up[par][w]);
-      take_if_better<false>(lo, red_lo[par][w]);
-    }
+    block_reduce(up, lo, red_up[par], red_lo[par], lane, warp, nwarps);
+    par ^= 1;
     const float b_hi = up.v;
     const int i = up.i;
     // Same float32 expression as the JAX package: b_lo > b_hi + 2 eps.
@@ -198,11 +250,11 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
       __syncthreads();
       g = red_g[par][0];
       for (int w = 1; w < nwarps; ++w) take_if_better<false>(g, red_g[par][w]);
+      par ^= 1;
       if (!(g.v > -inf)) {
         // No eligible partner (only reachable in budget mode, whose eps
         // keeps the gap open): a counted no-op trip, as in the JAX rule.
         ++t;
-        par ^= 1;
         continue;
       }
       jc = g;
@@ -222,41 +274,69 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
     const float y_i = y_s[i], y_j = y_s[j];
     const float a_i_old = up.a, a_j_old = jc.a;
     const float eta = fmaxf((kd_s[i] + kd_s[j]) - 2.0f * k_ij, k.tau);
-    const bool pi = y_i > 0.0f, pj = y_j > 0.0f;
-    const float c_i = pi ? k.c_pos : k.c_neg;
-    const float c_j = pj ? k.c_pos : k.c_neg;
-    const float snap_i = pi ? k.snap_pos : k.snap_neg;
-    const float snap_j = pj ? k.snap_pos : k.snap_neg;
-    const float cms_i = pi ? k.cms_pos : k.cms_neg;
-    const float cms_j = pj ? k.cms_pos : k.cms_neg;
-    const bool upd = isfinite(b_hi) && isfinite(b_lo);
-    const float sgn = y_i * y_j;
-    const float w = a_i_old + sgn * a_j_old;
-    const float lo_b = sgn > 0.0f ? fmaxf(0.0f, w - c_i) : fmaxf(0.0f, -w);
-    const float hi_b = sgn > 0.0f ? fminf(c_j, w) : fminf(c_j, c_i - w);
-    float aj = a_j_old + (y_j * (b_hi - b_lo)) / eta;
-    aj = fminf(fmaxf(aj, lo_b), hi_b);
-    aj = aj < snap_j ? 0.0f : (aj > cms_j ? c_j : aj);
-    float ai = a_i_old + sgn * (a_j_old - aj);
-    ai = fminf(fmaxf(ai, 0.0f), c_i);
-    ai = ai < snap_i ? 0.0f : (ai > cms_i ? c_i : ai);
-    if (!upd) {
-      ai = a_i_old;
-      aj = a_j_old;
-    }
+    float ai, aj;
+    pair_update(k, a_i_old, a_j_old, y_i, y_j, b_hi, b_lo, eta, true, ai, aj);
     const float di = (ai - a_i_old) * y_i;
     const float dj = (aj - a_j_old) * y_j;
+    bool excl[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int slot = tid + s * nt;
       if (slot == i) a[s] = ai;
       if (slot == j) a[s] = aj;  // j written last, as in the JAX rule
+      excl[s] = slot == i || slot == j;
       // Two fused multiply-adds, as XLA contracts the JAX package's
       // f + (da_i y_i) row_i + (da_j y_j) row_j on the CPU.
       f[s] = __fmaf_rn(dj, rj[s], __fmaf_rn(di, ri[s], f[s]));
     }
     ++t;
-    par ^= 1;
+
+    // ---- pair_batch - 1 further pairs (rule mvp): ranked by the trip's
+    // pre-update f with the earlier pairs' slots excluded, updated from
+    // the current f. An empty stale set reduces to slot 0 (every value
+    // +-inf, lowest slot wins), which is then excluded too, as the JAX
+    // package's argmin / argmax over an all-inf vector gives 0.
+    for (int e = 1; e < pair_batch; ++e) {
+      Cand up2{inf, INT_MAX, 0.0f, 0.0f};
+      Cand lo2{-inf, INT_MAX, 0.0f, 0.0f};
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int slot = tid + s * nt;
+        if (excl[s]) {
+          fup[s] = inf;
+          flo[s] = -inf;
+        }
+        if (slot < q) {
+          take_if_better<true>(up2, Cand{fup[s], slot, f[s], a[s]});
+          take_if_better<false>(lo2, Cand{flo[s], slot, f[s], a[s]});
+        }
+      }
+      block_reduce(up2, lo2, red_up[par], red_lo[par], lane, warp, nwarps);
+      par ^= 1;
+      const int i2 = up2.i, j2 = lo2.i;
+      const float* row_i2 = kb + (size_t)i2 * q;
+      const float* row_j2 = kb + (size_t)j2 * q;
+      const float b_hi2 = up2.f, b_lo2 = lo2.f;  // corrected: the current f
+      const float y_i2 = y_s[i2], y_j2 = y_s[j2];
+      const float eta2 = fmaxf((kd_s[i2] + kd_s[j2]) - 2.0f * row_i2[j2], k.tau);
+      const bool cnt2 = t < limit;
+      const bool upd2 = cnt2 && up2.v < inf && lo2.v > -inf && b_lo2 > b_hi2;
+      float ai2, aj2;
+      pair_update(k, up2.a, lo2.a, y_i2, y_j2, b_hi2, b_lo2, eta2, upd2, ai2, aj2);
+      const float di2 = (ai2 - up2.a) * y_i2;
+      const float dj2 = (aj2 - lo2.a) * y_j2;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int slot = tid + s * nt;
+        const float r_i = slot < q ? row_i2[slot] : 0.0f;
+        const float r_j = slot < q ? row_j2[slot] : 0.0f;
+        if (slot == i2) a[s] = ai2;
+        if (slot == j2) a[s] = aj2;
+        excl[s] = excl[s] || slot == i2 || slot == j2;
+        f[s] = __fmaf_rn(dj2, r_j, __fmaf_rn(di2, r_i, f[s]));
+      }
+      if (cnt2) ++t;
+    }
   }
 
 #pragma unroll
@@ -272,10 +352,12 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
 extern "C" int dpsvm_subproblem(const float* kb, const float* alpha, const float* y,
                                 const float* f, const float* kd, const float* ok,
                                 const int* limit, float* alpha_out, int* t_out, int q,
-                                int rule, float c_pos, float c_neg, float snap_pos,
+                                int rule, int pair_batch, float c_pos, float c_neg, float snap_pos,
                                 float snap_neg, float cms_pos, float cms_neg,
                                 float two_eps, float tau, void* stream) {
-  if (q < 1 || q > 4096 || (rule != kMvp && rule != kSecondOrder)) {
+  if (q < 1 || q > 4096 || (rule != kMvp && rule != kSecondOrder) ||
+      (pair_batch != 1 && pair_batch != 2 && pair_batch != 4) ||
+      (pair_batch > 1 && rule != kMvp)) {
     return (int)cudaErrorInvalidValue;
   }
   const BoxConsts k{c_pos, c_neg, snap_pos, snap_neg, cms_pos, cms_neg, two_eps, tau};
@@ -285,13 +367,13 @@ extern "C" int dpsvm_subproblem(const float* kb, const float* alpha, const float
   cudaStream_t st = (cudaStream_t)stream;
   if (slots == 1) {
     subproblem_kernel<1><<<1, nt, shm, st>>>(kb, alpha, y, f, kd, ok, limit, alpha_out,
-                                             t_out, q, rule, k);
+                                             t_out, q, rule, pair_batch, k);
   } else if (slots == 2) {
     subproblem_kernel<2><<<1, nt, shm, st>>>(kb, alpha, y, f, kd, ok, limit, alpha_out,
-                                             t_out, q, rule, k);
+                                             t_out, q, rule, pair_batch, k);
   } else {
     subproblem_kernel<4><<<1, nt, shm, st>>>(kb, alpha, y, f, kd, ok, limit, alpha_out,
-                                             t_out, q, rule, k);
+                                             t_out, q, rule, pair_batch, k);
   }
   return (int)cudaGetLastError();
 }

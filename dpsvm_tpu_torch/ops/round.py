@@ -160,7 +160,7 @@ fold_rows_select.launches = 0
 def fused_round(x, y, x_sq, k_diag, y2d, valid2d, alpha, f, f_err, w,
                 slot_ok, b_hi, b_lo, budget_left, kp: KernelParams, c,
                 eps: float, tau: float, q: int, inner_iters: int,
-                selection: str):
+                selection: str, pair_batch: int = 1):
     """ONE block round as gather_gram -> dispatch_subproblem -> scatter ->
     fold_rows_select -> assemble_working_set: the fused-fold round with
     its gather, Gram, kernel-row and contraction stages in the two
@@ -187,7 +187,8 @@ def fused_round(x, y, x_sq, k_diag, y2d, valid2d, alpha, f, f_err, w,
     limit = torch.clamp(budget_left, max=inner_iters)
     limit = torch.where(gap_open, limit, 0).to(torch.int32)
     a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0,
-                                       c, eps, tau, limit, selection)
+                                       c, eps, tau, limit, selection,
+                                       pair_batch)
     # Scatter alpha BEFORE the pass: its masks must see the new box
     # membership.
     alpha = scatter_alpha(alpha, w, slot_ok, a_w)

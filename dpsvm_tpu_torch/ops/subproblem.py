@@ -22,14 +22,14 @@ _MAX_Q = 4096  # csrc/subproblem.cu: up to four slots for each of 1024 threads
 
 
 def _check_rule(rule: str, pair_batch: int) -> None:
-    if pair_batch != 1:
-        raise NotImplementedError(
-            "pair_batch>1 in the block subproblem is not ported "
-            "(ROADMAP queue A item 5b)")
     if rule not in _RULES:
         raise NotImplementedError(
             f"subproblem rule {rule!r} is not ported (the nu rule: ROADMAP "
             "queue A item 7)")
+    if pair_batch not in (1, 2, 4):
+        raise ValueError("pair_batch must be 1, 2 or 4")
+    if pair_batch > 1 and rule != "mvp":
+        raise ValueError("pair_batch>1 is implemented for rule='mvp' only")
 
 
 def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
@@ -42,8 +42,17 @@ def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
     n_pairs a 0-d int32 tensor. rule "mvp" pairs the maximal violators;
     "second_order" keeps i and picks j by the largest second-order gain
     (f_j - b_hi)^2 / eta_ij over row i of K(W, W). One host read of the
-    gap per pair ends the loop. A `rows_read` set, when given, collects
-    the slots whose Gram rows the solve reads (for a bytes count)."""
+    gap per trip ends the loop. A `rows_read` set, when given, collects
+    the slots whose Gram rows the solve reads (for a bytes count).
+
+    pair_batch 2 or 4 (rule "mvp"): each trip goes on to pair_batch - 1
+    further coordinate-disjoint pairs, SELECTED by rank from the trip's
+    pre-update f over I_up / I_low with the earlier pairs' slots excluded
+    (stale) and UPDATED exactly from the current f_w. An attempted slot
+    counts while the budget lasts even when its update is gated to a
+    no-op: an empty stale set (whose argmin aliases slot 0), or a
+    corrected pair that no longer violates (the margin-free b_lo > b_hi
+    gate; the first slot of a trip gates on the 2 eps margin)."""
     _check_rule(rule, pair_batch)
     cp, cn = split_c(c)
     limit = int(limit)
@@ -91,6 +100,36 @@ def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
         f_w = fma32((a_j_new - a_j_old) * y_j, row_j,
                     fma32((a_i_new - a_i_old) * y_i, row_i, f_w))
         t += 1
+        excl = (lanes == i) | (lanes == j)
+        for _ in range(pair_batch - 1):
+            f_up = torch.where(excl, float("inf"), f_up)
+            f_low = torch.where(excl, -float("inf"), f_low)
+            i2 = torch.argmin(f_up)
+            j2 = torch.argmax(f_low)
+            if rows_read is not None:
+                rows_read.update((int(i2), int(j2)))
+            row_i2 = kb_w[i2]
+            row_j2 = kb_w[j2]
+            b_hi2 = f_w[i2]  # corrected: the current gradient
+            b_lo2 = f_w[j2]
+            y_i2 = y_w[i2]
+            y_j2 = y_w[j2]
+            eta2 = torch.clamp(kd_w[i2] + kd_w[j2] - 2.0 * row_i2[j2],
+                               min=tau)
+            cnt2 = t < limit
+            upd2 = ((f_up[i2] < float("inf")) & (f_low[j2] > -float("inf"))
+                    & (b_lo2 > b_hi2) & cnt2)
+            a_i2_old = alpha_w[i2]
+            a_j2_old = alpha_w[j2]
+            a_i2_new, a_j2_new = pair_alpha_update(
+                a_i2_old, a_j2_old, y_i2, y_j2, b_hi2, b_lo2, eta2,
+                c_of(y_i2, cp, cn), c_of(y_j2, cp, cn), gate=upd2)
+            alpha_w = torch.where(lanes == i2, a_i2_new, alpha_w)
+            alpha_w = torch.where(lanes == j2, a_j2_new, alpha_w)
+            f_w = fma32((a_j2_new - a_j2_old) * y_j2, row_j2,
+                        fma32((a_i2_new - a_i2_old) * y_i2, row_i2, f_w))
+            t += int(cnt2)
+            excl = excl | (lanes == i2) | (lanes == j2)
     return alpha_w, f_w, torch.tensor(t, dtype=torch.int32,
                                       device=alpha_w.device)
 
@@ -120,7 +159,7 @@ def _lib():
     fn = _build.load("subproblem").dpsvm_subproblem
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                        + [ctypes.c_float] * 8 + [ctypes.c_void_p])
     return fn
 
@@ -152,7 +191,8 @@ def solve_subproblem(kb_w, alpha_w, y_w, f_w, kd_w, slot_ok, limit, c,
         raise ValueError("subproblem inputs must be contiguous")
     if dev.type == "cpu":
         a_w, _, t = _solve_subproblem(kb_w, kd_w, slot_ok > 0, alpha_w,
-                                      y_w, f_w, c, eps, tau, limit, rule)
+                                      y_w, f_w, c, eps, tau, limit, rule,
+                                      pair_batch)
         return a_w, t
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -173,7 +213,7 @@ def solve_subproblem(kb_w, alpha_w, y_w, f_w, kd_w, slot_ok, limit, c,
                                  np.float32(tau))]
     err = _lib()(kb_w.data_ptr(), *(v.data_ptr() for v in vecs),
                  limit.data_ptr(), alpha_out.data_ptr(), t_out.data_ptr(),
-                 q, _RULES[rule], *consts, stream)
+                 q, _RULES[rule], pair_batch, *consts, stream)
     if err != 0:
         raise RuntimeError(f"subproblem kernel launch failed: CUDA error {err}")
     solve_subproblem.launches += 1

@@ -1,0 +1,214 @@
+"""Distributed SMO over the data mesh (counterpart of
+dpsvm_tpu/parallel/dist_smo.py: ``solve_mesh`` and the block branch of
+``_solve_mesh_impl``).
+
+Everything row-indexed is sharded over the mesh's ranks: X, y, f, alpha.
+Shards are equal by construction: rows are padded to a multiple of the
+shard count and masked out of selection. One Python process drives all
+shards (parallel/mesh.py); the engines are parallel/dist_block.py's
+global and shard-local runners.
+
+Not ported (each refused with NotImplementedError naming its ROADMAP
+item): the per-pair mesh engine (engine="xla" on the mesh), the
+pipelined, fused, active-set and out-of-core mesh runners, warm starts,
+reconstruction legs, checkpoints, callbacks, fault retry and obs.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dpsvm_tpu_torch.config import SVMConfig
+from dpsvm_tpu_torch.device import resolve_device
+from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
+                                         squared_norms)
+from dpsvm_tpu_torch.ops.select import refresh_extrema_host
+from dpsvm_tpu_torch.parallel.dist_block import (
+    MeshBlockState, make_block_chunk_runner,
+    make_block_shardlocal_chunk_runner)
+from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh, pad_rows,
+                                           replicate_array,
+                                           shard_padded_rows, unshard)
+from dpsvm_tpu_torch.solver.result import SolveResult
+from dpsvm_tpu_torch.solver.solve import _BUDGET_EPS
+
+# Shard-local chunks are bounded to this many sync windows: the host's
+# endgame-demotion check reads the gap at chunk boundaries. Small enough
+# that a stalled engine is demoted promptly; large enough that the check
+# is amortized over thousands of pair updates.
+_SHARDLOCAL_WINDOWS_PER_CHUNK = 8
+
+
+def _refuse_unported(config: SVMConfig) -> None:
+    """The mesh knobs of the JAX package this slice does not port."""
+    if config.engine == "xla":
+        raise NotImplementedError(
+            "engine='xla' on the mesh (the per-pair mesh engine) is not "
+            "ported (ROADMAP queue A item 10b); use engine='block'")
+    later = (
+        (bool(config.pipeline_rounds), "pipeline_rounds=True"),
+        (bool(config.fused_fold), "fused_fold=True"),
+        (bool(config.fused_round), "fused_round=True"),
+        (config.active_set_size > 0, "active_set_size>0"),
+        (config.ooc, "ooc=True"),
+    )
+    for bad, what in later:
+        if bad:
+            raise NotImplementedError(
+                f"{what} on the mesh is not ported (ROADMAP queue A item "
+                "10b); the mesh runs the global and the shard-local block "
+                "runners")
+
+
+def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
+               mesh: Optional[Mesh] = None) -> SolveResult:
+    """Train binary C-SVC row-sharded over the mesh.
+
+    `mesh=None` takes the visible CUDA cards (the first `num_devices` of
+    them) and raises without one. ``Mesh([torch.device("cuda:0")] * 4)``
+    runs four logical shards on one card; ``Mesh(["cpu"] * 2)`` runs the
+    plain PyTorch path. stats["mesh_devices"] lists the devices by rank.
+    """
+    if config.engine not in ("xla", "block"):
+        raise ValueError(
+            f"engine={config.engine!r} is implemented for the single-chip "
+            "solver only; the mesh backend supports engine='block' "
+            "(distributed decomposition)")
+    _refuse_unported(config)
+    config.check_ported()
+    if mesh is None:
+        mesh = make_data_mesh(num_devices)
+    for dev in {d for d, _ in mesh.groups}:
+        resolve_device(dev)  # raises without CUDA; sets the float32 policy
+
+    x = np.asarray(x, np.float32)
+    y_np = np.asarray(y, np.int32)
+    n, d = x.shape
+    kp = KernelParams(config.kernel, config.resolve_gamma(d), config.degree,
+                      config.coef0)
+    n_dev = mesh.size
+    # Explicit knobs only: the autos are off until an H100 measurement
+    # decides them.
+    lws = config.local_working_sets
+    use_shardlocal = (lws is not None and lws >= 2
+                      and not config.budget_mode)
+    use_ring = n_dev > 1 and bool(config.ring_exchange)
+
+    n_pad = pad_rows(n, n_dev)
+    n_loc = n_pad // n_dev
+    y_p = np.ones((n_pad,), np.float32)
+    y_p[:n] = y_np
+    valid_p = np.zeros((n_pad,), bool)
+    valid_p[:n] = True
+    dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+    x_sh = shard_padded_rows(mesh, x, dtype=dtype)
+    y_sh = shard_padded_rows(mesh, y_p)
+    valid_sh = shard_padded_rows(mesh, valid_p)
+    # x_sq from the STORED (possibly rounded) rows, as on a single device.
+    x_sq = [squared_norms(xr) for xr in x_sh]
+    k_diag = [kernel_diag(s, kp) for s in x_sq]
+
+    def rep(value, dt):
+        return replicate_array(mesh, np.asarray(value, dt))
+
+    state = MeshBlockState(
+        alpha=[torch.zeros_like(yr) for yr in y_sh],
+        f=[-yr for yr in y_sh],
+        b_hi=rep(-np.inf, np.float32), b_lo=rep(np.inf, np.float32),
+        pairs=rep(0, np.int32), rounds=rep(0, np.int32),
+        f_err=([torch.zeros_like(yr) for yr in y_sh]
+               if config.compensated else None))
+
+    eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)
+    # Block height clamped so each shard can produce q/2 candidates.
+    q = max(2, min(config.working_set_size, 2 * n_loc))
+    q -= q % 2
+    inner = config.inner_iters or 2 * q
+    common = dict(selection=config.selection, compensated=config.compensated,
+                  pair_batch=int(config.pair_batch), ring_exchange=use_ring)
+
+    def plain_runner():
+        # The default dispatch, and the shard-local engine's endgame
+        # demotion. The ring exchange rides along (bit-identical).
+        return make_block_chunk_runner(
+            mesh, kp, config.c_bounds(), eps_run, float(config.tau), q,
+            inner, None, **common)
+
+    if use_shardlocal:
+        r_sync = int(config.sync_rounds)
+        run_chunk = make_block_shardlocal_chunk_runner(
+            mesh, kp, config.c_bounds(), eps_run, float(config.tau), q,
+            inner, _SHARDLOCAL_WINDOWS_PER_CHUNK * r_sync, r_sync, **common)
+    else:
+        run_chunk = plain_runner()
+
+    max_iter = int(config.max_iter)
+    # The endgame demotion: the concurrent shard-local chains are a
+    # bulk-phase accelerator. Once the global gap stops halving across a
+    # chunk's worth of local rounds, or is within 10 epsilon of done, the
+    # host swaps in the exact global-working-set runner for the tail.
+    shardlocal_live = use_shardlocal
+    demoted_at = None
+    gap_ref = None
+    stall_rounds = _SHARDLOCAL_WINDOWS_PER_CHUNK * int(config.sync_rounds)
+    syncs = 0
+    mesh.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        rounds0 = int(state.rounds[0])
+        state = run_chunk(x_sh, y_sh, x_sq, k_diag, valid_sh, state,
+                          max_iter)
+        it = int(state.pairs[0])
+        b_hi = float(state.b_hi[0])
+        b_lo = float(state.b_lo[0])
+        rounds_now = int(state.rounds[0])
+        if shardlocal_live:
+            syncs += (rounds_now - rounds0) // int(config.sync_rounds)
+        converged = not (b_lo > b_hi + 2.0 * eps_run)
+        if converged or it >= max_iter:
+            break
+        if shardlocal_live:
+            gap = b_lo - b_hi
+            if gap_ref is None or gap <= 0.5 * gap_ref[0]:
+                gap_ref = (gap, rounds_now)  # halved: advance the reference
+            stalled = rounds_now - gap_ref[1] >= stall_rounds
+            if gap <= 10.0 * float(config.epsilon) or stalled:
+                run_chunk = plain_runner()
+                shardlocal_live = False
+                demoted_at = {"pairs": it, "rounds": rounds_now,
+                              "gap": gap, "stalled": bool(stalled)}
+    mesh.synchronize()
+    train_seconds = time.perf_counter() - t0
+
+    alpha = unshard(state.alpha)[:n]
+    f_parts = (state.f if state.f_err is None
+               else [f - e for f, e in zip(state.f, state.f_err)])
+    f_final = unshard(f_parts)[:n]
+    if not converged:
+        b_hi, b_lo, converged = refresh_extrema_host(
+            f_final, alpha, y_np, config.c_bounds(), config.epsilon,
+            rule=config.selection)
+    stats = {
+        "num_devices": n_dev,
+        "mesh_devices": mesh.describe(),
+        "rows_padded": n_pad - n,
+        "f": f_final,
+        "outer_rounds": rounds_now,
+        "device": str(mesh.devices[0]),
+        "n_pad": n_pad,
+    }
+    if use_shardlocal:
+        stats["shardlocal_demoted"] = demoted_at is not None
+        stats["shardlocal_syncs"] = syncs
+        if demoted_at is not None:
+            stats["shardlocal_demotion"] = demoted_at
+    if use_ring:
+        stats["ring_exchange"] = True
+    return SolveResult(
+        alpha=alpha, b=float((b_lo + b_hi) / 2.0), b_hi=b_hi, b_lo=b_lo,
+        iterations=it, converged=converged, train_seconds=train_seconds,
+        stats=stats)

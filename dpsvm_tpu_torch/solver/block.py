@@ -121,12 +121,14 @@ def gather_block(x, y, x_sq, k_diag, f, alpha, w, kp: KernelParams):
 
 
 def dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0, c,
-                        eps: float, tau: float, limit, selection: str):
+                        eps: float, tau: float, limit, selection: str,
+                        pair_batch: int = 1):
     """The subproblem stage of a round. Returns (a_w, coef, t): the new
     subproblem alphas, the fold coefficients (dalpha * y, dead slots
     zeroed) and the executed pair count (int32 0-d tensor)."""
     a_w, t = solve_subproblem(kb_w, a_w0, y_w, f_w0, kd_w, slot_ok.float(),
-                              limit, c, eps, tau, rule=selection)
+                              limit, c, eps, tau, rule=selection,
+                              pair_batch=pair_batch)
     coef = torch.where(slot_ok, (a_w - a_w0) * y_w, 0.0)
     return a_w, coef, t
 
@@ -152,15 +154,20 @@ def scatter_alpha(alpha, w, slot_ok, a_w):
     return buf[:n]
 
 
-def run_local_round(x, y, x_sq, k_diag, alpha, f, f_err, budget_left,
-                    kp: KernelParams, c, eps: float, tau: float, q: int,
-                    inner_iters: int, selection: str):
-    """ONE complete block round. Returns (alpha, f, f_err, b_hi, b_lo, t):
-    the updated state, the extrema of the gradient this round SAW (one
-    fold behind, as in the JAX package) and the executed pair count."""
+def run_local_round(x, y, x_sq, k_diag, valid, alpha, f, f_err,
+                    budget_left, kp: KernelParams, c, eps: float, tau: float,
+                    q: int, inner_iters: int, selection: str,
+                    pair_batch: int = 1):
+    """ONE complete block round on whatever row view the caller holds
+    (`valid`, bool or None, masks padded rows out of the selection).
+    Returns (alpha, f, f_err, b_hi, b_lo, t, coef, qx, qsq): the updated
+    state, the extrema of the gradient this round SAW (one fold behind,
+    as in the JAX package), the executed pair count, and the fold's
+    (coef, rows, norms), so a caller can replay the fold against other
+    row sets (the mesh's shard-local sync)."""
     f_cur = f if f_err is None else f - f_err
     w, slot_ok, b_hi, b_lo = select_block(f_cur, alpha, y, c, q,
-                                          rule=selection)
+                                          valid=valid, rule=selection)
     gap_open = b_lo > b_hi + 2.0 * eps
     qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0 = gather_block(
         x, y, x_sq, k_diag, f_cur, alpha, w, kp)
@@ -169,25 +176,27 @@ def run_local_round(x, y, x_sq, k_diag, alpha, f, f_err, budget_left,
     limit = torch.clamp(budget_left, max=inner_iters)
     limit = torch.where(gap_open, limit, 0).to(torch.int32)
     a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0,
-                                       c, eps, tau, limit, selection)
+                                       c, eps, tau, limit, selection,
+                                       pair_batch)
     alpha, f, f_err = fold_block(x, x_sq, qx, qsq, kp, f, f_err, coef,
                                  alpha, w, slot_ok, a_w)
-    return alpha, f, f_err, b_hi, b_lo, t
+    return alpha, f, f_err, b_hi, b_lo, t, coef, qx, qsq
 
 
 def run_chunk_block(x, y, x_sq, k_diag, state: BlockState, max_iter: int,
                     kp: KernelParams, c, eps: float, tau: float, q: int,
-                    inner_iters: int, selection: str = "mvp") -> BlockState:
+                    inner_iters: int, selection: str = "mvp",
+                    pair_batch: int = 1) -> BlockState:
     """Run rounds while pairs < max_iter and the CARRIED gap is open (the
     semantics of the JAX package's _run_chunk_block run unobserved). The
     loop condition is evaluated on the device in float32 and read once
     per round."""
     while bool((state.pairs < max_iter)
                & (state.b_lo > state.b_hi + 2.0 * eps)):
-        alpha, f, f_err, b_hi, b_lo, t = run_local_round(
-            x, y, x_sq, k_diag, state.alpha, state.f, state.f_err,
+        alpha, f, f_err, b_hi, b_lo, t, _, _, _ = run_local_round(
+            x, y, x_sq, k_diag, None, state.alpha, state.f, state.f_err,
             max_iter - state.pairs, kp, c, eps, tau, q, inner_iters,
-            selection)
+            selection, pair_batch)
         state = BlockState(alpha, f, b_hi, b_lo, state.pairs + t,
                            state.rounds + 1, f_err)
     return state
@@ -196,7 +205,8 @@ def run_chunk_block(x, y, x_sq, k_diag, state: BlockState, max_iter: int,
 def run_chunk_block_fused(x, y, x_sq, k_diag, valid, state: BlockState,
                           max_iter: int, kp: KernelParams, c, eps: float,
                           tau: float, q: int, inner_iters: int,
-                          selection: str = "mvp") -> BlockState:
+                          selection: str = "mvp",
+                          pair_batch: int = 1) -> BlockState:
     """Fused-fold rounds: each round's fold and the NEXT round's
     selection are one pass over f (fold_select). One plain select_block
     seeds the carried working set; the carried (b_hi, b_lo) are then the
@@ -222,7 +232,7 @@ def run_chunk_block_fused(x, y, x_sq, k_diag, valid, state: BlockState,
         limit = torch.where(gap_open, limit, 0).to(torch.int32)
         a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w,
                                            f_w0, c, eps, tau, limit,
-                                           selection)
+                                           selection, pair_batch)
         delta2d = (coef @ kernel_rows(x, x_sq, qx, qsq, kp)).view(shp)
         # Scatter alpha BEFORE the fused pass: its masks must see the new
         # box membership.
@@ -243,8 +253,8 @@ def run_chunk_block_fused(x, y, x_sq, k_diag, valid, state: BlockState,
 def run_chunk_block_fusedround(x, y, x_sq, k_diag, valid, state: BlockState,
                                max_iter: int, kp: KernelParams, c,
                                eps: float, tau: float, q: int,
-                               inner_iters: int,
-                               selection: str = "mvp") -> BlockState:
+                               inner_iters: int, selection: str = "mvp",
+                               pair_batch: int = 1) -> BlockState:
     """One-pass fused rounds (ops/round.py fused_round): the fused-fold
     engine's loop, seed and carry with each round's gather, Gram, kernel
     rows and fold contraction in the two passes gather_gram and
@@ -264,7 +274,7 @@ def run_chunk_block_fusedround(x, y, x_sq, k_diag, valid, state: BlockState,
             x, y, x_sq, k_diag, y2d, valid2d, state.alpha, state.f,
             state.f_err, w, slot_ok, state.b_hi, state.b_lo,
             max_iter - state.pairs, kp, c, eps, tau, q, inner_iters,
-            selection)
+            selection, pair_batch)
         state = BlockState(alpha, f, b_hi, b_lo, state.pairs + t,
                            state.rounds + 1, f_err)
     return state
@@ -314,6 +324,7 @@ def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
                               max_iter: int, kp: KernelParams, c,
                               eps: float, tau: float, q: int,
                               inner_iters: int, selection: str = "mvp",
+                              pair_batch: int = 1,
                               pallas_select: bool = False) -> BlockState:
     """Pipelined rounds: round t+1's working set is selected, gathered
     and its Gram block built from round t's PRE-fold carry, so nothing in
@@ -346,7 +357,7 @@ def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
                             max=inner_iters).to(torch.int32)
         a_w, coef, t = dispatch_subproblem(cand.kb, cand.kd, slot_ok, a_w0,
                                            y_w, f_w0, c, eps, tau, limit,
-                                           selection)
+                                           selection, pair_batch)
         nxt = prefetch(f_cur, state.alpha)
         k_rows = kernel_rows(x, x_sq, cand.qx, cand.qsq, kp)
         f, f_err = maybe_kahan(state.f, state.f_err, coef @ k_rows)

@@ -167,7 +167,7 @@ def _solve_block(x, y_np, config, kp, dev, eps_run) -> SolveResult:
     t0 = time.perf_counter()
     args = (x_dev, y_dev, x_sq, k_diag)
     rest = (int(config.max_iter), kp, c, eps_run, float(config.tau), q,
-            inner, config.selection)
+            inner, config.selection, int(config.pair_batch))
     if eng["pipelined"]:
         state = block.run_chunk_block_pipelined(
             *args, valid, state, *rest, pallas_select=eng["pipe_select"])

@@ -1,5 +1,5 @@
 """High-level training API: data in, SVMModel out (counterpart of
-dpsvm_tpu/train.py, single-device backend)."""
+dpsvm_tpu/train.py, the single-device and mesh backends)."""
 
 from __future__ import annotations
 
@@ -13,21 +13,43 @@ from dpsvm_tpu_torch.solver.solve import solve
 
 
 def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "single",
-          device=None) -> tuple[SVMModel, SolveResult]:
+          device=None, num_devices=None,
+          mesh=None) -> tuple[SVMModel, SolveResult]:
     """Train binary C-SVC with the engine config.engine names. Labels
-    must be in {-1, +1}. `device=None` means the CUDA card; the tests
-    pass "cpu"."""
-    if backend != "single":
+    must be in {-1, +1}.
+
+    backend "single" runs on `device` (None: the CUDA card; the tests
+    pass "cpu"). backend "mesh" shards the rows over `mesh`
+    (parallel/mesh.py Mesh; None: the first `num_devices` visible cards)
+    and runs the mesh block engines. backend "auto" takes the mesh when
+    one is given, or when no `device` is named and more than one card is
+    visible (or asked for), and the engine is one the mesh runs; else the
+    single device."""
+    if backend == "auto":
+        import torch
+
+        multi = (device is None
+                 and (num_devices or torch.cuda.device_count()) > 1)
+        # The mesh runs the block engine only; auto must not swap a
+        # per-pair request for another engine.
+        backend = ("mesh" if (multi or mesh is not None)
+                   and config.engine == "block" else "single")
+    if backend not in ("single", "mesh"):
         raise NotImplementedError(
-            f"backend={backend!r} is not ported (multi-GPU: ROADMAP queue A "
-            "item 10); use backend='single'")
+            f"backend={backend!r} is not ported; use 'single', 'mesh' or "
+            "'auto'")
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.int32)
     labels = set(np.unique(y).tolist())
     if labels != {-1, 1}:
         raise ValueError(
             f"labels must contain both classes -1 and +1, got {sorted(labels)}")
-    result = solve(x, y, config, device=device)
+    if backend == "mesh":
+        from dpsvm_tpu_torch.parallel.dist_smo import solve_mesh
+
+        result = solve_mesh(x, y, config, num_devices=num_devices, mesh=mesh)
+    else:
+        result = solve(x, y, config, device=device)
     kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
                       config.degree, config.coef0)
     return SVMModel.from_dense(x, y, result.alpha, result.b, kp), result

@@ -55,7 +55,7 @@ def test_invalid_values_raise_like_jax(kw):
 UNPORTED = [
     dict(engine="xla", selection="nu"),
     dict(engine="xla", kernel="precomputed"), dict(selection="nu"),
-    dict(pair_batch=2), dict(fused_fold=True, selection="nu"),
+    dict(pair_batch=2, ooc=True), dict(fused_fold=True, selection="nu"),
     dict(fused_round=True, bf16_gram=True),
     dict(pipeline_rounds=True, gram_resident=True),
     dict(active_set_size=64), dict(ooc=True),
@@ -127,8 +127,67 @@ def test_per_pair_validation_matches_jax(kw, match):
         SVMConfig(**kw)
 
 
+@pytest.mark.parametrize("pair_batch", [2, 4])
+@pytest.mark.parametrize("kw", [dict(), dict(fused_fold=True),
+                                dict(pipeline_rounds=True)])
+def test_block_pair_batch_is_ported_and_runs(pair_batch, kw):
+    """pair_batch 2/4 on the block engines passes check_ported and
+    trains (the refusal it replaces named ROADMAP item 5b)."""
+    from dpsvm_tpu.data.synth import make_blobs_binary
+
+    cfg = SVMConfig(engine="block", pair_batch=pair_batch, c=2.0, gamma=0.2,
+                    working_set_size=16, **kw)
+    JaxConfig(engine="block", pair_batch=pair_batch, **kw)
+    cfg.check_ported()
+    x, y = make_blobs_binary(n=120, d=6, seed=1, sep=1.5)
+    res = solve(x, y, cfg, device="cpu")
+    assert res.converged and res.iterations > 0
+
+
+MESH_KNOBS = [
+    dict(local_working_sets=1), dict(local_working_sets=2),
+    dict(local_working_sets=4, sync_rounds=3, compensated=True),
+    dict(ring_exchange=True), dict(ring_exchange=False),
+    dict(ring_exchange=True, local_working_sets=2, sync_rounds=2),
+    dict(ring_exchange=True, pipeline_rounds=True),
+]
+
+
+@pytest.mark.parametrize("kw", MESH_KNOBS)
+def test_mesh_knobs_construct_like_jax(kw):
+    JaxConfig(engine="block", **kw)
+    SVMConfig(engine="block", **kw).check_ported()
+
+
+MESH_CLASHES = [
+    (dict(engine="xla", local_working_sets=2), "block-engine"),
+    (dict(local_working_sets=2, budget_mode=True), "budget_mode"),
+    (dict(local_working_sets=2, active_set_size=64), "active_set_size"),
+    (dict(local_working_sets=2, pipeline_rounds=True), "pipeline_rounds"),
+    (dict(local_working_sets=2, kernel="precomputed"), "feature kernels"),
+    (dict(local_working_sets=0), "local_working_sets"),
+    (dict(sync_rounds=0), "sync_rounds"),
+    (dict(sync_rounds=4), "local_working_sets >= 2"),
+    (dict(sync_rounds=4, local_working_sets=1), "local_working_sets >= 2"),
+    (dict(engine="xla", ring_exchange=True), "block-engine"),
+    (dict(ring_exchange=True, kernel="precomputed"), "feature kernels"),
+    (dict(ring_exchange=True, ooc=True), "ooc"),
+    (dict(ring_exchange=True, active_set_size=64), "active_set_size"),
+    (dict(ring_exchange=True, fused_fold=True), "fused_fold"),
+]
+
+
+@pytest.mark.parametrize("kw,match", MESH_CLASHES)
+def test_mesh_knob_validation_matches_jax(kw, match):
+    kw = {"engine": "block", **kw}
+    with pytest.raises(ValueError, match=match):
+        JaxConfig(**kw)
+    with pytest.raises(ValueError, match=match):
+        SVMConfig(**kw)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="block", pair_batch=2), "item 5b"),
+    (dict(engine="block", active_set_size=64), "item 4"),
     (dict(engine="block", gram_resident=True), "item 6"),
     (dict(engine="xla", selection="nu"), "item 7"),
     (dict(engine="xla", bf16_gram=True), "item 6"),

@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from dpsvm_tpu_torch import SVMConfig, solve
+from dpsvm_tpu_torch import Mesh, SVMConfig, solve, solve_mesh
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
 from dpsvm_tpu_torch.ops import fold_select as tfs
 from dpsvm_tpu_torch.ops import fused_update as tfu
+from dpsvm_tpu_torch.ops import ring as tring
 from dpsvm_tpu_torch.ops import round as tround
 from dpsvm_tpu_torch.ops import subproblem as tsub
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
@@ -32,13 +33,18 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rule", ["mvp", "second_order"])
+@pytest.mark.parametrize("rule,pair_batch", [
+    pytest.param("mvp", 1, id="mvp"),
+    pytest.param("second_order", 1, id="second_order"),
+    pytest.param("mvp", 2, id="mvp-pair_batch2"),
+    pytest.param("mvp", 4, id="mvp-pair_batch4")])
 @pytest.mark.parametrize("q", [100, 256, 1500, 3000])
-def test_subproblem_kernel_matches_plain(cuda, q, rule):
+def test_subproblem_kernel_matches_plain(cuda, q, rule, pair_batch):
     """Kernel B1 against the plain version on the same CUDA tensors:
     same pair count; alpha within rtol 1e-6 / atol 1e-7 (bitwise is
     expected). q covers one, two and four slots per thread and an
-    unaligned block."""
+    unaligned block; pair_batch 2 and 4 add the stale-ranked extra
+    pairs of a trip."""
     x, y = make_blobs_binary(n=4000, d=10, seed=3, sep=1.2)
     rng = np.random.default_rng(0)
     alpha = np.clip(rng.normal(0.5, 0.5, len(y)), 0, C).astype(np.float32)
@@ -53,14 +59,18 @@ def test_subproblem_kernel_matches_plain(cuda, q, rule):
             ok.float())
     lim = torch.tensor(2 * q, dtype=torch.int32, device=cuda)
     tsub.solve_subproblem.launches = 0
-    a_k, t_k = tsub.solve_subproblem(*args, lim, C, EPS, TAU, rule=rule)
+    a_k, t_k = tsub.solve_subproblem(*args, lim, C, EPS, TAU, rule=rule,
+                                     pair_batch=pair_batch)
     torch.cuda.synchronize()
     assert tsub.solve_subproblem.launches == 1
     a_p, _, t_p = tsub._solve_subproblem(kb, args[4], ok, args[1], args[2],
-                                         args[3], C, EPS, TAU, 2 * q, rule)
+                                         args[3], C, EPS, TAU, 2 * q, rule,
+                                         pair_batch)
     assert int(t_k) == int(t_p) > 0
     np.testing.assert_allclose(a_k.cpu().numpy(), a_p.cpu().numpy(),
                                rtol=1e-6, atol=1e-7)
+    if pair_batch > 1:
+        assert _same_bits(a_k, a_p)
 
 
 @pytest.mark.cuda
@@ -334,3 +344,172 @@ def test_per_pair_engine_on_card_reaches_cpu_optimum(cuda, kw):
 
     assert abs(obj(rg) - obj(rc)) <= 1e-4 * abs(obj(rc))
     assert abs(rg.n_sv - rc.n_sv) <= 0.02 * rc.n_sv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 792), (10, 7), (33, 5)])
+@pytest.mark.parametrize("p_dev", [2, 4, 8])
+def test_ring_gather_kernel_is_the_stack(cuda, p_dev, shape):
+    """B7 on P logical shards of the card: every rank's output bitwise
+    torch.stack(blocks), twice in a row on the same flag words (they
+    carry the call's sequence number), vector and scalar copy paths."""
+    g = torch.Generator(device="cpu").manual_seed(p_dev)
+    blocks = [torch.randn(shape, generator=g).to(cuda) for _ in range(p_dev)]
+    blocks[0][0, 0] = -float("inf")
+    tring.ring_gather.launches = 0
+    for _ in range(2):
+        got = tring.ring_gather(blocks)
+        torch.cuda.synchronize()
+        want = torch.stack(blocks)
+        assert all(_same_bits(g_r, want) for g_r in got)
+        blocks = [b + 1.0 for b in blocks]
+    assert tring.ring_gather.launches == 2
+
+
+@pytest.mark.cuda
+def test_ring_calls_on_two_streams_do_not_share_flags(cuda):
+    """Two meshes of the same P driven from two streams may overlap on the
+    card: each stream has its own flag words and sequence numbers, and
+    each cooperative launch is resident as a whole."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    sets = [[torch.randn((256, 792), generator=g).to(cuda) for _ in range(4)]
+            for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda) for _ in sets]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(5):
+        for i, (blocks, stream) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(stream):
+                got[i].append(tring.ring_gather(blocks))
+    torch.cuda.synchronize()
+    for blocks, outs in zip(sets, got):
+        want = torch.stack(blocks)
+        assert all(_same_bits(r, want) for out in outs for r in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_dev,rq,n_loc,d,kind", [
+    (2, 16, 300, 10, "rbf"), (4, 64, 1000, 37, "rbf"),
+    (4, 256, 2000, 784, "linear"), (8, 100, 129, 24, "poly")])
+def test_ring_fold_window_kernel_matches_plain(cuda, p_dev, rq, n_loc, d,
+                                               kind, dtype, compensated):
+    """B8 on P logical shards: the gathered windows bitwise the stack;
+    f' (less err') held against the fold carried in float64 (the kernel
+    and the library sum each dot and the contraction in their own
+    orders): off it by no more than rtol 1e-6 plus 2e-6 of the
+    contraction's absolute sum plus 4 times the largest error of the
+    float32 plain version against the same yardstick."""
+    rng = np.random.default_rng(p_dev * rq)
+    kp = KernelParams(kind, 0.05, 2, 0.5)
+    xs = [torch.as_tensor(rng.random((n_loc, d)).astype(np.float32),
+                          device=cuda).to(dtype) for _ in range(p_dev)]
+    x_sqs = [squared_norms(x) for x in xs]
+    fs = [torch.as_tensor(rng.normal(size=n_loc).astype(np.float32),
+                          device=cuda) for _ in range(p_dev)]
+    errs = [f * 1e-7 for f in fs] if compensated else None
+    pends = []
+    for r in range(p_dev):
+        rows = torch.as_tensor(rng.integers(0, n_loc, rq), device=cuda)
+        coef = torch.as_tensor(rng.normal(0, 0.1, rq).astype(np.float32),
+                               device=cuda)
+        coef[::5] = 0.0
+        tcol = torch.zeros(rq, device=cuda)
+        tcol[0] = 17.0
+        pends.append(torch.cat([xs[r][rows].float(), x_sqs[r][rows][:, None],
+                                coef[:, None], tcol[:, None]], dim=1))
+    tring.ring_fold_window.launches = 0
+    gath, f_k, e_k = tring.ring_fold_window(pends, xs, x_sqs, fs, errs, kp)
+    torch.cuda.synchronize()
+    assert tring.ring_fold_window.launches == 1
+    _, f_p, e_p = tring.ring_fold_window_plain(pends, xs, x_sqs, fs, errs, kp)
+    want_g = torch.stack(pends)
+    from dpsvm_tpu_torch.ops.kernels import kernel_rows
+    for r in range(p_dev):
+        assert _same_bits(gath[r], want_g)
+        scale = torch.zeros_like(fs[r])
+        for i in range(p_dev - 1):
+            blk = want_g[(r + 1 + i) % p_dev]
+            scale += blk[:, d + 1].abs() @ kernel_rows(
+                xs[r], x_sqs[r], blk[:, :d].to(dtype), blk[:, d], kp).abs()
+        ref = tring.fold_window_peers_f64(
+            want_g, r, xs[r], x_sqs[r], fs[r],
+            errs[r] if compensated else None, kp)
+        got, plain = f_k[r].double(), f_p[r].double()
+        if compensated:
+            got, plain = got - e_k[r].double(), plain - e_p[r].double()
+        tol = (1e-6 * ref.abs() + 2e-6 * scale
+               + 4 * float((plain - ref).abs().max()))
+        assert bool(((got - ref).abs() <= tol).all())
+    assert (e_k is None) == (not compensated)
+
+
+@pytest.mark.cuda
+def test_ring_fold_zero_coef_window_leaves_f_bitwise(cuda):
+    rng = np.random.default_rng(0)
+    xs = [torch.as_tensor(rng.random((500, 20)).astype(np.float32),
+                          device=cuda) for _ in range(4)]
+    x_sqs = [squared_norms(x) for x in xs]
+    fs = [torch.as_tensor(rng.normal(size=500).astype(np.float32),
+                          device=cuda) for _ in range(4)]
+    pends = [torch.cat([x[:32], s[:32, None], torch.zeros(32, 2, device=cuda)],
+                       dim=1) for x, s in zip(xs, x_sqs)]
+    _, f_k, _ = tring.ring_fold_window(pends, xs, x_sqs, fs, None,
+                                       KernelParams("rbf", 0.1))
+    assert all(_same_bits(a, b) for a, b in zip(f_k, fs))
+
+
+MESH_RUNS = [dict(), dict(selection="second_order", compensated=True),
+             dict(pair_batch=2), dict(local_working_sets=2, sync_rounds=2),
+             dict(local_working_sets=2, compensated=True, dtype="bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", MESH_RUNS,
+                         ids=lambda kw: "-".join(f"{k}={v}" for k, v in
+                                                 kw.items()) or "global")
+@pytest.mark.parametrize("p_dev", [2, 4])
+def test_mesh_engines_on_logical_shards_of_the_card(cuda, p_dev, kw):
+    """The mesh block engines on P logical shards of one card: the global
+    runner takes the same pairs and rounds and gives bitwise the same
+    alpha with the ring exchange (kernel B7 every round) as without; the
+    shard-local runner (kernel B8 every sync) reaches the same optimum;
+    both reach the single-device CPU optimum."""
+    x, y = make_blobs_binary(n=1500, d=24, seed=11, sep=1.0)
+    cfg = SVMConfig(c=1.0, gamma=0.1, engine="block", working_set_size=32,
+                    **kw)
+    mesh = Mesh([torch.device("cuda", 0)] * p_dev)
+    r0 = solve_mesh(x, y, cfg.replace(ring_exchange=False), mesh=mesh)
+    for fn in (tsub.solve_subproblem, tring.ring_gather,
+               tring.ring_fold_window):
+        fn.launches = 0
+    r1 = solve_mesh(x, y, cfg.replace(ring_exchange=True), mesh=mesh)
+    rc = solve(x, y, cfg.replace(local_working_sets=None, sync_rounds=1),
+               device="cpu")
+    assert r0.converged and r1.converged and rc.converged
+    assert r1.stats["mesh_devices"] == ["cuda:0"] * p_dev
+    rounds = r1.stats["outer_rounds"]
+    if "local_working_sets" in kw:
+        syncs = r1.stats["shardlocal_syncs"]
+        local_rounds = syncs * cfg.sync_rounds
+        assert tring.ring_fold_window.launches == syncs > 0
+        assert tring.ring_gather.launches == rounds - local_rounds
+        assert tsub.solve_subproblem.launches \
+            == p_dev * local_rounds + (rounds - local_rounds)
+    else:
+        assert tring.ring_gather.launches == rounds > 0
+        assert tsub.solve_subproblem.launches == rounds
+        assert tring.ring_fold_window.launches == 0
+        assert r1.iterations == r0.iterations
+        assert r0.stats["outer_rounds"] == rounds
+        assert np.array_equal(r1.alpha.view(np.uint32),
+                              r0.alpha.view(np.uint32))
+
+    def obj(r):
+        a, f = r.alpha.astype(np.float64), r.stats["f"].astype(np.float64)
+        return float(a.sum() - 0.5 * np.sum(a * y * (f + y)))
+
+    for r in (r0, r1):
+        assert abs(obj(r) - obj(rc)) <= 1e-4 * abs(obj(rc))
+        assert abs(r.n_sv - rc.n_sv) <= 0.02 * rc.n_sv

@@ -84,6 +84,23 @@ def test_solve_matches_jax_same_knob(data, knob, kw):
     _assert_same_optimum(rt, rj, y, c=SVMConfig(**cfg).c_bounds())
 
 
+@pytest.mark.parametrize("pair_batch,kw", [
+    (2, dict()), (4, dict()), (2, dict(fused_fold=True)),
+    (2, dict(pipeline_rounds=True, compensated=True))])
+def test_block_pair_batch_solve_matches_jax(blobs_small, pair_batch, kw):
+    """The block subproblem's pair batch (stale-ranked extra pairs a
+    trip) on whole solves: the JAX engine's optimum with the same knobs,
+    and a pair count near its own (attempted slots count in both; the
+    trajectories part as every block solve's do, so 1184 pairs in JAX
+    stand against 1316 here at pair_batch=4)."""
+    x, y = blobs_small
+    cfg = {**BASE, "working_set_size": 16, "pair_batch": pair_batch, **kw}
+    rj = jax_solve(x, y, JaxConfig(**cfg))
+    rt = solve(x, y, SVMConfig(**cfg), device="cpu")
+    _assert_same_optimum(rt, rj, y)
+    assert abs(rt.iterations - rj.iterations) <= 0.25 * rj.iterations
+
+
 @pytest.mark.parametrize("knob", ["fused_fold", "fused_round"])
 def test_budget_mode_runs_exact_pairs(blobs_medium, knob):
     x, y = blobs_medium

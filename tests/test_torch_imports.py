@@ -51,7 +51,10 @@ def test_scan_covers_the_package():
     names = {os.path.relpath(p, ROOT) for p in srcs}
     assert "chip_smoke.py" in names
     for mod in (("ops", "subproblem.py"), ("ops", "fused_update.py"),
-                ("solver", "cache.py"), ("solver", "smo.py")):
+                ("solver", "cache.py"), ("solver", "smo.py"),
+                ("ops", "ring.py"), ("parallel", "__init__.py"),
+                ("parallel", "mesh.py"), ("parallel", "dist_block.py"),
+                ("parallel", "dist_smo.py")):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 

@@ -124,8 +124,15 @@ def test_cli_refuses_unported_engine(tmp_path, capsys):
     x, y = make_blobs_binary(n=20, d=3, seed=1)
     csv = str(tmp_path / "d.csv")
     save_csv(csv, x, y)
+    # The block engine's pair batch is ported; the pipelined rounds on the
+    # mesh are not.
     rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
                    "--engine", "block", "--pair-batch", "2", "--device",
+                   "cpu", "--working-set-size", "8"])
+    assert rc == 0
+    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
+                   "--engine", "block", "--pipeline-rounds", "on",
+                   "--backend", "mesh", "--num-devices", "2", "--device",
                    "cpu"])
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err

@@ -43,28 +43,72 @@ def _inputs(q, c=C, seed=0):
             yf[w], f[w])
 
 
-def _port(kb, kd, ok, a, y, f, limit, rule, c=C, eps=EPS):
+def _port(kb, kd, ok, a, y, f, limit, rule, c=C, eps=EPS, pair_batch=1):
     a_t, _, t = tsub._solve_subproblem(
         *map(torch.as_tensor, (kb, kd, ok, a, y, f)), c, eps, TAU, limit,
-        rule)
+        rule, pair_batch)
     return a_t.numpy(), int(t)
 
 
-@pytest.mark.parametrize("rule", ["mvp", "second_order"])
+@pytest.mark.parametrize("rule,pair_batch", [
+    pytest.param("mvp", 1, id="mvp"),
+    pytest.param("second_order", 1, id="second_order"),
+    pytest.param("mvp", 2, id="mvp-pair_batch2"),
+    pytest.param("mvp", 4, id="mvp-pair_batch4")])
 @pytest.mark.parametrize("q", [32, 100, 128])
-def test_plain_matches_jax_xla_and_pallas(q, rule):
+def test_plain_matches_jax_xla_and_pallas(q, rule, pair_batch):
     kb, kd, ok, a, y, f = _inputs(q)
     limit = 2 * q
-    a_t, t_t = _port(kb, kd, ok, a, y, f, limit, rule)
+    a_t, t_t = _port(kb, kd, ok, a, y, f, limit, rule,
+                     pair_batch=pair_batch)
     a_x, _, t_x = jblock._solve_subproblem(
         *map(jnp.asarray, (kb, kd, ok, a, y, f)), C, EPS, TAU,
-        jnp.int32(limit), rule=rule)
+        jnp.int32(limit), rule=rule, pair_batch=pair_batch)
     a_p, t_p = solve_subproblem_pallas(
         *map(jnp.asarray, (kb, a, y, f, kd)), jnp.asarray(ok, jnp.float32),
-        jnp.int32(limit), C, EPS, TAU, rule=rule, interpret=True)
+        jnp.int32(limit), C, EPS, TAU, rule=rule, interpret=True,
+        pair_batch=pair_batch)
     assert t_t == int(t_x) == int(t_p) > 0
     np.testing.assert_allclose(a_t, np.asarray(a_x), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(a_t, np.asarray(a_p), rtol=RTOL, atol=ATOL)
+    if pair_batch > 1:
+        # The extra slots, their gating and the two-FMA f_W update
+        # included: the same bits as both JAX forms.
+        np.testing.assert_array_equal(a_t, np.asarray(a_x))
+        np.testing.assert_array_equal(a_t, np.asarray(a_p))
+
+
+@pytest.mark.parametrize("pair_batch", [2, 4])
+@pytest.mark.parametrize("limit,c,seed", [
+    (0, C, 0), (1, C, 0), (7, C, 1), (9, (0.9, 0.4), 1), (301, 0.3, 2)])
+def test_pair_batch_counts_and_gates_like_jax(pair_batch, limit, c, seed):
+    """Attempted slots count while the budget lasts (an odd limit cuts a
+    trip short), collisions and emptied stale sets gate to no-ops, and
+    the weighted box rides along: pair count and alpha are JAX's."""
+    kb, kd, ok, a, y, f = _inputs(32, c=c, seed=seed)
+    a_t, t_t = _port(kb, kd, ok, a, y, f, limit, "mvp", c=c,
+                     pair_batch=pair_batch)
+    a_x, _, t_x = jblock._solve_subproblem(
+        *map(jnp.asarray, (kb, kd, ok, a, y, f)), c, EPS, TAU,
+        jnp.int32(limit), rule="mvp", pair_batch=pair_batch)
+    assert t_t == int(t_x) <= limit
+    np.testing.assert_array_equal(a_t, np.asarray(a_x))
+
+
+def test_pair_batch_budget_mode_and_dead_slots_match_jax():
+    """eps = -1e30 runs to the limit through emptied sets (the stale
+    argmin aliases slot 0 and is gated), with half the slots dead."""
+    kb, kd, ok, a, y, f = _inputs(32)
+    ok = ok.copy()
+    ok[::2] = False
+    for pb in (2, 4):
+        a_t, t_t = _port(kb, kd, ok, a, y, f, 200, "mvp", eps=-1e30,
+                         pair_batch=pb)
+        a_x, _, t_x = jblock._solve_subproblem(
+            *map(jnp.asarray, (kb, kd, ok, a, y, f)), C, -1e30, TAU,
+            jnp.int32(200), rule="mvp", pair_batch=pb)
+        assert t_t == int(t_x) == 200
+        np.testing.assert_array_equal(a_t, np.asarray(a_x))
 
 
 @pytest.mark.parametrize("limit", [0, 1, 7])
@@ -126,13 +170,21 @@ def test_wrapper_takes_plain_path_on_cpu():
 
 
 def test_unported_rules_raise():
+    """The nu rule comes with the nu trainers; a pair batch is an mvp
+    feature of 2 or 4 pairs, as in the JAX package."""
     kb, kd, ok, a, y, f = _inputs(32)
     args = (*map(torch.as_tensor, (kb, a, y, f, kd)),
             torch.as_tensor(ok.astype(np.float32)), 10, C, EPS, TAU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsub.solve_subproblem(*args, rule="mvp", pair_batch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsub.solve_subproblem(*args, rule="nu")
+    with pytest.raises(ValueError, match="mvp"):
+        tsub.solve_subproblem(*args, rule="second_order", pair_batch=2)
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        tsub.solve_subproblem(*args, rule="mvp", pair_batch=8)
+    a_w, t = tsub.solve_subproblem(*args, rule="mvp", pair_batch=2)
+    a_p, t_p = _port(kb, kd, ok, a, y, f, 10, "mvp", pair_batch=2)
+    assert int(t) == t_p == 10
+    np.testing.assert_array_equal(a_w.numpy(), a_p)
 
 
 def test_wrapper_rejects_bad_inputs():
