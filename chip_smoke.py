@@ -10,7 +10,10 @@ result line is printed:
                 device is a failure;
   2. build   -- every kernel built from csrc/ with nvcc (subproblem.cu,
                 fold_select.cu, gather_gram.cu, fused_update.cu, ring.cu;
-                one nvcc each, in parallel);
+                one nvcc each, in parallel), with each kernel's registers
+                and static shared memory from ptxas; the SASS of B4 and of
+                B8's fold (cuobjdump) must hold bf16 HMMAs for bfloat16 X
+                and 3 x 2 times as many tf32 HMMAs for float32 X (3xTF32);
   3. headline -- the block-engine headline configuration (c=10,
                 gamma=0.125, eps=0.01, q=256, bfloat16 X) on the 60000 x
                 784 MNIST-shaped data, trained through dpsvm_tpu_torch.train
@@ -30,8 +33,13 @@ result line is printed:
                 2e-6 of the contraction's absolute sum, candidates bitwise
                 those the plain emission gives from the kernel's own f';
                 B4 (gather_gram) max |dK| within the dots' worst-case
-                rounding bound. Times of kernel, plain version and, for B4,
-                the library product, with L2 flushed before every launch;
+                rounding bound (ops/round.py gram_tolerance) and, for
+                float32 X, its error against the float64 Gram within 4x
+                the plain version's own plus the 3xTF32 product error
+                (ops/round.py tf32x3_check: one-pass TF32 fails it). Times of
+                kernel, plain version and, for B4, the library product,
+                with L2 flushed before every launch, B4's TFLOP/s and the
+                earlier CUDA-core design's time beside them;
                 then the headline solved once more with the round loop's
                 four stage functions timed by CUDA events;
   5. engines -- the headline trained with fused_fold=True,
@@ -69,7 +77,8 @@ result line is printed:
                 contraction's absolute sum plus 4 times the largest error
                 of the float32 plain version against the same yardstick; a
                 window of zero coefs leaves f bitwise. Both timed with L2
-                flushed, beside the plain version and the library calls;
+                flushed, beside the plain version and the library calls
+                (B8 with its TFLOP/s and the earlier design's time);
   9. mesh    -- the headline on Mesh([cuda:0] * 4), four logical shards of
                 the card, each run with every count set to 0 just before:
                 (a) the global runner with ring_exchange=False, (b) with
@@ -108,6 +117,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 (3xTF32 does three products a term)
+# The ms of the CUDA-core designs that the tensor-core kernels replaced
+# (PERF.md section 6, "earlier"), printed beside the new kernels' times.
+EARLIER_MS = {("gather_gram", "bfloat16"): 1.3175,
+              ("gather_gram", "float32"): 1.3688,
+              ("ring_fold_window", "bfloat16"): 4.3508,
+              ("ring_fold_window", "float32"): 4.6576}
+# Kernels whose products must run on the tensor cores: (source, kernel
+# name in the SASS).
+MMA_KERNELS = (("gather_gram", "gather_gram_kernel"),
+               ("ring", "ring_fold_kernel"))
 SOURCES = ("subproblem", "fold_select", "gather_gram", "fused_update",
            "ring")
 
@@ -427,14 +447,25 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
             # |dots| differ by at most 2 d 2^-24 max|x|^2 between two float32
             # sums of the same products; rbf's slope in the dot is 2 gamma
             # (K <= 1), and exp adds a few ulps.
-            dk_bound = (2 * kp.gamma * 2 * d * 2.0 ** -24
-                        * float(x_sq.max()) + 4 * 2.0 ** -23)
+            dk_bound = rnd.gram_tolerance(x_sq, d, kp, 1.0)
             worst["gather_gram"] = max(worst["gather_gram"], dk)
             print(f"[kernels] gather_gram {sname} {dname}: max|dK|={dk:.3g} "
                   f"(bound {dk_bound:.3g})", flush=True)
             if not dk <= dk_bound:
                 raise AssertionError(f"gather_gram {sname} {dname}: max|dK| "
                                      f"{dk} over {dk_bound}")
+            if dname == "float32":  # 3xTF32, not a cheaper product
+                ref = rnd.gram_f64(x, w, x_sq, qsq, kp)
+                err, err_p, limit = rnd.tf32x3_check(
+                    (kr_k, kb_k), (kr_p, kb_p), ref, x_sq, kp)
+                del ref
+                print(f"[kernels] gather_gram {sname} float32 against the "
+                      f"float64 Gram: max|dK|={err:.3g}, plain {err_p:.3g} "
+                      f"(limit {limit:.3g})", flush=True)
+                if not err <= limit:
+                    raise AssertionError(f"gather_gram {sname} float32: "
+                                         f"{err} off the float64 Gram, over "
+                                         f"{limit}")
             # B3: candidates from f as it stands.
             got = fs.select_rows(f2d, a2d, y2d, valid2d, c)
             want = fs._select_rows(f2d, a2d, y2d, valid2d, c)
@@ -513,11 +544,19 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
                 lib_ms = time_cold_ms(libf, reps) if libf else None
                 rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms)
+                extra = ""
+                if name.startswith("gather_gram"):
+                    flops = 2 * q * d * (n_pad + q)
+                    extra = (f" {flops / ms / 1e9:.1f} TFLOP/s; earlier "
+                             f"design {EARLIER_MS['gather_gram', dname]} ms")
+                    if esz == 4:
+                        extra += (f"; 3xTF32 bound "
+                                  f"{3 * flops / TF32_FLOPS * 1e3:.5f} ms")
                 print(f"[kernels] {name} {sname} {dname} timed: ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
                       f"({b_by}) library_ms="
-                      f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}",
-                      flush=True)
+                      f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}"
+                      + extra, flush=True)
     for name, v in worst.items():
         rec[name]["max_abs_err"] = v
     return rec
@@ -969,12 +1008,19 @@ def phase_ring_fold(x_f32, x_bf16, y_dev, c, tau, q: int, reps: int) -> dict:
                         plain_ms = time_cold_ms(functools.partial(
                             ring.ring_fold_window_plain, *args), reps)
                         lib_ms = time_cold_ms(library, reps)
+                        tf32 = ("" if esz == 2 else
+                                f"; 3xTF32 bound "
+                                f"{3 * flops / TF32_FLOPS * 1e3:.5f} ms")
                         print(f"[kernels] ring_fold_window timed (P=4, R=1, "
                               f"n_loc {n_loc}, {dname}): ms={ms:.4f} "
                               f"plain_ms={plain_ms:.4f} library_ms="
                               f"{lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
                               f"{flops / 1e9:.1f} GFLOP, "
-                              f"{nbytes / 1e6:.1f} MB)", flush=True)
+                              f"{nbytes / 1e6:.1f} MB{tf32}) "
+                              f"{flops / ms / 1e9:.1f} TFLOP/s; earlier "
+                              f"design "
+                              f"{EARLIER_MS['ring_fold_window', dname]} ms",
+                              flush=True)
                         if dname == "bfloat16":
                             rec = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=b_ms,
@@ -1068,6 +1114,47 @@ def phase_mesh(x, y, cfg, dev) -> tuple:
     return launches, mesh
 
 
+def check_tensor_cores() -> None:
+    """Count the tensor-core instructions (HMMA) in the SASS of the
+    kernels that must do their products on them (MMA_KERNELS), with
+    cuobjdump, by instantiation and operand type. The bfloat16 X
+    instantiation must hold bf16 HMMAs (m16n8k16) and no other; the
+    float32 X one tf32 HMMAs (m16n8k8) and no other, exactly 3 x 2 times
+    as many: three products (3xTF32) for each step of half the depth.
+    One-pass TF32 would hold a third of them."""
+    from dpsvm_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for src, kernel in MMA_KERNELS:
+        sass = subprocess.run([tool, "-sass", _build._lib_path(src)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None  # (instantiation, HMMA opcode) -> count
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                fn = (None if kernel not in fn else "bfloat16"
+                      if "__nv_bfloat16" in fn else "float32")
+            elif fn and "MMA" in line:
+                op = next(t for t in line.replace(";", " ").split()
+                          if "MMA" in t)
+                counts[fn, op] = counts.get((fn, op), 0) + 1
+        print(f"[build] {src}: tensor-core instructions in the SASS of "
+              f"{kernel}: " + ", ".join(f"{t} X {op} {c}" for (t, op), c
+                                        in sorted(counts.items())),
+              flush=True)
+        per = {t: {op: c for (u, op), c in counts.items() if u == t}
+               for t in ("bfloat16", "float32")}
+        n_bf16 = sum(per["bfloat16"].values())
+        n_tf32 = sum(per["float32"].values())
+        ok = (n_bf16 > 0 and all(".BF16" in op for op in per["bfloat16"])
+              and all(".TF32" in op for op in per["float32"])
+              and n_tf32 == 3 * 2 * n_bf16)
+        if not ok:
+            raise AssertionError(f"{kernel}: the SASS holds {per}, not bf16 "
+                                 "HMMAs and 3 x 2 times as many tf32 ones")
+
+
 def main() -> int:
     import torch
 
@@ -1104,8 +1191,10 @@ def main() -> int:
           flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    check_tensor_cores()
 
     # ---- data
     t0 = time.perf_counter()

@@ -1,12 +1,15 @@
-// Device helpers shared by the port's kernels: (value, id) reductions
-// with the JAX package's tie rules, 16-byte vector access, and
-// ops/kernels.py kernel_from_dots for one element.
+// Helpers shared by the port's kernels: (value, id) reductions with the
+// JAX package's tie rules, 16-byte vector access, ops/kernels.py
+// kernel_from_dots for one element, and the occupancy query that sizes a
+// persistent or cooperative grid.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+
+#include <mutex>
 
 namespace {
 
@@ -81,6 +84,44 @@ __device__ __forceinline__ float from_dot(float dot, float bsq, float asq,
   if (kp.degree == 2) return v * v;
   if (kp.degree == 3) return v * v * v;
   return powf(v, (float)kp.degree);
+}
+
+// The blocks of kernel `fn`, launched with `threads` threads and `smem`
+// bytes of dynamic shared memory, that run at once on the current device.
+// The first call for a (kernel, device) raises the kernel's dynamic
+// shared-memory limit to `smem` (needed above 48 KB; cudaFuncSetAttribute
+// holds for the current device only) before it asks the occupancy query
+// with `smem`; later calls read the cache. Call it before every launch of
+// such a kernel, so that a launch on another device sets its attribute too.
+inline cudaError_t resident_blocks(const void* fn, int threads, int smem, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int dev, blocks;
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int used = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    if (cache[i].fn == fn && cache[i].dev == dev) {
+      *blocks = cache[i].blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  if (smem > 0) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  if (used < kEntries) cache[used++] = {fn, dev, *blocks};
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -61,30 +61,44 @@
 // What bounds them on this card. B7 moves (P - 1) blocks in and out per
 // rank: bytes (19 MB at P = 4 with 811 KB blocks, ~6 us). B8 does
 // (P - 1) x 2 R q d n_loc flops per rank (72 GFLOP over four ranks at the
-// headline) against 0.1 GB: operations, on the CUDA cores in float32
-// (~1.1 ms at 67 TFLOP/s; with bf16 X on the tensor cores bytes would).
+// headline) against 0.1 GB: operations, on the tensor cores (~73 us at
+// 989 TFLOP/s with bf16 X; with float32 X the 3xTF32 product is three
+// times the flops at 495 TFLOP/s, ~0.44 ms).
 //
-// What B8's design does about it: the fold is the tiled shared-memory GEMM
-// of csrc/gather_gram.cu. A block owns 128 output rows at a time and walks
-// the window in chunks of 64 rows: both operand tiles are staged in shared
-// memory as float32 (window rows are first rounded to X's storage type, as
-// the TPU kernel casts them), each thread keeps an 8 x 4 register tile, one
-// fused multiply-add per term in order k. The epilogue applies
-// kernel_from_dots, parks the 64 x 128 kernel values in shared memory, and
-// one thread per output row contracts them with coef by an in-order chain
-// of fused multiply-adds over the window rows, so the fold delta does not
-// depend on the tiling. A rank forwards an arrived window BEFORE it folds
-// it, so later hops' copies run under the fold. No tensor cores or TMA yet:
-// right first, fast later.
+// What B8's design does about it: the fold is the tensor-core tile product
+// of csrc/mma_tile.cuh (bf16 MMA for bf16 X, 3xTF32 for float32 X). A block
+// of 8 warps owns 128 output rows (rows of x_loc, the B operand) and walks
+// the window in passes of 128 rows (the A operand), both brought by a
+// 3-stage cp.async ring. Window rows cannot be a raw cp.async of the slot:
+// their stride is (d + 3) x 4 bytes and they are float32. So once a hop,
+// after the slot has arrived, the rank's blocks each convert a share of it
+// to X's storage type (rounding to bf16 for bf16 X, as the TPU kernel
+// casts the window; exact for values a bf16 shard produced) into a
+// per-rank, per-slot buffer with rows padded to 16 bytes, publish their
+// share with a flag word (slots P .. 2P - 1 of the flag table), and wait
+// for the rank's other blocks: one more cross-block handoff a hop, and the
+// fold's tile loads are those of B4. A pass's epilogue applies
+// kernel_from_dots to the accumulators, parks the 128 x 128 kernel values
+// in shared memory, and one thread per output row contracts them with coef
+// by an in-order chain of fused multiply-adds carried across passes, so
+// the fold delta does not depend on the tiling (ROADMAP C.17). A rank
+// forwards an arrived window BEFORE it folds it, so later hops' copies run
+// under the fold. A block folds the same output tiles on every hop.
 //
-// Numerics: built with -fmad=false; the accumulations use explicit fused
-// multiply-adds. The sum order differs from the library product of the
-// plain version, so f' agrees with it within rounding only.
+// The spin bound's fold allowance (kFoldOpsPerTrip) was sized for the
+// CUDA-core fold; the tensor-core fold is faster, which only makes the
+// bound looser: still seconds, still a trap and never a hang.
+//
+// Numerics: built with -fmad=false; the contraction uses explicit fused
+// multiply-adds. The dots and the contraction sum in other orders than the
+// library product of the plain version, so f' agrees with it within
+// rounding only.
 
 #include <cuda_bf16.h>
 #include <stdio.h>
 
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -93,7 +107,7 @@ constexpr int kThreads = 256;
 constexpr long long kSpinTrips = 1 << 24;  // x >= 100 ns: seconds, then trap
 // A peer forwards a window only after it has folded the one before: a wait
 // may last one hop's fold of all P ranks, 2 P rq d n_loc operations. Allow
-// for a card that does no more than 1e11 of them a second (about a hundredth
+// for a card that does no more than 1e11 of them a second (under a hundredth
 // of what the fold reaches): 1e4 operations a trip of >= 100 ns.
 constexpr long long kFoldOpsPerTrip = 10000;
 
@@ -110,6 +124,7 @@ struct FoldPtrs {
   const float* err[kMaxRanks];  // null unless compensated
   float* f_out[kMaxRanks];
   float* err_out[kMaxRanks];
+  void* conv[kMaxRanks];  // (P, rq, dp) windows in X's type, rows padded to 16 bytes
 };
 
 __device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned seq,
@@ -219,42 +234,56 @@ ring_gather_kernel(RingPtrs p, int P, long count, bool vec, unsigned seq,
   }
 }
 
-constexpr int kBM = 64;   // window rows per pass
-constexpr int kBN = 128;  // output rows per tile
-constexpr int kBK = 16;   // depth per shared-memory stage
+constexpr int kFoldThreads = 256;
+constexpr int kFM = 128;  // window rows a pass (the A operand)
+constexpr int kFN = 128;  // output rows a tile (the B operand, rows of x_loc)
+constexpr int kFoldStages = 3;
+constexpr int kWM = 64;  // window rows of a warp's sub-tile (4 MMA rows)
+constexpr int kLdK = kFN + 8;  // row of the parked kernel values
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-// A window value as X's storage type holds it.
+// A window value as X's storage type holds it, in the stage's element type:
+// rounded to bf16 for bf16 X (exact for values a bf16 shard produced).
+__device__ __forceinline__ __nv_bfloat16 as_stored(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float as_stored(float v, float*) { return v; }
+
 template <typename T>
-__device__ __forceinline__ float as_stored(float v);
-template <>
-__device__ __forceinline__ float as_stored<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float as_stored<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+constexpr int fold_smem_bytes() {
+  return kFoldStages * (kFM + kFN) * Tile<T>::kLd * (int)sizeof(typename Tile<T>::S) +
+         (kFM * kLdK + 2 * kFM + kFN) * (int)sizeof(float);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ring_fold_kernel(RingPtrs p, FoldPtrs fp, int P, int rq, int d, int n_loc,
-                 int compensated, bool vec, unsigned seq, long long spin, KParams kp) {
-  __shared__ float a_s[kBK][kBM + 4];
-  __shared__ float b_s[kBK][kBN + 4];
-  __shared__ float k_s[kBM][kBN];
-  __shared__ float coef_s[kBM];
-  __shared__ float qsq_s[kBM];
+__global__ void __launch_bounds__(kFoldThreads, 1)
+ring_fold_kernel(RingPtrs p, FoldPtrs fp, int P, int rq, int d, int dp, int n_loc,
+                 int compensated, bool vec, bool x_vec, unsigned seq, long long spin,
+                 KParams kp) {
+  using S = typename Tile<T>::S;
+  constexpr int kLd = Tile<T>::kLd, kSt = kFoldStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* a_s = reinterpret_cast<S*>(smem);                 // kSt x kFM x kLd
+  S* b_s = a_s + kSt * kFM * kLd;                      // kSt x kFN x kLd
+  float* k_s = reinterpret_cast<float*>(b_s + kSt * kFN * kLd);  // kFM x kLdK
+  float* coef_s = k_s + kFM * kLdK;
+  float* qsq_s = coef_s + kFM;
+  float* xsq_s = qsq_s + kFM;  // the tile's output rows' norms
 
   const int lanes = d + 3;
   const Ring r = make_ring(P, (long)rq * lanes, vec, seq, spin);
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;  // columns tx, tx + 32, tx + 64, tx + 96
-  const int ty = tid >> 5;  // rows 8 ty .. 8 ty + 7
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 64 window rows, 32 output rows
   const T* x = reinterpret_cast<const T*>(fp.x[r.my]);
   const float* x_sq = fp.x_sq[r.my];
   float* f_out = fp.f_out[r.my];
   float* err_out = fp.err_out[r.my];
-  const int n_tiles = (n_loc + kBN - 1) / kBN;
+  const int n_tiles = (n_loc + kFN - 1) / kFN;
+  const int passes = (rq + kFM - 1) / kFM;
+  const int nk = (d + kBK - 1) / kBK;
+  // This block's output tiles, tile = r.b + i r.chunks, the same on every
+  // hop: hop h + 1 reads the f_out this block wrote at hop h.
+  const int my_tiles = r.b < n_tiles ? (n_tiles - 1 - r.b) / r.chunks + 1 : 0;
+  const int its = my_tiles * passes * nk;  // (tile, pass, depth stage), depth fastest
 
   r.start(p);
   for (int h = 0; h + 1 < P; ++h) {
@@ -268,79 +297,103 @@ ring_fold_kernel(RingPtrs p, FoldPtrs fp, int P, int rq, int d, int n_loc,
     const float* f_in = h == 0 ? fp.f[r.my] : f_out;
     const float* err_in = h == 0 ? fp.err[r.my] : err_out;
 
-    for (int tile = r.b; tile < n_tiles; tile += r.chunks) {
-      const int n0 = tile * kBN;
-      float delta = 0.0f;  // of output row n0 + tid, threads tid < kBN
-      for (int m0 = 0; m0 < rq; m0 += kBM) {
-        if (tid < kBM) {
-          const int m = m0 + tid;
-          qsq_s[tid] = m < rq ? __ldcg(win + (long)m * lanes + d) : 0.0f;
-          coef_s[tid] = m < rq ? __ldcg(win + (long)m * lanes + d + 1) : 0.0f;
-        }
-        float acc[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-        for (int k0 = 0; k0 < d; k0 += kBK) {
-          for (int e = tid; e < kBM * kBK; e += kThreads) {
-            const int row = e / kBK, kk = e % kBK, m = m0 + row, k = k0 + kk;
-            a_s[kk][row] = (m < rq && k < d)
-                               ? as_stored<T>(__ldcg(win + (long)m * lanes + k))
-                               : 0.0f;
-          }
-          for (int e = tid; e < kBN * kBK; e += kThreads) {
-            const int row = e / kBK, kk = e % kBK, j = n0 + row, k = k0 + kk;
-            b_s[kk][row] = (j < n_loc && k < d) ? widen(x[(long)j * d + k]) : 0.0f;
-          }
-          __syncthreads();
-          const int kmax = d - k0 < kBK ? d - k0 : kBK;
-          for (int kk = 0; kk < kmax; ++kk) {
-            float av[8], bv[4];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) av[i] = a_s[kk][ty * 8 + i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = b_s[kk][tx + 32 * j];
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-          }
-          __syncthreads();
-        }
-        // kernel_from_dots, parked for the in-order contraction.
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float asq = qsq_s[ty * 8 + i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = tx + 32 * j;
-            const int jj = n0 + col;
-            k_s[ty * 8 + i][col] =
-                jj < n_loc ? from_dot(acc[i][j], x_sq[jj], asq, kp) : 0.0f;
-          }
-        }
-        __syncthreads();
-        if (tid < kBN) {
-          const int mmax = rq - m0 < kBM ? rq - m0 : kBM;
-          for (int i = 0; i < mmax; ++i) delta = __fmaf_rn(coef_s[i], k_s[i][tid], delta);
-        }
-        __syncthreads();
-      }
-      const int j = n0 + tid;
-      if (tid < kBN && j < n_loc) {
-        const float f0 = f_in[j];
-        if (compensated) {
-          // solver/smo.py kahan_add, same expression order.
-          const float yv = delta - err_in[j];
-          const float t = f0 + yv;
-          f_out[j] = t;
-          err_out[j] = (t - f0) - yv;
-        } else {
-          f_out[j] = f0 + delta;
-        }
+    // The window's rows in X's storage type, 16-byte rows zero-padded to dp,
+    // into this rank's buffer for the slot: each block converts its share,
+    // publishes it, and waits for the rank's other blocks, so the fold
+    // loads them by cp.async like rows of X. A slot's buffer is written
+    // once a call: a block still folding an earlier hop reads another.
+    T* cw = reinterpret_cast<T*>(fp.conv[r.my]) + (long)arrived * rq * dp;
+    {
+      const long total = (long)rq * dp, per = (total + r.chunks - 1) / r.chunks;
+      const long lo = (long)r.b * per, hi = lo + per < total ? lo + per : total;
+      for (long e = lo + tid; e < hi; e += kFoldThreads) {
+        const long row = e / dp;
+        const int k = (int)(e % dp);
+        cw[e] = as_stored(k < d ? __ldcg(win + row * lanes + k) : 0.0f, cw);
       }
     }
+    publish(r.flag(p, r.my, P + arrived, r.b), seq);
+    r.receive_all(p, P + arrived);
+
+    auto issue = [&](int it) {  // window rows and x_loc rows of stage it
+      if (it < its) {
+        const int j0 = (r.b + it / nk / passes * r.chunks) * kFN;
+        const int m0 = (it / nk) % passes * kFM, k0 = (it % nk) * kBK, s = it % kSt;
+        load_rows<T, kFoldThreads>(a_s + s * kFM * kLd, kFM, cw, dp, k0, true,
+                                   [&](int row) { return m0 + row < rq ? m0 + row : -1; });
+        load_rows<T, kFoldThreads>(b_s + s * kFN * kLd, kFN, x, d, k0, x_vec,
+                                   [&](int row) { return j0 + row < n_loc ? j0 + row : -1; });
+      }
+      cp_async_commit();
+    };
+    for (int it = 0; it < kSt - 1; ++it) issue(it);
+    float acc[kWM / 16][4][4];
+    zero_acc(acc);
+    float delta = 0.0f;  // of output row j0 + tid, threads tid < kFN
+    for (int it = 0; it < its; ++it) {
+      cp_async_wait<kSt - 2>();
+      __syncthreads();  // stage it landed; stage it - 1 is free
+      issue(it + kSt - 1);
+      const int item = it / nk, pass = item % passes, m0 = pass * kFM;
+      const int mrows = min(kFM, rq - m0);
+      const int s = it % kSt;
+      if (wm * kWM < mrows)
+        warp_mma(a_s + (s * kFM + wm * kWM) * kLd, b_s + (s * kFN + wn * kWN) * kLd, acc);
+      if (it % nk != nk - 1) continue;
+
+      // ---- epilogue of (tile, pass): kernel_from_dots parked in shared
+      // memory, then the in-order contraction with coef.
+      const int j0 = (r.b + item / passes * r.chunks) * kFN;
+      static_assert(kFM + kFN <= kFoldThreads, "one value a thread");
+      if (tid < kFM) {
+        const int m = m0 + tid;
+        qsq_s[tid] = m < rq ? __ldcg(win + (long)m * lanes + d) : 0.0f;
+        coef_s[tid] = m < rq ? __ldcg(win + (long)m * lanes + d + 1) : 0.0f;
+      } else if (tid < kFM + kFN) {
+        const int j = j0 + tid - kFM;
+        xsq_s[tid - kFM] = j < n_loc ? x_sq[j] : 0.0f;
+      }
+      __syncthreads();
+      if (wm * kWM < mrows) {
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int c = 0; c < 4; c += 2) {
+              const int row = wm * kWM + frag_row(mi, c), col = wn * kWN + frag_col(ni, c);
+              const int jj = j0 + col;  // even; n_loc may be odd
+              const float asq = qsq_s[row];
+              const float v0 = jj < n_loc ? from_dot(acc[mi][ni][c], xsq_s[col], asq, kp) : 0.0f;
+              const float v1 =
+                  jj + 1 < n_loc ? from_dot(acc[mi][ni][c + 1], xsq_s[col + 1], asq, kp) : 0.0f;
+              *reinterpret_cast<float2*>(k_s + row * kLdK + col) = make_float2(v0, v1);
+            }
+      }
+      __syncthreads();
+      if (tid < kFN) {
+#pragma unroll 8
+        for (int i = 0; i < mrows; ++i) delta = __fmaf_rn(coef_s[i], k_s[i * kLdK + tid], delta);
+        const int j = j0 + tid;
+        if (pass == passes - 1) {
+          if (j < n_loc) {
+            const float f0 = f_in[j];
+            if (compensated) {
+              // solver/smo.py kahan_add, same expression order.
+              const float yv = delta - err_in[j];
+              const float t = f0 + yv;
+              f_out[j] = t;
+              err_out[j] = (t - f0) - yv;
+            } else {
+              f_out[j] = f0 + delta;
+            }
+          }
+          delta = 0.0f;
+        }
+      }
+      zero_acc(acc);
+    }
+    cp_async_wait<0>();
   }
 }
 
@@ -358,30 +411,50 @@ bool fill_ring(RingPtrs& p, int P, void* const* out, void* const* flags,
   return count % 4 == 0 && bits % 16 == 0;
 }
 
-const void* kernel_of(int which) {
+// Kernel `which` (0 ring_gather, 1 ring_fold_window on float32 X, 2 on
+// bfloat16 X) with the block size and dynamic shared memory it launches
+// with, and the most blocks of it that run at once on the current device
+// (common.cuh resident_blocks, which also raises the fold's dynamic
+// shared-memory limit there: the fold takes more than the default 48 KB).
+struct Launch {
+  const void* fn;
+  int threads, smem, blocks;
+};
+
+cudaError_t launch_of(int which, Launch* l) {
   switch (which) {
-    case 0: return (const void*)ring_gather_kernel;
-    case 1: return (const void*)ring_fold_kernel<float>;
-    case 2: return (const void*)ring_fold_kernel<__nv_bfloat16>;
-    default: return nullptr;
+    case 0: *l = {(const void*)ring_gather_kernel, kThreads, 0, 0}; break;
+    case 1:
+      *l = {(const void*)ring_fold_kernel<float>, kFoldThreads, fold_smem_bytes<float>(), 0};
+      break;
+    case 2:
+      *l = {(const void*)ring_fold_kernel<__nv_bfloat16>, kFoldThreads,
+            fold_smem_bytes<__nv_bfloat16>(), 0};
+      break;
+    default: return cudaErrorInvalidValue;
   }
+  return resident_blocks(l->fn, l->threads, l->smem, &l->blocks);
+}
+
+// One cooperative launch of kernel `which`: `chunks` blocks for each of the
+// P ranks, all of which must fit on the device at once.
+cudaError_t launch_ring(int which, int chunks, int P, void** args, cudaStream_t st) {
+  Launch l{};
+  const cudaError_t err = launch_of(which, &l);
+  if (err != cudaSuccess) return err;
+  if ((long)chunks * P > l.blocks) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaLaunchCooperativeKernel(l.fn, dim3(chunks, P), dim3(l.threads), args, l.smem, st);
 }
 
 }  // namespace
 
-// The most blocks of kernel `which` (0 ring_gather, 1 ring_fold_window on
-// float32 X, 2 on bfloat16 X) that run at once on the current device: what a
+// The most blocks of kernel `which` (see launch_of) that run at once on the
+// current device with its block size and dynamic shared memory: what a
 // cooperative launch of it may hold.
 extern "C" int dpsvm_ring_max_blocks(int which, int* blocks) {
-  const void* fn = kernel_of(which);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  *blocks = sms * per_sm;
+  Launch l{};
+  const cudaError_t err = launch_of(which, &l);
+  *blocks = l.blocks;
   return (int)err;
 }
 
@@ -396,37 +469,41 @@ extern "C" int dpsvm_ring_gather(void* const* out, void* const* flags,
   bool vec = fill_ring(p, P, out, flags, blk, count);
   long long spin = kSpinTrips;
   void* args[] = {&p, &P, &count, &vec, &seq, &spin};
-  return (int)cudaLaunchCooperativeKernel(kernel_of(0), dim3(chunks, P), dim3(kThreads),
-                                          args, 0, (cudaStream_t)stream);
+  return (int)launch_ring(0, chunks, P, args, (cudaStream_t)stream);
 }
 
 extern "C" int dpsvm_ring_fold_window(void* const* out, void* const* flags,
                                       const void* const* pend, const void* const* x,
                                       const void* const* x_sq, const void* const* f,
                                       const void* const* err, void* const* f_out,
-                                      void* const* err_out, int P, int rq, int d,
-                                      int n_loc, int x_bf16, int compensated, int chunks,
+                                      void* const* err_out, void* const* conv, int P,
+                                      int rq, int d, int dp, int n_loc, int x_bf16,
+                                      int compensated, int chunks,
                                       unsigned seq, int kind, float gamma, float coef0,
                                       int degree, void* stream) {
-  if (P < 2 || P > kMaxRanks || rq < 1 || d < 1 || n_loc < 1 || chunks < 1 ||
-      chunks > kThreads || kind < kRbf || kind > kSigmoid) {
+  const int esz = x_bf16 ? 2 : 4;
+  if (P < 2 || P > kMaxRanks || rq < 1 || d < 1 || dp < d || (dp * esz) % 16 != 0 ||
+      n_loc < 1 || chunks < 1 || chunks > kFoldThreads || kind < kRbf || kind > kSigmoid) {
     return (int)cudaErrorInvalidValue;
   }
   RingPtrs p{};
   bool vec = fill_ring(p, P, out, flags, pend, (long)rq * (d + 3));
+  bool x_vec = (d * esz) % 16 == 0;  // 16-byte cp.async of x_loc rows
   FoldPtrs fp{};
   for (int r = 0; r < P; ++r) {
+    x_vec = x_vec && (unsigned long long)x[r] % 16 == 0;
     fp.x[r] = x[r];
     fp.x_sq[r] = (const float*)x_sq[r];
     fp.f[r] = (const float*)f[r];
     fp.err[r] = compensated ? (const float*)err[r] : nullptr;
     fp.f_out[r] = (float*)f_out[r];
     fp.err_out[r] = compensated ? (float*)err_out[r] : nullptr;
+    fp.conv[r] = conv[r];
   }
   KParams kp{kind, -gamma, gamma, coef0, degree};
   long long spin =
       kSpinTrips + 2LL * P * rq * d * (long long)n_loc / kFoldOpsPerTrip;
-  void* args[] = {&p, &fp, &P, &rq, &d, &n_loc, &compensated, &vec, &seq, &spin, &kp};
-  return (int)cudaLaunchCooperativeKernel(kernel_of(x_bf16 ? 2 : 1), dim3(chunks, P),
-                                          dim3(kThreads), args, 0, (cudaStream_t)stream);
+  void* args[] = {&p,    &fp,          &P,   &rq,    &d,   &dp,   &n_loc,
+                  &compensated, &vec, &x_vec, &seq, &spin, &kp};
+  return (int)launch_ring(x_bf16 ? 2 : 1, chunks, P, args, (cudaStream_t)stream);
 }

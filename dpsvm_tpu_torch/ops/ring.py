@@ -35,14 +35,14 @@ from dpsvm_tpu_torch.solver.smo import maybe_kahan
 _KINDS = {"rbf": 0, "linear": 1, "poly": 2, "sigmoid": 3}
 _MAX_RANKS = 16  # csrc/ring.cu kMaxRanks
 _MAX_CHUNKS = 32  # blocks per rank for the copy-only ring
+_MAX_FOLD_CHUNKS = 256  # csrc/ring.cu kFoldThreads
 
 # Flag words live across calls, per (kernel, device, stream, P, chunks):
-# an int32 (P, P, chunks) tensor, zero at first, and the sequence number
+# an int32 (P, slots, chunks) tensor, zero at first, and the sequence number
 # of the last call that used it. A call's flags equal its sequence
 # number, so no call resets them. Calls on one stream run in order;
 # calls on two streams may overlap and so never share flag words.
 _flags: dict = {}
-_max_blocks: dict = {}  # (which kernel, device) -> co-resident blocks
 
 
 def fold_window_peers(gathered, rank: int, x_loc, x_sq_loc, f, f_err,
@@ -117,8 +117,8 @@ def _lib() -> ctypes.CDLL:
         # out, flags, blk | P, count, chunks, seq | stream
         "dpsvm_ring_gather": [ptr] * 3 + [i32, ctypes.c_long, i32,
                                           ctypes.c_uint, ptr],
-        # out, flags, pend, x, x_sq, f, err, f_out, err_out
-        "dpsvm_ring_fold_window": [ptr] * 9 + [i32] * 7
+        # out, flags, pend, x, x_sq, f, err, f_out, err_out, conv
+        "dpsvm_ring_fold_window": [ptr] * 10 + [i32] * 8
         + [ctypes.c_uint, i32, f32, f32, i32, ptr],
     }
     for name, argtypes in sigs.items():
@@ -150,27 +150,27 @@ def _one_device(tensors, what: str) -> torch.device:
 
 
 def _chunks(which: int, dev, p_dev: int, cap: int) -> int:
-    """Blocks per rank of kernel `which` (csrc/ring.cu kernel_of): all
+    """Blocks per rank of kernel `which` (csrc/ring.cu launch_of): all
     P x chunks blocks of the launch must run at once, so no more than the
     kernel's occupancy allows on `dev`. The cooperative launch refuses a
-    grid that the context cannot hold at once."""
-    if (which, dev) not in _max_blocks:
-        n = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            _raise_on(_lib().dpsvm_ring_max_blocks(which, ctypes.byref(n)),
-                      "ring occupancy query")
-        _max_blocks[which, dev] = n.value
-    chunks = min(cap, _max_blocks[which, dev] // p_dev)
+    grid that the context cannot hold at once. (The query is cached per
+    kernel and device in csrc/common.cuh resident_blocks.)"""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _raise_on(_lib().dpsvm_ring_max_blocks(which, ctypes.byref(n)),
+                  "ring occupancy query")
+    chunks = min(cap, n.value // p_dev)
     if chunks < 1:
         raise RuntimeError(f"{p_dev} ring ranks do not fit on {dev} at once "
-                           f"({_max_blocks[which, dev]} blocks)")
+                           f"({n.value} blocks)")
     return chunks
 
 
-def _next_seq(kernel: str, dev, stream: int, p_dev: int, chunks: int):
+def _next_seq(kernel: str, dev, stream: int, p_dev: int, chunks: int,
+              slots: int):
     key = (kernel, dev, stream, p_dev, chunks)
     if key not in _flags:
-        _flags[key] = [torch.zeros((p_dev, p_dev, chunks), dtype=torch.int32,
+        _flags[key] = [torch.zeros((p_dev, slots, chunks), dtype=torch.int32,
                                    device=dev), 0]
     entry = _flags[key]
     entry[1] = entry[1] % (2 ** 32 - 1) + 1  # never 0, the flags' first state
@@ -209,7 +209,7 @@ def ring_gather(blocks) -> list:
                       device=dev)
     chunks = _chunks(0, dev, p_dev, _MAX_CHUNKS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flags, seq = _next_seq("gather", dev, stream, p_dev, chunks)
+    flags, seq = _next_seq("gather", dev, stream, p_dev, chunks, p_dev)
     with torch.cuda.device(dev):
         _raise_on(_lib().dpsvm_ring_gather(
             _ptrs(list(out)), _ptrs(list(flags)), _ptrs(blocks), p_dev,
@@ -256,16 +256,23 @@ def ring_fold_window(pends, xs, x_sqs, fs, f_errs, kp: KernelParams):
     f_out = [torch.empty_like(f) for f in fs]
     err_out = [torch.empty_like(f) for f in fs] if compensated else None
     x_bf16 = int(xs[0].dtype == torch.bfloat16)
-    chunks = _chunks(1 + x_bf16, dev, p_dev, 256)
+    # Each arrived window in X's type, its rows padded to 16 bytes, where
+    # the fold's tile loads take it from (one slot per peer, per rank).
+    per16 = 16 // xs[0].element_size()
+    dp = -(-d // per16) * per16
+    conv = torch.empty((p_dev, p_dev, rq, dp), dtype=xs[0].dtype, device=dev)
+    chunks = _chunks(1 + x_bf16, dev, p_dev, _MAX_FOLD_CHUNKS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flags, seq = _next_seq("fold", dev, stream, p_dev, chunks)
+    # Slots [0, P) flag the ring's arrivals, [P, 2P) the converted windows.
+    flags, seq = _next_seq("fold", dev, stream, p_dev, chunks, 2 * p_dev)
     none = [None] * p_dev
     with torch.cuda.device(dev):
         _raise_on(_lib().dpsvm_ring_fold_window(
             _ptrs(list(out)), _ptrs(list(flags)), _ptrs(pends), _ptrs(xs),
             _ptrs(x_sqs), _ptrs(fs), _ptrs(f_errs if compensated else none),
-            _ptrs(f_out), _ptrs(err_out if compensated else none), p_dev, rq,
-            d, n_loc, x_bf16, int(compensated), chunks, seq, _KINDS[kp.kind],
+            _ptrs(f_out), _ptrs(err_out if compensated else none),
+            _ptrs(list(conv)), p_dev, rq, d, dp, n_loc, x_bf16,
+            int(compensated), chunks, seq, _KINDS[kp.kind],
             float(kp.gamma), float(kp.coef0), int(kp.degree), stream),
             "ring_fold_window")
     ring_fold_window.launches += 1

@@ -49,6 +49,63 @@ def _gather_gram(x, w, x_sq, qsq, kp: KernelParams):
     return k_rows, kb
 
 
+def _dot_slope(x_sq, kp: KernelParams) -> float:
+    """The kernel family's largest slope in the dot, for dots of rows
+    whose squared norms are `x_sq` (rbf's: 2 gamma, as K <= 1)."""
+    vmax = kp.gamma * float(x_sq.max()) + kp.coef0
+    return {"rbf": 2 * kp.gamma, "linear": 1.0, "sigmoid": kp.gamma,
+            "poly": kp.degree * vmax ** (kp.degree - 1) * kp.gamma}[kp.kind]
+
+
+def gram_tolerance(x_sq, d: int, kp: KernelParams, k_abs):
+    """How far two float32 evaluations of the same kernel values, each
+    summing the d products of every dot in its own order, may lie apart:
+    the dots differ by at most 2 d 2^-24 max|x|^2 (each sum is within
+    d 2^-24 sum |x_i y_i| of the exact dot, and sum |x_i y_i| <= max|x|^2),
+    carried through the kernel family's slope in the dot, plus 4 ulps
+    (2^-23 each) of `k_abs`, the magnitude of K (a tensor of |K| for an
+    elementwise bound, or a scalar bound of |K|), for exp / tanh / pow.
+
+    x_sq: the rows' squared norms (max |x|^2 is their maximum). The bound
+    kernel B4 (csrc/gather_gram.cu) is held to against its plain version,
+    on the card and in the CPU tests of what the rule catches."""
+    e = 2.0 * d * 2.0 ** -24 * float(x_sq.max())
+    return _dot_slope(x_sq, kp) * e + 4 * 2.0 ** -23 * k_abs
+
+
+def gram_f64(x, w, x_sq, qsq, kp: KernelParams):
+    """K(W, :) and K(W, W) carried in float64 from the stored rows of x
+    and the given float32 norms: the yardstick that a float32
+    evaluation's own rounding is measured against."""
+    x64 = x.double()
+    q64 = x64[w]
+    return (kernel_from_dots(q64 @ x64.t(), x_sq.double(), qsq.double(), kp),
+            kernel_from_dots(q64 @ q64.t(), qsq.double(), qsq.double(), kp))
+
+
+def tf32x3_check(got, plain, ref, x_sq, kp: KernelParams):
+    """Whether B4's float32 path is 3xTF32 (csrc/mma_tile.cuh) and not a
+    cheaper product: `got` (the kernel's K), `plain` (the plain version's)
+    and `ref` (gram_f64) are tuples of matching tensors. The kernel's
+    largest error against the float64 Gram may be 4 times the plain
+    version's own (the sums' rounding, in another order and through the
+    MMA's truncating adds) plus 3 . 2^-22 max|x|^2 (the split's product
+    error, at most 3 . 2^-22 |a b| a product, summed over a dot: sum
+    |a_k b_k| <= max|x|^2) carried through the family's slope, plus 4 ulps
+    of max |K|. One-pass TF32 (2^-10 |a b| a product) lands about 100
+    times the plain version's error off on headline-shaped data
+    (tests/test_torch_round.py). Returns (kernel's error, plain's
+    error, limit)."""
+    err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    err_p = max(float((p.double() - r).abs().max())
+                for p, r in zip(plain, ref))
+    k_max = max(float(r.abs().max()) for r in ref)
+    limit = (4.0 * err_p
+             + _dot_slope(x_sq, kp) * 3 * 2.0 ** -22 * float(x_sq.max())
+             + 4 * 2.0 ** -23 * k_max)
+    return err, err_p, limit
+
+
 def _gather_lib():
     import ctypes
 

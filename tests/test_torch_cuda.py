@@ -174,11 +174,8 @@ def test_fold_rows_select_kernel_matches_plain(cuda, q, rows, compensated):
     assert all(_same_bits(a, b) for a, b in zip(got[2:], emitted))
 
 
-def dot_error_bound(x, d):
-    """Worst-case |difference| between two float32 sums of the same d
-    products of rows of x (each within d * 2^-24 * sum |x_i y_i| of the
-    exact dot, and sum |x_i y_i| <= max |x|^2)."""
-    return 2.0 * d * 2.0 ** -24 * float(squared_norms(x).max())
+GATHER_SHAPES = ([(1000, d, q) for d in (10, 37, 784, 800)
+                  for q in (2, 72, 256, 320)] + [(4096, 784, 256)])
 
 
 @pytest.mark.cuda
@@ -186,32 +183,40 @@ def dot_error_bound(x, d):
 @pytest.mark.parametrize("kind,gamma,degree,coef0", [
     ("rbf", 0.3, 3, 0.0), ("linear", 1.0, 3, 0.0), ("poly", 0.2, 3, 0.5),
     ("sigmoid", 0.1, 3, 0.25)])
-@pytest.mark.parametrize("n,d,q", [(1000, 37, 72), (4096, 784, 256)])
+@pytest.mark.parametrize("n,d,q", GATHER_SHAPES)
 def test_gather_gram_kernel_matches_plain(cuda, n, d, q, kind, gamma,
                                           degree, coef0, dtype):
     """B4 against x[w] + kernel_rows + the Gram expression on the card:
-    the sums run in another order than cuBLAS, so |dK| is held to the
-    dots' worst-case rounding carried through each family's slope, plus
-    4 ulps of K for exp / tanh / pow."""
-    rng = np.random.default_rng(n + d)
+    the sums run in another order than cuBLAS, so |dK| is held to
+    gram_tolerance (the dots' worst-case rounding carried through each
+    family's slope, plus 4 ulps of K for exp / tanh / pow); with float32
+    X also to tf32x3_check against the float64 Gram. d covers
+    rows of whole 16-byte chunks (784, 800: the cp.async path, 784 with a
+    half-stage K tail) and ragged ones (10, 37: the element path); q one
+    M tile short (2), past one (72), a full CTA (256) and two CTAs (320);
+    n = 1000 ends inside a data tile; w repeats ids, as dead slots'
+    filler does."""
+    rng = np.random.default_rng(n + d + q)
     x = torch.as_tensor(rng.random((n, d)).astype(np.float32),
                         device=cuda).to(dtype)
     x_sq = squared_norms(x)
-    w = torch.as_tensor(rng.integers(0, n, q).astype(np.int32),
-                        device=cuda)
+    w_np = rng.integers(0, n, q).astype(np.int32)
+    w_np[q // 2] = w_np[0]
+    w = torch.as_tensor(w_np, device=cuda)
     kp = KernelParams(kind, gamma, degree, coef0)
     tround.gather_gram.launches = 0
     k_rows, kb = tround.gather_gram(x, w, x_sq, x_sq[w], kp)
     p_rows, p_kb = tround._gather_gram(x, w, x_sq, x_sq[w], kp)
     torch.cuda.synchronize()
     assert tround.gather_gram.launches == 1
-    e = dot_error_bound(x, d)
-    vmax = gamma * float(x_sq.max()) + coef0
-    slope = {"rbf": 2 * gamma, "linear": 1.0, "sigmoid": gamma,
-             "poly": degree * vmax ** (degree - 1) * gamma}[kind]
     for got, want in ((k_rows, p_rows), (kb, p_kb)):
         assert bool(((got - want).abs()
-                     <= slope * e + 4 * 2.0 ** -23 * want.abs()).all())
+                     <= tround.gram_tolerance(x_sq, d, kp, want.abs())).all())
+    if dtype == torch.float32:  # 3xTF32, not a cheaper product
+        ref = tround.gram_f64(x, w, x_sq, x_sq[w], kp)
+        err, err_p, limit = tround.tf32x3_check((k_rows, kb), (p_rows, p_kb),
+                                                ref, x_sq, kp)
+        assert err <= limit, (err, err_p, limit)
 
 
 @pytest.mark.cuda
@@ -392,7 +397,8 @@ def test_ring_calls_on_two_streams_do_not_share_flags(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p_dev,rq,n_loc,d,kind", [
     (2, 16, 300, 10, "rbf"), (4, 64, 1000, 37, "rbf"),
-    (4, 256, 2000, 784, "linear"), (8, 100, 129, 24, "poly")])
+    (4, 256, 2000, 784, "linear"), (8, 100, 129, 24, "poly"),
+    (4, 512, 2000, 784, "rbf")])
 def test_ring_fold_window_kernel_matches_plain(cuda, p_dev, rq, n_loc, d,
                                                kind, dtype, compensated):
     """B8 on P logical shards: the gathered windows bitwise the stack;
@@ -443,6 +449,48 @@ def test_ring_fold_window_kernel_matches_plain(cuda, p_dev, rq, n_loc, d,
                + 4 * float((plain - ref).abs().max()))
         assert bool(((got - ref).abs() <= tol).all())
     assert (e_k is None) == (not compensated)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_fold_grid_is_what_its_shared_memory_allows(cuda, dtype):
+    """The fold takes more than the default 48 KB of dynamic shared
+    memory (about 130 KiB with bf16 X, 178 KiB with float32 X), so the
+    occupancy query that sizes its cooperative grid must be asked with it:
+    then one block fits an SM (a query for 0 bytes reports several, and
+    the runtime refuses a grid of that size). The wrapper's grid is the
+    query's, P x (blocks // P), and the launch is accepted at P = 2, 4,
+    8."""
+    import ctypes
+
+    lib = tring._lib()
+    which = 1 + int(dtype == torch.bfloat16)
+    blocks = ctypes.c_int()
+    with torch.cuda.device(cuda):
+        assert lib.dpsvm_ring_max_blocks(which, ctypes.byref(blocks)) == 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks.value == sms
+    rng = np.random.default_rng(9)
+    kp = KernelParams("rbf", 0.1)
+    for p_dev in (2, 4, 8):
+        xs = [torch.as_tensor(rng.random((700, 40)).astype(np.float32),
+                              device=cuda).to(dtype) for _ in range(p_dev)]
+        x_sqs = [squared_norms(x) for x in xs]
+        fs = [torch.zeros(700, device=cuda) for _ in range(p_dev)]
+        pends = [torch.cat([x[:48].float(), s[:48, None],
+                            torch.full((48, 1), 0.5, device=cuda),
+                            torch.zeros(48, 1, device=cuda)], dim=1)
+                 for x, s in zip(xs, x_sqs)]
+        chunks = tring._chunks(which, xs[0].device, p_dev,
+                               tring._MAX_FOLD_CHUNKS)
+        assert chunks == min(tring._MAX_FOLD_CHUNKS, sms // p_dev)
+        gath, f_k, _ = tring.ring_fold_window(pends, xs, x_sqs, fs, None, kp)
+        torch.cuda.synchronize()
+        assert all(_same_bits(g, torch.stack(pends)) for g in gath)
+        _, f_p, _ = tring.ring_fold_window_plain(pends, xs, x_sqs, fs, None,
+                                                 kp)
+        assert all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                   for a, b in zip(f_k, f_p))
 
 
 @pytest.mark.cuda
