@@ -95,7 +95,33 @@ result line is printed:
                 fused_round=True, engine="xla" and engine="pallas":
                 converged, SV count within 3% of the oracle's,
                 decision-sign agreement >= 99.8%; the plain model saved as
-                .txt and .npz and reloaded decides the same.
+                .txt and .npz and reloaded decides the same;
+ 12. nu      -- nu-SVC (train_nusvc, nu = 0.1) on the same data at full
+                size. (a) The headline (bf16 X, eps 0.01, q 256) with
+                fused_round=True asked: the fallback warning, converged,
+                B1 once a round and no other kernel. Then kernel B1's nu
+                rule (per-class extrema, the class by the float32
+                violation test) on working sets select_block(rule="nu")
+                picks from (a)'s warm start and end state, q = 128 and
+                256: the same pairs and bitwise its plain version's
+                alpha, timed beside it. (b) The oracle configuration
+                (float32, eps 5e-4) on the block engine and
+                engine="xla" against artifacts/oracle_nu60k (LibSVM
+                NuSVC at tol 1e-3): converged, SV count within 3%, signs
+                >= 99.8%; the block model's .npz reload decides the same;
+ 13. oneclass -- train_oneclass (nu 0.1, float32, eps 0.01) at full size
+                on the plain block engine and with fused_round=True (B1 =
+                B4 = B5 = rounds, from a warm start padded to 60416):
+                converged, sum(alpha) = nu n within 1e-4, inlier fraction
+                >= 1 - nu - 0.01, SV fraction >= nu - 0.01, and the
+                engines' signs agreeing on >= 99.8% of the rows whose
+                |g| > eps in both (the free SVs sit on the boundary);
+ 14. svr     -- train_svr (tube 0.1) and train_nusvr (nu 0.4) on the first
+                20000 rows (a depth cut: 40000 duals) against a seeded
+                smooth target (svr_target), each on the block engine (B1
+                once a round) and engine="xla" (no kernel): converged,
+                sum(a) - sum(a*) = 0 within 1e-4 C n, and the engines'
+                predictions within 0.1 of each other.
 
 The second-to-last lines are the per-kernel JSON record and the card's
 name and power limit; the last line is
@@ -218,21 +244,32 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def subproblem_inputs(x_dev, y_dev, x_sq, k_diag, alpha, f, c, q, kp):
-    """A real working set of the data: select_block's W at (alpha, f),
-    with its gathered Gram block and per-slot state."""
+def subproblem_inputs(x_dev, y_dev, x_sq, k_diag, alpha, f, c, q, kp,
+                      rule: str = "mvp"):
+    """A real working set of the data: select_block's W at (alpha, f)
+    (per-class quarters for the nu rule), with its gathered Gram block
+    and per-slot state."""
     from dpsvm_tpu_torch.solver.block import gather_block, select_block
 
-    w, ok, _, _ = select_block(f, alpha, y_dev, c, q)
+    w, ok, _, _ = select_block(f, alpha, y_dev, c, q,
+                               rule="nu" if rule == "nu" else "mvp")
     _, _, kb, kd, a0, yw, f0 = gather_block(x_dev, y_dev, x_sq, k_diag, f,
                                             alpha, w, kp)
     return kb, a0, yw, f0, kd, ok.float()
 
 
+# Kernel B1's (rule, pair_batch) cases on C-SVC states, and on nu-SVC
+# states (the nu rule's class choice needs both classes' duals).
+B1_RULES = (("mvp", 1), ("second_order", 1), ("mvp", 2), ("mvp", 4))
+B1_NU_RULES = (("nu", 1),)
+
+
 def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
-                  reps: int) -> dict:
-    """Kernel B1 against its plain version on real working sets. Returns
-    the JSON record's measured fields (timed at q=256, limit=512)."""
+                  reps: int, rules=B1_RULES, timed_rule: str = "mvp") -> dict:
+    """Kernel B1 against its plain version on real working sets: the same
+    pair count, alpha within rtol 1e-6 / atol 1e-7, and bitwise for the
+    pair batches and the nu rule. Returns the JSON record's measured
+    fields (timed at the start state, q=256, limit=512, `timed_rule`)."""
     import torch
 
     from dpsvm_tpu_torch.ops.subproblem import (_solve_subproblem,
@@ -242,10 +279,9 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
     rec = {}
     for sname, (alpha, f, eps) in states.items():
         for q, limit in ((128, 256), (128, 512), (256, 512)):
-            for rule, pb in (("mvp", 1), ("second_order", 1), ("mvp", 2),
-                             ("mvp", 4)):
+            for rule, pb in rules:
                 kb, a0, yw, f0, kd, ok = subproblem_inputs(
-                    x_dev, y_dev, x_sq, k_diag, alpha, f, c, q, kp)
+                    x_dev, y_dev, x_sq, k_diag, alpha, f, c, q, kp, rule)
                 lim = torch.tensor(limit, dtype=torch.int32, device=dev)
                 a_k, t_k = solve_subproblem(kb, a0, yw, f0, kd, ok, lim, c,
                                             eps, tau, rule=rule,
@@ -264,10 +300,10 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
                 np.testing.assert_allclose(a_k.cpu().numpy(),
                                            a_p.cpu().numpy(),
                                            rtol=RTOL, atol=ATOL)
-                if pb > 1 and not same_bits(a_k, a_p):
+                if (pb > 1 or rule == "nu") and not same_bits(a_k, a_p):
                     raise AssertionError(
-                        f"{sname} q={q} pair_batch={pb}: the kernel's alpha "
-                        "is not bitwise its plain version's")
+                        f"{sname} q={q} {rule} pair_batch={pb}: the "
+                        "kernel's alpha is not bitwise its plain version's")
                 ms = time_ms(functools.partial(
                     solve_subproblem, kb, a0, yw, f0, kd, ok, lim, c, eps,
                     tau, rule=rule, pair_batch=pb), reps)
@@ -292,8 +328,8 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
                       f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} "
                       f"({bound_by}) us_per_pair="
                       f"{1e3 * ms / max(t_k, 1):.3f}", flush=True)
-                if (sname, q, limit, rule, pb) == ("start", 256, 512, "mvp",
-                                                   1):
+                if (sname, q, limit, rule, pb) == ("start", 256, 512,
+                                                   timed_rule, 1):
                     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, serial_trips=t_k)
     rec["max_abs_err"] = worst
@@ -575,41 +611,50 @@ ENGINES = {
 }
 
 
-def train_counted(x, y, cfg, label: str, want: dict) -> tuple:
-    """Train with every launch count set to 0 just before and read just
-    after; the run must converge and launch exactly `want` (kernel ->
-    count from the rounds), every other kernel not at all. Returns
-    (model, result, counts)."""
-    from dpsvm_tpu_torch import train
+def counted(label: str, fit, want: dict) -> tuple:
+    """Run `fit()` -> (model, result) with every launch count set to 0
+    just before and read just after, its warnings caught and printed. The
+    run must converge and launch exactly `want` (kernel -> count from the
+    outer rounds), every other kernel not at all; a block engine (`want`
+    not empty) must have run rounds. Returns (model, result, counts,
+    warning texts)."""
+    import warnings
 
     reset_counts()
-    model, res = train(x, y, cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, res = fit()
     counts = read_counts()
-    rounds = res.stats["outer_rounds"]
+    texts = [str(w.message) for w in caught]
+    for t in texts:
+        print(f"[{label}] warning: {t}", flush=True)
+    rounds = res.stats.get("outer_rounds", 0)
     expect = {k: want.get(k, lambda r: 0)(rounds) for k in counts}
-    engine = [k for k in ("fused_fold", "fused_round", "pipelined")
-              if res.stats[k]]
-    print(f"[{label}] engine={engine or ['plain']} converged={res.converged} "
-          f"pairs={res.iterations} outer_rounds={rounds} "
+    engine = ([k for k in ("fused_fold", "fused_round", "pipelined")
+               if res.stats.get(k)] or ["plain"]
+              if "outer_rounds" in res.stats else ["per-pair"])
+    print(f"[{label}] engine={engine} converged={res.converged} "
+          f"pairs={res.iterations} outer_rounds={rounds or 'none'} "
           f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
           f"b={res.b:.6f} launches={counts}", flush=True)
     if not res.converged:
         raise AssertionError(f"{label} solve did not converge")
-    if counts != expect or rounds == 0:
+    if counts != expect or (want and rounds == 0):
         raise AssertionError(f"{label}: launches {counts}, expected "
                              f"{expect}: the path did not run through its "
                              "kernels as derived")
-    return model, res, counts
+    return model, res, counts, texts
 
 
-def check_oracle(model, res, x, oracle, sk_dec, label: str):
+def check_oracle(model, res, x, oracle, sk_dec, label: str,
+                 tag: str = "oracle"):
     """The LibSVM oracle contract; returns the decision values."""
     from dpsvm_tpu_torch import decision_function
 
     dec = decision_function(model, x)
     sv_dev = abs(res.n_sv - oracle["n_sv"]) / oracle["n_sv"]
     agree = float(np.mean(np.sign(dec) == np.sign(sk_dec)))
-    print(f"[oracle] {label}: converged={res.converged} "
+    print(f"[{tag}] {label}: converged={res.converged} "
           f"pairs={res.iterations} "
           f"outer_rounds={res.stats.get('outer_rounds', 'none')} "
           f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
@@ -1114,6 +1159,227 @@ def phase_mesh(x, y, cfg, dev) -> tuple:
     return launches, mesh
 
 
+# ---- the model families (phases 12-14)
+
+NU = 0.1
+# nu-SVC headline: the C-SVC headline's data and block shape, bf16 X,
+# with fused_round requested (the nu rule must fall back to the plain
+# round and say so).
+NU_HEADLINE = dict(gamma=0.125, epsilon=0.01, max_iter=2_000_000,
+                   engine="block", working_set_size=256, dtype="bfloat16",
+                   fused_round=True)
+# nu-SVC against artifacts/oracle_nu60k (LibSVM at tol 1e-3; the port
+# at eps = tol / 2, as tools/parity60k.py runs C-SVC).
+NU_ORACLE = dict(gamma=0.125, epsilon=5e-4, max_iter=4_000_000,
+                 engine="block", working_set_size=256)
+ONECLASS = dict(gamma=0.125, epsilon=0.01, max_iter=2_000_000,
+                engine="block", working_set_size=256)
+# Largest |g_plain - g_fused| on any row, in units of eps: each engine
+# stops with its maximal violating pair within eps, so each boundary
+# (rho) is fixed to within eps and the two to within 2 eps; one eps more
+# for the rows' own residuals.
+ONECLASS_DG_EPS = 3.0
+# The SVRs at a depth cut: the first SVR_ROWS rows (2 x SVR_ROWS duals).
+SVR_ROWS = 20_000
+SVR_RUN = dict(c=1.0, gamma=0.125, epsilon=0.01, max_iter=4_000_000,
+               engine="block", working_set_size=256)
+SVR_EPSILON = 0.1
+NU_SVR = 0.4
+SVR_PRED_TOL = 0.1
+SUM_RTOL = 1e-4
+
+
+def svr_target(x) -> np.ndarray:
+    """The seeded smooth regression target of the SVR phase:
+    z = 0.5 sin(3 s / std(s)) with s = (x - mean(x)) @ w, w a seed-11
+    normal direction scaled by 1/sqrt(d)."""
+    w = (np.random.default_rng(11).normal(size=x.shape[1])
+         / np.sqrt(x.shape[1])).astype(np.float32)
+    s = (x - x.mean(axis=0)) @ w
+    return (0.5 * np.sin(3.0 * s / s.std())).astype(np.float32)
+
+
+def phase_nu(x, y, dev, x_dev, y_dev, x_sq, k_diag, kp, tau) -> tuple:
+    """nu-SVC at full size: (a) the headline with fused_round=True asked
+    for (the fallback warning, B1 = rounds, no B4 / B5); kernel B1's nu
+    rule on working sets of (a)'s start and end states; (b) the oracle
+    configuration on the block engine and engine="xla" against
+    artifacts/oracle_nu60k, and the block model's .npz reload. Returns
+    (B1 nu record, launches of (a))."""
+    import torch
+
+    from dpsvm_tpu_torch import SVMConfig, SVMModel, decision_function
+    from dpsvm_tpu_torch import train_nusvc
+    from dpsvm_tpu_torch.models.nusvm import _capped_fill
+    from dpsvm_tpu_torch.ops.kernels import blocked_kernel_matvec
+
+    t0 = time.perf_counter()
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        train_nusvc(x[:16384], y[:16384], NU,
+                    SVMConfig(**{**NU_HEADLINE, "max_iter": 2048}))
+    print(f"[nu] warm-up solve on 16384 rows in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    _, res_a, counts_a, texts = counted(
+        "nu headline", lambda: train_nusvc(x, y, NU,
+                                           SVMConfig(**NU_HEADLINE)),
+        {"solve_subproblem": lambda r: r})
+    if not any("fused_round (plain round body)" in t for t in texts):
+        raise AssertionError("train_nusvc did not name the fused_round "
+                             "fallback")
+    if res_a.stats["fused_round"] or res_a.stats["fused_fold"]:
+        raise AssertionError("the nu headline ran a fused engine")
+
+    # B1's nu rule on the duals' own states: the trainer's warm start,
+    # and (a)'s end state with the 1/r rescale undone.
+    n = len(y)
+    alpha0 = np.zeros(n, np.float32)
+    for idx in (np.nonzero(y > 0)[0], np.nonzero(y < 0)[0]):
+        alpha0[idx] = _capped_fill(len(idx), NU * n / 2.0, 1.0)
+    f0 = blocked_kernel_matvec(x, alpha0 * y, kp, "bfloat16", device=dev)
+    r = res_a.stats["nu_r"]
+    a_end = np.clip(res_a.alpha * r, 0.0, 1.0).astype(np.float32)
+    f_end = (res_a.stats["f"] * r).astype(np.float32)
+    states = {"nu_start": (torch.as_tensor(alpha0, device=dev),
+                           torch.as_tensor(f0, device=dev), 0.01),
+              "nu_end": (torch.as_tensor(a_end, device=dev),
+                         torch.as_tensor(f_end, device=dev), 1e-3)}
+    rec = phase_kernels(dev, x_dev, y_dev, x_sq, k_diag,
+                        {"start" if k == "nu_start" else k: v
+                         for k, v in states.items()},
+                        kp, 1.0, tau, reps=20, rules=B1_NU_RULES,
+                        timed_rule="nu")
+
+    with open(os.path.join(ROOT, "artifacts", "oracle_nu60k.json")) as fh:
+        oracle = json.load(fh)
+    with np.load(os.path.join(ROOT, "artifacts", "oracle_nu60k.npz")) as z:
+        sk_dec = np.asarray(z["dec"])
+    for eng in ("xla", "block"):  # the block model is saved below
+        model, res, _, _ = counted(
+            f"nu oracle {eng}",
+            lambda: train_nusvc(x, y, NU, SVMConfig(**{**NU_ORACLE,
+                                                       "engine": eng})),
+            {"solve_subproblem": lambda r: r} if eng == "block" else {})
+        dec = check_oracle(model, res, x, oracle, sk_dec, eng, tag="nu")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "nusvc60k.npz")
+    model.save(path)
+    diff = float(np.max(np.abs(
+        decision_function(SVMModel.load(path), x) - dec)))
+    print(f"[nu] reloaded .npz: max |dec diff| = {diff:.3g}", flush=True)
+    if diff > 1e-6:
+        raise AssertionError("nu-SVC .npz round trip changed decisions")
+    return rec, counts_a
+
+
+def phase_oneclass(x) -> dict:
+    """One-class SVM at full size on the plain block engine and with
+    fused_round=True (B1 = B4 = B5 = rounds, n padded to 60416 from a
+    warm start): converged, sum(alpha) = nu n, inlier and SV fractions
+    bounded by nu, the two engines' signs agreeing. Returns the launches
+    of the fused run."""
+    from dpsvm_tpu_torch import SVMConfig, train_oneclass
+
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    for kw in ({}, {"fused_round": True}):
+        train_oneclass(x[:16384], NU, SVMConfig(**{**ONECLASS, **kw,
+                                                   "max_iter": 2048}))
+    print(f"[oneclass] warm-up solves on 16384 rows in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    runs = (("plain", {}, {"solve_subproblem": lambda r: r}),
+            ("fused_round", {"fused_round": True},
+             {"solve_subproblem": lambda r: r, "gather_gram": lambda r: r,
+              "fold_rows_select": lambda r: r}))
+    decs = {}
+    for label, kw, want in runs:
+        model, res, counts, _ = counted(
+            f"oneclass {label}",
+            lambda: train_oneclass(x, NU, SVMConfig(**ONECLASS, **kw)),
+            want)
+        total = float(res.alpha.astype(np.float64).sum())
+        dec = model.decision_function(x)
+        inlier = float(np.mean(dec >= 0))
+        sv_frac = res.n_sv / n
+        print(f"[oneclass] {label}: sum(alpha)={total:.6f} (nu n "
+              f"{NU * n:.1f}) inlier={inlier:.4f} sv_fraction={sv_frac:.4f}"
+              f" rho={model.rho:.6f} n_pad={res.stats['n_pad']}", flush=True)
+        if abs(total - NU * n) > SUM_RTOL * NU * n:
+            raise AssertionError(f"oneclass {label}: sum(alpha) {total} is "
+                                 f"not nu n = {NU * n}")
+        if inlier < 1 - NU - 0.01 or sv_frac < NU - 0.01:
+            raise AssertionError(f"oneclass {label}: inlier {inlier}, SV "
+                                 f"fraction {sv_frac} break the nu bounds")
+        decs[label] = dec
+    # A one-class model's free SVs lie ON its decision boundary: the
+    # stopping rule puts their g within [-eps, eps], where its sign is
+    # not determined. The signs are held where both engines' g are
+    # outside that band; all rows' agreement is printed beside it. Every
+    # row's g is held to ONECLASS_DG_EPS * eps between the engines.
+    eps = ONECLASS["epsilon"]
+    a, b = decs["plain"], decs["fused_round"]
+    sure = (np.abs(a) > eps) & (np.abs(b) > eps)
+    agree = float(np.mean(np.sign(a[sure]) == np.sign(b[sure])))
+    agree_all = float(np.mean(np.sign(a) == np.sign(b)))
+    dg = float(np.max(np.abs(a - b)))
+    print(f"[oneclass] plain vs fused_round: sign_agree={100 * agree:.3f}% "
+          f"of the {int(sure.sum())} rows with |g| > eps in both "
+          f"(all rows {100 * agree_all:.3f}%; |g| <= eps: "
+          f"{int((~sure).sum())} rows) max |dg|={dg:.4g} (bound "
+          f"{ONECLASS_DG_EPS * eps:.4g})", flush=True)
+    if agree < SIGN_TOL:
+        raise AssertionError(f"oneclass: engines agree on {agree:.4f} of "
+                             "the signs the stopping rule determines")
+    if dg > ONECLASS_DG_EPS * eps:
+        raise AssertionError(f"oneclass: the engines' decision values "
+                             f"differ by {dg} > {ONECLASS_DG_EPS} eps")
+    return counts
+
+
+def phase_svr(x) -> None:
+    """epsilon-SVR and nu-SVR on the first SVR_ROWS rows (a depth cut)
+    against svr_target, each on the block engine and engine="xla":
+    converged, sum(a) - sum(a*) = 0 within 1e-4 C n, and the two
+    engines' predictions within SVR_PRED_TOL."""
+    from dpsvm_tpu_torch import SVMConfig, train_nusvr, train_svr
+
+    xs = np.ascontiguousarray(x[:SVR_ROWS])
+    z = svr_target(xs)
+    print(f"[svr] {SVR_ROWS} rows, target z in [{z.min():.4f}, "
+          f"{z.max():.4f}] std {z.std():.4f}", flush=True)
+    trainers = (
+        ("eps-svr", lambda cfg: train_svr(xs, z, cfg,
+                                          svr_epsilon=SVR_EPSILON)),
+        ("nu-svr", lambda cfg: train_nusvr(xs, z, nu=NU_SVR, config=cfg)))
+    for name, fit in trainers:
+        preds = {}
+        for eng in ("block", "xla"):
+            cfg = SVMConfig(**{**SVR_RUN, "engine": eng})
+            model, res, _, _ = counted(
+                f"svr {name} {eng}", lambda: fit(cfg),
+                {"solve_subproblem": lambda r: r} if eng == "block" else {})
+            a = res.alpha.astype(np.float64)
+            drift = abs(a[:SVR_ROWS].sum() - a[SVR_ROWS:].sum())
+            preds[eng] = model.predict(xs)
+            rmse = float(np.sqrt(np.mean((preds[eng] - z) ** 2)))
+            extra = (f" tube={res.stats['nu_tube_eps']:.6f}"
+                     if "nu_tube_eps" in res.stats else "")
+            print(f"[svr] {name} {eng}: |sum(a) - sum(a*)|={drift:.3g} "
+                  f"rmse={rmse:.6f} model_sv={model.n_sv}{extra}",
+                  flush=True)
+            if drift > SUM_RTOL * SVR_RUN["c"] * SVR_ROWS:
+                raise AssertionError(f"{name} {eng}: sum(a) - sum(a*) = "
+                                     f"{drift}")
+        gap = float(np.max(np.abs(preds["block"] - preds["xla"])))
+        print(f"[svr] {name}: block vs xla max |dz| = {gap:.4g}", flush=True)
+        if gap >= SVR_PRED_TOL:
+            raise AssertionError(f"{name}: block and xla predictions differ "
+                                 f"by {gap}")
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -1220,8 +1486,9 @@ def main() -> int:
         train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **kw))
     print(f"[headline] warm-up solves on 16384 rows (plain and each fused "
           f"engine) in {time.perf_counter() - t0:.2f}s", flush=True)
-    model, res, counts = train_counted(
-        x, y, cfg, "headline", {"solve_subproblem": lambda r: r})
+    model, res, counts, _ = counted(
+        "headline", lambda: train(x, y, cfg),
+        {"solve_subproblem": lambda r: r})
     launches = {"solve_subproblem": counts["solve_subproblem"]}
     f_end = torch.as_tensor(res.stats["f"], device=dev)
     a_end = torch.as_tensor(res.alpha, device=dev)
@@ -1248,8 +1515,9 @@ def main() -> int:
 
     # ---- 5. the fused engines on the headline
     for knob, want in ENGINES.items():
-        _, eres, counts = train_counted(x, y, cfg.replace(**{knob: True}),
-                                        f"engines {knob}", want)
+        _, eres, counts, _ = counted(
+            f"engines {knob}",
+            lambda: train(x, y, cfg.replace(**{knob: True})), want)
         for name in want:
             if name != "solve_subproblem":
                 launches[name] = counts[name]
@@ -1344,6 +1612,19 @@ def main() -> int:
               flush=True)
         if diff > 1e-6:
             raise AssertionError(f".{ext} round trip changed decisions")
+    lap("oracle runs")
+
+    # ---- 12-14. the model families
+    nu_rec, nu_counts = phase_nu(x, y, dev, x_dev, y_dev, x_sq, k_diag, kp,
+                                 tau)
+    rec["solve_subproblem"]["nu"] = {
+        **nu_rec, "launches": nu_counts["solve_subproblem"],
+        "main_path": "nu headline (train_nusvc, block engine)"}
+    lap("nu-SVC: headline, kernel B1 nu, oracle runs")
+    phase_oneclass(x)
+    lap("one-class")
+    phase_svr(x)
+    lap("SVRs")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",
@@ -1371,8 +1652,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             **({"serial_trips": r["serial_trips"]}
-               if "serial_trips" in r else {})})
-    lap("oracle runs")
+               if "serial_trips" in r else {}),
+            **({"nu": r["nu"]} if "nu" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,17 @@ Hopper card.
 
 Binary C-SVC, train -> save -> load -> predict, on the block engines,
 the per-pair engines and the mesh block engines (row shards over a
-parallel.mesh.Mesh), with every kernel of those paths hand-written in
-CUDA C++ (csrc/). Entry points run on the CUDA card unless the caller
+parallel.mesh.Mesh); nu-SVC, epsilon-SVR, nu-SVR and one-class SVM on
+the single-device engines (models/); every kernel of those paths
+hand-written in CUDA C++ (csrc/). Entry points run on the CUDA card unless the caller
 passes device="cpu" (or a CPU mesh). This package imports neither jax
 nor dpsvm_tpu.
 """
 
 from dpsvm_tpu_torch.config import SVMConfig
-from dpsvm_tpu_torch.models.svm_model import SVMModel
+from dpsvm_tpu_torch.models import (OneClassModel, SVMModel, SVRModel,
+                                    train_nusvc, train_nusvr, train_oneclass,
+                                    train_svr)
 from dpsvm_tpu_torch.ops.kernels import KernelParams
 from dpsvm_tpu_torch.parallel.dist_smo import solve_mesh
 from dpsvm_tpu_torch.parallel.mesh import Mesh, make_data_mesh
@@ -21,4 +24,6 @@ from dpsvm_tpu_torch.train import train
 
 __all__ = ["SVMConfig", "SVMModel", "KernelParams", "SolveResult", "solve",
            "solve_mesh", "Mesh", "make_data_mesh", "train",
-           "decision_function", "predict", "accuracy"]
+           "decision_function", "predict", "accuracy", "SVRModel",
+           "OneClassModel", "train_svr", "train_oneclass", "train_nusvc",
+           "train_nusvr"]

@@ -5,6 +5,7 @@ Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
         -g 0.125 [--engine xla|pallas|block] [--backend mesh \
         --num-devices 4 --ring-exchange on]
+        [-t nu-svc|eps-svr|nu-svr|one-class --nu 0.5 -p 0.1]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt
 """
 
@@ -22,11 +23,20 @@ def _build_parser() -> argparse.ArgumentParser:
         prog="dpsvm-tpu-torch",
         description="SMO SVM trainer (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("train", help="train a binary C-SVC")
+    p = sub.add_parser("train", help="train an SVM with modified SMO")
     p.add_argument("-f", "--file-path", required=True,
                    help="training data: CSV (label,f1,...,fd)")
     p.add_argument("-m", "--model", required=True,
                    help="output model path (.txt or .npz)")
+    p.add_argument("-t", "--svm-type", default="c-svc",
+                   choices=["c-svc", "nu-svc", "eps-svr", "nu-svr",
+                            "one-class"],
+                   help="problem type (default c-svc; svr/one-class models "
+                        "save as .npz)")
+    p.add_argument("--nu", type=float, default=0.5,
+                   help="nu for nu-svc / nu-svr / one-class (default 0.5)")
+    p.add_argument("-p", "--svr-epsilon", type=float, default=0.1,
+                   help="epsilon-SVR tube width (LibSVM -p; default 0.1)")
     p.add_argument("-a", "--num-att", type=int, default=None,
                    help="number of features (inferred from file if omitted)")
     p.add_argument("-x", "--num-ex", type=int, default=None,
@@ -118,16 +128,60 @@ def _build_parser() -> argparse.ArgumentParser:
 _TRI = {"auto": None, "on": True, "off": False}
 
 
+def _check_svm_type(args) -> str | None:
+    """The flags an svm type cannot take, as the JAX package's CLI
+    refuses them: an error message, or None."""
+    if args.svm_type in ("nu-svc", "nu-svr", "one-class"):
+        # These duals fix their own selection rule and box.
+        if args.selection != "mvp":
+            return (f"--selection {args.selection} is not applicable to "
+                    f"{args.svm_type} (per-class nu selection is fixed)")
+        if args.svm_type in ("nu-svc", "nu-svr") and args.engine == "pallas":
+            return (f"--engine pallas is not applicable to {args.svm_type} "
+                    "(per-class nu selection; use --engine xla or block)")
+    return None
+
+
+def _fit(args, x, y, config, mesh):
+    """Train the requested svm type: (model, result)."""
+    from dpsvm_tpu_torch import models
+    from dpsvm_tpu_torch.train import train
+
+    common = dict(backend=args.backend, device=args.device,
+                  num_devices=args.num_devices, mesh=mesh)
+    if args.svm_type == "c-svc":
+        return train(x, y, config, **common)
+    if args.svm_type == "nu-svc":
+        return models.train_nusvc(x, y, nu=args.nu, config=config, **common)
+    if args.svm_type == "eps-svr":
+        return models.train_svr(x, y, config, svr_epsilon=args.svr_epsilon,
+                                **common)
+    if args.svm_type == "nu-svr":
+        return models.train_nusvr(x, y, nu=args.nu, config=config, **common)
+    return models.train_oneclass(x, nu=args.nu, config=config, **common)
+
+
 def _cmd_train(args) -> int:
     from dpsvm_tpu_torch.config import SVMConfig
     from dpsvm_tpu_torch.data.loader import load_csv
     from dpsvm_tpu_torch.predict import accuracy
-    from dpsvm_tpu_torch.train import train
 
+    bad = _check_svm_type(args)
+    if bad:
+        print(f"error: {bad}", file=sys.stderr)
+        return 2
+    regression = args.svm_type in ("eps-svr", "nu-svr")
     t0 = time.perf_counter()
-    x, y = load_csv(args.file_path, args.num_ex, args.num_att)
+    x, y = load_csv(args.file_path, args.num_ex, args.num_att,
+                    float_labels=regression)
     print(f"loaded {x.shape[0]} examples x {x.shape[1]} features "
           f"in {time.perf_counter() - t0:.2f}s")
+    if args.svm_type in ("c-svc", "nu-svc") \
+            and not set(np.unique(y).tolist()) <= {-1, 1}:
+        print(f"error: {args.svm_type} trains +-1 labels; this file has "
+              f"{np.unique(y).tolist()[:6]} (multiclass is not ported: "
+              "ROADMAP queue A item 7a)", file=sys.stderr)
+        return 2
     try:
         config = SVMConfig(
             c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
@@ -150,9 +204,7 @@ def _cmd_train(args) -> int:
 
         mesh = Mesh([args.device] * (args.num_devices or 1))
     try:
-        model, result = train(x, y, config, backend=args.backend,
-                              device=args.device,
-                              num_devices=args.num_devices, mesh=mesh)
+        model, result = _fit(args, x, y, config, mesh)
     except (ValueError, NotImplementedError) as e:
         hint = ""
         if args.backend == "mesh" and args.device is None:
@@ -172,9 +224,72 @@ def _cmd_train(args) -> int:
         print(f"cache hit rate: {result.stats['cache_hit_rate']:.4f}")
     print(f"b: {result.b:.6f}")
     print(f"support vectors: {result.n_sv}")
-    print(f"train accuracy: {accuracy(model, x, y, device=args.device):.4f}")
+    if args.svm_type in ("c-svc", "nu-svc"):
+        print(f"train accuracy: "
+              f"{accuracy(model, x, y, device=args.device):.4f}")
+    elif regression:
+        resid = np.asarray(model.predict(x, device=args.device)) - y
+        print(f"train RMSE: {float(np.sqrt(np.mean(resid ** 2))):.6f}")
+    else:
+        inlier = float(np.mean(model.predict(x, device=args.device) > 0))
+        print(f"train inlier fraction: {inlier:.4f} (nu={args.nu})")
+    if args.svm_type in ("eps-svr", "nu-svr", "one-class") \
+            and not args.model.endswith(".npz"):
+        args.model += ".npz"
+        print(f"note: {args.svm_type} models use the .npz format")
     model.save(args.model)
     print(f"model written to {args.model}")
+    return 0
+
+
+def _model_type(path: str) -> str:
+    """The .npz model_type field ("svr", "oneclass"), else
+    "classifier" (the text format is classifier-only)."""
+    if not path.endswith(".npz"):
+        return "classifier"
+    with np.load(path, allow_pickle=False) as z:
+        kind = str(z["model_type"]) if "model_type" in z else ""
+        if not kind and "n_models" in z and "strategy" in z:
+            kind = "multiclass"  # a bundle saved before the tag existed
+    if kind in ("svr", "oneclass", "classifier", ""):
+        return kind or "classifier"
+    raise NotImplementedError(
+        f"{path}: model_type {kind!r} is not ported (multiclass and "
+        "precomputed models: ROADMAP queue A items 7a and 6)")
+
+
+def _test_svr(args) -> int:
+    from dpsvm_tpu_torch.data.loader import load_csv
+    from dpsvm_tpu_torch.models.svr import SVRModel
+
+    model = SVRModel.load(args.model)
+    x, z_true = load_csv(args.file_path, args.num_ex,
+                         args.num_att or model.sv_x.shape[1],
+                         float_labels=True)
+    pred = np.asarray(model.predict(x, device=args.device), np.float64)
+    rmse = float(np.sqrt(np.mean((pred - z_true) ** 2)))
+    ss_tot = float(np.sum((z_true - z_true.mean()) ** 2))
+    r2 = (1.0 - float(np.sum((pred - z_true) ** 2)) / ss_tot
+          if ss_tot else 0.0)
+    print(f"loaded SVR model: {model.n_sv} SVs, gamma={model.kernel.gamma}")
+    print(f"test RMSE: {rmse:.6f}  R2: {r2:.4f} ({x.shape[0]} examples)")
+    return 0
+
+
+def _test_oneclass(args) -> int:
+    from dpsvm_tpu_torch.data.loader import load_csv
+    from dpsvm_tpu_torch.models.oneclass import OneClassModel
+
+    model = OneClassModel.load(args.model)
+    x, y = load_csv(args.file_path, args.num_ex,
+                    args.num_att or model.sv_x.shape[1])
+    pred = model.predict(x, device=args.device)
+    print(f"loaded one-class model: {model.n_sv} SVs, rho={model.rho:.6f}")
+    print(f"test inlier fraction: {float(np.mean(pred > 0)):.4f} "
+          f"({x.shape[0]} examples)")
+    if set(np.unique(y).tolist()) <= {-1, 1}:
+        print(f"test accuracy vs +-1 labels: "
+              f"{float(np.mean(pred == y)):.4f}")
     return 0
 
 
@@ -184,6 +299,15 @@ def _cmd_test(args) -> int:
     from dpsvm_tpu_torch.ops.kernels import KernelParams
     from dpsvm_tpu_torch.predict import decision_function
 
+    try:
+        kind = _model_type(args.model)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if kind == "svr":
+        return _test_svr(args)
+    if kind == "oneclass":
+        return _test_oneclass(args)
     model = SVMModel.load(args.model)
     if args.gamma is not None:
         model.kernel = KernelParams(model.kernel.kind, args.gamma,

@@ -248,8 +248,6 @@ class SVMConfig:
         engine the port does not have yet; the message names the
         ROADMAP.md item that ports it."""
         unported = (
-            (self.selection == "nu",
-             "selection='nu' (nu duals: ROADMAP queue A item 7)"),
             (self.active_set_size > 0,
              "active_set_size>0 (the active-set engine: ROADMAP queue A "
              "item 4)"),

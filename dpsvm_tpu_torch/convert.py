@@ -1,9 +1,9 @@
 """State carried across from the JAX package.
 
-The JAX package is never imported here: both converters read plain
+The JAX package is never imported here: the converters read plain
 attributes (numpy-convertible arrays and scalars), so any object with the
-JAX package's field names works — a dpsvm_tpu SVMModel / BlockState, or a
-namespace rebuilt from saved arrays.
+JAX package's field names works — a dpsvm_tpu SVMModel / SVRModel /
+OneClassModel / BlockState, or a namespace rebuilt from saved arrays.
 """
 
 from __future__ import annotations
@@ -11,22 +11,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dpsvm_tpu_torch.models.oneclass import OneClassModel
 from dpsvm_tpu_torch.models.svm_model import SVMModel
+from dpsvm_tpu_torch.models.svr import SVRModel
 from dpsvm_tpu_torch.ops.kernels import KernelParams
 from dpsvm_tpu_torch.solver.block import BlockState
 
 
+def _kernel(k) -> KernelParams:
+    return KernelParams(str(k.kind), float(k.gamma), int(k.degree),
+                        float(k.coef0))
+
+
+def _rows(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a), np.float32)
+
+
 def model_from_reference(m) -> SVMModel:
     """A port SVMModel from the JAX package's model fields (sv_x,
-    sv_alpha, sv_y, b, kernel.{kind, gamma, degree, coef0})."""
-    k = m.kernel
+    sv_alpha, sv_y, b, kernel.{kind, gamma, degree, coef0}, and the
+    Platt pair prob_a / prob_b when present)."""
+    prob_a = getattr(m, "prob_a", None)
     return SVMModel(
-        sv_x=np.ascontiguousarray(np.asarray(m.sv_x), np.float32),
+        sv_x=_rows(m.sv_x),
         sv_alpha=np.asarray(m.sv_alpha, np.float32),
         sv_y=np.asarray(m.sv_y, np.int32),
         b=float(m.b),
-        kernel=KernelParams(str(k.kind), float(k.gamma), int(k.degree),
-                            float(k.coef0)))
+        kernel=_kernel(m.kernel),
+        prob_a=None if prob_a is None else float(prob_a),
+        prob_b=None if prob_a is None else float(m.prob_b))
+
+
+def svr_model_from_reference(m) -> SVRModel:
+    """A port SVRModel from the JAX package's (sv_x, coef, b, kernel)."""
+    return SVRModel(sv_x=_rows(m.sv_x), coef=np.asarray(m.coef, np.float32),
+                    b=float(m.b), kernel=_kernel(m.kernel))
+
+
+def oneclass_model_from_reference(m) -> OneClassModel:
+    """A port OneClassModel from the JAX package's (sv_x, coef, rho,
+    kernel)."""
+    return OneClassModel(sv_x=_rows(m.sv_x),
+                         coef=np.asarray(m.coef, np.float32),
+                         rho=float(m.rho), kernel=_kernel(m.kernel))
 
 
 def block_state_from_reference(st, device) -> BlockState:

@@ -4,7 +4,9 @@
 // solve_subproblem_pallas (kernel _subproblem_kernel): the whole
 // q-variable SMO subproblem of one block round in ONE launch. Per trip:
 // argmin f over I_up and argmax f over I_low (lowest slot wins ties), or
-// LibSVM's WSS2 partner by second-order gain; the pair_alpha_update
+// LibSVM's WSS2 partner by second-order gain, or (rule nu) both extrema
+// within each class and the class with the larger violation, by the
+// float32 test (b_lo+ - b_hi+) >= (b_lo- - b_hi-); the pair_alpha_update
 // algebra; f_W += dalpha * y * K(W, W) rows. Stops when the local gap
 // b_lo <= b_hi + 2 eps or after `limit` pairs. With pair_batch 2 or 4 (rule
 // mvp) a trip goes on to pair_batch - 1 further coordinate-disjoint pairs:
@@ -26,10 +28,13 @@
 // reduction is warp shuffles, then one shared-memory slot per warp that
 // every thread reads and reduces itself (double-buffered by parity,
 // so no second barrier), so all threads hold the same pair, run the
-// scalar update redundantly and leave the loop together. K(W, W) stays in
-// global memory and is read from L2 (256 KiB at q=256 is over the 227 KB
-// a block can have in shared memory). `limit` and the pair count stay on
-// the device, so a round needs no host sync before the launch.
+// scalar update redundantly and leave the loop together. Under nu the +
+// and - classes' winners ride side by side through that one reduction
+// (four candidates instead of two), so a nu trip also costs one barrier.
+// K(W, W) stays in global memory and is read from L2 (256 KiB at q=256 is
+// over the 227 KB a block can have in shared memory). `limit` and the pair
+// count stay on the device, so a round needs no host sync before the
+// launch.
 //
 // Numerics: built with -fmad=false and IEEE division so every expression
 // rounds per operation in the JAX package's order (solver/smo.py
@@ -47,6 +52,7 @@ namespace {
 
 constexpr int kMvp = 0;
 constexpr int kSecondOrder = 1;
+constexpr int kNu = 2;
 
 struct BoxConsts {
   float c_pos, c_neg;        // box upper bounds per class
@@ -113,6 +119,37 @@ __device__ __forceinline__ void block_reduce(Cand& up, Cand& lo, Cand* red_up,
   }
 }
 
+// The nu rule's four extrema (up-min and low-max within + and within -)
+// through the same single barrier: each warp's four winners go to their
+// own shared slots, then every thread reduces all four itself.
+__device__ __forceinline__ void block_reduce_nu(Cand& up_p, Cand& lo_p, Cand& up_n,
+                                                Cand& lo_n, Cand* red_up_p,
+                                                Cand* red_lo_p, Cand* red_up_n,
+                                                Cand* red_lo_n, int lane, int warp,
+                                                int nwarps) {
+  up_p = warp_reduce<true>(up_p);
+  lo_p = warp_reduce<false>(lo_p);
+  up_n = warp_reduce<true>(up_n);
+  lo_n = warp_reduce<false>(lo_n);
+  if (lane == 0) {
+    red_up_p[warp] = up_p;
+    red_lo_p[warp] = lo_p;
+    red_up_n[warp] = up_n;
+    red_lo_n[warp] = lo_n;
+  }
+  __syncthreads();
+  up_p = red_up_p[0];
+  lo_p = red_lo_p[0];
+  up_n = red_up_n[0];
+  lo_n = red_lo_n[0];
+  for (int w = 1; w < nwarps; ++w) {
+    take_if_better<true>(up_p, red_up_p[w]);
+    take_if_better<false>(lo_p, red_lo_p[w]);
+    take_if_better<true>(up_n, red_up_n[w]);
+    take_if_better<false>(lo_n, red_lo_n[w]);
+  }
+}
+
 // solver/smo.py pair_alpha_update for slots i (up side) and j (low side):
 // the new (a_i, a_j), unchanged when `gate` is false or a pair value is not
 // finite. Every thread runs it redundantly on the same scalars.
@@ -161,6 +198,9 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
   __shared__ Cand red_up[2][32];
   __shared__ Cand red_lo[2][32];
   __shared__ Cand red_g[2][32];
+  // The nu rule's - class winners, beside the + class's in red_up / red_lo.
+  __shared__ Cand red_up_n[2][32];
+  __shared__ Cand red_lo_n[2][32];
 
   const float inf = INFINITY;
   const int tid = threadIdx.x;
@@ -197,9 +237,12 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
   int t = 0;
   int par = 0;
   while (t < limit) {
-    // ---- phase 1: b_hi / argmin over I_up, b_lo / argmax over I_low.
+    // ---- phase 1: b_hi / argmin over I_up, b_lo / argmax over I_low;
+    // under nu, within each class (up / lo the + class's, up_n / lo_n the
+    // - class's).
     Cand up{inf, INT_MAX, 0.0f, 0.0f};
     Cand lo{-inf, INT_MAX, 0.0f, 0.0f};
+    Cand up_n = up, lo_n = lo;
     bool low_s[S];
     float fup[S], flo[S];  // f over I_up / I_low as this trip's selection saw it
 #pragma unroll
@@ -210,12 +253,31 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
       low_s[s] = ok[s] && (pos ? a[s] > 0.0f : a[s] < cv[s]);
       fup[s] = in_up ? f[s] : inf;
       flo[s] = low_s[s] ? f[s] : -inf;
-      if (slot < q) {
+      if (slot < q && rule == kNu) {
+        // A slot offers its f only to its own class's pair; the other
+        // class sees +-inf, as the JAX package's class masks do, so an
+        // empty class reduces to slot 0 at +-inf.
+        take_if_better<true>(up, Cand{pos ? fup[s] : inf, slot, f[s], a[s]});
+        take_if_better<false>(lo, Cand{pos ? flo[s] : -inf, slot, f[s], a[s]});
+        take_if_better<true>(up_n, Cand{pos ? inf : fup[s], slot, f[s], a[s]});
+        take_if_better<false>(lo_n, Cand{pos ? -inf : flo[s], slot, f[s], a[s]});
+      } else if (slot < q) {
         take_if_better<true>(up, Cand{fup[s], slot, f[s], a[s]});
         take_if_better<false>(lo, Cand{flo[s], slot, f[s], a[s]});
       }
     }
-    block_reduce(up, lo, red_up[par], red_lo[par], lane, warp, nwarps);
+    if (rule == kNu) {
+      block_reduce_nu(up, lo, up_n, lo_n, red_up[par], red_lo[par], red_up_n[par],
+                      red_lo_n[par], lane, warp, nwarps);
+      // The class with the larger violation, in float32; ties to the +
+      // class (an empty class's difference is -inf).
+      if (!((lo.v - up.v) >= (lo_n.v - up_n.v))) {
+        up = up_n;
+        lo = lo_n;
+      }
+    } else {
+      block_reduce(up, lo, red_up[par], red_lo[par], lane, warp, nwarps);
+    }
     par ^= 1;
     const float b_hi = up.v;
     const int i = up.i;
@@ -230,7 +292,7 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
       const int slot = tid + s * nt;
       ri[s] = slot < q ? row_i[slot] : 0.0f;
     }
-    Cand jc = lo;  // mvp partner: the max violator
+    Cand jc = lo;  // mvp and nu partner: the (class's) max violator
     if (rule == kSecondOrder) {
       // ---- phase 2: WSS2 partner j by max (f_j - b_hi)^2 / eta_ij.
       const float kd_i = kd_s[i];
@@ -355,7 +417,7 @@ extern "C" int dpsvm_subproblem(const float* kb, const float* alpha, const float
                                 int rule, int pair_batch, float c_pos, float c_neg, float snap_pos,
                                 float snap_neg, float cms_pos, float cms_neg,
                                 float two_eps, float tau, void* stream) {
-  if (q < 1 || q > 4096 || (rule != kMvp && rule != kSecondOrder) ||
+  if (q < 1 || q > 4096 || (rule != kMvp && rule != kSecondOrder && rule != kNu) ||
       (pair_batch != 1 && pair_batch != 2 && pair_batch != 4) ||
       (pair_batch > 1 && rule != kMvp)) {
     return (int)cudaErrorInvalidValue;

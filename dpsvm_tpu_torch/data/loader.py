@@ -7,11 +7,14 @@ import numpy as np
 
 
 def load_csv(path: str, num_rows: int | None = None,
-             num_features: int | None = None) -> tuple[np.ndarray, np.ndarray]:
-    """Load ``label,f1,...,fd`` CSV -> (x (n, d) float32, y (n,) int32).
+             num_features: int | None = None,
+             float_labels: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """Load ``label,f1,...,fd`` CSV -> (x (n, d) float32, y (n,)).
 
-    num_rows / num_features, when given, must match or bound the file
-    contents; when omitted they are inferred."""
+    Labels are int32 (the +-1 classification convention) unless
+    `float_labels` is set: regression targets (SVR) keep the float32
+    value. num_rows / num_features, when given, must match or bound the
+    file contents; when omitted they are inferred."""
     data = np.loadtxt(path, delimiter=",", dtype=np.float32,
                       max_rows=num_rows, ndmin=2)
     if data.size == 0:
@@ -25,7 +28,8 @@ def load_csv(path: str, num_rows: int | None = None,
         x = x[:, :num_features]
     if num_rows is not None and x.shape[0] < num_rows:
         raise ValueError(f"{path}: file has {x.shape[0]} rows, expected {num_rows}")
-    return np.ascontiguousarray(x, np.float32), y.astype(np.int32)
+    return (np.ascontiguousarray(x, np.float32),
+            y.astype(np.float32 if float_labels else np.int32))
 
 
 def save_csv(path: str, x: np.ndarray, y: np.ndarray) -> None:

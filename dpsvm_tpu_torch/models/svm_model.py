@@ -4,7 +4,8 @@ dpsvm_tpu/models/svm_model.py; the two packages read each other's files).
 * ``.txt``: the reference text format — gamma, b, then one
   ``alpha,y,x_1,...,x_d`` row per support vector; a 1-line header (no b)
   is tolerated on load. RBF only.
-* ``.npz``: sv_x, sv_alpha, sv_y, b and the kernel fields, any kernel.
+* ``.npz``: sv_x, sv_alpha, sv_y, b and the kernel fields, any kernel,
+  and the Platt pair prob_a / prob_b when the model carries it.
 
 Decision convention: f(q) = sum_j alpha_j y_j K(x_j, q) - b.
 """
@@ -25,6 +26,15 @@ class SVMModel:
     sv_y: np.ndarray  # (n_sv,) labels in {-1, +1}
     b: float
     kernel: KernelParams
+    # Platt calibration plane, P(y=+1 | f) = sigmoid(prob_a * f + prob_b),
+    # as the JAX package fits it (models/platt.py, not ported yet). None =
+    # uncalibrated. Carried by the .npz format only.
+    prob_a: float | None = None
+    prob_b: float | None = None
+
+    @property
+    def has_probability(self) -> bool:
+        return self.prob_a is not None
 
     @property
     def n_sv(self) -> int:
@@ -55,15 +65,22 @@ class SVMModel:
 
     def save(self, path: str) -> None:
         if path.endswith(".npz"):
+            prob = ({"prob_a": np.float64(self.prob_a),
+                     "prob_b": np.float64(self.prob_b)}
+                    if self.has_probability else {})
             np.savez_compressed(
                 path, format_version=1, sv_x=self.sv_x,
                 sv_alpha=self.sv_alpha, sv_y=self.sv_y,
-                b=np.float32(self.b), **self.kernel.npz_fields())
+                b=np.float32(self.b), **self.kernel.npz_fields(), **prob)
             return
         if self.kernel.kind != "rbf":
             raise ValueError(
                 "the text model format only expresses RBF; save non-RBF "
                 "models to .npz")
+        if self.has_probability:
+            raise ValueError(
+                "the text model format cannot carry Platt calibration "
+                "(reference format); save probability models to .npz")
         with open(path, "w") as fh:
             fh.write(f"{self.kernel.gamma}\n")
             fh.write(f"{self.b}\n")
@@ -75,11 +92,14 @@ class SVMModel:
     def load(cls, path: str) -> "SVMModel":
         if path.endswith(".npz"):
             with np.load(path, allow_pickle=False) as z:
+                prob = ({"prob_a": float(z["prob_a"]),
+                         "prob_b": float(z["prob_b"])}
+                        if "prob_a" in z else {})
                 return cls(sv_x=z["sv_x"].astype(np.float32),
                            sv_alpha=z["sv_alpha"].astype(np.float32),
                            sv_y=z["sv_y"].astype(np.int32),
                            b=float(z["b"]),
-                           kernel=KernelParams.from_npz(z))
+                           kernel=KernelParams.from_npz(z), **prob)
         with open(path) as fh:
             lines = [ln.strip() for ln in fh if ln.strip()]
         if len(lines) < 2:

@@ -148,3 +148,143 @@ def kernel_matrix(a: torch.Tensor, b: torch.Tensor,
     if params.kind == "sigmoid":
         return torch.tanh(params.gamma * dots + params.coef0)
     raise ValueError(f"unknown kernel kind {params.kind!r}")
+
+
+def blocked_kernel_matvec(x, coef, params: KernelParams,
+                          dtype: str = "float32", block: int = 8192,
+                          device=None) -> np.ndarray:
+    """K(x, x_active) @ coef_active on `device`, at most a (block,
+    n_active) kernel tile live at a time: the start gradient of the
+    warm-started duals (one-class, nu-SVC).
+
+    `dtype` is the solver's X storage dtype. With bfloat16 storage the
+    solver's kernel rows see the bf16-rounded features, so this evaluates
+    on the same rounded values; otherwise the start gradient would be
+    ~1e-3-relative off every later rank-2 update, an error the solver
+    never repairs. Returns float32 (n,) on the host."""
+    x = np.asarray(x, np.float32)
+    coef = np.asarray(coef, np.float32)
+    active = coef != 0
+    if not active.any():
+        return np.zeros((x.shape[0],), np.float32)
+    xt = torch.as_tensor(x, device=device)
+    if dtype == "bfloat16":
+        xt = xt.to(torch.bfloat16)
+    xa = xt[torch.as_tensor(np.nonzero(active)[0], device=xt.device)]
+    ca = torch.as_tensor(coef[active], device=xt.device)
+    out = np.empty((x.shape[0],), np.float32)
+    for s in range(0, x.shape[0], block):
+        k = kernel_matrix(xt[s:s + block], xa, params)
+        out[s:s + block] = (k @ ca).cpu().numpy()
+    return out
+
+
+def _bf16_sample(x, sample: int, pairs: int, seed: int) -> tuple:
+    """The seeded pair population of the bf16 perturbation probes: the
+    sampled rows exactly and bf16-rounded (round to nearest even, as
+    ml_dtypes rounds), in float64, and the pair index vectors."""
+    x = np.asarray(x, np.float32)
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    idx = rng.choice(n, min(sample, n), replace=False)
+    s = x[idx].astype(np.float64)
+    sb = (torch.from_numpy(np.ascontiguousarray(x[idx]))
+          .to(torch.bfloat16).double().numpy())
+    i = rng.integers(0, len(s), pairs)
+    j = rng.integers(0, len(s), pairs)
+    return s, sb, i, j
+
+
+def bf16_rbf_perturbation(x, gamma: float, sample: int = 2048,
+                          pairs: int = 4096, seed: int = 0) -> float:
+    """p90 of |K_exact - K_bf16-stored| over sampled pairs: how much
+    storing X in bfloat16 perturbs RBF kernel values for THIS data. The
+    box bound C amplifies it into decision changes, so the risk scale is
+    C * p90|dK|. Host NumPy on a seeded sample."""
+    s, sb, i, j = _bf16_sample(x, sample, pairs, seed)
+
+    def kvals(a):
+        nrm = (a ** 2).sum(1)
+        d2 = np.maximum(nrm[i] + nrm[j]
+                        - 2.0 * np.einsum("nd,nd->n", a[i], a[j]), 0.0)
+        return np.exp(-gamma * d2)
+
+    return float(np.percentile(np.abs(kvals(s) - kvals(sb)), 90))
+
+
+def bf16_kernel_perturbation(x, params: KernelParams, sample: int = 2048,
+                             pairs: int = 4096, seed: int = 0) -> float:
+    """bf16_rbf_perturbation for any feature kernel: rbf delegates to it;
+    linear / poly / sigmoid sample the same pairs through their own
+    dot-product algebra (float64, exact against bf16-rounded rows)."""
+    if params.kind == "rbf":
+        return bf16_rbf_perturbation(x, params.gamma, sample=sample,
+                                     pairs=pairs, seed=seed)
+    if params.kind == "precomputed":
+        raise ValueError(
+            "precomputed kernels carry values, not features; there is "
+            "no storage-rounding perturbation to sample")
+    s, sb, i, j = _bf16_sample(x, sample, pairs, seed)
+
+    def kvals(a):
+        dots = np.einsum("nd,nd->n", a[i], a[j])
+        if params.kind == "linear":
+            return dots
+        if params.kind == "poly":
+            return (params.gamma * dots + params.coef0) ** params.degree
+        if params.kind == "sigmoid":
+            return np.tanh(params.gamma * dots + params.coef0)
+        raise ValueError(f"unknown kernel kind {params.kind!r}")
+
+    return float(np.percentile(np.abs(kvals(s) - kvals(sb)), 90))
+
+
+# C * p90|dK| above this warns (see bf16_rbf_perturbation): the JAX
+# package's calibration, between a measured-failing covtype-shaped
+# stress config (0.46) and passing configurations (<= 0.001).
+BF16_RISK_THRESHOLD = 0.1
+
+
+def resolve_bf16_gram(x, config, gamma: float, c_max: float = None,
+                      scope: str = ""):
+    """The per-problem bf16-Gram gate: whether storing X in bfloat16 is
+    safe for THIS (data, config) by C * p90|dK| against
+    BF16_RISK_THRESHOLD. Returns (active, risk, stats_entry); a refusal
+    carries a `note`. (config.bf16_gram itself is not ported yet: the
+    gate is here for the guard's shared definition.)"""
+    kp = KernelParams(config.kernel, gamma, config.degree, config.coef0)
+    c_ref = max(config.c_bounds()) if c_max is None else float(c_max)
+    risk = c_ref * bf16_kernel_perturbation(x, kp)
+    active = risk <= BF16_RISK_THRESHOLD
+    entry = {"active": active, "risk": round(risk, 6),
+             "threshold": BF16_RISK_THRESHOLD}
+    if not active:
+        where = f" {scope}" if scope else ""
+        entry["note"] = (
+            f"bf16_gram REFUSED{where}: C * p90|dK| = {risk:.4g} > "
+            f"{BF16_RISK_THRESHOLD} — storage rounding at this (C, "
+            f"kernel, data) risks O(1) decision changes; Gram stays "
+            f"float32 (lower C / raise gamma to re-qualify)")
+    return active, risk, entry
+
+
+def warn_if_bf16_degrades(x, config) -> None:
+    """Warn when dtype='bfloat16' is configured where storage rounding is
+    likely to destroy solution quality (rbf only). Called by solve and
+    solve_mesh before any device work; the text is the JAX package's."""
+    if config.dtype != "bfloat16" or config.kernel != "rbf":
+        return
+    import warnings
+
+    gamma = config.resolve_gamma(np.asarray(x).shape[1])
+    risk = max(config.c_bounds()) * bf16_rbf_perturbation(x, gamma)
+    if risk > BF16_RISK_THRESHOLD:
+        warnings.warn(
+            f"dtype='bfloat16' is likely to destroy solution quality for "
+            f"this data: C * p90|dK| = {risk:.3f} > {BF16_RISK_THRESHOLD} "
+            f"(bf16 feature rounding perturbs RBF kernel values enough "
+            f"for the box bound C to amplify into O(1) decision changes; "
+            f"measured on the covtype stress config this costs 0.97 -> "
+            f"0.59 train accuracy, BENCH_COVTYPE.md). Use "
+            f"dtype='float32', or lower C / raise gamma.",
+            stacklevel=3)

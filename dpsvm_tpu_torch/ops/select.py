@@ -104,14 +104,57 @@ def candidate_live_mask(alpha_w, y_w, c) -> torch.Tensor:
     return up_mask(alpha_w, y_w, cp, cn) | low_mask(alpha_w, y_w, cp, cn)
 
 
+def nu_stopping_pair(bh_p, bl_p, bh_n, bl_n):
+    """LibSVM's nu stopping gap: the per-class (b_hi, b_lo) of the class
+    with the larger violation, so b_lo - b_hi == max(violation_+,
+    violation_-). The test (bl_p - bh_p) >= (bl_n - bh_n) is float32
+    arithmetic on tensors (an empty class gives -inf there; ties go to
+    the + class) and float64 on Python floats, as in the JAX package."""
+    if torch.is_tensor(bh_p):
+        take_p = (bl_p - bh_p) >= (bl_n - bh_n)
+        return (torch.where(take_p, bh_p, bh_n),
+                torch.where(take_p, bl_p, bl_n))
+    take_p = (bl_p - bh_p) >= (bl_n - bh_n)
+    return (bh_p, bl_p) if take_p else (bh_n, bl_n)
+
+
+def select_working_set_nu(f, alpha, y, c, valid=None) -> tuple:
+    """The nu duals' pair (i_up, b_hi, i_low, b_lo): the maximal
+    violating pair inside {y=+1} and inside {y=-1}, and of those the
+    class with the larger violation (the duals carry one equality
+    constraint per class, so a pair must share a class). Ties and values
+    as select_working_set's."""
+    up, low = set_masks(alpha, y, c, valid)
+    f = f.float()
+    pos = y > 0
+
+    def class_pair(cls):
+        f_up = torch.where(up & cls, f, _INF)
+        f_low = torch.where(low & cls, f, -_INF)
+        i_up = torch.argmin(f_up)
+        i_low = torch.argmax(f_low)
+        return i_up, take(f_up, i_up), i_low, take(f_low, i_low)
+
+    iu_p, bh_p, il_p, bl_p = class_pair(pos)
+    iu_n, bh_n, il_n, bl_n = class_pair(~pos)
+    take_p = (bl_p - bh_p) >= (bl_n - bh_n)
+    return (torch.where(take_p, iu_p, iu_n), torch.where(take_p, bh_p, bh_n),
+            torch.where(take_p, il_p, il_n), torch.where(take_p, bl_p, bl_n))
+
+
 def stopping_extrema(f, alpha, y, c, valid=None, rule: str = "mvp"):
     """Device-side (b_hi, b_lo) of the current state as 0-d float32
-    tensors (the C-SVC rules share the stopping extrema)."""
-    if rule not in ("mvp", "second_order"):
-        raise NotImplementedError(
-            f"rule={rule!r} is not ported (nu duals: ROADMAP queue A item 7)")
+    tensors (the C-SVC rules share the stopping extrema; "nu" takes the
+    per-class pair through nu_stopping_pair)."""
     f = f.float()
     up, low = set_masks(alpha, y, c, valid)
+    if rule == "nu":
+        pos = y > 0
+        return nu_stopping_pair(
+            torch.where(up & pos, f, _INF).min(),
+            torch.where(low & pos, f, -_INF).max(),
+            torch.where(up & ~pos, f, _INF).min(),
+            torch.where(low & ~pos, f, -_INF).max())
     return (torch.where(up, f, _INF).min(),
             torch.where(low, f, -_INF).max())
 
@@ -119,9 +162,6 @@ def stopping_extrema(f, alpha, y, c, valid=None, rule: str = "mvp"):
 def extrema_np(f, alpha, y, c, rule: str = "mvp"):
     """Host-side (NumPy) stopping extrema (b_hi, b_lo) of a final state,
     as Python floats. A float64 f is kept as is."""
-    if rule not in ("mvp", "second_order"):
-        raise NotImplementedError(
-            f"rule={rule!r} is not ported (nu duals: ROADMAP queue A item 7)")
     cp, cn = split_c(c)
     f = np.asarray(f)
     if f.dtype != np.float64:
@@ -131,9 +171,16 @@ def extrema_np(f, alpha, y, c, rule: str = "mvp"):
     c_row = cp if cp == cn else np.where(y > 0, cp, cn)
     up = np.where(y > 0, alpha < c_row, alpha > 0)
     low = np.where(y > 0, alpha > 0, alpha < c_row)
-    b_hi = float(np.min(np.where(up, f, np.inf)))
-    b_lo = float(np.max(np.where(low, f, -np.inf)))
-    return b_hi, b_lo
+
+    def pair(u, lo):
+        return (float(np.min(np.where(u, f, np.inf))),
+                float(np.max(np.where(lo, f, -np.inf))))
+
+    if rule != "nu":
+        return pair(up, low)
+    pos = y > 0
+    return nu_stopping_pair(*pair(up & pos, low & pos),
+                            *pair(up & ~pos, low & ~pos))
 
 
 def refresh_extrema_host(f, alpha, y, c, epsilon: float, rule: str = "mvp"):

@@ -14,18 +14,18 @@ import ctypes
 import numpy as np
 import torch
 
-from dpsvm_tpu_torch.ops.select import c_of, low_mask, split_c, up_mask
+from dpsvm_tpu_torch.ops.select import (c_of, low_mask,
+                                        select_working_set_nu, split_c,
+                                        up_mask)
 from dpsvm_tpu_torch.solver.smo import fma32, pair_alpha_update
 
-_RULES = {"mvp": 0, "second_order": 1}
+_RULES = {"mvp": 0, "second_order": 1, "nu": 2}
 _MAX_Q = 4096  # csrc/subproblem.cu: up to four slots for each of 1024 threads
 
 
 def _check_rule(rule: str, pair_batch: int) -> None:
     if rule not in _RULES:
-        raise NotImplementedError(
-            f"subproblem rule {rule!r} is not ported (the nu rule: ROADMAP "
-            "queue A item 7)")
+        raise ValueError(f"unknown subproblem rule {rule!r}")
     if pair_batch not in (1, 2, 4):
         raise ValueError("pair_batch must be 1, 2 or 4")
     if pair_batch > 1 and rule != "mvp":
@@ -41,7 +41,9 @@ def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
     `limit` caps the pair updates. Returns (alpha_w, f_w, n_pairs) with
     n_pairs a 0-d int32 tensor. rule "mvp" pairs the maximal violators;
     "second_order" keeps i and picks j by the largest second-order gain
-    (f_j - b_hi)^2 / eta_ij over row i of K(W, W). One host read of the
+    (f_j - b_hi)^2 / eta_ij over row i of K(W, W); "nu" pairs the maximal
+    violators within one class, the class with the larger violation
+    (select_working_set_nu; the nu duals' per-class constraints). One host read of the
     gap per trip ends the loop. A `rows_read` set, when given, collects
     the slots whose Gram rows the solve reads (for a bytes count).
 
@@ -59,13 +61,21 @@ def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
     lanes = torch.arange(alpha_w.shape[0], device=alpha_w.device)
     t = 0
     while t < limit:
-        up = up_mask(alpha_w, y_w, cp, cn) & slot_ok
-        low = low_mask(alpha_w, y_w, cp, cn) & slot_ok
-        f_up = torch.where(up, f_w, float("inf"))
-        f_low = torch.where(low, f_w, -float("inf"))
-        i = torch.argmin(f_up)
-        b_hi = f_up[i]
-        row_i = kb_w[i]
+        if rule == "nu":
+            # Per-class maximal violators; slot_ok plays the valid mask.
+            i, b_hi, j, b_lo = select_working_set_nu(f_w, alpha_w, y_w, c,
+                                                     valid=slot_ok)
+            row_i = kb_w[i]
+            gap_open = b_lo > b_hi + 2.0 * eps
+            upd_ok = gap_open
+        else:
+            up = up_mask(alpha_w, y_w, cp, cn) & slot_ok
+            low = low_mask(alpha_w, y_w, cp, cn) & slot_ok
+            f_up = torch.where(up, f_w, float("inf"))
+            f_low = torch.where(low, f_w, -float("inf"))
+            i = torch.argmin(f_up)
+            b_hi = f_up[i]
+            row_i = kb_w[i]
         if rule == "second_order":
             gap_open = f_low.max() > b_hi + 2.0 * eps
             diff = f_w - b_hi
@@ -77,7 +87,7 @@ def _solve_subproblem(kb_w, kd_w, slot_ok, alpha_w, y_w, f_w, c,
             upd_ok = gap_open & (gain.max() > -float("inf"))
             j = torch.where(upd_ok, torch.argmax(gain), i)
             b_lo = f_w[j]
-        else:
+        elif rule == "mvp":
             j = torch.argmax(f_low)
             b_lo = f_low[j]
             gap_open = b_lo > b_hi + 2.0 * eps

@@ -80,8 +80,8 @@ def _global_ids(rank: int, n_loc: int, device) -> torch.Tensor:
 def _refuse_nu(selection: str) -> None:
     if selection not in ("mvp", "second_order"):
         raise NotImplementedError(
-            f"selection={selection!r} is not ported (nu duals: ROADMAP "
-            "queue A item 7)")
+            f"selection={selection!r} on the mesh is not ported (ROADMAP "
+            "queue A item 10b); the nu duals run on one device")
 
 
 def _local_top(f, alpha, y, valid, c, h: int):

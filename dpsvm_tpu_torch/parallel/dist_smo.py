@@ -10,8 +10,9 @@ global and shard-local runners.
 
 Not ported (each refused with NotImplementedError naming its ROADMAP
 item): the per-pair mesh engine (engine="xla" on the mesh), the
-pipelined, fused, active-set and out-of-core mesh runners, warm starts,
-reconstruction legs, checkpoints, callbacks, fault retry and obs.
+pipelined, fused, active-set and out-of-core mesh runners, warm starts
+and the nu rule (so the model families), reconstruction legs,
+checkpoints, callbacks, fault retry and obs.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
-                                         squared_norms)
+                                         squared_norms,
+                                         warn_if_bf16_degrades)
 from dpsvm_tpu_torch.ops.select import refresh_extrema_host
 from dpsvm_tpu_torch.parallel.dist_block import (
     MeshBlockState, make_block_chunk_runner,
@@ -65,27 +67,37 @@ def _refuse_unported(config: SVMConfig) -> None:
 
 
 def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
-               mesh: Optional[Mesh] = None) -> SolveResult:
+               mesh: Optional[Mesh] = None, alpha_init=None,
+               f_init=None) -> SolveResult:
     """Train binary C-SVC row-sharded over the mesh.
 
     `mesh=None` takes the visible CUDA cards (the first `num_devices` of
     them) and raises without one. ``Mesh([torch.device("cuda:0")] * 4)``
     runs four logical shards on one card; ``Mesh(["cpu"] * 2)`` runs the
     plain PyTorch path. stats["mesh_devices"] lists the devices by rank.
+    Warm starts (`alpha_init` / `f_init`) and selection="nu", which the
+    model families need, are refused (ROADMAP queue A item 10b).
     """
     if config.engine not in ("xla", "block"):
         raise ValueError(
             f"engine={config.engine!r} is implemented for the single-chip "
             "solver only; the mesh backend supports engine='block' "
             "(distributed decomposition)")
+    if alpha_init is not None or f_init is not None \
+            or config.selection == "nu":
+        raise NotImplementedError(
+            "warm starts (alpha_init / f_init) and selection='nu' on the "
+            "mesh are not ported (ROADMAP queue A item 10b); the model "
+            "families run on one device (backend='single')")
     _refuse_unported(config)
     config.check_ported()
+    x = np.asarray(x, np.float32)
+    warn_if_bf16_degrades(x, config)
     if mesh is None:
         mesh = make_data_mesh(num_devices)
     for dev in {d for d, _ in mesh.groups}:
         resolve_device(dev)  # raises without CUDA; sets the float32 policy
 
-    x = np.asarray(x, np.float32)
     y_np = np.asarray(y, np.int32)
     n, d = x.shape
     kp = KernelParams(config.kernel, config.resolve_gamma(d), config.degree,

@@ -47,7 +47,8 @@ from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
                                          kernel_rows, mm_f32)
 from dpsvm_tpu_torch.ops.round import fused_round
-from dpsvm_tpu_torch.ops.select import (candidate_live_mask, order_key,
+from dpsvm_tpu_torch.ops.select import (candidate_live_mask,
+                                        nu_stopping_pair, order_key,
                                         set_masks)
 from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
 from dpsvm_tpu_torch.solver.smo import eff_f, maybe_kahan
@@ -95,13 +96,31 @@ def select_block(f, alpha, y, c, q: int, valid=None, rule: str = "mvp"):
     q/2 from I_low (largest f). Returns (w, slot_ok, b_hi, b_lo): w (q,)
     int64 row ids (filler where a side ran short), slot_ok (q,) bool, and
     the exact float32 extrema of f over I_up / I_low. `valid` (bool, n)
-    masks padded rows out of both sets."""
-    if rule not in ("mvp", "second_order"):
-        raise NotImplementedError(
-            f"selection={rule!r} is not ported (nu duals: ROADMAP queue A "
-            "item 7)")
+    masks padded rows out of both sets.
+
+    rule="nu" takes per-class quarters instead (q/4 from each of I_up
+    and I_low within each class, q a multiple of 4): the nu duals carry
+    one equality constraint per class, so W must let the subproblem pair
+    within both classes. Duplicates are masked within a class (the
+    classes are disjoint), and (b_hi, b_lo) are the larger-violation
+    class's pair (nu_stopping_pair)."""
     up, low = set_masks(alpha, y, c, valid)
     neg_inf = -float("inf")
+    if rule == "nu":
+        pos = y > 0
+        scores = torch.stack([torch.where(up & pos, -f, neg_inf),
+                              torch.where(low & pos, f, neg_inf),
+                              torch.where(up & ~pos, -f, neg_inf),
+                              torch.where(low & ~pos, f, neg_inf)])
+        vals, idx = _top_h(scores, q // 4)
+        fin = torch.isfinite(vals)
+        w_p, ok_p = combine_halves(idx[0], fin[0], idx[1], fin[1])
+        w_n, ok_n = combine_halves(idx[2], fin[2], idx[3], fin[3])
+        # Row 0 of each side is its maximum in the float total order,
+        # which is the IEEE maximum (a +-0 tie gives +0.0).
+        b_hi, b_lo = nu_stopping_pair(-vals[0, 0], vals[1, 0],
+                                      -vals[2, 0], vals[3, 0])
+        return (torch.cat([w_p, w_n]), torch.cat([ok_p, ok_n]), b_hi, b_lo)
     scores = torch.stack([torch.where(up, -f, neg_inf),
                           torch.where(low, f, neg_inf)])
     vals, idx = _top_h(scores, q // 2)

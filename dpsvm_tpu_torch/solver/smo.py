@@ -22,6 +22,7 @@ so its trip reads twice.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -30,7 +31,8 @@ import torch
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
                                          kernel_rows, row_dots)
 from dpsvm_tpu_torch.ops.select import (c_of, ieee_max, select_working_set,
-                                        set_masks, split_c, take)
+                                        select_working_set_nu, set_masks,
+                                        split_c, take)
 from dpsvm_tpu_torch.solver.cache import (CacheState, init_cache,
                                           lookup_one, lookup_pair)
 
@@ -211,12 +213,15 @@ def apply_pair_update(state: SMOState, y, i_hi: int, i_lo: int, b_hi_pair,
 
 
 def smo_iteration(x, y, x_sq, k_diag, valid, state: SMOState,
-                  kp: KernelParams, c, tau: float) -> SMOState:
+                  kp: KernelParams, c, tau: float,
+                  select_fn=select_working_set) -> SMOState:
     """One maximal-violating-pair iteration (JAX _smo_iteration). With
     kp.kind == "precomputed" x is the resident Gram and the pair's kernel
-    rows are its rows."""
-    i_hi, b_hi, i_lo, b_lo = select_working_set(eff_f(state), state.alpha,
-                                                y, c, valid)
+    rows are its rows. `select_fn` swaps the pairing rule:
+    select_working_set_nu keeps the pair within one class (the nu
+    duals); everything after the selection is the same."""
+    i_hi, b_hi, i_lo, b_lo = select_fn(eff_f(state), state.alpha, y, c,
+                                       valid)
     (ih, il), (bh, bl) = read_obs((i_hi, i_lo), (b_hi, b_lo))
     if kp.kind == "precomputed":
         k_hi, k_lo, n_hits = x[ih], x[il], 0
@@ -275,6 +280,14 @@ def smo_iteration_wss2(x, y, x_sq, k_diag, valid, state: SMOState,
                     state.hits + int(hit_hi) + int(hit_lo), f_err)
 
 
+_ITERATION_FNS = {
+    "mvp": smo_iteration,
+    "second_order": smo_iteration_wss2,
+    # Per-class pairs for the nu duals (set by models/nusvm.py).
+    "nu": partial(smo_iteration, select_fn=select_working_set_nu),
+}
+
+
 def run_chunk(x, y, x_sq, k_diag, valid, state: SMOState, max_iter: int,
               kp: KernelParams, c, eps: float, tau: float,
               selection: str = "mvp") -> SMOState:
@@ -282,11 +295,7 @@ def run_chunk(x, y, x_sq, k_diag, valid, state: SMOState, max_iter: int,
     selection is open (JAX _run_chunk, run unobserved). The last trip is
     the one whose selection shows the closed gap: its update still runs
     (the reference's final degenerate update) and counts."""
-    if selection not in ("mvp", "second_order"):
-        raise NotImplementedError(
-            f"selection={selection!r} is not ported (nu duals: ROADMAP "
-            "queue A item 7)")
-    step = smo_iteration if selection == "mvp" else smo_iteration_wss2
+    step = _ITERATION_FNS[selection]
     state = state._replace(alpha=state.alpha.clone())
     while state.it < max_iter and gap_open(state.b_hi, state.b_lo, eps):
         state = step(x, y, x_sq, k_diag, valid, state, kp, c, tau)

@@ -11,7 +11,8 @@ import torch
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import resolve_device, synchronize
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
-                                         resident_gram, squared_norms)
+                                         resident_gram, squared_norms,
+                                         warn_if_bf16_degrades)
 from dpsvm_tpu_torch.ops.select import refresh_extrema_host
 from dpsvm_tpu_torch.solver import block
 from dpsvm_tpu_torch.solver import smo
@@ -38,10 +39,12 @@ _PALLAS_ROWS = 64 * 128
 
 def block_height(config: SVMConfig, n: int) -> tuple:
     """(q, inner): the working-set height clamped to the data and kept
-    even (balanced up/low halves), and the per-round pair budget
+    even (balanced up/low halves; a multiple of 4 under selection="nu",
+    for its per-class quarters), and the per-round pair budget
     (inner_iters, or 2q when 0)."""
-    q = max(2, min(config.working_set_size, n))
-    q -= q % 2
+    gran = 4 if config.selection == "nu" else 2
+    q = max(gran, min(config.working_set_size, n))
+    q -= q % gran
     return q, config.inner_iters or 2 * q
 
 
@@ -53,12 +56,16 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device) -> dict:
     engines, and the pipelined engine's one-pass selection (on CUDA
     only, as the JAX package takes it on the TPU only), need q/2 <=
     n_pad/128 with n_pad = n rounded up to 1024; where that fails the
-    plain engine runs. Returns the flags under the JAX package's stats
+    plain engine runs. Under selection="nu" the plain round runs whatever
+    the knobs say, as in the JAX package: the fused and pipelined
+    engines select two-sided mvp candidates, which would pair across the
+    nu duals' classes. Returns the flags under the JAX package's stats
     names and n_pad."""
     n_pad_fused = -(-n // 1024) * 1024
-    shape_ok = (min(config.working_set_size, n_pad_fused)
+    shape_ok = (config.selection != "nu"
+                and min(config.working_set_size, n_pad_fused)
                 <= n_pad_fused // 64)
-    pipelined = bool(config.pipeline_rounds)
+    pipelined = bool(config.pipeline_rounds) and config.selection != "nu"
     pipe_select = pipelined and dev.type == "cuda" and shape_ok
     fused_round = not pipelined and bool(config.fused_round) and shape_ok
     fused_fold = (not pipelined and not fused_round
@@ -127,7 +134,8 @@ def _finish(state, y_np, n: int, config: SVMConfig, eps_run: float,
     return alpha, f_final, b_hi, b_lo, converged
 
 
-def solve(x, y, config: SVMConfig, device=None) -> SolveResult:
+def solve(x, y, config: SVMConfig, device=None, alpha_init=None,
+          f_init=None) -> SolveResult:
     """Train binary C-SVC on one device with the engine config.engine
     names: "block" (and its fused variants), or the per-pair engines
     "xla" (with the row cache, the resident Gram and micro-batching) and
@@ -137,20 +145,47 @@ def solve(x, y, config: SVMConfig, device=None) -> SolveResult:
     device="cpu" for the plain PyTorch path. X is stored in
     config.dtype; the solver state (alpha, f) is float32. Engines that
     pad the rows mask the padding out of every selection; alpha and f
-    come back trimmed to n."""
+    come back trimmed to n.
+
+    `alpha_init` / `f_init` (n,) override the C-SVC start point (alpha =
+    0, f = -y): the general dual min 1/2 a^T Q a + p^T a with
+    Q_ij = y_i y_j K_ij starts from f = y * (Q alpha_init + p). The
+    model families use it (models/svr.py, nusvm.py, oneclass.py).
+    Padded rows start at alpha 0 and f -y."""
+    if config.selection == "nu" and alpha_init is None:
+        # The nu rule pairs within one class; from the C-SVC zero start no
+        # class has both an I_up and an I_low member, so the gap would
+        # read closed at once and return a garbage model as converged.
+        raise ValueError(
+            "selection='nu' is internal to the nu duals — call "
+            "train_nusvc/train_nusvr (models/nusvm.py) instead")
     config.check_ported()
-    dev = resolve_device(device)
     x = np.asarray(x, np.float32)
+    warn_if_bf16_degrades(x, config)
+    dev = resolve_device(device)
     y_np = np.asarray(y, np.int32)
     kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
                       config.degree, config.coef0)
     eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)
+    start = (alpha_init, f_init)
     if config.engine == "block":
-        return _solve_block(x, y_np, config, kp, dev, eps_run)
-    return _solve_pair(x, y_np, config, kp, dev, eps_run)
+        return _solve_block(x, y_np, config, kp, dev, eps_run, start)
+    return _solve_pair(x, y_np, config, kp, dev, eps_run, start)
 
 
-def _solve_block(x, y_np, config, kp, dev, eps_run) -> SolveResult:
+def start_point(y_dev, n: int, start: tuple) -> tuple:
+    """The solve's (alpha, f) start on y_dev's device: the C-SVC start
+    (alpha = 0, f = -y) with the first n rows of alpha and f replaced by
+    alpha_init / f_init where given (start = (alpha_init, f_init))."""
+    alpha, f, _, _ = init_state(y_dev)
+    for buf, init in zip((alpha, f), start):
+        if init is not None:
+            buf[:n] = torch.as_tensor(np.asarray(init, np.float32),
+                                      device=buf.device)
+    return alpha, f
+
+
+def _solve_block(x, y_np, config, kp, dev, eps_run, start) -> SolveResult:
     n = x.shape[0]
     eng = choose_engine(config, n, dev)
     n_pad = eng["n_pad"]
@@ -158,7 +193,8 @@ def _solve_block(x, y_np, config, kp, dev, eps_run) -> SolveResult:
     x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
     k_diag = kernel_diag(x_sq, kp)
     q, inner = block_height(config, n_pad)
-    alpha0, f0, b_hi0, b_lo0 = init_state(y_dev)
+    _, _, b_hi0, b_lo0 = init_state(y_dev)
+    alpha0, f0 = start_point(y_dev, n, start)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     state = BlockState(alpha0, f0, b_hi0, b_lo0, zero, zero,
                        torch.zeros_like(f0) if config.compensated else None)
@@ -198,7 +234,7 @@ def _solve_block(x, y_np, config, kp, dev, eps_run) -> SolveResult:
     )
 
 
-def _solve_pair(x, y_np, config, kp, dev, eps_run) -> SolveResult:
+def _solve_pair(x, y_np, config, kp, dev, eps_run, start) -> SolveResult:
     """The per-pair branch of the JAX package's _solve_impl."""
     n = x.shape[0]
     use_pallas = config.engine == "pallas"
@@ -219,6 +255,8 @@ def _solve_pair(x, y_np, config, kp, dev, eps_run) -> SolveResult:
     use_cache = cache_lines > 0 and not use_gram and not use_micro
     state = smo.init_pair_state(y_dev, cache_lines if use_cache else 0,
                                 config.compensated)
+    alpha0, f0 = start_point(y_dev, n, start)
+    state = state._replace(alpha=alpha0, f=f0)
     c = config.c_bounds()
     tau = float(config.tau)
     max_iter = int(config.max_iter)

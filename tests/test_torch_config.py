@@ -53,9 +53,10 @@ def test_invalid_values_raise_like_jax(kw):
 
 
 UNPORTED = [
-    dict(engine="xla", selection="nu"),
-    dict(engine="xla", kernel="precomputed"), dict(selection="nu"),
-    dict(pair_batch=2, ooc=True), dict(fused_fold=True, selection="nu"),
+    dict(engine="xla", ooc=True),
+    dict(engine="xla", kernel="precomputed"),
+    dict(selection="second_order", active_set_size=64),
+    dict(pair_batch=2, ooc=True), dict(fused_fold=True, kernel="precomputed"),
     dict(fused_round=True, bf16_gram=True),
     dict(pipeline_rounds=True, gram_resident=True),
     dict(active_set_size=64), dict(ooc=True),
@@ -189,7 +190,7 @@ def test_mesh_knob_validation_matches_jax(kw, match):
 @pytest.mark.parametrize("kw,item", [
     (dict(engine="block", active_set_size=64), "item 4"),
     (dict(engine="block", gram_resident=True), "item 6"),
-    (dict(engine="xla", selection="nu"), "item 7"),
+    (dict(engine="xla", ooc=True), "item 8"),
     (dict(engine="xla", bf16_gram=True), "item 6"),
 ])
 def test_still_refused_knobs_name_their_roadmap_item(kw, item):

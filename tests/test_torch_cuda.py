@@ -73,6 +73,52 @@ def test_subproblem_kernel_matches_plain(cuda, q, rule, pair_batch):
         assert _same_bits(a_k, a_p)
 
 
+def _nu_subproblem_args(dev, q, case, seed=0):
+    """A nu-SVC-like working set that select_block(rule="nu") picks: per
+    class alpha in [0, 1] with a margin of free points. `case` "mixed"
+    keeps both classes' quarters; "one_class" flips W to a single class
+    (the other's extrema are empty, +-inf); "ties" rounds f so several
+    slots share each extremum."""
+    x, y = make_blobs_binary(n=4000, d=10, seed=3, sep=1.2)
+    rng = np.random.default_rng(seed)
+    alpha = rng.choice([0.0, 1.0, 0.3, 0.7], size=len(y)).astype(np.float32)
+    xt = torch.as_tensor(x, device=dev)
+    K = kernel_matrix(xt, xt, KernelParams("rbf", 0.2))
+    yt = torch.as_tensor(y.astype(np.float32), device=dev)
+    at = torch.as_tensor(alpha, device=dev)
+    f = (at * yt) @ K
+    if case == "ties":
+        f = torch.round(f * 4.0) / 4.0
+    w, ok, _, _ = select_block(f, at, yt, 1.0, q, rule="nu")
+    kb = K[w][:, w].contiguous()
+    yw = yt[w].clone()
+    if case == "one_class":
+        yw = torch.ones_like(yw)
+    return (kb, at[w].contiguous(), yw, f[w].contiguous(),
+            torch.diagonal(K)[w].contiguous(), ok.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "one_class", "ties"])
+@pytest.mark.parametrize("q", [100, 256, 1500, 3000])
+def test_subproblem_kernel_nu_rule_bitwise_plain(cuda, q, case):
+    """Kernel B1's nu rule (per-class extrema, the class by the float32
+    violation test) against its plain version: the same pair count and
+    the same alpha bits. q = 100 keeps a quarter of 25 slots."""
+    q4 = q - q % 4
+    args = _nu_subproblem_args(cuda, q4, case)
+    lim = torch.tensor(2 * q4, dtype=torch.int32, device=cuda)
+    tsub.solve_subproblem.launches = 0
+    a_k, t_k = tsub.solve_subproblem(*args, lim, 1.0, EPS, TAU, rule="nu")
+    torch.cuda.synchronize()
+    assert tsub.solve_subproblem.launches == 1
+    kb, a0, yw, f0, kd, ok = args
+    a_p, _, t_p = tsub._solve_subproblem(kb, kd, ok > 0, a0, yw, f0, 1.0,
+                                         EPS, TAU, 2 * q4, "nu")
+    assert int(t_k) == int(t_p) > 0
+    assert _same_bits(a_k, a_p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_solve_on_card_matches_cpu(cuda, dtype):

@@ -255,6 +255,6 @@ def test_gather_ws_is_jaxs(p_dev, dtype):
 def test_nu_rule_is_refused_on_the_mesh():
     mesh = Mesh(["cpu"] * 2)
     z = [torch.zeros(8)] * 2
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         tdb._select_block_mesh(mesh, z, z, z, [None, None], 1.0, 4,
                                rule="nu")

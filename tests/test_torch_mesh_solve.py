@@ -268,7 +268,7 @@ def test_mesh_refusals(blobs_small, monkeypatch):
     x, y = blobs_small
     with pytest.raises(ValueError, match="single-chip solver only"):
         solve_mesh(x, y, SVMConfig(engine="pallas"), mesh=Mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         solve_mesh(x, y, SVMConfig(**{**BASE, "selection": "nu"}),
                    mesh=Mesh(["cpu"] * 2))
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -357,3 +357,34 @@ def test_cli_mesh_flags_reach_the_engines(tmp_path, capsys, monkeypatch):
     assert cli.main(common[:-2] + ["-m", str(tmp_path / "m3.txt")]) == 2
     err = capsys.readouterr().err
     assert "only 1 visible" in err and "--device cuda:0" in err
+
+
+def test_train_defaults_to_auto_and_one_card_is_single(tiny, monkeypatch):
+    """Fault C.20: train() defaults to backend="auto", as the JAX
+    package's does; auto resolves to the single device on a one-card
+    host (and on the CPU), takes the mesh on two cards only for the
+    block engine, and never for a warm start."""
+    import inspect
+
+    from dpsvm_tpu.train import train as jax_train
+    from dpsvm_tpu_torch.train import resolve_backend
+
+    default = inspect.signature(train).parameters["backend"].default
+    assert default == "auto" == \
+        inspect.signature(jax_train).parameters["backend"].default
+    block = SVMConfig(**BASE)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert resolve_backend("auto", block) == "single"
+    assert resolve_backend("auto", block, device="cpu") == "single"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert resolve_backend("auto", block) == "mesh"
+    assert resolve_backend("auto", block, device="cuda:0") == "single"
+    assert resolve_backend("auto", block.replace(engine="xla")) == "single"
+    assert resolve_backend("auto", block, warm=True) == "single"
+    # An explicit mesh request stands; solve_mesh refuses the warm start
+    # (tests/test_torch_nusvm.py test_mesh_refuses_nu_naming_the_roadmap_item).
+    assert resolve_backend("mesh", block, warm=True) == "mesh"
+    x, y = tiny
+    model, res = train(x, y, SVMConfig(**{**BASE, "epsilon": 1e-2}),
+                       device="cpu")
+    assert res.converged and "mesh_devices" not in res.stats

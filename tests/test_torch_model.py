@@ -178,3 +178,33 @@ def test_converted_model_keeps_fields(jax_model):
     pm = model_from_reference(jm)
     _same_model(pm, jm)
     assert isinstance(pm.kernel, KernelParams)
+
+
+def test_platt_pair_survives_the_port(tmp_path):
+    """Fault C.19: a calibrated JAX model (prob_a / prob_b) saved to .npz,
+    loaded and saved again by the port, loads in JAX still calibrated;
+    the port refuses to write it as text, as JAX does."""
+    rng = np.random.default_rng(0)
+    sv = rng.normal(size=(5, 3)).astype(np.float32)
+    jm = JaxModel(sv, np.ones(5, np.float32), np.array([1, -1, 1, -1, 1],
+                  np.int32), 0.1, JaxKP("rbf", 0.5), prob_a=-1.5, prob_b=0.2)
+    jm.save(str(tmp_path / "j.npz"))
+    tm = SVMModel.load(str(tmp_path / "j.npz"))
+    assert tm.has_probability and (tm.prob_a, tm.prob_b) == (-1.5, 0.2)
+    tm.save(str(tmp_path / "t.npz"))
+    back = JaxModel.load(str(tmp_path / "t.npz"))
+    assert back.has_probability
+    assert (back.prob_a, back.prob_b) == (jm.prob_a, jm.prob_b)
+    conv = model_from_reference(jm)
+    assert (conv.prob_a, conv.prob_b) == (-1.5, 0.2)
+    with pytest.raises(ValueError, match="Platt") as et:
+        tm.save(str(tmp_path / "t.txt"))
+    with pytest.raises(ValueError, match="Platt") as ej:
+        jm.save(str(tmp_path / "j.txt"))
+    assert str(et.value) == str(ej.value)
+    # Uncalibrated models write no pair, in either package.
+    plain = SVMModel(sv, np.ones(5, np.float32), jm.sv_y, 0.1,
+                     KernelParams("rbf", 0.5))
+    plain.save(str(tmp_path / "p.npz"))
+    assert not JaxModel.load(str(tmp_path / "p.npz")).has_probability
+    assert not SVMModel.load(str(tmp_path / "p.npz")).has_probability

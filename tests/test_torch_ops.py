@@ -195,3 +195,63 @@ def test_init_state_and_eff_f():
     assert tsmo.eff_f(s) is f
     s.f_err = torch.full_like(f, 0.5)
     assert tsmo.eff_f(s).tolist() == [-1.5, 0.5, -1.5]
+
+
+def _bf16_warnings(fn):
+    import warnings
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        fn()
+    return [str(w.message) for w in rec
+            if "destroy solution quality" in str(w.message)]
+
+
+def test_bf16_quality_warning_matches_jax():
+    """Fault C.18: dtype="bfloat16" where storage rounding is likely to
+    destroy the solution warns in the port too, with the JAX package's
+    text, from solve and from solve_mesh (covtype-shaped probe, c=1000,
+    gamma=0.1, block engine, 500 pairs)."""
+    from dpsvm_tpu.config import SVMConfig as JaxConfig
+    from dpsvm_tpu.data.synth import make_covtype_like
+    from dpsvm_tpu.solver.smo import solve as jax_solve
+    from dpsvm_tpu_torch import Mesh, SVMConfig, solve, solve_mesh
+
+    x, y = make_covtype_like(2000, seed=0)
+    kw = dict(c=1000.0, gamma=0.1, dtype="bfloat16", engine="block",
+              max_iter=500)
+    jw = _bf16_warnings(lambda: jax_solve(x, y, JaxConfig(**kw)))
+    tw = _bf16_warnings(lambda: solve(x, y, SVMConfig(**kw), device="cpu"))
+    assert len(jw) == 1 and tw == jw
+    assert "C * p90|dK| = 0.375 > 0.1" in tw[0]
+    mw = _bf16_warnings(lambda: solve_mesh(
+        x[:400], y[:400], SVMConfig(**{**kw, "max_iter": 50}),
+        mesh=Mesh(["cpu"] * 2)))
+    assert len(mw) == 1
+    # float32 storage, or a small C, does not warn.
+    assert not _bf16_warnings(lambda: solve(
+        x[:400], y[:400], SVMConfig(**{**kw, "dtype": "float32",
+                                       "max_iter": 50}), device="cpu"))
+    assert not _bf16_warnings(lambda: solve(
+        x[:400], y[:400], SVMConfig(**{**kw, "c": 1.0, "max_iter": 50}),
+        device="cpu"))
+
+
+@pytest.mark.parametrize("kind,gamma,degree,coef0", KERNELS)
+def test_bf16_perturbation_and_gate_are_jaxs(kind, gamma, degree, coef0):
+    """The probes behind the guard: the same sampled pairs and the same
+    bf16 rounding (round to nearest even) give the same p90, and the
+    bf16-Gram gate the same verdict and note."""
+    from dpsvm_tpu.config import SVMConfig as JaxConfig
+    from dpsvm_tpu_torch import SVMConfig
+
+    x = np.random.default_rng(9).normal(size=(300, 7)).astype(np.float32)
+    jkp = jk.KernelParams(kind, gamma, degree, coef0)
+    tkp = tk.KernelParams(kind, gamma, degree, coef0)
+    assert tk.bf16_kernel_perturbation(x, tkp, sample=200, pairs=500) == \
+        jk.bf16_kernel_perturbation(x, jkp, sample=200, pairs=500)
+    for c in (1.0, 1e4):
+        cfg = dict(c=c, kernel=kind, degree=degree, coef0=coef0)
+        assert tk.resolve_bf16_gram(x, SVMConfig(**cfg), gamma) == \
+            jk.resolve_bf16_gram(x, JaxConfig(**cfg), gamma)
+    assert tk.BF16_RISK_THRESHOLD == jk.BF16_RISK_THRESHOLD

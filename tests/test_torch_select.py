@@ -80,7 +80,15 @@ def test_combine_halves_matches_jax():
 
 
 def test_nu_selection_is_not_ported():
+    """select_block(rule="nu") is JAX's bit for bit. (The name dates from
+    when the port refused the nu rule; tests/test_torch_nu.py holds
+    every case.)"""
     f, alpha, y, c = CASES["random"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblock.select_block(torch.as_tensor(f), torch.as_tensor(alpha),
-                            torch.as_tensor(y), c, 8, rule="nu")
+    jw, jok, jbh, jbl = jblock.select_block(
+        jnp.asarray(f), jnp.asarray(alpha), jnp.asarray(y), c, 8, rule="nu")
+    tw, tok, tbh, tbl = tblock.select_block(
+        torch.as_tensor(f), torch.as_tensor(alpha), torch.as_tensor(y), c, 8,
+        rule="nu")
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert float(tbh) == float(jbh) and float(tbl) == float(jbl)

@@ -54,7 +54,8 @@ def _port(kb, kd, ok, a, y, f, limit, rule, c=C, eps=EPS, pair_batch=1):
     pytest.param("mvp", 1, id="mvp"),
     pytest.param("second_order", 1, id="second_order"),
     pytest.param("mvp", 2, id="mvp-pair_batch2"),
-    pytest.param("mvp", 4, id="mvp-pair_batch4")])
+    pytest.param("mvp", 4, id="mvp-pair_batch4"),
+    pytest.param("nu", 1, id="nu")])
 @pytest.mark.parametrize("q", [32, 100, 128])
 def test_plain_matches_jax_xla_and_pallas(q, rule, pair_batch):
     kb, kd, ok, a, y, f = _inputs(q)
@@ -71,9 +72,10 @@ def test_plain_matches_jax_xla_and_pallas(q, rule, pair_batch):
     assert t_t == int(t_x) == int(t_p) > 0
     np.testing.assert_allclose(a_t, np.asarray(a_x), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(a_t, np.asarray(a_p), rtol=RTOL, atol=ATOL)
-    if pair_batch > 1:
+    if pair_batch > 1 or rule == "nu":
         # The extra slots, their gating and the two-FMA f_W update
-        # included: the same bits as both JAX forms.
+        # included (and the nu rule's class choice): the same bits as
+        # both JAX forms.
         np.testing.assert_array_equal(a_t, np.asarray(a_x))
         np.testing.assert_array_equal(a_t, np.asarray(a_p))
 
@@ -170,13 +172,20 @@ def test_wrapper_takes_plain_path_on_cpu():
 
 
 def test_unported_rules_raise():
-    """The nu rule comes with the nu trainers; a pair batch is an mvp
-    feature of 2 or 4 pairs, as in the JAX package."""
+    """An unknown rule and a pair batch other than mvp's 2 or 4 raise, as
+    in the JAX package; the nu rule runs. (The name dates from when the
+    port refused the nu rule.)"""
     kb, kd, ok, a, y, f = _inputs(32)
     args = (*map(torch.as_tensor, (kb, a, y, f, kd)),
             torch.as_tensor(ok.astype(np.float32)), 10, C, EPS, TAU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsub.solve_subproblem(*args, rule="nu")
+    with pytest.raises(ValueError, match="unknown"):
+        tsub.solve_subproblem(*args, rule="wss3")
+    with pytest.raises(ValueError, match="mvp"):
+        tsub.solve_subproblem(*args, rule="nu", pair_batch=2)
+    a_w, t = tsub.solve_subproblem(*args, rule="nu")
+    a_p, t_p = _port(kb, kd, ok, a, y, f, 10, "nu")
+    assert int(t) == t_p
+    np.testing.assert_array_equal(a_w.numpy(), a_p)
     with pytest.raises(ValueError, match="mvp"):
         tsub.solve_subproblem(*args, rule="second_order", pair_batch=2)
     with pytest.raises(ValueError, match="1, 2 or 4"):
