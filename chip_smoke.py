@@ -25,7 +25,10 @@ result line is printed:
                 same data at the start point and at the headline's end
                 state (q = 128 and 256, both selection rules, and mvp with
                 pair_batch 2 and 4, which must be bitwise): same pair
-                count, alpha within rtol 1e-6 / atol 1e-7. B2-B5 on a real
+                count, alpha within rtol 1e-6 / atol 1e-7; each line
+                names the launch plan (threads, slots a thread, rows of
+                K(W, W) on chip), whether alpha is bitwise, and us a pair
+                and a trip. B2-B5 on a real
                 round's inputs at the headline shapes (n_pad 60416, q 256)
                 at the same two states, for float32 and bfloat16 X and
                 compensation off/on: B2 (fold_select) and B3 (select_rows)
@@ -38,7 +41,9 @@ result line is printed:
                 the plain version's own plus the 3xTF32 product error
                 (ops/round.py tf32x3_check: one-pass TF32 fails it). Times of
                 kernel, plain version and, for B4, the library product,
-                with L2 flushed before every launch, B4's TFLOP/s and the
+                with L2 flushed before every launch (every timed call is
+                queued behind a device-side spin, so the host's enqueue
+                time is not counted), B4's TFLOP/s and the
                 earlier CUDA-core design's time beside them;
                 then the headline solved once more with the round loop's
                 four stage functions timed by CUDA events;
@@ -67,10 +72,10 @@ result line is printed:
   8. ring    -- kernels B7 and B8 on logical shards of the card. B7
                 (ring_gather) at P = 2, 4, 8 on seeded (256, 792) blocks:
                 every rank's output bitwise torch.stack(blocks), twice in a
-                row on the same flag words. B8 (ring_fold_window) at P = 2, 4
-                and R = 1, 2 with q = 256, d = 784, n_loc = 60000 / P, X in
-                bfloat16 and float32, rbf and linear, plain and
-                compensated, on the windows real local rounds produce from
+                row (one ordinary launch, no flags). B8 (ring_fold_window)
+                at P = 2, 4 and R = 1, 2 with q = 256, d = 784, n_loc =
+                60000 / P, X in bfloat16 and float32, rbf and linear,
+                plain and compensated, on the windows real local rounds produce from
                 a mid-solve state: the gathered windows bitwise the stack,
                 f' (less err') held against the fold carried in float64:
                 off it by no more than rtol 1e-6 plus 2e-6 of the
@@ -149,7 +154,13 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 (3xTF32 does three products a term)
 EARLIER_MS = {("gather_gram", "bfloat16"): 1.3175,
               ("gather_gram", "float32"): 1.3688,
               ("ring_fold_window", "bfloat16"): 4.3508,
-              ("ring_fold_window", "float32"): 4.6576}
+              ("ring_fold_window", "float32"): 4.6576,
+              ("ring_gather", 2): 0.0270,
+              ("ring_gather", 4): 0.0683,
+              ("ring_gather", 8): 0.1334}
+# B1's us a pair at q=256, limit 512, from the start state, before the
+# redesign that keeps the Gram block on chip (PERF.md section 6).
+EARLIER_US_PER_PAIR = {"mvp": 1.010, "nu": 1.434}
 # Kernels whose products must run on the tensor cores: (source, kernel
 # name in the SASS).
 MMA_KERNELS = (("gather_gram", "gather_gram_kernel"),
@@ -171,15 +182,23 @@ SIGN_TOL = 0.998
 RTOL, ATOL = 1e-6, 1e-7
 
 
+# Cycles of a device-side spin queued ahead of the start event: long
+# enough (~1 ms at the card's clock) that the host has enqueued the timed
+# calls before the clock starts, so a slow host's enqueue time (a kernel
+# wrapper's Python, tens of us) is not counted as the kernel's.
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over `reps` calls after one warm-up,
-    between CUDA events."""
+    between CUDA events, queued behind a device-side spin."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES * max(1, reps // 10))
     e0.record()
     for _ in range(reps):
         fn()
@@ -191,7 +210,8 @@ def time_ms(fn, reps: int) -> float:
 def time_cold_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() between CUDA events, with a 256 MB
     write before every call so its inputs start out of the 50 MB L2, as
-    they do inside a round that has just streamed X or the kernel rows."""
+    they do inside a round that has just streamed X or the kernel rows;
+    each call queued behind a device-side spin."""
     import torch
 
     flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
@@ -201,6 +221,7 @@ def time_cold_ms(fn, reps: int) -> float:
         flush.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -273,7 +294,8 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
     import torch
 
     from dpsvm_tpu_torch.ops.subproblem import (_solve_subproblem,
-                                                solve_subproblem)
+                                                solve_subproblem,
+                                                subproblem_plan)
 
     worst = 0.0
     rec = {}
@@ -300,7 +322,8 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
                 np.testing.assert_allclose(a_k.cpu().numpy(),
                                            a_p.cpu().numpy(),
                                            rtol=RTOL, atol=ATOL)
-                if (pb > 1 or rule == "nu") and not same_bits(a_k, a_p):
+                bitwise = same_bits(a_k, a_p)
+                if (pb > 1 or rule == "nu") and not bitwise:
                     raise AssertionError(
                         f"{sname} q={q} {rule} pair_batch={pb}: the "
                         "kernel's alpha is not bitwise its plain version's")
@@ -321,13 +344,24 @@ def phase_kernels(dev, x_dev, y_dev, x_sq, k_diag, states, kp, c, tau,
                 ops_ms = 12 * q * t_k / F32_FLOPS * 1e3
                 bound_ms = max(bytes_ms, ops_ms)
                 bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+                # The chain sets the time: a trip is one reduction of the
+                # pair (i, j) and its update, pair_batch pairs a trip.
+                trips = max(-(-t_k // pb), 1)
+                plan = subproblem_plan(q)
+                variant = (f"{plan.threads} threads x {plan.slots} slot, "
+                           f"{plan.nchip} of {q} rows on chip")
+                earlier = EARLIER_US_PER_PAIR.get(rule)
                 print(f"[kernels] subproblem {sname} q={q} limit={limit} "
-                      f"{rule} pair_batch={pb}: pairs={t_k} "
-                      f"rows_read={len(rows)} "
+                      f"{rule} pair_batch={pb} ({variant}): pairs={t_k} "
+                      f"rows_read={len(rows)} bitwise={bitwise} "
                       f"max_abs_err={err:.3g} ms={ms:.4f} "
                       f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} "
                       f"({bound_by}) us_per_pair="
-                      f"{1e3 * ms / max(t_k, 1):.3f}", flush=True)
+                      f"{1e3 * ms / max(t_k, 1):.3f} us_per_trip="
+                      f"{1e3 * ms / trips:.3f}"
+                      + (f" (earlier design {earlier:.3f} us a pair)"
+                         if earlier and (sname, q, limit, pb) == (
+                             "start", 256, 512, 1) else ""), flush=True)
                 if (sname, q, limit, rule, pb) == ("start", 256, 512,
                                                    timed_rule, 1):
                     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -838,10 +872,10 @@ def phase_b6(x, y, valid, states: dict, c, tau, reps: int) -> dict:
 def phase_ring_gather(dev, reps: int) -> dict:
     """Kernel B7 on P logical shards of the card at the headline block
     shape (2h = 256 rows of d + 5 + 3 = 792 lanes): every rank's output
-    bitwise torch.stack(blocks), twice in a row on the same flag words
-    (they carry the call's sequence number). Timed at P = 4 against the
-    plain version and the library's stack plus one copy per further rank.
-    Returns the JSON record's measured fields."""
+    bitwise torch.stack(blocks), twice in a row. Timed at P = 2, 4 and 8
+    against the plain version and the library's stack plus one copy per
+    further rank, beside the earlier ring design's time. Returns the JSON
+    record's measured fields (P = 4)."""
     import torch
 
     from dpsvm_tpu_torch.ops import ring
@@ -877,7 +911,10 @@ def phase_ring_gather(dev, reps: int) -> dict:
         print(f"[kernels] ring_gather P={p_dev} blocks {shape}: bitwise the "
               f"stack on both calls (max abs err {err:g}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, "
-              f"{nbytes / 1e6:.1f} MB)", flush=True)
+              f"{nbytes / 1e6:.1f} MB) one launch of "
+              f"{ring.gather_plan(shape[0] * shape[1], True).chunks * p_dev}"
+              f" blocks; earlier ring design "
+              f"{EARLIER_MS['ring_gather', p_dev]:.4f}", flush=True)
         if p_dev == 4:
             rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)

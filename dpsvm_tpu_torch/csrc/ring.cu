@@ -3,17 +3,32 @@
 // Replaces the TPU kernels of dpsvm_tpu/ops/ring.py:
 //
 //   ring_gather (_ring_gather_kernel, kernel B7): every rank's (L, lanes)
-//   float32 candidate block travels P - 1 leftward hops; each rank ends with
-//   all P blocks in rank-id slots of its (P, L, lanes) output, the layout
-//   and the bits of an all_gather.
+//   float32 candidate block ends in rank-id slots of every rank's
+//   (P, L, lanes) output, the layout and the bits of an all_gather.
 //
 //   ring_fold_window (_ring_fold_kernel, kernel B8): the shard-local sync.
 //   The (R q, d + 3) window [x row | x_sq | coef | pair-count lane] rides
-//   the same ring, and each arriving window is folded into the rank's
-//   gradient inside the kernel: f += coef @ K(rows, x_loc), right neighbour
-//   first, with the Kahan step of solver/smo.py kahan_add when compensated.
+//   a ring, and each arriving window is folded into the rank's gradient
+//   inside the kernel: f += coef @ K(rows, x_loc), right neighbour first,
+//   with the Kahan step of solver/smo.py kahan_add when compensated.
 //
-// How ranks address each other. The kernels take, per rank, the base
+// B7 is no ring here. On the TPU the blocks travel P - 1 neighbour hops
+// because ICI moves data between neighbours only; on one card every rank's
+// memory is one address space, and stream order already makes every
+// rank's block ready before the launch. So B7 is one ordinary launch with
+// no flags, no fences and no spin: block (x, s) reads chunk x of rank s's
+// block once (16-byte __ldcg where every base is aligned and the count is a
+// multiple of 4 words, else word by word) and writes it into slot s of
+// every rank's output. The chunks, the block size and the copy width are
+// the wrapper's launch plan (ops/ring.py gather_plan), which this file
+// checks. What bounds it: bytes, P blocks read and P x P written (16.2 MB
+// at P = 4 with 811 KB blocks, 4.8 us at 3.35 TB/s); each thread keeps
+// kGatherUnroll 16-byte loads in flight before it stores them, so one wave
+// of blocks has the whole read set in flight.
+//
+// The rest of this note is B8's.
+//
+// How ranks address each other. The kernel takes, per rank, the base
 // pointer of that rank's output and of its flag words (RingPtrs, passed by
 // value: P entries each). A "remote copy to the left neighbour" is a store
 // through the neighbour's pointer; a "receive" is a wait on the rank's own
@@ -53,13 +68,12 @@
 // (cudaErrorCooperativeLaunchTooLarge), also under a context that was given
 // a share of the SMs. dpsvm_ring_max_blocks is the occupancy query the
 // wrapper sizes the grid with; a block loops over its share of the work. The
-// kernels use no grid-wide sync: ranks still meet only through their flags.
+// kernel uses no grid-wide sync: ranks still meet only through their flags.
 // A spin that sees no flag within its trip bound prints the rank, slot and
 // chunk and traps, so a lost peer is an error, never a hang. The bound is
 // seconds for a copy and grows with the fold a peer may be busy with.
 //
-// What bounds them on this card. B7 moves (P - 1) blocks in and out per
-// rank: bytes (19 MB at P = 4 with 811 KB blocks, ~6 us). B8 does
+// What bounds it on this card. B8 does
 // (P - 1) x 2 R q d n_loc flops per rank (72 GFLOP over four ranks at the
 // headline) against 0.1 GB: operations, on the tensor cores (~73 us at
 // 989 TFLOP/s with bf16 X; with float32 X the 3xTF32 product is three
@@ -103,7 +117,7 @@
 namespace {
 
 constexpr int kMaxRanks = 16;
-constexpr int kThreads = 256;
+constexpr int kGatherUnroll = 4;  // ops/ring.py _GATHER_UNROLL
 constexpr long long kSpinTrips = 1 << 24;  // x >= 100 ns: seconds, then trap
 // A peer forwards a window only after it has folded the one before: a wait
 // may last one hop's fold of all P ranks, 2 P rq d n_loc operations. Allow
@@ -115,6 +129,11 @@ struct RingPtrs {
   float* out[kMaxRanks];       // rank r's (P, count) output
   unsigned* flags[kMaxRanks];  // rank r's (P, chunks) flag words
   const float* blk[kMaxRanks]; // rank r's own (count,) block
+};
+
+struct GatherPtrs {
+  float* out[kMaxRanks];        // rank r's (P, count) output
+  const float* blk[kMaxRanks];  // rank r's own (count,) block
 };
 
 struct FoldPtrs {
@@ -222,15 +241,48 @@ __device__ __forceinline__ Ring make_ring(int P, long count, bool vec, unsigned 
   return r;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ring_gather_kernel(RingPtrs p, int P, long count, bool vec, unsigned seq,
-                   long long spin) {
-  const Ring r = make_ring(P, count, vec, seq, spin);
-  r.start(p);
-  for (int h = 0; h + 1 < P; ++h) {
-    const int arrived = (r.my + h + 1) % P;
-    r.receive(p, arrived);
-    if (h + 2 < P) r.send(p, arrived);  // hop h + 1 forwards what hop h landed
+// B7: block (x, s) copies units [x per, (x + 1) per) of rank s's block
+// (a unit is 4 words when vec, else 1) into slot s of every rank's
+// output; each thread loads kGatherUnroll units before it stores them.
+__global__ void __launch_bounds__(1024)
+ring_gather_kernel(GatherPtrs p, int P, long count, long units, long per, bool vec) {
+  const int s = blockIdx.y;
+  const long lo = (long)blockIdx.x * per;
+  const long hi = lo + per < units ? lo + per : units;
+  const long step = (long)blockDim.x * kGatherUnroll;
+  for (long u0 = lo + threadIdx.x; u0 < hi; u0 += step) {
+    if (vec) {
+      const float4* src = reinterpret_cast<const float4*>(p.blk[s]);
+      float4 v[kGatherUnroll];
+#pragma unroll
+      for (int m = 0; m < kGatherUnroll; ++m) {
+        const long u = u0 + (long)m * blockDim.x;
+        if (u < hi) v[m] = __ldcg(src + u);
+      }
+      for (int r = 0; r < P; ++r) {
+        float4* dst = reinterpret_cast<float4*>(p.out[r] + (long)s * count);
+#pragma unroll
+        for (int m = 0; m < kGatherUnroll; ++m) {
+          const long u = u0 + (long)m * blockDim.x;
+          if (u < hi) dst[u] = v[m];
+        }
+      }
+    } else {
+      float v[kGatherUnroll];
+#pragma unroll
+      for (int m = 0; m < kGatherUnroll; ++m) {
+        const long u = u0 + (long)m * blockDim.x;
+        if (u < hi) v[m] = __ldcg(p.blk[s] + u);
+      }
+      for (int r = 0; r < P; ++r) {
+        float* dst = p.out[r] + (long)s * count;
+#pragma unroll
+        for (int m = 0; m < kGatherUnroll; ++m) {
+          const long u = u0 + (long)m * blockDim.x;
+          if (u < hi) dst[u] = v[m];
+        }
+      }
+    }
   }
 }
 
@@ -411,8 +463,7 @@ bool fill_ring(RingPtrs& p, int P, void* const* out, void* const* flags,
   return count % 4 == 0 && bits % 16 == 0;
 }
 
-// Kernel `which` (0 ring_gather, 1 ring_fold_window on float32 X, 2 on
-// bfloat16 X) with the block size and dynamic shared memory it launches
+// Kernel `which` (1 ring_fold_window on float32 X, 2 on bfloat16 X) with the block size and dynamic shared memory it launches
 // with, and the most blocks of it that run at once on the current device
 // (common.cuh resident_blocks, which also raises the fold's dynamic
 // shared-memory limit there: the fold takes more than the default 48 KB).
@@ -423,7 +474,6 @@ struct Launch {
 
 cudaError_t launch_of(int which, Launch* l) {
   switch (which) {
-    case 0: *l = {(const void*)ring_gather_kernel, kThreads, 0, 0}; break;
     case 1:
       *l = {(const void*)ring_fold_kernel<float>, kFoldThreads, fold_smem_bytes<float>(), 0};
       break;
@@ -458,18 +508,30 @@ extern "C" int dpsvm_ring_max_blocks(int which, int* blocks) {
   return (int)err;
 }
 
-// out, flags, blk: host arrays of P device pointers by rank.
-extern "C" int dpsvm_ring_gather(void* const* out, void* const* flags,
-                                 const void* const* blk, int P, long count, int chunks,
-                                 unsigned seq, void* stream) {
-  if (P < 2 || P > kMaxRanks || count < 1 || chunks < 1) {
+// out, blk: host arrays of P device pointers by rank; threads, per, chunks
+// and vec are ops/ring.py gather_plan's: `chunks` blocks of `threads` for
+// each of the P ranks' blocks, `per` units each, a unit 4 words when vec.
+extern "C" int dpsvm_ring_gather(void* const* out, const void* const* blk, int P,
+                                 long count, int threads, long per, int chunks, int vec,
+                                 void* stream) {
+  const long units = vec ? count / 4 : count;
+  if (P < 2 || P > kMaxRanks || count < 1 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || per < 1 || chunks < 1 || chunks > 65535 ||
+      (long)chunks * per < units || (long)(chunks - 1) * per >= units ||
+      (vec && count % 4 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  RingPtrs p{};
-  bool vec = fill_ring(p, P, out, flags, blk, count);
-  long long spin = kSpinTrips;
-  void* args[] = {&p, &P, &count, &vec, &seq, &spin};
-  return (int)launch_ring(0, chunks, P, args, (cudaStream_t)stream);
+  GatherPtrs p{};
+  unsigned long long bits = 0;
+  for (int r = 0; r < P; ++r) {
+    p.out[r] = (float*)out[r];
+    p.blk[r] = (const float*)blk[r];
+    bits |= (unsigned long long)out[r] | (unsigned long long)blk[r];
+  }
+  if (vec && bits % 16 != 0) return (int)cudaErrorInvalidValue;
+  ring_gather_kernel<<<dim3(chunks, P), threads, 0, (cudaStream_t)stream>>>(
+      p, P, count, units, per, vec != 0);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int dpsvm_ring_fold_window(void* const* out, void* const* flags,

@@ -2,10 +2,12 @@
 dpsvm_tpu/ops/ring.py, kernels B7 and B8).
 
 ``ring_gather`` (B7)
-    The candidate exchange of the global runner: each shard's (L, lanes)
-    float32 block travels P - 1 leftward ring hops and every shard ends
-    with all P blocks in rank-id slots of a (P, L, lanes) output, the
-    layout and the bits of ``Mesh.all_gather``.
+    The candidate exchange of the global runner: every shard ends with
+    all P (L, lanes) float32 blocks in rank-id slots of a (P, L, lanes)
+    output, the layout and the bits of ``Mesh.all_gather``. On the TPU
+    the blocks travel P - 1 leftward ring hops; on one card it is one
+    ordinary launch that reads each block once and writes it into every
+    rank's slot, split by ``gather_plan``.
 
 ``ring_fold_window`` (B8)
     The shard-local runner's sync: the (R q, d + 3) window
@@ -15,9 +17,8 @@ dpsvm_tpu/ops/ring.py, kernels B7 and B8).
     plain PyTorch, and the ``ring_exchange=False`` sync itself).
 
 Both take one tensor per rank and launch csrc/ring.cu ONCE for all the
-ranks (the kernels' blocks wait on each other's flags, so they must all
-be running: one cooperative launch, its grid sized by an occupancy
-query).
+ranks (B8's blocks wait on each other's flags, so they must all be
+running: one cooperative launch, its grid sized by an occupancy query).
 For CPU tensors they run their plain versions; on CUDA tensors they
 launch or raise. Ranks on several cards would need their pointers
 peer-mapped: not run yet, so the wrappers refuse such a mesh.
@@ -26,6 +27,7 @@ peer-mapped: not run yet, so the wrappers refuse such a mesh.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,10 +36,14 @@ from dpsvm_tpu_torch.solver.smo import maybe_kahan
 
 _KINDS = {"rbf": 0, "linear": 1, "poly": 2, "sigmoid": 3}
 _MAX_RANKS = 16  # csrc/ring.cu kMaxRanks
-_MAX_CHUNKS = 32  # blocks per rank for the copy-only ring
 _MAX_FOLD_CHUNKS = 256  # csrc/ring.cu kFoldThreads
+# B7's block: 128 threads of 4 units each (csrc/ring.cu kGatherUnroll, the
+# 16-byte loads a thread keeps in flight), the best of the block shapes
+# tried on the card at P = 2, 4, 8.
+_GATHER_THREADS = 128
+_GATHER_UNROLL = 4
 
-# Flag words live across calls, per (kernel, device, stream, P, chunks):
+# B8's flag words live across calls, per (device, stream, P, chunks):
 # an int32 (P, slots, chunks) tensor, zero at first, and the sequence number
 # of the last call that used it. A call's flags equal its sequence
 # number, so no call resets them. Calls on one stream run in order;
@@ -89,6 +95,28 @@ def fold_window_peers_f64(gathered, rank: int, x_loc, x_sq_loc, f, f_err,
     return total
 
 
+class GatherPlan(NamedTuple):
+    """B7's launch: `chunks` blocks of `threads` for each rank's block, block
+    x copying units [x per, min((x + 1) per, units)) of it into the same slot
+    of every rank's output. A unit is 4 words when `vec` (16-byte copies),
+    else 1 word."""
+    threads: int
+    per: int
+    chunks: int
+    vec: bool
+    units: int
+
+
+def gather_plan(count: int, aligned: bool) -> GatherPlan:
+    """B7's split of a (count,)-word block per rank. `aligned`: every base
+    pointer is 16-byte aligned, so 16-byte copies are safe where `count` is
+    a multiple of 4 words."""
+    vec = aligned and count % 4 == 0
+    units = count // 4 if vec else count
+    per = _GATHER_THREADS * _GATHER_UNROLL
+    return GatherPlan(_GATHER_THREADS, per, -(-units // per), vec, units)
+
+
 def ring_gather_plain(blocks) -> list:
     """Plain version of kernel B7: the stack, handed to every shard."""
     g = torch.stack(list(blocks))
@@ -114,9 +142,9 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "dpsvm_ring_max_blocks": [i32, ctypes.POINTER(i32)],
-        # out, flags, blk | P, count, chunks, seq | stream
-        "dpsvm_ring_gather": [ptr] * 3 + [i32, ctypes.c_long, i32,
-                                          ctypes.c_uint, ptr],
+        # out, blk | P, count | threads, per, chunks, vec | stream
+        "dpsvm_ring_gather": [ptr] * 2 + [i32, ctypes.c_long, i32,
+                                          ctypes.c_long, i32, i32, ptr],
         # out, flags, pend, x, x_sq, f, err, f_out, err_out, conv
         "dpsvm_ring_fold_window": [ptr] * 10 + [i32] * 8
         + [ctypes.c_uint, i32, f32, f32, i32, ptr],
@@ -166,9 +194,8 @@ def _chunks(which: int, dev, p_dev: int, cap: int) -> int:
     return chunks
 
 
-def _next_seq(kernel: str, dev, stream: int, p_dev: int, chunks: int,
-              slots: int):
-    key = (kernel, dev, stream, p_dev, chunks)
+def _next_seq(dev, stream: int, p_dev: int, chunks: int, slots: int):
+    key = (dev, stream, p_dev, chunks)
     if key not in _flags:
         _flags[key] = [torch.zeros((p_dev, slots, chunks), dtype=torch.int32,
                                    device=dev), 0]
@@ -198,24 +225,26 @@ def _check_blocks(blocks, what: str):
 
 
 def ring_gather(blocks) -> list:
-    """Ring all-gather of one (L, lanes) float32 block per shard (kernel
-    B7). Returns, per rank, its own (P, L, lanes) copy of all P blocks in
-    rank order: the layout and bits of ``torch.stack(blocks)``."""
+    """All-gather of one (L, lanes) float32 block per shard (kernel B7):
+    one launch, split by ``gather_plan``. Returns, per rank, its own
+    (P, L, lanes) copy of all P blocks in rank order: the layout and bits
+    of ``torch.stack(blocks)``."""
     p_dev, (l, lanes) = _check_blocks(blocks, "ring_gather")
     dev = _one_device(blocks, "ring_gather")
     if dev.type == "cpu":
         return ring_gather_plain(blocks)
     out = torch.empty((p_dev, p_dev, l, lanes), dtype=torch.float32,
                       device=dev)
-    chunks = _chunks(0, dev, p_dev, _MAX_CHUNKS)
+    outs = list(out)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (*outs, *blocks))
+    plan = gather_plan(l * lanes, aligned)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flags, seq = _next_seq("gather", dev, stream, p_dev, chunks, p_dev)
     with torch.cuda.device(dev):
         _raise_on(_lib().dpsvm_ring_gather(
-            _ptrs(list(out)), _ptrs(list(flags)), _ptrs(blocks), p_dev,
-            l * lanes, chunks, seq, stream), "ring_gather")
+            _ptrs(outs), _ptrs(blocks), p_dev, l * lanes, plan.threads,
+            plan.per, plan.chunks, int(plan.vec), stream), "ring_gather")
     ring_gather.launches += 1
-    return list(out)
+    return outs
 
 
 def ring_fold_window(pends, xs, x_sqs, fs, f_errs, kp: KernelParams):
@@ -264,7 +293,7 @@ def ring_fold_window(pends, xs, x_sqs, fs, f_errs, kp: KernelParams):
     chunks = _chunks(1 + x_bf16, dev, p_dev, _MAX_FOLD_CHUNKS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     # Slots [0, P) flag the ring's arrivals, [P, 2P) the converted windows.
-    flags, seq = _next_seq("fold", dev, stream, p_dev, chunks, 2 * p_dev)
+    flags, seq = _next_seq(dev, stream, p_dev, chunks, 2 * p_dev)
     none = [None] * p_dev
     with torch.cuda.device(dev):
         _raise_on(_lib().dpsvm_ring_fold_window(

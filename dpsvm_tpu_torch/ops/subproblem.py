@@ -10,6 +10,7 @@ tensors. There is no other route: a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,6 +22,40 @@ from dpsvm_tpu_torch.solver.smo import fma32, pair_alpha_update
 
 _RULES = {"mvp": 0, "second_order": 1, "nu": 2}
 _MAX_Q = 4096  # csrc/subproblem.cu: up to four slots for each of 1024 threads
+SMEM_LIMIT = 232_448  # shared memory one CTA may have on sm_90
+# csrc/subproblem.cu kHeadBytes: an mbarrier, then the reductions' records
+# [parity 2][side 5][warp 32] of 16 bytes.
+_HEAD_BYTES = 16 + 2 * 5 * 32 * 16
+
+
+class SubproblemPlan(NamedTuple):
+    """Kernel B1's launch: one CTA of `threads`, `slots` slots a thread
+    (slot tid + s threads). The first `nchip` rows of K(W, W) are copied
+    into shared memory, the rest read through L2. `smem`: the CTA's
+    dynamic shared-memory bytes."""
+    threads: int
+    slots: int
+    nchip: int
+    smem: int
+
+
+def subproblem_plan(q: int, aligned: bool = True) -> SubproblemPlan:
+    """The launch for a q-slot subproblem: one slot a thread up to q = 256
+    (8 warps), then 2 slots a thread up to q = 2048 and 4 beyond (past 8
+    warps, fewer warps to reduce over pay for the second slot: measured
+    by tools/b1_trip_clocks.py), and as many leading rows of K(W, W) on
+    chip as the CTA's shared memory holds, a multiple of 4 so that they
+    are one 16-byte bulk copy. `aligned`: K(W, W) starts 16-byte aligned;
+    else no rows go on chip."""
+    if not 1 <= q <= _MAX_Q:
+        raise ValueError(f"the subproblem kernel takes 1 <= q <= {_MAX_Q}, "
+                         f"got {q}")
+    slots = 1 if q <= 256 else 2 if q <= 2048 else 4
+    threads = -(-q // (32 * slots)) * 32
+    fit = (SMEM_LIMIT - _HEAD_BYTES - 8 * q) // (4 * q)
+    nchip = min(q, fit) // 4 * 4 if aligned else 0
+    return SubproblemPlan(threads, slots, nchip,
+                          _HEAD_BYTES + 4 * nchip * q + 8 * q)
 
 
 def _check_rule(rule: str, pair_batch: int) -> None:
@@ -169,7 +204,7 @@ def _lib():
     fn = _build.load("subproblem").dpsvm_subproblem
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 8 + [ctypes.c_void_p])
     return fn
 
@@ -184,7 +219,8 @@ def solve_subproblem(kb_w, alpha_w, y_w, f_w, kd_w, slot_ok, limit, c,
     (slot_ok as 1.0/0.0); `limit` the pair budget (an int32 tensor of
     one element on the same device, or an int). Returns
     (alpha_w_new (q,), n_pairs int32 0-d tensor). CUDA tensors go to the
-    Hopper kernel, CPU tensors to the plain version."""
+    Hopper kernel, launched as ``subproblem_plan(q)`` says; CPU tensors
+    to the plain version."""
     _check_rule(rule, pair_batch)
     q = kb_w.shape[0]
     vecs = (alpha_w, y_w, f_w, kd_w, slot_ok)
@@ -206,9 +242,7 @@ def solve_subproblem(kb_w, alpha_w, y_w, f_w, kd_w, slot_ok, limit, c,
         return a_w, t
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not 1 <= q <= _MAX_Q:
-        raise ValueError(f"the subproblem kernel takes 1 <= q <= {_MAX_Q}, "
-                         f"got {q}")
+    plan = subproblem_plan(q, aligned=kb_w.data_ptr() % 16 == 0)
     if not torch.is_tensor(limit):
         limit = torch.tensor(int(limit), dtype=torch.int32, device=dev)
     if limit.dtype != torch.int32 or limit.numel() != 1 \
@@ -223,7 +257,8 @@ def solve_subproblem(kb_w, alpha_w, y_w, f_w, kd_w, slot_ok, limit, c,
                                  np.float32(tau))]
     err = _lib()(kb_w.data_ptr(), *(v.data_ptr() for v in vecs),
                  limit.data_ptr(), alpha_out.data_ptr(), t_out.data_ptr(),
-                 q, _RULES[rule], pair_batch, *consts, stream)
+                 q, _RULES[rule], pair_batch, plan.threads, plan.slots,
+                 plan.nchip, plan.smem, *consts, stream)
     if err != 0:
         raise RuntimeError(f"subproblem kernel launch failed: CUDA error {err}")
     solve_subproblem.launches += 1

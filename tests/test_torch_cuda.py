@@ -23,6 +23,8 @@ from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
 from dpsvm_tpu_torch.solver.block import select_block
 
 C, EPS, TAU = 1.0, 1e-3, 1e-12
+# Kernel B1's q: each variant of ops/subproblem.py subproblem_plan.
+B1_QS = [64, 100, 128, 129, 256, 257, 400, 512, 1500, 3000]
 
 
 @pytest.fixture
@@ -38,13 +40,16 @@ def cuda():
     pytest.param("second_order", 1, id="second_order"),
     pytest.param("mvp", 2, id="mvp-pair_batch2"),
     pytest.param("mvp", 4, id="mvp-pair_batch4")])
-@pytest.mark.parametrize("q", [100, 256, 1500, 3000])
+@pytest.mark.parametrize("q", B1_QS)
 def test_subproblem_kernel_matches_plain(cuda, q, rule, pair_batch):
     """Kernel B1 against the plain version on the same CUDA tensors:
     same pair count; alpha within rtol 1e-6 / atol 1e-7 (bitwise is
-    expected). q covers one, two and four slots per thread and an
-    unaligned block; pair_batch 2 and 4 add the stale-ranked extra
-    pairs of a trip."""
+    expected). q picks every variant of subproblem_plan: the Gram block
+    on chip in one CTA (64, 128, 129), in a cluster of 2 (256, 257), 4
+    (400) and 8 (512) CTAs, and through L2 with one (100 on its own
+    would be on chip), two and four slots a thread (1500, 3000); odd q
+    load the columns without bulk copies. pair_batch 2 and 4 add the
+    stale-ranked extra pairs of a trip."""
     x, y = make_blobs_binary(n=4000, d=10, seed=3, sep=1.2)
     rng = np.random.default_rng(0)
     alpha = np.clip(rng.normal(0.5, 0.5, len(y)), 0, C).astype(np.float32)
@@ -100,11 +105,13 @@ def _nu_subproblem_args(dev, q, case, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mixed", "one_class", "ties"])
-@pytest.mark.parametrize("q", [100, 256, 1500, 3000])
+@pytest.mark.parametrize("q", B1_QS)
 def test_subproblem_kernel_nu_rule_bitwise_plain(cuda, q, case):
     """Kernel B1's nu rule (per-class extrema, the class by the float32
     violation test) against its plain version: the same pair count and
-    the same alpha bits. q = 100 keeps a quarter of 25 slots."""
+    the same alpha bits, on every variant of subproblem_plan (q rounded
+    down to a multiple of 4, the nu working set's quarters). q = 100
+    keeps a quarter of 25 slots."""
     q4 = q - q % 4
     args = _nu_subproblem_args(cuda, q4, case)
     lim = torch.tensor(2 * q4, dtype=torch.int32, device=cuda)
@@ -398,12 +405,12 @@ def test_per_pair_engine_on_card_reaches_cpu_optimum(cuda, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 792), (10, 7), (33, 5)])
-@pytest.mark.parametrize("p_dev", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(256, 792), (10, 7), (33, 5), (1, 1)])
+@pytest.mark.parametrize("p_dev", [2, 3, 4, 5, 8, 16])
 def test_ring_gather_kernel_is_the_stack(cuda, p_dev, shape):
     """B7 on P logical shards of the card: every rank's output bitwise
-    torch.stack(blocks), twice in a row on the same flag words (they
-    carry the call's sequence number), vector and scalar copy paths."""
+    torch.stack(blocks), twice in a row, on the 16-byte and the
+    word-by-word copy paths."""
     g = torch.Generator(device="cpu").manual_seed(p_dev)
     blocks = [torch.randn(shape, generator=g).to(cuda) for _ in range(p_dev)]
     blocks[0][0, 0] = -float("inf")
@@ -420,8 +427,9 @@ def test_ring_gather_kernel_is_the_stack(cuda, p_dev, shape):
 @pytest.mark.cuda
 def test_ring_calls_on_two_streams_do_not_share_flags(cuda):
     """Two meshes of the same P driven from two streams may overlap on the
-    card: each stream has its own flag words and sequence numbers, and
-    each cooperative launch is resident as a whole."""
+    card: each call is bitwise the stack. B7 keeps no state between calls
+    (no flag words; one ordinary launch ordered by its stream), so
+    overlapping calls cannot meet."""
     g = torch.Generator(device="cpu").manual_seed(9)
     sets = [[torch.randn((256, 792), generator=g).to(cuda) for _ in range(4)]
             for _ in range(2)]

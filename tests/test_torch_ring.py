@@ -345,3 +345,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                KernelParams("precomputed"))
     g, f2, e2 = tring.ring_fold_window(blk, x, v, v, v, kp)
     assert g[0].shape == (2, 4, 7) and len(f2) == len(e2) == 2
+
+
+@pytest.mark.parametrize("shape", [(256, 792), (10, 7), (33, 5), (1, 1)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_plan_covers_every_word_once(shape, aligned):
+    """B7's launch plan splits the P x P x count output words: block
+    (x, s) copies units [x per, min((x + 1) per, units)) of rank s's block
+    into slot s of every rank's output, a unit 4 words when vec. Every
+    word of every rank's every slot is written exactly once, for P in
+    2..16, on the 16-byte and the word-by-word paths."""
+    count = shape[0] * shape[1]
+    plan = tring.gather_plan(count, aligned)
+    assert plan.vec == (aligned and count % 4 == 0)
+    scale = 4 if plan.vec else 1
+    assert plan.units * scale == count
+    assert plan.per == plan.threads * tring._GATHER_UNROLL
+    # One slot's words by the blocks x of its column of the grid.
+    hits = np.zeros(count, np.int64)
+    for x in range(plan.chunks):
+        lo, hi = x * plan.per, min((x + 1) * plan.per, plan.units)
+        assert lo < hi  # no idle block
+        hits[lo * scale:hi * scale] += 1
+    assert (hits == 1).all()
+    for p_dev in range(2, 17):
+        # Each block writes its words into slot s of each of the P ranks.
+        out = np.zeros((p_dev, p_dev, count), np.int64)
+        for s in range(p_dev):
+            out[:, s] += hits
+        assert (out == 1).all()

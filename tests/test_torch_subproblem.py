@@ -232,3 +232,29 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
     assert path.startswith(_build.BUILD_DIR)
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_plan_covers_every_q():
+    """Kernel B1's launch plan (what the wrapper passes to the kernel, and
+    the kernel checks) for every q the kernel takes: one CTA (no cluster)
+    whose threads' slots cover the q slots with no idle warp, one slot a
+    thread up to q = 256, 2 up to 2048, 4 beyond, at most 32 warps (their
+    records fill 32 places); its shared memory within sm_90's 232,448
+    bytes with the on-chip rows of K(W, W) in it, as many as fit, a
+    multiple of 4 so that they are one 16-byte bulk copy. q up to 236
+    holds all of K(W, W) on chip, q = 256 the first 216 rows."""
+    for q in range(1, 4097):
+        p = tsub.subproblem_plan(q)
+        assert p.slots == (1 if q <= 256 else 2 if q <= 2048 else 4)
+        assert p.threads % 32 == 0 and 32 <= p.threads <= 1024
+        assert p.threads * p.slots >= q > (p.threads - 32) * p.slots
+        assert 0 <= p.nchip <= q and p.nchip * q % 4 == 0
+        assert p.smem == tsub._HEAD_BYTES + 4 * p.nchip * q + 8 * q
+        assert p.smem <= tsub.SMEM_LIMIT
+        # Four more rows would not fit, unless all rows are on chip.
+        assert p.nchip == q - q % 4 or p.smem + 16 * q > tsub.SMEM_LIMIT
+        assert tsub.subproblem_plan(q, aligned=False).nchip == 0
+    assert tsub.subproblem_plan(236).nchip == 236
+    assert tsub.subproblem_plan(256) == (256, 1, 216, 228368)
+    with pytest.raises(ValueError, match="4096"):
+        tsub.subproblem_plan(4097)
