@@ -2,6 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (dpsvm_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns [--package DIR] [--reps N]
+
+With no arguments it runs the phases below. --turns runs none of them: it
+times kernels B5 and B6 at the headline shapes on fixed seeded inputs and
+prints one JSON line (see turns()); --package DIR times the
+dpsvm_tpu_torch found in DIR instead of this checkout's, so an earlier
+commit unpacked there (git archive) and this one can be timed in turns on
+one card.
 
 Phases, each printed on its own lines; any failure exits non-zero and no
 result line is printed:
@@ -44,7 +52,12 @@ result line is printed:
                 with L2 flushed before every launch (every timed call is
                 queued behind a device-side spin, so the host's enqueue
                 time is not counted), B4's TFLOP/s and the
-                earlier CUDA-core design's time beside them;
+                earlier CUDA-core design's time beside them; beside B2, B3
+                and B5 the same timer's reading of an empty launch
+                (launch_floor_ms), and beside B5 its launch plan, its
+                earlier design's time and cuBLAS's torch.mv over the same
+                kernel rows (contraction_ms: the contraction alone, not
+                B5's function, so B5's library_ms stays none);
                 then the headline solved once more with the round loop's
                 four stage functions timed by CUDA events;
   5. engines -- the headline trained with fused_fold=True,
@@ -68,7 +81,9 @@ result line is printed:
                 point and at the per-pair headline's end state, rbf and
                 linear: f' within 2 ulps of the update's scale, extrema
                 and ids exactly those the plain reduction gives from the
-                kernel's own f'; kernel and plain times with L2 flushed;
+                kernel's own f'; kernel and plain times with L2 flushed,
+                beside the timer's launch floor, the launch plan and the
+                earlier design's time;
   8. ring    -- kernels B7 and B8 on logical shards of the card. B7
                 (ring_gather) at P = 2, 4, 8 on seeded (256, 792) blocks:
                 every rank's output bitwise torch.stack(blocks), twice in a
@@ -149,15 +164,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 (3xTF32 does three products a term)
-# The ms of the CUDA-core designs that the tensor-core kernels replaced
-# (PERF.md section 6, "earlier"), printed beside the new kernels' times.
+# The ms of the earlier designs of the redesigned kernels (PERF.md section
+# 6, "earlier"; B5 and B6 from run G), printed beside the new kernels' times.
 EARLIER_MS = {("gather_gram", "bfloat16"): 1.3175,
               ("gather_gram", "float32"): 1.3688,
               ("ring_fold_window", "bfloat16"): 4.3508,
               ("ring_fold_window", "float32"): 4.6576,
               ("ring_gather", 2): 0.0270,
               ("ring_gather", 4): 0.0683,
-              ("ring_gather", 8): 0.1334}
+              ("ring_gather", 8): 0.1334,
+              ("fold_rows_select", 256): 0.0639,  # q 256, n_pad 60416
+              ("fused_update_select", 65536): 0.0112}  # n_pad 65536
 # B1's us a pair at q=256, limit 512, from the start state, before the
 # redesign that keeps the Gram block on chip (PERF.md section 6).
 EARLIER_US_PER_PAIR = {"mvp": 1.010, "nu": 1.434}
@@ -228,6 +245,14 @@ def time_cold_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
     return total / reps
+
+
+def launch_floor_ms(reps: int) -> float:
+    """time_cold_ms of an empty launch (torch.cuda._sleep(0)): what the
+    timer reads for a kernel that does nothing behind the same flush."""
+    import torch
+
+    return time_cold_ms(lambda: torch.cuda._sleep(0), reps)
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple:
@@ -608,6 +633,8 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
             }
             if dname == "float32":  # B4 also timed with float32 X
                 cases = {"gather_gram/float32": cases["gather_gram"]}
+            else:
+                floor_ms = launch_floor_ms(reps)
             for name, (kern, plain, libf, (b_ms, b_by)) in cases.items():
                 ms = time_cold_ms(kern, reps)
                 plain_ms = time_cold_ms(plain, max(1, reps // 4))
@@ -615,6 +642,21 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
                 rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms)
                 extra = ""
+                if name in ("fold_select", "select_rows", "fold_rows_select"):
+                    rec[name]["launch_floor_ms"] = floor_ms
+                    extra = f" launch_floor_ms={floor_ms:.4f}"
+                if name == "fold_rows_select":
+                    # cuBLAS on the same flushed kernel rows: the
+                    # contraction alone, not B5's function.
+                    con_ms = time_cold_ms(functools.partial(
+                        lambda k, c_: torch.mv(k.t(), c_), k_rows, coef),
+                        reps)
+                    rec[name]["contraction_ms"] = con_ms
+                    extra += (f" contraction_ms={con_ms:.4f} (torch.mv, the "
+                              f"contraction alone); plan "
+                              f"{tuple(rnd.fold_rows_plan(q, rows))}; earlier "
+                              f"design "
+                              f"{EARLIER_MS['fold_rows_select', q]} ms")
                 if name.startswith("gather_gram"):
                     flops = 2 * q * d * (n_pad + q)
                     extra = (f" {flops / ms / 1e9:.1f} TFLOP/s; earlier "
@@ -856,15 +898,19 @@ def phase_b6(x, y, valid, states: dict, c, tau, reps: int) -> dict:
             # 7 vectors in, f' out, 4 scalars each way; per element two
             # kernel evaluations (5 flops and an exp each) and two FMAs.
             b_ms, b_by = bound(8 * 4 * n_pad + 32, 14 * n_pad, F32_FLOPS)
+            floor_ms = launch_floor_ms(reps)
             ms = time_cold_ms(functools.partial(fu.fused_update_select,
                                                 *args), reps)
             plain_ms = time_cold_ms(functools.partial(
                 fu._fused_update_select, *args), reps)
             rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+                       library_ms=None, launch_floor_ms=floor_ms)
             print(f"[b6] timed ({sname}, n_pad {n_pad}): ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
-                  "library_ms=none", flush=True)
+                  f"library_ms=none launch_floor_ms={floor_ms:.4f}; plan "
+                  f"{tuple(fu.fused_update_plan(n_pad))}; earlier design "
+                  f"{EARLIER_MS.get(('fused_update_select', n_pad))} ms",
+                  flush=True)
     rec["max_abs_err"] = worst
     return rec
 
@@ -1688,8 +1734,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
-            **({"serial_trips": r["serial_trips"]}
-               if "serial_trips" in r else {}),
+            **{k: r[k] for k in ("launch_floor_ms", "contraction_ms",
+                                 "serial_trips") if k in r},
             **({"nu": r["nu"]} if "nu" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1699,5 +1745,185 @@ def main() -> int:
     return 0
 
 
+def b6_turns_inputs(n_pad: int, dev) -> tuple:
+    """B6's (f, alpha, y, valid, d_hi, d_lo, x_sq) views and scalars for
+    --turns: alpha at 0, C and inside the box, the last 400 rows padding."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    shp = (n_pad // 128, 128)
+    y = np.where(rng.random(n_pad) < 0.5, 1.0, -1.0)
+    alpha = np.where(rng.random(n_pad) < 0.5, 0.0, rng.random(n_pad) * 10)
+    valid = np.ones(n_pad)
+    valid[-400:] = 0.0
+    vecs = [rng.normal(size=n_pad), alpha, y, valid,
+            rng.normal(size=n_pad) * 50, rng.normal(size=n_pad) * 50,
+            np.abs(rng.normal(size=n_pad)) * 100]
+    views = [torch.as_tensor(v.astype(np.float32).reshape(shp), device=dev)
+             for v in vecs]
+    return views, torch.tensor([0.37, -0.21, 96.0, 101.0], device=dev)
+
+
+def b5_turns_inputs(q: int, n_pad: int, dev) -> tuple:
+    """B5's (k_rows, coef, (f, err, alpha, y, valid)) for --turns: kernel
+    rows in [0, 1), every seventh coefficient dead."""
+    import torch
+
+    rng = np.random.default_rng(5)
+    shp = (n_pad // 128, 128)
+    k_rows = torch.rand((q, n_pad), device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+    coef = rng.normal(size=q).astype(np.float32) * 0.1
+    coef[::7] = 0.0
+    y = np.where(rng.random(n_pad) < 0.5, 1.0, -1.0)
+    alpha = np.where(rng.random(n_pad) < 0.5, 0.0, rng.random(n_pad) * 10)
+    vecs = [rng.normal(size=n_pad), rng.normal(size=n_pad) * 1e-7, alpha,
+            y, np.ones(n_pad)]
+    views = [torch.as_tensor(v.astype(np.float32).reshape(shp), device=dev)
+             for v in vecs]
+    return k_rows, torch.as_tensor(coef, device=dev), views
+
+
+def time_clean_ms(fn, reps: int) -> float:
+    """time_cold_ms with a flush that reads 256 MB in place of writing it,
+    so L2 holds clean lines: the difference between the two is what
+    writing back the dirty lines costs."""
+    import torch
+
+    flush = torch.zeros(2 ** 26, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.sum()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+# Other launch plans --turns times beside the kept ones (this checkout
+# only): B6's threads a block, one group of four a thread; B5's (warps,
+# chunk, stages), q 256.
+B6_THREADS = (32, 64, 128, 256)
+B5_PLANS = ((4, 8, 3), (8, 4, 3), (4, 8, 2), (2, 16, 3), (4, 4, 3))
+
+
+def turns(package, reps: int) -> int:
+    """Times, in ms, B6 at n_pad 65536 and B5 at q 256, n_pad 60416
+    (plain and compensated) with time_cold_ms, beside the timer's floor
+    (an empty launch, before and after) and B5's contraction alone through
+    cuBLAS (torch.mv); B5 and B6 again back to back with no flush
+    (time_ms) and behind a clean flush (time_clean_ms). For this
+    checkout's package it also times the plans of B6_THREADS and B5_PLANS
+    in two passes, the second in the reverse order, each checked against
+    the kept plan (B6 bitwise; B5 within its tolerance, candidates
+    bitwise). Prints one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if package:
+        sys.path.insert(0, os.path.abspath(package))
+    import dpsvm_tpu_torch
+    from dpsvm_tpu_torch.ops import fold_select as fs
+    from dpsvm_tpu_torch.ops import fused_update as fu
+    from dpsvm_tpu_torch.ops import round as rnd
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    rec = {"card": smi, "package": os.path.dirname(dpsvm_tpu_torch.__file__)}
+    kp = KernelParams("rbf", 0.125)
+    c = 10.0
+    views6, sc = b6_turns_inputs(65536, dev)
+    k_rows, coef, (f2d, e2d, a2d, y2d, v2d) = b5_turns_inputs(256, 60416,
+                                                              dev)
+    b6 = functools.partial(fu.fused_update_select, *views6, sc, kp, c)
+    b5 = {comp: functools.partial(rnd.fold_rows_select, k_rows, coef, f2d,
+                                  e2d, a2d, y2d, v2d, c, compensated=comp)
+          for comp in (False, True)}
+    empty = functools.partial(torch.cuda._sleep, 0)
+    contraction = functools.partial(torch.mv, k_rows.t(), coef)
+    rec["launch_floor_ms"] = time_cold_ms(empty, reps)
+    rec["b6_ms"] = time_cold_ms(b6, reps)
+    rec["b5_ms"] = time_cold_ms(b5[False], reps)
+    rec["b5_comp_ms"] = time_cold_ms(b5[True], reps)
+    rec["contraction_ms"] = time_cold_ms(contraction, reps)
+    rec["launch_floor_ms_after"] = time_cold_ms(empty, reps)
+    rec["b6_warm_ms"] = time_ms(b6, reps)
+    rec["b5_warm_ms"] = time_ms(b5[False], reps)
+    for key, fn in (("launch_floor", empty), ("b6", b6), ("b5", b5[False]),
+                    ("contraction", contraction)):
+        rec[f"{key}_ms_clean_flush"] = time_clean_ms(fn, reps)
+    if package:
+        print(json.dumps(rec), flush=True)
+        return 0
+
+    groups = 65536 // 4
+    b6_plans = {t: fu.FusedUpdatePlan(t, -(-groups // t), 20 * (t // 32))
+                for t in B6_THREADS}
+    b5_plans = {}
+    for w, ch, st in B5_PLANS:
+        b5_plans[w, ch, st] = rnd.FoldRowsPlan(
+            w, ch, st, rnd.fold_rows_smem(256, w, ch, st), f2d.shape[0])
+    runs = {f"b6 threads {t}": functools.partial(
+        fu._launch, (*views6, sc), plan, kp, c)
+        for t, plan in b6_plans.items()}
+    runs.update({f"b5 {key}": functools.partial(
+        rnd._fold_rows_launch, k_rows, coef, f2d, e2d, a2d, y2d, v2d, c,
+        False, plan) for key, plan in b5_plans.items()})
+    want6, want5 = b6(), b5[False]()
+    scale5 = (coef.abs() @ k_rows).view(f2d.shape)
+    checks = {}
+    for name, run in runs.items():
+        got = run()
+        if name.startswith("b6"):
+            checks[name] = all(same_bits(g, w) for g, w in zip(got, want6))
+        else:
+            emitted = fs.emit_row_candidates(got[0], a2d, y2d, v2d, c)
+            checks[name] = bool(((got[0] - want5[0]).abs()
+                                 <= 1e-6 * want5[0].abs()
+                                 + 2e-6 * scale5).all()) and all(
+                same_bits(g, h) for g, h in zip(got[2:], emitted))
+    plans_ms = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            plans_ms[name].append(time_cold_ms(runs[name], reps))
+    rec["plan_checks_ok"] = checks
+    rec["plans_ms"] = plans_ms
+    rec["kept_plans"] = {"b6": tuple(fu.fused_update_plan(65536)),
+                         "b5": tuple(rnd.fold_rows_plan(256, 472))}
+    print(json.dumps(rec), flush=True)
+    return 0 if all(checks.values()) else 1
+
+
+def cli() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one CUDA card (no arguments), or kernel "
+                                 "timings in turns (--turns).")
+    ap.add_argument("--turns", action="store_true",
+                    help="time B5 and B6 only and print one JSON line")
+    ap.add_argument("--package", default=None,
+                    help="with --turns: a directory holding the "
+                    "dpsvm_tpu_torch to time")
+    ap.add_argument("--reps", type=int, default=200,
+                    help="with --turns: timed calls per reading")
+    args = ap.parse_args()
+    if not args.turns:
+        return main()
+    return turns(args.package, args.reps)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

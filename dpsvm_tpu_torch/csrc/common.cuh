@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels: (value, id) reductions with the
 // JAX package's tie rules, 16-byte vector access, ops/kernels.py
-// kernel_from_dots for one element, and the occupancy query that sizes a
-// persistent or cooperative grid.
+// kernel_from_dots for one element, shared-memory addresses and limits,
+// and the occupancy query that sizes a persistent or cooperative grid.
 
 #pragma once
 
@@ -84,6 +84,36 @@ __device__ __forceinline__ float from_dot(float dot, float bsq, float asq,
   if (kp.degree == 2) return v * v;
   if (kp.degree == 3) return v * v * v;
   return powf(v, (float)kp.degree);
+}
+
+constexpr int kSmemLimit = 232448;  // shared memory one block may have on sm_90
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Raise kernel `fn`'s dynamic shared-memory limit to what a block may
+// have, once per (kernel, device) (cudaFuncSetAttribute holds for the
+// current device only).
+inline cudaError_t allow_smem(const void* fn) {
+  constexpr int kEntries = 64;
+  static const void* fns[kEntries];
+  static int devs[kEntries];
+  static int used = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (int e = 0; e < used; ++e)
+    if (fns[e] == fn && devs[e] == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err == cudaSuccess && used < kEntries) {
+    fns[used] = fn;
+    devs[used] = dev;
+    ++used;
+  }
+  return err;
 }
 
 // The blocks of kernel `fn`, launched with `threads` threads and `smem`

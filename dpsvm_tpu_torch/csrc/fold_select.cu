@@ -20,23 +20,40 @@
 // q = 256, n_pad = 60416) for 2 q flops per element, far below the
 // card's ratio of flops to bytes.
 //
-// What the design does about it: one warp per row, each lane owning four
+// B2 and B3 (fold_select_kernel): one warp per row, each lane owning four
 // consecutive elements, so every vector is read with one coalesced
 // 16-byte load per lane and f' / err' are written the same way; the row's
 // extremum is a five-step warp-shuffle reduction, with no shared memory
-// and no barrier. Two rows per 64-thread block keep the grid at R / 2
-// blocks (236 at the 60000-row headline), well over the 132 SMs. In B5
-// the coefficients sit in shared memory and each lane walks the q kernel
-// rows down its four columns (each step a coalesced 512-byte warp load),
-// accumulating in float32 with one fused multiply-add per term, in order
-// k = 0 .. q-1.
+// and no barrier. Two rows per 64-thread block give R / 2 blocks: 236 at
+// the 60000-row headline, which leaves 104 of the 132 SMs two rows and 28
+// one.
+//
+// B5 (fold_rows_kernel, launch plan ops/round.py fold_rows_plan): one block
+// per 128-column row, whose `warps` warps split the q contraction, warp w
+// taking the contiguous kernel rows [w q / warps, (w + 1) q / warps). Each
+// warp streams its rows' 512-byte segments into shared memory with bulk
+// asynchronous copies (cp.async.bulk, lanes issuing one segment each) on
+// a ring of `stages` stages of `chunk` rows, each stage completing on its
+// own mbarrier, so stages x chunk x 512 bytes per warp are in flight while
+// it folds the landed ones (lane l, columns 4l..4l+3, one fused
+// multiply-add a term, in order k). At the headline (q 256, 472 rows)
+// that is 4 warps x 3 stages x 8 rows: 48 KB in flight per block, four
+// blocks on an SM, all 472 blocks resident at once. The copies mark their
+// lines evict_first in L2: the rows already folded make room for the
+// next, not the lines the previous kernel left dirty (their write-back
+// took about a fifth of the unhinted kernel's time on the H100, PERF.md
+// section 6) or rows still to be read.
+// The warps' partial deltas meet in shared memory and warp 0 adds them in
+// warp order (deterministic), then runs B2's epilogue on the row (its
+// inputs loaded before the stream starts).
 //
 // Numerics: built with -fmad=false, so the fold and the Kahan step
 // (solver/smo.py kahan_add: y = delta - err; t = f + y;
 // err' = (t - f) - y) round per operation exactly as the plain version
 // and the JAX package do; B2 and B3 are therefore bitwise equal to their
 // plain versions. B5's contraction sums in another order than a GEMM, so
-// its f' agrees with the plain version within rounding only.
+// its f' agrees with the plain version within rounding only; a dead slot
+// (coef 0) adds an exact zero.
 //
 // Ties and edges: values that compare equal go to the lowest flat id,
 // +0.0 and -0.0 included; the value reported for a +-0 tie is -0.0 on the
@@ -44,97 +61,50 @@
 // with no member of a set reports +inf (up) / -inf (low) with the row's
 // first flat id. NaN in f is not supported.
 
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kRowsPerBlock = 2;  // one warp per row
+constexpr int kRowsPerBlock = 2;  // B2 / B3: one warp per row
 constexpr int kThreads = kRowsPerBlock * 32;
 
-enum Mode { kFold = 0, kSelect = 1, kRows = 2 };
+enum Mode { kFold = 0, kSelect = 1 };
 
-template <int M, bool kComp>
-__global__ void __launch_bounds__(kThreads)
-fold_select_kernel(const float* __restrict__ f, const float* __restrict__ err,
-                   const float* __restrict__ alpha, const float* __restrict__ y,
-                   const float* __restrict__ valid, const float* __restrict__ delta,
-                   const float* __restrict__ k_rows, const float* __restrict__ coef,
-                   int q, float* __restrict__ f_out, float* __restrict__ err_out,
-                   float* __restrict__ upv, int* __restrict__ upi,
-                   float* __restrict__ lov, int* __restrict__ loi, int rows,
-                   float c_pos, float c_neg) {
-  extern __shared__ float coef_s[];  // kRows: the q fold coefficients
-  if (M == kRows) {
-    for (int k = threadIdx.x; k < q; k += blockDim.x) coef_s[k] = coef[k];
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // warp-uniform, after the only barrier
-  const int id0 = row * kLanes + lane * 4;
-  const size_t off = (size_t)id0;
+// The row's inputs a lane holds: its four elements of f, alpha, y, valid
+// and (compensated) err.
+struct RowIn {
+  float f[4], a[4], y[4], v[4], e[4];
+};
 
-  float fv[4], av[4], yv[4], vv[4], fsel[4];
-  unpack(load4(f + off), fv);
-  unpack(load4(alpha + off), av);
-  unpack(load4(y + off), yv);
-  unpack(load4(valid + off), vv);
+template <bool kComp>
+__device__ __forceinline__ void load_row(RowIn& in, const float* f, const float* err,
+                                         const float* alpha, const float* y,
+                                         const float* valid, size_t off) {
+  unpack(load4(f + off), in.f);
+  unpack(load4(alpha + off), in.a);
+  unpack(load4(y + off), in.y);
+  unpack(load4(valid + off), in.v);
+  if (kComp) unpack(load4(err + off), in.e);
+}
 
-  if (M == kSelect) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) fsel[e] = fv[e];
-  } else {
-    float dv[4];
-    if (M == kFold) {
-      unpack(load4(delta + off), dv);
-    } else {
-      // delta = coef @ K(W, these four columns), in order k = 0 .. q-1.
-      dv[0] = dv[1] = dv[2] = dv[3] = 0.0f;
-      const size_t ld = (size_t)rows * kLanes;
-      const float* kr = k_rows + off;
-#pragma unroll 8
-      for (int k = 0; k < q; ++k) {
-        const float4 kv = load4(kr + (size_t)k * ld);
-        const float ck = coef_s[k];
-        dv[0] = __fmaf_rn(ck, kv.x, dv[0]);
-        dv[1] = __fmaf_rn(ck, kv.y, dv[1]);
-        dv[2] = __fmaf_rn(ck, kv.z, dv[2]);
-        dv[3] = __fmaf_rn(ck, kv.w, dv[3]);
-      }
-    }
-    float fn[4];
-    if (kComp) {
-      float ev[4], en[4];
-      unpack(load4(err + off), ev);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float yk = dv[e] - ev[e];
-        const float t = fv[e] + yk;
-        en[e] = (t - fv[e]) - yk;
-        fn[e] = t;
-        fsel[e] = t - en[e];
-      }
-      store4(err_out + off, en);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        fn[e] = fv[e] + dv[e];
-        fsel[e] = fn[e];
-      }
-    }
-    store4(f_out + off, fn);
-  }
-
+// Lane `lane` of the warp that owns row `row`: the masks, the row's
+// (value, id) candidates by a five-step shuffle reduction, lane 0 storing
+// them. fsel: the lane's four values of the gradient the selection sees.
+__device__ __forceinline__ void emit_row(const RowIn& in, const float (&fsel)[4], int id0, int lane,
+                                         int row, float c_pos, float c_neg, float* upv, int* upi,
+                                         float* lov, int* loi) {
   const float inf = INFINITY;
   Cand up{inf, INT_MAX};
   Cand lo{-inf, INT_MAX};
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const bool ok = vv[e] > 0.0f;
-    const bool pos = yv[e] > 0.0f;
-    const bool in_up = ok && (pos ? av[e] < c_pos : av[e] > 0.0f);
-    const bool in_low = ok && (pos ? av[e] > 0.0f : av[e] < c_neg);
+    const bool ok = in.v[e] > 0.0f;
+    const bool pos = in.y[e] > 0.0f;
+    const bool in_up = ok && (pos ? in.a[e] < c_pos : in.a[e] > 0.0f);
+    const bool in_low = ok && (pos ? in.a[e] > 0.0f : in.a[e] < c_neg);
     take_min(up, in_up ? fsel[e] : inf, id0 + e);
     take_max(lo, in_low ? fsel[e] : -inf, id0 + e);
   }
@@ -155,27 +125,233 @@ fold_select_kernel(const float* __restrict__ f, const float* __restrict__ err,
   }
 }
 
+// The fold of a lane's four elements, f' = f + delta (the Kahan step when
+// compensated), f' and err' stored; then the row's candidates from f'
+// less err'.
+template <bool kComp>
+__device__ __forceinline__ void fold_emit(const RowIn& in, const float (&dv)[4], size_t off,
+                                          int lane, int row, float* f_out, float* err_out,
+                                          float c_pos, float c_neg, float* upv, int* upi,
+                                          float* lov, int* loi) {
+  float fn[4], fsel[4];
+  if (kComp) {
+    float en[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float yk = dv[e] - in.e[e];
+      const float t = in.f[e] + yk;
+      en[e] = (t - in.f[e]) - yk;
+      fn[e] = t;
+      fsel[e] = t - en[e];
+    }
+    store4(err_out + off, en);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fn[e] = in.f[e] + dv[e];
+      fsel[e] = fn[e];
+    }
+  }
+  store4(f_out + off, fn);
+  emit_row(in, fsel, (int)off, lane, row, c_pos, c_neg, upv, upi, lov, loi);
+}
+
+template <int M, bool kComp>
+__global__ void __launch_bounds__(kThreads)
+fold_select_kernel(const float* __restrict__ f, const float* __restrict__ err,
+                   const float* __restrict__ alpha, const float* __restrict__ y,
+                   const float* __restrict__ valid, const float* __restrict__ delta,
+                   float* __restrict__ f_out, float* __restrict__ err_out,
+                   float* __restrict__ upv, int* __restrict__ upi,
+                   float* __restrict__ lov, int* __restrict__ loi, int rows,
+                   float c_pos, float c_neg) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // warp-uniform
+  const size_t off = (size_t)row * kLanes + lane * 4;
+  RowIn in;
+  load_row<kComp>(in, f, err, alpha, y, valid, off);
+  if (M == kSelect) {
+    emit_row(in, in.f, (int)off, lane, row, c_pos, c_neg, upv, upi, lov, loi);
+  } else {
+    float dv[4];
+    unpack(load4(delta + off), dv);
+    fold_emit<kComp>(in, dv, off, lane, row, f_out, err_out, c_pos, c_neg, upv, upi, lov, loi);
+  }
+}
+
 template <int M>
 int launch(const float* f, const float* err, const float* alpha, const float* y,
-           const float* valid, const float* delta, const float* k_rows,
-           const float* coef, int q, float* f_out, float* err_out, float* upv,
-           int* upi, float* lov, int* loi, int rows, int compensated, float c_pos,
-           float c_neg, void* stream) {
-  if (rows < 1 || (M == kRows && (q < 1 || q > 8192))) {
-    return (int)cudaErrorInvalidValue;
-  }
+           const float* valid, const float* delta, float* f_out, float* err_out,
+           float* upv, int* upi, float* lov, int* loi, int rows, int compensated,
+           float c_pos, float c_neg, void* stream) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
   const int grid = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const size_t shm = M == kRows ? (size_t)q * sizeof(float) : 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (compensated) {
-    fold_select_kernel<M, true><<<grid, kThreads, shm, st>>>(
-        f, err, alpha, y, valid, delta, k_rows, coef, q, f_out, err_out, upv, upi,
-        lov, loi, rows, c_pos, c_neg);
+    fold_select_kernel<M, true><<<grid, kThreads, 0, st>>>(
+        f, err, alpha, y, valid, delta, f_out, err_out, upv, upi, lov, loi, rows, c_pos, c_neg);
   } else {
-    fold_select_kernel<M, false><<<grid, kThreads, shm, st>>>(
-        f, err, alpha, y, valid, delta, k_rows, coef, q, f_out, err_out, upv, upi,
-        lov, loi, rows, c_pos, c_neg);
+    fold_select_kernel<M, false><<<grid, kThreads, 0, st>>>(
+        f, err, alpha, y, valid, delta, f_out, err_out, upv, upi, lov, loi, rows, c_pos, c_neg);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---- B5.
+
+constexpr int kMaxQ = 8192;
+constexpr int kMaxWarps = 8;
+constexpr int kSegBytes = kLanes * 4;  // one kernel row's 128 columns
+
+// B5's shared memory (ops/round.py fold_rows_smem): the ring
+// [warp][stage][chunk][128] floats, the partial deltas [warp][128], the
+// coefficients (q, rounded up to 16 bytes), an mbarrier per (warp, stage).
+__host__ __device__ constexpr int ring_bytes(int warps, int chunk, int stages) {
+  return warps * stages * chunk * kSegBytes;
+}
+__host__ __device__ constexpr int coef_bytes(int q) { return (q + 3) / 4 * 16; }
+__host__ __device__ constexpr int rows_smem(int q, int warps, int chunk, int stages) {
+  return ring_bytes(warps, chunk, stages) + warps * kSegBytes + coef_bytes(q) +
+         warps * stages * 8;
+}
+
+__device__ __forceinline__ void wait_phase(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Kernel rows [k0, k0 + nr) of this block's 128 columns into `buf`,
+// landing on `bar`: lane 0 sets the bytes to expect, then lane r < nr
+// copies row k0 + r. The lines are marked evict_first in L2, so the rows
+// already folded, and not lines the kernel has still to read or the
+// previous kernel's dirty ones, make room for the next. Called by the
+// whole warp.
+__device__ __forceinline__ void fetch_chunk(float* buf, uint64_t* bar, const float* src,
+                                            size_t ld, int k0, int nr, int lane) {
+  if (lane == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"(nr * kSegBytes)
+                 : "memory");
+  }
+  __syncwarp();
+  if (lane < nr) {
+    uint64_t pol;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(buf + lane * kLanes)),
+        "l"(src + (size_t)(k0 + lane) * ld), "r"(kSegBytes), "r"(smem_addr(bar)), "l"(pol)
+        : "memory");
+  }
+}
+
+template <bool kComp>
+__global__ void __launch_bounds__(kMaxWarps * 32, 4)
+fold_rows_kernel(const float* __restrict__ k_rows, const float* __restrict__ coef,
+                 const float* __restrict__ f, const float* __restrict__ err,
+                 const float* __restrict__ alpha, const float* __restrict__ y,
+                 const float* __restrict__ valid, float* __restrict__ f_out,
+                 float* __restrict__ err_out, float* __restrict__ upv, int* __restrict__ upi,
+                 float* __restrict__ lov, int* __restrict__ loi, int q, int rows, int chunk,
+                 int stages, float c_pos, float c_neg) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* part = reinterpret_cast<float*>(smem + ring_bytes(warps, chunk, stages));
+  float* coef_s = part + warps * kLanes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(coef_s) +
+                                               coef_bytes(q));
+
+  const int row = blockIdx.x;
+  const size_t ld = (size_t)rows * kLanes;
+  const float* src = k_rows + (size_t)row * kLanes;
+  const int k_lo = warp * q / warps;
+  const int k_hi = (warp + 1) * q / warps;
+  const int chunks = (k_hi - k_lo + chunk - 1) / chunk;
+  float* wring = ring + (size_t)warp * stages * chunk * kLanes;
+  uint64_t* wbar = bars + warp * stages;
+
+  // Each warp's own ring: its barriers, then its first `stages` chunks in
+  // flight before anything else.
+  if (lane == 0) {
+    for (int s = 0; s < stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(wbar + s)));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  for (int c = 0; c < stages && c < chunks; ++c) {
+    const int k0 = k_lo + c * chunk;
+    fetch_chunk(wring + (size_t)c * chunk * kLanes, wbar + c, src, ld, k0,
+                min(chunk, k_hi - k0), lane);
+  }
+  const size_t off = (size_t)row * kLanes + lane * 4;
+  RowIn in;
+  if (warp == 0) load_row<kComp>(in, f, err, alpha, y, valid, off);
+  for (int k = threadIdx.x; k < q; k += blockDim.x) coef_s[k] = coef[k];
+  __syncthreads();  // the coefficients
+
+  // delta over this warp's rows, in order k.
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % stages;
+    const int k0 = k_lo + c * chunk;
+    const int nr = min(chunk, k_hi - k0);
+    float* buf = wring + (size_t)s * chunk * kLanes;
+    wait_phase(wbar + s, (unsigned)(c / stages) & 1u);
+    for (int r = 0; r < nr; ++r) {
+      const float4 kv = *reinterpret_cast<const float4*>(buf + r * kLanes + lane * 4);
+      const float ck = coef_s[k0 + r];
+      acc[0] = __fmaf_rn(ck, kv.x, acc[0]);
+      acc[1] = __fmaf_rn(ck, kv.y, acc[1]);
+      acc[2] = __fmaf_rn(ck, kv.z, acc[2]);
+      acc[3] = __fmaf_rn(ck, kv.w, acc[3]);
+    }
+    __syncwarp();  // every lane has read the stage before it is refilled
+    const int next = c + stages;
+    if (next < chunks) {
+      const int kn = k_lo + next * chunk;
+      fetch_chunk(buf, wbar + s, src, ld, kn, min(chunk, k_hi - kn), lane);
+    }
+  }
+  store4(part + warp * kLanes + lane * 4, acc);
+  __syncthreads();
+  if (warp != 0) return;
+
+  // The warps' partials in warp order, then B2's epilogue on the row.
+  float dv[4];
+  unpack(*reinterpret_cast<const float4*>(part + lane * 4), dv);
+  for (int w = 1; w < warps; ++w) {
+    const float4 p = *reinterpret_cast<const float4*>(part + w * kLanes + lane * 4);
+    dv[0] += p.x;
+    dv[1] += p.y;
+    dv[2] += p.z;
+    dv[3] += p.w;
+  }
+  fold_emit<kComp>(in, dv, off, lane, row, f_out, err_out, c_pos, c_neg, upv, upi, lov, loi);
+}
+
+template <bool kComp>
+int launch_rows(const float* k_rows, const float* coef, const float* f, const float* err,
+                const float* alpha, const float* y, const float* valid, float* f_out,
+                float* err_out, float* upv, int* upi, float* lov, int* loi, int q, int rows,
+                int warps, int chunk, int stages, int smem, float c_pos, float c_neg,
+                cudaStream_t st) {
+  const cudaError_t e = allow_smem((const void*)fold_rows_kernel<kComp>);
+  if (e != cudaSuccess) return (int)e;
+  fold_rows_kernel<kComp><<<rows, warps * 32, smem, st>>>(k_rows, coef, f, err, alpha, y, valid,
+                                                          f_out, err_out, upv, upi, lov, loi, q,
+                                                          rows, chunk, stages, c_pos, c_neg);
   return (int)cudaGetLastError();
 }
 
@@ -186,28 +362,36 @@ extern "C" int dpsvm_fold_select(const float* f, const float* err, const float* 
                                  float* f_out, float* err_out, float* upv, int* upi,
                                  float* lov, int* loi, int rows, int compensated,
                                  float c_pos, float c_neg, void* stream) {
-  return launch<kFold>(f, err, alpha, y, valid, delta, nullptr, nullptr, 0, f_out,
-                       err_out, upv, upi, lov, loi, rows, compensated, c_pos, c_neg,
-                       stream);
+  return launch<kFold>(f, err, alpha, y, valid, delta, f_out, err_out, upv, upi, lov, loi,
+                       rows, compensated, c_pos, c_neg, stream);
 }
 
 extern "C" int dpsvm_select_rows(const float* f, const float* alpha, const float* y,
                                  const float* valid, float* upv, int* upi, float* lov,
                                  int* loi, int rows, float c_pos, float c_neg,
                                  void* stream) {
-  return launch<kSelect>(f, nullptr, alpha, y, valid, nullptr, nullptr, nullptr, 0,
-                         nullptr, nullptr, upv, upi, lov, loi, rows, 0, c_pos, c_neg,
-                         stream);
+  return launch<kSelect>(f, nullptr, alpha, y, valid, nullptr, nullptr, nullptr, upv, upi,
+                         lov, loi, rows, 0, c_pos, c_neg, stream);
 }
 
+// k_rows (q, rows * 128) and the views 16-byte aligned; the launch plan
+// (warps, chunk, stages, smem) of ops/round.py fold_rows_plan, checked
+// here: 1 <= warps <= min(8, q), 1 <= chunk <= 32, stages >= 1, and smem
+// the bytes of rows_smem within what a block may have.
 extern "C" int dpsvm_fold_rows_select(const float* k_rows, const float* coef,
                                       const float* f, const float* err,
                                       const float* alpha, const float* y,
                                       const float* valid, float* f_out, float* err_out,
                                       float* upv, int* upi, float* lov, int* loi,
-                                      int q, int rows, int compensated, float c_pos,
+                                      int q, int rows, int compensated, int warps,
+                                      int chunk, int stages, int smem, float c_pos,
                                       float c_neg, void* stream) {
-  return launch<kRows>(f, err, alpha, y, valid, nullptr, k_rows, coef, q, f_out,
-                       err_out, upv, upi, lov, loi, rows, compensated, c_pos, c_neg,
-                       stream);
+  if (rows < 1 || q < 1 || q > kMaxQ || warps < 1 || warps > kMaxWarps || warps > q ||
+      chunk < 1 || chunk > 32 || stages < 1 || stages > 64 ||
+      smem != rows_smem(q, warps, chunk, stages) || smem > kSmemLimit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* fn = compensated ? &launch_rows<true> : &launch_rows<false>;
+  return fn(k_rows, coef, f, err, alpha, y, valid, f_out, err_out, upv, upi, lov, loi, q, rows,
+            warps, chunk, stages, smem, c_pos, c_neg, (cudaStream_t)stream);
 }

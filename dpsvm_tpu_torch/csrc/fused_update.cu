@@ -10,90 +10,102 @@
 //          already-scattered alpha and `valid`), each with the lowest flat
 //          id whose value equals it.
 //
-// What bounds it on this card: bytes, and at the per-pair engine's sizes
-// hardly even those. It reads seven float32 vectors and writes one (2.1 MB
-// at n = 65536: 0.63 us at 3.35 TB/s) for a few dozen flops and one exp
-// per element, so a launch costs more than the work.
+// What bounds it on this card: bytes. It reads seven float32 vectors and
+// writes one (2.1 MB at n = 65536: 0.63 us at 3.35 TB/s) for a few dozen
+// flops and one exp per element. At that size one DRAM round trip and the
+// step that joins the blocks' selections are most of the kernel's time,
+// and the launch costs more: on the H100 an empty launch reads 5.0 us on
+// the timer that reads 8.6 us for this kernel (chip_smoke.py --turns).
 //
-// What the design does about it: one pass, one launch. Each thread owns
-// four consecutive elements, read with one 16-byte load per vector and
-// written with one 16-byte store; 256 threads a block (1024 elements, 64
-// blocks at n = 65536). The block reduces its (value, id) candidates with
-// warp shuffles and one shared slot per warp, writes them to a partials
-// buffer and counts itself in an arrival counter; the last block to arrive
-// reduces every block's partials the same way, writes the four results and
-// resets the counter for the next launch. So the selection needs no second
-// kernel and no host round trip.
+// What the design does about it (ops/fused_update.py fused_update_plan):
+// - One group a thread. Each thread owns four consecutive elements, read
+//   with one 16-byte load per vector and written with one 16-byte store;
+//   blocks of 128 threads, as many as the groups need (128 at n = 65536).
+//   Smaller blocks reach more SMs but post more atomics in the join, and
+//   on the H100 that costs more than the SMs save.
+// - A short join. A thread keeps its best (key, id) of each side, where
+//   the key orders f' as an unsigned word (okey). Each warp reduces them
+//   with redux.sync (the least key, then the least id holding it), thread 0
+//   of the block takes the best of its warps and posts it with one 64-bit
+//   atomicMin a side on key << 32 | id. The block that arrives last (an
+//   acq_rel arrival count) swaps the words back to their empty values and
+//   decodes the result: one thread, four atomics, no second pass over
+//   partials. The words persist between launches, one set per (device,
+//   stream) held by the wrapper, and are left empty by every launch; the
+//   results go to a buffer the wrapper allocates for each launch.
 //
 // Numerics: built with -fmad=false, so kernel_from_dots rounds per
 // operation as the plain version does; the update is the two explicit
 // fused multiply-adds XLA contracts it into on the CPU,
 // fma(coef_lo, k_lo, fma(coef_hi, k_hi, f)). expf may differ from torch's
 // exp by an ulp, so f' agrees with the plain version within that; the
-// selection is exact on the kernel's own f'.
+// selection is exact on the kernel's own f'. min and max are order-free,
+// so two launches on the same inputs give the same bits.
 //
-// Ties and edges: the (value, id) rules of common.cuh (lowest id among
-// equal values, +0.0 and -0.0 included; the IEEE minimum / maximum for the
-// reported value), so the result does not depend on the blocking. An empty
-// set reports +inf (up) / -inf (low) with id 0. NaN in f is not supported.
+// Ties and edges (those of common.cuh take_min / take_max): values that
+// compare equal go to the lowest flat id, +0.0 and -0.0 included (okey
+// maps both to one key); the value reported for a +-0 extremum is -0.0 for
+// b_hi when an I_up member is -0.0 and +0.0 for b_lo when an I_low member
+// is +0.0 (one flag bit a side, or-ed across blocks). Elements outside a
+// set stand at +inf (up) / -inf (low) with their own id, so an empty set
+// reports +-inf with id 0. NaN in f is not supported.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerBlock = kThreads * 4;
+// The cross-block words (ops/fused_update.py _words): empty is
+// {~0, ~0, 0, 0}.
+struct Words {
+  unsigned long long up;  // min over elements of okey(f'_up) << 32 | id
+  unsigned long long lo;  // min over elements of ~okey(f'_low) << 32 | id
+  unsigned flags;         // bit 0: an I_up member is -0.0; bit 1: an I_low member is +0.0
+  unsigned arrived;       // blocks that have posted this launch
+};
 
-__device__ __forceinline__ void warp_reduce(Cand& up, Cand& lo) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const float uv = __shfl_xor_sync(0xffffffffu, up.v, s);
-    const int ui = __shfl_xor_sync(0xffffffffu, up.i, s);
-    const float lv = __shfl_xor_sync(0xffffffffu, lo.v, s);
-    const int li = __shfl_xor_sync(0xffffffffu, lo.i, s);
-    take_min(up, uv, ui);
-    take_max(lo, lv, li);
-  }
+// f as an unsigned word in the float order, -0.0 and +0.0 on one key.
+__device__ __forceinline__ unsigned okey(float v) {
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// The block's reduction of (up, lo); the result is valid in thread 0.
-// Every thread of the block must call it.
-__device__ void block_reduce(Cand& up, Cand& lo) {
-  __shared__ Cand s_up[kWarps];
-  __shared__ Cand s_lo[kWarps];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  warp_reduce(up, lo);
-  if (lane == 0) {
-    s_up[warp] = up;
-    s_lo[warp] = lo;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    up = lane < kWarps ? s_up[lane] : Cand{INFINITY, INT_MAX};
-    lo = lane < kWarps ? s_lo[lane] : Cand{-INFINITY, INT_MAX};
-    warp_reduce(up, lo);
-  }
+__device__ __forceinline__ float from_okey(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_update_kernel(const float* __restrict__ scalars, const float* __restrict__ f,
-                    const float* __restrict__ alpha, const float* __restrict__ y,
-                    const float* __restrict__ valid, const float* __restrict__ d_hi,
-                    const float* __restrict__ d_lo, const float* __restrict__ x_sq,
-                    float* __restrict__ f_out, float* part_v, int* part_i, int* counter,
-                    float* __restrict__ out_v, int* __restrict__ out_i, int n,
-                    KParams kp, float c_pos, float c_neg) {
+__device__ __forceinline__ unsigned long long pack(unsigned key, unsigned id) {
+  return ((unsigned long long)key << 32) | id;
+}
+
+__device__ __forceinline__ unsigned arrive(unsigned* count) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(count)
+               : "memory");
+  return old;
+}
+
+__global__ void fused_update_kernel(const float* __restrict__ scalars, const float* __restrict__ f,
+                                    const float* __restrict__ alpha, const float* __restrict__ y,
+                                    const float* __restrict__ valid,
+                                    const float* __restrict__ d_hi,
+                                    const float* __restrict__ d_lo,
+                                    const float* __restrict__ x_sq, float* __restrict__ f_out,
+                                    Words* words, float* __restrict__ out, int groups,
+                                    KParams kp, float c_pos, float c_neg) {
+  // [up key, up id, low key, low id, flags] for each warp.
+  extern __shared__ unsigned rec[];
   const float coef_hi = scalars[0];
   const float coef_lo = scalars[1];
   const float qsq_hi = scalars[2];
   const float qsq_lo = scalars[3];
-  Cand up{INFINITY, INT_MAX};
-  Cand lo{-INFINITY, INT_MAX};
-  const int id0 = (blockIdx.x * kThreads + threadIdx.x) * 4;
-  if (id0 < n) {
-    const size_t off = (size_t)id0;
+  unsigned up_k = ~0u, up_i = ~0u, lo_k = ~0u, lo_i = ~0u, flags = 0;
+  // The thread's group; a thread meets its ids in increasing order, so a
+  // strictly smaller key is the only one that replaces its best.
+  const int grp = blockIdx.x * blockDim.x + threadIdx.x;
+  if (grp < groups) {
+    const size_t off = (size_t)grp * 4;
     float fv[4], av[4], yv[4], vv[4], dh[4], dl[4], xs[4], fn[4];
     unpack(load4(f + off), fv);
     unpack(load4(alpha + off), av);
@@ -111,64 +123,97 @@ fused_update_kernel(const float* __restrict__ scalars, const float* __restrict__
       const bool pos = yv[e] > 0.0f;
       const bool in_up = ok && (pos ? av[e] < c_pos : av[e] > 0.0f);
       const bool in_low = ok && (pos ? av[e] > 0.0f : av[e] < c_neg);
-      take_min(up, in_up ? fn[e] : INFINITY, id0 + e);
-      take_max(lo, in_low ? fn[e] : -INFINITY, id0 + e);
+      const unsigned id = (unsigned)off + e;
+      const unsigned ku = okey(in_up ? fn[e] : INFINITY);
+      const unsigned kl = ~okey(in_low ? fn[e] : -INFINITY);
+      if (ku < up_k) {
+        up_k = ku;
+        up_i = id;
+      }
+      if (kl < lo_k) {
+        lo_k = kl;
+        lo_i = id;
+      }
+      const unsigned bits = __float_as_uint(fn[e]);
+      flags |= (in_up && bits == 0x80000000u ? 1u : 0u) | (in_low && bits == 0u ? 2u : 0u);
     }
     store4(f_out + off, fn);
   }
-  block_reduce(up, lo);
 
-  __shared__ bool last;
-  const int blocks = (int)gridDim.x;
-  if (threadIdx.x == 0) {
-    part_v[blockIdx.x] = up.v;
-    part_i[blockIdx.x] = up.i;
-    part_v[blocks + blockIdx.x] = lo.v;
-    part_i[blocks + blockIdx.x] = lo.i;
-    __threadfence();  // the partials are visible before the arrival counts
-    last = atomicAdd(counter, 1) == blocks - 1;
+  const unsigned all = 0xffffffffu;
+  const unsigned wu = __reduce_min_sync(all, up_k);
+  const unsigned wui = __reduce_min_sync(all, up_k == wu ? up_i : ~0u);
+  const unsigned wl = __reduce_min_sync(all, lo_k);
+  const unsigned wli = __reduce_min_sync(all, lo_k == wl ? lo_i : ~0u);
+  const unsigned wf = __reduce_or_sync(all, flags);
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    unsigned* r = rec + 5 * warp;
+    r[0] = wu;
+    r[1] = wui;
+    r[2] = wl;
+    r[3] = wli;
+    r[4] = wf;
   }
   __syncthreads();
-  if (!last) return;
+  if (threadIdx.x != 0) return;
 
-  // The last block to arrive: reduce every block's partials (read past
-  // L1, which may hold stale lines of the buffer).
-  __threadfence();
-  up = Cand{INFINITY, INT_MAX};
-  lo = Cand{-INFINITY, INT_MAX};
-  for (int b = threadIdx.x; b < blocks; b += kThreads) {
-    take_min(up, __ldcg(part_v + b), __ldcg(part_i + b));
-    take_max(lo, __ldcg(part_v + blocks + b), __ldcg(part_i + blocks + b));
+  unsigned long long up = ~0ull, lo = ~0ull;
+  unsigned fl = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    const unsigned* r = rec + 5 * w;
+    const unsigned long long u = pack(r[0], r[1]), l = pack(r[2], r[3]);
+    up = u < up ? u : up;
+    lo = l < lo ? l : lo;
+    fl |= r[4];
   }
-  block_reduce(up, lo);
-  if (threadIdx.x == 0) {
-    out_v[0] = up.v;
-    out_i[0] = up.i;
-    out_v[1] = lo.v;
-    out_i[1] = lo.i;
-    *counter = 0;
-  }
+  atomicMin(&words->up, up);
+  atomicMin(&words->lo, lo);
+  if (fl != 0) atomicOr(&words->flags, fl);
+  // Release: this block's atomics come before its arrival; acquire: the
+  // last block sees every block's.
+  if (arrive(&words->arrived) != gridDim.x - 1) return;
+
+  up = atomicExch(&words->up, ~0ull);
+  lo = atomicExch(&words->lo, ~0ull);
+  fl = atomicExch(&words->flags, 0u);
+  atomicExch(&words->arrived, 0u);
+  float b_hi = from_okey((unsigned)(up >> 32));
+  float b_lo = from_okey(~(unsigned)(lo >> 32));
+  if (b_hi == 0.0f && (fl & 1u)) b_hi = -0.0f;
+  if (b_lo == 0.0f && !(fl & 2u)) b_lo = -0.0f;
+  int* out_i = reinterpret_cast<int*>(out);
+  out[0] = b_hi;
+  out[1] = b_lo;
+  out_i[2] = (int)(unsigned)up;
+  out_i[3] = (int)(unsigned)lo;
 }
 
 }  // namespace
 
-// n: the element count (a multiple of 4, 16-byte aligned vectors);
-// part_v / part_i: 2 * ceil(n / 1024) scratch slots; counter: one int, 0
-// before the launch and left at 0 after it; out_v / out_i: (b_hi, b_lo)
-// and (i_hi, i_lo).
+// n: the element count (a multiple of 4, 16-byte aligned vectors); the
+// launch plan (threads, blocks, smem) of ops/fused_update.py
+// fused_update_plan, checked here: `threads` a multiple of 32 up to 1024,
+// smem 20 bytes a warp, one group of four a thread covering the n / 4
+// groups and no block without a group; words: the (device, stream)'s
+// cross-block words, empty before the launch and left empty after it;
+// out: (b_hi, b_lo) as float32, then (i_hi, i_lo) as int32.
 extern "C" int dpsvm_fused_update_select(
     const float* scalars, const float* f, const float* alpha, const float* y,
     const float* valid, const float* d_hi, const float* d_lo, const float* x_sq,
-    float* f_out, float* part_v, int* part_i, int* counter, float* out_v, int* out_i,
-    int n, int kind, float gamma, float coef0, int degree, float c_pos, float c_neg,
+    float* f_out, void* words, float* out, int n, int threads, int blocks,
+    int smem, int kind, float gamma, float coef0, int degree, float c_pos, float c_neg,
     void* stream) {
-  if (n < 4 || n % 4 != 0 || kind < kRbf || kind > kSigmoid) {
+  const long long groups = n / 4;
+  if (n < 4 || n % 4 != 0 || kind < kRbf || kind > kSigmoid || threads < 32 ||
+      threads > 1024 || threads % 32 != 0 || blocks < 1 || smem != 20 * (threads / 32) ||
+      (long long)blocks * threads < groups || (long long)(blocks - 1) * threads >= groups) {
     return (int)cudaErrorInvalidValue;
   }
   const KParams kp{kind, -gamma, gamma, coef0, degree};
-  const int grid = (n + kPerBlock - 1) / kPerBlock;
-  fused_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      scalars, f, alpha, y, valid, d_hi, d_lo, x_sq, f_out, part_v, part_i, counter,
-      out_v, out_i, n, kp, c_pos, c_neg);
+  fused_update_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      scalars, f, alpha, y, valid, d_hi, d_lo, x_sq, f_out, static_cast<Words*>(words), out,
+      (int)groups, kp, c_pos, c_neg);
   return (int)cudaGetLastError();
 }

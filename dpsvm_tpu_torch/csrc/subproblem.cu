@@ -71,12 +71,9 @@
 // package rounds them. Where operands come from and how the extrema are
 // reduced changes no value: the (value, slot) order is total.
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "common.cuh"
 
 namespace {
 
@@ -89,7 +86,6 @@ constexpr int kNu = 2;
 constexpr int kSides = 5;  // up, lo, up of the - class, lo of the - class, gain
 constexpr int kMaxWarps = 32;
 constexpr int kHeadBytes = 16 + 2 * kSides * kMaxWarps * 16;
-constexpr int kSmemLimit = 232448;  // what one CTA may have on sm_90
 enum Side { kUp = 0, kLo = 1, kUpN = 2, kLoN = 3, kGain = 4 };
 
 struct BoxConsts {
@@ -227,10 +223,6 @@ __device__ __forceinline__ void pair_update(const BoxConsts& k, float a_i_old,
     ai = a_i_old;
     aj = a_j_old;
   }
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
 }
 
 // Whether phase 0 of the mbarrier has completed (acquire: the bulk copy's
@@ -507,30 +499,6 @@ subproblem_kernel(const float* __restrict__ kb, const float* __restrict__ alpha_
 // Shared-memory bytes of a launch: ops/subproblem.py subproblem_plan.
 size_t smem_bytes(int q, int nchip) {
   return kHeadBytes + 4 * (size_t)nchip * q + 8 * (size_t)q;
-}
-
-// Raise the kernel's dynamic shared-memory limit to what a CTA may have,
-// once per (kernel, device) (cudaFuncSetAttribute holds for the current
-// device only).
-cudaError_t allow_smem(const void* fn) {
-  constexpr int kEntries = 64;
-  static const void* fns[kEntries];
-  static int devs[kEntries];
-  static int used = 0;
-  static std::mutex mu;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::lock_guard<std::mutex> lock(mu);
-  for (int e = 0; e < used; ++e)
-    if (fns[e] == fn && devs[e] == dev) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  if (err == cudaSuccess && used < kEntries) {
-    fns[used] = fn;
-    devs[used] = dev;
-    ++used;
-  }
-  return err;
 }
 
 template <int kRule, int S>

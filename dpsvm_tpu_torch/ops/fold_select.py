@@ -145,9 +145,9 @@ def lib() -> ctypes.CDLL:
         "dpsvm_fold_select": [ptr] * 12 + [i32, i32, f32, f32, ptr],
         # f, alpha, y, valid, 4 cands
         "dpsvm_select_rows": [ptr] * 8 + [i32, f32, f32, ptr],
-        # k_rows, coef, f, err, alpha, y, valid, f_out, err_out, 4 cands
-        "dpsvm_fold_rows_select": [ptr] * 13 + [i32, i32, i32, f32, f32,
-                                                ptr],
+        # k_rows, coef, f, err, alpha, y, valid, f_out, err_out, 4 cands;
+        # q, rows, compensated, the plan (warps, chunk, stages, smem)
+        "dpsvm_fold_rows_select": [ptr] * 13 + [i32] * 7 + [f32, f32, ptr],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so, name)

@@ -20,7 +20,8 @@ between them:
 alpha scatter -> fold_rows_select -> assemble_working_set.
 
 Each kernel function launches its Hopper kernel (csrc/gather_gram.cu,
-csrc/fold_select.cu) for CUDA tensors and runs its plain PyTorch version
+csrc/fold_select.cu; B5 split by ``fold_rows_plan``) for CUDA tensors
+and runs its plain PyTorch version
 (``_gather_gram``, ``_fold_rows_select``) for CPU tensors; any other
 device raises. The plain versions are stage for stage what the fused-fold
 engine computes (``x[w]``, ``kernel_rows``, ``coef @ k_rows``,
@@ -30,6 +31,8 @@ fused-fold one bit for bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from dpsvm_tpu_torch.ops import fold_select as fs
@@ -37,8 +40,58 @@ from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
                                              check_views)
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
                                          kernel_rows, mm_f32)
+from dpsvm_tpu_torch.ops.subproblem import SMEM_LIMIT
 
 _KINDS = {"rbf": 0, "linear": 1, "poly": 2, "sigmoid": 3}
+_MAX_Q = 8192
+_SEG = 4 * LANES  # bytes of one kernel row's 128 columns
+# B5's plan: warps a block, kernel rows a ring stage, stages a warp.
+_WARPS, _CHUNK, _STAGES = 4, 8, 3
+
+
+class FoldRowsPlan(NamedTuple):
+    """Kernel B5's launch: one block of `warps` warps per 128-column row
+    (`blocks` of them), warp w folding the kernel rows k_range(q, warps,
+    w); each warp streams them into shared memory on a ring of `stages`
+    stages of `chunk` rows. `smem`: the block's dynamic shared-memory
+    bytes."""
+    warps: int
+    chunk: int
+    stages: int
+    smem: int
+    blocks: int
+
+
+def k_range(q: int, warps: int, w: int) -> range:
+    """The kernel rows warp w of a B5 block folds (csrc/fold_select.cu
+    fold_rows_kernel): contiguous, as even as q allows."""
+    return range(w * q // warps, (w + 1) * q // warps)
+
+
+def fold_rows_smem(q: int, warps: int, chunk: int, stages: int) -> int:
+    """B5's shared memory (csrc/fold_select.cu rows_smem): the rings, the
+    warps' partial deltas, the q coefficients (to 16 bytes) and an
+    8-byte mbarrier per stage."""
+    return (warps * stages * chunk * _SEG + warps * _SEG
+            + -(-q // 4) * 16 + 8 * warps * stages)
+
+
+def fold_rows_plan(q: int, rows: int) -> FoldRowsPlan:
+    """B5's launch: up to 4 warps a block (never more than q), 8 rows a
+    stage and 3 stages a warp, fewer stages where a warp's range is
+    shorter (the fastest of the plans that chip_smoke.py --turns times on
+    the H100). At the headline (q 256, 472 rows) a block has
+    48 KB in flight and 52 KB of shared memory, so four fit an SM and all
+    472 blocks run at once on the 132 SMs. csrc/fold_select.cu checks the
+    plan it is given."""
+    if not 1 <= q <= _MAX_Q:
+        raise ValueError(f"fold_rows_select takes 1 <= q <= {_MAX_Q}, "
+                         f"got {q}")
+    warps = min(_WARPS, q)
+    longest = -(-q // warps)  # the rows of the longest warp range
+    stages = min(_STAGES, -(-longest // _CHUNK))
+    return FoldRowsPlan(warps, _CHUNK, stages,
+                        fold_rows_smem(q, warps, _CHUNK, stages), rows)
 
 
 def _gather_gram(x, w, x_sq, qsq, kp: KernelParams):
@@ -192,8 +245,19 @@ def fold_rows_select(k_rows, coef, f2d, err2d, alpha2d, y2d, valid2d, c,
     if dev.type == "cpu":
         return _fold_rows_select(k_rows, coef, f2d, err2d, alpha2d, y2d,
                                  valid2d, c, compensated)
+    out = _fold_rows_launch(k_rows, coef, f2d, err2d, alpha2d, y2d,
+                            valid2d, c, compensated, fold_rows_plan(q, rows))
+    fold_rows_select.launches += 1
+    return out
+
+
+def _fold_rows_launch(k_rows, coef, f2d, err2d, alpha2d, y2d, valid2d, c,
+                      compensated: bool, plan: FoldRowsPlan):
+    """Kernel B5 on checked CUDA inputs with the launch plan `plan`."""
+    dev = f2d.device
     if k_rows.data_ptr() % 16:
         raise ValueError("k_rows must be 16-byte aligned")
+    rows = f2d.shape[0]
     f_out = torch.empty_like(f2d)
     err_out = torch.empty_like(f2d) if compensated else None
     cands = fs.cand_outputs(rows, dev)
@@ -202,10 +266,9 @@ def fold_rows_select(k_rows, coef, f2d, err2d, alpha2d, y2d, valid2d, c,
         err2d.data_ptr() if compensated else None, alpha2d.data_ptr(),
         y2d.data_ptr(), valid2d.data_ptr(), f_out.data_ptr(),
         None if err_out is None else err_out.data_ptr(),
-        *(t.data_ptr() for t in cands), q, rows, int(compensated),
-        *fs.c_consts(c), torch.cuda.current_stream(dev).cuda_stream),
-        "fold_rows_select")
-    fold_rows_select.launches += 1
+        *(t.data_ptr() for t in cands), coef.shape[0], rows,
+        int(compensated), *plan[:4], *fs.c_consts(c),
+        torch.cuda.current_stream(dev).cuda_stream), "fold_rows_select")
     return (f_out, err_out, *cands)
 
 

@@ -227,6 +227,56 @@ def test_fold_rows_select_kernel_matches_plain(cuda, q, rows, compensated):
     assert all(_same_bits(a, b) for a, b in zip(got[2:], emitted))
 
 
+def _rows_inputs(dev, q, rows):
+    """B5's inputs: the (rows, 128) views of _views, kernel rows in [0, 1)
+    and coefficients with every seventh slot dead, made on the card."""
+    f, err, alpha, y, valid, _ = _views(dev, rows, q + rows)
+    g = torch.Generator(device=dev).manual_seed(q * 1000 + rows)
+    k_rows = torch.rand((q, rows * 128), generator=g, device=dev)
+    coef = torch.randn(q, generator=g, device=dev) * 0.1
+    coef[::7] = 0.0
+    return k_rows, coef, f, err, alpha, y, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("rows", [1, 37, 472, 473])
+@pytest.mark.parametrize("q", [1, 3, 100, 256, 257, 1000, 8192])
+def test_fold_rows_select_kernel_every_plan(cuda, q, rows, compensated):
+    """B5 over the shapes its launch plan (ops/round.py fold_rows_plan)
+    treats apart: one warp (q 1), fewer warps than 4 (q 3), short and
+    long warp ranges, a last chunk of fewer rows (257, 1000), the largest
+    q, one row and the headline's 472 rows and one more. f' within rtol
+    1e-6 of the plain version plus 2e-6 of |coef| @ |K|; candidates
+    bitwise the plain emission's from the kernel's own f' (and err')."""
+    k_rows, coef, f, err, alpha, y, valid = _rows_inputs(cuda, q, rows)
+    tround.fold_rows_select.launches = 0
+    got = tround.fold_rows_select(k_rows, coef, f, err, alpha, y, valid,
+                                  1.0, compensated=compensated)
+    want = tround._fold_rows_select(k_rows, coef, f, err, alpha, y, valid,
+                                    1.0, compensated)
+    torch.cuda.synchronize()
+    assert tround.fold_rows_select.launches == 1
+    scale = (coef.abs() @ k_rows).view(f.shape)
+    assert bool(((got[0] - want[0]).abs()
+                 <= 1e-6 * want[0].abs() + 2e-6 * scale).all())
+    f_sel = got[0] if not compensated else got[0] - got[1]
+    emitted = tfs.emit_row_candidates(f_sel, alpha, y, valid, 1.0)
+    assert all(_same_bits(a, b) for a, b in zip(got[2:], emitted))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+def test_fold_rows_select_kernel_is_deterministic(cuda, compensated):
+    """Two B5 launches on the same inputs give the same bits: the warps'
+    partial deltas are added in a fixed order."""
+    args = _rows_inputs(cuda, 256, 472)
+    got = [tround.fold_rows_select(*args, 1.0, compensated=compensated)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(*got))
+
+
 GATHER_SHAPES = ([(1000, d, q) for d in (10, 37, 784, 800)
                   for q in (2, 72, 256, 320)] + [(4096, 784, 256)])
 
@@ -312,7 +362,7 @@ def _ulp_scale(f, scalars, k_hi, k_lo):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["rbf", "linear", "poly", "sigmoid"])
-@pytest.mark.parametrize("rows", [1, 37, 512])
+@pytest.mark.parametrize("rows", [1, 37, 511, 512, 513, 4096])
 def test_fused_update_kernel_matches_plain(cuda, rows, kind):
     """B6 against its plain version on the same CUDA tensors: f' within
     two ulps of the update's scale (expf / tanhf / powf built with
@@ -368,6 +418,100 @@ def test_fused_update_kernel_ties_and_empty_sets(cuda):
                                   z, z, sc, kp, 1.0)
     assert (float(got[1]), int(got[2]), float(got[3]), int(got[4])) == (
         float("inf"), 0, -float("inf"), 0)
+
+
+def _b6_inputs(dev, rows, seed):
+    """B6's (R, 128) views and scalars, rbf-sized dots."""
+    f, _, alpha, y, valid, _ = _views(dev, rows, seed, c=(2.0, 0.5))
+    rng = np.random.default_rng(seed)
+    shp = f.shape
+    d_hi, d_lo = (torch.as_tensor(rng.normal(size=shp).astype(np.float32),
+                                  device=dev) for _ in range(2))
+    x_sq = torch.as_tensor(np.abs(rng.normal(size=shp)).astype(np.float32)
+                           * 3, device=dev)
+    scalars = torch.tensor([0.37, -0.21, 1.3, 0.8], device=dev)
+    return (f, alpha, y, valid, d_hi, d_lo, x_sq, scalars)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_sign", [0.0, -0.0])
+def test_fused_update_kernel_ties_across_blocks(cuda, zero_sign):
+    """At n = 65536 (128 blocks of ops/fused_update.py fused_update_plan)
+    equal extrema in different blocks go to the lowest flat id, and the
+    +-0 rule holds across blocks: b_hi is -0.0 when any I_up member is
+    -0.0, b_lo +0.0 when any I_low member is +0.0; bitwise the plain
+    version."""
+    rows = 512
+    shp = (rows, 128)
+    z = torch.zeros(shp, device=cuda)
+    kp = KernelParams("linear")
+    # f' = f + (-1) 0 + (-1) 0: f bit for bit, the sign of a zero kept.
+    sc = torch.tensor([-1.0, -1.0, 0.0, 0.0], device=cuda)
+    alpha = torch.full(shp, 0.5, device=cuda)
+    y = torch.ones(shp, device=cuda)
+    valid = torch.ones(shp, device=cuda)
+    # Equal non-zero extrema, the lowest id in a later block than the
+    # first one met by block order.
+    f = torch.ones(shp, device=cuda)
+    flat = f.view(-1)
+    flat[[60000, 1000, 30000]] = -3.0
+    flat[[50000, 700, 65535]] = 4.0
+    got = tfu.fused_update_select(f, alpha, y, valid, z, z, z, sc, kp, 1.0)
+    want = tfu._fused_update_select(f, alpha, y, valid, z, z, z, sc, kp, 1.0)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert (float(got[1]), int(got[2]), float(got[3]), int(got[4])) == (
+        -3.0, 1000, 4.0, 700)
+    # Zeros of one sign everywhere, the other sign in one late block.
+    f = torch.full(shp, zero_sign, device=cuda)
+    f.view(-1)[40000] = -zero_sign
+    got = tfu.fused_update_select(f, alpha, y, valid, z, z, z, sc, kp, 1.0)
+    want = tfu._fused_update_select(f, alpha, y, valid, z, z, z, sc, kp, 1.0)
+    torch.cuda.synchronize()
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert int(got[2]) == 0 and int(got[4]) == 0
+    assert str(float(got[1])) == "-0.0" and str(float(got[3])) == "0.0"
+
+
+@pytest.mark.cuda
+def test_fused_update_kernel_on_two_streams(cuda):
+    """Launches on two streams at once each get their own right result:
+    the cross-block words are one set per (device, stream)."""
+    kp = KernelParams("rbf", 0.3)
+    sets = [_b6_inputs(cuda, 512, seed) for seed in (1, 2)]
+    streams = [torch.cuda.Stream(cuda) for _ in sets]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(5):
+        for i, (args, stream) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(stream):
+                got[i].append(tfu.fused_update_select(*args, kp, (2.0, 0.5)))
+    torch.cuda.synchronize()
+    for args, outs in zip(sets, got):
+        own = tfu.reduce_candidates(*tfs.emit_row_candidates(
+            outs[0][0], *args[1:4], (2.0, 0.5)))
+        want = tfu._fused_update_select(*args, kp, (2.0, 0.5))
+        assert (int(outs[0][2]), int(outs[0][4])) == (int(want[2]),
+                                                      int(want[4]))
+        for out in outs:
+            assert all(_same_bits(g, w) for g, w in zip(out, outs[0]))
+            assert all(_same_bits(g, w) for g, w in zip(out[1:], own))
+
+
+@pytest.mark.cuda
+def test_fused_update_result_survives_the_next_launch(cuda):
+    """A result the wrapper returned is not overwritten by a later launch
+    (a per-pair loop may read trip t's pair after queueing trip t + 1),
+    and two launches on the same inputs give the same bits."""
+    kp = KernelParams("rbf", 0.3)
+    a, b = _b6_inputs(cuda, 512, 3), _b6_inputs(cuda, 512, 4)
+    first = tfu.fused_update_select(*a, kp, (2.0, 0.5))
+    kept = [t.clone() for t in first]
+    other = tfu.fused_update_select(*b, kp, (2.0, 0.5))
+    again = tfu.fused_update_select(*a, kp, (2.0, 0.5))
+    torch.cuda.synchronize()
+    assert (int(other[2]), int(other[4])) != (int(first[2]), int(first[4]))
+    assert all(_same_bits(g, w) for g, w in zip(first, kept))
+    assert all(_same_bits(g, w) for g, w in zip(again, first))
 
 
 PER_PAIR = [dict(engine="xla"), dict(engine="xla", gram_resident=True),

@@ -155,3 +155,45 @@ def test_wrapper_validates_its_inputs():
     with pytest.raises(ValueError, match="views"):
         tfu.fused_update_select(*v[:6], torch.zeros((2, 64)),
                                 torch.zeros(4), kp, 1.0)
+
+
+SMS = 132  # the H100's streaming multiprocessors
+SMEM_LIMIT = 232_448  # shared memory one block may have on sm_90
+
+
+def _plan_ok(n: int) -> bool:
+    """Kernel B6's launch for n elements (ops/fused_update.py
+    fused_update_plan), as csrc/fused_update.cu maps it: thread t of block
+    b takes the group of four b threads + t when it is below n / 4. Every
+    group exactly once, no block without a group, the records within
+    shared memory."""
+    p = tfu.fused_update_plan(n)
+    groups = n // 4
+    grp = (np.arange(p.blocks)[:, None] * p.threads
+           + np.arange(p.threads)).ravel()
+    hits = np.bincount(grp[grp < groups], minlength=groups)
+    first = np.arange(p.blocks) * p.threads  # each block's first group
+    return (bool((hits == 1).all()) and bool((first < groups).all())
+            and 32 <= p.threads <= 1024 and p.threads % 32 == 0
+            and p.smem == 20 * (p.threads // 32) and p.smem <= SMEM_LIMIT)
+
+
+# n_pad from 128 to 2^20 in steps of 128: every block edge.
+@pytest.mark.parametrize("lo,hi", [(128, 16384), (16384, 131072),
+                                   (131072, 262144), (262144, 393216),
+                                   (393216, 786432), (786432, 2 ** 20 + 128)])
+def test_fused_update_plan_covers_every_element_once(lo, hi):
+    bad = [n for n in range(lo, hi, LANES) if not _plan_ok(n)]
+    assert not bad, bad[:5]
+
+
+def test_fused_update_plan_fills_the_card_at_the_headline():
+    """At the per-pair headline's n_pad 65536 the grid is one wave of 128
+    blocks of 128 threads, one group of four a thread: all but four of
+    the 132 SMs stream (the block size measured fastest on the H100,
+    ahead of the 64-thread blocks that reach every SM)."""
+    p = tfu.fused_update_plan(65536)
+    assert p.blocks * p.threads * 4 == 65536
+    assert SMS - 4 <= p.blocks <= SMS
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tfu.fused_update_plan(130)

@@ -344,3 +344,57 @@ def test_tf32x3_check_passes_3xtf32_and_refuses_one_pass(case, kind):
     err1, _, _ = tround.tf32x3_check(_k_of(one, x, w, kp), plain, ref,
                                      x_sq, kp)
     assert err1 > 4 * limit
+
+
+SMS = 132  # the H100's streaming multiprocessors
+SM_SMEM = 233_472  # shared memory of one SM (228 KB), 1 KB of it per block
+
+
+def _rows_plan_ok(q: int, rows: int) -> bool:
+    """Kernel B5's launch (ops/round.py fold_rows_plan), as
+    csrc/fold_select.cu fold_rows_kernel maps it: block b folds columns
+    [128 b, 128 b + 128), lane l columns 4 l .. 4 l + 3; warp w the kernel
+    rows k_range(q, warps, w). Every column once, every k in exactly one
+    warp's range, no warp without rows, the shared memory within a
+    block's limit and equal to what the kernel lays out."""
+    p = tround.fold_rows_plan(q, rows)
+    cols = (np.arange(p.blocks)[:, None, None] * 128
+            + np.arange(32)[None, :, None] * 4 + np.arange(4)).ravel()
+    col_hits = np.bincount(cols, minlength=rows * 128)
+    ks = [k for w in range(p.warps) for k in tround.k_range(q, p.warps, w)]
+    return (p.blocks == rows and len(col_hits) == rows * 128
+            and bool((col_hits == 1).all()) and sorted(ks) == list(range(q))
+            and all(len(tround.k_range(q, p.warps, w)) > 0
+                    for w in range(p.warps))
+            and 1 <= p.warps <= 8 and 1 <= p.chunk <= 32 and p.stages >= 1
+            and p.smem == tround.fold_rows_smem(q, p.warps, p.chunk,
+                                                p.stages)
+            and p.smem <= tround.SMEM_LIMIT)
+
+
+_QS = sorted(set(range(1, 70)) | {100, 127, 128, 129, 255, 256, 257, 1000,
+                                  1023, 1024, 1025, 4095, 4096, 4097, 8191,
+                                  8192})
+
+
+@pytest.mark.parametrize("rows", [1, 2, 37, 471, 472, 473, 1024])
+def test_fold_rows_plan_covers_every_column_and_k_once(rows):
+    """q from 1 to 8192 (every q to 69, then the edges of 128 and of the
+    largest q) at sampled row counts."""
+    bad = [q for q in _QS if not _rows_plan_ok(q, rows)]
+    assert not bad, bad[:5]
+
+
+def test_fold_rows_plan_fills_the_card_at_the_headline():
+    """At the fused round's headline (q 256, n_pad 60416: 472 rows) every
+    SM gets blocks, all 472 fit on the card at once (shared memory and
+    threads), and each SM keeps at least 32 KB of kernel rows in flight."""
+    p = tround.fold_rows_plan(256, 472)
+    per_sm = min(SM_SMEM // (p.smem + 1024), 2048 // (32 * p.warps))
+    assert p.blocks >= SMS and per_sm * SMS >= p.blocks
+    in_flight = p.warps * p.stages * p.chunk * 512
+    assert (p.blocks // SMS) * in_flight >= 32 * 1024
+    with pytest.raises(ValueError, match="q <= 8192"):
+        tround.fold_rows_plan(8193, 472)
+    with pytest.raises(ValueError, match="1 <= q"):
+        tround.fold_rows_plan(0, 472)
