@@ -5,7 +5,10 @@
     python3 chip_smoke.py --turns [--package DIR] [--reps N]
 
 With no arguments it runs the phases below. --turns runs none of them: it
-times kernels B5 and B6 at the headline shapes on fixed seeded inputs and
+times kernels B5 and B6 at the headline shapes and B2 and B3 at the
+headline's and covtype scale's rows on fixed seeded inputs, splits B2
+and B3's time by the stamps of a timing build of csrc/fold_select.cu,
+trains the headline with the fused fold and the pipelined engine, and
 prints one JSON line (see turns()); --package DIR times the
 dpsvm_tpu_torch found in DIR instead of this checkout's, so an earlier
 commit unpacked there (git archive) and this one can be timed in turns on
@@ -40,8 +43,10 @@ result line is printed:
                 round's inputs at the headline shapes (n_pad 60416, q 256)
                 at the same two states, for float32 and bfloat16 X and
                 compensation off/on: B2 (fold_select) and B3 (select_rows)
-                bitwise; B5 (fold_rows_select) f' within rtol 1e-6 plus
-                2e-6 of the contraction's absolute sum, candidates bitwise
+                bitwise, and again on seeded views at covtype scale (R
+                3912) for both forms of c; B5 (fold_rows_select) f'
+                within rtol 1e-6 plus 2e-6 of the contraction's
+                absolute sum, candidates bitwise
                 those the plain emission gives from the kernel's own f';
                 B4 (gather_gram) max |dK| within the dots' worst-case
                 rounding bound (ops/round.py gram_tolerance) and, for
@@ -65,8 +70,8 @@ result line is printed:
                 count set to 0 just before: converged, and launches exactly
                 B1 = B2 = rounds (fused fold), B1 = B4 = B5 = rounds (fused
                 round), B1 = rounds and B3 = rounds + 1 (pipelined: one
-                prefetch per round plus the seed); then the fused-round
-                engine once more with its four stage functions timed;
+                prefetch per round plus the seed); then each of the three
+                engines once more with its stage functions timed;
   6. perpair -- the per-pair engines on the headline data and
                 hyper-parameters, after warm-ups on 16384 rows, each with
                 every count set to 0 just before: engine="xla" (on the
@@ -165,7 +170,8 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 (3xTF32 does three products a term)
 # The ms of the earlier designs of the redesigned kernels (PERF.md section
-# 6, "earlier"; B5 and B6 from run G), printed beside the new kernels' times.
+# 6, "earlier"; B5 and B6 from run G, B2 and B3 from run I), printed beside
+# the new kernels' times.
 EARLIER_MS = {("gather_gram", "bfloat16"): 1.3175,
               ("gather_gram", "float32"): 1.3688,
               ("ring_fold_window", "bfloat16"): 4.3508,
@@ -174,6 +180,8 @@ EARLIER_MS = {("gather_gram", "bfloat16"): 1.3175,
               ("ring_gather", 4): 0.0683,
               ("ring_gather", 8): 0.1334,
               ("fold_rows_select", 256): 0.0639,  # q 256, n_pad 60416
+              ("fold_select", 472): 0.0074,  # run I, n_pad 60416
+              ("select_rows", 472): 0.0071,
               ("fused_update_select", 65536): 0.0112}  # n_pad 65536
 # B1's us a pair at q=256, limit 512, from the start state, before the
 # redesign that keeps the Gram block on chip (PERF.md section 6).
@@ -405,6 +413,21 @@ FUSED_ROUND_STAGES = (("ops.round", "gather_gram"),
                       ("solver.block", "dispatch_subproblem"),
                       ("ops.round", "fold_rows_select"),
                       ("ops.round", "assemble_working_set"))
+# The stage functions of the fused-fold round (B2) and of the pipelined
+# round (B3); a third field counts the calls beyond one a round (the
+# pipelined engine's seed prefetch).
+FUSED_FOLD_STAGES = (("solver.block", "gather_block"),
+                     ("solver.block", "dispatch_subproblem"),
+                     ("solver.block", "kernel_rows"),
+                     ("solver.block", "scatter_alpha"),
+                     ("solver.block", "fold_select"),
+                     ("solver.block", "assemble_working_set"))
+PIPELINE_STAGES = (("solver.block", "dispatch_subproblem"),
+                   ("solver.block", "select_rows", 1),
+                   ("solver.block", "assemble_working_set", 1),
+                   ("solver.block", "kernel_rows"),
+                   ("solver.block", "maybe_kahan"),
+                   ("solver.block", "scatter_alpha"))
 
 
 def phase_stages(x, y, cfg, stages, label: str) -> dict:
@@ -420,9 +443,10 @@ def phase_stages(x, y, cfg, stages, label: str) -> dict:
     from dpsvm_tpu_torch import train
 
     mods = {m: importlib.import_module(f"dpsvm_tpu_torch.{m}")
-            for m, _ in stages}
-    events = {name: [] for _, name in stages}
-    originals = {(m, name): getattr(mods[m], name) for m, name in stages}
+            for m, *_ in stages}
+    events = {st[1]: [] for st in stages}
+    extra = {st[1]: st[2] if len(st) > 2 else 0 for st in stages}
+    originals = {(m, name): getattr(mods[m], name) for m, name, *_ in stages}
 
     def timed(name, fn):
         # functools.wraps also copies a kernel wrapper's launch count, so
@@ -447,7 +471,8 @@ def phase_stages(x, y, cfg, stages, label: str) -> dict:
             setattr(mods[m], name, fn)
     torch.cuda.synchronize()
     rounds = res.stats["outer_rounds"]
-    if not res.converged or any(len(e) != rounds for e in events.values()):
+    if not res.converged or any(len(e) != rounds + extra[k]
+                                for k, e in events.items()):
         raise AssertionError(f"stage-timed {label} solve did not run every "
                              "stage once per round to convergence")
     ms = {name: sum(e0.elapsed_time(e1) for e0, e1 in evs)
@@ -517,6 +542,7 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
     from dpsvm_tpu_torch.ops import round as rnd
     from dpsvm_tpu_torch.ops.kernels import kernel_diag, squared_norms
     from dpsvm_tpu_torch.ops.kernels import mm_f32
+    from dpsvm_tpu_torch.ops.select import split_c
     from dpsvm_tpu_torch.solver.smo import kahan_add
 
     n_pad, d = xs["bfloat16"].shape
@@ -645,6 +671,9 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
                 if name in ("fold_select", "select_rows", "fold_rows_select"):
                     rec[name]["launch_floor_ms"] = floor_ms
                     extra = f" launch_floor_ms={floor_ms:.4f}"
+                if name in ("fold_select", "select_rows"):
+                    extra += (f"; plan {tuple(fs.fold_select_plan(rows))}; "
+                              f"earlier design {EARLIER_MS[name, rows]} ms")
                 if name == "fold_rows_select":
                     # cuBLAS on the same flushed kernel rows: the
                     # contraction alone, not B5's function.
@@ -669,6 +698,25 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
                       f"({b_by}) library_ms="
                       f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}"
                       + extra, flush=True)
+    # B2 and B3 at covtype scale (R 3912) on seeded views, both c forms.
+    f2d, e2d, a2d, y2d, v2d, d2d = b23_turns_inputs(3912, y.device)
+    c_pos, c_neg = split_c(c)
+    for cc in (c_pos, (c_pos, 0.5 * c_neg)):
+        got = fs.select_rows(f2d, a2d, y2d, v2d, cc)
+        same = all(same_bits(g, h) for g, h in zip(
+            got, fs._select_rows(f2d, a2d, y2d, v2d, cc)))
+        for comp in (False, True):
+            err2d = e2d if comp else None
+            got = fs.fold_select(f2d, err2d, a2d, y2d, v2d, d2d, cc,
+                                 compensated=comp)
+            same = same and all(same_bits(g, h) for g, h in zip(
+                got, fs._fold_select(f2d, err2d, a2d, y2d, v2d, d2d, cc,
+                                     comp)))
+        print(f"[kernels] select_rows and fold_select (plain and "
+              f"compensated) at R 3912, c={cc}: bitwise={same}", flush=True)
+        if not same:
+            raise AssertionError(f"B2 / B3 at R 3912, c={cc}, differ from "
+                                 "their plain versions")
     for name, v in worst.items():
         rec[name]["max_abs_err"] = v
     return rec
@@ -1609,9 +1657,11 @@ def main() -> int:
               f"{res.stats['outer_rounds']}) train_seconds="
               f"{eres.train_seconds:.4f} (plain {res.train_seconds:.4f})",
               flush=True)
-    stages["fused_round"] = phase_stages(
-        x, y, cfg.replace(fused_round=True), FUSED_ROUND_STAGES,
-        "fused_round")
+    for knob, st in (("fused_round", FUSED_ROUND_STAGES),
+                     ("fused_fold", FUSED_FOLD_STAGES),
+                     ("pipeline_rounds", PIPELINE_STAGES)):
+        stages[knob] = phase_stages(x, y, cfg.replace(**{knob: True}), st,
+                                    knob)
 
     lap("fused engines")
 
@@ -1806,11 +1856,237 @@ def time_clean_ms(fn, reps: int) -> float:
     return total / reps
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """The host's microseconds a call of fn(), over `calls` calls enqueued
+    in four batches, each behind a device-side spin long enough that the
+    card never drains the queue (so the host never waits on it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(4):
+        torch.cuda._sleep(SPIN_CYCLES * 50)
+        t0 = time.perf_counter()
+        for _ in range(calls // 4):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e6 * total / (4 * (calls // 4))
+
+
+# The sizes --turns times B2 and B3 at: the 60000-row headline (n_pad
+# 60416) and the JAX package's covtype-scale configuration
+# (BENCH_COVTYPE.md: n 500000, n_pad 500736).
+B23_ROWS = (472, 3912)
+
+
+def b23_turns_inputs(rows: int, dev) -> list:
+    """(f, err, alpha, y, valid, delta) (rows, 128) views for B2 and B3:
+    alpha at 0, C and inside the box, the last 400 elements padding."""
+    import torch
+
+    rng = np.random.default_rng(rows)
+    n = rows * 128
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    pick = rng.integers(0, 3, n)
+    alpha = np.where(pick == 0, 0.0, np.where(pick == 1, 10.0,
+                                              rng.random(n) * 10))
+    valid = np.ones(n)
+    valid[-400:] = 0.0
+    vecs = [rng.normal(size=n), rng.normal(size=n) * 1e-7, alpha, y, valid,
+            rng.normal(size=n) * 0.05]
+    return [torch.as_tensor(v.astype(np.float32).reshape(rows, 128),
+                            device=dev) for v in vecs]
+
+
+def b23_bytes(kernel: str, rows: int) -> int:
+    """Bytes B2 / B3 must move: each input read once, each output written
+    once (float32 vectors of rows x 128, four 32-bit candidate words a
+    row)."""
+    vec = 4 * 128 * rows
+    return {"b3": 4, "b2": 6, "b2_comp": 8}[kernel] * vec + 16 * rows
+
+
+# B2 and B3's stamps (csrc/fold_select.cu, built with -DDPSVM_STAMPS).
+STAMPS = ("start", "loaded", "reduced", "stored", "acked")
+
+
+def stamp_split(run, so, rows: int, flush: str, reps: int) -> dict:
+    """Where a B2 / B3 launch spends its time, from the timing build's
+    stamps: run(so) launches it behind a 256 MB flush that writes
+    (`flush` "dirty") or reads ("clean") and a device spin. For each
+    stamp, the ns from the first row's start to the first and to the
+    last row reaching it (%globaltimer, across SMs); for each phase
+    between stamps, the median and largest cycles a row spends in it
+    (clock64, one SM). Medians over `reps` launches."""
+    import ctypes
+
+    import torch
+
+    buf = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
+    host = (ctypes.c_ulonglong * (4096 * len(STAMPS) * 2))()
+    per = []
+    for _ in range(reps):
+        if flush == "dirty":
+            buf.zero_()
+        else:
+            buf.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        run(so)
+        torch.cuda.synchronize()
+        if so.stamps(host) != 0:
+            raise RuntimeError("reading the stamps failed")
+        a = np.frombuffer(host, dtype=np.uint64).astype(np.int64)
+        a = a.reshape(4096, len(STAMPS), 2)[:rows]
+        gt, clk = a[:, :, 0], a[:, :, 1]
+        t0 = gt[:, 0].min()
+        cyc = np.diff(clk, axis=1)
+        per.append(np.concatenate([gt.min(axis=0) - t0, gt.max(axis=0) - t0,
+                                   np.median(cyc, axis=0),
+                                   cyc.max(axis=0)]))
+    med = np.median(np.array(per), axis=0)
+    k = len(STAMPS)
+    phases = [f"{a}->{b}" for a, b in zip(STAMPS, STAMPS[1:])]
+    return {"first_ns": dict(zip(STAMPS, med[:k].tolist())),
+            "last_ns": dict(zip(STAMPS, med[k:2 * k].tolist())),
+            "row_cycles_median": dict(zip(phases, med[2 * k:3 * k - 1]
+                                          .tolist())),
+            "row_cycles_max": dict(zip(phases, med[3 * k - 1:].tolist()))}
+
+
 # Other launch plans --turns times beside the kept ones (this checkout
 # only): B6's threads a block, one group of four a thread; B5's (warps,
-# chunk, stages), q 256.
+# chunk, stages), q 256; B2 and B3's warps (rows) a block
+# (ops/fold_select.py fold_select_plan).
 B6_THREADS = (32, 64, 128, 256)
 B5_PLANS = ((4, 8, 3), (8, 4, 3), (4, 8, 2), (2, 16, 3), (4, 4, 3))
+B23_WARPS = (1, 2, 4, 8)
+
+
+def turns_b23(fs, rows: int, dev, reps: int, rec: dict) -> dict:
+    """B3, B2 and B2 compensated at `rows` rows on seeded views, through
+    the package's public wrappers: ms behind the writing flush, behind a
+    reading flush and back to back with no flush, and the wrapper's host
+    us a call. Then each in the pair it forms on the main path, behind
+    the writing flush: B2 after the alpha scatter it follows in a
+    fused-fold round, B3 after the kernel that writes its f (f - err, the
+    compensated pipelined prefetch). Adds them to `rec`; returns
+    {kernel: call}."""
+    import torch
+
+    from dpsvm_tpu_torch.solver.block import scatter_alpha
+
+    f2d, e2d, a2d, y2d, v2d, d2d = b23_turns_inputs(rows, dev)
+    calls = {
+        "b3": functools.partial(fs.select_rows, f2d, a2d, y2d, v2d, 10.0),
+        "b2": functools.partial(fs.fold_select, f2d, None, a2d, y2d, v2d,
+                                d2d, 10.0),
+        "b2_comp": functools.partial(fs.fold_select, f2d, e2d, a2d, y2d,
+                                     v2d, d2d, 10.0, compensated=True)}
+    for name, fn in calls.items():
+        key = f"{name}_{rows}"
+        rec[f"{key}_ms"] = time_cold_ms(fn, reps)
+        rec[f"{key}_ms_clean_flush"] = time_clean_ms(fn, reps)
+        rec[f"{key}_warm_ms"] = time_ms(fn, reps)
+        rec[f"{key}_host_us"] = host_us(fn)
+        rec[f"{key}_bound_ms"] = b23_bytes(name, rows) / HBM_BYTES_PER_S * 1e3
+
+    n = rows * 128
+    w = torch.arange(0, n, n // 256, device=dev)[:256]
+    ok = torch.ones(256, dtype=torch.bool, device=dev)
+    a_w = torch.full((256,), 0.5, device=dev)
+    eff = torch.empty_like(f2d)
+
+    def pair2():
+        alpha = scatter_alpha(a2d.view(-1), w, ok, a_w).view(f2d.shape)
+        return fs.fold_select(f2d, None, alpha, y2d, v2d, d2d, 10.0)
+
+    def pair3():
+        torch.sub(f2d, e2d, out=eff)
+        return fs.select_rows(eff, a2d, y2d, v2d, 10.0)
+
+    rec[f"b2_pair_{rows}_ms"] = time_cold_ms(pair2, reps)
+    rec[f"b3_pair_{rows}_ms"] = time_cold_ms(pair3, reps)
+    return calls
+
+
+def turns_b23_plans(fs, rows: int, dev, reps: int) -> dict:
+    """This checkout's B2 / B3 launch plans at `rows` rows, each checked
+    bitwise against the kept plan and timed twice (the second pass in the
+    reverse order), and the timing build's stamp split of the kept plan
+    behind both flushes. Returns the readings."""
+    from dpsvm_tpu_torch.ops import _build
+
+    f2d, e2d, a2d, y2d, v2d, d2d = b23_turns_inputs(rows, dev)
+    c = 10.0
+    so = fs.lib()
+    stamped = fs.bind(_build.load("fold_select", defines=("DPSVM_STAMPS",)))
+
+    def launches(plan):
+        return {
+            "b3": lambda lib: fs._select_launch(f2d, a2d, y2d, v2d, c, plan,
+                                                lib),
+            "b2": lambda lib: fs._fold_launch(f2d, None, a2d, y2d, v2d, d2d,
+                                              c, False, plan, lib),
+            "b2_comp": lambda lib: fs._fold_launch(f2d, e2d, a2d, y2d, v2d,
+                                                   d2d, c, True, plan, lib)}
+
+    kept = launches(fs.fold_select_plan(rows))
+    want = {k: run(so) for k, run in kept.items()}
+    runs, checks = {}, {}
+    for warps in B23_WARPS:
+        plan = fs.FoldSelectPlan(warps, -(-rows // warps))
+        for k, run in launches(plan).items():
+            name = f"{k} warps={warps}"
+            runs[name] = functools.partial(run, so)
+            checks[name] = all(same_bits(g, w)
+                               for g, w in zip(runs[name](), want[k]))
+    plans_ms = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            plans_ms[name].append(time_cold_ms(runs[name], reps))
+    out = {"plan_checks_ok": checks, "plans_ms": plans_ms,
+           "kept_plan": tuple(fs.fold_select_plan(rows))}
+
+    split = {}
+    for k, run in kept.items():
+        checks[f"{k} stamped"] = all(
+            same_bits(g, w) for g, w in zip(run(stamped), want[k]))
+        one = {"stamped_ms": time_cold_ms(functools.partial(run, stamped),
+                                          reps)}
+        for flush in ("dirty", "clean"):
+            one[flush] = stamp_split(run, stamped, rows, flush,
+                                     max(10, reps // 4))
+        split[k] = one
+    out["split"] = split
+    return out
+
+
+# The engines --turns trains on the headline (B2 and B3's main paths).
+TURNS_ENGINES = ("fused_fold", "pipeline_rounds")
+
+
+def turns_engines(rec: dict, solves: int = 3) -> None:
+    """The headline (60000 x 784, HEADLINE) trained through the package's
+    train() with each of TURNS_ENGINES, after a warm-up solve of each on
+    16384 rows: `solves` solves an engine, the engines alternating, each
+    solve's train_seconds, pairs and rounds added to `rec`."""
+    from dpsvm_tpu_torch import SVMConfig, train
+    from dpsvm_tpu_torch.data.synth import make_mnist_like
+
+    x, y = make_mnist_like(n=60_000, d=784, seed=7, noise=0.1)
+    cfg = SVMConfig(**HEADLINE)
+    for knob in TURNS_ENGINES:
+        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **{knob: True}))
+    for knob in TURNS_ENGINES:
+        rec[f"{knob}_train_seconds"] = []
+    for _ in range(solves):
+        for knob in TURNS_ENGINES:
+            _, res = train(x, y, cfg.replace(**{knob: True}))
+            rec[f"{knob}_train_seconds"].append(res.train_seconds)
+            rec[f"{knob}_pairs"] = res.iterations
+            rec[f"{knob}_rounds"] = res.stats["outer_rounds"]
 
 
 def turns(package, reps: int) -> int:
@@ -1818,11 +2094,17 @@ def turns(package, reps: int) -> int:
     (plain and compensated) with time_cold_ms, beside the timer's floor
     (an empty launch, before and after) and B5's contraction alone through
     cuBLAS (torch.mv); B5 and B6 again back to back with no flush
-    (time_ms) and behind a clean flush (time_clean_ms). For this
-    checkout's package it also times the plans of B6_THREADS and B5_PLANS
-    in two passes, the second in the reverse order, each checked against
-    the kept plan (B6 bitwise; B5 within its tolerance, candidates
-    bitwise). Prints one JSON line."""
+    (time_ms) and behind a clean flush (time_clean_ms). B3, B2 and B2
+    compensated at each of B23_ROWS behind both flushes, warm and in the
+    pair each forms with the kernel ahead of it, with their bytes bound
+    and the wrapper's host us a call (host_us); then the headline's
+    train_seconds with the fused fold and the pipelined engine
+    (turns_engines). For this checkout's package it also times the plans
+    of B6_THREADS, B5_PLANS and B23_WARPS in two passes, the second in
+    the reverse order, each checked against the kept plan (B6, B2 and B3
+    bitwise; B5 within its tolerance, candidates bitwise), and splits B2
+    and B3's time by the stamps of csrc/fold_select.cu (stamp_split,
+    turns_b23_plans). Prints one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1858,12 +2140,16 @@ def turns(package, reps: int) -> int:
     rec["b5_ms"] = time_cold_ms(b5[False], reps)
     rec["b5_comp_ms"] = time_cold_ms(b5[True], reps)
     rec["contraction_ms"] = time_cold_ms(contraction, reps)
+    for rows in B23_ROWS:
+        turns_b23(fs, rows, dev, reps, rec)
     rec["launch_floor_ms_after"] = time_cold_ms(empty, reps)
     rec["b6_warm_ms"] = time_ms(b6, reps)
     rec["b5_warm_ms"] = time_ms(b5[False], reps)
+    rec["launch_floor_warm_ms"] = time_ms(empty, reps)
     for key, fn in (("launch_floor", empty), ("b6", b6), ("b5", b5[False]),
                     ("contraction", contraction)):
         rec[f"{key}_ms_clean_flush"] = time_clean_ms(fn, reps)
+    turns_engines(rec)
     if package:
         print(json.dumps(rec), flush=True)
         return 0
@@ -1902,8 +2188,13 @@ def turns(package, reps: int) -> int:
     rec["plans_ms"] = plans_ms
     rec["kept_plans"] = {"b6": tuple(fu.fused_update_plan(65536)),
                          "b5": tuple(rnd.fold_rows_plan(256, 472))}
+    ok = all(checks.values())
+    for rows in B23_ROWS:
+        b23 = turns_b23_plans(fs, rows, dev, reps)
+        rec[f"b23_{rows}"] = b23
+        ok = ok and all(b23["plan_checks_ok"].values())
     print(json.dumps(rec), flush=True)
-    return 0 if all(checks.values()) else 1
+    return 0 if ok else 1
 
 
 def cli() -> int:
@@ -1913,7 +2204,8 @@ def cli() -> int:
                                  "one CUDA card (no arguments), or kernel "
                                  "timings in turns (--turns).")
     ap.add_argument("--turns", action="store_true",
-                    help="time B5 and B6 only and print one JSON line")
+                    help="time B2, B3, B5 and B6 only and print one JSON "
+                    "line")
     ap.add_argument("--package", default=None,
                     help="with --turns: a directory holding the "
                     "dpsvm_tpu_torch to time")

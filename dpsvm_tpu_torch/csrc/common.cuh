@@ -1,5 +1,6 @@
-// Helpers shared by the port's kernels: (value, id) reductions with the
-// JAX package's tie rules, 16-byte vector access, ops/kernels.py
+// Helpers shared by the port's kernels: orderable keys of float32 values
+// for (value, id) reductions with the JAX package's tie rules, 16-byte
+// vector access (plain, and loads with cache hints), ops/kernels.py
 // kernel_from_dots for one element, shared-memory addresses and limits,
 // and the occupancy query that sizes a persistent or cooperative grid.
 
@@ -13,37 +14,32 @@
 
 namespace {
 
-struct Cand {
-  float v;
-  int i;
-};
-
-// (value, id) reductions. Equal values keep the lowest id; of two equal
-// zeros the minimum keeps -0.0 and the maximum +0.0 (IEEE minimum and
-// maximum, as XLA reduces), so the result does not depend on the order
-// the reduction meets the elements in.
-__device__ __forceinline__ void take_min(Cand& c, float v, int i) {
-  if (v < c.v) {
-    c.v = v;
-    c.i = i;
-  } else if (v == c.v) {
-    if (i < c.i) c.i = i;
-    if (signbit(v)) c.v = v;
-  }
+// f as an unsigned word in the float order, -0.0 and +0.0 on one key:
+// the least key is the least value, and a (key, id) pair reduces by
+// redux.sync (the least key, then the least id holding it). Kernels B2,
+// B3, B5 and B6 select through it; a flag bit a side carries the sign of
+// a +-0 extremum.
+__device__ __forceinline__ unsigned okey(float v) {
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ void take_max(Cand& c, float v, int i) {
-  if (v > c.v) {
-    c.v = v;
-    c.i = i;
-  } else if (v == c.v) {
-    if (i < c.i) c.i = i;
-    if (!signbit(v)) c.v = v;
-  }
+__device__ __forceinline__ float from_okey(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// A read-only 16-byte load that allocates no L1 line and asks L2 to
+// fetch the whole 256-byte stretch around it (data read once).
+__device__ __forceinline__ float4 load4_stream(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {

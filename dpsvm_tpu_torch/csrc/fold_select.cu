@@ -12,22 +12,37 @@
 //       inside the kernel from the (q, n_pad) kernel rows.
 // Each then builds the up/low masks of the already-scattered alpha and
 // emits, per 128-element row, (min f' over I_up, lowest flat id) and
-// (max f' over I_low, lowest flat id).
+// (max f' over I_low, lowest flat id) into one (4, R) buffer of 32-bit
+// words: up values, up ids, low values, low ids.
 //
 // What bounds it on this card: bytes. B2 and B3 move 5-7 and 4 float32
 // words per element and do a handful of flops each; B5 reads the
 // (q, n_pad) kernel rows once (q * 4 bytes per element, ~62 MB at
 // q = 256, n_pad = 60416) for 2 q flops per element, far below the
-// card's ratio of flops to bytes.
+// card's ratio of flops to bytes. At the 60000-row headline B2 and B3
+// move only 1-2 MB in one wave, so their bytes bound is shorter than one
+// DRAM round trip: there they are latency, and at covtype scale
+// (R = 3912, 8-16 MB) the bytes bound binds.
 //
-// B2 and B3 (fold_select_kernel): one warp per row, each lane owning four
-// consecutive elements, so every vector is read with one coalesced
-// 16-byte load per lane and f' / err' are written the same way; the row's
-// extremum is a five-step warp-shuffle reduction, with no shared memory
-// and no barrier. Two rows per 64-thread block give R / 2 blocks: 236 at
-// the 60000-row headline, which leaves 104 of the 132 SMs two rows and 28
-// one.
-//
+// B2 and B3 (fold_select_kernel, launch plan ops/fold_select.py
+// fold_select_plan): one warp per row, each lane owning four consecutive
+// elements, so every vector is read with one coalesced 16-byte load per
+// lane (y and valid first) and f' / err' are written the same way. A
+// lane keeps its best (orderable key, id) a side (common.cuh okey) and
+// one flag bit a side for the sign of a zero; the warp reduces them with
+// five redux.sync (the least key, the least id holding it, the flags),
+// not a chain of dependent shuffles, and lanes 0-3 store the row's four
+// words with one store each. No shared memory and no barrier: blocks of
+// `warps` rows, as many as the rows need. A row's time goes to its
+// loads' DRAM round trip, the reduction and the stores' acknowledgement
+// (PERF.md section 6, from chip_smoke.py --turns stamp_split). The loads
+// allocate no L1 line and prefetch 256 bytes into L2, and every launch
+// is a programmatic dependent launch whose blocks wait
+// (griddepcontrol.wait) for the kernel ahead before any load: the launch
+// and the blocks' dispatch overlap that kernel's tail, and the kernel is
+// safe behind any kernel (in an ordinary launch the wait returns at
+// once).
+
 // B5 (fold_rows_kernel, launch plan ops/round.py fold_rows_plan): one block
 // per 128-column row, whose `warps` warps split the q contraction, warp w
 // taking the contiguous kernel rows [w q / warps, (w + 1) q / warps). Each
@@ -56,10 +71,16 @@
 // (coef 0) adds an exact zero.
 //
 // Ties and edges: values that compare equal go to the lowest flat id,
-// +0.0 and -0.0 included; the value reported for a +-0 tie is -0.0 on the
-// up side and +0.0 on the low side whenever a member has that sign. A row
-// with no member of a set reports +inf (up) / -inf (low) with the row's
-// first flat id. NaN in f is not supported.
+// +0.0 and -0.0 included (okey gives both one key); the value reported
+// for a +-0 tie is -0.0 on the up side and +0.0 on the low side whenever
+// a member has that sign. A row with no member of a set reports +inf
+// (up) / -inf (low) with the row's first flat id. NaN in f is not
+// supported.
+//
+// Built with -DDPSVM_STAMPS (chip_smoke.py --turns), lane 0 of each row's
+// warp writes %globaltimer and clock64 at five points of B2 and B3 (entry,
+// loads landed, reduction done, stores issued, stores acknowledged) into
+// a device array read back by dpsvm_fold_select_stamps.
 
 #include <stdint.h>
 
@@ -68,10 +89,44 @@
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kRowsPerBlock = 2;  // B2 / B3: one warp per row
-constexpr int kThreads = kRowsPerBlock * 32;
+constexpr int kRowWarps = 8;  // B2 / B3: the most rows (warps) a block
 
 enum Mode { kFold = 0, kSelect = 1 };
+
+#ifdef DPSVM_STAMPS
+constexpr int kStampRows = 4096;
+constexpr int kStamps = 5;
+// [row][stamp][globaltimer ns, clock64]
+__device__ unsigned long long dpsvm_fs_stamps[kStampRows * kStamps * 2];
+
+// Stamp k of `row` from lane 0. Both reads are predicated on `dep`, so
+// they issue only once the registers it is computed from (loaded or
+// reduced values) have arrived; a `dep` of 0x7fbfffff reads 0.
+__device__ __forceinline__ void stamp(int row, int lane, int k, unsigned dep) {
+  unsigned long long gt, clk;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0x7fbfffff;\n @p mov.u64 %0, 0;\n"
+      " @!p mov.u64 %0, %%globaltimer;\n}"
+      : "=l"(gt)
+      : "r"(dep)
+      : "memory");
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0x7fbfffff;\n @p mov.u64 %0, 0;\n"
+      " @!p mov.u64 %0, %%clock64;\n}"
+      : "=l"(clk)
+      : "r"(dep)
+      : "memory");
+  if (lane == 0 && row < kStampRows) {
+    dpsvm_fs_stamps[(row * kStamps + k) * 2] = gt;
+    dpsvm_fs_stamps[(row * kStamps + k) * 2 + 1] = clk;
+  }
+}
+#define FS_STAMP(k, dep) stamp(row, lane, k, dep)
+#define FS_FENCE() __threadfence()
+#else
+#define FS_STAMP(k, dep)
+#define FS_FENCE()
+#endif
 
 // The row's inputs a lane holds: its four elements of f, alpha, y, valid
 // and (compensated) err.
@@ -79,61 +134,103 @@ struct RowIn {
   float f[4], a[4], y[4], v[4], e[4];
 };
 
+// B2 / B3's loads: read once, no L1 line, a 256-byte L2 prefetch.
+__device__ __forceinline__ void load_vec(float (&o)[4], const float* p) {
+  unpack(load4_stream(p), o);
+}
+
+// y and valid first, then the state.
+template <bool kComp>
+__device__ __forceinline__ void load_hinted(RowIn& in, const float* f, const float* err,
+                                            const float* alpha, const float* y,
+                                            const float* valid, size_t off) {
+  load_vec(in.y, y + off);
+  load_vec(in.v, valid + off);
+  load_vec(in.f, f + off);
+  load_vec(in.a, alpha + off);
+  if (kComp) load_vec(in.e, err + off);
+}
+
+// B5's loads, issued before its stream of kernel rows.
 template <bool kComp>
 __device__ __forceinline__ void load_row(RowIn& in, const float* f, const float* err,
                                          const float* alpha, const float* y,
                                          const float* valid, size_t off) {
-  unpack(load4(f + off), in.f);
-  unpack(load4(alpha + off), in.a);
   unpack(load4(y + off), in.y);
   unpack(load4(valid + off), in.v);
+  unpack(load4(f + off), in.f);
+  unpack(load4(alpha + off), in.a);
   if (kComp) unpack(load4(err + off), in.e);
 }
 
-// Lane `lane` of the warp that owns row `row`: the masks, the row's
-// (value, id) candidates by a five-step shuffle reduction, lane 0 storing
-// them. fsel: the lane's four values of the gradient the selection sees.
-__device__ __forceinline__ void emit_row(const RowIn& in, const float (&fsel)[4], int id0, int lane,
-                                         int row, float c_pos, float c_neg, float* upv, int* upi,
-                                         float* lov, int* loi) {
-  const float inf = INFINITY;
-  Cand up{inf, INT_MAX};
-  Cand lo{-inf, INT_MAX};
+// The row's four candidate words, the same in every lane of its warp:
+// the least up key and the least id holding it, the least low key
+// (~okey of the value) and its id, and the zero-sign flags.
+struct RowBest {
+  unsigned up_k, up_i, lo_k, lo_i, flags;
+};
+
+// Lane `lane` of the warp that owns a row: the masks and the lane's best
+// (key, id) a side over its four elements (ids id0 .. id0 + 3, met in
+// increasing order, so only a strictly smaller key replaces the best),
+// then the warp's by redux.sync. fsel: the lane's four values of the
+// gradient the selection sees.
+__device__ __forceinline__ RowBest reduce_row(const RowIn& in, const float (&fsel)[4], int id0,
+                                              float c_pos, float c_neg) {
+  unsigned up_k = ~0u, up_i = 0, lo_k = ~0u, lo_i = 0, flags = 0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const bool ok = in.v[e] > 0.0f;
     const bool pos = in.y[e] > 0.0f;
     const bool in_up = ok && (pos ? in.a[e] < c_pos : in.a[e] > 0.0f);
     const bool in_low = ok && (pos ? in.a[e] > 0.0f : in.a[e] < c_neg);
-    take_min(up, in_up ? fsel[e] : inf, id0 + e);
-    take_max(lo, in_low ? fsel[e] : -inf, id0 + e);
+    const unsigned ku = okey(in_up ? fsel[e] : INFINITY);
+    const unsigned kl = ~okey(in_low ? fsel[e] : -INFINITY);
+    if (ku < up_k) {
+      up_k = ku;
+      up_i = (unsigned)(id0 + e);
+    }
+    if (kl < lo_k) {
+      lo_k = kl;
+      lo_i = (unsigned)(id0 + e);
+    }
+    const unsigned bits = __float_as_uint(fsel[e]);
+    flags |= (in_up && bits == 0x80000000u ? 1u : 0u) | (in_low && bits == 0u ? 2u : 0u);
   }
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const float uv = __shfl_xor_sync(0xffffffffu, up.v, s);
-    const int ui = __shfl_xor_sync(0xffffffffu, up.i, s);
-    const float lv = __shfl_xor_sync(0xffffffffu, lo.v, s);
-    const int li = __shfl_xor_sync(0xffffffffu, lo.i, s);
-    take_min(up, uv, ui);
-    take_max(lo, lv, li);
-  }
-  if (lane == 0) {
-    upv[row] = up.v;
-    upi[row] = up.i;
-    lov[row] = lo.v;
-    loi[row] = lo.i;
-  }
+  const unsigned all = 0xffffffffu;
+  RowBest b;
+  b.up_k = __reduce_min_sync(all, up_k);
+  b.lo_k = __reduce_min_sync(all, lo_k);
+  b.up_i = __reduce_min_sync(all, up_k == b.up_k ? up_i : ~0u);
+  b.lo_i = __reduce_min_sync(all, lo_k == b.lo_k ? lo_i : ~0u);
+  b.flags = __reduce_or_sync(all, flags);
+  return b;
+}
+
+// Lanes 0-3 store the row's four words into cand (4, rows): the up value
+// (-0.0 when the least key is zero's and an I_up member is -0.0), its id,
+// the low value (+0.0 only when an I_low member is +0.0), its id.
+__device__ __forceinline__ void store_row(const RowBest& b, int lane, int row, int rows,
+                                          unsigned* cand) {
+  if (lane >= 4) return;
+  float up = from_okey(b.up_k);
+  float lo = from_okey(~b.lo_k);
+  if (up == 0.0f && (b.flags & 1u)) up = -0.0f;
+  if (lo == 0.0f && !(b.flags & 2u)) lo = -0.0f;
+  const unsigned w = lane == 0   ? __float_as_uint(up)
+                     : lane == 1 ? b.up_i
+                     : lane == 2 ? __float_as_uint(lo)
+                                 : b.lo_i;
+  cand[(size_t)lane * rows + row] = w;
 }
 
 // The fold of a lane's four elements, f' = f + delta (the Kahan step when
-// compensated), f' and err' stored; then the row's candidates from f'
-// less err'.
+// compensated), f' and err' stored; fsel gets f' less err', the values
+// the selection sees.
 template <bool kComp>
-__device__ __forceinline__ void fold_emit(const RowIn& in, const float (&dv)[4], size_t off,
-                                          int lane, int row, float* f_out, float* err_out,
-                                          float c_pos, float c_neg, float* upv, int* upi,
-                                          float* lov, int* loi) {
-  float fn[4], fsel[4];
+__device__ __forceinline__ void fold(const RowIn& in, const float (&dv)[4], size_t off,
+                                     float* f_out, float* err_out, float (&fsel)[4]) {
+  float fn[4];
   if (kComp) {
     float en[4];
 #pragma unroll
@@ -153,48 +250,81 @@ __device__ __forceinline__ void fold_emit(const RowIn& in, const float (&dv)[4],
     }
   }
   store4(f_out + off, fn);
-  emit_row(in, fsel, (int)off, lane, row, c_pos, c_neg, upv, upi, lov, loi);
+}
+
+// B5's epilogue: the fold, then the row's candidates from f' less err'.
+template <bool kComp>
+__device__ __forceinline__ void fold_emit(const RowIn& in, const float (&dv)[4], size_t off,
+                                          int lane, int row, int rows, float* f_out,
+                                          float* err_out, float c_pos, float c_neg,
+                                          unsigned* cand) {
+  float fsel[4];
+  fold<kComp>(in, dv, off, f_out, err_out, fsel);
+  store_row(reduce_row(in, fsel, (int)off, c_pos, c_neg), lane, row, rows, cand);
 }
 
 template <int M, bool kComp>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowWarps * 32)
 fold_select_kernel(const float* __restrict__ f, const float* __restrict__ err,
                    const float* __restrict__ alpha, const float* __restrict__ y,
                    const float* __restrict__ valid, const float* __restrict__ delta,
                    float* __restrict__ f_out, float* __restrict__ err_out,
-                   float* __restrict__ upv, int* __restrict__ upi,
-                   float* __restrict__ lov, int* __restrict__ loi, int rows,
-                   float c_pos, float c_neg) {
+                   unsigned* __restrict__ cand, int rows, float c_pos, float c_neg) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;  // warp-uniform
+  FS_STAMP(0, 0u);
   const size_t off = (size_t)row * kLanes + lane * 4;
+  // The kernel ahead has finished and its writes are visible.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   RowIn in;
-  load_row<kComp>(in, f, err, alpha, y, valid, off);
+  load_hinted<kComp>(in, f, err, alpha, y, valid, off);
+  float fsel[4];
   if (M == kSelect) {
-    emit_row(in, in.f, (int)off, lane, row, c_pos, c_neg, upv, upi, lov, loi);
+    FS_STAMP(1, __float_as_uint(in.f[3]) ^ __float_as_uint(in.a[3]) ^
+                    __float_as_uint(in.y[3]) ^ __float_as_uint(in.v[3]));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fsel[e] = in.f[e];
   } else {
     float dv[4];
-    unpack(load4(delta + off), dv);
-    fold_emit<kComp>(in, dv, off, lane, row, f_out, err_out, c_pos, c_neg, upv, upi, lov, loi);
+    load_vec(dv, delta + off);
+    FS_STAMP(1, __float_as_uint(in.f[3]) ^ __float_as_uint(in.a[3]) ^
+                    __float_as_uint(in.y[3]) ^ __float_as_uint(in.v[3]) ^
+                    __float_as_uint(dv[3]) ^ (kComp ? __float_as_uint(in.e[3]) : 0u));
+    fold<kComp>(in, dv, off, f_out, err_out, fsel);
   }
+  const RowBest b = reduce_row(in, fsel, (int)off, c_pos, c_neg);
+  FS_STAMP(2, b.up_k ^ b.up_i ^ b.lo_k ^ b.lo_i ^ b.flags);
+  store_row(b, lane, row, rows, cand);
+  FS_STAMP(3, 0u);
+  FS_FENCE();
+  FS_STAMP(4, 0u);
 }
 
 template <int M>
 int launch(const float* f, const float* err, const float* alpha, const float* y,
            const float* valid, const float* delta, float* f_out, float* err_out,
-           float* upv, int* upi, float* lov, int* loi, int rows, int compensated,
-           float c_pos, float c_neg, void* stream) {
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (compensated) {
-    fold_select_kernel<M, true><<<grid, kThreads, 0, st>>>(
-        f, err, alpha, y, valid, delta, f_out, err_out, upv, upi, lov, loi, rows, c_pos, c_neg);
-  } else {
-    fold_select_kernel<M, false><<<grid, kThreads, 0, st>>>(
-        f, err, alpha, y, valid, delta, f_out, err_out, upv, upi, lov, loi, rows, c_pos, c_neg);
+           unsigned* cand, int rows, int compensated, int warps, int blocks, float c_pos,
+           float c_neg, void* stream) {
+  if (rows < 1 || warps < 1 || warps > kRowWarps || blocks != (rows + warps - 1) / warps) {
+    return (int)cudaErrorInvalidValue;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      compensated ? cudaLaunchKernelEx(&cfg, fold_select_kernel<M, true>, f, err, alpha, y, valid,
+                                       delta, f_out, err_out, cand, rows, c_pos, c_neg)
+                  : cudaLaunchKernelEx(&cfg, fold_select_kernel<M, false>, f, err, alpha, y,
+                                       valid, delta, f_out, err_out, cand, rows, c_pos, c_neg);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -259,9 +389,8 @@ fold_rows_kernel(const float* __restrict__ k_rows, const float* __restrict__ coe
                  const float* __restrict__ f, const float* __restrict__ err,
                  const float* __restrict__ alpha, const float* __restrict__ y,
                  const float* __restrict__ valid, float* __restrict__ f_out,
-                 float* __restrict__ err_out, float* __restrict__ upv, int* __restrict__ upi,
-                 float* __restrict__ lov, int* __restrict__ loi, int q, int rows, int chunk,
-                 int stages, float c_pos, float c_neg) {
+                 float* __restrict__ err_out, unsigned* __restrict__ cand, int q, int rows,
+                 int chunk, int stages, float c_pos, float c_neg) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -338,41 +467,51 @@ fold_rows_kernel(const float* __restrict__ k_rows, const float* __restrict__ coe
     dv[2] += p.z;
     dv[3] += p.w;
   }
-  fold_emit<kComp>(in, dv, off, lane, row, f_out, err_out, c_pos, c_neg, upv, upi, lov, loi);
+  fold_emit<kComp>(in, dv, off, lane, row, rows, f_out, err_out, c_pos, c_neg, cand);
 }
 
 template <bool kComp>
 int launch_rows(const float* k_rows, const float* coef, const float* f, const float* err,
                 const float* alpha, const float* y, const float* valid, float* f_out,
-                float* err_out, float* upv, int* upi, float* lov, int* loi, int q, int rows,
-                int warps, int chunk, int stages, int smem, float c_pos, float c_neg,
-                cudaStream_t st) {
+                float* err_out, unsigned* cand, int q, int rows, int warps, int chunk,
+                int stages, int smem, float c_pos, float c_neg, cudaStream_t st) {
   const cudaError_t e = allow_smem((const void*)fold_rows_kernel<kComp>);
   if (e != cudaSuccess) return (int)e;
   fold_rows_kernel<kComp><<<rows, warps * 32, smem, st>>>(k_rows, coef, f, err, alpha, y, valid,
-                                                          f_out, err_out, upv, upi, lov, loi, q,
-                                                          rows, chunk, stages, c_pos, c_neg);
+                                                          f_out, err_out, cand, q, rows, chunk,
+                                                          stages, c_pos, c_neg);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The views (R, 128) float32, 16-byte aligned; cand (4, rows) 32-bit
+// words; the launch plan (warps, blocks) of ops/fold_select.py
+// fold_select_plan, checked here: 1 <= warps <= 8 and blocks the rows'
+// ceil(rows / warps).
 extern "C" int dpsvm_fold_select(const float* f, const float* err, const float* alpha,
                                  const float* y, const float* valid, const float* delta,
-                                 float* f_out, float* err_out, float* upv, int* upi,
-                                 float* lov, int* loi, int rows, int compensated,
-                                 float c_pos, float c_neg, void* stream) {
-  return launch<kFold>(f, err, alpha, y, valid, delta, f_out, err_out, upv, upi, lov, loi,
-                       rows, compensated, c_pos, c_neg, stream);
+                                 float* f_out, float* err_out, unsigned* cand, int rows,
+                                 int compensated, int warps, int blocks, float c_pos,
+                                 float c_neg, void* stream) {
+  return launch<kFold>(f, err, alpha, y, valid, delta, f_out, err_out, cand, rows, compensated,
+                       warps, blocks, c_pos, c_neg, stream);
 }
 
 extern "C" int dpsvm_select_rows(const float* f, const float* alpha, const float* y,
-                                 const float* valid, float* upv, int* upi, float* lov,
-                                 int* loi, int rows, float c_pos, float c_neg,
-                                 void* stream) {
-  return launch<kSelect>(f, nullptr, alpha, y, valid, nullptr, nullptr, nullptr, upv, upi,
-                         lov, loi, rows, 0, c_pos, c_neg, stream);
+                                 const float* valid, unsigned* cand, int rows, int warps,
+                                 int blocks, float c_pos, float c_neg, void* stream) {
+  return launch<kSelect>(f, nullptr, alpha, y, valid, nullptr, nullptr, nullptr, cand, rows, 0,
+                         warps, blocks, c_pos, c_neg, stream);
 }
+
+#ifdef DPSVM_STAMPS
+// The stamps of the rows below 4096 (kStampRows x 5 x 2 words), copied
+// into `out` (host memory) once the device is idle.
+extern "C" int dpsvm_fold_select_stamps(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, dpsvm_fs_stamps, sizeof(dpsvm_fs_stamps));
+}
+#endif
 
 // k_rows (q, rows * 128) and the views 16-byte aligned; the launch plan
 // (warps, chunk, stages, smem) of ops/round.py fold_rows_plan, checked
@@ -382,8 +521,7 @@ extern "C" int dpsvm_fold_rows_select(const float* k_rows, const float* coef,
                                       const float* f, const float* err,
                                       const float* alpha, const float* y,
                                       const float* valid, float* f_out, float* err_out,
-                                      float* upv, int* upi, float* lov, int* loi,
-                                      int q, int rows, int compensated, int warps,
+                                      unsigned* cand, int q, int rows, int compensated, int warps,
                                       int chunk, int stages, int smem, float c_pos,
                                       float c_neg, void* stream) {
   if (rows < 1 || q < 1 || q > kMaxQ || warps < 1 || warps > kMaxWarps || warps > q ||
@@ -392,6 +530,6 @@ extern "C" int dpsvm_fold_rows_select(const float* k_rows, const float* coef,
     return (int)cudaErrorInvalidValue;
   }
   auto* fn = compensated ? &launch_rows<true> : &launch_rows<false>;
-  return fn(k_rows, coef, f, err, alpha, y, valid, f_out, err_out, upv, upi, lov, loi, q, rows,
-            warps, chunk, stages, smem, c_pos, c_neg, (cudaStream_t)stream);
+  return fn(k_rows, coef, f, err, alpha, y, valid, f_out, err_out, cand, q, rows, warps, chunk,
+            stages, smem, c_pos, c_neg, (cudaStream_t)stream);
 }

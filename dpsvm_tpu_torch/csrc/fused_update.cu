@@ -63,16 +63,6 @@ struct Words {
   unsigned arrived;       // blocks that have posted this launch
 };
 
-// f as an unsigned word in the float order, -0.0 and +0.0 on one key.
-__device__ __forceinline__ unsigned okey(float v) {
-  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_okey(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
 __device__ __forceinline__ unsigned long long pack(unsigned key, unsigned id) {
   return ((unsigned long long)key << 32) | id;
 }

@@ -42,8 +42,12 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _lib_path(name: str, defines=()) -> str:
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     # The source and every shared header (csrc/*.cuh) it may include.
     for fname in [f"{name}.cu"] + sorted(
             f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
@@ -52,18 +56,20 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names) -> dict:
+def build(names, defines=()) -> dict:
     """Compile every named source not built yet, one nvcc process each,
-    all started together. Returns {name: ptxas report}; raises
-    RuntimeError with the compiler's output when a build fails."""
+    all started together, with the macros `defines` (e.g. DPSVM_STAMPS:
+    csrc/fold_select.cu's timing stamps) set. Returns {name: ptxas
+    report}; raises RuntimeError with the compiler's output when a build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [_nvcc(), *_flags(defines), "-o", tmp,
                os.path.join(CSRC_DIR, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -82,12 +88,14 @@ def build(names) -> dict:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu built with the macros
+    `defines`, built first if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(_lib_path(name))
-            _libs[name] = lib
+            build([name], defines)
+            lib = ctypes.CDLL(_lib_path(name, defines))
+            _libs[key] = lib
         return lib

@@ -18,9 +18,12 @@ W and the emitted extrema are exact; only mid-rank recall differs from
 
 ``fold_select`` (B2) and ``select_rows`` (B3, the pre-fold variant with
 no delta and no write-back) launch the Hopper kernels of
-csrc/fold_select.cu for CUDA tensors and run their plain PyTorch versions
-``_fold_select`` / ``_select_rows`` for CPU tensors; any other device
-raises. Each counts its kernel launches in ``.launches``.
+csrc/fold_select.cu for CUDA tensors, split by ``fold_select_plan``, and
+run their plain PyTorch versions ``_fold_select`` / ``_select_rows`` for
+CPU tensors; any other device raises. Each counts its kernel launches in
+``.launches``. The kernels write the four candidate arrays into one
+(4, R) buffer of 32-bit words; the wrappers return its rows as float32
+values and int32 ids.
 
 Empty rows and signed zeros: a row with no member of a set reports
 +inf (up) / -inf (low) with the row's FIRST flat id, as the JAX package's
@@ -35,6 +38,8 @@ kernel alike). NaN in f is not supported.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -105,56 +110,104 @@ def _select_rows(f2d, alpha2d, y2d, valid2d, c):
 def check_views(*views) -> torch.device:
     """Every (R, 128) view: float32, contiguous, one device, and (for the
     kernels' 16-byte loads) 16-byte aligned. Returns the device."""
-    shape = views[0].shape
-    dev = views[0].device
+    first = views[0]
+    shape = first.shape
+    dev = first.device
     if len(shape) != 2 or shape[1] != LANES or shape[0] < 1:
         raise ValueError(f"views must be (R, {LANES}), got {tuple(shape)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     for v in views:
-        if (v.shape != shape or v.dtype != torch.float32 or v.device != dev
+        if (v.shape != shape or v.dtype is not torch.float32
+                or (v is not first and v.device != dev)
                 or not v.is_contiguous()):
             raise ValueError(
                 f"views must all be contiguous {tuple(shape)} float32 on "
                 f"{dev}, got {tuple(v.shape)} {v.dtype} on {v.device}")
-        if dev.type == "cuda" and v.data_ptr() % 16:
-            raise ValueError("views must be 16-byte aligned")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and any(v.data_ptr() % 16 for v in views):
+        raise ValueError("views must be 16-byte aligned")
     return dev
 
 
-def c_consts(c) -> list:
+@functools.lru_cache(maxsize=64)
+def c_consts(c) -> tuple:
     """(c_pos, c_neg) as the float32 values the masks compare against."""
-    return [float(np.float32(v)) for v in split_c(c)]
+    return tuple(float(np.float32(v)) for v in split_c(c))
 
 
 def cand_outputs(rows: int, dev) -> tuple:
-    """Empty (upv, upi, lov, loi) buffers for a kernel to fill."""
-    fv = torch.empty(rows, dtype=torch.float32, device=dev)
-    iv = torch.empty(rows, dtype=torch.int32, device=dev)
-    return fv, iv, torch.empty_like(fv), torch.empty_like(iv)
+    """(upv, upi, lov, loi) for a kernel to fill: the rows of one (4, R)
+    buffer of 32-bit words, values viewed as float32 and ids as int32.
+    Returns (buffer, (upv, upi, lov, loi))."""
+    buf = torch.empty((4, rows), dtype=torch.int32, device=dev)
+    upv, upi, lov, loi = buf.unbind(0)
+    return buf, (upv.view(torch.float32), upi, lov.view(torch.float32), loi)
 
 
-def lib() -> ctypes.CDLL:
-    """csrc/fold_select.cu, built at first use, with typed entry points."""
-    from dpsvm_tpu_torch.ops import _build
+class FoldSelectPlan(NamedTuple):
+    """Kernels B2 and B3's launch: `blocks` blocks of `warps` warps, warp w
+    of block b taking the 128-element row b warps + w (one row a warp,
+    four elements a lane)."""
+    warps: int
+    blocks: int
 
-    so = _build.load("fold_select")
+
+def fold_select_plan(rows: int) -> FoldSelectPlan:
+    """B2 and B3's launch for `rows` 128-element rows: blocks of one warp,
+    one row each (472 blocks at the 60000-row headline, 3912 at covtype
+    scale, all resident at once on the 132 SMs: up to 32 a SM). Larger
+    blocks time the same (PERF.md section 6). csrc/fold_select.cu checks
+    the plan it is given (1-8 warps a block, ceil(rows / warps)
+    blocks)."""
+    if rows < 1:
+        raise ValueError(f"fold_select takes at least one row, got {rows}")
+    return FoldSelectPlan(1, rows)
+
+
+class _Lib(NamedTuple):
+    """csrc/fold_select.cu's typed entry points (stamps: the timing
+    build's reader, else None)."""
+    fold_select: object
+    select_rows: object
+    fold_rows_select: object
+    stamps: object
+
+
+def bind(so: ctypes.CDLL) -> _Lib:
+    """Type the entry points of a build of csrc/fold_select.cu."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        # f, err, alpha, y, valid, delta, f_out, err_out, 4 cands
-        "dpsvm_fold_select": [ptr] * 12 + [i32, i32, f32, f32, ptr],
-        # f, alpha, y, valid, 4 cands
-        "dpsvm_select_rows": [ptr] * 8 + [i32, f32, f32, ptr],
-        # k_rows, coef, f, err, alpha, y, valid, f_out, err_out, 4 cands;
+        # f, err, alpha, y, valid, delta, f_out, err_out, cand; rows,
+        # compensated, the plan (warps, blocks)
+        "dpsvm_fold_select": [ptr] * 9 + [i32] * 4 + [f32, f32, ptr],
+        # f, alpha, y, valid, cand; rows, the plan
+        "dpsvm_select_rows": [ptr] * 5 + [i32] * 3 + [f32, f32, ptr],
+        # k_rows, coef, f, err, alpha, y, valid, f_out, err_out, cand;
         # q, rows, compensated, the plan (warps, chunk, stages, smem)
-        "dpsvm_fold_rows_select": [ptr] * 13 + [i32] * 7 + [f32, f32, ptr],
+        "dpsvm_fold_rows_select": [ptr] * 10 + [i32] * 7 + [f32, f32, ptr],
+        "dpsvm_fold_select_stamps": [ptr],
     }
+    fns = []
     for name, argtypes in sigs.items():
-        fn = getattr(so, name)
-        if fn.argtypes is None:
+        fn = getattr(so, name, None)
+        if fn is not None:
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
-    return so
+        fns.append(fn)
+    return _Lib(*fns)
+
+
+_lib = None
+
+
+def lib() -> _Lib:
+    """csrc/fold_select.cu, built at first use and bound once."""
+    global _lib
+    if _lib is None:
+        from dpsvm_tpu_torch.ops import _build
+
+        _lib = bind(_build.load("fold_select"))
+    return _lib
 
 
 def raise_on(err: int, what: str) -> None:
@@ -162,8 +215,33 @@ def raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _fold_launch(f2d, err2d, alpha2d, y2d, valid2d, delta2d, c,
+                 compensated: bool, plan: FoldSelectPlan, so: _Lib):
+    """Kernel B2 on checked CUDA views with the launch plan `plan`."""
+    rows = f2d.shape[0]
+    f_out = torch.empty_like(f2d)
+    err_out = torch.empty_like(f2d) if compensated else None
+    buf, cands = cand_outputs(rows, f2d.device)
+    raise_on(so.fold_select(
+        f2d.data_ptr(), err2d.data_ptr() if compensated else None,
+        alpha2d.data_ptr(), y2d.data_ptr(), valid2d.data_ptr(),
+        delta2d.data_ptr(), f_out.data_ptr(),
+        err_out.data_ptr() if compensated else None, buf.data_ptr(), rows,
+        compensated, *plan, *c_consts(c),
+        torch.cuda.current_stream(f2d.device).cuda_stream), "fold_select")
+    return (f_out, err_out, *cands)
+
+
+def _select_launch(f2d, alpha2d, y2d, valid2d, c, plan: FoldSelectPlan,
+                   so: _Lib):
+    """Kernel B3 on checked CUDA views with the launch plan `plan`."""
+    rows = f2d.shape[0]
+    buf, cands = cand_outputs(rows, f2d.device)
+    raise_on(so.select_rows(
+        f2d.data_ptr(), alpha2d.data_ptr(), y2d.data_ptr(),
+        valid2d.data_ptr(), buf.data_ptr(), rows, *plan, *c_consts(c),
+        torch.cuda.current_stream(f2d.device).cuda_stream), "select_rows")
+    return cands
 
 
 def fold_select(f2d, err2d, alpha2d, y2d, valid2d, delta2d, c,
@@ -174,24 +252,17 @@ def fold_select(f2d, err2d, alpha2d, y2d, valid2d, delta2d, c,
     All arrays are (R, 128) float32 views; err2d is None unless
     compensated. Returns (f_new2d, err_new2d or None, up_vals, up_ids,
     low_vals, low_ids), one candidate per 128-element row."""
-    ins = (f2d, alpha2d, y2d, valid2d, delta2d)
-    dev = check_views(*ins, *((err2d,) if compensated else ()))
+    if compensated:
+        dev = check_views(f2d, alpha2d, y2d, valid2d, delta2d, err2d)
+    else:
+        dev = check_views(f2d, alpha2d, y2d, valid2d, delta2d)
     if dev.type == "cpu":
         return _fold_select(f2d, err2d, alpha2d, y2d, valid2d, delta2d, c,
                             compensated)
-    rows = f2d.shape[0]
-    f_out = torch.empty_like(f2d)
-    err_out = torch.empty_like(f2d) if compensated else None
-    cands = cand_outputs(rows, dev)
-    raise_on(lib().dpsvm_fold_select(
-        f2d.data_ptr(), _ptr(err2d if compensated else None),
-        alpha2d.data_ptr(), y2d.data_ptr(), valid2d.data_ptr(),
-        delta2d.data_ptr(), f_out.data_ptr(), _ptr(err_out),
-        *(t.data_ptr() for t in cands), rows, int(compensated),
-        *c_consts(c), torch.cuda.current_stream(dev).cuda_stream),
-        "fold_select")
+    out = _fold_launch(f2d, err2d, alpha2d, y2d, valid2d, delta2d, c,
+                       compensated, fold_select_plan(f2d.shape[0]), lib())
     fold_select.launches += 1
-    return (f_out, err_out, *cands)
+    return out
 
 
 def select_rows(f2d, alpha2d, y2d, valid2d, c):
@@ -201,14 +272,10 @@ def select_rows(f2d, alpha2d, y2d, valid2d, c):
     dev = check_views(f2d, alpha2d, y2d, valid2d)
     if dev.type == "cpu":
         return _select_rows(f2d, alpha2d, y2d, valid2d, c)
-    cands = cand_outputs(f2d.shape[0], dev)
-    raise_on(lib().dpsvm_select_rows(
-        f2d.data_ptr(), alpha2d.data_ptr(), y2d.data_ptr(),
-        valid2d.data_ptr(), *(t.data_ptr() for t in cands), f2d.shape[0],
-        *c_consts(c), torch.cuda.current_stream(dev).cuda_stream),
-        "select_rows")
+    out = _select_launch(f2d, alpha2d, y2d, valid2d, c,
+                         fold_select_plan(f2d.shape[0]), lib())
     select_rows.launches += 1
-    return cands
+    return out
 
 
 #: Kernel launches (CPU calls never count). A caller that proves a path

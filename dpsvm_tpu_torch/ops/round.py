@@ -260,13 +260,13 @@ def _fold_rows_launch(k_rows, coef, f2d, err2d, alpha2d, y2d, valid2d, c,
     rows = f2d.shape[0]
     f_out = torch.empty_like(f2d)
     err_out = torch.empty_like(f2d) if compensated else None
-    cands = fs.cand_outputs(rows, dev)
-    fs.raise_on(fs.lib().dpsvm_fold_rows_select(
+    buf, cands = fs.cand_outputs(rows, dev)
+    fs.raise_on(fs.lib().fold_rows_select(
         k_rows.data_ptr(), coef.data_ptr(), f2d.data_ptr(),
         err2d.data_ptr() if compensated else None, alpha2d.data_ptr(),
         y2d.data_ptr(), valid2d.data_ptr(), f_out.data_ptr(),
         None if err_out is None else err_out.data_ptr(),
-        *(t.data_ptr() for t in cands), coef.shape[0], rows,
+        buf.data_ptr(), coef.shape[0], rows,
         int(compensated), *plan[:4], *fs.c_consts(c),
         torch.cuda.current_stream(dev).cuda_stream), "fold_rows_select")
     return (f_out, err_out, *cands)

@@ -318,17 +318,22 @@ class PipelinedCand(NamedTuple):
 
 def prefetch_working_set(x, y, x_sq, k_diag, f, alpha, valid, kp, c,
                          q: int, selection: str,
-                         pallas_select: bool = False) -> PipelinedCand:
+                         pallas_select: bool = False,
+                         valid2d=None) -> PipelinedCand:
     """Select the NEXT round's working set from (f, alpha) and stage its
     rows and Gram block: a function of the pre-fold carry only.
     pallas_select=True selects with the one-pass candidate kernel
     (select_rows + assemble_working_set), which needs the fused path's
-    padding contract (n % 1024 == 0 with `valid`, q/2 <= n/128)."""
+    padding contract (n % 1024 == 0 with `valid`, q/2 <= n/128) and reads
+    `valid` from `valid2d`: float32 (n/128, 128) views that the caller
+    makes once and passes to every prefetch."""
     if pallas_select:
-        shp = (y.shape[0] // LANES, LANES)
+        if valid2d is None:
+            raise ValueError("pallas_select=True needs valid2d: `valid` "
+                             "as float32 (n/128, 128) views")
+        shp = valid2d.shape
         upv, upi, lov, loi = select_rows(
-            f.view(shp), alpha.view(shp), y.view(shp),
-            valid.float().view(shp), c)
+            f.view(shp), alpha.view(shp), y.view(shp), valid2d, c)
         w, ok, b_hi, b_lo = assemble_working_set(upv, upi, lov, loi, q // 2)
     else:
         w, ok, b_hi, b_lo = select_block(f, alpha, y, c, q, valid=valid,
@@ -356,10 +361,13 @@ def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
     sees the exact gradient: staleness can waste a round but never
     cycle, and the loop exits only on extrema of a gradient the exiting
     round did not change."""
+    valid2d = (valid.float().view(-1, LANES) if pallas_select else None)
+
     def prefetch(f, alpha):
         return prefetch_working_set(x, y, x_sq, k_diag, f, alpha, valid,
                                     kp, c, q, selection,
-                                    pallas_select=pallas_select)
+                                    pallas_select=pallas_select,
+                                    valid2d=valid2d)
 
     cand = prefetch(eff_f(state), state.alpha)
     state = state._replace(b_hi=cand.b_hi, b_lo=cand.b_lo)

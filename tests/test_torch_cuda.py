@@ -177,16 +177,57 @@ def _same_bits(a, b):
     return torch.equal(a, b)
 
 
+def _edge_views(dev, rows, seed, c):
+    """_views with B2 and B3's edges planted, as far as `rows` reaches:
+    row 0 has +-0 ties on the up side across lanes (+0.0 in lane 1, -0.0
+    in lanes 17 and 30, everything else above zero), row 1 on the low
+    side (-0.0 in lane 3, +0.0 in lane 20, everything else below zero),
+    row 2 only -0.0 on the low side; row 3 has no I_up member, row 4 no
+    I_low member, row 5 is all padding; rows 6 and 7 share their
+    extremum (ties across the rows a block holds); the last 150 elements
+    are padding. delta is -0.0 on rows 0-2, so f' keeps the zeros'
+    signs."""
+    f, err, alpha, y, valid, delta = _views(dev, rows, seed, c)
+    cp = c[0] if isinstance(c, tuple) else c
+    plant = {0: ([4, 68, 120], [0.0, -0.0, -0.0], 1.0),
+             1: ([12, 80], [-0.0, 0.0], -1.0),
+             2: ([8, 9], [-0.0, -0.0], -1.0)}
+    for r, (cols, zeros, sign) in plant.items():
+        if r >= rows:
+            continue
+        f[r] = sign * (1.0 + f[r].abs())
+        alpha[r] = 0.5 * min(cp, 0.5)  # inside the box: both sets
+        err[r] = 0.0
+        delta[r] = -0.0
+        f[r, cols] = torch.tensor(zeros, device=dev)
+        valid[r] = 1.0
+    if rows > 4:
+        y[3:5] = 1.0
+        alpha[3] = cp  # y = +1 at C: in no I_up
+        alpha[4] = 0.0  # y = +1 at 0: in no I_low
+        valid[3:5] = 1.0
+    if rows > 5:
+        valid[5] = 0.0
+    if rows > 7:
+        f[6:8] = 3.0
+        f[6:8, 40:] = -3.0
+        valid[6:8] = 1.0
+        alpha[6:8] = 0.5 * min(cp, 0.5)
+    return f, err, alpha, y, valid, delta
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("compensated", [False, True])
-@pytest.mark.parametrize("rows", [1, 37, 472])
+@pytest.mark.parametrize("rows", [1, 37, 472, 3912])
 @pytest.mark.parametrize("c", [1.0, (2.0, 0.5)])
 def test_fold_select_and_select_rows_kernels_bitwise(cuda, rows,
                                                      compensated, c):
     """B2 and B3 against their plain versions on the same CUDA tensors,
     bit for bit (one Kahan step or one add per element, comparisons
-    only). rows 1 and 37 leave a block half empty."""
-    f, err, alpha, y, valid, delta = _views(cuda, rows, rows, c)
+    only), at 1 row, 37, the headline's 472 and covtype scale's 3912, on
+    views with +-0 ties across lanes, rows with no up or no low member,
+    ties across rows and padded rows (_edge_views)."""
+    f, err, alpha, y, valid, delta = _edge_views(cuda, rows, rows, c)
     tfs.fold_select.launches = tfs.select_rows.launches = 0
     got = tfs.fold_select(f, err, alpha, y, valid, delta, c,
                           compensated=compensated)
@@ -197,6 +238,46 @@ def test_fold_select_and_select_rows_kernels_bitwise(cuda, rows,
     assert all(_same_bits(g, w) for g, w in zip(got, want))
     assert all(_same_bits(g, w) for g, w in
                zip(sel, tfs._select_rows(f, alpha, y, valid, c)))
+    if rows > 5:  # the planted edges reached the kernels' output
+        up_vals, up_ids, low_vals, low_ids = sel
+        assert float(up_vals[0]) == 0.0 and torch.signbit(up_vals[0])
+        assert int(up_ids[0]) == 4
+        assert float(low_vals[1]) == 0.0 and not torch.signbit(low_vals[1])
+        assert int(low_ids[1]) == 128 + 12
+        assert torch.signbit(low_vals[2]) and int(low_ids[2]) == 256 + 8
+        assert float(up_vals[3]) == np.inf and int(up_ids[3]) == 3 * 128
+        assert float(low_vals[4]) == -np.inf and int(low_ids[4]) == 4 * 128
+        assert float(up_vals[5]) == np.inf and int(low_ids[5]) == 5 * 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("rows", [1, 37, 473, 3912])
+def test_fold_select_every_plan_matches_the_kept_one(cuda, rows,
+                                                     compensated):
+    """Every B2 / B3 launch plan (ops/fold_select.py FoldSelectPlan: warps
+    a block 1, 2, 3, 4 and 8) covers every row once and gives B2's and
+    B3's outputs bitwise those of the kept plan (fold_select_plan) and of
+    the plain versions."""
+    c = (2.0, 0.5)
+    f, err, alpha, y, valid, delta = _edge_views(cuda, rows, 7 * rows, c)
+    so = tfs.lib()
+    kept = tfs.fold_select_plan(rows)
+    want2 = tfs._fold_launch(f, err, alpha, y, valid, delta, c, compensated,
+                             kept, so)
+    want3 = tfs._select_launch(f, alpha, y, valid, c, kept, so)
+    plain2 = tfs._fold_select(f, err, alpha, y, valid, delta, c, compensated)
+    plain3 = tfs._select_rows(f, alpha, y, valid, c)
+    assert all(_same_bits(g, w) for g, w in zip(want2, plain2))
+    assert all(_same_bits(g, w) for g, w in zip(want3, plain3))
+    for warps in (1, 2, 3, 4, 8):
+        plan = tfs.FoldSelectPlan(warps, -(-rows // warps))
+        got2 = tfs._fold_launch(f, err, alpha, y, valid, delta, c,
+                                compensated, plan, so)
+        got3 = tfs._select_launch(f, alpha, y, valid, c, plan, so)
+        torch.cuda.synchronize()
+        assert all(_same_bits(g, w) for g, w in zip(got2, want2)), plan
+        assert all(_same_bits(g, w) for g, w in zip(got3, want3)), plan
 
 
 @pytest.mark.cuda

@@ -101,6 +101,68 @@ def test_block_pair_batch_solve_matches_jax(blobs_small, pair_batch, kw):
     assert abs(rt.iterations - rj.iterations) <= 0.25 * rj.iterations
 
 
+@pytest.mark.parametrize("compensated", [False, True])
+def test_pipelined_select_makes_the_float_valid_once(blobs_small,
+                                                     monkeypatch,
+                                                     compensated):
+    """The pipelined engine's candidate selection (pallas_select=True)
+    converts `valid` to float32 once per chunk and hands that one tensor
+    to every select_rows call. Its result is bitwise the one of a chunk
+    whose every select_rows call gets a float32 `valid` made afresh;
+    test_pipelined_pallas_select_chunk_matches_jax holds the same chunk
+    against the JAX package. A prefetch
+    asked for the candidate kernel without the float views raises."""
+    x, y = blobs_small
+    xp, yp, valid = _padded_problem(x, y, 1024, 0.1)
+    tkp = KernelParams("rbf", 0.1)
+    tx, ty, tv = map(torch.as_tensor, (xp, yp, valid))
+    tsq = (tx * tx).sum(dim=1)
+    tkd = kernel_diag(tsq, tkp)
+    zt = torch.zeros((), dtype=torch.int32)
+    seen = []
+    real = tblock.select_rows
+
+    def spy(f2d, alpha2d, y2d, valid2d, c):
+        seen.append(valid2d)
+        return real(f2d, alpha2d, y2d, valid2d, c)
+
+    def fresh(f2d, alpha2d, y2d, valid2d, c):
+        made = tv.float().view(-1, 128)
+        seen.append(made)
+        return real(f2d, alpha2d, y2d, made, c)
+
+    def chunk():
+        st = tblock.BlockState(torch.zeros(1024), -ty,
+                               torch.tensor(-np.inf), torch.tensor(np.inf),
+                               zt, zt,
+                               torch.zeros(1024) if compensated else None)
+        return tblock.run_chunk_block_pipelined(
+            tx, ty, tsq, tkd, tv, st, 100_000, tkp, 1.0, 1e-3, 1e-12, 16,
+            32, pallas_select=True)
+
+    monkeypatch.setattr(tblock, "select_rows", spy)
+    once = chunk()
+    assert int(once.rounds) > 1
+    assert len(seen) == int(once.rounds) + 1
+    assert all(v is seen[0] for v in seen)
+    assert seen[0].dtype == torch.float32 and seen[0].shape == (8, 128)
+    monkeypatch.setattr(tblock, "select_rows", fresh)
+    seen.clear()
+    every = chunk()
+    assert len({id(v) for v in seen}) == len(seen) == int(every.rounds) + 1
+    for a, b in zip(once, every):
+        if a is None:
+            assert b is None
+            continue
+        np.testing.assert_array_equal(
+            np.atleast_1d(np.asarray(a)).view(np.uint8),
+            np.atleast_1d(np.asarray(b)).view(np.uint8))
+    with pytest.raises(ValueError, match="valid2d"):
+        tblock.prefetch_working_set(tx, ty, tsq, tkd, -ty,
+                                    torch.zeros(1024), tv, tkp, 1.0, 16,
+                                    "mvp", pallas_select=True)
+
+
 @pytest.mark.parametrize("knob", ["fused_fold", "fused_round"])
 def test_budget_mode_runs_exact_pairs(blobs_medium, knob):
     x, y = blobs_medium
@@ -175,7 +237,8 @@ def test_pipelined_pallas_select_chunk_matches_jax(blobs_small):
                                      interpret=True)
     tc = tblock.prefetch_working_set(tx, ty, tsq, tkd, -ty,
                                      torch.zeros(1024), tv, tkp, 1.0, q,
-                                     "mvp", pallas_select=True)
+                                     "mvp", pallas_select=True,
+                                     valid2d=tv.float().view(-1, 128))
     np.testing.assert_array_equal(tc.w.numpy(), np.asarray(jc.w))
     np.testing.assert_array_equal(tc.ok.numpy(), np.asarray(jc.ok))
     assert (float(tc.b_hi), float(tc.b_lo)) == (float(jc.b_hi),

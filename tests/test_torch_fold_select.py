@@ -8,6 +8,8 @@ bits, so -0.0 and +0.0 differ), and so is the assembled working set
 (w, slot_ok, b_hi, b_lo): the fold is one add or one Kahan step per
 element and the selection is comparisons only."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -214,3 +216,106 @@ def test_bad_views_and_devices_raise():
     meta = [torch.empty((8, LANES), device="meta") for _ in range(5)]
     with pytest.raises(ValueError, match="unsupported device"):
         tfs.fold_select(meta[0], None, *meta[1:], 1.0)
+
+
+def plan(rows: int, warps: int = 1):
+    """A B2 / B3 launch plan of `warps` rows a block: the kept one
+    (ops/fold_select.py fold_select_plan) or one of those chip_smoke.py
+    --turns times beside it."""
+    return tfs.FoldSelectPlan(warps, -(-rows // warps))
+
+
+def _plan_ok(p, rows: int) -> bool:
+    """A B2 / B3 launch plan as csrc/fold_select.cu maps it: thread t of
+    block b works on row b * warps + t // 32 and returns when that row is
+    past the last. Every row is taken by exactly one warp, every lane of
+    a warp takes the same row (so the exit is warp-uniform and redux.sync
+    sees the full warp), no block is without a row, and a block fits the
+    kernel's bounds. The kernel uses no shared memory, so it is within
+    the 227 KB a block may have at any plan."""
+    threads = p.warps * 32
+    t = np.arange(p.blocks * threads)
+    row = (t // threads) * p.warps + (t % threads) // 32
+    live = row < rows
+    hits = np.bincount(row[live], minlength=rows) // 32
+    per_warp = row.reshape(-1, 32)
+    return (bool((hits == 1).all())
+            and bool((per_warp == per_warp[:, :1]).all())
+            and bool((live.reshape(-1, 32) == live.reshape(-1, 32)[:, :1])
+                     .all())
+            and bool((np.arange(p.blocks) * p.warps < rows).all())
+            and 1 <= p.warps <= 8 and threads <= 1024)
+
+
+ROWS = list(range(1, 300)) + [472, 473, 3911, 3912, 4097]
+
+
+def test_fold_select_plan_covers_every_row_once():
+    bad = [r for r in ROWS if not _plan_ok(tfs.fold_select_plan(r), r)]
+    assert not bad, bad[:5]
+
+
+@pytest.mark.parametrize("warps", [2, 3, 4, 8])
+def test_other_plans_cover_every_row_once(warps):
+    """The plans chip_smoke.py --turns times beside the kept one."""
+    bad = [r for r in ROWS if not _plan_ok(plan(r, warps), r)]
+    assert not bad, bad[:5]
+
+
+def test_fold_select_plan_at_the_main_path_shapes():
+    """The kept plan: one-warp blocks, one row each; 472 blocks at the
+    60000-row headline and 3912 at covtype scale (500000 rows)."""
+    assert tfs.fold_select_plan(472) == (1, 472)
+    assert tfs.fold_select_plan(3912) == (1, 3912)
+    with pytest.raises(ValueError):
+        tfs.fold_select_plan(0)
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+def test_candidate_buffer_rows_are_the_plain_candidates(compensated):
+    """cand_outputs: the four candidate tensors are the rows of one (4, R)
+    buffer of 32-bit words, word k of row r at k * R + r. Written in that
+    layout from the plain version's candidates, they come back with the
+    plain version's dtypes, shapes and bits. A check of the wrapper's
+    views only: that csrc/fold_select.cu store_row writes this layout is
+    shown by the card tests (test_torch_cuda.py), which compare the
+    kernels' outputs with the plain versions bit for bit."""
+    f, err, alpha, y, valid, delta = (torch.as_tensor(a) for a in
+                                      make_views(19, 12, (2.0, 0.5), True))
+    for want in (tfs._select_rows(f, alpha, y, valid, (2.0, 0.5)),
+                 tfs._fold_select(f, err, alpha, y, valid, delta,
+                                  (2.0, 0.5), compensated)[2:]):
+        buf, got = tfs.cand_outputs(12, torch.device("cpu"))
+        assert buf.shape == (4, 12) and buf.dtype == torch.int32
+        flat = buf.view(-1)
+        for k, w in enumerate(want):
+            flat[k * 12:(k + 1) * 12] = w.view(torch.int32)
+        assert [g.dtype for g in got] == [w.dtype for w in want] == [
+            torch.float32, torch.int32, torch.float32, torch.int32]
+        assert all(g.shape == w.shape == (12,) for g, w in zip(got, want))
+        assert_bitwise(got, [w.numpy() for w in want])
+
+
+def test_refusals_are_unchanged():
+    """The wrappers refuse what the kernels do not take, on any device:
+    another dtype, shape or device, a view that is not contiguous; none
+    falls back. The box bounds reach the kernels as float32 values."""
+    f, err, alpha, y, valid, delta = (torch.as_tensor(a) for a in
+                                      make_views(1, 8, 1.0, False))
+    wide = torch.zeros((8, 2 * LANES))
+    cases = [((f[:, :LANES - 1].contiguous(), alpha, y, valid), "(R, 128)"),
+             ((f, alpha, y, valid[:, :LANES - 1].contiguous()), "contiguous"),
+             ((f, alpha.double(), y, valid), "contiguous"),
+             ((f, wide[:, ::2], y, valid), "contiguous"),
+             ((f, alpha, y[:4], valid), "contiguous")]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=re.escape(match)):
+            tfs.select_rows(*args, 1.0)
+        with pytest.raises(ValueError, match=re.escape(match)):
+            tfs.fold_select(args[0], err, *args[1:], delta, 1.0,
+                            compensated=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfs.fold_select(f, err.t().contiguous().t(), alpha, y, valid, delta,
+                        1.0, compensated=True)
+    assert tfs.c_consts((0.1, 2.0)) == (float(np.float32(0.1)), 2.0)
+    assert tfs.c_consts(0.1) == (float(np.float32(0.1)),) * 2
