@@ -147,8 +147,39 @@ result line is printed:
                 once a round) and engine="xla" (no kernel): converged,
                 sum(a) - sum(a*) = 0 within 1e-4 C n, and the engines'
                 predictions within 0.1 of each other.
+ 15. cli     -- the headline through dpsvm_tpu_torch.cli.main: written as
+                a CSV file and as a LIBSVM file of the same 60000 rows
+                (write times and sizes printed), each trained with
+                --format auto (the CLI's parse time printed; the native
+                CSV parser must load): the same pairs and rounds as the
+                API headline, B1 once a round and nothing else, the model
+                file bitwise the API model; each model tested with -o at
+                --precision float32 and float64 on the first 10000 rows:
+                the labels are the API model's decision signs;
+ 16. state   -- the plain headline observed in >= 8 chunks (bitwise the
+                unobserved run; both train_seconds printed), stopped by a
+                callback after chunk 3 with a checkpoint every chunk (two
+                generations) and resumed from the file: bitwise the
+                uninterrupted observed run; fused_fold (B1 = B2 =
+                rounds), pipeline_rounds (B1 = rounds, B3 = rounds +
+                chunks), fused_round (B1 = B4 = B5 = rounds) and pallas
+                (B6 a pair) at the oracle configuration, chunked, stopped
+                and resumed: the oracle contract; mesh (b) (B1 = B7 = rounds) resumed from the
+                one-device checkpoint: n_sv and signs within the oracle
+                tolerances of the one-device headline;
+ 17. reconstruct -- the covtype stress configuration (c = 2048, gamma =
+                0.03125, Kahan carry) on make_covtype_like's first 2000
+                rows in float64 reconstruction legs on the block engine
+                (B1) and engine="xla": certified true gap <= 2 eps,
+                matched by an independent float64 gradient of the
+                returned alpha;
+ 18. bf16_gram -- the headline in float32 with bf16_gram=True: the gate's
+                decision printed; accepted, the solve is bitwise the
+                bfloat16 headline (B1 once a round) and within the
+                whole-solve contract of the float32 solve.
 
-The second-to-last lines are the per-kernel JSON record and the card's
+The second-to-last lines are the per-kernel JSON record (with each
+kernel's launches on phases 15-18 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1511,6 +1542,475 @@ def phase_svr(x) -> None:
                                  f"by {gap}")
 
 
+# ---- this slice's phases (15-18): the CLI and data surface, solver
+# state, reconstruction legs and the bf16 Gram gate
+
+# [cli]: the CLI's test files hold the first CLI_TEST_ROWS rows.
+CLI_TEST_ROWS = 10_000
+# [state]: 4 rounds a chunk at inner 512 (the headline's 77 rounds: 20
+# chunks); a checkpoint at every chunk, two generations kept; the abort
+# after chunk STATE_ABORT_CHUNK.
+STATE_RUN = dict(chunk_iters=2048, checkpoint_every=1, checkpoint_keep=2)
+STATE_ABORT_CHUNK = 3
+STATE_MIN_CHUNKS = 8
+# The oracle-configuration runs of [state], chunked, stopped after chunk
+# 3 and resumed: (label, knobs, kernel -> launches over both calls from
+# (n, chunks)); n is the outer rounds on the block engines (16 a chunk),
+# the pairs on pallas (1024 a chunk). The fused fold seeds each chunk
+# with a plain selection; the pipelined engine with one B3 prefetch.
+STATE_ORACLE = (
+    ("fused_fold", dict(fused_fold=True, chunk_iters=8192),
+     {"solve_subproblem": lambda n, k: n, "fold_select": lambda n, k: n}),
+    ("pipeline_rounds", dict(pipeline_rounds=True, chunk_iters=8192),
+     {"solve_subproblem": lambda n, k: n,
+      "select_rows": lambda n, k: n + k}),
+    ("fused_round", dict(fused_round=True, chunk_iters=8192),
+     {"solve_subproblem": lambda n, k: n, "gather_gram": lambda n, k: n,
+      "fold_rows_select": lambda n, k: n}),
+    ("pallas", dict(engine="pallas", chunk_iters=1024),
+     {"fused_update_select": lambda n, k: n}))
+# [reconstruct]: the JAX package's covtype stress configuration
+# (dpsvm_tpu/solver/reconstruct.py: c = 2048, gamma = 0.03125) with the
+# Kahan carry, on a row cut of make_covtype_like.
+RECON_ROWS = 2000
+RECON_RUN = dict(c=2048.0, gamma=0.03125, epsilon=1e-3, max_iter=2_000_000,
+                 working_set_size=256, compensated=True)
+RECON_LEGS = (("block", dict(engine="block", reconstruct_every=200_000)),
+              ("xla", dict(engine="xla", reconstruct_every=50_000)))
+# [bf16_gram]: the whole-solve contract against the float32 solve.
+DUAL_RTOL = 0.005
+SV_RTOL = 0.10
+
+
+def smoke_dir() -> str:
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def write_csv(path: str, x, y) -> None:
+    """label,f1,...,fd at %.9g (round-trips float32), one format a row."""
+    fmt = "%d," + ",".join(["%.9g"] * x.shape[1]) + "\n"
+    with open(path, "w") as fh:
+        for xi, yi in zip(x.tolist(), y.tolist()):
+            fh.write(fmt % (yi, *xi))
+
+
+def write_libsvm(path: str, x, y) -> None:
+    """label idx:val ... with every feature written (zeros too)."""
+    fmt = "%d " + " ".join(f"{j + 1}:%.9g" for j in range(x.shape[1])) + "\n"
+    with open(path, "w") as fh:
+        for xi, yi in zip(x.tolist(), y.tolist()):
+            fh.write(fmt % (yi, *xi))
+
+
+def run_cli(argv: list, label: str) -> str:
+    """dpsvm_tpu_torch.cli.main(argv) with its standard output captured
+    and echoed under [label]; a non-zero exit, or the NumPy CSV parser's
+    fallback warning, is a failure. Returns the output."""
+    import contextlib
+    import io
+    import warnings
+
+    from dpsvm_tpu_torch import cli as port_cli
+
+    buf = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(buf):
+        warnings.simplefilter("always")
+        rc = port_cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if "iter=" not in line:
+            print(f"[{label}] {line}", flush=True)
+    for w in caught:
+        print(f"[{label}] warning: {w.message}", flush=True)
+        if "native CSV parser" in str(w.message):
+            raise AssertionError(f"{label}: the native CSV parser did not "
+                                 "load")
+    if rc != 0:
+        raise AssertionError(f"{label}: cli exited {rc}")
+    return out
+
+
+def _grab(pattern: str, text: str, label: str) -> str:
+    import re
+
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"{label}: no {pattern!r} in the CLI output")
+    return m.group(1)
+
+
+def phase_cli(x, y, head_model, head_res) -> dict:
+    """The headline through dpsvm_tpu_torch.cli.main, from a CSV file and
+    from a LIBSVM file of the same rows (--format auto). Each CLI model
+    must be the API headline's: the same pairs and rounds, B1 once a
+    round and no other kernel, SV rows, coefficients and b bit for bit.
+    Each is tested (-o) at --precision float32 and float64 on the first
+    CLI_TEST_ROWS rows: the labels must be the signs of the API model's
+    decisions at the same precision. Returns the launch counts a run."""
+    from dpsvm_tpu_torch import SVMModel, decision_function
+    from dpsvm_tpu_torch.utils import native
+
+    out = smoke_dir()
+    files = {}
+    for fmt, writer in (("csv", write_csv), ("libsvm", write_libsvm)):
+        train_p = os.path.join(out, f"train.{fmt}")
+        test_p = os.path.join(out, f"test.{fmt}")
+        t0 = time.perf_counter()
+        writer(train_p, x, y)
+        dt = time.perf_counter() - t0
+        writer(test_p, x[:CLI_TEST_ROWS], y[:CLI_TEST_ROWS])
+        files[fmt] = (train_p, test_p)
+        print(f"[cli] wrote {fmt} {len(y)} x {x.shape[1]}: "
+              f"{os.path.getsize(train_p) / 2 ** 20:.1f} MiB in {dt:.2f}s",
+              flush=True)
+    # The .npz holds b in float32: the API model with b rounded so.
+    head_model = SVMModel(head_model.sv_x, head_model.sv_alpha,
+                          head_model.sv_y, float(np.float32(head_model.b)),
+                          head_model.kernel)
+    want = {prec: np.where(decision_function(
+        head_model, x[:CLI_TEST_ROWS], precision=prec) >= 0, 1, -1)
+        for prec in ("float32", "float64")}
+    launches = {}
+    for fmt, (train_p, test_p) in files.items():
+        label = f"cli {fmt}"
+        model_p = os.path.join(out, f"cli_{fmt}.npz")
+        reset_counts()
+        text = run_cli(["train", "-f", train_p, "-m", model_p, "-c", "10",
+                        "-g", "0.125", "-e", "0.01", "--engine", "block",
+                        "--working-set-size", "256", "--inner-iters", "512",
+                        "--dtype", "bfloat16", "--format", "auto"], label)
+        counts = read_counts()
+        launches[fmt] = counts
+        pairs = int(_grab(r"converged at iteration (\d+)", text, label))
+        rounds = int(_grab(r"\((\d+) rounds\)", text, label))
+        parse_s = float(_grab(r"features in ([0-9.]+)s", text, label))
+        want_rounds = head_res.stats["outer_rounds"]
+        print(f"[cli] {fmt}: parse {parse_s:.2f}s pairs={pairs} "
+              f"rounds={rounds} (API {head_res.iterations} / {want_rounds}) "
+              f"launches={counts}", flush=True)
+        if (pairs, rounds) != (head_res.iterations, want_rounds):
+            raise AssertionError(f"{label}: {pairs} pairs / {rounds} rounds, "
+                                 "not the API headline's")
+        expect = {k: rounds if k == "solve_subproblem" else 0
+                  for k in counts}
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{expect}")
+        m = SVMModel.load(model_p)
+        if not (np.array_equal(m.sv_x, head_model.sv_x)
+                and np.array_equal(m.dual_coef, head_model.dual_coef)
+                and m.b == head_model.b):
+            raise AssertionError(f"{label}: the model is not the API "
+                                 "headline's bit for bit")
+        for prec in ("float32", "float64"):
+            out_p = os.path.join(out, f"cli_{fmt}_{prec}.out")
+            run_cli(["test", "-f", test_p, "-m", model_p, "-o", out_p,
+                     "--precision", prec], f"{label} test {prec}")
+            got = np.loadtxt(out_p, dtype=np.int64)
+            if not np.array_equal(got, want[prec]):
+                raise AssertionError(
+                    f"{label} test {prec}: {int(np.sum(got != want[prec]))} "
+                    "labels differ from the API model's decisions")
+        print(f"[cli] {fmt}: model bitwise the API headline's; test labels "
+              "= the API decisions' signs at float32 and float64",
+              flush=True)
+    if native.get_fastcsv() is None:
+        raise AssertionError(f"the native CSV parser did not build: "
+                             f"{native.build_errors}")
+    agree = float(np.mean(want["float32"] == want["float64"]))
+    print(f"[cli] float32 vs float64 labels agree on {100 * agree:.3f}% of "
+          f"{CLI_TEST_ROWS} rows", flush=True)
+    return launches
+
+
+def _abort_after(chunks: int):
+    """A callback that stops the solve at the end of chunk `chunks`."""
+    calls = [0]
+
+    def cb(it, b_hi, b_lo, state):
+        calls[0] += 1
+        return calls[0] >= chunks
+    return cb
+
+
+def _fresh(path: str) -> str:
+    from dpsvm_tpu_torch.utils.checkpoint import checkpoint_generations
+
+    for g in checkpoint_generations(path):
+        os.unlink(g)
+    return path
+
+
+def _same_solve(a, b) -> bool:
+    return (np.array_equal(a.alpha, b.alpha)
+            and np.array_equal(a.stats["f"], b.stats["f"])
+            and a.iterations == b.iterations
+            and a.stats.get("outer_rounds") == b.stats.get("outer_rounds"))
+
+
+def phase_state(x, y, cfg, head_res, mesh, oracle, sk_dec) -> dict:
+    """Observation, checkpoints and resume on the card.
+
+    (a) The plain headline observed (STATE_RUN: >= STATE_MIN_CHUNKS
+    chunks) must be bitwise the unobserved headline; its train_seconds
+    are printed beside the unobserved run's. Then it is stopped by a
+    callback after chunk STATE_ABORT_CHUNK with a checkpoint at every
+    chunk (two generations kept) and resumed from the file: bitwise the
+    uninterrupted observed run, B1 once a round over both calls.
+    (b) fused_fold (B1 = B2 = rounds), pipeline_rounds (B1 = rounds, B3
+    = rounds + chunks), fused_round (B1 = B4 = B5 = rounds) and pallas
+    (B6 once a pair) at the oracle configuration, chunked, stopped after
+    chunk 3 and resumed: the oracle contract.
+    (c) Mesh (b) (ring exchange, B1 = B7 = its rounds) resumed from (a)'s
+    one-device checkpoint: converged, n_sv within SV_TOL and signs within
+    SIGN_TOL of the one-device headline."""
+    import shutil
+
+    from dpsvm_tpu_torch import SVMConfig, decision_function, solve_mesh
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+    from dpsvm_tpu_torch.solver.solve import solve
+    from dpsvm_tpu_torch.utils.checkpoint import (checkpoint_generations,
+                                                  load_checkpoint_state)
+
+    launches = {}
+    scfg = cfg.replace(**STATE_RUN)
+    # Unobserved and observed train_seconds in turns, here, so both see
+    # the same state of the card and the host.
+    turns = {"unobserved": [], "observed": []}
+    for kind in ("unobserved", "observed", "observed", "unobserved"):
+        cb = (lambda *_: None) if kind == "observed" else None
+        turns[kind].append(solve(x, y, scfg, callback=cb).train_seconds)
+    print("[state] train_seconds in turns (U, O, O, U): unobserved "
+          + ", ".join(f"{t:.4f}" for t in turns["unobserved"])
+          + "; observed "
+          + ", ".join(f"{t:.4f}" for t in turns["observed"]), flush=True)
+    seen = []
+    reset_counts()
+    obs = solve(x, y, scfg, callback=lambda it, *_: seen.append(it))
+    counts = read_counts()
+    rounds = obs.stats["outer_rounds"]
+    ph = obs.stats["phase_seconds"]
+    print(f"[state] observed headline: chunks={obs.stats['chunks']} "
+          f"pairs={obs.iterations} rounds={rounds} train_seconds="
+          f"{obs.train_seconds:.4f} (unobserved {head_res.train_seconds:.4f}, "
+          f"chunks {head_res.stats['chunks']}) phase_seconds "
+          + " ".join(f"{k}={v:.4f}" for k, v in ph.items())
+          + f" launches={counts}", flush=True)
+    if obs.stats["chunks"] < STATE_MIN_CHUNKS or head_res.stats["chunks"] != 1:
+        raise AssertionError("[state] chunking: observed "
+                             f"{obs.stats['chunks']}, unobserved "
+                             f"{head_res.stats['chunks']}")
+    if not _same_solve(obs, head_res):
+        raise AssertionError("[state] the observed headline is not bitwise "
+                             "the unobserved one")
+    if counts["solve_subproblem"] != rounds or sum(counts.values()) != rounds:
+        raise AssertionError(f"[state] observed: launches {counts}")
+    ck = _fresh(os.path.join(smoke_dir(), "state.npz"))
+    reset_counts()
+    part = solve(x, y, scfg, callback=_abort_after(STATE_ABORT_CHUNK),
+                 checkpoint_path=ck)
+    gens = checkpoint_generations(ck)
+    st = load_checkpoint_state(ck)
+    mesh_ck = os.path.join(smoke_dir(), "state_mesh.npz")
+    shutil.copyfile(ck, mesh_ck)
+    res = solve(x, y, scfg, checkpoint_path=ck, resume=True)
+    counts = read_counts()
+    launches["state plain"] = counts
+    print(f"[state] stopped after chunk {STATE_ABORT_CHUNK}: pairs="
+          f"{part.iterations} rounds={part.stats['outer_rounds']} "
+          f"train_seconds={part.train_seconds:.4f}; generations "
+          f"{[os.path.basename(g) for g in gens]} (newest at pair "
+          f"{st.iteration}, round {st.rounds}); resumed: pairs="
+          f"{res.iterations} rounds={res.stats['outer_rounds']} "
+          f"train_seconds={res.train_seconds:.4f} converged={res.converged} "
+          f"launches={counts}", flush=True)
+    if part.converged or len(gens) != 2 or st.iteration != part.iterations:
+        raise AssertionError("[state] the stopped run did not leave its "
+                             "state in two generations")
+    if not _same_solve(res, obs):
+        raise AssertionError("[state] the resumed headline is not bitwise "
+                             "the uninterrupted observed run")
+    if counts["solve_subproblem"] != res.stats["outer_rounds"] \
+            or sum(counts.values()) != counts["solve_subproblem"]:
+        raise AssertionError(f"[state] resumed: launches {counts}")
+    print("[state] resumed == uninterrupted, bitwise (alpha, f, pairs, "
+          "rounds)", flush=True)
+
+    for label, kw, want in STATE_ORACLE:
+        ocfg = SVMConfig(**ORACLE_RUN).replace(checkpoint_every=1, **kw)
+        ock = _fresh(os.path.join(smoke_dir(), f"state_{label}.npz"))
+        reset_counts()
+        part = solve(x, y, ocfg, callback=_abort_after(3),
+                     checkpoint_path=ock)
+        ores = solve(x, y, ocfg, checkpoint_path=ock, resume=True)
+        counts = read_counts()
+        launches[f"state {label}"] = counts
+        n_run = (ores.stats["outer_rounds"] if "outer_rounds" in ores.stats
+                 else ores.iterations)
+        n_chunks = part.stats["chunks"] + ores.stats["chunks"]
+        expect = {k: want.get(k, lambda n, c: 0)(n_run, n_chunks)
+                  for k in counts}
+        print(f"[state] {label} oracle config: stopped at pair "
+              f"{part.iterations} ({part.stats['chunks']} chunks, "
+              f"{part.train_seconds:.4f}s), resumed to {ores.iterations} "
+              f"({ores.stats['chunks']} chunks, {ores.train_seconds:.4f}s) "
+              f"launches={counts}", flush=True)
+        if part.converged:
+            raise AssertionError(f"[state] {label}: converged before the "
+                                 "stop; nothing was resumed")
+        if counts != expect:
+            raise AssertionError(f"[state] {label}: launches {counts}, "
+                                 f"expected {expect}")
+        kp = KernelParams("rbf", ocfg.gamma)
+        omodel = SVMModel.from_dense(x, y, ores.alpha, ores.b, kp)
+        check_oracle(omodel, ores, x, oracle, sk_dec,
+                     f"{label} chunked + resumed", tag="state")
+
+    mcfg = cfg.replace(ring_exchange=True)
+    reset_counts()
+    mres = solve_mesh(x, y, mcfg, mesh=mesh, checkpoint_path=mesh_ck,
+                      resume=True)
+    counts = read_counts()
+    launches["state mesh"] = counts
+    run_rounds = mres.stats["outer_rounds"] - st.rounds
+    print(f"[state] mesh (b) {mres.stats['mesh_devices']} resumed from the "
+          f"one-device checkpoint at pair {st.iteration}: pairs="
+          f"{mres.iterations} rounds={mres.stats['outer_rounds']} "
+          f"train_seconds={mres.train_seconds:.4f} launches={counts}",
+          flush=True)
+    if not mres.converged or run_rounds <= 0 or any(
+            counts[k] != (run_rounds if k in ("solve_subproblem",
+                                              "ring_gather") else 0)
+            for k in counts):
+        raise AssertionError(f"[state] mesh resume: converged "
+                             f"{mres.converged}, launches {counts} over "
+                             f"{run_rounds} rounds")
+    kp = KernelParams("rbf", cfg.gamma)
+    head_dec = decision_function(
+        SVMModel.from_dense(x, y, head_res.alpha, head_res.b, kp), x)
+    mdec = decision_function(SVMModel.from_dense(x, y, mres.alpha, mres.b,
+                                                 kp), x)
+    agree = float(np.mean(np.sign(mdec) == np.sign(head_dec)))
+    sv_dev = abs(mres.n_sv - head_res.n_sv) / head_res.n_sv
+    print(f"[state] mesh resumed vs one device: n_sv {mres.n_sv} vs "
+          f"{head_res.n_sv} ({100 * sv_dev:.2f}%), signs {100 * agree:.3f}%",
+          flush=True)
+    if sv_dev > SV_TOL or agree < SIGN_TOL:
+        raise AssertionError("[state] the mesh resume misses the contract")
+    return launches
+
+
+def f64_gradient(x, y, alpha, gamma: float) -> np.ndarray:
+    """f = K (alpha y) - y in float64 from the features, RBF, written out
+    here (not the port's gram_matvec_f64) as the independent check."""
+    x64 = x.astype(np.float64)
+    sq = np.einsum("nd,nd->n", x64, x64)
+    coef = alpha.astype(np.float64) * y
+    out = np.empty(len(y))
+    for s in range(0, len(y), 1024):
+        d2 = np.maximum(sq[s:s + 1024, None] + sq[None, :]
+                        - 2.0 * x64[s:s + 1024] @ x64.T, 0.0)
+        out[s:s + 1024] = np.exp(-gamma * d2) @ coef
+    return out - y
+
+
+def phase_reconstruct() -> dict:
+    """The covtype stress configuration (RECON_RUN, make_covtype_like on
+    RECON_ROWS rows) in float64 reconstruction legs on the block engine
+    (B1 in its block legs) and engine="xla": converged, the reported true
+    gap <= 2 eps, and an independent float64 gradient of the returned
+    alpha (f64_gradient) certifying the same gap and b."""
+    from dpsvm_tpu_torch import SVMConfig, solve
+    from dpsvm_tpu_torch.data.synth import make_covtype_like
+
+    x, y = make_covtype_like(RECON_ROWS, seed=0)
+    yf = y.astype(np.float64)
+    launches = {}
+    for label, kw in RECON_LEGS:
+        cfg = SVMConfig(**RECON_RUN, **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(x, y, cfg)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        launches[f"reconstruct {label}"] = counts
+        st = res.stats
+        f64 = f64_gradient(x, yf, res.alpha, cfg.gamma)
+        a = res.alpha
+        up = np.where(y > 0, a < cfg.c, a > 0)
+        low = np.where(y > 0, a > 0, a < cfg.c)
+        b_hi, b_lo = float(f64[up].min()), float(f64[low].max())
+        print(f"[reconstruct] {label} {RECON_ROWS} x 54: converged="
+              f"{res.converged} pairs={res.iterations} legs={st['legs']} "
+              f"reconstructions={st['reconstructions']} true_gap="
+              f"{st['true_gap']:.6g} (independent {b_lo - b_hi:.6g}) "
+              f"switch={st['hybrid_switch_pairs']} n_sv={res.n_sv} "
+              f"train_seconds={res.train_seconds:.4f} reconstruct_seconds="
+              f"{st['reconstruct_seconds']:.4f} wall={wall:.2f}s "
+              f"launches={counts}", flush=True)
+        if not res.converged or st["true_gap"] > 2 * cfg.epsilon:
+            raise AssertionError(f"[reconstruct] {label}: not certified")
+        if b_lo - b_hi > 2 * cfg.epsilon + 1e-6 \
+                or abs(res.b - (b_hi + b_lo) / 2.0) > 1e-4:
+            raise AssertionError(f"[reconstruct] {label}: the independent "
+                                 "float64 gradient disagrees")
+        kernels = {k for k, v in counts.items() if v}
+        if kernels != ({"solve_subproblem"} if label == "block" else set()):
+            raise AssertionError(f"[reconstruct] {label}: launches {counts}")
+    return launches
+
+
+def phase_bf16_gram(x, y, cfg, head_res) -> dict:
+    """The headline in float32 with bf16_gram=True: the gate's decision
+    printed; where it accepts, X is stored in bfloat16, so the solve is
+    bitwise the bfloat16 headline, and it meets the whole-solve contract
+    (dual within DUAL_RTOL, n_sv within SV_RTOL) against the float32
+    solve. B1 once a round."""
+    import warnings
+
+    from dpsvm_tpu_torch.solver.solve import solve
+
+    def dual(res):
+        a = res.alpha.astype(np.float64)
+        yf = y.astype(np.float64)
+        return float(a.sum() - 0.5 * np.sum(a * yf * (res.stats["f"] + yf)))
+
+    f32 = cfg.replace(dtype="float32")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_counts()
+        res = solve(x, y, f32.replace(bf16_gram=True))
+        counts = read_counts()
+    gate = res.stats["bf16_gram"]
+    ref = solve(x, y, f32)
+    d, d_ref = dual(res), dual(ref)
+    print(f"[bf16_gram] gate: {gate}; pairs={res.iterations} rounds="
+          f"{res.stats['outer_rounds']} train_seconds={res.train_seconds:.4f}"
+          f" (float32 {ref.train_seconds:.4f}, {ref.iterations} pairs) "
+          f"dual={d:.6f} (float32 {d_ref:.6f}) n_sv={res.n_sv} (float32 "
+          f"{ref.n_sv}) launches={counts}", flush=True)
+    for w in caught:
+        print(f"[bf16_gram] warning: {w.message}", flush=True)
+    if counts["solve_subproblem"] != res.stats["outer_rounds"] \
+            or sum(counts.values()) != counts["solve_subproblem"]:
+        raise AssertionError(f"[bf16_gram] launches {counts}")
+    if gate["active"]:
+        if not _same_solve(res, head_res):
+            raise AssertionError("[bf16_gram] accepted, but the solve is not "
+                                 "the bfloat16 headline's")
+        if abs(d - d_ref) > DUAL_RTOL * abs(d_ref) \
+                or abs(res.n_sv - ref.n_sv) > SV_RTOL * ref.n_sv:
+            raise AssertionError("[bf16_gram] misses the whole-solve "
+                                 "contract against float32")
+    elif not any("REFUSED" in str(w.message) for w in caught):
+        raise AssertionError("[bf16_gram] refused without the warning")
+    return {"bf16_gram": counts}
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -1620,6 +2120,7 @@ def main() -> int:
     model, res, counts, _ = counted(
         "headline", lambda: train(x, y, cfg),
         {"solve_subproblem": lambda r: r})
+    head_model, head_res = model, res
     launches = {"solve_subproblem": counts["solve_subproblem"]}
     f_end = torch.as_tensor(res.stats["f"], device=dev)
     a_end = torch.as_tensor(res.alpha, device=dev)
@@ -1759,6 +2260,18 @@ def main() -> int:
     phase_svr(x)
     lap("SVRs")
 
+    # ---- 15-18. the CLI and data surface, solver state, reconstruction
+    # legs, the bf16 Gram gate
+    paths = {f"cli {k}": v
+             for k, v in phase_cli(x, y, head_model, head_res).items()}
+    lap("CLI from CSV and LIBSVM files")
+    paths.update(phase_state(x, y, cfg, head_res, mesh, oracle, sk_dec))
+    lap("state: observed, stopped, resumed")
+    paths.update(phase_reconstruct())
+    lap("reconstruction legs")
+    paths.update(phase_bf16_gram(x, y, cfg, head_res))
+    lap("bf16 Gram gate")
+
     meta = {
         "solve_subproblem": ("subproblem.cu",
                              "dpsvm_tpu/ops/pallas_subproblem.py:253"),
@@ -1786,6 +2299,8 @@ def main() -> int:
             "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("launch_floor_ms", "contraction_ms",
                                  "serial_trips") if k in r},
+            "path_launches": {p: c[name] for p, c in paths.items()
+                              if c[name]},
             **({"nu": r["nu"]} if "nu" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)

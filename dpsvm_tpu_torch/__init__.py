@@ -5,7 +5,11 @@ Binary C-SVC, train -> save -> load -> predict, on the block engines,
 the per-pair engines and the mesh block engines (row shards over a
 parallel.mesh.Mesh); nu-SVC, epsilon-SVR, nu-SVR and one-class SVM on
 the single-device engines (models/); every kernel of those paths
-hand-written in CUDA C++ (csrc/). Entry points run on the CUDA card unless the caller
+hand-written in CUDA C++ (csrc/). Around them: CSV and LIBSVM data
+(data/), the host backends (solver/reference.py), solves observed chunk
+by chunk with checkpoints either package resumes (solver/chunks.py,
+utils/checkpoint.py) and float64 reconstruction legs
+(solver/reconstruct.py). Entry points run on the CUDA card unless the caller
 passes device="cpu" (or a CPU mesh). This package imports neither jax
 nor dpsvm_tpu.
 """

@@ -3,10 +3,15 @@ of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
 
 Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
-        -g 0.125 [--engine xla|pallas|block] [--backend mesh \
-        --num-devices 4 --ring-exchange on]
+        -g 0.125 [--format auto|csv|libsvm] [--kernel rbf|linear|poly|
+        sigmoid --degree 3 --coef0 0] [-w1 2 -w-1 1]
+        [--engine xla|pallas|block] [--backend mesh --num-devices 4
+        --ring-exchange on | --backend reference|native]
         [-t nu-svc|eps-svr|nu-svr|one-class --nu 0.5 -p 0.1]
-    python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt
+        [--checkpoint ck.npz --checkpoint-every 4096 --checkpoint-keep 2
+        --resume] [--chunk-iters 2048] [--bf16-gram] [-q]
+    python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt \\
+        [-o predictions.txt] [--precision auto|float32|float64]
 """
 
 from __future__ import annotations
@@ -25,7 +30,12 @@ def _build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("train", help="train an SVM with modified SMO")
     p.add_argument("-f", "--file-path", required=True,
-                   help="training data: CSV (label,f1,...,fd)")
+                   help="training data: CSV (label,f1,...,fd) or sparse "
+                        "LIBSVM format (label idx:val ...)")
+    p.add_argument("--format", choices=["auto", "csv", "libsvm"],
+                   default="auto",
+                   help="input format (default auto: LIBSVM rows are "
+                        "recognized by their idx:val tokens)")
     p.add_argument("-m", "--model", required=True,
                    help="output model path (.txt or .npz)")
     p.add_argument("-t", "--svm-type", default="c-svc",
@@ -49,6 +59,17 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--cache-size", type=int, default=0,
                    help="kernel-row cache lines of the per-pair engines "
                         "(default 0 = off; SVMConfig.cache_lines)")
+    p.add_argument("--kernel", choices=["rbf", "linear", "poly", "sigmoid",
+                                        "precomputed"], default="rbf",
+                   help="kernel family (precomputed is not ported: "
+                        "ROADMAP queue A item 6)")
+    p.add_argument("--degree", type=int, default=3)
+    p.add_argument("--coef0", type=float, default=0.0)
+    p.add_argument("-w1", "--weight-pos", type=float, default=1.0,
+                   help="C multiplier for the +1 class (LibSVM -w1)")
+    p.add_argument("-w-1", "--weight-neg", type=float, default=1.0,
+                   dest="weight_neg",
+                   help="C multiplier for the -1 class (LibSVM -w-1)")
     p.add_argument("--engine", choices=["xla", "pallas", "block"],
                    default="xla",
                    help="single-device engine: xla = per-pair SMO (row "
@@ -99,11 +120,39 @@ def _build_parser() -> argparse.ArgumentParser:
                         "kernels (ops/ring.py); bit-identical "
                         "trajectories (SVMConfig.ring_exchange). auto = "
                         "off")
-    p.add_argument("--backend", choices=["auto", "single", "mesh"],
+    p.add_argument("--backend",
+                   choices=["auto", "single", "mesh", "reference", "native"],
                    default="auto",
                    help="single device, or the data mesh over the "
-                        "visible cards; auto = the mesh when more than "
-                        "one card is visible and --engine block")
+                        "visible cards (auto = the mesh when more than "
+                        "one card is visible and --engine block); "
+                        "reference (NumPy) and native (C++) run the "
+                        "sequential mvp SMO on the host")
+    p.add_argument("--bf16-gram", action="store_true",
+                   help="store X in bfloat16 only where the per-problem "
+                        "perturbation bound accepts (C * p90|dK| <= "
+                        "0.1); a refusal stays float32 and says so "
+                        "(SVMConfig.bf16_gram)")
+    p.add_argument("--chunk-iters", type=int, default=2048,
+                   help="pair updates per observed chunk (block engines: "
+                        "chunk-iters // inner rounds)")
+    p.add_argument("--checkpoint", default=None,
+                   help="solver checkpoint path")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="pair updates between checkpoints (0 = off)")
+    p.add_argument("--checkpoint-keep", type=int, default=1,
+                   help="rotating checkpoint generations to keep (path, "
+                        "path.1, ...); --resume falls back to the newest "
+                        "loadable one (default 1 = overwrite in place)")
+    p.add_argument("--retry-faults", type=int, default=2,
+                   help="accepted at its default only: automatic retries "
+                        "after device faults are not ported (ROADMAP "
+                        "queue A item 11); relaunch with --resume")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint if it exists")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="no load line and no per-chunk progress (an "
+                        "unobserved solve runs as one chunk)")
     p.add_argument("--num-devices", type=int, default=None,
                    help="devices in the data mesh (default: all visible)")
     p.add_argument("--device", default=None,
@@ -113,13 +162,25 @@ def _build_parser() -> argparse.ArgumentParser:
                         "shards of it)")
 
     p = sub.add_parser("test", help="evaluate a trained model on a CSV")
-    p.add_argument("-f", "--file-path", required=True)
+    p.add_argument("-f", "--file-path", required=True,
+                   help="test data (CSV or sparse LIBSVM format)")
+    p.add_argument("--format", choices=["auto", "csv", "libsvm"],
+                   default="auto")
     p.add_argument("-m", "--model", required=True,
                    help="model path (.txt or .npz)")
     p.add_argument("-a", "--num-att", type=int, default=None)
     p.add_argument("-x", "--num-ex", type=int, default=None)
     p.add_argument("-g", "--gamma", type=float, default=None,
                    help="override the model file's gamma")
+    p.add_argument("-o", "--output", default=None,
+                   help="write per-row predictions here, one per line "
+                        "(labels for classifiers and one-class, values "
+                        "for SVR)")
+    p.add_argument("--precision", choices=["auto", "float32", "float64"],
+                   default="auto",
+                   help="binary decision evaluation precision (auto: "
+                        "exact host float64 where predict.decision_risk "
+                        "says float32 is not enough)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     return parser
@@ -139,6 +200,14 @@ def _check_svm_type(args) -> str | None:
         if args.svm_type in ("nu-svc", "nu-svr") and args.engine == "pallas":
             return (f"--engine pallas is not applicable to {args.svm_type} "
                     "(per-class nu selection; use --engine xla or block)")
+        if args.svm_type in ("nu-svc", "one-class") and (
+                args.weight_pos != 1.0 or args.weight_neg != 1.0):
+            return (f"-w1/-w-1 are not applicable to {args.svm_type} (the "
+                    "nu box is fixed at [0, 1])")
+    if args.retry_faults != 2:
+        return ("--retry-faults: automatic retries after device faults are "
+                "not ported (ROADMAP queue A item 11); keep the default and "
+                "relaunch with --resume --checkpoint PATH after a fault")
     return None
 
 
@@ -148,7 +217,8 @@ def _fit(args, x, y, config, mesh):
     from dpsvm_tpu_torch.train import train
 
     common = dict(backend=args.backend, device=args.device,
-                  num_devices=args.num_devices, mesh=mesh)
+                  num_devices=args.num_devices, mesh=mesh,
+                  checkpoint_path=args.checkpoint, resume=args.resume)
     if args.svm_type == "c-svc":
         return train(x, y, config, **common)
     if args.svm_type == "nu-svc":
@@ -163,7 +233,7 @@ def _fit(args, x, y, config, mesh):
 
 def _cmd_train(args) -> int:
     from dpsvm_tpu_torch.config import SVMConfig
-    from dpsvm_tpu_torch.data.loader import load_csv
+    from dpsvm_tpu_torch.data.loader import load_data
     from dpsvm_tpu_torch.predict import accuracy
 
     bad = _check_svm_type(args)
@@ -172,10 +242,17 @@ def _cmd_train(args) -> int:
         return 2
     regression = args.svm_type in ("eps-svr", "nu-svr")
     t0 = time.perf_counter()
-    x, y = load_csv(args.file_path, args.num_ex, args.num_att,
-                    float_labels=regression)
-    print(f"loaded {x.shape[0]} examples x {x.shape[1]} features "
-          f"in {time.perf_counter() - t0:.2f}s")
+    try:
+        x, y = load_data(args.file_path, args.num_ex, args.num_att,
+                         float_labels=regression, fmt=args.format)
+    except ValueError as e:
+        print(f"error: could not load {args.file_path} "
+              f"(format={args.format}): {e}\nhint: pass --format "
+              "csv|libsvm to override auto-detection", file=sys.stderr)
+        return 2
+    if not args.quiet:
+        print(f"loaded {x.shape[0]} examples x {x.shape[1]} features "
+              f"in {time.perf_counter() - t0:.2f}s")
     if args.svm_type in ("c-svc", "nu-svc") \
             and not set(np.unique(y).tolist()) <= {-1, 1}:
         print(f"error: {args.svm_type} trains +-1 labels; this file has "
@@ -186,6 +263,8 @@ def _cmd_train(args) -> int:
         config = SVMConfig(
             c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
             max_iter=args.max_iter, cache_lines=args.cache_size,
+            kernel=args.kernel, degree=args.degree, coef0=args.coef0,
+            weight_pos=args.weight_pos, weight_neg=args.weight_neg,
             selection=args.selection, pair_batch=args.pair_batch,
             engine=args.engine, working_set_size=args.working_set_size,
             inner_iters=args.inner_iters, dtype=args.dtype,
@@ -193,7 +272,10 @@ def _cmd_train(args) -> int:
             pipeline_rounds=_TRI[args.pipeline_rounds],
             local_working_sets=args.local_working_sets or None,
             sync_rounds=args.sync_rounds,
-            ring_exchange=_TRI[args.ring_exchange])
+            ring_exchange=_TRI[args.ring_exchange],
+            bf16_gram=args.bf16_gram, chunk_iters=args.chunk_iters,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_keep=args.checkpoint_keep, verbose=not args.quiet)
         config.check_ported()
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -217,7 +299,8 @@ def _cmd_train(args) -> int:
     else:
         print(f"stopped at max-iter {result.iterations} without converging")
     rounds = result.stats.get("outer_rounds")
-    where = result.stats.get("mesh_devices") or result.stats["device"]
+    where = (result.stats.get("mesh_devices")
+             or result.stats.get("device", f"the host ({args.backend})"))
     print(f"training took {result.train_seconds:.2f}s on {where}"
           + (f" ({rounds} rounds)" if rounds is not None else ""))
     if result.stats.get("cache_lookups"):
@@ -258,14 +341,69 @@ def _model_type(path: str) -> str:
         "precomputed models: ROADMAP queue A items 7a and 6)")
 
 
+def _load_eval_data(args, model_width: int, float_labels: bool = False):
+    """The test file at its own width, reconciled with the model's (the
+    JAX package's rules): a wider CSV is an error unless -a consents to
+    truncation, a wider LIBSVM file is truncated with a warning, a
+    narrower LIBSVM file is zero-padded, a narrower CSV is an error.
+    Returns (x, y), or None after printing the diagnostic."""
+    from dpsvm_tpu_torch.data.loader import load_data, sniff_format
+
+    fmt = args.format
+    if fmt == "auto":
+        fmt = sniff_format(args.file_path)
+    if args.num_att is not None and args.num_att != model_width:
+        print(f"error: -a {args.num_att} conflicts with the model's "
+              f"{model_width} features (the model fixes the width; use "
+              f"-a {model_width} to consent to truncation)",
+              file=sys.stderr)
+        return None
+    try:
+        x, y = load_data(args.file_path, args.num_ex, None,
+                         float_labels=float_labels, fmt=fmt)
+    except ValueError as e:
+        print(f"error: could not load {args.file_path} (format={fmt}): "
+              f"{e}\nhint: pass --format csv|libsvm to override "
+              "auto-detection", file=sys.stderr)
+        return None
+    w = x.shape[1]
+    if w < model_width:
+        if fmt != "libsvm":
+            print(f"error: {args.file_path} has {w} features but the "
+                  f"model expects {model_width} (CSV columns are "
+                  "positional)", file=sys.stderr)
+            return None
+        x = np.pad(x, ((0, 0), (0, model_width - w)))
+    elif w > model_width:
+        if args.num_att is None and fmt != "libsvm":
+            print(f"error: {args.file_path} has {w} features but the "
+                  f"model expects {model_width}; pass -a {model_width} to "
+                  "truncate explicitly if this is intended",
+                  file=sys.stderr)
+            return None
+        print(f"warning: {args.file_path} has {w} features; using the "
+              f"first {model_width} the model expects", file=sys.stderr)
+        x = np.ascontiguousarray(x[:, :model_width])
+    return x, y
+
+
+def _write_predictions(args, values, fmt: str = "%d") -> None:
+    """-o: one prediction per line."""
+    if not args.output:
+        return
+    with open(args.output, "w") as fh:
+        fh.writelines((fmt % v) + "\n" for v in values)
+    print(f"predictions written to {args.output}")
+
+
 def _test_svr(args) -> int:
-    from dpsvm_tpu_torch.data.loader import load_csv
     from dpsvm_tpu_torch.models.svr import SVRModel
 
     model = SVRModel.load(args.model)
-    x, z_true = load_csv(args.file_path, args.num_ex,
-                         args.num_att or model.sv_x.shape[1],
-                         float_labels=True)
+    loaded = _load_eval_data(args, model.sv_x.shape[1], float_labels=True)
+    if loaded is None:
+        return 2
+    x, z_true = loaded
     pred = np.asarray(model.predict(x, device=args.device), np.float64)
     rmse = float(np.sqrt(np.mean((pred - z_true) ** 2)))
     ss_tot = float(np.sum((z_true - z_true.mean()) ** 2))
@@ -273,16 +411,18 @@ def _test_svr(args) -> int:
           if ss_tot else 0.0)
     print(f"loaded SVR model: {model.n_sv} SVs, gamma={model.kernel.gamma}")
     print(f"test RMSE: {rmse:.6f}  R2: {r2:.4f} ({x.shape[0]} examples)")
+    _write_predictions(args, pred, fmt="%.9g")
     return 0
 
 
 def _test_oneclass(args) -> int:
-    from dpsvm_tpu_torch.data.loader import load_csv
     from dpsvm_tpu_torch.models.oneclass import OneClassModel
 
     model = OneClassModel.load(args.model)
-    x, y = load_csv(args.file_path, args.num_ex,
-                    args.num_att or model.sv_x.shape[1])
+    loaded = _load_eval_data(args, model.sv_x.shape[1])
+    if loaded is None:
+        return 2
+    x, y = loaded
     pred = model.predict(x, device=args.device)
     print(f"loaded one-class model: {model.n_sv} SVs, rho={model.rho:.6f}")
     print(f"test inlier fraction: {float(np.mean(pred > 0)):.4f} "
@@ -290,19 +430,25 @@ def _test_oneclass(args) -> int:
     if set(np.unique(y).tolist()) <= {-1, 1}:
         print(f"test accuracy vs +-1 labels: "
               f"{float(np.mean(pred == y)):.4f}")
+    _write_predictions(args, pred)
     return 0
 
 
 def _cmd_test(args) -> int:
-    from dpsvm_tpu_torch.data.loader import load_csv
     from dpsvm_tpu_torch.models.svm_model import SVMModel
     from dpsvm_tpu_torch.ops.kernels import KernelParams
-    from dpsvm_tpu_torch.predict import decision_function
+    from dpsvm_tpu_torch.predict import (decision_function, decision_risk,
+                                         resolve_precision)
 
     try:
         kind = _model_type(args.model)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    if kind != "classifier" and args.precision != "auto":
+        print(f"error: --precision {args.precision} applies to binary "
+              f"classifier models only, not a {kind} model",
+              file=sys.stderr)
         return 2
     if kind == "svr":
         return _test_svr(args)
@@ -312,18 +458,29 @@ def _cmd_test(args) -> int:
     if args.gamma is not None:
         model.kernel = KernelParams(model.kernel.kind, args.gamma,
                                     model.kernel.degree, model.kernel.coef0)
-    x, y = load_csv(args.file_path, args.num_ex,
-                    args.num_att or model.num_features)
+    loaded = _load_eval_data(args, model.num_features)
+    if loaded is None:
+        return 2
+    x, y = loaded
     if not set(np.unique(y).tolist()) <= {-1, 1}:
         print(f"error: {args.model} is a binary +-1 model but the test "
               f"file's labels are {np.unique(y).tolist()[:6]}",
               file=sys.stderr)
         return 2
-    dec = decision_function(model, x, precision="auto", device=args.device)
-    acc = float(np.mean(np.where(dec >= 0, 1, -1) == y))
+    prec = args.precision
+    if prec == "auto":
+        prec = resolve_precision(model)
+        if prec == "float64":
+            print(f"precision auto: decision_risk {decision_risk(model):.3g}"
+                  " >= 0.1 -> exact float64 evaluation (pass --precision "
+                  "float32 to force the device path)", file=sys.stderr)
+    dec = decision_function(model, x, precision=prec, device=args.device)
+    pred = np.where(dec >= 0, 1, -1)
+    acc = float(np.mean(pred == y))
     print(f"loaded model: {model.n_sv} SVs, gamma={model.kernel.gamma}, "
           f"b={model.b:.6f}")
     print(f"test accuracy: {acc:.4f} ({x.shape[0]} examples)")
+    _write_predictions(args, pred)
     return 0
 
 

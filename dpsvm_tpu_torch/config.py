@@ -1,11 +1,12 @@
 """Typed training configuration (counterpart of dpsvm_tpu/config.py).
 
-Only the fields the ported engines read are carried, with the same names
-and defaults as the JAX package's ``SVMConfig``. Knobs whose engines are
-not ported yet stay settable so a config written for the JAX package
-reads the same here, but ``check_ported`` (called by every entry point)
-refuses them with ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+Every field of the JAX package's ``SVMConfig`` is carried, with the same
+name, default and validation, so a config written by either package (a
+checkpoint carries its config as JSON) reads the same in the other.
+Knobs whose engines are not ported yet stay settable, but
+``check_ported`` (called by every entry point and by the checkpoint
+reader) refuses them with ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,21 @@ import dataclasses
 from typing import Optional
 
 KERNELS = ("rbf", "linear", "poly", "sigmoid", "precomputed")
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """The JAX package's observability knobs (its dpsvm_tpu/obs run logs,
+    metrics and trace spans), carried so configs load. The port has no
+    obs layer yet: anything but the default is refused (ROADMAP queue A
+    item 11)."""
+
+    enabled: bool = False
+    trace_dir: Optional[str] = None
+    runlog_dir: Optional[str] = None
+
+    def replace(self, **kw) -> "ObsConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,23 +72,57 @@ class SVMConfig:
     local_working_sets: Optional[int] = None
     sync_rounds: int = 1
     ring_exchange: Optional[bool] = None
+    # Multiclass fleet batching (not ported: ROADMAP queue A item 7a).
+    fleet_size: int = 16
     # engine="xla": hold the (n, n) float32 Gram on the device. None =
     # auto (n >= 8192 and it fits 70% of the card's memory; never on the
     # CPU).
     gram_resident: Optional[bool] = None
+    # Store X in bfloat16 only where the per-problem perturbation gate
+    # (ops/kernels.py resolve_bf16_gram) accepts; a refusal stays float32
+    # and says so in stats["bf16_gram"] and a warning.
+    bf16_gram: bool = False
     # Knobs of engines that are not ported yet (see check_ported).
     active_set_size: int = 0
+    reconcile_rounds: int = 8
     ooc: bool = False
-    bf16_gram: bool = False
+    ooc_tile_rows: int = 8192
+    ooc_cache_lines: int = 0
+    ooc_shrink: Optional[bool] = None
 
     # Kahan-compensated gradient carry (solver/smo.py kahan_add).
     compensated: bool = False
+    # > 0: solve in legs of at most this many pair updates, the gradient
+    # recomputed exactly in float64 on the host between legs, and
+    # convergence judged on the reconstructed gap (solver/reconstruct.py).
+    reconstruct_every: int = 0
+    # Matmul precision of the solver's cuBLAS products (resolve_precision
+    # and device.precision_ctx): None = auto, "default" / "highest" =
+    # full float32, "high" = TF32. The hand-written kernels keep their own
+    # precision.
+    matmul_precision: Optional[str] = None
     # Run exactly max_iter pair updates; `converged` is still reported at
     # the real epsilon.
     budget_mode: bool = False
 
+    # Retries after a transient device fault (the JAX package's
+    # run_with_fault_retry). Carried so configs load; the port retries
+    # nothing (ROADMAP queue A item 11).
+    retry_faults: int = 2
+
     tau: float = 1e-12  # eta clamp
+    # Check f and alpha for non-finite values at every chunk boundary.
+    check_numerics: bool = False
     dtype: str = "float32"  # storage dtype for X ("float32" | "bfloat16")
+    # Pair updates per observed chunk (per-pair engines); the block
+    # engines run max(1, chunk_iters // inner) rounds a chunk. A solve
+    # that nothing observes runs as one chunk.
+    chunk_iters: int = 2048
+    checkpoint_every: int = 0  # pair updates between checkpoints; 0 = off
+    # Rotating checkpoint generations kept (path, path.1, ...).
+    checkpoint_keep: int = 1
+    verbose: bool = False
+    obs: ObsConfig = ObsConfig()
 
     def c_bounds(self) -> tuple:
         """(c_pos, c_neg): per-class box upper bounds."""
@@ -85,6 +135,8 @@ class SVMConfig:
         return 1.0 / float(num_features)
 
     def __post_init__(self):
+        if isinstance(self.obs, dict):  # a config read back from JSON
+            object.__setattr__(self, "obs", ObsConfig(**self.obs))
         if self.kernel not in KERNELS:
             raise ValueError(
                 f"unknown kernel {self.kernel!r}; expected one of {KERNELS}")
@@ -117,6 +169,7 @@ class SVMConfig:
         self._check_pair_knobs()
         self._check_round_knobs()
         self._check_mesh_knobs()
+        self._check_state_knobs()
 
     def _check_pair_knobs(self) -> None:
         """The JAX package's validation of the per-pair engines' knobs
@@ -243,6 +296,113 @@ class SVMConfig:
                 "sync_rounds > 1 amortizes the shard-local engine's sync "
                 "collectives; it needs local_working_sets >= 2")
 
+    def _check_state_knobs(self) -> None:
+        """The JAX package's validation of the numerics, state and
+        not-ported knobs (dpsvm_tpu/config.py), same conditions and key
+        phrases."""
+        clashes = (
+            (self.fleet_size < 1 or self.fleet_size > 64
+             or self.fleet_size & (self.fleet_size - 1),
+             "fleet_size must be a power of two in [1, 64]"),
+            (self.active_set_size > 0 and self.engine != "block",
+             "active_set_size (shrinking) is a block-engine knob"),
+            (self.reconcile_rounds < 1, "reconcile_rounds must be >= 1"),
+            (self.reconstruct_every < 0,
+             "reconstruct_every must be >= 0 (0 = off)"),
+            (bool(self.reconstruct_every) and self.budget_mode,
+             "budget_mode runs exactly max_iter pairs in one dispatch "
+             "sequence; reconstruction legs re-judge convergence and "
+             "would break the pinned budget — use one or the other"),
+            (bool(self.gram_resident) and self.active_set_size > 0,
+             "gram_resident does not compose with active-set shrinking"),
+            (self.bf16_gram and self.kernel == "precomputed",
+             "bf16_gram supports feature kernels only"),
+            (self.bf16_gram and self.dtype == "bfloat16",
+             "dtype='bfloat16' already stores X in bfloat16 (ungated, "
+             "warning-only); bf16_gram is the perturbation-gated variant "
+             "— use one or the other"),
+            (self.bf16_gram and self.ooc,
+             "bf16_gram does not compose with ooc"),
+            (self.ooc_shrink is not None and not self.ooc,
+             "ooc_shrink gates the ooc shrunken tile stream; set ooc=True"),
+            (self.ooc_tile_rows < 8, "ooc_tile_rows must be >= 8"),
+            (self.ooc_cache_lines < 0,
+             "ooc_cache_lines must be >= 0 (0 = off)"),
+            (self.ooc_cache_lines > 0 and not self.ooc,
+             "ooc_cache_lines is the ooc block cache's size; set ooc=True"),
+            (0 < self.ooc_cache_lines < self.working_set_size,
+             "ooc_cache_lines must be >= working_set_size"),
+            (self.matmul_precision not in (None, "default", "high",
+                                           "highest"),
+             "matmul_precision must be None (auto), 'default', 'high' or "
+             "'highest'"),
+            (self.retry_faults < 0,
+             "retry_faults must be >= 0 (0 = no retry)"),
+            (not 1 <= self.checkpoint_keep <= 99,
+             "checkpoint_keep must be in [1, 99]"),
+            (self.chunk_iters < 1, "chunk_iters must be >= 1"),
+        )
+        for bad, what in clashes:
+            if bad:
+                raise ValueError(what)
+        if self.ooc:
+            ooc_clashes = (
+                (self.engine != "block", "ooc (out-of-core streaming) is a "
+                 "block-engine path"),
+                (self.kernel == "precomputed",
+                 "ooc supports feature kernels only"),
+                (self.selection == "nu",
+                 "ooc supports selection in {'mvp', 'second_order'}"),
+                (bool(self.gram_resident),
+                 "ooc and gram_resident are opposite regimes"),
+                (self.active_set_size > 0 and self.ooc_shrink is False,
+                 "active_set_size > 0 with ooc REQUESTS the shrunken tile "
+                 "stream"),
+                (bool(self.pipeline_rounds),
+                 "ooc does not compose with pipeline_rounds"),
+                (bool(self.fused_fold),
+                 "ooc does not compose with fused_fold=True"),
+                (self.local_working_sets is not None,
+                 "the ooc round keeps ONE global working set"),
+                (bool(self.reconstruct_every),
+                 "ooc does not compose with reconstruct_every"),
+            )
+            for bad, what in ooc_clashes:
+                if bad:
+                    raise ValueError(what)
+
+    def resolve_precision(self) -> Optional[str]:
+        """The matmul precision the solvers apply (the JAX package's
+        resolve_precision): None for the platform default; auto (None)
+        is "highest" when compensated or reconstruct_every ask for
+        accuracy mode. device.precision_ctx maps it to torch."""
+        if self.matmul_precision is None:
+            return ("highest" if (self.compensated or self.reconstruct_every)
+                    else None)
+        return (None if self.matmul_precision == "default"
+                else self.matmul_precision)
+
+    def check_jax_only(self) -> None:
+        """Raise NotImplementedError for a field of the JAX package that
+        the port carries only so configs load, set to anything but its
+        default; the message names the ROADMAP.md item that ports it."""
+        default = SVMConfig()
+        jax_only = (
+            ("fleet_size", "ROADMAP queue A item 7a"),
+            ("reconcile_rounds",
+             "the active-set engines: ROADMAP queue A item 4, and item 10b on "
+             "the mesh"),
+            ("ooc_tile_rows", "ROADMAP queue A item 8"),
+            ("ooc_cache_lines", "ROADMAP queue A item 8"),
+            ("ooc_shrink", "ROADMAP queue A item 8"),
+            ("obs", "ROADMAP queue A item 11"),
+        )
+        for name, item in jax_only:
+            if getattr(self, name) != getattr(default, name):
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported to "
+                    f"dpsvm_tpu_torch yet ({item})")
+
     def check_ported(self) -> None:
         """Raise NotImplementedError for any knob set to a value whose
         engine the port does not have yet; the message names the
@@ -255,7 +415,6 @@ class SVMConfig:
             (bool(self.gram_resident) and self.engine == "block",
              "gram_resident=True on engine='block' (ROADMAP queue A "
              "item 6)"),
-            (self.bf16_gram, "bf16_gram=True (ROADMAP queue A item 6)"),
             (self.kernel == "precomputed",
              "kernel='precomputed' (ROADMAP queue A item 6)"),
         )
@@ -263,6 +422,7 @@ class SVMConfig:
             if bad:
                 raise NotImplementedError(
                     f"{what} is not ported to dpsvm_tpu_torch yet")
+        self.check_jax_only()
 
     def replace(self, **kw) -> "SVMConfig":
         return dataclasses.replace(self, **kw)

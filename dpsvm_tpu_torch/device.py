@@ -7,6 +7,8 @@ runs only when the caller asks for it (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 
@@ -34,3 +36,19 @@ def synchronize(dev: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+@contextmanager
+def precision_ctx(config):
+    """Scoped matmul precision of the solver's cuBLAS products
+    (config.resolve_precision): "high" allows TF32, anything else
+    (None, "default", "highest") keeps full float32, the setting
+    resolve_device states. The previous setting is restored on exit;
+    the hand-written kernels keep their own precision."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = config.resolve_precision() == "high"
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = prev

@@ -114,11 +114,15 @@ def _nu_config(config: SVMConfig, c: float) -> SVMConfig:
 
 def train_nusvc(x, y, nu: float = 0.5, config: SVMConfig = SVMConfig(),
                 backend: str = "auto", num_devices: Optional[int] = None,
-                device=None, mesh=None) -> tuple[SVMModel, SolveResult]:
+                device=None, mesh=None, callback=None,
+                checkpoint_path: Optional[str] = None,
+                resume: bool = False) -> tuple[SVMModel, SolveResult]:
     """Train binary nu-SVC: nu in (0, 1] bounds the margin-error fraction
     from above and the SV fraction from below. config.c is ignored (the
     box is [0, 1] before rescaling); labels must be +-1. Runs on
-    `device` (None: the CUDA card)."""
+    `device` (None: the CUDA card). `callback`, `checkpoint_path` and
+    `resume` follow solver/solve.py solve's contract (the checkpoint
+    holds this dual's unscaled state)."""
     from dpsvm_tpu_torch.train import resolve_backend, solve_on
 
     refuse_precomputed(config, "the nu-SVC dual rescales alpha")
@@ -150,7 +154,8 @@ def train_nusvc(x, y, nu: float = 0.5, config: SVMConfig = SVMConfig(),
     f_init = blocked_kernel_matvec(x, alpha0 * y, kp, config.dtype,
                                    device=resolve_device(device))
     result = solve_on(backend, x, y, cfg, device, num_devices, mesh,
-                      alpha_init=alpha0, f_init=f_init)
+                      alpha_init=alpha0, f_init=f_init, callback=callback,
+                      checkpoint_path=checkpoint_path, resume=resume)
 
     r1, r2 = _rho_r(result.stats["f"], result.alpha, y, 1.0)
     r = (r1 + r2) / 2.0
@@ -181,10 +186,14 @@ def train_nusvc(x, y, nu: float = 0.5, config: SVMConfig = SVMConfig(),
 def train_nusvr(x, z, nu: float = 0.5, c: Optional[float] = None,
                 config: SVMConfig = SVMConfig(), backend: str = "auto",
                 num_devices: Optional[int] = None, device=None,
-                mesh=None) -> tuple[SVRModel, SolveResult]:
+                mesh=None, callback=None,
+                checkpoint_path: Optional[str] = None,
+                resume: bool = False) -> tuple[SVRModel, SolveResult]:
     """Train nu-SVR: nu replaces epsilon-SVR's tube width (the tube
     adapts so that at most a nu fraction of points fall outside it).
-    `c` defaults to config.c. Runs on `device` (None: the CUDA card)."""
+    `c` defaults to config.c. Runs on `device` (None: the CUDA card).
+    `callback`, `checkpoint_path` and `resume` follow solver/solve.py
+    solve's contract (the checkpoint holds the 2n-variable dual)."""
     from dpsvm_tpu_torch.train import resolve_backend, solve_on
 
     refuse_precomputed(config, "nu-SVR doubles the variable set")
@@ -207,7 +216,8 @@ def train_nusvr(x, z, nu: float = 0.5, c: Optional[float] = None,
     backend = resolve_backend(backend, cfg, device, num_devices, mesh,
                               warm=True)
     result = solve_on(backend, x2, y2, cfg, device, num_devices, mesh,
-                      alpha_init=alpha0, f_init=f_init)
+                      alpha_init=alpha0, f_init=f_init, callback=callback,
+                      checkpoint_path=checkpoint_path, resume=resume)
 
     r1, r2 = _rho_r(result.stats["f"], result.alpha,
                     y2.astype(np.float32), C)

@@ -80,12 +80,15 @@ class OneClassModel:
 
 def train_oneclass(x, nu: float = 0.5, config: SVMConfig = SVMConfig(),
                    backend: str = "auto", num_devices: Optional[int] = None,
-                   device=None, mesh=None) -> tuple[OneClassModel,
+                   device=None, mesh=None, callback=None,
+                   checkpoint_path: Optional[str] = None,
+                   resume: bool = False) -> tuple[OneClassModel,
                                                     SolveResult]:
     """Fit nu one-class SVM: nu bounds the outlier fraction from above
     and the SV fraction from below. config.c and the class weights are
     ignored (the box is [0, 1]); config.epsilon stays the tolerance.
-    Runs on `device` (None: the CUDA card)."""
+    Runs on `device` (None: the CUDA card). `callback`, `checkpoint_path`
+    and `resume` follow solver/solve.py solve's contract."""
     from dpsvm_tpu_torch.train import resolve_backend, solve_on
 
     refuse_precomputed(config, "one-class has no labels to pair with "
@@ -108,7 +111,8 @@ def train_oneclass(x, nu: float = 0.5, config: SVMConfig = SVMConfig(),
                                    device=resolve_device(device))
     y = np.ones((n,), np.int32)
     result = solve_on(backend, x, y, cfg, device, num_devices, mesh,
-                      alpha_init=alpha0, f_init=f_init)
+                      alpha_init=alpha0, f_init=f_init, callback=callback,
+                      checkpoint_path=checkpoint_path, resume=resume)
     mask = result.alpha > 0
     model = OneClassModel(sv_x=np.ascontiguousarray(x[mask], np.float32),
                           coef=result.alpha[mask].astype(np.float32),

@@ -110,13 +110,17 @@ def regressor(x, coef, b: float, config: SVMConfig) -> SVRModel:
 def train_svr(x, z, config: SVMConfig = SVMConfig(),
               svr_epsilon: float = 0.1, backend: str = "auto",
               num_devices: Optional[int] = None, device=None,
-              mesh=None) -> tuple[SVRModel, SolveResult]:
+              mesh=None, callback=None,
+              checkpoint_path: Optional[str] = None,
+              resume: bool = False) -> tuple[SVRModel, SolveResult]:
     """Train epsilon-SVR: fit z ~ f(x) within an `svr_epsilon` tube.
 
     `config.epsilon` stays the SMO tolerance; the tube width is
     `svr_epsilon` (LibSVM's -p against -e). Runs on `device` (None: the
     CUDA card); the mesh runs no warm start (backend "auto" resolves to
-    the single device, "mesh" raises)."""
+    the single device, "mesh" raises). `callback`, `checkpoint_path` and
+    `resume` follow solver/solve.py solve's contract (the checkpoint
+    holds the 2n-variable dual)."""
     from dpsvm_tpu_torch.train import resolve_backend, solve_on
 
     refuse_precomputed(config, "epsilon-SVR doubles the variable set")
@@ -134,6 +138,7 @@ def train_svr(x, z, config: SVMConfig = SVMConfig(),
     backend = resolve_backend(backend, config, device, num_devices, mesh,
                               warm=True)
     result = solve_on(backend, x2, y2, config, device, num_devices, mesh,
-                      f_init=f_init)
+                      f_init=f_init, callback=callback,
+                      checkpoint_path=checkpoint_path, resume=resume)
     coef = result.alpha[:n] - result.alpha[n:]
     return regressor(x, coef, result.b, config), result

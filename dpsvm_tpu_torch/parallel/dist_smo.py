@@ -8,11 +8,17 @@ shard count and masked out of selection. One Python process drives all
 shards (parallel/mesh.py); the engines are parallel/dist_block.py's
 global and shard-local runners.
 
+The solve is observed chunk by chunk as on one device
+(solver/chunks.py): a callback, verbose and check_numerics on every
+runner; checkpoints and resume on the global runner, with the same file
+as one device's (a one-device checkpoint resumes on the mesh and back).
+
 Not ported (each refused with NotImplementedError naming its ROADMAP
 item): the per-pair mesh engine (engine="xla" on the mesh), the
 pipelined, fused, active-set and out-of-core mesh runners, warm starts
-and the nu rule (so the model families), reconstruction legs,
-checkpoints, callbacks, fault retry and obs.
+and the nu rule (so the model families), reconstruction legs and
+checkpoints of the shard-local runner (queue A item 10b), fault retry
+and obs.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SVMConfig
-from dpsvm_tpu_torch.device import resolve_device
+from dpsvm_tpu_torch.device import precision_ctx, resolve_device
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                          squared_norms,
                                          warn_if_bf16_degrades)
@@ -35,8 +41,11 @@ from dpsvm_tpu_torch.parallel.dist_block import (
 from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh, pad_rows,
                                            replicate_array,
                                            shard_padded_rows, unshard)
+from dpsvm_tpu_torch.solver import chunks
 from dpsvm_tpu_torch.solver.result import SolveResult
-from dpsvm_tpu_torch.solver.solve import _BUDGET_EPS
+from dpsvm_tpu_torch.solver.smo import read_obs
+from dpsvm_tpu_torch.solver.solve import _BUDGET_EPS, storage_dtype
+from dpsvm_tpu_torch.utils.checkpoint import PeriodicCheckpointer
 
 # Shard-local chunks are bounded to this many sync windows: the host's
 # endgame-demotion check reads the gap at chunk boundaries. Small enough
@@ -67,16 +76,20 @@ def _refuse_unported(config: SVMConfig) -> None:
 
 
 def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
-               mesh: Optional[Mesh] = None, alpha_init=None,
-               f_init=None) -> SolveResult:
+               mesh: Optional[Mesh] = None, callback=None,
+               checkpoint_path: Optional[str] = None, resume: bool = False,
+               alpha_init=None, f_init=None) -> SolveResult:
     """Train binary C-SVC row-sharded over the mesh.
 
     `mesh=None` takes the visible CUDA cards (the first `num_devices` of
     them) and raises without one. ``Mesh([torch.device("cuda:0")] * 4)``
     runs four logical shards on one card; ``Mesh(["cpu"] * 2)`` runs the
     plain PyTorch path. stats["mesh_devices"] lists the devices by rank.
-    Warm starts (`alpha_init` / `f_init`) and selection="nu", which the
-    model families need, are refused (ROADMAP queue A item 10b).
+    `callback`, `checkpoint_path` and `resume` follow solve()'s contract
+    (solver/solve.py). Warm starts (`alpha_init` / `f_init`) and
+    selection="nu", which the model families need, reconstruction legs
+    and checkpoints of the shard-local runner are refused (ROADMAP queue
+    A item 10b).
     """
     if config.engine not in ("xla", "block"):
         raise ValueError(
@@ -91,6 +104,12 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
             "families run on one device (backend='single')")
     _refuse_unported(config)
     config.check_ported()
+    if config.reconstruct_every:
+        raise NotImplementedError(
+            "reconstruct_every on the mesh (its legs warm-start the mesh "
+            "solve) is not ported (ROADMAP queue A item 10b); run the legs "
+            "on one device (backend='single')")
+    t_entry = time.perf_counter()
     x = np.asarray(x, np.float32)
     warn_if_bf16_degrades(x, config)
     if mesh is None:
@@ -108,6 +127,12 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     lws = config.local_working_sets
     use_shardlocal = (lws is not None and lws >= 2
                       and not config.budget_mode)
+    if use_shardlocal and checkpoint_path and (config.checkpoint_every > 0
+                                               or resume):
+        raise NotImplementedError(
+            "checkpoints of the shard-local mesh runner "
+            "(local_working_sets >= 2) are not ported (ROADMAP queue A "
+            "item 10b); the global runner checkpoints")
     use_ring = n_dev > 1 and bool(config.ring_exchange)
 
     n_pad = pad_rows(n, n_dev)
@@ -116,7 +141,8 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     y_p[:n] = y_np
     valid_p = np.zeros((n_pad,), bool)
     valid_p[:n] = True
-    dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+    store_dtype, extra = storage_dtype(x, config, kp.gamma)
+    dtype = torch.bfloat16 if store_dtype == "bfloat16" else torch.float32
     x_sh = shard_padded_rows(mesh, x, dtype=dtype)
     y_sh = shard_padded_rows(mesh, y_p)
     valid_sh = shard_padded_rows(mesh, valid_p)
@@ -127,13 +153,17 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     def rep(value, dt):
         return replicate_array(mesh, np.asarray(value, dt))
 
+    start = chunks.start_state(y_np, config, checkpoint_path, resume)
+    a_start, f_start, err_start = start.padded(n_pad)
     state = MeshBlockState(
-        alpha=[torch.zeros_like(yr) for yr in y_sh],
-        f=[-yr for yr in y_sh],
-        b_hi=rep(-np.inf, np.float32), b_lo=rep(np.inf, np.float32),
-        pairs=rep(0, np.int32), rounds=rep(0, np.int32),
-        f_err=([torch.zeros_like(yr) for yr in y_sh]
-               if config.compensated else None))
+        alpha=shard_padded_rows(mesh, a_start),
+        f=shard_padded_rows(mesh, f_start),
+        b_hi=rep(start.b_hi, np.float32), b_lo=rep(start.b_lo, np.float32),
+        pairs=rep(start.pairs, np.int32), rounds=rep(start.rounds, np.int32),
+        f_err=(None if err_start is None
+               else shard_padded_rows(mesh, err_start)))
+    ckpt = PeriodicCheckpointer(checkpoint_path, config, start.pairs)
+    observe = chunks.observed(config, callback, ckpt)
 
     eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)
     # Block height clamped so each shard can produce q/2 candidates.
@@ -142,60 +172,83 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     inner = config.inner_iters or 2 * q
     common = dict(selection=config.selection, compensated=config.compensated,
                   pair_batch=int(config.pair_batch), ring_exchange=use_ring)
+    bound = chunks.round_bound(config, observe, inner)
 
     def plain_runner():
         # The default dispatch, and the shard-local engine's endgame
         # demotion. The ring exchange rides along (bit-identical).
         return make_block_chunk_runner(
             mesh, kp, config.c_bounds(), eps_run, float(config.tau), q,
-            inner, None, **common)
+            inner, bound, **common)
 
+    r_sync = int(config.sync_rounds)
     if use_shardlocal:
-        r_sync = int(config.sync_rounds)
-        run_chunk = make_block_shardlocal_chunk_runner(
+        # The endgame demotion reads the gap at chunk boundaries, so
+        # shard-local chunks are always bounded (an observed solve's
+        # chunk is its round bound in whole sync windows).
+        win = (max(1, bound // r_sync) if observe
+               else _SHARDLOCAL_WINDOWS_PER_CHUNK)
+        runner = make_block_shardlocal_chunk_runner(
             mesh, kp, config.c_bounds(), eps_run, float(config.tau), q,
-            inner, _SHARDLOCAL_WINDOWS_PER_CHUNK * r_sync, r_sync, **common)
+            inner, win * r_sync, r_sync, **common)
     else:
-        run_chunk = plain_runner()
+        runner = plain_runner()
 
     max_iter = int(config.max_iter)
     # The endgame demotion: the concurrent shard-local chains are a
     # bulk-phase accelerator. Once the global gap stops halving across a
     # chunk's worth of local rounds, or is within 10 epsilon of done, the
-    # host swaps in the exact global-working-set runner for the tail.
-    shardlocal_live = use_shardlocal
-    demoted_at = None
-    gap_ref = None
-    stall_rounds = _SHARDLOCAL_WINDOWS_PER_CHUNK * int(config.sync_rounds)
-    syncs = 0
-    mesh.synchronize()
-    t0 = time.perf_counter()
-    while True:
-        rounds0 = int(state.rounds[0])
-        state = run_chunk(x_sh, y_sh, x_sq, k_diag, valid_sh, state,
-                          max_iter)
-        it = int(state.pairs[0])
-        b_hi = float(state.b_hi[0])
-        b_lo = float(state.b_lo[0])
-        rounds_now = int(state.rounds[0])
-        if shardlocal_live:
-            syncs += (rounds_now - rounds0) // int(config.sync_rounds)
-        converged = not (b_lo > b_hi + 2.0 * eps_run)
-        if converged or it >= max_iter:
-            break
-        if shardlocal_live:
-            gap = b_lo - b_hi
-            if gap_ref is None or gap <= 0.5 * gap_ref[0]:
-                gap_ref = (gap, rounds_now)  # halved: advance the reference
-            stalled = rounds_now - gap_ref[1] >= stall_rounds
-            if gap <= 10.0 * float(config.epsilon) or stalled:
-                run_chunk = plain_runner()
-                shardlocal_live = False
-                demoted_at = {"pairs": it, "rounds": rounds_now,
-                              "gap": gap, "stalled": bool(stalled)}
-    mesh.synchronize()
-    train_seconds = time.perf_counter() - t0
+    # host swaps in the exact global-working-set runner for the tail. The
+    # test runs on the last chunk's observation, before the next chunk.
+    live = {"shardlocal": use_shardlocal, "runner": runner, "obs": None,
+            "gap_ref": None, "demoted_at": None, "syncs": 0}
+    stall_rounds = _SHARDLOCAL_WINDOWS_PER_CHUNK * r_sync
 
+    def run_chunk(st):
+        if live["shardlocal"] and live["obs"] is not None:
+            it, b_hi, b_lo = live["obs"]
+            gap = b_lo - b_hi
+            rounds_now = int(st.rounds[0])
+            ref = live["gap_ref"]
+            if ref is None or gap <= 0.5 * ref[0]:
+                live["gap_ref"] = ref = (gap, rounds_now)  # halved
+            stalled = rounds_now - ref[1] >= stall_rounds
+            if gap <= 10.0 * float(config.epsilon) or stalled:
+                live["runner"] = plain_runner()
+                live["shardlocal"] = False
+                live["demoted_at"] = {"pairs": it, "rounds": rounds_now,
+                                      "gap": gap, "stalled": bool(stalled)}
+        was_local = live["shardlocal"]
+        r0 = int(st.rounds[0]) if was_local else 0
+        st = live["runner"](x_sh, y_sh, x_sq, k_diag, valid_sh, st, max_iter)
+        if was_local:
+            live["syncs"] += (int(st.rounds[0]) - r0) // r_sync
+        return st
+
+    def read(st):
+        (it,), (b_hi, b_lo) = read_obs((st.pairs[0],), (st.b_hi[0],
+                                                        st.b_lo[0]))
+        live["obs"] = (it, b_hi, b_lo)
+        return it, b_hi, b_lo
+
+    def payload(st):
+        err = None if st.f_err is None else unshard(st.f_err)[:n]
+        return (unshard(st.alpha)[:n], unshard(st.f)[:n], err,
+                int(st.rounds[0]))
+
+    with precision_ctx(config):
+        out = chunks.run_chunks(
+            run_chunk, state, read, config=config, eps_run=eps_run,
+            callback=callback, ckpt=ckpt, start_iter=start.pairs,
+            sync=mesh.synchronize, payload=payload,
+            tensors=lambda st: (st.f, st.alpha), backend=f"mesh p={n_dev}",
+            t_entry=t_entry)
+    t_fin = time.perf_counter()
+    state = out.state
+    it, b_hi, b_lo = out.it, out.b_hi, out.b_lo
+    converged = not (b_lo > b_hi + 2.0 * eps_run)
+    rounds_now = int(state.rounds[0])
+    syncs, demoted_at = live["syncs"], live["demoted_at"]
     alpha = unshard(state.alpha)[:n]
     f_parts = (state.f if state.f_err is None
                else [f - e for f, e in zip(state.f, state.f_err)])
@@ -212,6 +265,9 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
         "outer_rounds": rounds_now,
         "device": str(mesh.devices[0]),
         "n_pad": n_pad,
+        "chunks": out.chunks,
+        "phase_seconds": out.phase_seconds,
+        **extra,
     }
     if use_shardlocal:
         stats["shardlocal_demoted"] = demoted_at is not None
@@ -220,7 +276,8 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
             stats["shardlocal_demotion"] = demoted_at
     if use_ring:
         stats["ring_exchange"] = True
+    out.phase_seconds["finalize"] = time.perf_counter() - t_fin
     return SolveResult(
         alpha=alpha, b=float((b_lo + b_hi) / 2.0), b_hi=b_hi, b_lo=b_lo,
-        iterations=it, converged=converged, train_seconds=train_seconds,
-        stats=stats)
+        iterations=it, converged=converged,
+        train_seconds=out.train_seconds, stats=stats)

@@ -11,7 +11,8 @@ import torch
 
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.models.svm_model import SVMModel
-from dpsvm_tpu_torch.ops.kernels import KernelParams, kernel_matrix
+from dpsvm_tpu_torch.ops.kernels import kernel_matrix
+from dpsvm_tpu_torch.solver.reconstruct import gram_matvec_f64
 
 # decision_risk at or above this routes precision='auto' to the float64
 # host path (the JAX package's calibration, predict.AUTO_F64_RISK).
@@ -31,7 +32,8 @@ def decision_function(model: SVMModel, q, block: int = 8192,
         precision = resolve_precision(model)
     if precision == "float64":
         return gram_matvec_f64(model.sv_x, model.dual_coef, model.kernel,
-                               np.asarray(q, np.float64), block) - model.b
+                               block=block,
+                               queries=np.asarray(q, np.float64)) - model.b
     if precision != "float32":
         raise ValueError("precision must be 'auto', 'float32' or 'float64'")
     q = np.asarray(q, np.float32)
@@ -43,44 +45,6 @@ def decision_function(model: SVMModel, q, block: int = 8192,
         dec = kernel_matrix(qb, sv, model.kernel) @ coef - model.b
         out.append(dec.cpu().numpy())
     return np.concatenate(out) if out else np.zeros((0,), np.float32)
-
-
-def gram_matvec_f64(x, coef, kp: KernelParams, queries,
-                    block: int = 4096) -> np.ndarray:
-    """K(queries, x_active) @ coef_active in float64 on the host, blocked
-    so at most a (block, n_active) kernel tile is live; only nonzero-coef
-    columns are evaluated. (The query form of dpsvm_tpu/solver/
-    reconstruct.py gram_matvec_f64.)"""
-    coef = np.asarray(coef, np.float64)
-    x64 = np.asarray(x, np.float32).astype(np.float64)
-    xq = np.asarray(queries, np.float64)
-    m = xq.shape[0]
-    active = np.nonzero(coef != 0.0)[0]
-    if active.size == 0:
-        return np.zeros(m, np.float64)
-    xa = x64[active]
-    ca = coef[active]
-    out = np.empty(m, np.float64)
-    if kp.kind == "rbf":
-        sq = np.einsum("nd,nd->n", xq, xq)
-        sqa = np.einsum("nd,nd->n", xa, xa)
-    for s in range(0, m, block):
-        t = xq[s:s + block]
-        dots = t @ xa.T
-        if kp.kind == "linear":
-            k = dots
-        elif kp.kind == "rbf":
-            d2 = np.maximum(sq[s:s + block, None] + sqa[None, :]
-                            - 2.0 * dots, 0.0)
-            k = np.exp(-kp.gamma * d2)
-        elif kp.kind == "poly":
-            k = (kp.gamma * dots + kp.coef0) ** kp.degree
-        elif kp.kind == "sigmoid":
-            k = np.tanh(kp.gamma * dots + kp.coef0)
-        else:
-            raise ValueError(f"unknown kernel kind {kp.kind!r}")
-        out[s:s + block] = k @ ca
-    return out
 
 
 def decision_risk(model: SVMModel) -> float:

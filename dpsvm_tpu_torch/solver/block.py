@@ -33,7 +33,11 @@ carry the NEXT round's working set in the loop:
                               select_rows, B3).
 
 Each engine seeds its carry once per call and reads its loop condition
-on the host once per round, as run_chunk_block does.
+on the host once per round, as run_chunk_block does. Every runner takes
+`max_rounds`, the rounds one chunk may run (None: to the end; the
+observed chunk loop of solver/chunks.py passes a bound), as the JAX
+package's runners take rounds_per_chunk. A chunked fused or pipelined
+solve therefore re-seeds at every chunk, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -202,16 +206,26 @@ def run_local_round(x, y, x_sq, k_diag, valid, alpha, f, f_err,
     return alpha, f, f_err, b_hi, b_lo, t, coef, qx, qsq
 
 
+def _more(state: BlockState, done: int, max_rounds: Optional[int],
+          max_iter: int, eps: float) -> bool:
+    """The round loop's condition: rounds left in the chunk, then (one
+    host read) pairs < max_iter and the CARRIED gap open, evaluated on
+    the device in float32."""
+    return ((max_rounds is None or done < max_rounds)
+            and bool((state.pairs < max_iter)
+                     & (state.b_lo > state.b_hi + 2.0 * eps)))
+
+
 def run_chunk_block(x, y, x_sq, k_diag, state: BlockState, max_iter: int,
                     kp: KernelParams, c, eps: float, tau: float, q: int,
                     inner_iters: int, selection: str = "mvp",
-                    pair_batch: int = 1) -> BlockState:
-    """Run rounds while pairs < max_iter and the CARRIED gap is open (the
-    semantics of the JAX package's _run_chunk_block run unobserved). The
-    loop condition is evaluated on the device in float32 and read once
-    per round."""
-    while bool((state.pairs < max_iter)
-               & (state.b_lo > state.b_hi + 2.0 * eps)):
+                    pair_batch: int = 1,
+                    max_rounds: Optional[int] = None) -> BlockState:
+    """Run rounds while pairs < max_iter and the CARRIED gap is open, at
+    most max_rounds of them (the JAX package's _run_chunk_block)."""
+    done = 0
+    while _more(state, done, max_rounds, max_iter, eps):
+        done += 1
         alpha, f, f_err, b_hi, b_lo, t, _, _, _ = run_local_round(
             x, y, x_sq, k_diag, None, state.alpha, state.f, state.f_err,
             max_iter - state.pairs, kp, c, eps, tau, q, inner_iters,
@@ -224,8 +238,8 @@ def run_chunk_block(x, y, x_sq, k_diag, state: BlockState, max_iter: int,
 def run_chunk_block_fused(x, y, x_sq, k_diag, valid, state: BlockState,
                           max_iter: int, kp: KernelParams, c, eps: float,
                           tau: float, q: int, inner_iters: int,
-                          selection: str = "mvp",
-                          pair_batch: int = 1) -> BlockState:
+                          selection: str = "mvp", pair_batch: int = 1,
+                          max_rounds: Optional[int] = None) -> BlockState:
     """Fused-fold rounds: each round's fold and the NEXT round's
     selection are one pass over f (fold_select). One plain select_block
     seeds the carried working set; the carried (b_hi, b_lo) are then the
@@ -242,8 +256,9 @@ def run_chunk_block_fused(x, y, x_sq, k_diag, valid, state: BlockState,
                                           q, valid=valid, rule=selection)
     w = w.to(torch.int32)
     state = state._replace(b_hi=b_hi, b_lo=b_lo)
-    while bool((state.pairs < max_iter)
-               & (state.b_lo > state.b_hi + 2.0 * eps)):
+    done = 0
+    while _more(state, done, max_rounds, max_iter, eps):
+        done += 1
         gap_open = state.b_lo > state.b_hi + 2.0 * eps
         qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0 = gather_block(
             x, y, x_sq, k_diag, eff_f(state), state.alpha, w, kp)
@@ -273,7 +288,9 @@ def run_chunk_block_fusedround(x, y, x_sq, k_diag, valid, state: BlockState,
                                max_iter: int, kp: KernelParams, c,
                                eps: float, tau: float, q: int,
                                inner_iters: int, selection: str = "mvp",
-                               pair_batch: int = 1) -> BlockState:
+                               pair_batch: int = 1,
+                               max_rounds: Optional[int] = None
+                               ) -> BlockState:
     """One-pass fused rounds (ops/round.py fused_round): the fused-fold
     engine's loop, seed and carry with each round's gather, Gram, kernel
     rows and fold contraction in the two passes gather_gram and
@@ -287,8 +304,9 @@ def run_chunk_block_fusedround(x, y, x_sq, k_diag, valid, state: BlockState,
                                           q, valid=valid, rule=selection)
     w = w.to(torch.int32)
     state = state._replace(b_hi=b_hi, b_lo=b_lo)
-    while bool((state.pairs < max_iter)
-               & (state.b_lo > state.b_hi + 2.0 * eps)):
+    done = 0
+    while _more(state, done, max_rounds, max_iter, eps):
+        done += 1
         alpha, f, f_err, b_hi, b_lo, w, slot_ok, t = fused_round(
             x, y, x_sq, k_diag, y2d, valid2d, state.alpha, state.f,
             state.f_err, w, slot_ok, state.b_hi, state.b_lo,
@@ -349,7 +367,9 @@ def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
                               eps: float, tau: float, q: int,
                               inner_iters: int, selection: str = "mvp",
                               pair_batch: int = 1,
-                              pallas_select: bool = False) -> BlockState:
+                              pallas_select: bool = False,
+                              max_rounds: Optional[int] = None
+                              ) -> BlockState:
     """Pipelined rounds: round t+1's working set is selected, gathered
     and its Gram block built from round t's PRE-fold carry, so nothing in
     that stage waits on round t's subproblem.
@@ -371,8 +391,9 @@ def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
 
     cand = prefetch(eff_f(state), state.alpha)
     state = state._replace(b_hi=cand.b_hi, b_lo=cand.b_lo)
-    while bool((state.pairs < max_iter)
-               & (state.b_lo > state.b_hi + 2.0 * eps)):
+    done = 0
+    while _more(state, done, max_rounds, max_iter, eps):
+        done += 1
         f_cur = eff_f(state)
         a_w0 = state.alpha[cand.w]
         y_w = y[cand.w]

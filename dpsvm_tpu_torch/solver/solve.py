@@ -1,24 +1,33 @@
 """Single-device solve (counterpart of dpsvm_tpu/solver/smo.py solve /
-_solve_impl): the block engines and the per-pair engines."""
+_solve_impl): the block engines and the per-pair engines, observed chunk
+by chunk (solver/chunks.py), checkpointed and resumed
+(utils/checkpoint.py), in float64 reconstruction legs
+(solver/reconstruct.py), and with X in bfloat16 where the bf16_gram
+gate allows it."""
 
 from __future__ import annotations
 
+import functools
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SVMConfig
-from dpsvm_tpu_torch.device import resolve_device, synchronize
+from dpsvm_tpu_torch.device import (precision_ctx, resolve_device,
+                                    synchronize)
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
-                                         resident_gram, squared_norms,
+                                         resident_gram, resolve_bf16_gram,
+                                         squared_norms,
                                          warn_if_bf16_degrades)
 from dpsvm_tpu_torch.ops.select import refresh_extrema_host
-from dpsvm_tpu_torch.solver import block
+from dpsvm_tpu_torch.solver import block, chunks
 from dpsvm_tpu_torch.solver import smo
 from dpsvm_tpu_torch.solver.block import BlockState
 from dpsvm_tpu_torch.solver.result import SolveResult
-from dpsvm_tpu_torch.solver.smo import eff_f, init_state
+from dpsvm_tpu_torch.solver.smo import eff_f, read_obs
+from dpsvm_tpu_torch.utils.checkpoint import PeriodicCheckpointer
 
 # budget_mode runs the stopping test at this epsilon: b_lo > b_hi + 2 eps
 # then never closes, so the loop runs to exactly max_iter pairs; finite
@@ -88,7 +97,8 @@ def gram_budget_bytes(dev: torch.device) -> int:
 def resolve_gram(config: SVMConfig, n: int, dev: torch.device) -> bool:
     """Whether this solve runs on the resident Gram (the JAX package's
     _resolve_gram): never on engine="pallas"; True / False as set; auto
-    on engine="xla" when n >= 8192 and the Gram fits the budget."""
+    on engine="xla" when n >= 8192 and the Gram fits the budget. `n` is
+    the row count the budget is judged at (solve's max(n, pad_to))."""
     if config.engine == "pallas":
         return False
     if config.gram_resident is not None:
@@ -97,8 +107,21 @@ def resolve_gram(config: SVMConfig, n: int, dev: torch.device) -> bool:
             and 4 * n * n <= gram_budget_bytes(dev))
 
 
-def _stage(x, y_np, n_pad: int, config: SVMConfig, dev, masked: bool):
-    """X (stored in config.dtype), y (float32) and `valid` on the device,
+def storage_dtype(x, config: SVMConfig, gamma: float) -> tuple:
+    """(X's storage dtype, stats entries): config.dtype, or "bfloat16"
+    where config.bf16_gram's gate (ops/kernels.py resolve_bf16_gram)
+    accepts. The gate's decision goes to stats["bf16_gram"]; a refusal
+    stays float32 and warns, as in the JAX package."""
+    if not config.bf16_gram:
+        return config.dtype, {}
+    active, _, entry = resolve_bf16_gram(x, config, gamma)
+    if not active:
+        warnings.warn(entry["note"], stacklevel=3)
+    return ("bfloat16" if active else "float32"), {"bf16_gram": entry}
+
+
+def _stage(x, y_np, n_pad: int, dtype: str, dev, masked: bool):
+    """X (stored in `dtype`), y (float32) and `valid` on the device,
     padded to n_pad rows (padded rows: zero features, y = 1, valid False;
     valid is None unless `masked`, which padding implies)."""
     n, d = x.shape
@@ -111,22 +134,26 @@ def _stage(x, y_np, n_pad: int, config: SVMConfig, dev, masked: bool):
     if masked or n_pad != n:
         valid = torch.zeros(n_pad, dtype=torch.bool, device=dev)
         valid[:n] = True
-    dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
-    return (torch.as_tensor(x_p, device=dev).to(dtype),
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return (torch.as_tensor(x_p, device=dev).to(tdtype),
             torch.as_tensor(y_p, device=dev), valid)
 
 
-def _finish(state, y_np, n: int, config: SVMConfig, eps_run: float,
+def _on(dev, a, dtype=torch.float32):
+    """A host array or scalar copied to `dev` (None stays None)."""
+    return None if a is None else torch.tensor(a, dtype=dtype, device=dev)
+
+
+def _finish(alpha_dev, f_dev, n: int, y_np, config: SVMConfig,
+            eps_run: float, b_hi: float, b_lo: float,
             refresh: bool) -> tuple:
     """(alpha, f, b_hi, b_lo, converged) of a finished loop, trimmed to
     n. `converged` is the host test at the run's epsilon; where it fails
     and `refresh` holds, the extrema are recomputed from the final state
     at the real epsilon."""
-    b_hi = float(state.b_hi)
-    b_lo = float(state.b_lo)
     converged = not (b_lo > b_hi + 2.0 * eps_run)
-    alpha = state.alpha[:n].cpu().numpy()
-    f_final = eff_f(state)[:n].cpu().numpy()
+    alpha = alpha_dev[:n].cpu().numpy()
+    f_final = f_dev[:n].cpu().numpy()
     if refresh and not converged:
         b_hi, b_lo, converged = refresh_extrema_host(
             f_final, alpha, y_np, config.c_bounds(), config.epsilon,
@@ -134,8 +161,9 @@ def _finish(state, y_np, n: int, config: SVMConfig, eps_run: float,
     return alpha, f_final, b_hi, b_lo, converged
 
 
-def solve(x, y, config: SVMConfig, device=None, alpha_init=None,
-          f_init=None) -> SolveResult:
+def solve(x, y, config: SVMConfig, device=None, callback=None,
+          checkpoint_path=None, resume: bool = False, alpha_init=None,
+          f_init=None, pad_to=None) -> SolveResult:
     """Train binary C-SVC on one device with the engine config.engine
     names: "block" (and its fused variants), or the per-pair engines
     "xla" (with the row cache, the resident Gram and micro-batching) and
@@ -143,15 +171,32 @@ def solve(x, y, config: SVMConfig, device=None, alpha_init=None,
 
     `device=None` means the CUDA card (raises without one); pass
     device="cpu" for the plain PyTorch path. X is stored in
-    config.dtype; the solver state (alpha, f) is float32. Engines that
-    pad the rows mask the padding out of every selection; alpha and f
-    come back trimmed to n.
+    config.dtype (bfloat16 also where config.bf16_gram's gate accepts:
+    stats["bf16_gram"] holds its decision, and a refusal warns); the
+    solver state (alpha, f) is float32. Engines that pad the rows mask
+    the padding out of every selection; alpha and f come back trimmed
+    to n.
+
+    `callback(iteration, b_hi, b_lo, state)` is called at every chunk
+    boundary (solver/chunks.py); a truthy return stops the solve there
+    and forces a checkpoint. An optional `callback.on_start(start_iter)`
+    is called once. With `checkpoint_path` and config.checkpoint_every >
+    0 the state is saved every checkpoint_every pairs (rounded up to a
+    chunk); `resume=True` restarts from the newest loadable generation
+    of the file when one exists (written by either package). A solve
+    that nothing observes runs as one chunk.
 
     `alpha_init` / `f_init` (n,) override the C-SVC start point (alpha =
     0, f = -y): the general dual min 1/2 a^T Q a + p^T a with
     Q_ij = y_i y_j K_ij starts from f = y * (Q alpha_init + p). The
-    model families use it (models/svr.py, nusvm.py, oneclass.py).
-    Padded rows start at alpha 0 and f -y."""
+    model families use it (models/svr.py, nusvm.py, oneclass.py). A
+    resumed checkpoint takes precedence. Padded rows start at alpha 0
+    and f -y.
+
+    config.reconstruct_every > 0 runs the solve in float64
+    reconstruction legs (solver/reconstruct.py solve_in_legs). `pad_to`
+    sizes the resident-Gram budget at max(n, pad_to) rows; it never
+    changes results."""
     if config.selection == "nu" and alpha_init is None:
         # The nu rule pairs within one class; from the C-SVC zero start no
         # class has both an I_up and an I_low member, so the gap would
@@ -160,87 +205,124 @@ def solve(x, y, config: SVMConfig, device=None, alpha_init=None,
             "selection='nu' is internal to the nu duals — call "
             "train_nusvc/train_nusvr (models/nusvm.py) instead")
     config.check_ported()
+    if config.reconstruct_every:
+        from dpsvm_tpu_torch.solver.reconstruct import solve_in_legs
+
+        return solve_in_legs(solve, x, y, config, callback=callback,
+                             checkpoint_path=checkpoint_path, resume=resume,
+                             alpha_init=alpha_init, f_init=f_init,
+                             device=device, pad_to=pad_to)
+    t_entry = time.perf_counter()
     x = np.asarray(x, np.float32)
     warn_if_bf16_degrades(x, config)
     dev = resolve_device(device)
     y_np = np.asarray(y, np.int32)
-    kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
-                      config.degree, config.coef0)
+    n, d = x.shape
+    gamma = config.resolve_gamma(d)
+    kp = KernelParams(config.kernel, gamma, config.degree, config.coef0)
+    store_dtype, extra = storage_dtype(x, config, gamma)
     eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)
-    start = (alpha_init, f_init)
-    if config.engine == "block":
-        return _solve_block(x, y_np, config, kp, dev, eps_run, start)
-    return _solve_pair(x, y_np, config, kp, dev, eps_run, start)
+    start = chunks.start_state(y_np, config, checkpoint_path, resume,
+                               alpha_init, f_init)
+    ckpt = PeriodicCheckpointer(checkpoint_path, config, start.pairs)
+    observe = chunks.observed(config, callback, ckpt)
+    loop = functools.partial(
+        chunks.run_chunks, config=config, eps_run=eps_run,
+        callback=callback, ckpt=ckpt, start_iter=start.pairs,
+        sync=lambda: synchronize(dev), backend="single-device",
+        t_entry=t_entry)
+    args = (x, y_np, kp, config, dev, store_dtype, eps_run, start, observe,
+            loop)
+    with precision_ctx(config):
+        if config.engine == "block":
+            res = _solve_block(*args)
+        else:
+            res = _solve_pair(*args, max(n, int(pad_to or 0)))
+    res.stats.update(extra)
+    return res
 
 
-def start_point(y_dev, n: int, start: tuple) -> tuple:
-    """The solve's (alpha, f) start on y_dev's device: the C-SVC start
-    (alpha = 0, f = -y) with the first n rows of alpha and f replaced by
-    alpha_init / f_init where given (start = (alpha_init, f_init))."""
-    alpha, f, _, _ = init_state(y_dev)
-    for buf, init in zip((alpha, f), start):
-        if init is not None:
-            buf[:n] = torch.as_tensor(np.asarray(init, np.float32),
-                                      device=buf.device)
-    return alpha, f
-
-
-def _solve_block(x, y_np, config, kp, dev, eps_run, start) -> SolveResult:
+def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
+                 observe, loop) -> SolveResult:
     n = x.shape[0]
     eng = choose_engine(config, n, dev)
     n_pad = eng["n_pad"]
-    x_dev, y_dev, valid = _stage(x, y_np, n_pad, config, dev, eng["pad"])
+    x_dev, y_dev, valid = _stage(x, y_np, n_pad, store_dtype, dev,
+                                 eng["pad"])
     x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
     k_diag = kernel_diag(x_sq, kp)
     q, inner = block_height(config, n_pad)
-    _, _, b_hi0, b_lo0 = init_state(y_dev)
-    alpha0, f0 = start_point(y_dev, n, start)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    state = BlockState(alpha0, f0, b_hi0, b_lo0, zero, zero,
-                       torch.zeros_like(f0) if config.compensated else None)
-    c = config.c_bounds()
-    synchronize(dev)
-    t0 = time.perf_counter()
+    alpha0, f0, err0 = (_on(dev, a) for a in start.padded(n_pad))
+    state = BlockState(alpha0, f0, _on(dev, start.b_hi),
+                       _on(dev, start.b_lo),
+                       _on(dev, start.pairs, torch.int32),
+                       _on(dev, start.rounds, torch.int32), err0)
+    bound = chunks.round_bound(config, observe, inner)
     args = (x_dev, y_dev, x_sq, k_diag)
-    rest = (int(config.max_iter), kp, c, eps_run, float(config.tau), q,
-            inner, config.selection, int(config.pair_batch))
+    rest = (int(config.max_iter), kp, config.c_bounds(), eps_run,
+            float(config.tau), q, inner, config.selection,
+            int(config.pair_batch))
     if eng["pipelined"]:
-        state = block.run_chunk_block_pipelined(
-            *args, valid, state, *rest, pallas_select=eng["pipe_select"])
-    elif eng["fused_round"]:
-        state = block.run_chunk_block_fusedround(*args, valid, state, *rest)
-    elif eng["fused_fold"]:
-        state = block.run_chunk_block_fused(*args, valid, state, *rest)
+        def run_chunk(s):
+            return block.run_chunk_block_pipelined(
+                *args, valid, s, *rest, pallas_select=eng["pipe_select"],
+                max_rounds=bound)
     else:
-        state = block.run_chunk_block(*args, state, *rest)
-    synchronize(dev)
-    train_seconds = time.perf_counter() - t0
+        runner = (block.run_chunk_block_fusedround if eng["fused_round"]
+                  else block.run_chunk_block_fused if eng["fused_fold"]
+                  else None)
+        if runner is None:
+            def run_chunk(s):
+                return block.run_chunk_block(*args, s, *rest,
+                                             max_rounds=bound)
+        else:
+            def run_chunk(s):
+                return runner(*args, valid, s, *rest, max_rounds=bound)
+
+    def read(s):
+        (it,), (bh, bl) = read_obs((s.pairs,), (s.b_hi, s.b_lo))
+        return it, bh, bl
+
+    def payload(s):
+        err = None if s.f_err is None else s.f_err[:n].cpu().numpy()
+        return (s.alpha[:n].cpu().numpy(), s.f[:n].cpu().numpy(), err,
+                int(s.rounds))
+
+    out = loop(run_chunk, state, read, payload=payload,
+               tensors=lambda s: ((s.f,), (s.alpha,)))
+    t_fin = time.perf_counter()
+    state = out.state
     # Budget exits report the stopping rule at the REAL epsilon on the
     # final state (the carried extrema are one fold behind).
     alpha, f_final, b_hi, b_lo, converged = _finish(
-        state, y_np, n, config, eps_run, refresh=True)
+        state.alpha, eff_f(state), n, y_np, config, eps_run, out.b_hi,
+        out.b_lo, refresh=True)
+    out.phase_seconds["finalize"] = time.perf_counter() - t_fin
     return SolveResult(
         alpha=alpha,
         b=float((b_lo + b_hi) / 2.0),
         b_hi=b_hi,
         b_lo=b_lo,
-        iterations=int(state.pairs),
+        iterations=out.it,
         converged=converged,
-        train_seconds=train_seconds,
+        train_seconds=out.train_seconds,
         stats={"f": f_final, "outer_rounds": int(state.rounds),
-               "device": str(dev), "n_pad": n_pad,
+               "device": str(dev), "n_pad": n_pad, "chunks": out.chunks,
+               "phase_seconds": out.phase_seconds,
                **{k: eng[k] for k in ("pipelined", "fused_fold",
                                       "fused_round")}},
     )
 
 
-def _solve_pair(x, y_np, config, kp, dev, eps_run, start) -> SolveResult:
+def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
+                observe, loop, n_budget: int) -> SolveResult:
     """The per-pair branch of the JAX package's _solve_impl."""
     n = x.shape[0]
     use_pallas = config.engine == "pallas"
-    use_gram = resolve_gram(config, n, dev)
+    use_gram = resolve_gram(config, n_budget, dev)
     n_pad = -(-n // _PALLAS_ROWS) * _PALLAS_ROWS if use_pallas else n
-    x_dev, y_dev, valid = _stage(x, y_np, n_pad, config, dev, use_pallas)
+    x_dev, y_dev, valid = _stage(x, y_np, n_pad, store_dtype, dev,
+                                 use_pallas)
     x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
     k_diag = kernel_diag(x_sq, kp)
     if use_gram:
@@ -253,38 +335,49 @@ def _solve_pair(x, y_np, config, kp, dev, eps_run, start) -> SolveResult:
     use_micro = config.pair_batch > 1
     # The resident Gram supersedes the cache; micro has none.
     use_cache = cache_lines > 0 and not use_gram and not use_micro
-    state = smo.init_pair_state(y_dev, cache_lines if use_cache else 0,
-                                config.compensated)
-    alpha0, f0 = start_point(y_dev, n, start)
-    state = state._replace(alpha=alpha0, f=f0)
+    alpha0, f0, err0 = (_on(dev, a) for a in start.padded(n_pad))
+    state = smo.init_pair_state(y_dev, cache_lines if use_cache else 0)
+    state = state._replace(alpha=alpha0, f=f0, f_err=err0,
+                           b_hi=float(np.float32(start.b_hi)),
+                           b_lo=float(np.float32(start.b_lo)),
+                           it=start.pairs)
+    start_iter = start.pairs
     c = config.c_bounds()
     tau = float(config.tau)
-    max_iter = int(config.max_iter)
-    synchronize(dev)  # the Gram build is done before the clock starts
-    t0 = time.perf_counter()
-    if use_pallas:
-        state = smo.run_chunk_pallas(x_dev, y_dev, x_sq, valid, state,
-                                     max_iter, kp, c, eps_run, tau)
-    elif use_micro:
-        state = smo.run_chunk_micro(x_dev, y_dev, x_sq, k_diag, valid, state,
-                                    max_iter, kp, c, eps_run, tau,
-                                    config.pair_batch)
-    else:
-        state = smo.run_chunk(x_dev, y_dev, x_sq, k_diag, valid, state,
-                              max_iter, kp, c, eps_run, tau,
-                              config.selection)
-    synchronize(dev)
-    train_seconds = time.perf_counter() - t0
+
+    def run_chunk(s):
+        end = chunks.pair_end(config, observe, s.it)
+        if use_pallas:
+            return smo.run_chunk_pallas(x_dev, y_dev, x_sq, valid, s, end,
+                                        kp, c, eps_run, tau)
+        if use_micro:
+            return smo.run_chunk_micro(x_dev, y_dev, x_sq, k_diag, valid, s,
+                                       end, kp, c, eps_run, tau,
+                                       config.pair_batch)
+        return smo.run_chunk(x_dev, y_dev, x_sq, k_diag, valid, s, end, kp,
+                             c, eps_run, tau, config.selection)
+
+    def payload(s):
+        err = None if s.f_err is None else s.f_err[:n].cpu().numpy()
+        return s.alpha[:n].cpu().numpy(), s.f[:n].cpu().numpy(), err, None
+
+    out = loop(run_chunk, state, lambda s: (s.it, s.b_hi, s.b_lo),
+               payload=payload, tensors=lambda s: ((s.f,), (s.alpha,)))
+    t_fin = time.perf_counter()
+    state = out.state
     del x_dev  # the resident Gram goes with the solve
     alpha, f_final, b_hi, b_lo, converged = _finish(
-        state, y_np, n, config, eps_run, refresh=config.budget_mode)
-    lookups = 2 * state.it if use_cache else 0
+        state.alpha, eff_f(state), n, y_np, config, eps_run, state.b_hi,
+        state.b_lo, refresh=config.budget_mode)
+    # Lookups of THIS run (a resumed run counts from its restore point).
+    lookups = 2 * (state.it - start_iter) if use_cache else 0
     evictions = 0
     if use_cache:
         # Every miss fills a line and a line leaves "empty" at most once,
         # so evictions = misses - lines filled from empty.
         filled = int(np.count_nonzero(state.cache.keys >= 0))
         evictions = max(0, lookups - state.hits - filled)
+    out.phase_seconds["finalize"] = time.perf_counter() - t_fin
     return SolveResult(
         alpha=alpha,
         b=float((b_lo + b_hi) / 2.0),
@@ -292,10 +385,11 @@ def _solve_pair(x, y_np, config, kp, dev, eps_run, start) -> SolveResult:
         b_lo=b_lo,
         iterations=state.it,
         converged=converged,
-        train_seconds=train_seconds,
+        train_seconds=out.train_seconds,
         stats={"f": f_final, "device": str(dev), "n_pad": n_pad,
                "gram_resident": use_gram, "cache_hits": state.hits,
                "cache_lookups": lookups,
                "cache_hit_rate": state.hits / lookups if lookups else 0.0,
-               "cache_evictions": evictions},
+               "cache_evictions": evictions, "chunks": out.chunks,
+               "phase_seconds": out.phase_seconds},
     )

@@ -1,5 +1,5 @@
 """High-level training API: data in, SVMModel out (counterpart of
-dpsvm_tpu/train.py, the single-device and mesh backends)."""
+dpsvm_tpu/train.py): the single-device, mesh and host backends."""
 
 from __future__ import annotations
 
@@ -14,13 +14,14 @@ from dpsvm_tpu_torch.solver.solve import solve
 
 def resolve_backend(backend: str, config: SVMConfig, device=None,
                     num_devices=None, mesh=None, warm: bool = False) -> str:
-    """"single" or "mesh" for a `backend` request. "auto" takes the mesh
-    when one is given, or when no `device` is named and more than one
-    card is visible (or asked for), and only where the mesh runs the
-    request: engine="block" with a cold start (`warm` False; the mesh
-    runs no warm start and no nu rule). Otherwise the single device. An
-    explicit "mesh" stands: solve_mesh refuses what the mesh does not
-    run."""
+    """"single", "mesh", "reference" or "native" for a `backend`
+    request. "auto" takes the mesh when one is given, or when no `device`
+    is named and more than one card is visible (or asked for), and only
+    where the mesh runs the request: engine="block" with a cold start
+    (`warm` False; the mesh runs no warm start and no nu rule) and no
+    reconstruction legs. Otherwise the single device. An explicit "mesh"
+    stands: solve_mesh refuses what the mesh does not run. The host
+    backends are the NumPy oracle and the native sequential engine."""
     if backend == "auto":
         import torch
 
@@ -29,30 +30,69 @@ def resolve_backend(backend: str, config: SVMConfig, device=None,
         # The mesh runs the block engine only; auto must not swap a
         # per-pair request for another engine.
         backend = ("mesh" if (multi or mesh is not None)
-                   and config.engine == "block" and not warm else "single")
-    if backend not in ("single", "mesh"):
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported; use 'single', 'mesh' or "
-            "'auto'")
+                   and config.engine == "block" and not warm
+                   and not config.reconstruct_every else "single")
+    if backend not in ("single", "mesh", "reference", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
     return backend
 
 
 def solve_on(backend: str, x, y, config: SVMConfig, device=None,
-             num_devices=None, mesh=None, alpha_init=None,
-             f_init=None) -> SolveResult:
-    """Run the solve on a resolved backend ("single" or "mesh")."""
+             num_devices=None, mesh=None, alpha_init=None, f_init=None,
+             callback=None, checkpoint_path=None, resume: bool = False,
+             pad_to=None) -> SolveResult:
+    """Run the solve on a resolved device backend ("single" or "mesh").
+    `pad_to` reaches the single device only (the mesh sizes its own
+    shards; it never changes results)."""
+    if backend not in ("single", "mesh"):
+        raise ValueError(
+            f"backend={backend!r} is a host C-SVC engine; the warm-started "
+            "model families run on 'single' or 'mesh'")
     if backend == "mesh":
         from dpsvm_tpu_torch.parallel.dist_smo import solve_mesh
 
         return solve_mesh(x, y, config, num_devices=num_devices, mesh=mesh,
-                          alpha_init=alpha_init, f_init=f_init)
-    return solve(x, y, config, device=device, alpha_init=alpha_init,
-                 f_init=f_init)
+                          callback=callback, checkpoint_path=checkpoint_path,
+                          resume=resume, alpha_init=alpha_init,
+                          f_init=f_init)
+    return solve(x, y, config, device=device, callback=callback,
+                 checkpoint_path=checkpoint_path, resume=resume,
+                 alpha_init=alpha_init, f_init=f_init, pad_to=pad_to)
+
+
+def _solve_host(backend: str, x, y, config: SVMConfig, callback,
+                checkpoint_path, resume) -> SolveResult:
+    """The host backends: fixed engines (mvp selection) that run to
+    completion in one call, with no checkpoints. A callback gets one
+    final record."""
+    if config.engine != "xla" or config.selection != "mvp":
+        raise ValueError(
+            f"backend={backend!r} is a fixed host engine (MVP selection); "
+            "it cannot honor engine/selection overrides — drop them or "
+            "pick another backend")
+    if checkpoint_path or resume:
+        raise ValueError(
+            f"backend={backend!r} does not support checkpoint/resume; "
+            "use the 'single' or 'mesh' backend for long runs")
+    from types import SimpleNamespace
+
+    from dpsvm_tpu_torch.solver.reference import smo_native, smo_reference
+
+    fn = smo_reference if backend == "reference" else smo_native
+    result = fn(x, y, config)
+    if callback is not None:
+        # The namespace mirrors the per-pair state's fields.
+        callback(result.iterations, result.b_hi, result.b_lo,
+                 SimpleNamespace(alpha=result.alpha, f=result.stats["f"],
+                                 b_hi=result.b_hi, b_lo=result.b_lo,
+                                 it=result.iterations, hits=0))
+    return result
 
 
 def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "auto",
-          device=None, num_devices=None,
-          mesh=None) -> tuple[SVMModel, SolveResult]:
+          device=None, num_devices=None, mesh=None, callback=None,
+          checkpoint_path=None, resume: bool = False,
+          pad_to=None) -> tuple[SVMModel, SolveResult]:
     """Train binary C-SVC with the engine config.engine names. Labels
     must be in {-1, +1}.
 
@@ -61,7 +101,14 @@ def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "auto",
     (parallel/mesh.py Mesh; None: the first `num_devices` visible cards)
     and runs the mesh block engines. backend "auto" (the default, as in
     the JAX package) takes the mesh only where the mesh runs the request
-    (resolve_backend); on a one-card host it is the single device."""
+    (resolve_backend); on a one-card host it is the single device.
+    backend "reference" (NumPy) and "native" (native/seqsmo.cpp) run the
+    sequential mvp SMO on the host: engine="xla" and selection="mvp"
+    only, no checkpoints.
+
+    `callback`, `checkpoint_path`, `resume` and `pad_to` follow
+    solver/solve.py solve's contract; on the host backends the callback
+    gets one final record."""
     backend = resolve_backend(backend, config, device, num_devices, mesh)
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.int32)
@@ -69,7 +116,15 @@ def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "auto",
     if labels != {-1, 1}:
         raise ValueError(
             f"labels must contain both classes -1 and +1, got {sorted(labels)}")
-    result = solve_on(backend, x, y, config, device, num_devices, mesh)
+    if config.kernel == "precomputed":
+        config.check_ported()  # precomputed kernels: ROADMAP queue A item 6
+    if backend in ("reference", "native"):
+        result = _solve_host(backend, x, y, config, callback,
+                             checkpoint_path, resume)
+    else:
+        result = solve_on(backend, x, y, config, device, num_devices, mesh,
+                          callback=callback, checkpoint_path=checkpoint_path,
+                          resume=resume, pad_to=pad_to)
     kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
                       config.degree, config.coef0)
     return SVMModel.from_dense(x, y, result.alpha, result.b, kp), result

@@ -16,7 +16,16 @@ PORT_FIELDS = [f.name for f in dataclasses.fields(SVMConfig)]
 def test_field_name_and_default_match_jax(name):
     jax_fields = {f.name: f for f in dataclasses.fields(JaxConfig)}
     assert name in jax_fields, f"{name} is not a dpsvm_tpu SVMConfig field"
-    assert getattr(SVMConfig(), name) == getattr(JaxConfig(), name)
+    mine, theirs = getattr(SVMConfig(), name), getattr(JaxConfig(), name)
+    if dataclasses.is_dataclass(mine):  # obs: each package's ObsConfig
+        mine, theirs = dataclasses.asdict(mine), dataclasses.asdict(theirs)
+    assert mine == theirs
+
+
+def test_every_jax_field_is_carried():
+    """A checkpoint carries its config as JSON: each package must take
+    every field of the other's."""
+    assert {f.name for f in dataclasses.fields(JaxConfig)} == set(PORT_FIELDS)
 
 
 def test_block_path_fields_present():
@@ -53,14 +62,14 @@ def test_invalid_values_raise_like_jax(kw):
 
 
 UNPORTED = [
-    dict(engine="xla", ooc=True),
+    dict(ooc=True, selection="second_order"),
     dict(engine="xla", kernel="precomputed"),
     dict(selection="second_order", active_set_size=64),
     dict(pair_batch=2, ooc=True), dict(fused_fold=True, kernel="precomputed"),
-    dict(fused_round=True, bf16_gram=True),
+    dict(fused_fold=True, active_set_size=64),
     dict(pipeline_rounds=True, gram_resident=True),
     dict(active_set_size=64), dict(ooc=True),
-    dict(gram_resident=True), dict(bf16_gram=True),
+    dict(gram_resident=True), dict(gram_resident=True, compensated=True),
     dict(kernel="precomputed"),
 ]
 
@@ -190,9 +199,108 @@ def test_mesh_knob_validation_matches_jax(kw, match):
 @pytest.mark.parametrize("kw,item", [
     (dict(engine="block", active_set_size=64), "item 4"),
     (dict(engine="block", gram_resident=True), "item 6"),
-    (dict(engine="xla", ooc=True), "item 8"),
-    (dict(engine="xla", bf16_gram=True), "item 6"),
+    (dict(engine="block", ooc=True), "item 8"),
 ])
 def test_still_refused_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SVMConfig(**kw).check_ported()
+
+
+JAX_ONLY = [
+    (dict(fleet_size=4), "item 7a"),
+    (dict(reconcile_rounds=4), "item 10b"),
+    (dict(ooc=True, ooc_tile_rows=1024, engine="block"), "item 8"),
+    (dict(ooc=True, ooc_cache_lines=256, engine="block"), "item 8"),
+    (dict(ooc=True, ooc_shrink=True, engine="block"), "item 8"),
+    (dict(obs={"enabled": True, "trace_dir": None, "runlog_dir": None}),
+     "item 11"),
+]
+
+
+@pytest.mark.parametrize("kw,item", JAX_ONLY)
+def test_jax_only_fields_refuse_naming_their_item(kw, item):
+    """Fields the port carries only so configs load: any value but the
+    default is refused with the ROADMAP item that ports them. (The ooc
+    cases refuse ooc itself first; check_jax_only names the field.)"""
+    cfg = SVMConfig(**kw)
+    JaxConfig(**kw)  # a valid JAX config
+    with pytest.raises(NotImplementedError, match=item):
+        cfg.check_jax_only()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.check_ported()
+
+
+def test_jax_only_fields_at_defaults_pass():
+    SVMConfig(retry_faults=0, verbose=True, check_numerics=True,
+              chunk_iters=64, checkpoint_every=8, checkpoint_keep=3,
+              matmul_precision="high").check_ported()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fleet_size=3), dict(fleet_size=128), dict(reconcile_rounds=0),
+    dict(reconstruct_every=-1), dict(reconstruct_every=10, budget_mode=True),
+    dict(bf16_gram=True, dtype="bfloat16"),
+    dict(bf16_gram=True, kernel="precomputed"), dict(ooc_shrink=True),
+    dict(ooc_tile_rows=4), dict(ooc_cache_lines=-1),
+    dict(ooc_cache_lines=256), dict(matmul_precision="fast"),
+    dict(retry_faults=-1), dict(checkpoint_keep=0),
+    dict(checkpoint_keep=150), dict(chunk_iters=0),
+    dict(engine="xla", active_set_size=64),
+    dict(ooc=True, engine="xla"), dict(ooc=True, engine="block",
+                                       reconstruct_every=100),
+])
+def test_state_knob_validation_matches_jax(kw):
+    with pytest.raises(ValueError):
+        JaxConfig(**kw)
+    with pytest.raises(ValueError):
+        SVMConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(compensated=True), dict(reconstruct_every=10_000),
+    dict(compensated=True, matmul_precision="default"),
+    dict(matmul_precision="high"), dict(matmul_precision="highest"),
+])
+def test_precision_resolution_matches_jax(kw):
+    assert SVMConfig(**kw).resolve_precision() == \
+        JaxConfig(**kw).resolve_precision()
+
+
+@pytest.mark.parametrize("case", ["accepted", "refused"])
+def test_bf16_gram_gate_and_stats_match_jax(case):
+    """bf16_gram=True is ported: the solve runs the gate (ops/kernels.py
+    resolve_bf16_gram), stores X in bfloat16 where it accepts, stays
+    float32 and warns where it refuses, and reports the decision in
+    stats["bf16_gram"], as the JAX package's solve does."""
+    import warnings
+
+    from dpsvm_tpu.solver.smo import solve as jsolve
+    from dpsvm_tpu_torch.data.synth import (make_blobs_binary,
+                                            make_covtype_like)
+
+    if case == "accepted":
+        x, y = make_blobs_binary(n=300, d=10, seed=3, sep=1.2)
+        kw = dict(c=1.0, gamma=0.1, engine="block", working_set_size=16)
+    else:
+        x, y = make_covtype_like(2000, seed=0)
+        kw = dict(c=1000.0, gamma=0.1, engine="block", max_iter=64)
+    with warnings.catch_warnings(record=True) as tw:
+        warnings.simplefilter("always")
+        res = solve(x, y, SVMConfig(bf16_gram=True, **kw), device="cpu")
+    with warnings.catch_warnings(record=True) as jw:
+        warnings.simplefilter("always")
+        jres = jsolve(x, y, JaxConfig(bf16_gram=True, **kw))
+    assert res.stats["bf16_gram"] == jres.stats["bf16_gram"]
+    assert res.stats["bf16_gram"]["active"] == (case == "accepted")
+    refusals = [str(w.message) for w in tw if "REFUSED" in str(w.message)]
+    assert refusals == [str(w.message) for w in jw
+                        if "REFUSED" in str(w.message)]
+    assert len(refusals) == (case == "refused")
+    # The stored X: bfloat16 where accepted, float32 where refused.
+    stored = SVMConfig(dtype="bfloat16" if case == "accepted" else
+                       "float32", **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        same = solve(x, y, stored, device="cpu")
+    np.testing.assert_array_equal(res.alpha, same.alpha)
+    assert res.iterations == same.iterations

@@ -54,8 +54,26 @@ def test_scan_covers_the_package():
                 ("solver", "cache.py"), ("solver", "smo.py"),
                 ("ops", "ring.py"), ("parallel", "__init__.py"),
                 ("parallel", "mesh.py"), ("parallel", "dist_block.py"),
-                ("parallel", "dist_smo.py")):
+                ("parallel", "dist_smo.py"), ("data", "converters.py"),
+                ("data", "loader.py"), ("data", "synth.py"),
+                ("utils", "__init__.py"), ("utils", "native.py"),
+                ("utils", "checkpoint.py"), ("solver", "chunks.py"),
+                ("solver", "reference.py"), ("solver", "reconstruct.py")):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
+
+
+def test_native_sources_are_the_ports_own():
+    """The host parser and SeqSMO build from the port's copies into
+    build/torch_native/, never from (or into) the JAX side's native/."""
+    from dpsvm_tpu_torch.utils import native
+
+    assert native.SRC_DIR == os.path.join(PKG, "native")
+    assert native.BUILD_DIR == os.path.join(ROOT, "build", "torch_native")
+    for stem in ("fastcsv", "seqsmo"):
+        assert os.path.exists(os.path.join(native.SRC_DIR, f"{stem}.cpp"))
+    for path in _sources():
+        text = open(path).read()
+        assert "native/_build" not in text and '"_build")' not in text, path
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -271,7 +271,9 @@ def test_mesh_refusals(blobs_small, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 10b"):
         solve_mesh(x, y, SVMConfig(**{**BASE, "selection": "nu"}),
                    mesh=Mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # The host backends are ported; like the JAX package's they run the
+    # per-pair mvp engine only.
+    with pytest.raises(ValueError, match="fixed host engine"):
         train(x, y, SVMConfig(**BASE), backend="native", device="cpu")
     # No mesh given and no card: raise, never the CPU by itself.
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
