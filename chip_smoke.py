@@ -177,9 +177,46 @@ result line is printed:
                 decision printed; accepted, the solve is bitwise the
                 bfloat16 headline (B1 once a round) and within the
                 whole-solve contract of the float32 solve.
+ 19. multiclass -- make_mnist_multiclass (the headline's features, 10
+                classes), rows 0-49999 trained, 50000-59999 held out:
+                the fleet's CUDA graph bitwise its eager trips; OvR on
+                the plain block engine (q 256, bf16 X; B1 once a round),
+                OvR on the fused round (B1 = B4 = B5 = rounds), OvO (45
+                submodels) on the plain block engine, and OvR and OvO
+                through the fleet (engine xla, fleet_size 16; no kernel;
+                trips and host reads printed): every submodel converged,
+                n_sv, train_seconds, predict seconds, held-out accuracy,
+                the .npz bundle reloaded predicting the same labels; each
+                fleet's held-out labels >= 99.8% its block run's; each
+                fleet submodel within the whole-solve contract (dual
+                rel 1e-4, n_sv 2%, |db| 5e-3) of its sequential twin;
+ 20. multiclass oracle -- OvO on the first 10000 rows (float32, eps
+                0.005) against artifacts/oracle_multiclass10k.json: the
+                SV union within 3% of its n_sv, train accuracy >= its
+                acc less 0.002;
+ 21. precomputed -- the RBF Gram of the headline's first 30000 rows,
+                built on the card and handed over from the host, trained
+                with kernel="precomputed" on the block engine (B1) and
+                xla, each against the RBF solve of the same rows on its
+                engine (n_sv 3%, signs 99.8%; the .npz reload decides
+                bit for bit); then gram_resident=True on the block
+                engine on the full headline against the plain headline;
+ 22. platt   -- the headline trained with -b 1 through cli.main (prob_a
+                > 0 and finite), tested with -b 1 (probabilities in [0,
+                1], monotone in the decision); an OvR
+                SVC(probability=True) on 10000 multiclass rows
+                (predict_proba rows sum to 1 within 1e-6);
+ 23. estimators -- SVC, NuSVC, SVR, NuSVR, OneClassSVM on the first
+                20000 rows: each model its trainer's bit for bit (SVR and
+                NuSVR: the [svr] phase's models); svc_c_sweep over four
+                Cs as one fleet;
+ 24. cli multiclass -- the first 20000 multiclass rows as CSV: `train
+                --multiclass ovo` and `test` (labels = the API's); `train
+                -v 5`; `train --kernel precomputed` / `test` on a
+                2000-row Gram CSV (labels = the API's).
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-18 under "path_launches") and the card's
+kernel's launches on phases 15-24 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1501,11 +1538,12 @@ def phase_oneclass(x) -> dict:
     return counts
 
 
-def phase_svr(x) -> None:
+def phase_svr(x) -> dict:
     """epsilon-SVR and nu-SVR on the first SVR_ROWS rows (a depth cut)
     against svr_target, each on the block engine and engine="xla":
     converged, sum(a) - sum(a*) = 0 within 1e-4 C n, and the two
-    engines' predictions within SVR_PRED_TOL."""
+    engines' predictions within SVR_PRED_TOL. Returns the models by
+    (trainer, engine)."""
     from dpsvm_tpu_torch import SVMConfig, train_nusvr, train_svr
 
     xs = np.ascontiguousarray(x[:SVR_ROWS])
@@ -1516,6 +1554,7 @@ def phase_svr(x) -> None:
         ("eps-svr", lambda cfg: train_svr(xs, z, cfg,
                                           svr_epsilon=SVR_EPSILON)),
         ("nu-svr", lambda cfg: train_nusvr(xs, z, nu=NU_SVR, config=cfg)))
+    models = {}
     for name, fit in trainers:
         preds = {}
         for eng in ("block", "xla"):
@@ -1523,6 +1562,7 @@ def phase_svr(x) -> None:
             model, res, _, _ = counted(
                 f"svr {name} {eng}", lambda: fit(cfg),
                 {"solve_subproblem": lambda r: r} if eng == "block" else {})
+            models[name, eng] = model
             a = res.alpha.astype(np.float64)
             drift = abs(a[:SVR_ROWS].sum() - a[SVR_ROWS:].sum())
             preds[eng] = model.predict(xs)
@@ -1540,6 +1580,7 @@ def phase_svr(x) -> None:
         if gap >= SVR_PRED_TOL:
             raise AssertionError(f"{name}: block and xla predictions differ "
                                  f"by {gap}")
+    return models
 
 
 # ---- this slice's phases (15-18): the CLI and data surface, solver
@@ -2011,6 +2052,594 @@ def phase_bf16_gram(x, y, cfg, head_res) -> dict:
     return {"bf16_gram": counts}
 
 
+# ---- this slice's phases (19-24): multiclass and the fleet, the
+# multiclass oracle, precomputed kernels, Platt, the estimators, the
+# multiclass and precomputed CLI
+
+# [multiclass]: make_mnist_multiclass (the headline's features, labelled
+# by prototype id mod 10), BENCH_MULTICLASS.md's configuration; rows
+# 0-49999 train, 50000-59999 are held out.
+MC_TRAIN = 50_000
+MC_RUN = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=2_000_000)
+MC_BLOCK = dict(engine="block", working_set_size=256, dtype="bfloat16")
+# The block and fleet runs of [multiclass]: (label, strategy, knobs,
+# kernel -> launches from the summed outer rounds).
+MC_RUNS = (
+    ("ovr plain", "ovr", dict(MC_BLOCK), {"solve_subproblem": lambda r: r}),
+    ("ovr fused_round", "ovr", dict(MC_BLOCK, fused_round=True),
+     {"solve_subproblem": lambda r: r, "gather_gram": lambda r: r,
+      "fold_rows_select": lambda r: r}),
+    ("ovo plain", "ovo", dict(MC_BLOCK), {"solve_subproblem": lambda r: r}),
+    ("ovr fleet", "ovr", dict(fleet_size=16), {}),
+    ("ovo fleet", "ovo", dict(fleet_size=16), {}),
+)
+# Held-out label agreement of a fleet with the block run of its strategy.
+MC_AGREE = 0.998
+# The whole-solve contract of a fleet submodel against its sequential
+# twin (the same config, use_fleet=False): dual, n_sv, b.
+TWIN_DUAL_RTOL, TWIN_SV_RTOL, TWIN_DB = 1e-4, 0.02, 5e-3
+# [multiclass oracle]: the first 10000 rows (tools/bench_multiclass.py's
+# anchor), OvO, float32, at eps = tol / 2 of the oracle's LibSVM tol 0.01.
+MC_ORACLE_ROWS = 10_000
+MC_ORACLE_RUN = dict(c=10.0, gamma=0.125, epsilon=0.005,
+                     max_iter=2_000_000, engine="block",
+                     working_set_size=256)
+MC_ACC_TOL = 0.002
+# [precomputed]: the RBF Gram of the headline data's first PRE_ROWS rows
+# (a depth cut: 3.6 GB float32, handed to the API from the host).
+PRE_ROWS = 30_000
+PRE_RUN = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=2_000_000,
+               working_set_size=256)
+# [estimators] and [cli multiclass] depth cuts.
+EST_ROWS = SVR_ROWS
+SWEEP_CS = (1.0, 3.0, 10.0, 30.0)
+CLI_MC_ROWS = 20_000
+CLI_MC_TEST = 2_000
+CLI_PRE_ROWS = 2_000
+
+
+def dual_objective(alpha, f, y) -> float:
+    """sum(a) - 1/2 a^T Q a from (alpha, f = K (a y) - y), float64."""
+    a = np.asarray(alpha, np.float64)
+    yf = np.asarray(y, np.float64)
+    return float(a.sum() - 0.5 * np.sum(a * yf * (
+        np.asarray(f, np.float64) + yf)))
+
+
+def twin_contract(label: str, res, twin, y) -> tuple:
+    """A fleet result against its sequential twin: both converged, dual
+    within TWIN_DUAL_RTOL, n_sv within TWIN_SV_RTOL, |db| <= TWIN_DB.
+    Returns (relative dual gap, n_sv gap, |db|)."""
+    d, d_t = (dual_objective(r.alpha, r.stats["f"], y) for r in (res, twin))
+    rel = abs(d - d_t) / abs(d_t)
+    dsv = abs(res.n_sv - twin.n_sv)
+    db = abs(res.b - twin.b)
+    if not (res.converged and twin.converged and rel <= TWIN_DUAL_RTOL
+            and dsv <= max(1, TWIN_SV_RTOL * twin.n_sv) and db <= TWIN_DB):
+        raise AssertionError(
+            f"{label}: fleet vs sequential twin: converged "
+            f"{res.converged}/{twin.converged}, dual rel {rel:.3g}, n_sv "
+            f"{res.n_sv}/{twin.n_sv}, |db| {db:.3g}")
+    return rel, dsv, db
+
+
+def fleet_totals(results) -> dict:
+    """Trips, host reads and seconds of the fleets behind `results`
+    (each fleet counted once, by its first member)."""
+    fl = [r.stats["fleet"] for r in results
+          if r.stats["fleet"]["index"] == 0]
+    return {"fleets": len(fl), "trips": sum(f["trips"] for f in fl),
+            "host_reads": sum(f["host_reads"] for f in fl),
+            "seconds": sum(f["device_seconds"] for f in fl)}
+
+
+def mc_counted(label: str, fit, want: dict) -> tuple:
+    """fit() -> (MulticlassSVM, results) with every launch count set to 0
+    just before and read just after: every submodel converged, and the
+    launches exactly `want` from the summed outer rounds (no kernel on
+    the fleet). Returns (model, results, counts, wall seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    model, results = fit()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rounds = sum(r.stats.get("outer_rounds", 0) for r in results)
+    expect = {k: want.get(k, lambda r: 0)(rounds) for k in counts}
+    secs = [r.train_seconds for r in results]
+    print(f"[multiclass] {label}: {len(results)} submodels, converged "
+          f"{[int(r.converged) for r in results]}, n_sv "
+          f"{[r.n_sv for r in results]}, pairs {sum(r.iterations for r in results)}, "
+          f"rounds {rounds}, train_seconds sum {sum(secs):.4f} wall "
+          f"{wall:.2f}s, launches={counts}", flush=True)
+    if not all(r.converged for r in results):
+        raise AssertionError(f"{label}: a submodel did not converge")
+    if counts != expect or (want and rounds == 0):
+        raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+    return model, results, counts, wall
+
+
+def fleet_graph_check(x, y, cfg) -> None:
+    """The OvR fleet's first FLEET_TRIPS trips from its start carry, run
+    eagerly (one host dispatch a kernel) and as the captured CUDA graph
+    (solver/fleet.py FleetGraph): the carries must agree bit for bit;
+    both are timed per trip, with a synchronisation on each side."""
+    import torch
+
+    from dpsvm_tpu_torch.device import precision_ctx, resolve_device
+    from dpsvm_tpu_torch.solver import fleet as tfleet
+
+    dev = resolve_device(None)
+    problems = [tfleet.FleetProblem(y=np.where(y == c, 1, -1))
+                for c in np.unique(y)]
+    trips = tfleet.FLEET_TRIPS
+    with precision_ctx(cfg):
+        run = tfleet.stage_fleet(x, problems, cfg, dev)
+        tfleet.run_fleet_chunk(*run.args, run.state, *run.rest, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = tfleet.run_fleet_chunk(*run.args, run.state, *run.rest,
+                                       trips)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        graph = tfleet.FleetGraph(*run.args, run.state, *run.rest, trips)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = graph.run()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    same = all(torch.equal(a, b) for a, b in zip(eager, got))
+    print(f"[multiclass] fleet trips, {len(problems)} OvR problems on "
+          f"{len(y)} rows (resident Gram {run.use_gram}): eager "
+          f"{1e6 * (t1 - t0) / trips:.1f} us a trip, CUDA graph "
+          f"{1e6 * (t3 - t2) / trips:.1f} us a trip (capture "
+          f"{t2 - t1:.3f}s) over {trips} trips; carries bitwise {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the fleet's CUDA graph parts from its eager "
+                             "trips")
+
+
+def phase_multiclass(x_all, y_all) -> dict:
+    """[multiclass]: 10-class OvR and OvO on MC_TRAIN rows of the 60000 x
+    784 multiclass data, on the plain block engine (B1), OvR on the fused
+    round (B1 = B4 = B5) and both through the fleet (no kernel; trips and
+    host reads printed). Each run: every submodel converged, n_sv,
+    train_seconds, predict seconds and held-out accuracy; its .npz bundle
+    reloads and predicts the same labels bit for bit. Each fleet agrees
+    with its strategy's block run on >= MC_AGREE of the held-out labels,
+    and each fleet submodel meets the whole-solve contract of its
+    sequential twin. The fleet's CUDA graph is first held bitwise against
+    its eager trips (fleet_graph_check). Returns the launches of each
+    run."""
+    from dpsvm_tpu_torch import SVMConfig
+    from dpsvm_tpu_torch.models.multiclass import (MulticlassSVM,
+                                                   predict_multiclass,
+                                                   train_multiclass)
+
+    x, y = x_all[:MC_TRAIN], y_all[:MC_TRAIN]
+    xh, yh = x_all[MC_TRAIN:], y_all[MC_TRAIN:]
+    fleet_graph_check(x, y, SVMConfig(**MC_RUN))
+    launches, preds, fleets = {}, {}, {}
+    for label, strategy, kw, want in MC_RUNS:
+        cfg = SVMConfig(**MC_RUN, **kw)
+        model, results, counts, wall = mc_counted(
+            label, lambda: train_multiclass(x, y, cfg, strategy=strategy,
+                                            use_fleet="fleet" in label),
+            want)
+        launches[f"multiclass {label}"] = counts
+        t0 = time.perf_counter()
+        pred = predict_multiclass(model, xh)
+        pred_s = time.perf_counter() - t0
+        path = os.path.join(smoke_dir(), f"mc_{label.replace(' ', '_')}.npz")
+        model.save(path)
+        same = np.array_equal(predict_multiclass(MulticlassSVM.load(path),
+                                                 xh), pred)
+        extra = ""
+        if "fleet" in label:
+            fleets[strategy] = (cfg, results)
+            extra = " " + json.dumps(fleet_totals(results))
+        print(f"[multiclass] {label}: predict {len(yh)} rows in "
+              f"{pred_s:.3f}s, held-out accuracy "
+              f"{float(np.mean(pred == yh)):.4f}, union SVs "
+              f"{model.compacted.n_union}, .npz reload same labels "
+              f"{same}{extra}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: the reloaded bundle predicts "
+                                 "other labels")
+        preds[label] = pred
+    for strategy in ("ovr", "ovo"):
+        agree = float(np.mean(preds[f"{strategy} fleet"]
+                              == preds[f"{strategy} plain"]))
+        print(f"[multiclass] {strategy}: fleet vs plain block held-out "
+              f"labels agree on {100 * agree:.3f}%", flush=True)
+        if agree < MC_AGREE:
+            raise AssertionError(f"{strategy}: fleet and block agree on "
+                                 f"{agree:.4f} < {MC_AGREE}")
+    for strategy, (cfg, results) in fleets.items():
+        t0 = time.perf_counter()
+        _, twins = train_multiclass(x, y, cfg, strategy=strategy,
+                                    use_fleet=False)
+        wall = time.perf_counter() - t0
+        classes = np.unique(y)
+        worst = [0.0, 0, 0.0]
+        for res, twin in zip(results, twins):
+            tag = res.stats["tag"]
+            if tag[0] == "ovr":
+                yk = np.where(y == tag[1], 1, -1)
+            else:
+                sub = y[(y == tag[1]) | (y == tag[2])]
+                yk = np.where(sub == tag[1], 1, -1)
+            got = twin_contract(f"{strategy} {tag}", res, twin, yk)
+            worst = [max(a, b) for a, b in zip(worst, got)]
+        print(f"[multiclass] {strategy} fleet vs {len(twins)} sequential "
+              f"twins (engine xla, {wall:.2f}s, train_seconds sum "
+              f"{sum(t.train_seconds for t in twins):.4f}): worst dual rel "
+              f"{worst[0]:.3g}, n_sv gap {worst[1]}, |db| {worst[2]:.3g} "
+              f"over {len(classes)} classes", flush=True)
+    return launches
+
+
+def phase_multiclass_oracle(x_mc, y_mc) -> dict:
+    """[multiclass oracle]: OvO on the first MC_ORACLE_ROWS rows against
+    artifacts/oracle_multiclass10k.json (sklearn's LibSVM OvO): the union
+    of SVs within SV_TOL of its n_sv and train accuracy >= its acc less
+    MC_ACC_TOL. B1 once a round."""
+    from dpsvm_tpu_torch import SVMConfig
+    from dpsvm_tpu_torch.models.multiclass import (accuracy_multiclass,
+                                                   train_multiclass)
+
+    with open(os.path.join(ROOT, "artifacts",
+                           "oracle_multiclass10k.json")) as fh:
+        oracle = json.load(fh)
+    x, y = x_mc[:MC_ORACLE_ROWS], y_mc[:MC_ORACLE_ROWS]
+    model, _, counts, _ = mc_counted(
+        "oracle ovo", lambda: train_multiclass(
+            x, y, SVMConfig(**MC_ORACLE_RUN), strategy="ovo"),
+        {"solve_subproblem": lambda r: r})
+    n_union = model.compacted.n_union
+    acc = accuracy_multiclass(model, x, y)
+    dev = abs(n_union - oracle["n_sv"]) / oracle["n_sv"]
+    print(f"[multiclass oracle] {MC_ORACLE_ROWS} rows: union SVs {n_union} "
+          f"(oracle {oracle['n_sv']}, dev {100 * dev:.2f}%), train accuracy "
+          f"{acc:.4f} (oracle {oracle['acc']})", flush=True)
+    if dev > SV_TOL or acc < oracle["acc"] - MC_ACC_TOL:
+        raise AssertionError("[multiclass oracle] misses the oracle")
+    return {"multiclass oracle": counts}
+
+
+def phase_precomputed(x, y, head_res) -> dict:
+    """[precomputed]: the RBF Gram of the first PRE_ROWS rows, built on
+    the card and handed to the API from the host, trained with
+    kernel="precomputed" on the block engine (B1) and engine="xla" (no
+    kernel), each against the RBF solve of the same rows on the same
+    engine: converged, n_sv within SV_TOL, training-row signs >=
+    SIGN_TOL; the block model's
+    .npz reload decides bit for bit. Then gram_resident=True on the
+    block engine on the full headline against the plain headline (n_sv,
+    signs; whether pairs and rounds are equal). Returns the launches."""
+    import torch
+
+    from dpsvm_tpu_torch import SVMConfig, decision_function, train
+    from dpsvm_tpu_torch.device import resolve_device, synchronize
+    from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+    from dpsvm_tpu_torch.ops.kernels import (KernelParams, resident_gram,
+                                             squared_norms)
+    from dpsvm_tpu_torch.solver.solve import solve
+
+    launches = {}
+    xs = np.ascontiguousarray(x[:PRE_ROWS])
+    ys = y[:PRE_ROWS]
+    kp = KernelParams("rbf", PRE_RUN["gamma"])
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    xd = torch.as_tensor(xs, device=dev)
+    g_dev = resident_gram(xd, squared_norms(xd), kp)
+    synchronize(dev)
+    t1 = time.perf_counter()
+    g = g_dev.cpu().numpy()
+    t2 = time.perf_counter()
+    del g_dev, xd
+    print(f"[precomputed] Gram {PRE_ROWS} x {PRE_ROWS} float32 "
+          f"({g.nbytes / 1e9:.2f} GB): built on the card in {t1 - t0:.3f}s, "
+          f"copied to the host in {t2 - t1:.3f}s", flush=True)
+    runs = (("block", {"solve_subproblem": lambda r: r}), ("xla", {}))
+    for eng, want in runs:
+        # The RBF solve of the same rows on the same engine.
+        ref_model, ref, _, _ = counted(
+            f"precomputed rbf reference {eng}",
+            lambda: train(xs, ys, SVMConfig(**PRE_RUN, engine=eng)), want)
+        ref_dec = decision_function(ref_model, xs)
+        cfg = SVMConfig(**PRE_RUN, engine=eng, kernel="precomputed")
+        t0 = time.perf_counter()
+        _, res, counts, _ = counted(
+            f"precomputed {eng}", lambda: (None, solve(g, ys, cfg)), want)
+        wall = time.perf_counter() - t0
+        launches[f"precomputed {eng}"] = counts
+        model = PrecomputedSVCModel.from_solution(ys, res.alpha, res.b)
+        dec = model.decision_function(g)
+        agree = float(np.mean(np.sign(dec) == np.sign(ref_dec)))
+        sv_dev = abs(res.n_sv - ref.n_sv) / ref.n_sv
+        print(f"[precomputed] {eng}: setup (Gram upload, diagonal) "
+              f"{res.stats['phase_seconds']['setup']:.3f}s outside "
+              f"train_seconds {res.train_seconds:.4f} (wall {wall:.2f}s); "
+              f"n_sv {res.n_sv} vs rbf {ref.n_sv} ({100 * sv_dev:.2f}%), "
+              f"signs {100 * agree:.3f}%", flush=True)
+        if sv_dev > SV_TOL or agree < SIGN_TOL:
+            raise AssertionError(f"[precomputed] {eng} misses the RBF "
+                                 "solve's contract")
+        if eng == "block":
+            path = os.path.join(smoke_dir(), "precomputed30k.npz")
+            model.save(path)
+            # The file holds b in float32: the model with b rounded so.
+            model.b = float(np.float32(model.b))
+            same = np.array_equal(
+                PrecomputedSVCModel.load(path).decision_function(g),
+                model.decision_function(g))
+            print(f"[precomputed] .npz reload: decisions bitwise {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("[precomputed] the .npz reload decides "
+                                     "differently")
+    del g
+    cfg = SVMConfig(**HEADLINE)
+    model, res, counts, _ = counted(
+        "gram_resident block headline",
+        lambda: train(x, y, cfg.replace(gram_resident=True)),
+        {"solve_subproblem": lambda r: r})
+    launches["gram_resident block"] = counts
+    kph = KernelParams("rbf", cfg.gamma)
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+
+    head_dec = decision_function(
+        SVMModel.from_dense(x, y, head_res.alpha, head_res.b, kph), x)
+    agree = float(np.mean(np.sign(decision_function(model, x))
+                          == np.sign(head_dec)))
+    sv_dev = abs(res.n_sv - head_res.n_sv) / head_res.n_sv
+    print(f"[precomputed] gram_resident=True block on {len(y)} rows "
+          f"({4 * len(y) ** 2 / 1e9:.1f} GB Gram): pairs {res.iterations} "
+          f"rounds {res.stats['outer_rounds']} (plain {head_res.iterations} / "
+          f"{head_res.stats['outer_rounds']}: equal "
+          f"{(res.iterations, res.stats['outer_rounds']) == (head_res.iterations, head_res.stats['outer_rounds'])}), "
+          f"train_seconds {res.train_seconds:.4f} (plain "
+          f"{head_res.train_seconds:.4f}), setup "
+          f"{res.stats['phase_seconds']['setup']:.3f}s, n_sv {res.n_sv} vs "
+          f"{head_res.n_sv} ({100 * sv_dev:.2f}%), signs {100 * agree:.3f}%",
+          flush=True)
+    if sv_dev > SV_TOL or agree < SIGN_TOL:
+        raise AssertionError("[precomputed] gram_resident misses the plain "
+                             "headline's contract")
+    from dpsvm_tpu_torch.solver import solve as solve_mod
+
+    solve_mod._GRAM_MEMO.clear()
+    return launches
+
+
+def phase_platt(x, x_mc, y_mc) -> dict:
+    """[platt]: the binary headline trained with -b 1 through cli.main
+    from [cli]'s CSV file: the file's prob_a / prob_b finite, prob_a > 0
+    (P(+1 | f) = 1 / (1 + exp(-(prob_a f + prob_b))) rises with f; LibSVM
+    writes A = -prob_a). Tested with -b 1 on [cli]'s test file: every
+    probability in [0, 1] and monotone in the model's decision. Then an
+    OvR SVC(probability=True) on the first 10000 multiclass rows:
+    predict_proba rows sum to 1 within 1e-6. Returns the launches."""
+    from dpsvm_tpu_torch import SVMModel, decision_function
+    from dpsvm_tpu_torch.estimators import SVC
+
+    out = smoke_dir()
+    train_p = os.path.join(out, "train.csv")
+    test_p = os.path.join(out, "test.csv")
+    model_p = os.path.join(out, "platt.npz")
+    reset_counts()
+    run_cli(["train", "-f", train_p, "-m", model_p, "-c", "10", "-g",
+             "0.125", "-e", "0.01", "--engine", "block",
+             "--working-set-size", "256", "--dtype", "bfloat16", "-b", "1",
+             "-q"], "platt train")
+    counts = read_counts()
+    m = SVMModel.load(model_p)
+    print(f"[platt] prob_a={m.prob_a!r} prob_b={m.prob_b!r} launches="
+          f"{counts} (the model and 5 fold refits)", flush=True)
+    if not (np.isfinite(m.prob_a) and np.isfinite(m.prob_b)
+            and m.prob_a > 0):
+        raise AssertionError("[platt] the calibration is not finite and "
+                             "rising")
+    if counts["solve_subproblem"] == 0 \
+            or sum(counts.values()) != counts["solve_subproblem"]:
+        raise AssertionError(f"[platt] launches {counts}")
+    out_p = os.path.join(out, "platt_test.out")
+    run_cli(["test", "-f", test_p, "-m", model_p, "-b", "1", "-o", out_p],
+            "platt test")
+    rows = np.loadtxt(out_p, skiprows=1)
+    prob = rows[:, 1]
+    dec = decision_function(m, x[:CLI_TEST_ROWS])
+    order = np.argsort(dec, kind="stable")
+    mono = bool(np.all(np.diff(prob[order]) >= 0))
+    print(f"[platt] test -b 1: p in [{prob.min():.6f}, {prob.max():.6f}], "
+          f"monotone in the decision {mono}", flush=True)
+    if prob.min() < 0 or prob.max() > 1 or not mono:
+        raise AssertionError("[platt] probabilities outside [0, 1] or not "
+                             "monotone in the decision")
+    xs, ys = x_mc[:CLI_TEST_ROWS], y_mc[:CLI_TEST_ROWS]
+    reset_counts()
+    t0 = time.perf_counter()
+    est = SVC(C=10.0, gamma=0.125, tol=0.01, engine="block",
+              working_set_size=256, probability=True).fit(xs, ys)
+    fit_s = time.perf_counter() - t0
+    est_counts = read_counts()
+    proba = est.predict_proba(xs)
+    dev = float(np.max(np.abs(proba.sum(axis=1) - 1.0)))
+    acc = float(np.mean(est.classes_[np.argmax(proba, axis=1)] == ys))
+    print(f"[platt] OvR SVC(probability=True) on {len(ys)} rows: fit "
+          f"{fit_s:.2f}s (10 submodels + 30 fold refits) launches="
+          f"{est_counts}; max |row sum - 1| {dev:.3g}; argmax-probability "
+          f"accuracy {acc:.4f}", flush=True)
+    if dev > 1e-6:
+        raise AssertionError("[platt] predict_proba rows do not sum to 1")
+    return {"platt cli": counts, "platt SVC ovr": est_counts}
+
+
+def _same_model(a, b) -> bool:
+    """Two models' arrays and offset bit for bit (SVMModel, SVRModel,
+    OneClassModel)."""
+    coef = "dual_coef" if hasattr(a, "dual_coef") else "coef"
+    off = "rho" if hasattr(a, "rho") else "b"
+    return (np.array_equal(a.sv_x, b.sv_x)
+            and np.array_equal(getattr(a, coef), getattr(b, coef))
+            and getattr(a, off) == getattr(b, off))
+
+
+def phase_estimators(x, y, svr_models) -> dict:
+    """[estimators]: SVC, NuSVC, SVR, NuSVR and OneClassSVM fit, predict
+    and score on the first EST_ROWS rows (the [svr] phase's cut); each
+    estimator's model is its trainer's bit for bit (SVR and NuSVR against
+    the [svr] phase's block and xla models of the same configuration).
+    svc_c_sweep over SWEEP_CS runs as one fleet. Returns the launches."""
+    from dpsvm_tpu_torch import (SVMConfig, train, train_nusvc,
+                                 train_oneclass)
+    from dpsvm_tpu_torch import estimators as est_mod
+
+    xs = np.ascontiguousarray(x[:EST_ROWS])
+    ys = y[:EST_ROWS]
+    z = svr_target(xs)
+    block = dict(engine="block", working_set_size=256)
+    common = dict(gamma=0.125, tol=0.01)
+    cases = (
+        ("SVC", est_mod.SVC(C=10.0, **common, **block), ys,
+         lambda cfg: train(xs, ys, cfg)[0], "_binary_model"),
+        ("NuSVC", est_mod.NuSVC(nu=NU, **common, max_iter=2_000_000), ys,
+         lambda cfg: train_nusvc(xs, ys, NU, cfg)[0], "_model"),
+        ("SVR", est_mod.SVR(C=1.0, epsilon=SVR_EPSILON, **common,
+                            max_iter=4_000_000, **block), z,
+         lambda cfg: svr_models["eps-svr", "block"], "_model"),
+        ("NuSVR", est_mod.NuSVR(nu=NU_SVR, C=1.0, **common,
+                                max_iter=4_000_000), z,
+         lambda cfg: svr_models["nu-svr", "xla"], "_model"),
+        ("OneClassSVM", est_mod.OneClassSVM(nu=NU, **common,
+                                            max_iter=2_000_000, **block),
+         None, lambda cfg: train_oneclass(xs, NU, cfg)[0], "_model"),
+    )
+    launches = {}
+    for name, est, target, twin, attr in cases:
+        reset_counts()
+        t0 = time.perf_counter()
+        est.fit(xs, target)
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        launches[f"estimators {name}"] = counts
+        pred = est.predict(xs)
+        score = est.score(xs, target) if target is not None else float(
+            np.mean(pred > 0))
+        cfg = est_mod._base_config(est, 0.125)
+        same = _same_model(getattr(est, attr), twin(cfg))
+        print(f"[estimators] {name}: fit {fit_s:.2f}s launches={counts} "
+              f"score {score:.4f} ({'inlier fraction' if target is None else 'score'}); "
+              f"the trainer's model bit for bit: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"[estimators] {name} is not its "
+                                 "trainer's model")
+    reset_counts()
+    t0 = time.perf_counter()
+    fitted = est_mod.svc_c_sweep(xs, ys, SWEEP_CS, **common)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches["estimators svc_c_sweep"] = counts
+    results = [f.fit_result_ for f in fitted]
+    print(f"[estimators] svc_c_sweep C={list(SWEEP_CS)}: {wall:.2f}s "
+          f"{json.dumps(fleet_totals(results))} converged "
+          f"{[r.converged for r in results]} n_sv {[r.n_sv for r in results]}"
+          f" scores {[round(f.score(xs, ys), 4) for f in fitted]} "
+          f"launches={counts}", flush=True)
+    if not all(r.converged for r in results) or sum(counts.values()) \
+            or fleet_totals(results)["fleets"] != 1:
+        raise AssertionError("[estimators] svc_c_sweep did not run as one "
+                             "converged fleet")
+    return launches
+
+
+def phase_cli_multiclass(x_mc, y_mc, x, y) -> dict:
+    """[cli multiclass]: the first CLI_MC_ROWS multiclass rows written as
+    CSV, `train --multiclass ovo` (the default engine, through the fleet)
+    and `test` on CLI_MC_TEST held-out rows: the -o labels are the API's
+    (train_multiclass with the same config); `train -v 5`; and `train
+    --kernel precomputed` / `test` on the CLI_PRE_ROWS-row RBF Gram of
+    the headline data written as CSV: the labels are the API's. Returns
+    the launches."""
+    from dpsvm_tpu_torch import SVMConfig
+    from dpsvm_tpu_torch.models.multiclass import (predict_multiclass,
+                                                   train_multiclass)
+    from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+    from dpsvm_tpu_torch.solver.solve import solve
+
+    out = smoke_dir()
+    train_p = os.path.join(out, "mc_train.csv")
+    test_p = os.path.join(out, "mc_test.csv")
+    xt, yt = x_mc[:CLI_MC_ROWS], y_mc[:CLI_MC_ROWS]
+    xh = x_mc[MC_TRAIN:MC_TRAIN + CLI_MC_TEST]
+    yh = y_mc[MC_TRAIN:MC_TRAIN + CLI_MC_TEST]
+    t0 = time.perf_counter()
+    write_csv(train_p, xt, yt)
+    write_csv(test_p, xh, yh)
+    print(f"[cli multiclass] wrote {CLI_MC_ROWS} + {CLI_MC_TEST} rows in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    launches = {}
+    model_p = os.path.join(out, "cli_ovo.npz")
+    out_p = os.path.join(out, "cli_ovo.out")
+    flags = ["-c", "10", "-g", "0.125", "-e", "0.01"]
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(["train", "-f", train_p, "-m", model_p, "--multiclass", "ovo",
+             "-q", *flags], "cli ovo train")
+    run_cli(["test", "-f", test_p, "-m", model_p, "-o", out_p],
+            "cli ovo test")
+    cli_s = time.perf_counter() - t0
+    launches["cli multiclass ovo"] = read_counts()
+    got = np.loadtxt(out_p, dtype=np.int64)
+    api, _ = train_multiclass(xt, yt, SVMConfig(c=10.0, gamma=0.125,
+                                                epsilon=0.01),
+                              strategy="ovo")
+    want = predict_multiclass(api, xh)
+    print(f"[cli multiclass] ovo train + test {cli_s:.2f}s; labels equal "
+          f"the API's: {np.array_equal(got, want)}", flush=True)
+    if not np.array_equal(got, want):
+        raise AssertionError("[cli multiclass] the CLI's labels are not the "
+                             "API's")
+    reset_counts()
+    t0 = time.perf_counter()
+    text = run_cli(["train", "-f", train_p, "-m", model_p, "-v", "5", "-q",
+                    *flags], "cli -v 5")
+    launches["cli multiclass -v 5"] = read_counts()
+    print(f"[cli multiclass] -v 5: {time.perf_counter() - t0:.2f}s, "
+          f"{_grab(r'(Cross Validation Accuracy = [0-9.]+%)', text, 'cli -v')}",
+          flush=True)
+    # The precomputed CLI: a CLI_PRE_ROWS-row Gram as CSV.
+    xs = x[:CLI_PRE_ROWS].astype(np.float64)
+    ys = y[:CLI_PRE_ROWS]
+    sq = np.einsum("nd,nd->n", xs, xs)
+    g = np.exp(-0.125 * np.maximum(sq[:, None] + sq[None, :]
+                                   - 2.0 * xs @ xs.T, 0.0)).astype(np.float32)
+    gram_p = os.path.join(out, "gram.csv")
+    write_csv(gram_p, g, ys)
+    pre_p = os.path.join(out, "cli_pre.npz")
+    pre_out = os.path.join(out, "cli_pre.out")
+    reset_counts()
+    run_cli(["train", "-f", gram_p, "-m", pre_p, "--kernel", "precomputed",
+             "-q", "-c", "10", "-e", "0.01"], "cli precomputed train")
+    run_cli(["test", "-f", gram_p, "-m", pre_p, "-o", pre_out],
+            "cli precomputed test")
+    launches["cli precomputed"] = read_counts()
+    got = np.loadtxt(pre_out, dtype=np.int64)
+    g_file = np.loadtxt(gram_p, delimiter=",", dtype=np.float32)[:, 1:]
+    res = solve(g_file, ys, SVMConfig(c=10.0, epsilon=0.01,
+                                      kernel="precomputed"))
+    want = PrecomputedSVCModel.from_solution(ys, res.alpha,
+                                             res.b).predict(g_file)
+    print(f"[cli multiclass] precomputed {CLI_PRE_ROWS}-row Gram: labels "
+          f"equal the API's: {np.array_equal(got, want)}", flush=True)
+    if not np.array_equal(got, want):
+        raise AssertionError("[cli multiclass] the precomputed CLI's labels "
+                             "are not the API's")
+    return launches
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -2257,7 +2886,7 @@ def main() -> int:
     lap("nu-SVC: headline, kernel B1 nu, oracle runs")
     phase_oneclass(x)
     lap("one-class")
-    phase_svr(x)
+    svr_models = phase_svr(x)
     lap("SVRs")
 
     # ---- 15-18. the CLI and data surface, solver state, reconstruction
@@ -2271,6 +2900,24 @@ def main() -> int:
     lap("reconstruction legs")
     paths.update(phase_bf16_gram(x, y, cfg, head_res))
     lap("bf16 Gram gate")
+
+    # ---- 19-24. multiclass and the fleet, precomputed kernels, Platt,
+    # the estimators, the multiclass and precomputed CLI
+    from dpsvm_tpu_torch.data.synth import make_mnist_multiclass
+
+    x_mc, y_mc = make_mnist_multiclass(n=60_000, d=784, seed=7, noise=0.1)
+    paths.update(phase_multiclass(x_mc, y_mc))
+    lap("multiclass")
+    paths.update(phase_multiclass_oracle(x_mc, y_mc))
+    lap("multiclass oracle")
+    paths.update(phase_precomputed(x, y, head_res))
+    lap("precomputed")
+    paths.update(phase_platt(x, x_mc, y_mc))
+    lap("platt")
+    paths.update(phase_estimators(x, y, svr_models))
+    lap("estimators")
+    paths.update(phase_cli_multiclass(x_mc, y_mc, x, y))
+    lap("cli multiclass")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",

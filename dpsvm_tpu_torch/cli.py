@@ -4,14 +4,20 @@ of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
 Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
         -g 0.125 [--format auto|csv|libsvm] [--kernel rbf|linear|poly|
-        sigmoid --degree 3 --coef0 0] [-w1 2 -w-1 1]
+        sigmoid|precomputed --degree 3 --coef0 0] [-w1 2 -w-1 1]
         [--engine xla|pallas|block] [--backend mesh --num-devices 4
         --ring-exchange on | --backend reference|native]
         [-t nu-svc|eps-svr|nu-svr|one-class --nu 0.5 -p 0.1]
+        [--multiclass ovr|ovo --fleet-size 16] [-b 1] [-v 5]
         [--checkpoint ck.npz --checkpoint-every 4096 --checkpoint-keep 2
         --resume] [--chunk-iters 2048] [--bf16-gram] [-q]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt \\
-        [-o predictions.txt] [--precision auto|float32|float64]
+        [-o predictions.txt] [--precision auto|float32|float64] [-b 1]
+
+A training file whose labels are not +-1 trains a multiclass bundle
+(.npz) by the OvR / OvO reduction; --kernel precomputed reads the square
+(n, n) Gram as the features and saves SV indices (.npz), and its test
+file holds K(test, train) rows.
 """
 
 from __future__ import annotations
@@ -61,8 +67,11 @@ def _build_parser() -> argparse.ArgumentParser:
                         "(default 0 = off; SVMConfig.cache_lines)")
     p.add_argument("--kernel", choices=["rbf", "linear", "poly", "sigmoid",
                                         "precomputed"], default="rbf",
-                   help="kernel family (precomputed is not ported: "
-                        "ROADMAP queue A item 6)")
+                   help="kernel family (precomputed = LibSVM -t 4: the "
+                        "training file's feature columns ARE the square "
+                        "(n, n) Gram matrix; the model saves SV indices "
+                        "as .npz, and the test file must hold "
+                        "K(test, train) rows)")
     p.add_argument("--degree", type=int, default=3)
     p.add_argument("--coef0", type=float, default=0.0)
     p.add_argument("-w1", "--weight-pos", type=float, default=1.0,
@@ -89,6 +98,25 @@ def _build_parser() -> argparse.ArgumentParser:
                         "select the micro-batched per-pair executor")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="storage dtype of X")
+    p.add_argument("--fleet-size", type=int, default=16,
+                   help="multiclass submodels trained per fleet "
+                        "(solver/fleet.py; a power of two, 1 = "
+                        "sequential solves)")
+    p.add_argument("--multiclass", choices=["ovr", "ovo"], default="ovr",
+                   help="reduction for files whose labels are not +-1: "
+                        "one-vs-rest (k models) or one-vs-one (k(k-1)/2 "
+                        "models); c-svc only, the bundle saves as .npz")
+    p.add_argument("-b", "--probability", type=int, choices=[0, 1],
+                   default=0,
+                   help="1 = fit Platt probability calibration (5-fold "
+                        "refits, LibSVM -b; c-svc / nu-svc only; the "
+                        "model saves as .npz)")
+    p.add_argument("-v", "--cross-validate", type=int, default=0,
+                   metavar="N",
+                   help="LibSVM svm-train -v: N-fold cross-validation "
+                        "(N >= 2); prints held-out accuracy (classifiers) "
+                        "or MSE and squared correlation (SVR) and writes "
+                        "NO model file")
     p.add_argument("--fused-round", choices=["auto", "on", "off"],
                    default="auto",
                    help="block engine: one-pass rounds (gather, kernel "
@@ -181,6 +209,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="binary decision evaluation precision (auto: "
                         "exact host float64 where predict.decision_risk "
                         "says float32 is not enough)")
+    p.add_argument("-b", "--probability", type=int, choices=[0, 1],
+                   default=0,
+                   help="1 = report calibrated probabilities (the model "
+                        "must have been trained with -b 1); -o then "
+                        "writes 'label p(+1)' lines with the label from "
+                        "p >= 0.5, svm-predict -b 1 style")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     return parser
@@ -204,6 +238,18 @@ def _check_svm_type(args) -> str | None:
                 args.weight_pos != 1.0 or args.weight_neg != 1.0):
             return (f"-w1/-w-1 are not applicable to {args.svm_type} (the "
                     "nu box is fixed at [0, 1])")
+    if args.probability and args.svm_type not in ("c-svc", "nu-svc"):
+        return (f"-b 1 (Platt probability) applies to classifiers only, "
+                f"not {args.svm_type}")
+    if args.kernel == "precomputed":
+        # LibSVM -t 4: the training file's features ARE the Gram matrix.
+        if args.svm_type != "c-svc":
+            return ("--kernel precomputed supports c-svc only (the other "
+                    "duals would need transformed Gram sub-matrices)")
+        if args.probability:
+            return "-b 1 is not supported with --kernel precomputed"
+        if args.backend in ("reference", "native"):
+            return "--kernel precomputed needs the single or mesh backend"
     if args.retry_faults != 2:
         return ("--retry-faults: automatic retries after device faults are "
                 "not ported (ROADMAP queue A item 11); keep the default and "
@@ -253,12 +299,6 @@ def _cmd_train(args) -> int:
     if not args.quiet:
         print(f"loaded {x.shape[0]} examples x {x.shape[1]} features "
               f"in {time.perf_counter() - t0:.2f}s")
-    if args.svm_type in ("c-svc", "nu-svc") \
-            and not set(np.unique(y).tolist()) <= {-1, 1}:
-        print(f"error: {args.svm_type} trains +-1 labels; this file has "
-              f"{np.unique(y).tolist()[:6]} (multiclass is not ported: "
-              "ROADMAP queue A item 7a)", file=sys.stderr)
-        return 2
     try:
         config = SVMConfig(
             c=args.cost, gamma=args.gamma, epsilon=args.epsilon,
@@ -268,6 +308,7 @@ def _cmd_train(args) -> int:
             selection=args.selection, pair_batch=args.pair_batch,
             engine=args.engine, working_set_size=args.working_set_size,
             inner_iters=args.inner_iters, dtype=args.dtype,
+            fleet_size=args.fleet_size,
             fused_round=_TRI[args.fused_round],
             pipeline_rounds=_TRI[args.pipeline_rounds],
             local_working_sets=args.local_working_sets or None,
@@ -280,6 +321,21 @@ def _cmd_train(args) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    # Labels other than +-1 train the OvR / OvO reduction (as LibSVM's
+    # svm-train trains a multiclass file); two arbitrary labels too, so
+    # the model predicts the file's own labels.
+    if args.svm_type in ("c-svc", "nu-svc"):
+        classes = np.unique(y)
+        if len(classes) < 2:
+            print("error: training data holds a single class",
+                  file=sys.stderr)
+            return 2
+        if not set(classes.tolist()) <= {-1, 1}:
+            return _train_multiclass_cli(args, x, y, config)
+    if args.cross_validate:
+        return _cross_validate(args, x, y, config)
+    if args.kernel == "precomputed":
+        return _train_precomputed(args, x, y, config)
     mesh = None
     if args.backend == "mesh" and args.device is not None:
         from dpsvm_tpu_torch.parallel.mesh import Mesh
@@ -316,6 +372,8 @@ def _cmd_train(args) -> int:
     else:
         inlier = float(np.mean(model.predict(x, device=args.device) > 0))
         print(f"train inlier fraction: {inlier:.4f} (nu={args.nu})")
+    if args.probability:
+        _fit_probability(args, model, x, y, config)
     if args.svm_type in ("eps-svr", "nu-svr", "one-class") \
             and not args.model.endswith(".npz"):
         args.model += ".npz"
@@ -325,20 +383,326 @@ def _cmd_train(args) -> int:
     return 0
 
 
+def _log_loss(p, y) -> float:
+    p = np.clip(p, 1e-15, 1 - 1e-15)
+    t = (np.asarray(y) > 0).astype(np.float64)
+    return float(-np.mean(t * np.log(p) + (1 - t) * np.log(1 - p)))
+
+
+def _fit_probability(args, model, x, y, config) -> None:
+    """-b 1: the Platt pair from 5-fold refits of the same dual (in-sample
+    decision values are margin-biased; models/platt.py fit_platt_cv),
+    set on the model, which then saves as .npz."""
+    from dpsvm_tpu_torch.models.platt import fit_platt_cv, platt_probability
+    from dpsvm_tpu_torch.predict import decision_function
+
+    train_fn = None
+    if args.svm_type == "nu-svc":
+        from dpsvm_tpu_torch.models.nusvm import train_nusvc
+
+        def train_fn(xf, yf, cfg, backend="auto", num_devices=None):
+            return train_nusvc(xf, yf, nu=args.nu, config=cfg,
+                               backend=backend, num_devices=num_devices,
+                               device=args.device)
+    model.prob_a, model.prob_b = fit_platt_cv(
+        x, y, config, backend=args.backend, num_devices=args.num_devices,
+        train_fn=train_fn, device=args.device)
+    dec = np.asarray(decision_function(model, x, device=args.device),
+                     np.float64)
+    p = platt_probability(dec, model.prob_a, model.prob_b)
+    print(f"platt calibration: A={model.prob_a:.6f} B={model.prob_b:.6f} "
+          f"train log-loss={_log_loss(p, y):.4f}")
+    if not args.model.endswith(".npz"):
+        args.model += ".npz"
+        print("note: probability models use the .npz format (the "
+              "reference text format cannot carry the calibration)")
+
+
+def _train_multiclass_cli(args, x, y, config) -> int:
+    """A file whose labels are not +-1: the OvR / OvO reduction
+    (models/multiclass.py), saved as the .npz bundle `test` dispatches
+    on; -v cross-validates it instead."""
+    classes = np.unique(y)
+    blockers = [
+        ("-t nu-svc", args.svm_type != "c-svc"),
+        ("-b 1", bool(args.probability)),
+        ("--kernel precomputed", args.kernel == "precomputed"),
+        ("--checkpoint/--resume", bool(args.checkpoint or args.resume)),
+        # The +-1 remapping rotates over the submodels, so -w1/-w-1
+        # would weight a different original class in each.
+        ("-w1/-w-1", args.weight_pos != 1.0 or args.weight_neg != 1.0),
+    ]
+    bad = [f for f, hit in blockers if hit]
+    if bad:
+        print(f"error: multiclass training ({len(classes)} labels "
+              f"{classes.tolist()[:6]}{'...' if len(classes) > 6 else ''}) "
+              f"does not compose with {', '.join(bad)}; it trains plain "
+              "binary C-SVC submodels", file=sys.stderr)
+        return 2
+    if args.cross_validate:
+        return _cross_validate_multiclass(args, x, y, config)
+    from dpsvm_tpu_torch.models.multiclass import (accuracy_multiclass,
+                                                   train_multiclass)
+
+    if not args.quiet:
+        k = len(classes)
+        if k == 2:
+            plan = "1 binary submodel (2 non-±1 labels)"
+        else:
+            n_models = k if args.multiclass == "ovr" else k * (k - 1) // 2
+            plan = f"{n_models} {args.multiclass} binary submodels"
+        print(f"multiclass: {k} classes -> {plan}")
+    t0 = time.perf_counter()
+    try:
+        model, results = train_multiclass(
+            x, y, config, strategy=args.multiclass, backend=args.backend,
+            num_devices=args.num_devices, verbose=not args.quiet,
+            device=args.device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    wall = time.perf_counter() - t0
+    dev_s = sum(r.train_seconds for r in results)
+    conv = sum(r.converged for r in results)
+    print(f"training took {wall:.2f}s ({dev_s:.2f}s device; "
+          f"{conv}/{len(results)} submodels converged)")
+    print(f"train accuracy: "
+          f"{accuracy_multiclass(model, x, y, device=args.device):.4f}")
+    if not args.model.endswith(".npz"):
+        args.model += ".npz"
+        print("note: multiclass models use the .npz format (the "
+              "reference text format is binary-only)")
+    model.save(args.model)
+    print(f"model written to {args.model}")
+    return 0
+
+
+def _fold_fit_factory(args, config):
+    """The fold refit of -v for each svm type: a throwaway model, no
+    callbacks or checkpoints."""
+    from dpsvm_tpu_torch import models
+    from dpsvm_tpu_torch.train import train
+
+    common = dict(backend=args.backend, num_devices=args.num_devices,
+                  device=args.device)
+    if args.svm_type == "c-svc":
+        def fit(xf, yf):
+            return train(xf, yf, config, **common)[0]
+    elif args.svm_type == "nu-svc":
+        def fit(xf, yf):
+            return models.train_nusvc(xf, yf, nu=args.nu, config=config,
+                                      **common)[0]
+    elif args.svm_type == "eps-svr":
+        def fit(xf, yf):
+            return models.train_svr(xf, yf, config,
+                                    svr_epsilon=args.svr_epsilon,
+                                    **common)[0]
+    else:  # nu-svr
+        def fit(xf, yf):
+            return models.train_nusvr(xf, yf, nu=args.nu, config=config,
+                                      **common)[0]
+    return fit
+
+
+def _fold_split(y, k: int, seed: int = 0, stratify: bool = False):
+    """Deterministic k-fold index split (the JAX package's): stratify=True
+    spreads each class over the folds, remainders rotated by class."""
+    rng = np.random.default_rng(seed)
+    if not stratify:
+        return np.array_split(rng.permutation(len(y)), k)
+    parts = [[] for _ in range(k)]
+    for ci, cls in enumerate(np.unique(y)):
+        idx = rng.permutation(np.nonzero(y == cls)[0])
+        for i, p in enumerate(np.array_split(idx, k)):
+            if p.size:
+                parts[(i + ci) % k].append(p)
+    return [rng.permutation(np.concatenate(p)) if p
+            else np.empty(0, np.int64) for p in parts]
+
+
+def _cv_folds(args, y, classify: bool):
+    """The -v folds after the checks every -v run makes, or None after
+    printing the diagnostic."""
+    k = args.cross_validate
+    if k < 2:
+        print("error: -v requires N >= 2 folds", file=sys.stderr)
+        return None
+    if len(y) < k:
+        print(f"error: -v {k} needs at least {k} rows", file=sys.stderr)
+        return None
+    folds = _fold_split(y, k, seed=0, stratify=classify)
+    if classify:
+        for i, held in enumerate(folds):
+            tr_mask = np.ones(len(y), bool)
+            tr_mask[held] = False
+            if len(np.unique(y[tr_mask])) < 2:
+                print(f"error: fold {i} would lose a class (a class has "
+                      "too few members); lower -v or provide more data",
+                      file=sys.stderr)
+                return None
+    return folds
+
+
+def _run_folds(args, x, y, folds, fit_predict) -> np.ndarray:
+    """Each fold refit on the others and scored: the held-out
+    predictions in row order."""
+    pred = np.empty(len(y), np.float64)
+    for i, held in enumerate(folds):
+        tr = np.concatenate([f for j, f in enumerate(folds) if j != i])
+        pred[held] = np.asarray(fit_predict(x[tr], y[tr], x[held]),
+                                np.float64)
+        if not args.quiet:
+            print(f"  fold {i + 1}/{len(folds)}: trained on {len(tr)}, "
+                  f"scored {len(held)}", file=sys.stderr)
+    return pred
+
+
+def _cross_validate(args, x, y, config) -> int:
+    """LibSVM svm-train -v: stratified (classifiers) k-fold refits of the
+    requested family, LibSVM's output lines, and no model file."""
+    if args.svm_type == "one-class":
+        print("error: -v cross-validation is not defined for one-class "
+              "(no held-out labels to score)", file=sys.stderr)
+        return 2
+    if args.kernel == "precomputed":
+        print("error: -v does not compose with --kernel precomputed "
+              "(folds would need per-fold Gram sub-matrices; precompute "
+              "per-fold Grams and run them separately)", file=sys.stderr)
+        return 2
+    ignored = [flag for flag, val in (
+        ("-b 1", args.probability), ("--checkpoint", args.checkpoint),
+        ("--resume", args.resume)) if val]
+    if ignored:
+        print(f"error: -v does not compose with {', '.join(ignored)} "
+              "(fold refits are throwaway models; run a plain train for "
+              "those)", file=sys.stderr)
+        return 2
+    classify = args.svm_type in ("c-svc", "nu-svc")
+    folds = _cv_folds(args, y, classify)
+    if folds is None:
+        return 2
+    from dpsvm_tpu_torch.predict import predict
+
+    fit = _fold_fit_factory(args, config)
+
+    def fit_predict(xt, yt, xh):
+        model = fit(xt, yt)
+        if classify:
+            return predict(model, xh, device=args.device)
+        return model.predict(xh, device=args.device)
+
+    t0 = time.perf_counter()
+    pred = _run_folds(args, x, y, folds, fit_predict)
+    if classify:
+        acc = float(np.mean(pred == y))
+        print(f"Cross Validation Accuracy = {100.0 * acc:g}%")
+    else:
+        z = np.asarray(y, np.float64)
+        mse = float(np.mean((pred - z) ** 2))
+        vp, vz = pred - pred.mean(), z - z.mean()
+        denom = float(np.sum(vp ** 2) * np.sum(vz ** 2))
+        r2 = float(np.sum(vp * vz) ** 2 / denom) if denom > 0 else 0.0
+        print(f"Cross Validation Mean squared error = {mse:g}")
+        print(f"Cross Validation Squared correlation coefficient = {r2:g}")
+    if not args.quiet:
+        print(f"({len(folds)}-fold over {len(y)} rows in "
+              f"{time.perf_counter() - t0:.2f}s; no model file written — "
+              "LibSVM -v contract)", file=sys.stderr)
+    return 0
+
+
+def _cross_validate_multiclass(args, x, y, config) -> int:
+    """svm-train -v on a multiclass file: stratified k-fold over the
+    OvR / OvO reduction, LibSVM's accuracy line, no model file."""
+    from dpsvm_tpu_torch.models.multiclass import (predict_multiclass,
+                                                   train_multiclass)
+
+    folds = _cv_folds(args, y, classify=True)
+    if folds is None:
+        return 2
+
+    def fit_predict(xt, yt, xh):
+        model, _ = train_multiclass(xt, yt, config,
+                                    strategy=args.multiclass,
+                                    backend=args.backend,
+                                    num_devices=args.num_devices,
+                                    device=args.device)
+        return predict_multiclass(model, xh, device=args.device)
+
+    t0 = time.perf_counter()
+    pred = _run_folds(args, x, y, folds, fit_predict)
+    acc = float(np.mean(pred == np.asarray(y, np.float64)))
+    print(f"Cross Validation Accuracy = {100.0 * acc:g}%")
+    if not args.quiet:
+        print(f"({len(folds)}-fold over {len(y)} rows in "
+              f"{time.perf_counter() - t0:.2f}s; no model file written — "
+              "LibSVM -v contract)", file=sys.stderr)
+    return 0
+
+
+def _train_precomputed(args, x, y, config) -> int:
+    """Train on a user-supplied Gram matrix (LibSVM -t 4). The model
+    carries SV indices (models/precomputed.py) and saves as .npz."""
+    from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+    from dpsvm_tpu_torch.train import resolve_backend, solve_on
+
+    n = x.shape[0]
+    if x.shape[1] != n:
+        print(f"error: --kernel precomputed needs the square (n, n) Gram "
+              f"matrix as features; {args.file_path} is {x.shape[0]} x "
+              f"{x.shape[1]}", file=sys.stderr)
+        return 2
+    mesh = None
+    if args.backend == "mesh" and args.device is not None:
+        from dpsvm_tpu_torch.parallel.mesh import Mesh
+
+        mesh = Mesh([args.device] * (args.num_devices or 1))
+    try:
+        # The mesh's precomputed path is the block engine's (auto takes
+        # the mesh only there).
+        backend = resolve_backend(args.backend, config, args.device,
+                                  args.num_devices, mesh)
+        result = solve_on(backend, x, y, config, args.device,
+                          args.num_devices, mesh,
+                          checkpoint_path=args.checkpoint,
+                          resume=args.resume)
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    model = PrecomputedSVCModel.from_solution(y, result.alpha, result.b)
+    if result.converged:
+        print(f"converged at iteration {result.iterations}")
+    else:
+        print(f"stopped at max-iter {result.iterations} without converging")
+    print(f"training took {result.train_seconds:.2f}s")
+    print(f"b: {result.b:.6f}")
+    print(f"support vectors: {model.n_sv}")
+    # The training Gram's rows ARE K(train, train).
+    acc = float(np.mean(model.predict(x, device=args.device) == y))
+    print(f"train accuracy: {acc:.4f}")
+    if not args.model.endswith(".npz"):
+        args.model += ".npz"
+        print("note: precomputed-kernel models use the .npz format "
+              "(they store SV indices, not feature rows)")
+    model.save(args.model)
+    print(f"model written to {args.model}")
+    return 0
+
+
 def _model_type(path: str) -> str:
-    """The .npz model_type field ("svr", "oneclass"), else
-    "classifier" (the text format is classifier-only)."""
+    """The .npz model_type field ("svr", "oneclass", "precomputed_svc",
+    "multiclass"), else "classifier" (the text format is
+    classifier-only)."""
     if not path.endswith(".npz"):
         return "classifier"
     with np.load(path, allow_pickle=False) as z:
         kind = str(z["model_type"]) if "model_type" in z else ""
-        if not kind and "n_models" in z and "strategy" in z:
+        if kind not in ("svr", "oneclass", "precomputed_svc",
+                        "multiclass"):
+            kind = "classifier"
+        if kind == "classifier" and "n_models" in z and "strategy" in z:
             kind = "multiclass"  # a bundle saved before the tag existed
-    if kind in ("svr", "oneclass", "classifier", ""):
-        return kind or "classifier"
-    raise NotImplementedError(
-        f"{path}: model_type {kind!r} is not ported (multiclass and "
-        "precomputed models: ROADMAP queue A items 7a and 6)")
+    return kind
 
 
 def _load_eval_data(args, model_width: int, float_labels: bool = False):
@@ -434,26 +798,75 @@ def _test_oneclass(args) -> int:
     return 0
 
 
+def _test_multiclass(args) -> int:
+    from dpsvm_tpu_torch.models.multiclass import (MulticlassSVM,
+                                                   predict_multiclass)
+
+    if args.gamma is not None:
+        print("error: -g does not apply to a multiclass bundle (its "
+              "submodels carry their trained kernels); retrain with the "
+              "desired gamma", file=sys.stderr)
+        return 2
+    model = MulticlassSVM.load(args.model)
+    loaded = _load_eval_data(args, model.models[0].sv_x.shape[1])
+    if loaded is None:
+        return 2
+    x, y = loaded
+    extra = sorted(set(np.unique(y).tolist()) - set(model.classes.tolist()))
+    if extra:
+        print(f"error: test labels {extra[:6]} are not among the model's "
+              f"classes {model.classes.tolist()[:6]}", file=sys.stderr)
+        return 2
+    pred = predict_multiclass(model, x, device=args.device)
+    acc = float(np.mean(pred == y))
+    print(f"loaded multiclass model: {len(model.classes)} classes, "
+          f"{model.strategy}, {len(model.models)} submodels, "
+          f"{sum(m.n_sv for m in model.models)} total SVs")
+    print(f"test accuracy: {acc:.4f} ({x.shape[0]} examples)")
+    _write_predictions(args, pred)
+    return 0
+
+
+def _test_precomputed(args) -> int:
+    from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+
+    model = PrecomputedSVCModel.load(args.model)
+    # The test file's columns are K(test, train): width n_train, as in
+    # LibSVM's precomputed svm-predict.
+    loaded = _load_eval_data(args, model.n_train)
+    if loaded is None:
+        return 2
+    x, y = loaded
+    pred = model.predict(x, device=args.device)
+    print(f"loaded precomputed-kernel model: {model.n_sv} SVs over "
+          f"{model.n_train} training points, b={model.b:.6f}")
+    print(f"test accuracy: {float(np.mean(pred == y)):.4f} "
+          f"({x.shape[0]} examples)")
+    _write_predictions(args, pred)
+    return 0
+
+
 def _cmd_test(args) -> int:
     from dpsvm_tpu_torch.models.svm_model import SVMModel
     from dpsvm_tpu_torch.ops.kernels import KernelParams
     from dpsvm_tpu_torch.predict import (decision_function, decision_risk,
                                          resolve_precision)
 
-    try:
-        kind = _model_type(args.model)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
+    kind = _model_type(args.model)
+    if kind != "classifier" and args.probability:
+        print(f"error: -b 1 is not applicable to a {kind} model",
+              file=sys.stderr)
         return 2
     if kind != "classifier" and args.precision != "auto":
         print(f"error: --precision {args.precision} applies to binary "
               f"classifier models only, not a {kind} model",
               file=sys.stderr)
         return 2
-    if kind == "svr":
-        return _test_svr(args)
-    if kind == "oneclass":
-        return _test_oneclass(args)
+    tests = {"svr": _test_svr, "oneclass": _test_oneclass,
+             "multiclass": _test_multiclass,
+             "precomputed_svc": _test_precomputed}
+    if kind in tests:
+        return tests[kind](args)
     model = SVMModel.load(args.model)
     if args.gamma is not None:
         model.kernel = KernelParams(model.kernel.kind, args.gamma,
@@ -475,12 +888,37 @@ def _cmd_test(args) -> int:
                   " >= 0.1 -> exact float64 evaluation (pass --precision "
                   "float32 to force the device path)", file=sys.stderr)
     dec = decision_function(model, x, precision=prec, device=args.device)
-    pred = np.where(dec >= 0, 1, -1)
+    proba = None
+    if args.probability:
+        if not model.has_probability:
+            print("error: -b 1 needs a model trained with -b 1 (no Platt "
+                  "calibration in this model file)", file=sys.stderr)
+            return 2
+        from dpsvm_tpu_torch.models.platt import platt_probability
+
+        proba = platt_probability(dec, model.prob_a, model.prob_b)
+    # Under -b 1 the label is the max-probability one (Platt's B can move
+    # p = 0.5 off dec = 0), as LibSVM's svm-predict -b 1 scores it.
+    pred = (np.where(proba >= 0.5, 1, -1) if proba is not None
+            else np.where(dec >= 0, 1, -1))
     acc = float(np.mean(pred == y))
     print(f"loaded model: {model.n_sv} SVs, gamma={model.kernel.gamma}, "
-          f"b={model.b:.6f}")
-    print(f"test accuracy: {acc:.4f} ({x.shape[0]} examples)")
-    _write_predictions(args, pred)
+          f"b={model.b:.6f}"
+          + (", platt-calibrated" if model.has_probability else ""))
+    print(f"test accuracy: {acc:.4f} ({x.shape[0]} examples)"
+          + (" [labels by max probability, svm-predict -b 1 style]"
+             if proba is not None else ""))
+    if proba is None:
+        _write_predictions(args, pred)
+        return 0
+    print(f"test log-loss: {_log_loss(proba, y):.4f} (Platt "
+          f"A={model.prob_a:.6f} B={model.prob_b:.6f})")
+    if args.output:
+        with open(args.output, "w") as fh:
+            fh.write("label p(+1)\n")
+            fh.writelines(f"{int(pi)} {pr:.6f}\n"
+                          for pi, pr in zip(pred, proba))
+        print(f"predictions written to {args.output}")
     return 0
 
 

@@ -72,10 +72,12 @@ class SVMConfig:
     local_working_sets: Optional[int] = None
     sync_rounds: int = 1
     ring_exchange: Optional[bool] = None
-    # Multiclass fleet batching (not ported: ROADMAP queue A item 7a).
+    # Multiclass fleet batching (solver/fleet.py): submodels trained per
+    # fleet of stacked per-pair problems (1 = sequential solves).
     fleet_size: int = 16
-    # engine="xla": hold the (n, n) float32 Gram on the device. None =
-    # auto (n >= 8192 and it fits 70% of the card's memory; never on the
+    # Hold the (n, n) float32 Gram on the device (engine="xla" or
+    # "block"; kernel rows become row gathers). None = auto (engine="xla"
+    # only: n >= 8192 and it fits 70% of the card's memory; never on the
     # CPU).
     gram_resident: Optional[bool] = None
     # Store X in bfloat16 only where the per-problem perturbation gate
@@ -181,6 +183,11 @@ class SVMConfig:
             (self.kernel == "precomputed" and self.cache_lines > 0,
              "kernel='precomputed' has nothing to cache (rows are "
              "gathers, not matvecs); set cache_lines=0"),
+            (self.kernel == "precomputed" and self.active_set_size > 0,
+             "kernel='precomputed' does not compose with active-set "
+             "shrinking (the active view re-indexes rows but the Gram "
+             "block gather needs global column ids); set "
+             "active_set_size=0"),
             (self.engine == "pallas" and self.selection != "mvp",
              "engine='pallas' supports selection='mvp' only (use "
              "engine='xla' or engine='block')"),
@@ -388,7 +395,6 @@ class SVMConfig:
         default; the message names the ROADMAP.md item that ports it."""
         default = SVMConfig()
         jax_only = (
-            ("fleet_size", "ROADMAP queue A item 7a"),
             ("reconcile_rounds",
              "the active-set engines: ROADMAP queue A item 4, and item 10b on "
              "the mesh"),
@@ -412,11 +418,6 @@ class SVMConfig:
              "active_set_size>0 (the active-set engine: ROADMAP queue A "
              "item 4)"),
             (self.ooc, "ooc=True (ROADMAP queue A item 8)"),
-            (bool(self.gram_resident) and self.engine == "block",
-             "gram_resident=True on engine='block' (ROADMAP queue A "
-             "item 6)"),
-            (self.kernel == "precomputed",
-             "kernel='precomputed' (ROADMAP queue A item 6)"),
         )
         for bad, what in unported:
             if bad:

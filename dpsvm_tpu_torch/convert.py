@@ -3,7 +3,8 @@
 The JAX package is never imported here: the converters read plain
 attributes (numpy-convertible arrays and scalars), so any object with the
 JAX package's field names works — a dpsvm_tpu SVMModel / SVRModel /
-OneClassModel / BlockState, or a namespace rebuilt from saved arrays.
+OneClassModel / PrecomputedSVCModel / MulticlassSVM / BlockState, or a
+namespace rebuilt from saved arrays.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dpsvm_tpu_torch.models.multiclass import (CompactedEnsemble,
+                                               MulticlassSVM)
 from dpsvm_tpu_torch.models.oneclass import OneClassModel
+from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
 from dpsvm_tpu_torch.models.svm_model import SVMModel
 from dpsvm_tpu_torch.models.svr import SVRModel
 from dpsvm_tpu_torch.ops.kernels import KernelParams
@@ -54,6 +58,34 @@ def oneclass_model_from_reference(m) -> OneClassModel:
     return OneClassModel(sv_x=_rows(m.sv_x),
                          coef=np.asarray(m.coef, np.float32),
                          rho=float(m.rho), kernel=_kernel(m.kernel))
+
+
+def precomputed_model_from_reference(m) -> PrecomputedSVCModel:
+    """A port PrecomputedSVCModel from the JAX package's (sv_idx, coef,
+    b, n_train)."""
+    return PrecomputedSVCModel(np.asarray(m.sv_idx, np.int32),
+                               np.asarray(m.coef, np.float32), float(m.b),
+                               int(m.n_train))
+
+
+def multiclass_from_reference(m) -> MulticlassSVM:
+    """A port MulticlassSVM from the JAX package's (classes, models,
+    strategy, compacted): every submodel through model_from_reference,
+    and the compacted arrays when the JAX object carries them."""
+    models = [model_from_reference(mm) for mm in m.models]
+    out = MulticlassSVM(classes=np.asarray(m.classes),
+                        models=models, strategy=str(m.strategy))
+    comp = getattr(m, "compacted", None)
+    if comp is not None:
+        out.compacted = CompactedEnsemble(
+            sv_union=_rows(comp.sv_union),
+            coef=np.asarray(comp.coef, np.float32),
+            b=np.asarray(comp.b, np.float32),
+            idx=np.asarray(comp.idx, np.int32),
+            coef_pad=np.asarray(comp.coef_pad, np.float32),
+            counts=np.asarray(comp.counts, np.int32),
+            kernel=models[0].kernel)
+    return out
 
 
 def block_state_from_reference(st, device) -> BlockState:

@@ -26,9 +26,9 @@ class SVMModel:
     sv_y: np.ndarray  # (n_sv,) labels in {-1, +1}
     b: float
     kernel: KernelParams
-    # Platt calibration plane, P(y=+1 | f) = sigmoid(prob_a * f + prob_b),
-    # as the JAX package fits it (models/platt.py, not ported yet). None =
-    # uncalibrated. Carried by the .npz format only.
+    # Platt calibration plane, P(y=+1 | f) = sigmoid(prob_a * f + prob_b)
+    # (models/platt.py). None = uncalibrated. Carried by the .npz format
+    # only.
     prob_a: float | None = None
     prob_b: float | None = None
 
@@ -63,15 +63,40 @@ class SVMModel:
             kernel=kernel,
         )
 
+    def npz_payload(self, prefix: str = "") -> dict:
+        """The model's .npz fields under a key prefix: one definition
+        shared by save (prefix "") and the multiclass bundle (prefix
+        "m{i}_", models/multiclass.py), as in the JAX package."""
+        return {
+            f"{prefix}sv_x": self.sv_x,
+            f"{prefix}sv_alpha": self.sv_alpha,
+            f"{prefix}sv_y": self.sv_y,
+            f"{prefix}b": np.float32(self.b),
+            **{f"{prefix}{k}": v
+               for k, v in self.kernel.npz_fields().items()},
+        }
+
+    @classmethod
+    def from_npz_payload(cls, z, prefix: str = "") -> "SVMModel":
+        """Inverse of npz_payload over an opened .npz mapping."""
+        return cls(
+            sv_x=z[f"{prefix}sv_x"].astype(np.float32),
+            sv_alpha=z[f"{prefix}sv_alpha"].astype(np.float32),
+            sv_y=z[f"{prefix}sv_y"].astype(np.int32),
+            b=float(z[f"{prefix}b"]),
+            kernel=KernelParams(
+                kind=str(z[f"{prefix}kernel_kind"]),
+                gamma=float(z[f"{prefix}gamma"]),
+                degree=int(z[f"{prefix}degree"]),
+                coef0=float(z[f"{prefix}coef0"])))
+
     def save(self, path: str) -> None:
         if path.endswith(".npz"):
             prob = ({"prob_a": np.float64(self.prob_a),
                      "prob_b": np.float64(self.prob_b)}
                     if self.has_probability else {})
-            np.savez_compressed(
-                path, format_version=1, sv_x=self.sv_x,
-                sv_alpha=self.sv_alpha, sv_y=self.sv_y,
-                b=np.float32(self.b), **self.kernel.npz_fields(), **prob)
+            np.savez_compressed(path, format_version=1,
+                                **self.npz_payload(), **prob)
             return
         if self.kernel.kind != "rbf":
             raise ValueError(
@@ -92,14 +117,11 @@ class SVMModel:
     def load(cls, path: str) -> "SVMModel":
         if path.endswith(".npz"):
             with np.load(path, allow_pickle=False) as z:
-                prob = ({"prob_a": float(z["prob_a"]),
-                         "prob_b": float(z["prob_b"])}
-                        if "prob_a" in z else {})
-                return cls(sv_x=z["sv_x"].astype(np.float32),
-                           sv_alpha=z["sv_alpha"].astype(np.float32),
-                           sv_y=z["sv_y"].astype(np.int32),
-                           b=float(z["b"]),
-                           kernel=KernelParams.from_npz(z), **prob)
+                model = cls.from_npz_payload(z)
+                if "prob_a" in z:
+                    model.prob_a = float(z["prob_a"])
+                    model.prob_b = float(z["prob_b"])
+                return model
         with open(path) as fh:
             lines = [ln.strip() for ln in fh if ln.strip()]
         if len(lines) < 2:

@@ -89,6 +89,31 @@ def select_working_set(f, alpha, y, c, valid=None) -> tuple:
     return i_up, take(f_up, i_up), i_low, take(f_low, i_low)
 
 
+def select_working_set_batched(f, alpha, y, c_pos, c_neg, valid=None):
+    """The maximal violating pair of each problem of a (k, n) stack (the
+    fleet, solver/fleet.py) in one masked pass: f, alpha, y and valid
+    (bool: padding and each problem's rows) are (k, n); c_pos, c_neg
+    (k, 1) per-problem box bounds. Returns (i_hi, b_hi, i_lo, b_lo),
+    each (k,): int64 ids, float32 values. Ties and values as
+    select_working_set's (lowest index; the element at its index). The
+    per-row bound is always materialized, since the bounds are
+    per-problem tensors."""
+    f = f.float()
+    pos = y > 0
+    c_row = torch.where(pos, c_pos, c_neg)
+    up = torch.where(pos, alpha < c_row, alpha > 0)
+    low = torch.where(pos, alpha > 0, alpha < c_row)
+    if valid is not None:
+        up = up & valid
+        low = low & valid
+    f_up = torch.where(up, f, _INF)
+    f_low = torch.where(low, f, -_INF)
+    i_hi = torch.argmin(f_up, dim=1)
+    i_lo = torch.argmax(f_low, dim=1)
+    return (i_hi, torch.gather(f_up, 1, i_hi[:, None])[:, 0],
+            i_lo, torch.gather(f_low, 1, i_lo[:, None])[:, 0])
+
+
 def take(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """v[i] for a 0-d index tensor, as a 0-d tensor gathered on the
     device (indexing with a 0-d tensor may read it on the host)."""

@@ -234,16 +234,36 @@ def _gather_ws(mesh: Mesh, x, scal_cols, sel):
     return mesh.psum(parts), _psum_scal(mesh, scal_cols, owners), owners
 
 
+def _gather_ws_gram(mesh: Mesh, x, scal_cols, sel):
+    """Working-set recovery on a precomputed Gram, whose shard r holds
+    its ROWS of the symmetric (n_pad, n_pad) matrix: K(W, W) is the sum
+    of each shard's owned W rows at columns W ((q, q) traffic, never a
+    (q, n) row sum), and the fold's rows K(W, shard) are the local
+    column gather x[r][:, W] (no traffic). Returns (kb per group (q, q),
+    scal per group (q, S), owners per rank)."""
+    owners, parts = [], []
+    for r in range(mesh.size):
+        w, slot_ok = sel[mesh.group_of[r]]
+        l, own, l_safe = _ws_owners(w, slot_ok, r, x[r].shape[0])
+        owners.append((l, own, l_safe))
+        rows_own = torch.where(own[:, None], x[r][l_safe].float(), 0.0)
+        parts.append(rows_own[:, w])
+    return mesh.psum(parts), _psum_scal(mesh, scal_cols, owners), owners
+
+
 def _mesh_round_core(qx, scal, slot_ok, gap_open, budget_left,
                      kp: KernelParams, c, eps: float, tau: float,
-                     inner_iters: int, selection: str, pair_batch: int = 1):
+                     inner_iters: int, selection: str, pair_batch: int = 1,
+                     kb_w=None):
     """The replicated part of a mesh round after working-set recovery:
-    the (q, q) Gram block, the subproblem solve and the fold
-    coefficients. scal is the (q, 5) stack [x_sq, k_diag, alpha, y,
-    f_eff]. Returns (alpha_w, coef, t)."""
+    the (q, q) Gram block (or `kb_w` as recovered from a precomputed
+    Gram), the subproblem solve and the fold coefficients. scal is the
+    (q, 5) stack [x_sq, k_diag, alpha, y, f_eff]. Returns (alpha_w,
+    coef, t)."""
     qsq, kd_w, alpha_w0, y_w, f_w0 = (scal[:, k].contiguous()
                                       for k in range(5))
-    kb_w = kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
+    if kb_w is None:
+        kb_w = kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
     limit = torch.clamp(budget_left, max=inner_iters)
     limit = torch.where(gap_open, limit, 0).to(torch.int32)
     alpha_w, t = solve_subproblem(kb_w, alpha_w0, y_w, f_w0, kd_w,
@@ -277,11 +297,8 @@ def make_block_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
     the candidate exchange and the working-set recovery through kernel
     B7, with bit-identical trajectories."""
     _refuse_nu(selection)
-    if kp.kind == "precomputed":
-        raise NotImplementedError(
-            "kernel='precomputed' on the mesh is not ported (ROADMAP queue "
-            "A item 6)")
     _check_ring(ring_exchange, mesh, kp, selection)
+    gram = kp.kind == "precomputed"
     p_dev = mesh.size
 
     def one_round(x, y, x_sq, k_diag, valid, st: MeshBlockState, max_iter):
@@ -299,23 +316,29 @@ def make_block_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
         else:
             sel = _select_block_mesh(mesh, f_cur, st.alpha, y, valid, c, q,
                                      rule=selection)
-            qx, scal, owners = _gather_ws(mesh, x, scal_cols,
-                                          [s[:2] for s in sel])
+            recover = _gather_ws_gram if gram else _gather_ws
+            qx, scal, owners = recover(mesh, x, scal_cols,
+                                       [s[:2] for s in sel])
         core = []
         for g, (w, slot_ok, b_hi, b_lo, *_) in enumerate(sel):
             gap_open = b_lo > b_hi + 2.0 * eps
             core.append(_mesh_round_core(
-                qx[g], scal[g], slot_ok, gap_open, max_iter - st.pairs[g],
-                kp, c, eps, tau, inner_iters, selection, pair_batch))
+                None if gram else qx[g], scal[g], slot_ok, gap_open,
+                max_iter - st.pairs[g], kp, c, eps, tau, inner_iters,
+                selection, pair_batch, kb_w=qx[g] if gram else None))
         alpha, f, f_err = [], [], ([] if compensated else None)
         for r in range(p_dev):
             g = mesh.group_of[r]
             alpha_w, coef, _ = core[g]
             l, own, _ = owners[r]
             n_loc = x[r].shape[0]
-            # The fold is LOCAL: the (q, n_loc) kernel rows of this shard.
-            k_rows = kernel_rows(x[r], x_sq[r], qx[g].to(x[r].dtype),
-                                 scal[g][:, 0], kp)
+            # The fold is LOCAL: the (q, n_loc) kernel rows of this shard
+            # (on a precomputed Gram, by symmetry its columns W).
+            if gram:
+                k_rows = x[r][:, sel[g][0]].float().t()
+            else:
+                k_rows = kernel_rows(x[r], x_sq[r], qx[g].to(x[r].dtype),
+                                     scal[g][:, 0], kp)
             f_r, e_r = maybe_kahan(st.f[r],
                                    st.f_err[r] if compensated else None,
                                    coef @ k_rows)

@@ -96,6 +96,14 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
             f"engine={config.engine!r} is implemented for the single-chip "
             "solver only; the mesh backend supports engine='block' "
             "(distributed decomposition)")
+    if config.kernel == "precomputed" and config.engine != "block":
+        raise ValueError(
+            "kernel='precomputed' on the mesh is implemented for "
+            "engine='block' (Gram symmetry makes its fold a local column "
+            "gather and the (q, q) block a q^2-sized psum — "
+            "parallel/dist_block.py); the per-pair mesh engine would "
+            "move a full (n,) Gram row per pair update — use "
+            "engine='block' or backend='single'")
     if alpha_init is not None or f_init is not None \
             or config.selection == "nu":
         raise NotImplementedError(
@@ -143,12 +151,32 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     valid_p[:n] = True
     store_dtype, extra = storage_dtype(x, config, kp.gamma)
     dtype = torch.bfloat16 if store_dtype == "bfloat16" else torch.float32
-    x_sh = shard_padded_rows(mesh, x, dtype=dtype)
     y_sh = shard_padded_rows(mesh, y_p)
     valid_sh = shard_padded_rows(mesh, valid_p)
-    # x_sq from the STORED (possibly rounded) rows, as on a single device.
-    x_sq = [squared_norms(xr) for xr in x_sh]
-    k_diag = [kernel_diag(s, kp) for s in x_sq]
+    if kp.kind == "precomputed":
+        if n != d:
+            raise ValueError(
+                f"kernel='precomputed' needs the square (n, n) Gram "
+                f"matrix as x; got {x.shape}")
+        # Both axes padded: rows shard over the ranks, and the symmetric
+        # column gathers index columns by the same padded global ids
+        # (padded rows and columns are zero and masked out by `valid`).
+        x_cols = np.zeros((n, n_pad), np.float32)
+        x_cols[:, :n] = x
+        x_sh = shard_padded_rows(mesh, x_cols, dtype=dtype)
+        # The diagonal through the storage rounding of the shards, so
+        # eta mixes equal precisions as on one device.
+        diag = torch.as_tensor(np.ascontiguousarray(np.diagonal(x)))
+        diag_p = np.zeros((n_pad,), np.float32)
+        diag_p[:n] = diag.to(dtype).float().numpy()
+        k_diag = shard_padded_rows(mesh, diag_p)
+        x_sq = [torch.zeros_like(kd) for kd in k_diag]
+    else:
+        x_sh = shard_padded_rows(mesh, x, dtype=dtype)
+        # x_sq from the STORED (possibly rounded) rows, as on a single
+        # device.
+        x_sq = [squared_norms(xr) for xr in x_sh]
+        k_diag = [kernel_diag(s, kp) for s in x_sq]
 
     def rep(value, dt):
         return replicate_array(mesh, np.asarray(value, dt))

@@ -57,6 +57,18 @@ def decision_risk(model: SVMModel) -> float:
                  * np.sqrt(np.mean(coef ** 2)))
 
 
+def decision_risk_columns(coef) -> np.ndarray:
+    """decision_risk per COLUMN of an (S, k) dual-coefficient matrix (the
+    compacted multiclass layout, models/multiclass.py CompactedEnsemble):
+    sqrt(nnz_j) * eps_f32 * rms|nonzero coef_j|, all k columns in one
+    pass."""
+    coef = np.asarray(coef, np.float64)
+    nnz = np.count_nonzero(coef, axis=0).astype(np.float64)
+    sq = np.sum(coef ** 2, axis=0)
+    rms = np.sqrt(sq / np.maximum(nnz, 1.0))
+    return np.sqrt(nnz) * 2.0 ** -23 * rms
+
+
 def resolve_precision(model: SVMModel) -> str:
     """The path precision='auto' resolves to: 'float64' when the float32
     noise estimate reaches AUTO_F64_RISK, else 'float32'."""

@@ -139,8 +139,18 @@ def gather_block(x, y, x_sq, k_diag, f, alpha, w, kp: KernelParams):
     (qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0)."""
     qx = x[w]
     qsq = x_sq[w]
-    kb_w = kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
-    return qx, qsq, kb_w, k_diag[w], alpha[w], y[w], f[w]
+    return (qx, qsq, gram_block(qx, qsq, w, kp), k_diag[w], alpha[w], y[w],
+            f[w])
+
+
+def gram_block(qx, qsq, w, kp: KernelParams):
+    """K(W, W) from W's gathered rows: their dot products through the
+    kernel, or, where x IS the Gram (kernel "precomputed", the resident
+    Gram), a column gather of the gathered rows (kernel_rows likewise
+    returns them verbatim for the fold)."""
+    if kp.kind == "precomputed":
+        return qx.float()[:, w]
+    return kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
 
 
 def dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0, c,
@@ -358,8 +368,8 @@ def prefetch_working_set(x, y, x_sq, k_diag, f, alpha, valid, kp, c,
                                          rule=selection)
     qx = x[w]
     qsq = x_sq[w]
-    kb = kernel_from_dots(mm_f32(qx, qx.t()), qsq, qsq, kp)
-    return PipelinedCand(w, ok, b_hi, b_lo, qx, qsq, kb, k_diag[w])
+    return PipelinedCand(w, ok, b_hi, b_lo, qx, qsq,
+                         gram_block(qx, qsq, w, kp), k_diag[w])
 
 
 def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,

@@ -94,11 +94,22 @@ def gram_matvec_f64(x, coef, kp: KernelParams, dtype: str = "float32",
     query matrix evaluates at arbitrary points (predict.py's float64
     path). Mirrors kernel_from_dots, the RBF distance clamp at 0
     included."""
-    if kp.kind == "precomputed":
-        raise ValueError(
-            "precomputed kernels carry no feature vectors; the port has no "
-            "precomputed kernels yet (ROADMAP queue A item 6)")
     coef = np.asarray(coef, np.float64)
+    if kp.kind == "precomputed":
+        if queries is not None:
+            raise ValueError(
+                "precomputed kernels carry no feature vectors; gather "
+                "K(query, train) columns instead "
+                "(models/precomputed.py decision_function)")
+        # x IS the (n, n) Gram: its active columns, read blockwise
+        # through the stored dtype (the device gathers bf16-rounded rows
+        # under dtype='bfloat16').
+        active = np.nonzero(coef != 0.0)[0]
+        out = np.zeros(x.shape[0], np.float64)
+        for s in range(0, x.shape[0], block):
+            blk = np.asarray(x[s:s + block][:, active], np.float32)
+            out[s:s + block] = _stored_x64(blk, dtype) @ coef[active]
+        return out
     xq = (_stored_x64(x, dtype) if queries is None
           else np.asarray(queries, np.float64))
     m = xq.shape[0]

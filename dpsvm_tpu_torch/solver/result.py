@@ -18,6 +18,9 @@ class SolveResult:
     converged: bool
     train_seconds: float = 0.0
     stats: dict = dataclasses.field(default_factory=dict)
+    # Host reads of the fleet's stop test (solver/fleet.py), shared by
+    # every member of one fleet; 0 where the solver does not count them.
+    dispatches: int = 0
 
     @property
     def n_sv(self) -> int:

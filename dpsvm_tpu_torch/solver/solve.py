@@ -57,7 +57,8 @@ def block_height(config: SVMConfig, n: int) -> tuple:
     return q, config.inner_iters or 2 * q
 
 
-def choose_engine(config: SVMConfig, n: int, dev: torch.device) -> dict:
+def choose_engine(config: SVMConfig, n: int, dev: torch.device,
+                  gram: bool = False) -> dict:
     """Which block engine runs, as the JAX package's solve picks it
     (solver/smo.py): pipeline_rounds first, then fused_round, then
     fused_fold, each only when its knob is True; None (auto) stays off
@@ -68,10 +69,14 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device) -> dict:
     plain engine runs. Under selection="nu" the plain round runs whatever
     the knobs say, as in the JAX package: the fused and pipelined
     engines select two-sided mvp candidates, which would pair across the
-    nu duals' classes. Returns the flags under the JAX package's stats
-    names and n_pad."""
+    nu duals' classes. A precomputed Gram (kernel="precomputed", or the
+    resident Gram: `gram`) has no features to stream, so the fused
+    engines and the one-pass selection step down to the plain round;
+    the pipelined round runs on it with its plain selection. Returns the
+    flags under the JAX package's stats names and n_pad."""
     n_pad_fused = -(-n // 1024) * 1024
     shape_ok = (config.selection != "nu"
+                and config.kernel != "precomputed" and not gram
                 and min(config.working_set_size, n_pad_fused)
                 <= n_pad_fused // 64)
     pipelined = bool(config.pipeline_rounds) and config.selection != "nu"
@@ -96,10 +101,12 @@ def gram_budget_bytes(dev: torch.device) -> int:
 
 def resolve_gram(config: SVMConfig, n: int, dev: torch.device) -> bool:
     """Whether this solve runs on the resident Gram (the JAX package's
-    _resolve_gram): never on engine="pallas"; True / False as set; auto
-    on engine="xla" when n >= 8192 and the Gram fits the budget. `n` is
-    the row count the budget is judged at (solve's max(n, pad_to))."""
-    if config.engine == "pallas":
+    _resolve_gram): never on engine="pallas" or a precomputed kernel
+    (it is its own Gram); True / False as set (on engine="xla" and
+    "block"); auto on engine="xla" when n >= 8192 and the Gram fits the
+    budget. `n` is the row count the budget is judged at (solve's
+    max(n, pad_to))."""
+    if config.kernel == "precomputed" or config.engine == "pallas":
         return False
     if config.gram_resident is not None:
         return bool(config.gram_resident)
@@ -120,23 +127,181 @@ def storage_dtype(x, config: SVMConfig, gamma: float) -> tuple:
     return ("bfloat16" if active else "float32"), {"bf16_gram": entry}
 
 
-def _stage(x, y_np, n_pad: int, dtype: str, dev, masked: bool):
-    """X (stored in `dtype`), y (float32) and `valid` on the device,
-    padded to n_pad rows (padded rows: zero features, y = 1, valid False;
-    valid is None unless `masked`, which padding implies)."""
+def _host_fingerprint(a) -> tuple:
+    """The content guard of the cross-solve memos (the JAX package's
+    _host_fingerprint): the buffer address and a 256-point strided
+    sample of raw values. The memos key on object identity, which cannot
+    see an in-place rewrite (`x *= s`); whole-array and regional
+    rewrites hit sampled points. Probabilistic by design: a full hash of
+    X would cost more than the transfer it guards."""
+    arr = np.asarray(a)
+    try:
+        addr = arr.ctypes.data
+    except (AttributeError, TypeError):
+        addr = None
+    if arr.size == 0:
+        return (addr, arr.shape, b"")
+    idx = np.linspace(0, arr.size - 1, num=min(256, arr.size),
+                      dtype=np.int64)
+    return (addr, arr.shape, arr.flat[idx].tobytes())
+
+
+def _memo_insert(memo: dict, key, x_host, payload: tuple) -> None:
+    """Install a size-1 memo entry, (weakref, token, *payload,
+    fingerprint), whose weakref finalizer evicts it when the host array
+    dies, and only while the key still maps to this entry (the token):
+    an older array's death must not evict a newer entry. The finalizer
+    holds the token, not the entry, so no reference cycle keeps an
+    evicted device Gram alive."""
+    import weakref
+
+    memo.clear()  # size-1: never two entries
+    token = object()
+
+    def _evict(_r, _memo=memo, _key=key, _token=token):
+        ent = _memo.get(_key)
+        if ent is not None and ent[1] is _token:
+            _memo.pop(_key, None)
+
+    try:
+        ref = weakref.ref(x_host, _evict)
+    except TypeError:
+        return  # not weakref-able: no memo
+    memo[key] = (ref, token, *payload, _host_fingerprint(x_host))
+
+
+def _memo_get(memo: dict, key, x_host):
+    """The payload memoized for `x_host` under `key`, or None: a hit
+    needs the same object and an unchanged fingerprint."""
+    ent = memo.get(key)
+    if (ent is not None and ent[0]() is x_host
+            and ent[-1] == _host_fingerprint(x_host)):
+        return ent[2:-1]
+    return None
+
+
+def _dev_key(dev: torch.device) -> tuple:
+    return (dev.type, dev.index)
+
+
+# Size-1 memo of (X on the device, its squared norms), keyed by the
+# padded shape, the storage dtype and the device, and held for the same
+# host array (identity, weakref, fingerprint). One-vs-rest multiclass
+# solves k problems on one X, and reconstruction legs solve one X again
+# per leg: each pays the upload and the norm pass once. Counted in
+# MEMO_STATS.
+_XDEV_MEMO: dict = {}
+# Size-1 memo of (resident Gram, kernel diagonal), keyed as _XDEV_MEMO
+# plus the kernel and the matmul precision: a Gram of 60000 rows is 14.4
+# GB, so a miss empties the memo before it builds.
+_GRAM_MEMO: dict = {}
+MEMO_STATS = {"x_uploads": 0, "x_hits": 0, "gram_builds": 0,
+              "gram_hits": 0}
+
+
+def _pad_host(x, n_pad: int) -> np.ndarray:
     n, d = x.shape
-    x_p, y_p, valid = x, y_np.astype(np.float32), None
+    if n_pad == n:
+        return x
+    x_p = np.zeros((n_pad, d), np.float32)
+    x_p[:n] = x
+    return x_p
+
+
+def _tdtype(dtype: str):
+    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+
+def device_x_cached(x, n_pad: int, dtype: str, dev: torch.device) -> tuple:
+    """(x_dev, x_sq) of a feature-kernel solve: X padded to n_pad rows
+    (zero features), stored in `dtype`, and its squared norms from the
+    STORED (possibly rounded) rows; memoized across solves on the same
+    host array (_XDEV_MEMO)."""
+    key = ((n_pad, x.shape[1]), dtype, _dev_key(dev))
+    hit = _memo_get(_XDEV_MEMO, key, x)
+    if hit is not None:
+        MEMO_STATS["x_hits"] += 1
+        return hit
+    MEMO_STATS["x_uploads"] += 1
+    x_dev = torch.as_tensor(_pad_host(x, n_pad), device=dev).to(
+        _tdtype(dtype))
+    x_sq = squared_norms(x_dev)
+    _memo_insert(_XDEV_MEMO, key, x, (x_dev, x_sq))
+    return x_dev, x_sq
+
+
+def resident_gram_cached(x, n_pad: int, dtype: str, kp: KernelParams,
+                         config: SVMConfig, dev: torch.device) -> tuple:
+    """(gram, k_diag) of a resident-Gram solve: the (n_pad, n_pad)
+    float32 kernel matrix of X stored in `dtype`, and the diagonal from
+    the features; memoized across solves on the same host array
+    (_GRAM_MEMO). A miss empties the memo first, so two Grams never
+    live in it at once, and waits for the build before the solve
+    allocates."""
+    key = (kp, (n_pad, x.shape[1]), dtype, _dev_key(dev),
+           config.resolve_precision())
+    hit = _memo_get(_GRAM_MEMO, key, x)
+    if hit is not None:
+        MEMO_STATS["gram_hits"] += 1
+        return hit
+    _GRAM_MEMO.clear()
+    MEMO_STATS["gram_builds"] += 1
+    x_feat = torch.as_tensor(_pad_host(x, n_pad), device=dev).to(
+        _tdtype(dtype))
+    x_sq = squared_norms(x_feat)
+    k_diag = kernel_diag(x_sq, kp)
+    gram = resident_gram(x_feat, x_sq, kp)
+    del x_feat
+    synchronize(dev)
+    _memo_insert(_GRAM_MEMO, key, x, (gram, k_diag))
+    return gram, k_diag
+
+
+def check_precomputed(x, n_pad: int) -> None:
+    """The JAX package's precomputed-Gram rules, checked before any
+    transfer: x is the square (n, n) Gram, and nothing pads it."""
+    if x.shape[0] != x.shape[1]:
+        raise ValueError(
+            f"kernel='precomputed' needs the square (n, n) Gram "
+            f"matrix as x; got {x.shape}")
+    if n_pad != x.shape[0]:
+        raise ValueError(
+            "pad_to does not compose with kernel='precomputed' (the "
+            "padded Gram rows/columns would need kernel values)")
+
+
+def stage_x(x, n_pad: int, dtype: str, kp: KernelParams, use_gram: bool,
+            config: SVMConfig, dev: torch.device) -> tuple:
+    """(x_dev, x_sq, k_diag, kp) as the solve's rounds read them: the
+    features and their norms; on the resident Gram, the Gram, a zero
+    norm placeholder, the feature diagonal and kp "precomputed"; on a
+    precomputed kernel, the caller's Gram, a zero placeholder (no O(n^2)
+    norm pass) and the Gram's diagonal."""
+    zeros = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    if use_gram:
+        gram, k_diag = resident_gram_cached(x, n_pad, dtype, kp, config,
+                                            dev)
+        return gram, zeros, k_diag, KernelParams("precomputed")
+    if kp.kind == "precomputed":
+        x_dev = torch.as_tensor(x, device=dev).to(_tdtype(dtype))
+        return x_dev, zeros, torch.diagonal(x_dev).float(), kp
+    x_dev, x_sq = device_x_cached(x, n_pad, dtype, dev)
+    return x_dev, x_sq, kernel_diag(x_sq, kp), kp
+
+
+def _stage(y_np, n: int, n_pad: int, dev, masked: bool):
+    """y (float32) and `valid` on the device, padded to n_pad rows
+    (padded rows: y = 1, valid False; valid is None unless `masked`,
+    which padding implies)."""
+    y_p = y_np.astype(np.float32)
+    valid = None
     if n_pad != n:
-        x_p = np.zeros((n_pad, d), np.float32)
-        x_p[:n] = x
         y_p = np.ones((n_pad,), np.float32)
         y_p[:n] = y_np
     if masked or n_pad != n:
         valid = torch.zeros(n_pad, dtype=torch.bool, device=dev)
         valid[:n] = True
-    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    return (torch.as_tensor(x_p, device=dev).to(tdtype),
-            torch.as_tensor(y_p, device=dev), valid)
+    return torch.as_tensor(y_p, device=dev), valid
 
 
 def _on(dev, a, dtype=torch.float32):
@@ -196,7 +361,16 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
     config.reconstruct_every > 0 runs the solve in float64
     reconstruction legs (solver/reconstruct.py solve_in_legs). `pad_to`
     sizes the resident-Gram budget at max(n, pad_to) rows; it never
-    changes results."""
+    changes results (no shape-keyed compile to bucket for, so nothing is
+    padded), and a precomputed kernel refuses pad_to > n as the JAX
+    package does.
+
+    kernel="precomputed": x is the square (n, n) Gram (checked before
+    any transfer); its diagonal is the kernel diagonal and the block
+    round's K(W, W) is a column gather of the gathered rows.
+    gram_resident=True runs the block or xla engine on the (n, n) Gram
+    of X, built once (memoized across solves on the same host X, as is
+    X's upload: _XDEV_MEMO, _GRAM_MEMO)."""
     if config.selection == "nu" and alpha_init is None:
         # The nu rule pairs within one class; from the C-SVC zero start no
         # class has both an I_up and an I_low member, so the gap would
@@ -214,6 +388,8 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
                              device=device, pad_to=pad_to)
     t_entry = time.perf_counter()
     x = np.asarray(x, np.float32)
+    if config.kernel == "precomputed":
+        check_precomputed(x, max(x.shape[0], int(pad_to or 0)))
     warn_if_bf16_degrades(x, config)
     dev = resolve_device(device)
     y_np = np.asarray(y, np.int32)
@@ -245,12 +421,12 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
 def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                  observe, loop) -> SolveResult:
     n = x.shape[0]
-    eng = choose_engine(config, n, dev)
+    use_gram = resolve_gram(config, n, dev)
+    eng = choose_engine(config, n, dev, gram=use_gram)
     n_pad = eng["n_pad"]
-    x_dev, y_dev, valid = _stage(x, y_np, n_pad, store_dtype, dev,
-                                 eng["pad"])
-    x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
-    k_diag = kernel_diag(x_sq, kp)
+    x_dev, x_sq, k_diag, kp = stage_x(x, n_pad, store_dtype, kp, use_gram,
+                                      config, dev)
+    y_dev, valid = _stage(y_np, n, n_pad, dev, eng["pad"])
     q, inner = block_height(config, n_pad)
     alpha0, f0, err0 = (_on(dev, a) for a in start.padded(n_pad))
     state = BlockState(alpha0, f0, _on(dev, start.b_hi),
@@ -321,16 +497,11 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
     use_pallas = config.engine == "pallas"
     use_gram = resolve_gram(config, n_budget, dev)
     n_pad = -(-n // _PALLAS_ROWS) * _PALLAS_ROWS if use_pallas else n
-    x_dev, y_dev, valid = _stage(x, y_np, n_pad, store_dtype, dev,
-                                 use_pallas)
-    x_sq = squared_norms(x_dev)  # from the STORED (possibly rounded) rows
-    k_diag = kernel_diag(x_sq, kp)
-    if use_gram:
-        # The (n, n) kernel matrix replaces X: each pair's kernel rows
-        # are row views of it. The diagonal comes from the features.
-        x_dev = resident_gram(x_dev, x_sq, kp)
-        kp = KernelParams("precomputed")
-        x_sq = torch.zeros_like(x_sq)
+    # On the resident Gram (or a precomputed kernel) each pair's kernel
+    # rows are row views of the (n, n) matrix.
+    x_dev, x_sq, k_diag, kp = stage_x(x, n_pad, store_dtype, kp, use_gram,
+                                      config, dev)
+    y_dev, valid = _stage(y_np, n, n_pad, dev, use_pallas)
     cache_lines = min(config.cache_lines, n_pad)
     use_micro = config.pair_batch > 1
     # The resident Gram supersedes the cache; micro has none.
@@ -365,7 +536,6 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                payload=payload, tensors=lambda s: ((s.f,), (s.alpha,)))
     t_fin = time.perf_counter()
     state = out.state
-    del x_dev  # the resident Gram goes with the solve
     alpha, f_final, b_hi, b_lo, converged = _finish(
         state.alpha, eff_f(state), n, y_np, config, eps_run, state.b_hi,
         state.b_lo, refresh=config.budget_mode)

@@ -117,7 +117,11 @@ def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "auto",
         raise ValueError(
             f"labels must contain both classes -1 and +1, got {sorted(labels)}")
     if config.kernel == "precomputed":
-        config.check_ported()  # precomputed kernels: ROADMAP queue A item 6
+        raise ValueError(
+            "kernel='precomputed' models carry SV indices, not feature "
+            "rows — the reference-format model file cannot represent "
+            "them. Solve directly (dpsvm_tpu_torch.solver.solve.solve) or "
+            "use the sklearn facade (dpsvm_tpu_torch.estimators.SVC)")
     if backend in ("reference", "native"):
         result = _solve_host(backend, x, y, config, callback,
                              checkpoint_path, resume)

@@ -454,6 +454,22 @@ def test_port_block_checkpoint_resumes_in_jax(blobs_small, tmp_path):
     np.testing.assert_allclose(jres.alpha, full.alpha, atol=2e-2)
 
 
+@pytest.mark.parametrize("kw", [dict(fleet_size=4), dict(fleet_size=64)])
+def test_fleet_size_off_default_loads_and_resumes(blobs_small, tmp_path,
+                                                  kw):
+    """fleet_size is ported: a JAX checkpoint carrying it off its default
+    loads, and a per-pair solve resumes from it to convergence."""
+    x, y = blobs_small
+    cfg = CFG.replace(cache_lines=0, **kw)
+    p = str(tmp_path / "f.npz")
+    part = jsolve(x, y, JaxConfig(**{**KW, "cache_lines": 0, **kw}),
+                  checkpoint_path=p, callback=lambda it, *_: it >= 64)
+    assert not part.converged
+    assert load_checkpoint_state(p).config.fleet_size == kw["fleet_size"]
+    res = cpu_solve(x, y, cfg, checkpoint_path=p, resume=True)
+    assert res.converged
+
+
 def test_jax_only_keys_at_defaults_load(tmp_path):
     p = str(tmp_path / "d.npz")
     jck.save_checkpoint(p, np.zeros(3, np.float32), np.zeros(3, np.float32),
@@ -463,7 +479,6 @@ def test_jax_only_keys_at_defaults_load(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fleet_size=4), "item 7a"),
     (dict(reconcile_rounds=3), "item 10b"),
     (dict(ooc=True, engine="block", ooc_tile_rows=64), "item 8"),
 ])
@@ -476,7 +491,6 @@ def test_jax_only_keys_off_default_refuse(tmp_path, kw, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fleet_size=4), "item 7a"),
     (dict(reconcile_rounds=3), "item 10b"),
     (dict(ooc=True, engine="block", ooc_tile_rows=64), "item 8"),
 ])
@@ -521,3 +535,99 @@ def test_trainers_checkpoint_and_resume(tmp_path):
     _, r4 = train_oneclass(x, nu=0.2, config=cfg, device="cpu")
     assert r3.converged and not r2.converged
     np.testing.assert_array_equal(r3.alpha, r4.alpha)
+
+
+def _trainer_pair(kind):
+    """(port trainer, JAX trainer, targets) of a model family: each
+    trainer is f(x, target, cfg, **state_kw) -> (model, result)."""
+    from dpsvm_tpu.models import nusvm as jnusvm
+    from dpsvm_tpu.models import oneclass as joneclass
+    from dpsvm_tpu.models import svr as jsvr
+    from dpsvm_tpu_torch.models import train_nusvc
+
+    if kind == "svr":
+        return (lambda x, t, c, **kw: train_svr(x, t, c, svr_epsilon=0.1,
+                                                device="cpu", **kw),
+                lambda x, t, c, **kw: jsvr.train_svr(
+                    x, t, c, svr_epsilon=0.1, backend="single", **kw))
+    if kind == "nusvc":
+        return (lambda x, t, c, **kw: train_nusvc(x, t, nu=0.3, config=c,
+                                                  device="cpu", **kw),
+                lambda x, t, c, **kw: jnusvm.train_nusvc(
+                    x, t, nu=0.3, config=c, backend="single", **kw))
+    return (lambda x, t, c, **kw: train_oneclass(x, nu=0.2, config=c,
+                                                 device="cpu", **kw),
+            lambda x, t, c, **kw: joneclass.train_oneclass(
+                x, nu=0.2, config=c, backend="single", **kw))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("kind", ["svr", "nusvc", "oneclass"])
+def test_trainers_resume_across_packages(tmp_path, kind, direction):
+    """A train_svr / train_nusvc / train_oneclass checkpoint written by
+    one package and resumed by the other converges within the whole-solve
+    contract of a fresh run: n_sv within 2%, b (or rho) and every
+    decision within 5e-3."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(120, 4)).astype(np.float32)
+    target = {"svr": (np.sin(x[:, 0]) + 0.1 * rng.normal(size=120)),
+              "nusvc": np.where(x[:, 0] + 0.3 * x[:, 1] > 0, 1, -1),
+              "oneclass": None}[kind]
+    if target is not None:
+        target = target.astype(np.float32 if kind == "svr" else np.int32)
+    kw = dict(c=10.0 if kind == "svr" else 1.0, gamma=0.5, epsilon=1e-3,
+              chunk_iters=32, checkpoint_every=32, cache_lines=0)
+    port, jax = _trainer_pair(kind)
+    write, read = (jax, port) if direction == "jax_to_port" else (port, jax)
+    wcfg, rcfg = ((JaxConfig(**kw), SVMConfig(**kw))
+                  if direction == "jax_to_port"
+                  else (SVMConfig(**kw), JaxConfig(**kw)))
+    args = (x,) if kind == "oneclass" else (x, target)
+
+    def call(fn, cfg, **state):
+        if kind == "oneclass":
+            return fn(x, None, cfg, **state)
+        return fn(*args, cfg, **state)
+
+    p = str(tmp_path / f"{kind}.npz")
+    _, part = call(write, wcfg, checkpoint_path=p,
+                   callback=lambda it, *_: it >= 32)
+    assert not part.converged
+    m1, r1 = call(read, rcfg, checkpoint_path=p, resume=True)
+    m0, r0 = call(port, SVMConfig(**kw))
+    assert r1.converged and r0.converged
+    assert abs(r1.n_sv - r0.n_sv) <= max(1, 0.02 * r0.n_sv)
+    off = "rho" if kind == "oneclass" else "b"
+    assert abs(getattr(m1, off) - getattr(m0, off)) <= 5e-3
+    q = x[:40]
+    read_pkg = "port" if direction == "jax_to_port" else "jax"
+    np.testing.assert_allclose(_decisions(m1, q, kind, read_pkg),
+                               _decisions(m0, q, kind, "port"), rtol=0,
+                               atol=5e-3)
+
+
+def _decisions(model, q, kind, pkg):
+    """A trained model's decision values (SVR: predictions) at q, on the
+    CPU, through its own package."""
+    dev = {"device": "cpu"} if pkg == "port" else {}
+    if kind == "svr":
+        out = model.predict(q, **dev)
+    elif kind == "oneclass":
+        out = model.decision_function(q, **dev)
+    elif pkg == "port":
+        out = tdecision(model, q, device="cpu")
+    else:
+        out = jax_decision(model, q)
+    return np.asarray(out, np.float64)
+
+
+def jax_decision(model, q):
+    from dpsvm_tpu.predict import decision_function
+
+    return decision_function(model, q)
+
+
+def tdecision(model, q, device):
+    from dpsvm_tpu_torch.predict import decision_function
+
+    return decision_function(model, q, device=device)

@@ -4,7 +4,9 @@ weights. Each package's model decides identically under the other, the
 -o files of `test` match, and --precision float64 matches. Then the
 state flags (--checkpoint, --checkpoint-every, --checkpoint-keep,
 --resume, --chunk-iters), --backend reference|native, --bf16-gram and
-the refusals. Mirrors tests/test_cli.py's train/test cases."""
+the refusals; multiclass files (--multiclass, --fleet-size), -v, -b and
+--kernel precomputed, each against the JAX CLI on the same file. Mirrors
+tests/test_cli.py's train/test cases."""
 
 import os
 
@@ -221,9 +223,16 @@ def test_bf16_gram_flag(data, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--retry-faults", "0"], "item 11"),
-    (["--kernel", "precomputed"], "item 6"),
     (["-t", "nu-svc", "-w1", "2"], "not applicable"),
     (["--format", "libsvm", "-t", "eps-svr"], "regression targets"),
+    (["--kernel", "precomputed", "-t", "nu-svc"], "supports c-svc only"),
+    (["--kernel", "precomputed", "-b", "1"], "not supported with --kernel"),
+    (["--kernel", "precomputed", "--backend", "native"],
+     "single or mesh backend"),
+    (["-b", "1", "-t", "eps-svr"], "applies to classifiers only"),
+    (["--kernel", "precomputed"], "square (n, n) Gram"),
+    (["-v", "1"], "N >= 2 folds"),
+    (["-v", "3", "-t", "one-class"], "not defined for one-class"),
 ])
 def test_refusals(data, tmp_path, capsys, argv, match):
     x, y, csv, lsv = data
@@ -248,3 +257,185 @@ def test_test_width_rules_match_jax(data, tmp_path, capsys):
         assert main(["test", "-f", wide, "-m", m, *dev]) == 2
         assert main(["test", "-f", wide, "-m", m, "-a", "6", *dev]) == 0
         assert main(["test", "-f", wide, "-m", m, "-a", "5", *dev]) == 2
+
+
+def _refusal_texts(argv, tmp_path, capsys, path):
+    """The stderr lines of both CLIs refusing `argv` on `path` (each must
+    exit 2)."""
+    texts = []
+    for main, dev in ((cli.main, ["--device", "cpu"]), (jax_cli.main, [])):
+        rc = main(["train", "-f", path, "-m", str(tmp_path / "m.txt"), "-q",
+                   *argv, *dev])
+        assert rc == 2
+        texts.append(capsys.readouterr().err.strip())
+    return texts
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kernel", "precomputed", "-t", "nu-svc"],
+    ["-b", "1", "-t", "eps-svr"],
+    ["--kernel", "precomputed"],
+    ["-v", "1"],
+], ids=["pre-nusvc", "b-svr", "pre-nonsquare", "v1"])
+def test_new_refusals_say_what_jax_says(data, tmp_path, capsys, argv):
+    _, _, csv, _ = data
+    port, jax = _refusal_texts(argv, tmp_path, capsys, csv)
+    assert port.replace("dpsvm_tpu_torch", "dpsvm_tpu") == jax
+
+
+def _csv(path, x, y):
+    with open(path, "w") as fh:
+        for xi, yi in zip(x, y):
+            fh.write(f"{int(yi)}," + ",".join("%.9g" % v for v in xi) + "\n")
+    return str(path)
+
+
+@pytest.fixture
+def multiclass_file(tmp_path):
+    from dpsvm_tpu_torch.data.synth import make_mnist_multiclass
+
+    x, y = make_mnist_multiclass(n=150, d=16, seed=4, n_classes=3)
+    return x, y, _csv(tmp_path / "mc.csv", x, y)
+
+
+@pytest.mark.parametrize("strategy", ["ovr", "ovo"])
+@pytest.mark.parametrize("fleet", ["16", "1"], ids=["fleet", "sequential"])
+def test_multiclass_train_and_test_match_jax(multiclass_file, tmp_path,
+                                             strategy, fleet):
+    """A 3-class file trains the OvR / OvO bundle (through the fleet, or
+    sequentially with --fleet-size 1); each package's bundle predicts the
+    same -o labels under the other's `test`, and the two packages'
+    labels agree."""
+    from dpsvm_tpu.models.multiclass import MulticlassSVM as JaxMC
+    from dpsvm_tpu.models.multiclass import predict_multiclass as jax_pred
+    from dpsvm_tpu_torch.models.multiclass import (MulticlassSVM,
+                                                   predict_multiclass)
+
+    x, y, path = multiclass_file
+    flags = ["-g", "0.1", "--multiclass", strategy, "--fleet-size", fleet]
+    pm, jm = str(tmp_path / "p.npz"), str(tmp_path / "j.npz")
+    _train(cli.main, path, pm, flags, ("--device", "cpu"))
+    _train(jax_cli.main, path, jm, flags)
+    po, jo = str(tmp_path / "p.out"), str(tmp_path / "j.out")
+    assert cli.main(["test", "-f", path, "-m", jm, "-o", po, "--device",
+                     "cpu"]) == 0
+    assert jax_cli.main(["test", "-f", path, "-m", jm, "-o", jo]) == 0
+    np.testing.assert_array_equal(np.loadtxt(po), np.loadtxt(jo))
+    port_labels = predict_multiclass(MulticlassSVM.load(pm), x,
+                                     device="cpu")
+    np.testing.assert_array_equal(port_labels, jax_pred(JaxMC.load(pm), x))
+    agree = np.mean(port_labels == jax_pred(JaxMC.load(jm), x))
+    assert agree >= 0.98
+
+
+def test_multiclass_refusals_match_jax(multiclass_file, tmp_path, capsys):
+    _, _, path = multiclass_file
+    for argv in (["-t", "nu-svc"], ["-w1", "2"], ["-b", "1"]):
+        port, jax = _refusal_texts(argv, tmp_path, capsys, path)
+        assert port == jax and "does not compose with" in port
+
+
+def _cv_line(main, argv, capsys, dev=()):
+    assert main(["train", *argv, "-q", *dev]) == 0
+    out = capsys.readouterr().out
+    return [ln for ln in out.splitlines() if ln.startswith("Cross")]
+
+
+@pytest.mark.parametrize("kind", ["c-svc", "multiclass", "eps-svr"])
+def test_cross_validation_matches_jax(data, multiclass_file, tmp_path,
+                                      capsys, kind):
+    """-v 4 prints LibSVM's lines and writes no model; the folds are the
+    JAX CLI's, so the held-out scores agree within one row's worth (and
+    the SVR MSE within 2%)."""
+    x, y, csv, _ = data
+    if kind == "multiclass":
+        csv = multiclass_file[2]
+        n = len(multiclass_file[1])
+    elif kind == "eps-svr":
+        z = np.sin(x[:, 0]) + 0.2 * x[:, 1]
+        csv = _csv(tmp_path / "z.csv", x, np.round(z * 1000))
+        n = len(z)
+    else:
+        n = len(y)
+    m = str(tmp_path / "cv.txt")
+    argv = ["-f", csv, "-m", m, "-v", "4", "-g", "0.2"]
+    if kind == "eps-svr":
+        argv += ["-t", "eps-svr", "-p", "10", "-c", "100"]
+    port = _cv_line(cli.main, argv, capsys, ("--device", "cpu"))
+    jax = _cv_line(jax_cli.main, argv, capsys)
+    assert not os.path.exists(m)
+    assert [ln.split("=")[0] for ln in port] == [
+        ln.split("=")[0] for ln in jax]
+    vals = [(float(a.split("=")[1].strip(" %")),
+             float(b.split("=")[1].strip(" %"))) for a, b in zip(port, jax)]
+    if kind == "eps-svr":
+        assert abs(vals[0][0] - vals[0][1]) <= 0.02 * vals[0][1]
+    else:
+        assert abs(vals[0][0] - vals[0][1]) <= 100.0 / n + 1e-9
+
+
+def test_probability_train_and_test_match_jax(data, tmp_path, capsys):
+    """-b 1: the model carries the Platt pair (within 1e-3 of the JAX
+    CLI's on the same file: the fold refits part as whole solves do);
+    test -b 1 writes 'label p(+1)' lines whose probabilities lie in
+    [0, 1] and rise with the decision, and each package's `test` reads
+    the other's model to within 1e-5."""
+    x, y, csv, _ = data
+    pm, jm = str(tmp_path / "p.npz"), str(tmp_path / "j.npz")
+    _train(cli.main, csv, pm, ["-g", "0.2", "-b", "1"], ("--device", "cpu"))
+    _train(jax_cli.main, csv, jm, ["-g", "0.2", "-b", "1"])
+    port_m, jax_m = SVMModel.load(pm), JaxModel.load(jm)
+    assert abs(port_m.prob_a - jax_m.prob_a) <= 1e-3
+    assert abs(port_m.prob_b - jax_m.prob_b) <= 1e-3
+    assert port_m.prob_a > 0
+    po, jo = str(tmp_path / "p.out"), str(tmp_path / "j.out")
+    assert cli.main(["test", "-f", csv, "-m", jm, "-b", "1", "-o", po,
+                     "--device", "cpu"]) == 0
+    assert jax_cli.main(["test", "-f", csv, "-m", jm, "-b", "1", "-o",
+                         jo]) == 0
+    assert open(po).readline() == open(jo).readline() == "label p(+1)\n"
+    p_port, p_jax = np.loadtxt(po, skiprows=1), np.loadtxt(jo, skiprows=1)
+    np.testing.assert_allclose(p_port, p_jax, atol=1e-5)
+    dec = decision_function(SVMModel.load(jm), x, device="cpu")
+    prob = p_port[np.argsort(dec, kind="stable"), 1]
+    assert prob.min() >= 0 and prob.max() <= 1
+    assert np.all(np.diff(prob) >= 0)
+    assert cli.main(["test", "-f", csv, "-m", str(tmp_path / "p.npz"),
+                     "-b", "1", "--precision", "float64", "--device",
+                     "cpu"]) == 0
+    capsys.readouterr()
+
+
+def test_precomputed_train_and_test_match_jax(data, tmp_path):
+    """--kernel precomputed: the training file's columns are the Gram;
+    each package's .npz model predicts the other's `test` -o labels, and
+    the two packages' models hold the same support set within 2%."""
+    from dpsvm_tpu.models.precomputed import PrecomputedSVCModel as JaxPre
+    from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+
+    x, y, _, _ = data
+    x64 = x.astype(np.float64)
+    sq = (x64 ** 2).sum(1)
+    g = np.exp(-0.2 * np.maximum(sq[:, None] + sq[None] - 2 * x64 @ x64.T,
+                                 0.0))
+    path = _csv(tmp_path / "g.csv", g, y)
+    pm, jm = str(tmp_path / "p"), str(tmp_path / "j")
+    for main, m, dev in ((cli.main, pm, ["--device", "cpu"]),
+                         (jax_cli.main, jm, [])):
+        assert main(["train", "-f", path, "-m", m, "--kernel",
+                     "precomputed", "-c", "1", "-e", "0.001", "-q",
+                     "--engine", "block", "--working-set-size", "16",
+                     *dev]) == 0
+    port_m = PrecomputedSVCModel.load(pm + ".npz")
+    jax_m = JaxPre.load(jm + ".npz")
+    assert abs(port_m.n_sv - jax_m.n_sv) <= max(1, 0.02 * jax_m.n_sv)
+    outs = []
+    for main, m, dev in ((cli.main, jm, ["--device", "cpu"]),
+                         (jax_cli.main, pm, [])):
+        o = str(tmp_path / f"{len(outs)}.out")
+        assert main(["test", "-f", path, "-m", m + ".npz", "-o", o,
+                     *dev]) == 0
+        outs.append(np.loadtxt(o))
+    np.testing.assert_array_equal(outs[0], jax_m.predict(g))
+    np.testing.assert_array_equal(outs[1], port_m.predict(g,
+                                                          device="cpu"))

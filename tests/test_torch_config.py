@@ -63,15 +63,37 @@ def test_invalid_values_raise_like_jax(kw):
 
 UNPORTED = [
     dict(ooc=True, selection="second_order"),
-    dict(engine="xla", kernel="precomputed"),
     dict(selection="second_order", active_set_size=64),
-    dict(pair_batch=2, ooc=True), dict(fused_fold=True, kernel="precomputed"),
+    dict(pair_batch=2, ooc=True),
     dict(fused_fold=True, active_set_size=64),
-    dict(pipeline_rounds=True, gram_resident=True),
     dict(active_set_size=64), dict(ooc=True),
-    dict(gram_resident=True), dict(gram_resident=True, compensated=True),
-    dict(kernel="precomputed"),
 ]
+
+# Knobs whose engines this port now has: check_ported passes them, and a
+# tiny solve (x a Gram where the kernel is precomputed) converges.
+LIFTED = [
+    dict(engine="xla", kernel="precomputed"),
+    dict(fused_fold=True, kernel="precomputed"),
+    dict(pipeline_rounds=True, gram_resident=True),
+    dict(gram_resident=True), dict(gram_resident=True, compensated=True),
+    dict(kernel="precomputed"), dict(engine="xla", fleet_size=4),
+]
+
+
+@pytest.mark.parametrize("kw", LIFTED)
+def test_lifted_knobs_pass_and_solve(kw):
+    cfg = SVMConfig(**{"engine": "block", "working_set_size": 8,
+                       "gamma": 0.5, **kw})
+    cfg.check_ported()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, 3)).astype(np.float32)
+    y = np.where(x[:, 0] > 0, 1, -1).astype(np.int32)
+    if cfg.kernel == "precomputed":
+        sq = (x.astype(np.float64) ** 2).sum(1)
+        x = np.exp(-0.5 * np.maximum(
+            sq[:, None] + sq[None, :] - 2.0 * x.astype(np.float64) @ x.T,
+            0.0)).astype(np.float32)
+    assert solve(x, y, cfg, device="cpu").converged
 
 
 @pytest.mark.parametrize("kw", UNPORTED)
@@ -126,6 +148,8 @@ PAIR_CLASHES = [
     (dict(engine="pallas", kernel="precomputed"), "pallas"),
     (dict(engine="xla", kernel="precomputed", gram_resident=True),
      "already IS a resident Gram"),
+    (dict(engine="block", kernel="precomputed", active_set_size=64),
+     "active-set"),
 ]
 
 
@@ -198,7 +222,6 @@ def test_mesh_knob_validation_matches_jax(kw, match):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(engine="block", active_set_size=64), "item 4"),
-    (dict(engine="block", gram_resident=True), "item 6"),
     (dict(engine="block", ooc=True), "item 8"),
 ])
 def test_still_refused_knobs_name_their_roadmap_item(kw, item):
@@ -207,7 +230,6 @@ def test_still_refused_knobs_name_their_roadmap_item(kw, item):
 
 
 JAX_ONLY = [
-    (dict(fleet_size=4), "item 7a"),
     (dict(reconcile_rounds=4), "item 10b"),
     (dict(ooc=True, ooc_tile_rows=1024, engine="block"), "item 8"),
     (dict(ooc=True, ooc_cache_lines=256, engine="block"), "item 8"),

@@ -58,7 +58,10 @@ def test_scan_covers_the_package():
                 ("data", "loader.py"), ("data", "synth.py"),
                 ("utils", "__init__.py"), ("utils", "native.py"),
                 ("utils", "checkpoint.py"), ("solver", "chunks.py"),
-                ("solver", "reference.py"), ("solver", "reconstruct.py")):
+                ("solver", "reference.py"), ("solver", "reconstruct.py"),
+                ("solver", "fleet.py"), ("models", "multiclass.py"),
+                ("models", "platt.py"), ("models", "precomputed.py"),
+                ("estimators.py",)):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 
@@ -143,3 +146,32 @@ def test_explicit_cpu_runs(no_cuda):
                 device="cpu")
     assert res.stats["device"] == "cpu"
     assert res.iterations > 0
+
+
+def test_new_entry_points_raise_without_cuda(no_cuda):
+    """The fleet, the multiclass trainer and predictor, the precomputed
+    model and the estimators refuse device=None without a card, and run
+    on device="cpu"."""
+    from dpsvm_tpu_torch.estimators import SVC
+    from dpsvm_tpu_torch.models.multiclass import (predict_multiclass,
+                                                   train_multiclass)
+    from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+    from dpsvm_tpu_torch.solver.fleet import FleetProblem, solve_fleet
+
+    x, y = _data()
+    y3 = np.arange(8) % 3
+    cfg = SVMConfig(gamma=0.5)
+    calls = (
+        lambda **d: solve_fleet(x, [FleetProblem(y=y)], cfg, **d),
+        lambda **d: train_multiclass(x, y3, cfg, **d),
+        lambda **d: PrecomputedSVCModel([0, 1], [1.0, -1.0], 0.0,
+                                        3).decision_function(x, **d),
+        lambda **d: SVC(gamma=0.5, **d).fit(x, y),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    mc, _ = train_multiclass(x, y3, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_multiclass(mc, x)

@@ -229,4 +229,5 @@ def test_cli_refusals(tmp_path, capsys):
     assert cli.main(["train", "-f", str(tmp_path / "m3.csv"), "-m",
                      str(tmp_path / "m.npz"), "-t", "nu-svc", "--device",
                      "cpu"]) == 2
-    assert "item 7a" in capsys.readouterr().err
+    # A multiclass file trains plain C-SVC submodels, as in the JAX CLI.
+    assert "does not compose with -t nu-svc" in capsys.readouterr().err
