@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --turns [--package DIR] [--reps N]
+    python3 chip_smoke.py --serve-profile
 
 With no arguments it runs the phases below. --turns runs none of them: it
 times kernels B5 and B6 at the headline shapes and B2 and B3 at the
@@ -12,7 +13,8 @@ trains the headline with the fused fold and the pipelined engine, and
 prints one JSON line (see turns()); --package DIR times the
 dpsvm_tpu_torch found in DIR instead of this checkout's, so an earlier
 commit unpacked there (git archive) and this one can be timed in turns on
-one card.
+one card. --serve-profile runs none of the phases either: it prints where
+a serving dispatch spends its time (serve_profile).
 
 Phases, each printed on its own lines; any failure exits non-zero and no
 result line is printed:
@@ -214,9 +216,26 @@ result line is printed:
                 --multiclass ovo` and `test` (labels = the API's); `train
                 -v 5`; `train --kernel precomputed` / `test` on a
                 2000-row Gram CSV (labels = the API's).
+ 25. serve   -- the OvR and OvO models of [multiclass] and the headline
+                model served on the card (phase_serve): PredictServer on
+                the OvO model with f32, bf16, int8 and auto unions
+                against decision_matrix on the 10000 held-out rows (f32
+                within rtol / atol 1e-5, labels equal but on rows with a
+                |dec| <= 1e-4, counted; bf16 and int8 labels >= 99.8% the
+                f32 ones), the guard's storage and risks, dispatch ms at
+                buckets 256 and 4096 beside the bound; the headline's f32
+                server against decision_function; offered_load_sweep
+                (request rows 1-1024, groups of 8, 2000 requests) per
+                storage; ServingEngine with both bundles hot-swapped from
+                an admin thread under load (nothing lost, versions 1 and
+                2 served) and the dispatch watchdog through the
+                serve_stall seam; ServeServer over a ReplicaFleet of 2 on
+                127.0.0.1 answering 500 ServeClient requests (all served,
+                labels and decisions the in-process engine's); union
+                bytes per storage. No kernel of B1-B8 runs in it.
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-24 under "path_launches") and the card's
+kernel's launches on phases 15-25 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -2210,7 +2229,8 @@ def phase_multiclass(x_all, y_all) -> dict:
     and each fleet submodel meets the whole-solve contract of its
     sequential twin. The fleet's CUDA graph is first held bitwise against
     its eager trips (fleet_graph_check). Returns the launches of each
-    run."""
+    run and {"ovr" | "ovo": (model, .npz path)} of the plain block runs,
+    which [serve] serves."""
     from dpsvm_tpu_torch import SVMConfig
     from dpsvm_tpu_torch.models.multiclass import (MulticlassSVM,
                                                    predict_multiclass,
@@ -2219,7 +2239,7 @@ def phase_multiclass(x_all, y_all) -> dict:
     x, y = x_all[:MC_TRAIN], y_all[:MC_TRAIN]
     xh, yh = x_all[MC_TRAIN:], y_all[MC_TRAIN:]
     fleet_graph_check(x, y, SVMConfig(**MC_RUN))
-    launches, preds, fleets = {}, {}, {}
+    launches, preds, fleets, served = {}, {}, {}, {}
     for label, strategy, kw, want in MC_RUNS:
         cfg = SVMConfig(**MC_RUN, **kw)
         model, results, counts, wall = mc_counted(
@@ -2247,6 +2267,8 @@ def phase_multiclass(x_all, y_all) -> dict:
             raise AssertionError(f"{label}: the reloaded bundle predicts "
                                  "other labels")
         preds[label] = pred
+        if label.endswith("plain"):
+            served[strategy] = (model, path)
     for strategy in ("ovr", "ovo"):
         agree = float(np.mean(preds[f"{strategy} fleet"]
                               == preds[f"{strategy} plain"]))
@@ -2276,7 +2298,7 @@ def phase_multiclass(x_all, y_all) -> dict:
               f"{sum(t.train_seconds for t in twins):.4f}): worst dual rel "
               f"{worst[0]:.3g}, n_sv gap {worst[1]}, |db| {worst[2]:.3g} "
               f"over {len(classes)} classes", flush=True)
-    return launches
+    return launches, served
 
 
 def phase_multiclass_oracle(x_mc, y_mc) -> dict:
@@ -2640,6 +2662,321 @@ def phase_cli_multiclass(x_mc, y_mc, x, y) -> dict:
     return launches
 
 
+# [serve]: the serving stack on the [multiclass] models (trained on rows
+# 0-49999) and the [headline] binary model, against the held-out rows.
+SERVE_STORAGES = ("f32", "bf16", "int8", "auto")
+SERVE_TOL = 1e-5  # rtol and atol of f32 decisions
+SERVE_NEAR = 1e-4  # a label may differ only where some |dec| <= this
+SERVE_AGREE = 0.998  # bf16 / int8 labels against the f32 ones
+SERVE_SIZES = tuple(1 << k for k in range(11))  # request rows 1 ... 1024
+SERVE_SWEEP = 2000  # requests a sweep, in groups of 8
+SERVE_WIRE = 500  # requests a ServeClient sends
+SERVE_PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+
+
+def near_rows(dec) -> np.ndarray:
+    """Rows whose decision has a column within SERVE_NEAR of zero (the
+    only rows where float32 summation order may move a label)."""
+    return np.abs(np.asarray(dec)).min(axis=1) <= SERVE_NEAR
+
+
+def labels_agree(got, want, ref_dec, label: str) -> int:
+    """Labels equal except on near-zero rows of ref_dec; returns how many
+    near rows differ (printed by the caller)."""
+    diff = np.asarray(got) != np.asarray(want)
+    near = near_rows(ref_dec)
+    if (diff & ~near).any():
+        raise AssertionError(f"{label}: {int((diff & ~near).sum())} labels "
+                             f"differ on rows with every |dec| > "
+                             f"{SERVE_NEAR}")
+    return int(diff.sum())
+
+
+def dispatch_ms(srv, bucket: int, reps: int = 10) -> tuple:
+    """(device ms between events on the server's stream around one launch,
+    host wall ms of launch + wait), medians over `reps` dispatches of a
+    seeded (bucket, d) batch."""
+    import torch
+
+    qb = np.random.default_rng(bucket).random((bucket, srv.d),
+                                              dtype=np.float32)
+    srv._union.launch(qb).wait()
+    dev, wall = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record(srv.stream)
+        pending = srv._union.launch(qb)
+        e1.record(srv.stream)
+        pending.wait()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        e1.synchronize()
+        dev.append(e0.elapsed_time(e1))
+    return float(np.median(dev)), float(np.median(wall))
+
+
+def phase_serve(x_mc, y_mc, mc_models: dict, head_model, x, smi: str) -> dict:
+    """[serve]: (1) PredictServer on the OvO model with f32, bf16, int8
+    and auto unions against decision_matrix on the 10000 held-out rows
+    (f32 within SERVE_TOL, labels equal but on near-zero rows; bf16 and
+    int8 labels >= SERVE_AGREE the f32 ones), the guard's storage and
+    risks, dispatch ms at buckets 256 and 4096 beside their bound, and
+    the binary headline model's f32 server against decision_function;
+    (2) offered_load_sweep per storage; (3) ServingEngine with the OvR
+    and OvO bundles, both hot-swapped from an admin thread under load
+    (nothing lost, versions advance) and a dispatch_timeout_ms watchdog
+    through the serve_stall seam; (4) ServeServer over a ReplicaFleet of
+    2 on 127.0.0.1: SERVE_WIRE ServeClient requests, every verdict
+    served, labels the in-process engine's, decisions within SERVE_TOL;
+    (5) union_nbytes of each storage. Returns the figures."""
+    import threading
+
+    from dpsvm_tpu_torch import PredictServer, ServeConfig, decision_function
+    from dpsvm_tpu_torch.models.multiclass import (decision_matrix,
+                                                   predict_multiclass)
+    from dpsvm_tpu_torch.serve import offered_load_sweep, union_nbytes
+    from dpsvm_tpu_torch.serving import (ReplicaFleet, ServeClient,
+                                         ServeServer, ServingEngine)
+    from dpsvm_tpu_torch.testing import faults
+
+    xh = np.ascontiguousarray(x_mc[MC_TRAIN:])
+    ovo, ovo_path = mc_models["ovo"]
+    _, ovr_path = mc_models["ovr"]
+    ens = ovo.compacted
+    s_rows, d, k = int(ens.sv_union.shape[0]), int(ens.sv_union.shape[1]), \
+        ens.n_models
+    rec = {"card": smi, "union_rows": s_rows, "d": d, "columns": k}
+    print(f"[serve] OvO model: {k} columns over a {s_rows}-row union, d "
+          f"{d}; {len(xh)} held-out rows; {smi}", flush=True)
+    t0 = time.perf_counter()
+    ref = decision_matrix(ovo, xh)
+    ref_lab = predict_multiclass(ovo, xh)
+    print(f"[serve] decision_matrix reference in "
+          f"{time.perf_counter() - t0:.3f}s; rows with a |dec| <= "
+          f"{SERVE_NEAR}: {int(near_rows(ref).sum())}", flush=True)
+
+    # ---- (1) the four unions
+    servers, lab32 = {}, None
+    for storage in SERVE_STORAGES:
+        t0 = time.perf_counter()
+        srv = PredictServer(ovo, ServeConfig(union_storage=storage))
+        built = time.perf_counter() - t0
+        servers[storage] = srv
+        t0 = time.perf_counter()
+        dec = srv.decision(xh)
+        dec_s = time.perf_counter() - t0
+        lab = srv.labels(dec)
+        err = float(np.max(np.abs(dec - ref)))
+        guard = srv.storage_guard
+        line = (f"[serve] {storage}: staged {srv.union_storage} (risks "
+                f"{guard['risks']}, threshold {guard['threshold']}), built "
+                f"+ warmed {built:.2f}s (warm "
+                f"{sum(srv.stats['warm_seconds'].values()):.3f}s), "
+                f"{len(xh)} rows in {dec_s:.3f}s, max |ddec| vs "
+                f"decision_matrix {err:.3g}")
+        if srv.union_storage == "f32":
+            if not np.allclose(dec, ref, rtol=SERVE_TOL, atol=SERVE_TOL):
+                raise AssertionError(f"[serve] {storage}: decisions off "
+                                     f"decision_matrix by {err:.3g}")
+            n_diff = labels_agree(lab, ref_lab, ref, f"[serve] {storage}")
+            line += f"; labels differ on {n_diff} near-zero rows"
+            if storage == "f32":
+                lab32 = lab
+        else:
+            agree = float(np.mean(lab == lab32))
+            line += f"; labels {100 * agree:.3f}% the f32 ones"
+            if agree < SERVE_AGREE:
+                raise AssertionError(f"[serve] {storage}: labels agree "
+                                     f"{agree:.4f} < {SERVE_AGREE}")
+        print(line + f"; {smi}", flush=True)
+        rec[storage] = {"staged": srv.union_storage, "risks": guard["risks"],
+                        "max_abs_ddec": err, "decision_s": dec_s}
+        if storage != "auto":
+            for bucket in (256, 4096):
+                ms, wall = dispatch_ms(srv, bucket)
+                nbytes = (union_nbytes(storage, s_rows, d) + bucket * d * 4
+                          + bucket * k * 4)
+                b_ms, b_by = bound(nbytes, 2.0 * bucket * s_rows * d,
+                                   SERVE_PEAK[storage])
+                print(f"[serve] {storage} bucket {bucket}: dispatch "
+                      f"{ms:.4f} ms on the stream (wall {wall:.4f} ms), "
+                      f"bound {b_ms:.4f} ms ({b_by}); {smi}", flush=True)
+                rec[storage][f"bucket{bucket}"] = {
+                    "ms": ms, "wall_ms": wall, "bound_ms": b_ms,
+                    "bound_by": b_by}
+    t0 = time.perf_counter()
+    head = PredictServer(head_model, ServeConfig())
+    hq = x[:10_000]
+    hdec = head.decision(hq)[:, 0]
+    href = decision_function(head_model, hq)
+    herr = float(np.max(np.abs(hdec - href)))
+    print(f"[serve] binary headline ({head.ens.n_union} SVs): f32 server "
+          f"{time.perf_counter() - t0:.2f}s, max |ddec| vs "
+          f"decision_function {herr:.3g}", flush=True)
+    if not np.allclose(hdec, href, rtol=SERVE_TOL, atol=SERVE_TOL):
+        raise AssertionError("[serve] the binary server's decisions are "
+                             "off decision_function")
+    labels_agree(head.predict(hq), np.where(href >= 0, 1, -1), href[:, None],
+                 "[serve] binary")
+
+    # ---- (2) offered load
+    for storage in ("f32", "bf16", "int8"):
+        sw = offered_load_sweep(servers[storage], SERVE_SIZES, SERVE_SWEEP,
+                                group=8, seed=1)
+        lat = sw["request_latency"]
+        per = {b: round(v["p50"] * 1e3, 4)
+               for b, v in sw["bucket_latency"].items()}
+        print(f"[serve] sweep {storage}: {sw['rows_per_second']} rows/s, "
+              f"{sw['requests_per_second']} requests/s, request p50 "
+              f"{lat['p50'] * 1e3:.3f} ms p99 {lat['p99'] * 1e3:.3f} ms, "
+              f"dispatch p50 ms by bucket {per} ({sw['rows']} rows, "
+              f"{sw['wall_seconds']}s); {smi}", flush=True)
+        rec[storage]["sweep"] = {"rows_per_second": sw["rows_per_second"],
+                                 "p50_ms": lat["p50"] * 1e3,
+                                 "p99_ms": lat["p99"] * 1e3,
+                                 "bucket_p50_ms": per}
+    del servers
+
+    # ---- (3) the v2 engine: hot swaps under load, the watchdog
+    paths = {"ovr": ovr_path, "ovo": ovo_path}
+    eng = ServingEngine(ServeConfig())
+    t0 = time.perf_counter()
+    for name, path in paths.items():
+        eng.register(name, path)
+    reg_s = time.perf_counter() - t0
+
+    def swaps():
+        for name, path in paths.items():
+            eng.swap(name, path)
+
+    rng = np.random.default_rng(3)
+    admin = threading.Thread(target=swaps, name="dpsvm-smoke-swap")
+    tickets = {}
+    t0 = time.perf_counter()
+    for i in range(800):
+        name = ("ovr", "ovo")[i % 2]
+        n = int(rng.integers(1, 65))
+        s = int(rng.integers(0, len(xh) - n))
+        tickets[eng.submit(xh[s:s + n], name)] = name
+        if i == 200:
+            admin.start()
+        if i == 600:
+            admin.join(timeout=300)
+            if admin.is_alive():
+                raise AssertionError("[serve] the hot swaps did not finish")
+        if i % 4 == 3:
+            eng.pump()
+    done = eng.drain()
+    load_s = time.perf_counter() - t0
+    seen = {name: sorted({done[t].version for t in tickets
+                          if tickets[t] == name and t in done})
+            for name in paths}
+    verdicts = sorted({r.verdict for r in done.values()})
+    snap = eng.snapshot()
+    print(f"[serve] engine: registered OvR and OvO in {reg_s:.2f}s; "
+          f"{len(tickets)} requests in {load_s:.2f}s, completed "
+          f"{len(done)}, verdicts {verdicts}, versions served {seen}, hot "
+          f"swaps {snap['hot_swaps']}, dispatches {snap['dispatches']} "
+          f"(coalesced {snap['coalesced_dispatches']}), compiles "
+          f"{snap['compiles']}, dispatch wait p50 "
+          f"{snap['dispatch_seconds'].get('p50', 0) * 1e3:.3f} ms; {smi}",
+          flush=True)
+    if sorted(done) != sorted(tickets) or verdicts != ["ok"] \
+            or any(v != [1, 2] for v in seen.values()) \
+            or snap["hot_swaps"] != 2:
+        raise AssertionError("[serve] the hot swap under load lost or "
+                             "failed requests, or versions did not advance")
+    edec = eng.decision(xh[:2000], "ovo")
+    if not np.allclose(edec, ref[:2000], rtol=SERVE_TOL, atol=SERVE_TOL):
+        raise AssertionError("[serve] the engine's decisions are off "
+                             "decision_matrix")
+    eng.close()
+    faults.STALL_SECONDS = 2.0
+    wd = ServingEngine(ServeConfig(buckets=(16, 64),
+                                   dispatch_timeout_ms=500.0))
+    wd.register("ovo", ovo_path)
+    before = wd.decision(xh[:40], "ovo")
+    with faults.install(faults.FaultPlan.parse("serve_stall@1")) as plan:
+        t = wd.submit(xh[:40], "ovo")
+        t0 = time.perf_counter()
+        out = wd.drain()
+        bounded = time.perf_counter() - t0
+    after = wd.decision(xh[:40], "ovo")
+    print(f"[serve] watchdog: serve_stall fired {plan.fired['serve_stall']}, "
+          f"verdict {out[t].verdict} in {bounded:.3f}s (bound 0.5 s, stall "
+          f"2 s), trips {wd.watchdog_trips.value}, then served again: "
+          f"{np.allclose(after, before, rtol=SERVE_TOL, atol=SERVE_TOL)}",
+          flush=True)
+    if plan.fired["serve_stall"] != 1 or out[t].verdict != "failed" \
+            or bounded >= 2.0 or not np.allclose(
+                after, before, rtol=SERVE_TOL, atol=SERVE_TOL):
+        raise AssertionError("[serve] the watchdog did not bound the stall")
+    wd.close()
+
+    # ---- (4) the front door over a fleet of two replicas
+    journal = os.path.join(smoke_dir(), "serve.journal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    fleet = ReplicaFleet(ServeConfig(listen="127.0.0.1:0", replicas=2,
+                                     journal_path=journal))
+    server = ServeServer(fleet)
+    ref_eng = ServingEngine(ServeConfig())
+    try:
+        fleet.register("ovo", ovo_path)
+        ref_eng.register("ovo", ovo_path)
+        entry = ref_eng.registry.get("ovo")
+        rng = np.random.default_rng(4)
+        got, rtt = [], []
+        with ServeClient(server.host, server.port, seed=0) as cli:
+            for i in range(SERVE_WIRE):
+                n = int(rng.integers(1, 65))
+                s = int(rng.integers(0, len(xh) - n))
+                t0 = time.perf_counter()
+                v = cli.request(xh[s:s + n], model="ovo",
+                                want_decision=i % 2 == 0)
+                rtt.append(time.perf_counter() - t0)
+                got.append((s, n, v))
+        routing = server.replica_snapshot()
+        snap = server.close()
+    finally:
+        fleet.close()
+    verdicts = sorted({v.verdict for _, _, v in got})
+    near_diff, worst = 0, 0.0
+    for s, n, v in got:
+        want = ref_eng.decision(xh[s:s + n], "ovo")
+        if v.decision is not None:
+            worst = max(worst, float(np.max(np.abs(v.decision - want))))
+            if not np.allclose(v.decision, want, rtol=SERVE_TOL,
+                               atol=SERVE_TOL):
+                raise AssertionError("[serve] a wire decision is off the "
+                                     "in-process engine's")
+        elif v.labels is not None:
+            near_diff += labels_agree(v.labels, entry.labels(want), want,
+                                      "[serve] wire labels")
+    ref_eng.close()
+    print(f"[serve] front door: ReplicaFleet of 2 on "
+          f"{snap['frames_accepted']} frames, verdicts {verdicts}, served "
+          f"by replica {[r['verdicts']['served'] for r in routing]}, "
+          f"round trip p50 {np.percentile(rtt, 50) * 1e3:.3f} ms p99 "
+          f"{np.percentile(rtt, 99) * 1e3:.3f} ms, max |ddec| vs the "
+          f"engine {worst:.3g}, near-zero label differences {near_diff}; "
+          f"{smi}", flush=True)
+    if verdicts != ["served"] or snap["frames_accepted"] != SERVE_WIRE:
+        raise AssertionError(f"[serve] front door verdicts {verdicts}")
+    rec["wire"] = {"rtt_p50_ms": float(np.percentile(rtt, 50) * 1e3),
+                   "rtt_p99_ms": float(np.percentile(rtt, 99) * 1e3)}
+
+    # ---- (5) union bytes
+    sizes = {st: union_nbytes(st, s_rows, d) for st in ("f32", "bf16",
+                                                         "int8")}
+    print(f"[serve] union bytes ({s_rows} x {d}): {sizes}; int8 cut "
+          f"{sizes['f32'] / sizes['int8']:.3f}x of f32", flush=True)
+    rec["union_bytes"] = sizes
+    print(f"[serve] figures {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -2906,7 +3243,8 @@ def main() -> int:
     from dpsvm_tpu_torch.data.synth import make_mnist_multiclass
 
     x_mc, y_mc = make_mnist_multiclass(n=60_000, d=784, seed=7, noise=0.1)
-    paths.update(phase_multiclass(x_mc, y_mc))
+    mc_paths, mc_models = phase_multiclass(x_mc, y_mc)
+    paths.update(mc_paths)
     lap("multiclass")
     paths.update(phase_multiclass_oracle(x_mc, y_mc))
     lap("multiclass oracle")
@@ -2918,6 +3256,14 @@ def main() -> int:
     lap("estimators")
     paths.update(phase_cli_multiclass(x_mc, y_mc, x, y))
     lap("cli multiclass")
+
+    # ---- 25. serving
+    reset_counts()
+    phase_serve(x_mc, y_mc, mc_models, head_model, x, smi)
+    paths["serve"] = read_counts()
+    print(f"[serve] kernel launches in the phase: {paths['serve']} (no "
+          f"TPU kernel lies on the serving path)", flush=True)
+    lap("serve")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",
@@ -3359,6 +3705,62 @@ def turns(package, reps: int) -> int:
     return 0 if ok else 1
 
 
+def serve_profile(reps: int) -> int:
+    """--serve-profile: where a serving dispatch spends its time. Trains
+    [multiclass]'s OvO model (MC_RUN, MC_BLOCK on rows 0-49999), stages
+    it in a PredictServer at f32, bf16 and int8, and for buckets 256 and
+    4096 prints per dispatch the time between CUDA events on the
+    server's stream (median of `reps`), the device's busy time and the
+    largest kernels by device time (torch.profiler over `reps`
+    dispatches); the last line is one JSON object with the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from dpsvm_tpu_torch import PredictServer, ServeConfig, SVMConfig
+    from dpsvm_tpu_torch.data.synth import make_mnist_multiclass
+    from dpsvm_tpu_torch.models.multiclass import train_multiclass
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    x, y = make_mnist_multiclass(n=60_000, d=784, seed=7, noise=0.1)
+    model, _ = train_multiclass(x[:MC_TRAIN], y[:MC_TRAIN],
+                                SVMConfig(**MC_RUN, **MC_BLOCK),
+                                strategy="ovo")
+    s_rows = int(model.compacted.sv_union.shape[0])
+    out = {"card": smi, "union_rows": s_rows}
+    for storage in ("f32", "bf16", "int8"):
+        srv = PredictServer(model, ServeConfig(union_storage=storage))
+        for bucket in (256, 4096):
+            ms, _ = dispatch_ms(srv, bucket, reps)
+            qb = np.random.default_rng(bucket).random((bucket, srv.d),
+                                                      dtype=np.float32)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    srv._union.launch(qb).wait()
+            kernels: dict = {}
+            for evt in prof.events():
+                if evt.device_type == torch.autograd.DeviceType.CUDA:
+                    kernels[evt.name] = (kernels.get(evt.name, 0.0)
+                                         + evt.device_time_total / 1e3 / reps)
+            top = [(name[:48], round(t, 4)) for name, t in sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:6]]
+            busy = sum(kernels.values())
+            out[f"{storage} {bucket}"] = {"dispatch_ms": ms,
+                                          "device_busy_ms": busy,
+                                          "top_ms": top}
+            print(f"[serve profile] {storage} bucket {bucket}: dispatch "
+                  f"{ms:.4f} ms on the stream, device busy {busy:.4f} ms; "
+                  f"largest {top} ({s_rows}-row union; {smi})", flush=True)
+    print(json.dumps(out))
+    return 0
+
+
 def cli() -> int:
     import argparse
 
@@ -3373,7 +3775,11 @@ def cli() -> int:
                     "dpsvm_tpu_torch to time")
     ap.add_argument("--reps", type=int, default=200,
                     help="with --turns: timed calls per reading")
+    ap.add_argument("--serve-profile", action="store_true",
+                    help="profile serving dispatches only (10 a reading)")
     args = ap.parse_args()
+    if args.serve_profile:
+        return serve_profile(10)
     if not args.turns:
         return main()
     return turns(args.package, args.reps)

@@ -8,8 +8,9 @@ the single-device engines (models/); precomputed Grams
 (models/precomputed.py); multiclass OvR / OvO, sequential or batched in
 a fleet (models/multiclass.py, solver/fleet.py); Platt probabilities
 (models/platt.py) and the sklearn-style estimators (estimators, loaded
-on first use); every kernel of those paths hand-written in CUDA C++
-(csrc/). Around them: CSV and LIBSVM data (data/), the host backends
+on first use); serving from a resident SV union (serve.py
+PredictServer; the v2 engine, front door and replica fleet in serving/);
+every kernel of those paths hand-written in CUDA C++ (csrc/). Around them: CSV and LIBSVM data (data/), the host backends
 (solver/reference.py), solves observed chunk by chunk with checkpoints
 either package resumes (solver/chunks.py, utils/checkpoint.py) and
 float64 reconstruction legs (solver/reconstruct.py). Entry points run on
@@ -17,7 +18,7 @@ the CUDA card unless the caller passes device="cpu" (or a CPU mesh).
 This package imports neither jax nor dpsvm_tpu.
 """
 
-from dpsvm_tpu_torch.config import SVMConfig
+from dpsvm_tpu_torch.config import ServeConfig, SVMConfig
 from dpsvm_tpu_torch.models import (OneClassModel, SVMModel, SVRModel,
                                     train_nusvc, train_nusvr, train_oneclass,
                                     train_svr)
@@ -25,6 +26,7 @@ from dpsvm_tpu_torch.ops.kernels import KernelParams
 from dpsvm_tpu_torch.parallel.dist_smo import solve_mesh
 from dpsvm_tpu_torch.parallel.mesh import Mesh, make_data_mesh
 from dpsvm_tpu_torch.predict import accuracy, decision_function, predict
+from dpsvm_tpu_torch.serve import PredictServer
 from dpsvm_tpu_torch.solver.result import SolveResult
 from dpsvm_tpu_torch.solver.solve import solve
 from dpsvm_tpu_torch.train import train
@@ -46,4 +48,4 @@ __all__ = ["SVMConfig", "SVMModel", "KernelParams", "SolveResult", "solve",
            "solve_mesh", "Mesh", "make_data_mesh", "train",
            "decision_function", "predict", "accuracy", "SVRModel",
            "OneClassModel", "train_svr", "train_oneclass", "train_nusvc",
-           "train_nusvr", "estimators"]
+           "train_nusvr", "estimators", "ServeConfig", "PredictServer"]

@@ -1,5 +1,5 @@
-"""Command-line entry points ``train`` and ``test`` (the train/test subset
-of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
+"""Command-line entry points ``train``, ``test`` and ``serve`` (that
+subset of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
 
 Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
@@ -13,6 +13,10 @@ Usage:
         --resume] [--chunk-iters 2048] [--bf16-gram] [-q]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt \\
         [-o predictions.txt] [--precision auto|float32|float64] [-b 1]
+    python -m dpsvm_tpu_torch.cli serve -m model.npz [--server-bench]
+        | --registry NAME=model.npz [--listen 127.0.0.1:0 --replicas 2]
+        [--journal registry.json] [--union-storage f32|bf16|int8|auto]
+        [--device cuda]
 
 A training file whose labels are not +-1 trains a multiclass bundle
 (.npz) by the OvR / OvO reduction; --kernel precomputed reads the square
@@ -217,7 +221,97 @@ def _build_parser() -> argparse.ArgumentParser:
                         "p >= 0.5, svm-predict -b 1 style")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
+    _build_serve_parser(sub)
     return parser
+
+
+def _build_serve_parser(sub) -> argparse.ArgumentParser:
+    p = sub.add_parser(
+        "serve",
+        help="persistent prediction server (compacted SV union resident "
+             "on the device, bucketed micro-batching; serve.py)")
+    p.add_argument("-m", "--model", default=None,
+                   help="model path (.npz multiclass bundle or binary "
+                        "model, .txt binary): the v1 single-model server; "
+                        "--registry runs the v2 multi-model engine")
+    p.add_argument("--registry", action="append", metavar="NAME=PATH",
+                   default=None,
+                   help="register NAME -> model file on the v2 engine "
+                        "(hot swap, deadline-aware batching, async "
+                        "dispatch); repeatable. stdin rows may prefix "
+                        "'NAME|' to route; a line 'swap NAME=PATH' "
+                        "hot-swaps a model mid-stream")
+    p.add_argument("--listen", default=None, metavar="HOST:PORT",
+                   help="v2 engine: serve the binary frame protocol "
+                        "(serving/wire.py) on this TCP endpoint instead "
+                        "of stdin; SIGTERM drains gracefully. Port 0 = "
+                        "ephemeral, printed at start")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="--listen: N engine replicas behind the one front "
+                        "door, registered in lockstep over --journal "
+                        "(default 1)")
+    p.add_argument("--admission-max-rows", type=int, default=None,
+                   help="--listen: queued rows past which a request is "
+                        "rejected with a retry hint (default: "
+                        "max_pending)")
+    p.add_argument("--conn-timeout-ms", type=float, default=None,
+                   help="--listen: per-connection read and write timeout "
+                        "(defaults 30000 / 10000)")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="v2 engine: default per-request deadline; expired "
+                        "requests are shed with a verdict (default none)")
+    p.add_argument("--dispatch-timeout-ms", type=float, default=None,
+                   help="v2 engine: dispatch watchdog; a batch not done "
+                        "within it fails with explicit verdicts and the "
+                        "engine serves on (default: unbounded)")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="v2 engine: the registry journal, rewritten on "
+                        "every register / swap and replayed at start")
+    p.add_argument("--buckets", default="16,64,256,1024,4096",
+                   help="comma-separated power-of-two query buckets, or "
+                        "'auto' for the default ladder")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="legacy SV-union storage dtype (--union-storage "
+                        "wins when given)")
+    p.add_argument("--union-storage",
+                   choices=["f32", "bf16", "int8", "auto"], default=None,
+                   help="SV-union storage: f32; bf16 (warns if risky); "
+                        "int8 (refused with a wider fallback when the "
+                        "perturbation bound rejects the model); auto "
+                        "(the narrowest storage the bound accepts)")
+    p.add_argument("--precision", choices=["auto", "float32", "float64"],
+                   default="auto",
+                   help="per-submodel routing (auto: host float64 where "
+                        "decision_risk says float32 is not enough)")
+    p.add_argument("--num-devices", type=int, default=1,
+                   help="shard the SV union over this many shards (of "
+                        "--device when given, else of that many cards)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve OpenMetrics text (GET /metrics) on this "
+                        "port (0 = ephemeral, printed at start)")
+    p.add_argument("--metrics-host", default="127.0.0.1",
+                   help="bind address for --metrics-port")
+    p.add_argument("--slo-ms", type=float, default=50.0,
+                   help="latency objective of the SLO-attainment gauges")
+    p.add_argument("--server-bench", action="store_true",
+                   help="run the offered-load micro-benchmark instead of "
+                        "serving stdin")
+    p.add_argument("--requests", type=int, default=512,
+                   help="--server-bench: number of requests")
+    p.add_argument("--request-sizes", default="1,2,4,8,16,32,64,128",
+                   help="--server-bench: request row counts drawn from")
+    p.add_argument("--group", type=int, default=8,
+                   help="--server-bench: requests arriving together")
+    p.add_argument("--obs", action="store_true",
+                   help="the JAX package's serve run log; not ported "
+                        "(ROADMAP queue A item 11): refused")
+    p.add_argument("--obs-dir", default=None,
+                   help="run-log directory for --obs; refused with it")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    p.add_argument("-q", "--quiet", action="store_true")
+    return p
 
 
 _TRI = {"auto": None, "on": True, "off": False}
@@ -922,10 +1016,319 @@ def _cmd_test(args) -> int:
     return 0
 
 
+def _serve_buckets(text: str):
+    """--buckets: None for 'auto' (the default ladder), else the ints."""
+    if text.strip() == "auto":
+        return None
+    return tuple(int(t) for t in text.split(",") if t)
+
+
+def _cmd_serve(args) -> int:
+    """Run the v1 server (serve.py PredictServer) on a saved model: the
+    offered-load micro-benchmark (--server-bench), or a stdin loop (one
+    comma-separated feature row a line -> one label a line, micro-batched
+    into the buckets; a blank line flushes). --registry, --journal,
+    --listen or --replicas > 1 run the v2 engine instead."""
+    import json
+
+    from dpsvm_tpu_torch.config import ServeConfig
+    from dpsvm_tpu_torch.serve import PredictServer, offered_load_sweep
+
+    if args.obs or args.obs_dir:
+        print("error: --obs / --obs-dir (the serve run log) are not "
+              "ported to dpsvm_tpu_torch yet (ROADMAP queue A item 11)",
+              file=sys.stderr)
+        return 2
+    if args.registry or args.journal or args.listen or args.replicas > 1:
+        return _cmd_serve_v2(args)
+    if not args.model:
+        print("error: -m/--model is required (or --registry NAME=PATH "
+              "for the v2 engine)", file=sys.stderr)
+        return 2
+    kind = _model_type(args.model)
+    if kind not in ("classifier", "multiclass"):
+        print(f"error: cannot serve a {kind} model (the serving engine "
+              "is the classifier decision path)", file=sys.stderr)
+        return 2
+    if kind == "multiclass":
+        from dpsvm_tpu_torch.models.multiclass import MulticlassSVM
+        model = MulticlassSVM.load(args.model)
+    else:
+        from dpsvm_tpu_torch.models.svm_model import SVMModel
+        model = SVMModel.load(args.model)
+    try:
+        config = ServeConfig(buckets=_serve_buckets(args.buckets),
+                             dtype=args.dtype,
+                             union_storage=args.union_storage,
+                             precision=args.precision,
+                             num_devices=args.num_devices,
+                             metrics_port=args.metrics_port,
+                             metrics_host=args.metrics_host,
+                             slo_ms=args.slo_ms)
+        t0 = time.perf_counter()
+        server = PredictServer(model, config, device=args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if server.exporter is not None and not args.quiet:
+        print(f"metrics: {server.exporter.url} (OpenMetrics)",
+              file=sys.stderr)
+    if not args.quiet:
+        ens = server.ens
+        print(f"server ready in {time.perf_counter() - t0:.2f}s on "
+              f"{server.device}: {server.k} decision columns over a "
+              f"{ens.n_union}-row SV union ({int(ens.counts.sum())} "
+              f"stacked SVs compacted; {len(server.f64_cols)} "
+              f"float64-routed columns), buckets {server.buckets}, union "
+              f"storage {server.union_storage}", file=sys.stderr)
+    if args.server_bench:
+        try:
+            sizes = [int(t) for t in args.request_sizes.split(",") if t]
+            rec = offered_load_sweep(server, sizes, args.requests,
+                                     group=args.group)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if not args.quiet:
+            lat = rec["request_latency"]
+            print("request latency (shared histogram): "
+                  + " ".join(f"{k}={v * 1e3:.2f}ms"
+                             for k, v in lat.items()), file=sys.stderr)
+        server.close()
+        print(json.dumps(rec))
+        return 0
+
+    buf: list = []
+
+    def _emit(lines) -> None:
+        rows = np.asarray([[float(v) for v in ln.split(",")]
+                           for ln in lines], np.float32)
+        for lab in server.predict(rows):
+            print(int(lab))
+        sys.stdout.flush()  # piped clients wait on these labels
+
+    try:
+        for line in sys.stdin:
+            ln = line.strip()
+            if not ln:
+                if buf:
+                    _emit(buf)
+                    buf = []
+                continue
+            buf.append(ln)
+            if len(buf) >= server.buckets[-1]:
+                _emit(buf)
+                buf = []
+        if buf:
+            _emit(buf)
+    except ValueError as e:
+        print(f"error: bad query row ({e})", file=sys.stderr)
+        return 2
+    server.close()
+    if not args.quiet:
+        st = server.stats
+        print(f"served {st['rows']} rows in {st['dispatches']} "
+              f"dispatches (bucket counts {st['bucket_counts']}, "
+              f"{st['padded_rows']} padded rows)", file=sys.stderr)
+    return 0
+
+
+def _cmd_serve_v2(args) -> int:
+    """`serve --registry NAME=PATH [...]`: the v2 engine. stdin: one
+    comma-separated feature row a line, optionally prefixed ``NAME|``
+    (bare rows need exactly one model); ``swap NAME=PATH`` hot-swaps; a
+    blank line (or EOF) drains and prints ``NAME label`` per request in
+    submit order (``NAME MISS`` for work shed past its deadline). With
+    --listen, the network front door instead of stdin."""
+    from dpsvm_tpu_torch.config import ServeConfig
+    from dpsvm_tpu_torch.serving import (ModelLoadError, ReplicaFleet,
+                                         ServingEngine)
+
+    if args.model:
+        print("error: use either -m (v1 single-model server) or "
+              "--registry (v2 engine), not both", file=sys.stderr)
+        return 2
+    if args.server_bench:
+        print("error: --server-bench drives the v1 server (-m)",
+              file=sys.stderr)
+        return 2
+    if args.precision != "auto":
+        print("error: the v2 engine always risk-routes per submodel "
+              "(--precision auto semantics); the forced modes are the "
+              "v1 server's", file=sys.stderr)
+        return 2
+    specs = []
+    for spec in args.registry or []:
+        name, sep, path = spec.partition("=")
+        if not sep or not name or not path:
+            print(f"error: --registry wants NAME=PATH, got {spec!r}",
+                  file=sys.stderr)
+            return 2
+        specs.append((name, path))
+    try:
+        timeouts = {}
+        if args.conn_timeout_ms is not None:
+            timeouts = dict(conn_read_timeout_ms=args.conn_timeout_ms,
+                            conn_write_timeout_ms=args.conn_timeout_ms)
+        config = ServeConfig(
+            buckets=_serve_buckets(args.buckets), dtype=args.dtype,
+            union_storage=args.union_storage,
+            num_devices=args.num_devices, deadline_ms=args.deadline_ms,
+            dispatch_timeout_ms=args.dispatch_timeout_ms,
+            journal_path=args.journal, listen=args.listen,
+            replicas=args.replicas,
+            admission_max_rows=args.admission_max_rows,
+            metrics_port=args.metrics_port,
+            metrics_host=args.metrics_host, slo_ms=args.slo_ms,
+            **timeouts)
+        t0 = time.perf_counter()
+        if config.replicas > 1:
+            engine = ReplicaFleet(config, device=args.device)
+            eng0 = engine.engines[0]
+        else:
+            engine = ServingEngine(config, device=args.device)
+            eng0 = engine
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if eng0._rehydrated and not args.quiet:
+        print(f"rehydrated {len(eng0._rehydrated)} model(s) from "
+              f"{config.journal_path}: "
+              + ", ".join(f"{e.name} v{e.version}"
+                          for e in eng0.registry.entries()),
+              file=sys.stderr)
+    try:
+        for name, path in specs:
+            entry = engine.register(name, path)
+            if not args.quiet:
+                print(f"registered {name} v{entry.version}: {entry.k} "
+                      f"decision columns over a {int(entry.ens.n_union)}"
+                      f"-row SV union ({entry.strategy}, d={entry.d})",
+                      file=sys.stderr)
+    except ModelLoadError as e:
+        print(f"error: {e}", file=sys.stderr)
+        engine.close()
+        return 2
+    if not eng0.registry.names():
+        print("error: no models to serve (--registry NAME=PATH, or a "
+              "--journal with recorded models)", file=sys.stderr)
+        engine.close()
+        return 2
+    if engine.exporter is not None and not args.quiet:
+        print(f"metrics: {engine.exporter.url} (OpenMetrics)",
+              file=sys.stderr)
+    if not args.quiet:
+        print(f"engine ready in {time.perf_counter() - t0:.2f}s on "
+              f"{eng0.device}: {len(eng0.registry.names())} models"
+              + (f" x {config.replicas} replicas"
+                 if config.replicas > 1 else "")
+              + f", deadline {config.deadline_ms or 'none'} ms",
+              file=sys.stderr)
+    if args.listen:
+        return _serve_listen(args, engine)
+
+    order: list = []
+
+    def _drain_print() -> None:
+        done = engine.drain()
+        for ticket in order:
+            if ticket not in done:
+                continue
+            res = done[ticket]
+            lab = res.labels()  # the SERVING version's fold
+            if lab is None:
+                print(f"{res.model} MISS")
+            else:
+                print(f"{res.model} {int(lab[0])}")
+        order.clear()
+        sys.stdout.flush()  # piped clients wait on these labels
+
+    for line in sys.stdin:
+        ln = line.strip()
+        if not ln:
+            _drain_print()
+            continue
+        if ln.startswith("swap "):
+            name, sep, path = ln[5:].strip().partition("=")
+            if not sep:
+                print("error: swap wants NAME=PATH", file=sys.stderr)
+                continue
+            try:
+                entry = engine.swap(name, path)
+                print(f"swapped {name} -> v{entry.version}",
+                      file=sys.stderr)
+            except (ModelLoadError, KeyError) as e:
+                # A bad file or name is refused; the prior version serves.
+                print(f"error: {e}", file=sys.stderr)
+            continue
+        name, sep, row = ln.partition("|")
+        if not sep:
+            name, row = None, ln
+        try:
+            rows = np.asarray([[float(v) for v in row.split(",")]],
+                              np.float32)
+            order.append(engine.submit(rows, model=name))
+        except (ValueError, KeyError) as e:
+            print(f"error: skipped bad query line ({e})", file=sys.stderr)
+    _drain_print()
+    engine.close()
+    if not args.quiet:
+        snap = engine.snapshot()
+        print(f"served {snap['rows']} rows in {snap['dispatches']} "
+              f"dispatches ({snap['coalesced_dispatches']} coalesced; "
+              f"{snap['deadline_misses']} deadline misses, "
+              f"{snap['hot_swaps']} hot swaps)", file=sys.stderr)
+    return 0
+
+
+def _serve_listen(args, engine, stop_event=None) -> int:
+    """`serve --listen HOST:PORT`: the network front door until SIGTERM
+    or SIGINT, then a graceful drain (finish or shed in-flight work by
+    its own deadline, flush the verdicts, GOODBYE each connection) and
+    the engine's close. `stop_event` replaces the signals (tests)."""
+    import signal
+    import threading
+
+    from dpsvm_tpu_torch.serving.server import ServeServer
+
+    server = ServeServer(engine)
+    stop = stop_event if stop_event is not None else threading.Event()
+    handled = {}
+    if stop_event is None:
+        def _on_signal(signum, frame):
+            stop.set()  # the drain runs on the main thread
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            handled[sig] = signal.signal(sig, _on_signal)
+    if not args.quiet:
+        print(f"front door listening on {server.host}:{server.port} "
+              "(SIGTERM = graceful drain)", file=sys.stderr, flush=True)
+    try:
+        stop.wait()
+        # Our handler stays installed through the drain: a second
+        # SIGTERM is a no-op, not a kill mid-drain.
+        snap = server.close()
+        engine.close()
+    finally:
+        for sig, prev in handled.items():
+            signal.signal(sig, prev)
+    if not args.quiet:
+        v = snap["verdicts"]
+        print(f"drained: {snap['frames_accepted']} frames over "
+              f"{snap['conns_opened']} connections -> "
+              + " ".join(f"{k}={v[k]}" for k in sorted(v))
+              + (f" undeliverable={snap['undeliverable_total']}"
+                 if snap["undeliverable_total"] else ""),
+              file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.command == "train":
         return _cmd_train(args)
+    if args.command == "serve":
+        return _cmd_serve(args)
     return _cmd_test(args)
 
 

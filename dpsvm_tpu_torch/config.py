@@ -427,3 +427,177 @@ class SVMConfig:
 
     def replace(self, **kw) -> "SVMConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Runtime knobs of the serving engines (serve.py PredictServer and
+    serving/): every field of the JAX package's ``ServeConfig``, with
+    the same name, default and validation.
+
+    buckets: ascending power-of-two query micro-batch sizes; requests
+      merge and pad to the smallest that fits, larger batches loop over
+      the top one. None = the default ladder (serve.resolve_buckets;
+      the port has no device profile to consult).
+    union_storage: "f32", "bf16", "int8" or "auto"; None derives it
+      from the legacy ``dtype`` ("float32" -> "f32", "bfloat16" ->
+      "bf16"). Narrow storage sits behind serve.resolve_union_storage.
+    precision: "auto" routes submodel columns whose float32 noise
+      estimate reaches predict.AUTO_F64_RISK to the host float64 path;
+      "float32" / "float64" force one path for every column.
+    num_devices: > 1 row-shards the SV union over a parallel.mesh.Mesh
+      and sums the partial decision columns.
+    warm_start: run every bucket once on zero queries at construction.
+    max_pending: queued rows before enqueue() / submit() force work.
+    metrics_port / metrics_host: an OpenMetrics endpoint (obs/export.py;
+      None = off, 0 = ephemeral port).
+    slo_ms: the latency objective of the SLO-attainment gauges.
+    deadline_ms: default per-request deadline of the v2 engine (None =
+      none); expired requests are shed with an explicit verdict.
+    dispatch_timeout_ms: the v2 engine's dispatch watchdog (None = off).
+    journal_path: the registry journal the v2 engine replays at start.
+    listen: "HOST:PORT" of the network front door (serving/server.py).
+    replicas: engines behind one front door (> 1 needs ``listen``).
+    device_floor_us_per_row: an emulated serial device time per padded
+      row (a host-bound harness knob; None = off).
+    admission_max_rows, admission_retry_ms, conn_read_timeout_ms,
+      conn_write_timeout_ms, max_frame_bytes: the front door's admission
+      bound, retry hint and per-connection bounds.
+    obs: the JAX package's run-log switch, carried so configs read the
+      same; anything but the default is refused (check_ported).
+    """
+
+    buckets: Optional[tuple] = (16, 64, 256, 1024, 4096)
+    dtype: str = "float32"
+    union_storage: Optional[str] = None
+    precision: str = "auto"
+    num_devices: int = 1
+    warm_start: bool = True
+    max_pending: int = 65536
+    metrics_port: Optional[int] = None
+    metrics_host: str = "127.0.0.1"
+    slo_ms: float = 50.0
+    deadline_ms: Optional[float] = None
+    dispatch_timeout_ms: Optional[float] = None
+    journal_path: Optional[str] = None
+    listen: Optional[str] = None
+    replicas: int = 1
+    device_floor_us_per_row: Optional[float] = None
+    admission_max_rows: Optional[int] = None
+    admission_retry_ms: float = 50.0
+    conn_read_timeout_ms: float = 30000.0
+    conn_write_timeout_ms: float = 10000.0
+    max_frame_bytes: int = 64 * 1024 * 1024
+    obs: ObsConfig = ObsConfig()
+
+    def __post_init__(self):
+        if isinstance(self.obs, dict):
+            object.__setattr__(self, "obs", ObsConfig(**self.obs))
+        if self.buckets is not None:
+            if not self.buckets:
+                raise ValueError(
+                    "buckets must be non-empty (None = the default ladder)")
+            bs = tuple(int(b) for b in self.buckets)
+            if any(b < 1 or (b & (b - 1)) for b in bs):
+                raise ValueError(
+                    f"buckets must be powers of two, got {self.buckets!r}")
+            if list(bs) != sorted(set(bs)):
+                raise ValueError("buckets must be strictly ascending")
+            object.__setattr__(self, "buckets", bs)
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError("dtype must be 'float32' or 'bfloat16'")
+        if self.union_storage is not None and self.union_storage not in (
+                "f32", "bf16", "int8", "auto"):
+            raise ValueError(
+                "union_storage must be 'f32', 'bf16', 'int8' or 'auto' "
+                "(None = derive from the legacy dtype knob)")
+        if self.precision not in ("auto", "float32", "float64"):
+            raise ValueError(
+                "precision must be 'auto', 'float32' or 'float64'")
+        if self.num_devices < 1:
+            raise ValueError("num_devices must be >= 1")
+        if self.buckets is not None \
+                and self.max_pending < self.buckets[-1]:
+            raise ValueError(
+                "max_pending must be at least the largest bucket "
+                f"({self.buckets[-1]})")
+        if self.buckets is None and self.max_pending < 4096:
+            raise ValueError(
+                "max_pending must be at least 4096 with buckets=None (the "
+                "default ladder's top bucket)")
+        if self.metrics_port is not None and not (
+                0 <= self.metrics_port <= 65535):
+            raise ValueError(
+                "metrics_port must be None (no endpoint), 0 (ephemeral) "
+                "or a valid TCP port")
+        if not self.metrics_host:
+            raise ValueError("metrics_host must be a bind address")
+        if self.slo_ms <= 0:
+            raise ValueError("slo_ms must be > 0")
+        if self.deadline_ms is not None and self.deadline_ms <= 0:
+            raise ValueError("deadline_ms must be > 0 (None = no deadlines)")
+        if self.dispatch_timeout_ms is not None \
+                and self.dispatch_timeout_ms <= 0:
+            raise ValueError(
+                "dispatch_timeout_ms must be > 0 (None = no watchdog)")
+        if self.journal_path is not None and not self.journal_path:
+            raise ValueError(
+                "journal_path must be a file path (None = no journal)")
+        if self.listen is not None:
+            host, sep, port = str(self.listen).rpartition(":")
+            if not sep or not host or not port.isdigit() \
+                    or not (0 <= int(port) <= 65535):
+                raise ValueError(
+                    f"listen must be 'HOST:PORT' (port 0 = ephemeral), got "
+                    f"{self.listen!r}")
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if self.replicas > 1 and self.listen is None:
+            raise ValueError(
+                "replicas > 1 requires listen (the replica fleet scales "
+                "the network front door)")
+        if self.device_floor_us_per_row is not None \
+                and self.device_floor_us_per_row <= 0:
+            raise ValueError(
+                "device_floor_us_per_row must be > 0 (None = no floor)")
+        if self.admission_max_rows is not None:
+            if self.admission_max_rows < 1:
+                raise ValueError(
+                    "admission_max_rows must be >= 1 (None = max_pending)")
+            if self.admission_max_rows > self.max_pending:
+                raise ValueError(
+                    "admission_max_rows must not exceed max_pending "
+                    f"({self.max_pending}): admission rejects must trip "
+                    "before the blocking in-engine backpressure")
+        if self.admission_retry_ms <= 0:
+            raise ValueError("admission_retry_ms must be > 0")
+        if self.conn_read_timeout_ms <= 0 or self.conn_write_timeout_ms <= 0:
+            raise ValueError(
+                "conn_read_timeout_ms / conn_write_timeout_ms must be > 0")
+        if self.max_frame_bytes < 4096:
+            raise ValueError("max_frame_bytes must be >= 4096")
+
+    def listen_addr(self) -> tuple:
+        """('host', port) from the validated listen spec."""
+        host, _, port = str(self.listen).rpartition(":")
+        return host, int(port)
+
+    def effective_union_storage(self) -> str:
+        """The REQUESTED union storage: union_storage when set, else the
+        legacy dtype's. What stages is decided per model by
+        serve.resolve_union_storage."""
+        if self.union_storage is not None:
+            return self.union_storage
+        return "bf16" if self.dtype == "bfloat16" else "f32"
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError for ``obs`` off its default: the port
+        has no run logs or trace sessions yet (ROADMAP queue A item 11).
+        Called by every serving entry point."""
+        if self.obs != ObsConfig():
+            raise NotImplementedError(
+                f"obs={self.obs!r} is not ported to dpsvm_tpu_torch yet "
+                "(ROADMAP queue A item 11)")
+
+    def replace(self, **kw) -> "ServeConfig":
+        return dataclasses.replace(self, **kw)

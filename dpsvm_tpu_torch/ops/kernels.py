@@ -245,6 +245,115 @@ def bf16_kernel_perturbation(x, params: KernelParams, sample: int = 2048,
 BF16_RISK_THRESHOLD = 0.1
 
 
+def quantize_rows_int8(x):
+    """Symmetric per-row int8 quantization of a feature matrix: (values
+    int8, scales float32) with values[i] = round(x[i] / scales[i])
+    clipped to [-127, 127] and scales[i] = max|x[i]| / 127 (1.0 for an
+    all-zero row). Per row because a serving union stacks SVs of many
+    submodels; zero-point free, so the dequantized dot is the rank-1
+    rescale (q_int8 @ sv_int8^T) * (t_q (x) s_sv). Host NumPy, the JAX
+    package's algebra."""
+    x = np.asarray(x, np.float32)
+    amax = np.abs(x).max(axis=1, initial=0.0)
+    scales = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(x / scales[:, None]), -127, 127).astype(np.int8)
+    return q, scales
+
+
+def dequantize_rows_int8(q, scales):
+    """float32 rows from quantize_rows_int8 output: the values the int8
+    dot operands carry, from which the rbf norms must come."""
+    return (np.asarray(q, np.float32)
+            * np.asarray(scales, np.float32)[:, None])
+
+
+def int8_kernel_perturbation(x, params: KernelParams, sample: int = 2048,
+                             pairs: int = 4096, seed: int = 0) -> float:
+    """p90 of |K_exact - K_int8-stored| over the pairs bf16_kernel_
+    perturbation samples (same seed, same population), for any feature
+    kernel: the rows through a quantize_rows_int8 round trip, float64
+    dots (the int32 device dots are exact). Host NumPy."""
+    if params.kind == "precomputed":
+        raise ValueError(
+            "precomputed kernels carry values, not features; there is "
+            "no storage-rounding perturbation to sample")
+    x = np.asarray(x, np.float32)
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    idx = rng.choice(n, min(sample, n), replace=False)
+    s = x[idx].astype(np.float64)
+    q, scales = quantize_rows_int8(x[idx])
+    sq = dequantize_rows_int8(q, scales).astype(np.float64)
+    i = rng.integers(0, len(s), pairs)
+    j = rng.integers(0, len(s), pairs)
+
+    def kvals(a):
+        dots = np.einsum("nd,nd->n", a[i], a[j])
+        if params.kind == "linear":
+            return dots
+        if params.kind == "rbf":
+            nrm = (a ** 2).sum(1)
+            d2 = np.maximum(nrm[i] + nrm[j] - 2.0 * dots, 0.0)
+            return np.exp(-params.gamma * d2)
+        if params.kind == "poly":
+            return (params.gamma * dots + params.coef0) ** params.degree
+        if params.kind == "sigmoid":
+            return np.tanh(params.gamma * dots + params.coef0)
+        raise ValueError(f"unknown kernel kind {params.kind!r}")
+
+    return float(np.percentile(np.abs(kvals(s) - kvals(sq)), 90))
+
+
+def storage_perturbation(x, params: KernelParams, storage: str,
+                         sample: int = 2048, pairs: int = 4096,
+                         seed: int = 0) -> float:
+    """p90|dK| of a named union storage ('f32' is 0.0 by definition):
+    the sampler the serving storage guard scales by its coefficient
+    amplifier."""
+    if storage == "f32":
+        return 0.0
+    if storage == "bf16":
+        return bf16_kernel_perturbation(x, params, sample=sample,
+                                        pairs=pairs, seed=seed)
+    if storage == "int8":
+        return int8_kernel_perturbation(x, params, sample=sample,
+                                        pairs=pairs, seed=seed)
+    raise ValueError(f"unknown union storage {storage!r}")
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def mm_i8_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T for int8 a (n, d) and b (S, d), exact in int32: (n, S).
+
+    On CUDA it is torch._int_mm (cuBLASLt's int8 GEMM), which wants more
+    than 16 rows and the inner and column counts multiples of 8: the
+    operands are zero-padded to that (exact for integer dots; the
+    serving executors stage the union pre-aligned, so only the queries
+    pad on the hot path) and the result is sliced back. A failure
+    raises; there is no float fallback. Elsewhere the plain version: an
+    int32 product (|dot| <= 127^2 d fits int32 for d < 133,000)."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"mm_i8_i32 takes int8 operands, got {a.dtype} "
+                        f"and {b.dtype}")
+    n, d = a.shape
+    s = b.shape[0]
+    if b.shape[1] != d:
+        raise ValueError(f"inner dimensions differ: {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if not a.is_cuda:
+        return torch.mm(a.to(torch.int32), b.to(torch.int32).t())
+    n_p, d_p, s_p = max(24, _round_up(n, 8)), _round_up(d, 8), _round_up(s, 8)
+    if (n_p, d_p) != (n, d):
+        a = torch.nn.functional.pad(a, (0, d_p - d, 0, n_p - n))
+    if (s_p, d_p) != (s, d):
+        b = torch.nn.functional.pad(b, (0, d_p - d, 0, s_p - s))
+    out = torch._int_mm(a.contiguous(), b.contiguous().t())
+    return out[:n, :s] if (n_p, s_p) != (n, s) else out
+
+
 def resolve_bf16_gram(x, config, gamma: float, c_max: float = None,
                       scope: str = ""):
     """The per-problem bf16-Gram gate: whether storing X in bfloat16 is

@@ -439,3 +439,97 @@ def test_precomputed_train_and_test_match_jax(data, tmp_path):
     np.testing.assert_array_equal(outs[0], jax_m.predict(g))
     np.testing.assert_array_equal(outs[1], port_m.predict(g,
                                                           device="cpu"))
+
+
+# ------------------------------------------------------------------ serve
+
+def _serve_stdin(main, argv, text, monkeypatch, capsys):
+    import io
+
+    capsys.readouterr()
+    monkeypatch.setattr("sys.stdin", io.StringIO(text))
+    rc = main(["serve", *argv])
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def test_serve_registry_roundtrip_matches_jax(multiclass_file, tmp_path,
+                                              monkeypatch, capsys):
+    """`serve --registry` over stdin, with a mid-stream swap, a routed
+    row, a bad row and a journal: the port's labels are JAX's line for
+    line, and a restart on the journal alone serves the swapped
+    version."""
+    x, _, path = multiclass_file
+    flags = ["-g", "0.1", "--multiclass", "ovo"]
+    m1, m2 = str(tmp_path / "m1.npz"), str(tmp_path / "m2.npz")
+    _train(cli.main, path, m1, flags, ("--device", "cpu"))
+    _train(jax_cli.main, path, m2, flags + ["-c", "3"])
+    rows = [",".join("%.9g" % v for v in r) for r in x[:6]]
+    text = "\n".join(rows[:3] + ["", f"swap a={m2}", f"a|{rows[3]}",
+                                 "1,2,oops", rows[4], ""]) + "\n"
+    outs = {}
+    for pkg, main, dev in (("port", cli.main, ["--device", "cpu"]),
+                           ("jax", jax_cli.main, [])):
+        jp = str(tmp_path / f"{pkg}.journal")
+        rc, out, err = _serve_stdin(
+            main, ["--registry", f"a={m1}", "--journal", jp, "--buckets",
+                   "16,64", *dev], text, monkeypatch, capsys)
+        assert rc == 0, err
+        assert "swapped a -> v2" in err and "skipped bad query line" in err
+        outs[pkg] = out
+        rc, out, err = _serve_stdin(
+            main, ["--journal", jp, "--buckets", "16,64", *dev],
+            rows[5] + "\n", monkeypatch, capsys)
+        assert rc == 0 and "rehydrated 1 model(s)" in err
+        outs[pkg + " rehydrated"] = out
+    assert outs["port"] == outs["jax"]
+    assert len(outs["port"].splitlines()) == 5
+    assert outs["port rehydrated"] == outs["jax rehydrated"]
+
+
+def test_serve_v1_and_server_bench(multiclass_file, tmp_path, monkeypatch,
+                                   capsys):
+    import json
+
+    x, _, path = multiclass_file
+    m = str(tmp_path / "m.npz")
+    _train(cli.main, path, m, ["-g", "0.1", "--multiclass", "ovr"],
+           ("--device", "cpu"))
+    text = "\n".join(",".join("%.9g" % v for v in r) for r in x[:5]) + "\n"
+    labels = []
+    for main, dev in ((cli.main, ["--device", "cpu"]), (jax_cli.main, [])):
+        rc, out, _ = _serve_stdin(main, ["-m", m, "--buckets", "16", *dev],
+                                  text, monkeypatch, capsys)
+        assert rc == 0
+        labels.append(out)
+    assert labels[0] == labels[1] and len(labels[0].splitlines()) == 5
+    recs = []
+    for main, dev in ((cli.main, ["--device", "cpu"]), (jax_cli.main, [])):
+        rc, out, _ = _serve_stdin(
+            main, ["-m", m, "--server-bench", "--requests", "16",
+                   "--buckets", "16,64", "-q", *dev], "", monkeypatch,
+            capsys)
+        assert rc == 0
+        recs.append(json.loads(out.strip().splitlines()[-1]))
+    assert set(recs[0]) == set(recs[1])
+    assert recs[0]["rows"] == recs[1]["rows"]
+
+
+@pytest.mark.parametrize("flag", [["--obs"], ["--obs-dir", "runs"]])
+def test_serve_refuses_obs_naming_item_11(tmp_path, capsys, flag):
+    rc = cli.main(["serve", "--registry", "a=/dev/null", "--device", "cpu",
+                   *flag])
+    assert rc == 2
+    assert "ROADMAP queue A item 11" in capsys.readouterr().err
+
+
+def test_serve_refusals_match_jax(tmp_path, capsys):
+    for argv in (["--registry", "noequals"],
+                 ["--listen", "nohostport", "--registry", "m=/dev/null"],
+                 ["--registry", "a=x.npz", "-m", "x.npz"]):
+        texts = []
+        for main, dev in ((cli.main, ["--device", "cpu"]),
+                          (jax_cli.main, [])):
+            assert main(["serve", *argv, *dev]) == 2
+            texts.append(capsys.readouterr().err.strip())
+        assert texts[0] == texts[1], argv

@@ -326,3 +326,92 @@ def test_bf16_gram_gate_and_stats_match_jax(case):
         same = solve(x, y, stored, device="cpu")
     np.testing.assert_array_equal(res.alpha, same.alpha)
     assert res.iterations == same.iterations
+
+
+# ------------------------------------------------------------ ServeConfig
+
+def _serve_fields():
+    from dpsvm_tpu.config import ServeConfig as JaxServeConfig
+    from dpsvm_tpu_torch.config import ServeConfig
+
+    return (ServeConfig, JaxServeConfig,
+            {f.name: f for f in dataclasses.fields(JaxServeConfig)})
+
+
+def test_serve_config_fields_and_defaults_match_jax():
+    ServeConfig, JaxServeConfig, jf = _serve_fields()
+    tf = {f.name: f for f in dataclasses.fields(ServeConfig)}
+    assert list(tf) == list(jf)
+    for name in tf:
+        if name != "obs":
+            assert getattr(ServeConfig(), name) == \
+                getattr(JaxServeConfig(), name), name
+    assert ServeConfig().effective_union_storage() == "f32"
+    assert ServeConfig(dtype="bfloat16").effective_union_storage() == "bf16"
+    assert ServeConfig(listen="0.0.0.0:8080").listen_addr() == \
+        ("0.0.0.0", 8080)
+
+
+# Values each field is drawn from: its default, valid values and
+# values one of the two packages' checks refuses.
+_SERVE_DRAWS = {
+    "buckets": [None, (16, 64), (), (3,), (64, 16), (16, 16), (1,),
+                (16, 4096, 8192)],
+    "dtype": ["float32", "bfloat16", "float16"],
+    "union_storage": [None, "f32", "bf16", "int8", "auto", "fp8"],
+    "precision": ["auto", "float32", "float64", "half"],
+    "num_devices": [1, 2, 0],
+    "warm_start": [True, False],
+    "max_pending": [65536, 4096, 100, 16],
+    "metrics_port": [None, 0, 9100, 70000, -1],
+    "metrics_host": ["127.0.0.1", ""],
+    "slo_ms": [50.0, 0.0, 1.0],
+    "deadline_ms": [None, 10.0, 0.0, -1.0],
+    "dispatch_timeout_ms": [None, 100.0, 0.0],
+    "journal_path": [None, "j.json", ""],
+    "listen": [None, "127.0.0.1:0", "host:99999", "nohostport", ":80"],
+    "replicas": [1, 2, 0],
+    "device_floor_us_per_row": [None, 1.5, 0.0],
+    "admission_max_rows": [None, 8, 0, 1 << 20],
+    "admission_retry_ms": [50.0, 0.0],
+    "conn_read_timeout_ms": [30000.0, 0.0],
+    "conn_write_timeout_ms": [10000.0, -1.0],
+    "max_frame_bytes": [64 * 1024 * 1024, 4096, 100],
+}
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_serve_config_random_combinations_raise_like_jax(seed):
+    """Random field combinations: the same exception type in both
+    packages, or none."""
+    ServeConfig, JaxServeConfig, _ = _serve_fields()
+    rng = np.random.default_rng(seed)
+    for _ in range(250):
+        kw = {}
+        for name, values in _SERVE_DRAWS.items():
+            if rng.random() < 0.3:
+                kw[name] = values[rng.integers(len(values))]
+        out = []
+        for cls in (ServeConfig, JaxServeConfig):
+            try:
+                cls(**kw)
+                out.append(None)
+            except Exception as e:  # noqa: BLE001 - the type is compared
+                out.append(type(e))
+        assert out[0] is out[1], (kw, out)
+
+
+def test_serve_config_obs_refused_naming_item_11():
+    from dpsvm_tpu_torch.config import ObsConfig, ServeConfig
+    from dpsvm_tpu_torch.serve import PredictServer
+    from dpsvm_tpu_torch.serving import ReplicaFleet, ServingEngine
+
+    cfg = ServeConfig(obs=ObsConfig(enabled=True))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cfg.check_ported()
+    for make in (lambda: ServingEngine(cfg, device="cpu"),
+                 lambda: ReplicaFleet(cfg, device="cpu"),
+                 lambda: PredictServer(None, cfg, device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            make()
+    ServeConfig().check_ported()

@@ -61,7 +61,14 @@ def test_scan_covers_the_package():
                 ("solver", "reference.py"), ("solver", "reconstruct.py"),
                 ("solver", "fleet.py"), ("models", "multiclass.py"),
                 ("models", "platt.py"), ("models", "precomputed.py"),
-                ("estimators.py",)):
+                ("estimators.py",), ("serve.py",),
+                ("serving", "__init__.py"), ("serving", "registry.py"),
+                ("serving", "scheduler.py"), ("serving", "engine_core.py"),
+                ("serving", "dispatch.py"), ("serving", "wire.py"),
+                ("serving", "server.py"), ("serving", "client.py"),
+                ("serving", "replicas.py"), ("obs", "metrics.py"),
+                ("obs", "export.py"), ("obs", "trace.py"),
+                ("testing", "faults.py")):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 
@@ -175,3 +182,31 @@ def test_new_entry_points_raise_without_cuda(no_cuda):
     mc, _ = train_multiclass(x, y3, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predict_multiclass(mc, x)
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    """PredictServer, ServingEngine and ReplicaFleet refuse device=None
+    without a card, and serve on device="cpu"."""
+    from dpsvm_tpu_torch import PredictServer, ServeConfig
+    from dpsvm_tpu_torch.serving import ReplicaFleet, ServingEngine
+
+    x, y = _data()
+    model = SVMModel(x[:2], np.ones(2, np.float32), y[:2], 0.0,
+                     KernelParams("rbf", 0.5))
+    fleet_cfg = ServeConfig(buckets=(16,), listen="127.0.0.1:0",
+                            replicas=2)
+    calls = (
+        lambda **d: PredictServer(model, ServeConfig(buckets=(16,)), **d),
+        lambda **d: ServingEngine(ServeConfig(buckets=(16,)), **d),
+        lambda **d: ReplicaFleet(fleet_cfg, **d),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        obj = call(device="cpu")
+        if hasattr(obj, "close"):
+            obj.close()
+    srv = PredictServer(model, ServeConfig(buckets=(16,)), device="cpu")
+    np.testing.assert_array_equal(
+        srv.predict(x), predict(model, x, precision="float32",
+                                device="cpu"))
