@@ -233,9 +233,28 @@ result line is printed:
                 127.0.0.1 answering 500 ServeClient requests (all served,
                 labels and decisions the in-process engine's); union
                 bytes per storage. No kernel of B1-B8 runs in it.
+ 26. ooc     -- X on the host (solver/ooc.py), OOC_TILE-row tiles: (a) the
+                headline with ooc=True against the in-core headline (SV
+                count 3%, signs 99.8% on all rows; B1 once a round; alpha
+                bitwise or not, reported); (b) the oracle configuration
+                against artifacts/oracle60k; (c) ooc_shrink=True and
+                ooc_cache_lines=512 meet the stopping rule (tiles
+                skipped, reconstructions, all-hit rounds); (d) a memmap X
+                stopped after 3 rounds and resumed, bitwise (a); (e) one
+                warm_f_rebuild pass over a 500000 x 784 float32 memmap
+                (rtol 1e-5 of blocked_kernel_matvec; GB/s against a
+                pinned 256 MiB copy_, the fold's share of the pass).
+ 27. warm    -- rows 0-49999, then concat(sv_x, rows 50000-59999) warm
+                (seed_from_model) and cold under gate (a); cascade_solve
+                of it (16384-row blocks); svc_c_sweep(warm=True) on the
+                block engine against [estimators]' fleet sweep; run_learn
+                on synthetic_stream(d=784, rows=20000, generations=3),
+                hot-swapped into a ServingEngine, every probe served;
+                `cli learn --smoke`; `cli train --ooc` on [cli]'s CSV
+                under gate (a).
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-25 under "path_launches") and the card's
+kernel's launches on phases 15-27 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -2514,7 +2533,9 @@ def phase_estimators(x, y, svr_models) -> dict:
     and score on the first EST_ROWS rows (the [svr] phase's cut); each
     estimator's model is its trainer's bit for bit (SVR and NuSVR against
     the [svr] phase's block and xla models of the same configuration).
-    svc_c_sweep over SWEEP_CS runs as one fleet. Returns the launches."""
+    svc_c_sweep over SWEEP_CS runs as one fleet. Returns the launches
+    and the sweep's fitted estimators (phase 27 holds its warm walk to
+    them)."""
     from dpsvm_tpu_torch import (SVMConfig, train, train_nusvc,
                                  train_oneclass)
     from dpsvm_tpu_torch import estimators as est_mod
@@ -2574,7 +2595,7 @@ def phase_estimators(x, y, svr_models) -> dict:
             or fleet_totals(results)["fleets"] != 1:
         raise AssertionError("[estimators] svc_c_sweep did not run as one "
                              "converged fleet")
-    return launches
+    return launches, fitted
 
 
 def phase_cli_multiclass(x_mc, y_mc, x, y) -> dict:
@@ -2977,6 +2998,417 @@ def phase_serve(x_mc, y_mc, mc_models: dict, head_model, x, smi: str) -> dict:
     return rec
 
 
+# ---- 26-27. out of core, warm starts, the cascade, the learning loop
+
+OOC_TILE = 8192
+STREAM_ROWS = 500_000  # the [ooc] (e) stream: 500000 x 784 float32
+STREAM_SEED_ROWS = 256  # one query block of the warm fold
+PCIE_COPY_BYTES = 2 ** 28  # the plain pinned copy the stream is held to
+WARM_BASE = 50_000  # [warm]: rows 0-49999, then the increment
+# [warm]'s gated configuration: the oracle's (float32, eps 5e-4).
+WARM_RUN = ORACLE_RUN
+CASCADE_BLOCK = 16_384
+LEARN = dict(d=784, rows=20_000, generations=3, drift=0.1, seed=7)
+
+
+def agree_gate(label: str, model, ref_model, x, converged: bool = True,
+               gate: bool = True) -> float:
+    """Gate (a): converged, SV count within SV_TOL of the reference model
+    and decision signs on all rows of x agreeing at SIGN_TOL (`gate`
+    False only reports). Returns the sign agreement."""
+    from dpsvm_tpu_torch import decision_function
+
+    agree = float(np.mean(np.sign(decision_function(model, x))
+                          == np.sign(decision_function(ref_model, x))))
+    n_sv, ref_sv = int(model.sv_x.shape[0]), int(ref_model.sv_x.shape[0])
+    sv_dev = abs(n_sv - ref_sv) / max(1, ref_sv)
+    print(f"[gate] {label}: n_sv {n_sv} (reference {ref_sv}, dev "
+          f"{100 * sv_dev:.2f}%) signs agree on {100 * agree:.3f}% of "
+          f"{len(x)} rows", flush=True)
+    if not gate:
+        return agree
+    if not converged:
+        raise AssertionError(f"{label} did not converge")
+    if sv_dev > SV_TOL or agree < SIGN_TOL:
+        raise AssertionError(f"{label}: n_sv dev {sv_dev:.4f} / sign "
+                             f"agreement {agree:.4f} outside the gate")
+    return agree
+
+
+def criterion_met(label: str, res, eps: float) -> None:
+    """The stopping rule b_lo <= b_hi + 2 eps on the returned extrema."""
+    if not (res.converged and res.b_lo <= res.b_hi + 2.0 * eps + 1e-6):
+        raise AssertionError(f"{label}: b_lo {res.b_lo} > b_hi {res.b_hi} "
+                             f"+ 2 eps")
+
+
+def pinned_copy_gbps(nbytes: int = PCIE_COPY_BYTES, reps: int = 5) -> float:
+    """Host -> card rate of a plain `copy_` of a pinned buffer (CUDA
+    events, best of `reps`): the PCIe bound the ooc stream is held to."""
+    import torch
+
+    src = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    src.fill_(1.0)
+    dst = torch.empty_like(src, device="cuda")
+    best = float("inf")
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        dst.copy_(src, non_blocking=True)
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return nbytes / (best * 1e-3) / 1e9
+
+
+def fold_only_ms(x_tile, f_tile, qx, coef, kp, reps: int = 10) -> float:
+    """ms of one tile's fold on a tile already on the card (the stream's
+    fold without its copies), CUDA events."""
+    from dpsvm_tpu_torch.ops import ooc as ooc_ops
+    from dpsvm_tpu_torch.ops.kernels import squared_norms
+
+    qsq = squared_norms(qx)
+
+    def fold():
+        ooc_ops.ooc_fold_tile(x_tile, squared_norms(x_tile), f_tile, None,
+                              qx, qsq, coef, kp)
+    return time_ms(fold, reps)
+
+
+def write_stream_memmap(path: str, rows: int, d: int, seed: int) -> tuple:
+    """A (rows, d) float32 memmap written in 50000-row chunks from a
+    seeded RNG; returns (the read-only memmap, seconds)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    mm = np.memmap(path, dtype=np.float32, mode="w+", shape=(rows, d))
+    for s in range(0, rows, 50_000):
+        e = min(rows, s + 50_000)
+        mm[s:e] = rng.standard_normal((e - s, d), dtype=np.float32)
+    mm.flush()
+    del mm
+    # Copy-on-write: readable as any array, never written back.
+    return (np.memmap(path, dtype=np.float32, mode="c", shape=(rows, d)),
+            time.perf_counter() - t0)
+
+
+def phase_ooc(x, y, cfg, head_model, head_res, oracle, sk_dec,
+              stream_rows: int = STREAM_ROWS) -> tuple:
+    """[ooc] X on the host, streamed in OOC_TILE-row tiles.
+    (a) the headline with ooc=True: gate (a) against the in-core plain
+    headline (converged, SV count within 3%, signs on all rows at
+    99.8%), B1 once a round and no other kernel; whether alpha is the
+    in-core solve's bit for bit. (b) the oracle configuration with ooc
+    against artifacts/oracle60k (check_oracle). (c) the shrunken stream
+    and the 512-line cache on the headline: each meets the stopping rule.
+    (d) a memmap X stopped after 3 rounds and resumed: bitwise (a).
+    (e) one warm_f_rebuild pass over a stream_rows x 784 float32 memmap:
+    within rtol 1e-5 of the in-core blocked_kernel_matvec, its GB/s
+    against the pinned-copy rate, the fold's share of the pass.
+    Returns the launches per path."""
+    import torch
+
+    from dpsvm_tpu_torch import SVMConfig, solve, train
+    from dpsvm_tpu_torch.device import resolve_device
+    from dpsvm_tpu_torch.ops.kernels import (KernelParams,
+                                             blocked_kernel_matvec)
+    from dpsvm_tpu_torch.solver.warmstart import warm_f_rebuild
+
+    dev = resolve_device(None)
+    paths = {}
+    ocfg = cfg.replace(ooc=True, ooc_tile_rows=OOC_TILE)
+    want_b1 = {"solve_subproblem": lambda r: r}
+    model, res, counts, _ = counted("ooc headline",
+                                    lambda: train(x, y, ocfg), want_b1)
+    paths["ooc headline"] = counts
+    st = res.stats
+    bitwise = (np.array_equal(res.alpha, head_res.alpha)
+               and res.iterations == head_res.iterations)
+    print(f"[ooc] (a) headline: pairs={res.iterations} (in-core "
+          f"{head_res.iterations}) rounds={st['outer_rounds']} (in-core "
+          f"{head_res.stats['outer_rounds']}, its terminal round included) "
+          f"B1={counts['solve_subproblem']} tiles={st['tiles_streamed']} "
+          f"h2d={st['tile_bytes_h2d'] / 1e9:.3f} GB train_seconds="
+          f"{res.train_seconds:.4f} (in-core {head_res.train_seconds:.4f}) "
+          f"alpha bitwise the in-core solve's: {bitwise}", flush=True)
+    agree_gate("ooc (a) headline", model, head_model, x, res.converged)
+
+    omodel, ores, counts, _ = counted(
+        "ooc oracle", lambda: train(x, y, SVMConfig(
+            **ORACLE_RUN, ooc=True, ooc_tile_rows=OOC_TILE)), want_b1)
+    paths["ooc oracle"] = counts
+    check_oracle(omodel, ores, x, oracle, sk_dec, "ooc (b)")
+
+    for label, kw in (("shrink", dict(ooc_shrink=True)),
+                      ("cache512", dict(ooc_cache_lines=512))):
+        smodel, sres, counts, _ = counted(
+            f"ooc {label}", lambda: train(x, y, ocfg.replace(**kw)),
+            want_b1)
+        paths[f"ooc {label}"] = counts
+        criterion_met(f"ooc (c) {label}", sres, cfg.epsilon)
+        ss = sres.stats
+        print(f"[ooc] (c) {label}: pairs={sres.iterations} rounds="
+              f"{ss['outer_rounds']} tiles={ss['tiles_streamed']} "
+              f"skipped={ss.get('tiles_skipped', 0)} reconstructions="
+              f"{ss.get('shrink_reconstructions', 0)} cycles="
+              f"{ss.get('shrink_cycles', 0)} demoted="
+              f"{ss.get('shrink_demoted')} all-hit rounds="
+              f"{ss['cached_rounds']} hit rate {ss['cache_hit_rate']:.4f} "
+              f"train_seconds={sres.train_seconds:.4f}", flush=True)
+        agree_gate(f"ooc (c) {label} against the in-core headline",
+                   smodel, head_model, x, gate=False)
+
+    out = smoke_dir()
+    xm_path = os.path.join(out, "ooc_x.f32")
+    mm = np.memmap(xm_path, dtype=np.float32, mode="w+", shape=x.shape)
+    mm[:] = x
+    mm.flush()
+    del mm
+    xm = np.memmap(xm_path, dtype=np.float32, mode="r", shape=x.shape)
+    ck = _fresh(os.path.join(out, "ooc_resume.npz"))
+    rcfg = ocfg.replace(checkpoint_every=10 ** 9)
+    reset_counts()
+    part = solve(xm, y, rcfg, checkpoint_path=ck, callback=_abort_after(3))
+    resumed = solve(xm, y, rcfg, checkpoint_path=ck, resume=True)
+    paths["ooc resume"] = read_counts()
+    same = (resumed.iterations == res.iterations
+            and np.array_equal(resumed.alpha, res.alpha)
+            and np.array_equal(resumed.stats["f"], res.stats["f"])
+            and resumed.b_hi == res.b_hi and resumed.b_lo == res.b_lo)
+    print(f"[ooc] (d) memmap X stopped at {part.iterations} pairs "
+          f"({part.stats['outer_rounds']} rounds), resumed from "
+          f"{resumed.stats.get('resumed_from')}: {resumed.iterations} pairs, "
+          f"bitwise the uninterrupted ooc solve: {same}", flush=True)
+    if not same or part.converged:
+        raise AssertionError("[ooc] (d) the resumed memmap solve is not "
+                             "the uninterrupted one bit for bit")
+
+    d = x.shape[1]
+    sm_path = os.path.join(out, "ooc_stream.f32")
+    xs, write_s = write_stream_memmap(sm_path, stream_rows, d, seed=11)
+    nbytes = stream_rows * d * 4
+    print(f"[ooc] (e) wrote {stream_rows} x {d} float32 ({nbytes / 1e9:.3f} "
+          f"GB) in {write_s:.2f}s", flush=True)
+    ys = np.where(np.arange(stream_rows) % 2 == 0, 1, -1).astype(np.int32)
+    kp = KernelParams("rbf", 1.0 / (2 * d))  # exp(-1) at the mean distance
+    alpha = np.zeros(stream_rows)
+    alpha[np.arange(0, 2 * STREAM_SEED_ROWS, 2)] = 0.5  # y = +1 rows
+    passes = []
+    for _ in range(2):  # the second pass reads a warm page cache
+        t0 = time.perf_counter()
+        f = warm_f_rebuild(xs, ys, alpha, kp, tile_rows=OOC_TILE)
+        passes.append(time.perf_counter() - t0)
+    coef = (alpha * ys).astype(np.float32)
+    ref = blocked_kernel_matvec(np.asarray(xs), coef, kp, device=dev)
+    got = f + ys
+    rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    print(f"[ooc] (e) stream vs in-core blocked_kernel_matvec: max rel "
+          f"{rel:.3g} (K coef in [{float(ref.min()):.4g}, "
+          f"{float(ref.max()):.4g}])", flush=True)
+    if not rel <= 1e-5:
+        raise AssertionError(f"[ooc] (e) stream fold off by rel {rel:.3g}")
+    gbps = pinned_copy_gbps()
+    tiles = -(-stream_rows // OOC_TILE)
+    x_tile = torch.from_numpy(np.ascontiguousarray(xs[:OOC_TILE])).to(dev)
+    qx = torch.from_numpy(np.ascontiguousarray(
+        xs[:2 * STREAM_SEED_ROWS:2])).to(dev)
+    fold_ms = tiles * fold_only_ms(
+        x_tile, torch.zeros(len(x_tile), device=dev), qx,
+        torch.full((len(qx),), 0.5, device=dev), kp)
+    pass_ms = 1e3 * passes[-1]
+    bound_ms = nbytes / (gbps * 1e9) * 1e3
+    print(f"[ooc] (e) stream: pass {1e3 * passes[0]:.1f} ms cold, "
+          f"{pass_ms:.1f} ms warm = {nbytes / passes[-1] / 1e9:.2f} GB/s "
+          f"host->card; PCIe bound {bound_ms:.1f} ms at the pinned copy's "
+          f"{gbps:.2f} GB/s ({PCIE_COPY_BYTES >> 20} MiB copy_); folds "
+          f"{fold_ms:.1f} ms = {100 * fold_ms / pass_ms:.1f}% of the pass",
+          flush=True)
+    del xs, x_tile
+    os.remove(sm_path)
+    return paths
+
+
+def warm_increment(x, y, cfg, label: str, gate: bool) -> tuple:
+    """Rows 0-(WARM_BASE-1) trained on `cfg`, then the increment
+    concat(sv_x, the rest) cold and warm from seed_from_model; the warm
+    model against the cold one on all rows (gated when `gate`). Returns
+    (launches per path, the base model, the increment, the cold model,
+    the cold result)."""
+    from dpsvm_tpu_torch import train
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.solver.solve import solve
+    from dpsvm_tpu_torch.solver.warmstart import seed_from_model
+
+    want_b1 = {"solve_subproblem": lambda r: r}
+    paths = {}
+    base, _, paths[f"{label} base"], _ = counted(
+        f"{label} base", lambda: train(x[:WARM_BASE], y[:WARM_BASE], cfg),
+        want_b1)
+    x_inc = np.concatenate([np.asarray(base.sv_x, np.float32),
+                            x[WARM_BASE:]])
+    y_inc = np.concatenate([np.asarray(base.sv_y, np.int32), y[WARM_BASE:]])
+
+    def fit(tag, **kw):
+        def run():
+            r = solve(x_inc, y_inc, cfg, **kw)
+            return (SVMModel.from_dense(x_inc, y_inc, r.alpha, r.b,
+                                        base.kernel), r)
+        return counted(f"{label} {tag}", run, want_b1)
+
+    cmodel, cres, paths[f"{label} cold"], _ = fit("cold")
+    wmodel, wres, paths[f"{label} warm"], _ = fit(
+        "warm", warm_start=seed_from_model(base))
+    print(f"[{label}] increment {len(y_inc)} rows "
+          f"({base.sv_x.shape[0]} seed SVs of {WARM_BASE} + "
+          f"{len(y) - WARM_BASE} fresh), eps {cfg.epsilon}: pairs warm "
+          f"{wres.iterations} cold {cres.iterations} (saved "
+          f"{cres.iterations - wres.iterations}); rounds warm "
+          f"{wres.stats['outer_rounds']} cold {cres.stats['outer_rounds']}; "
+          f"train_seconds warm {wres.train_seconds:.4f} cold "
+          f"{cres.train_seconds:.4f}; seed "
+          f"{ {k: wres.stats['warm_start'][k] for k in ('seed_rows', 'clipped', 'residual')} }",
+          flush=True)
+    agree_gate(f"{label} warm vs cold", wmodel, cmodel, x, wres.converged,
+               gate=gate)
+    return paths, base, (x_inc, y_inc), cmodel
+
+
+def phase_warm(x, y, cfg, est_sweep, csv_path: str, head_model) -> dict:
+    """[warm] Warm starts, the cascade, the warm C sweep, the learning
+    loop and the CLI. The headline's increment (eps 0.01) is reported:
+    there a warm solve stops with seed SVs at small alpha that the cold
+    one never raised, so the SV counts part while the decisions agree.
+    The gates run at the oracle configuration's eps 5e-4 (WARM_RUN),
+    where the optimum's SV set is sharp: rows 0-(WARM_BASE-1), then the
+    increment concat(sv_x, the rest) warm from seed_from_model and cold,
+    SV count within 3% and signs at 99.8% on all rows; cascade_solve of
+    the increment (CASCADE_BLOCK-row blocks, and the learning loop's
+    4096) under the same gate against the cold one;
+    svc_c_sweep(warm=True) on the block engine against the fleet's
+    warm=False sweep at the same tolerance, every C under the gate (the
+    same against [estimators]' eps-0.01 sweep, reported); run_learn on a
+    synthetic 784-wide stream with the block engine, hot-swapped into a
+    ServingEngine, every probe served; `cli learn --smoke`; `cli train
+    --ooc` on [cli]'s CSV under gate (a). Returns the launches per
+    path."""
+    from dpsvm_tpu_torch import ServeConfig, SVMConfig
+    from dpsvm_tpu_torch import estimators as est_mod
+    from dpsvm_tpu_torch.learn import run_learn, synthetic_stream
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+    from dpsvm_tpu_torch.serving import ServingEngine
+    from dpsvm_tpu_torch.solver.cascade import cascade_solve
+    from dpsvm_tpu_torch.solver.warmstart import seed_from_model
+
+    paths, _, _, _ = warm_increment(x, y, cfg, "warm headline", gate=False)
+    wcfg = SVMConfig(**WARM_RUN)
+    more, base, (x_inc, y_inc), cmodel = warm_increment(
+        x, y, wcfg, "warm oracle", gate=True)
+    paths.update(more)
+
+    for block_rows in (CASCADE_BLOCK, 4096):
+        reset_counts()
+        t0 = time.perf_counter()
+        kres, kst = cascade_solve(x_inc, y_inc, wcfg,
+                                  seed=seed_from_model(base),
+                                  block_rows=block_rows)
+        wall = time.perf_counter() - t0
+        paths[f"warm cascade {block_rows}"] = counts = read_counts()
+        kmodel = SVMModel.from_dense(x_inc, y_inc, kres.alpha, kres.b,
+                                     base.kernel)
+        whole = "" if kst["blocks"] else " (the increment fits one)"
+        print(f"[warm] cascade, {block_rows}-row blocks: "
+              f"{len(kst['blocks'])} blocks{whole}, pairs "
+              f"{kst['total_iterations']} (blocks "
+              f"{[b['iterations'] for b in kst['blocks']]}, final "
+              f"{kst['final_iterations']}, merged SVs {kst['merged_sv']}) in "
+              f"{wall:.2f}s launches={counts}", flush=True)
+        if counts["solve_subproblem"] < kres.stats["outer_rounds"] or sum(
+                v for k, v in counts.items() if k != "solve_subproblem"):
+            raise AssertionError("[warm] the cascade did not run on B1 alone")
+        agree_gate(f"cascade {block_rows} vs flat", kmodel, cmodel, x,
+                   kres.converged)
+
+    xs = np.ascontiguousarray(x[:EST_ROWS])
+    ys = y[:EST_ROWS]
+    sweep_kw = dict(gamma=0.125, engine="block", working_set_size=256)
+    for tol, cold in ((0.01, est_sweep), (WARM_RUN["epsilon"], None)):
+        reset_counts()
+        t0 = time.perf_counter()
+        warm_fits = est_mod.svc_c_sweep(xs, ys, SWEEP_CS, warm=True,
+                                        tol=tol, **sweep_kw)
+        wall = time.perf_counter() - t0
+        paths[f"warm c_sweep tol {tol}"] = counts = read_counts()
+        if cold is None:
+            t1 = time.perf_counter()
+            cold = est_mod.svc_c_sweep(xs, ys, SWEEP_CS, gamma=0.125,
+                                       tol=tol)
+            print(f"[warm] svc_c_sweep(warm=False) tol {tol}: one fleet "
+                  f"in {time.perf_counter() - t1:.2f}s, pairs "
+                  f"{[f.fit_result_.iterations for f in cold]}", flush=True)
+        print(f"[warm] svc_c_sweep(warm=True) C={list(SWEEP_CS)} tol {tol} "
+              f"on the block engine: {wall:.2f}s pairs "
+              f"{[f.fit_result_.iterations for f in warm_fits]} launches="
+              f"{counts}", flush=True)
+        for wf, cf in zip(warm_fits, cold):
+            agree_gate(f"c_sweep C={wf.C} tol {tol} warm vs fleet",
+                       wf._binary_model, cf._binary_model, xs,
+                       wf.fit_result_.converged, gate=cold is not est_sweep)
+
+    lcfg = SVMConfig(c=1.0, gamma=1.0 / LEARN["d"], epsilon=1e-3,
+                     max_iter=2_000_000, engine="block", working_set_size=256)
+    lkp = KernelParams("rbf", 1.0 / LEARN["d"])
+    eng = ServingEngine(ServeConfig(buckets=(64,)))
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = run_learn(
+            synthetic_stream(LEARN["seed"], LEARN["d"], LEARN["rows"],
+                             LEARN["generations"], LEARN["drift"]),
+            lcfg, os.path.join(smoke_dir(), "learn_models"), lkp,
+            cold_baseline=True, engine=eng)
+        swaps = eng.hot_swaps.value
+    finally:
+        eng.close()
+    wall = time.perf_counter() - t0
+    paths["warm learn"] = counts = read_counts()
+    for g in summary["gens"]:
+        print(f"[warm] learn gen {g['gen']}: rows={g['rows']} seed_sv="
+              f"{g['seed_sv']} sv={g['sv']} pairs={g['pairs']} cold="
+              f"{g['pairs_cold']} saved={g['pairs_saved']} probe="
+              f"{g['probe_verdict']}", flush=True)
+    print(f"[warm] learn: {summary['generations']} generations in "
+          f"{wall:.2f}s, {summary['pairs_saved_total']} pairs saved against "
+          f"the cold baseline, {swaps} hot swaps, launches={counts}",
+          flush=True)
+    if (any(g["probe_verdict"] != "ok" for g in summary["gens"])
+            or swaps != LEARN["generations"] - 1
+            or counts["solve_subproblem"] == 0):
+        raise AssertionError("[warm] learn: a probe went unserved or no "
+                             "generation ran on B1")
+
+    reset_counts()
+    text = run_cli(["learn", "--smoke", "--model-dir",
+                    os.path.join(smoke_dir(), "learn_smoke")], "cli learn")
+    paths["warm cli learn"] = read_counts()
+    if "learn smoke PASS" not in text:
+        raise AssertionError("cli learn --smoke did not pass")
+    model_p = os.path.join(smoke_dir(), "cli_ooc.npz")
+    reset_counts()
+    text = run_cli(["train", "-f", csv_path, "-m", model_p, "-c", "10",
+                    "-g", "0.125", "-e", "0.01", "--engine", "block",
+                    "--working-set-size", "256", "--dtype", "bfloat16",
+                    "--ooc", "--ooc-tile-rows", str(OOC_TILE), "-q"],
+                   "cli ooc")
+    paths["warm cli ooc"] = counts = read_counts()
+    rounds = int(_grab(r"\((\d+) rounds\)", text, "cli ooc"))
+    if counts["solve_subproblem"] != rounds:
+        raise AssertionError(f"cli ooc: B1 {counts} over {rounds} rounds")
+    agree_gate("cli train --ooc", SVMModel.load(model_p), head_model, x,
+               "converged at iteration" in text)
+    return paths
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -3252,7 +3684,8 @@ def main() -> int:
     lap("precomputed")
     paths.update(phase_platt(x, x_mc, y_mc))
     lap("platt")
-    paths.update(phase_estimators(x, y, svr_models))
+    est_paths, est_sweep = phase_estimators(x, y, svr_models)
+    paths.update(est_paths)
     lap("estimators")
     paths.update(phase_cli_multiclass(x_mc, y_mc, x, y))
     lap("cli multiclass")
@@ -3264,6 +3697,17 @@ def main() -> int:
     print(f"[serve] kernel launches in the phase: {paths['serve']} (no "
           f"TPU kernel lies on the serving path)", flush=True)
     lap("serve")
+
+    # ---- 26, 27. out of core; warm starts, the cascade, the learning
+    # loop
+    print(f"[ooc] {smi}", flush=True)
+    paths.update(phase_ooc(x, y, cfg, head_model, head_res, oracle, sk_dec))
+    lap("ooc")
+    print(f"[warm] {smi}", flush=True)
+    paths.update(phase_warm(x, y, cfg, est_sweep,
+                            os.path.join(smoke_dir(), "train.csv"),
+                            head_model))
+    lap("warm")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",

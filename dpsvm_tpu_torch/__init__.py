@@ -13,7 +13,11 @@ PredictServer; the v2 engine, front door and replica fleet in serving/);
 every kernel of those paths hand-written in CUDA C++ (csrc/). Around them: CSV and LIBSVM data (data/), the host backends
 (solver/reference.py), solves observed chunk by chunk with checkpoints
 either package resumes (solver/chunks.py, utils/checkpoint.py) and
-float64 reconstruction legs (solver/reconstruct.py). Entry points run on
+float64 reconstruction legs (solver/reconstruct.py); out-of-core training
+with X on the host (solver/ooc.py), warm starts and the cascade
+(solver/warmstart.py, solver/cascade.py) and the continuous-learning
+loop (learn.py; like the JAX package, the package namespace exports none
+of these modules' names). Entry points run on
 the CUDA card unless the caller passes device="cpu" (or a CPU mesh).
 This package imports neither jax nor dpsvm_tpu.
 """

@@ -1,5 +1,6 @@
-"""Command-line entry points ``train``, ``test`` and ``serve`` (that
-subset of dpsvm_tpu/cli.py, same flag names, plus ``--device``).
+"""Command-line entry points ``train``, ``test``, ``serve`` and
+``learn`` (that subset of dpsvm_tpu/cli.py, same flag names, plus
+``--device``).
 
 Usage:
     python -m dpsvm_tpu_torch.cli train -f train.csv -m model.txt -c 10 \\
@@ -11,12 +12,16 @@ Usage:
         [--multiclass ovr|ovo --fleet-size 16] [-b 1] [-v 5]
         [--checkpoint ck.npz --checkpoint-every 4096 --checkpoint-keep 2
         --resume] [--chunk-iters 2048] [--bf16-gram] [-q]
+        [--ooc --ooc-tile-rows 8192 --ooc-cache-lines 512
+        --ooc-shrink auto|on|off --active-set-size 4096]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt \\
         [-o predictions.txt] [--precision auto|float32|float64] [-b 1]
     python -m dpsvm_tpu_torch.cli serve -m model.npz [--server-bench]
         | --registry NAME=model.npz [--listen 127.0.0.1:0 --replicas 2]
         [--journal registry.json] [--union-storage f32|bf16|int8|auto]
         [--device cuda]
+    python -m dpsvm_tpu_torch.cli learn [--smoke] [--stream s.npz]
+        [--serve] [--cold-baseline] [--device cpu]  (learn.py)
 
 A training file whose labels are not +-1 trains a multiclass bundle
 (.npz) by the OvR / OvO reduction; --kernel precomputed reads the square
@@ -38,6 +43,14 @@ def _build_parser() -> argparse.ArgumentParser:
         prog="dpsvm-tpu-torch",
         description="SMO SVM trainer (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command", required=True)
+    # `learn ...` is forwarded to learn.run_cli before parsing (main);
+    # this entry lists it in --help.
+    sub.add_parser(
+        "learn", add_help=False,
+        help="continuous-learning loop (learn.py): retrain each increment "
+             "warm-started from the previous generation's support vectors "
+             "and hot-swap every generation into a serving engine; "
+             "`learn --smoke` is the CI shape, `learn --help` the flags")
     p = sub.add_parser("train", help="train an SVM with modified SMO")
     p.add_argument("-f", "--file-path", required=True,
                    help="training data: CSV (label,f1,...,fd) or sparse "
@@ -165,6 +178,30 @@ def _build_parser() -> argparse.ArgumentParser:
                         "perturbation bound accepts (C * p90|dK| <= "
                         "0.1); a refusal stays float32 and says so "
                         "(SVMConfig.bf16_gram)")
+    p.add_argument("--ooc", action="store_true",
+                   help="out-of-core training (block engine): X stays in "
+                        "host memory and each round's fold streams over "
+                        "double-buffered host->device tiles "
+                        "(SVMConfig.ooc; solver/ooc.py)")
+    p.add_argument("--ooc-tile-rows", type=int, default=8192,
+                   help="--ooc: rows per streamed X tile (default 8192)")
+    p.add_argument("--ooc-cache-lines", type=int, default=0,
+                   help="--ooc: lines of the device cache of dot rows "
+                        "keyed by training row (LRU; a round whose whole "
+                        "working set hits streams nothing). 0 = off; "
+                        "must be >= --working-set-size")
+    p.add_argument("--ooc-shrink", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="--ooc: the shrunken tile stream (in-cycle rounds "
+                        "stream only the tiles of an active view of the m "
+                        "most-violating rows, with full reconstructions "
+                        "and the endgame demotion; auto = off until an "
+                        "H100 gate decides)")
+    p.add_argument("--active-set-size", type=int, default=0,
+                   help="with --ooc: m, the size of the shrunken "
+                        "stream's active view (0 = auto-sized); without "
+                        "--ooc the active-set engine, not ported (ROADMAP "
+                        "queue A item 4)")
     p.add_argument("--chunk-iters", type=int, default=2048,
                    help="pair updates per observed chunk (block engines: "
                         "chunk-iters // inner rounds)")
@@ -408,7 +445,10 @@ def _cmd_train(args) -> int:
             local_working_sets=args.local_working_sets or None,
             sync_rounds=args.sync_rounds,
             ring_exchange=_TRI[args.ring_exchange],
-            bf16_gram=args.bf16_gram, chunk_iters=args.chunk_iters,
+            bf16_gram=args.bf16_gram, active_set_size=args.active_set_size,
+            ooc=args.ooc, ooc_tile_rows=args.ooc_tile_rows,
+            ooc_cache_lines=args.ooc_cache_lines,
+            ooc_shrink=_TRI[args.ooc_shrink], chunk_iters=args.chunk_iters,
             checkpoint_every=args.checkpoint_every,
             checkpoint_keep=args.checkpoint_keep, verbose=not args.quiet)
         config.check_ported()
@@ -1324,6 +1364,12 @@ def _serve_listen(args, engine, stop_event=None) -> int:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["learn"]:
+        # Forwarded verbatim: learn.py owns the flags of the loop.
+        from dpsvm_tpu_torch.learn import run_cli
+
+        return run_cli(argv[1:])
     args = _build_parser().parse_args(argv)
     if args.command == "train":
         return _cmd_train(args)

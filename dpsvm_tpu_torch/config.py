@@ -84,9 +84,15 @@ class SVMConfig:
     # (ops/kernels.py resolve_bf16_gram) accepts; a refusal stays float32
     # and says so in stats["bf16_gram"] and a warning.
     bf16_gram: bool = False
-    # Knobs of engines that are not ported yet (see check_ported).
+    # The active-set engine (not ported: check_ported) and, with ooc,
+    # the size of the shrunken tile stream's active view.
     active_set_size: int = 0
     reconcile_rounds: int = 8
+    # Out-of-core training (solver/ooc.py): X stays on the host and each
+    # round's fold streams over (ooc_tile_rows, d) tiles through two
+    # pinned buffers; ooc_cache_lines > 0 keeps an (L, n) cache of dot
+    # rows on the device; ooc_shrink streams only the tiles of an active
+    # view (None = auto: off, no H100 gate yet; True / False force it).
     ooc: bool = False
     ooc_tile_rows: int = 8192
     ooc_cache_lines: int = 0
@@ -398,9 +404,6 @@ class SVMConfig:
             ("reconcile_rounds",
              "the active-set engines: ROADMAP queue A item 4, and item 10b on "
              "the mesh"),
-            ("ooc_tile_rows", "ROADMAP queue A item 8"),
-            ("ooc_cache_lines", "ROADMAP queue A item 8"),
-            ("ooc_shrink", "ROADMAP queue A item 8"),
             ("obs", "ROADMAP queue A item 11"),
         )
         for name, item in jax_only:
@@ -414,10 +417,12 @@ class SVMConfig:
         engine the port does not have yet; the message names the
         ROADMAP.md item that ports it."""
         unported = (
-            (self.active_set_size > 0,
+            # With ooc, active_set_size sizes the shrunken stream's view
+            # (solver/ooc.py); without it, it asks for the active-set
+            # engine.
+            (self.active_set_size > 0 and not self.ooc,
              "active_set_size>0 (the active-set engine: ROADMAP queue A "
              "item 4)"),
-            (self.ooc, "ooc=True (ROADMAP queue A item 8)"),
         )
         for bad, what in unported:
             if bad:

@@ -382,21 +382,17 @@ def svc_c_sweep(X, y, Cs, warm=False, **svc_params) -> list:
     precomputed kernels are refused. One device by construction:
     backend must be 'single', or 'auto' on a one-card host.
 
-    ``warm=True`` (the regularization-path walk, each C seeded from the
-    previous one's alphas) needs solver/warmstart.py, which is not
-    ported: it raises NotImplementedError (ROADMAP queue A item 8)."""
+    ``warm=True`` is the regularization-path walk: the Cs are visited in
+    ascending order on one device, each solve seeded from the previous
+    C's alphas (solver/warmstart.py repairs the seed into the new box
+    and rebuilds its gradient in one streamed pass), in place of the
+    fleet; any engine runs it. Results still come back in `Cs` order."""
     from dpsvm_tpu_torch.models.svm_model import SVMModel
     from dpsvm_tpu_torch.ops.kernels import KernelParams
     from dpsvm_tpu_torch.solver.fleet import (FleetProblem, fleet_chunks,
                                               fleet_routing_reasons,
                                               solve_fleet)
 
-    if warm:
-        raise NotImplementedError(
-            "svc_c_sweep(warm=True) seeds each C from the previous one "
-            "through solver/warmstart.py, which is not ported to "
-            "dpsvm_tpu_torch yet (ROADMAP queue A item 8); warm=False "
-            "runs the sweep through the fleet")
     Cs = [float(c) for c in Cs]
     if not Cs:
         raise ValueError("Cs must be non-empty")
@@ -417,7 +413,8 @@ def svc_c_sweep(X, y, Cs, warm=False, **svc_params) -> list:
                 f"backend={template.backend!r} on this host would "
                 "de-shard the solves — pass backend='single' to accept "
                 "the single-chip sweep, or fit per-C with SVC")
-    reasons = fleet_routing_reasons(_base_config(template, 1.0))
+    reasons = [] if warm else fleet_routing_reasons(
+        _base_config(template, 1.0))
     if reasons:
         raise ValueError(
             "svc_c_sweep cannot route this config through the fleet "
@@ -436,10 +433,27 @@ def svc_c_sweep(X, y, Cs, warm=False, **svc_params) -> list:
     cfg = _base_config(template, _resolve_gamma(template.gamma, X))
     kp = KernelParams(cfg.kernel, cfg.resolve_gamma(X.shape[1]),
                       cfg.degree, cfg.coef0)
-    problems = [FleetProblem(y=y_pm, c=c, tag=("C", c)) for c in Cs]
-    results = []
-    for chunk in fleet_chunks(problems, cfg.fleet_size):
-        results.extend(solve_fleet(X, chunk, cfg, device=template.device))
+    if warm:
+        # Ascending C: the previous optimum sits inside the next (larger)
+        # box, so the repair only absorbs rounding.
+        from dpsvm_tpu_torch.solver.solve import solve
+        from dpsvm_tpu_torch.solver.warmstart import WarmStart
+
+        results = [None] * len(Cs)
+        prev_alpha = None
+        for pos in np.argsort(Cs, kind="stable"):
+            ws = (WarmStart(alpha=prev_alpha)
+                  if prev_alpha is not None and prev_alpha.any() else None)
+            res = solve(X, y_pm, cfg.replace(c=Cs[pos]),
+                        device=template.device, warm_start=ws)
+            prev_alpha = np.asarray(res.alpha, np.float64)
+            results[pos] = res
+    else:
+        problems = [FleetProblem(y=y_pm, c=c, tag=("C", c)) for c in Cs]
+        results = []
+        for chunk in fleet_chunks(problems, cfg.fleet_size):
+            results.extend(solve_fleet(X, chunk, cfg,
+                                       device=template.device))
     fitted = []
     for c, res in zip(Cs, results):
         est = SVC(C=c, **svc_params)

@@ -214,3 +214,18 @@ def refresh_extrema_host(f, alpha, y, c, epsilon: float, rule: str = "mvp"):
     (b_hi, b_lo, converged) exactly from the pulled final state."""
     b_hi, b_lo = extrema_np(f, alpha, y, c, rule)
     return b_hi, b_lo, not (b_lo > b_hi + 2.0 * epsilon)
+
+
+def shrink_view(w, slot_ok, n: int, n_pad: int, tile: int):
+    """The host-side active view of a shrink cycle (the ooc shrunken
+    stream, solver/ooc.py). `w` / `slot_ok` are the pulled (m,) outputs
+    of a select_block with q = m: the m most-violating rows. Returns
+    (active, live_tiles): an (n_pad,) bool mask over the selected REAL
+    rows (dead slots and ids past n dropped) and the sorted unique
+    indices of the `tile`-row stream tiles the view intersects, the only
+    tiles an in-cycle round streams."""
+    ids = np.asarray(w)[np.asarray(slot_ok, bool)]
+    ids = ids[(ids >= 0) & (ids < n)]
+    active = np.zeros((n_pad,), bool)
+    active[ids] = True
+    return active, np.unique(ids // tile)

@@ -78,7 +78,8 @@ def _refuse_unported(config: SVMConfig) -> None:
 def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
                mesh: Optional[Mesh] = None, callback=None,
                checkpoint_path: Optional[str] = None, resume: bool = False,
-               alpha_init=None, f_init=None) -> SolveResult:
+               alpha_init=None, f_init=None,
+               warm_start=None) -> SolveResult:
     """Train binary C-SVC row-sharded over the mesh.
 
     `mesh=None` takes the visible CUDA cards (the first `num_devices` of
@@ -86,10 +87,10 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     runs four logical shards on one card; ``Mesh(["cpu"] * 2)`` runs the
     plain PyTorch path. stats["mesh_devices"] lists the devices by rank.
     `callback`, `checkpoint_path` and `resume` follow solve()'s contract
-    (solver/solve.py). Warm starts (`alpha_init` / `f_init`) and
-    selection="nu", which the model families need, reconstruction legs
-    and checkpoints of the shard-local runner are refused (ROADMAP queue
-    A item 10b).
+    (solver/solve.py). Warm starts (`alpha_init` / `f_init`,
+    `warm_start`) and selection="nu", which the model families need,
+    the out-of-core stream (ooc), reconstruction legs and checkpoints of
+    the shard-local runner are refused (ROADMAP queue A item 10b).
     """
     if config.engine not in ("xla", "block"):
         raise ValueError(
@@ -104,6 +105,11 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
             "parallel/dist_block.py); the per-pair mesh engine would "
             "move a full (n,) Gram row per pair update — use "
             "engine='block' or backend='single'")
+    if warm_start is not None:
+        raise NotImplementedError(
+            "warm_start on the mesh (the one-psum warm rebuild, "
+            "warm_rebuild_mesh) is not ported (ROADMAP queue A item 10b); "
+            "warm starts run on one device (backend='single')")
     if alpha_init is not None or f_init is not None \
             or config.selection == "nu":
         raise NotImplementedError(

@@ -111,3 +111,50 @@ def lookup_one(cache: CacheState, x: torch.Tensor, i: int,
     cache.keys[slot] = i
     cache.ticks[slot] = stamp
     return cache.data[slot], hit
+
+
+# ---------------------------------------------------------------------
+# The block form (the out-of-core solver's, solver/ooc.py): the same
+# lines probed and refreshed for a whole q-slot working set at once. An
+# all-hit round reads its Gram block and fold rows from the device lines
+# and streams no tile. Keys and ticks stay on the host, rows on the
+# device.
+
+def probe_rows(keys: np.ndarray, w: np.ndarray, slot_ok: np.ndarray):
+    """Which working-set slots hold a cached row: (hit (q,) bool,
+    hit_slot (q,) int32, junk where ~hit). keys (L,), w (q,) and slot_ok
+    (q,) are host arrays; dead slots never hit."""
+    hit_mat = keys[None, :] == np.asarray(w)[:, None]  # (q, L)
+    hit = hit_mat.any(axis=1) & np.asarray(slot_ok, bool)
+    return hit, hit_mat.argmax(axis=1).astype(np.int32)
+
+
+def refresh_rows(cache: CacheState, w: np.ndarray, slot_ok: np.ndarray,
+                 rows: torch.Tensor, stamp: int) -> tuple:
+    """Write a round's freshly streamed dot rows into the lines, in place
+    (the JAX package's scatter refresh): a hit rewrites its own line,
+    each live miss takes one of the q least recently used lines (ticks
+    ascending, ties to the lower line; lines a hit refreshes are never
+    victims), and every written line is stamped `stamp`. Needs L >= q
+    (SVMConfig validates ooc_cache_lines). rows (q, n) on the device;
+    dead slots write nothing. Returns (n_hits, n_evictions): an eviction
+    is a live miss landing on a line that held a real key."""
+    w = np.asarray(w)
+    slot_ok = np.asarray(slot_ok, bool)
+    q = w.shape[0]
+    hit, hit_slot = probe_rows(cache.keys, w, slot_ok)
+    ticks_m = cache.ticks.copy()
+    ticks_m[hit_slot[hit]] = _I32_MAX
+    victims = np.argsort(ticks_m, kind="stable")[:q]
+    miss = slot_ok & ~hit
+    miss_rank = np.cumsum(miss) - 1
+    slot = np.where(hit, hit_slot,
+                    victims[np.clip(miss_rank, 0, q - 1)]).astype(np.int64)
+    n_evict = int(np.sum(miss & (cache.keys[slot] >= 0)))
+    live = np.flatnonzero(slot_ok)
+    lines = slot[live]
+    cache.data[torch.as_tensor(lines, device=cache.data.device)] = rows[
+        torch.as_tensor(live, device=rows.device)]
+    cache.keys[lines] = w[live]
+    cache.ticks[lines] = stamp
+    return int(hit.sum()), n_evict

@@ -56,7 +56,8 @@ def pair_end(config: SVMConfig, observe: bool, it: int) -> int:
 class Start:
     """A solve's start point on the host over its n real rows: alpha,
     f, the Kahan residual (None uncompensated), the carried extrema and
-    the pair and round counters."""
+    the pair and round counters; `resumed` when it came from a
+    checkpoint, with the file's shrink keys (solver/ooc.py)."""
 
     alpha: np.ndarray
     f: np.ndarray
@@ -65,6 +66,10 @@ class Start:
     b_lo: float = np.inf
     pairs: int = 0
     rounds: int = 0
+    resumed: bool = False
+    shrink_demoted: bool = False
+    shrink_gap: Optional[float] = None
+    shrink_stall: int = 0
 
     def padded(self, n_pad: int) -> tuple:
         """(alpha, f, f_err) over n_pad rows; the padded rows (y = 1)
@@ -103,7 +108,8 @@ def start_state(y, config: SVMConfig, checkpoint_path=None,
         else:
             f = (f - np.asarray(st.f_err, np.float32)).astype(np.float32)
     return Start(np.asarray(st.alpha, np.float32), f, err, float(st.b_hi),
-                 float(st.b_lo), int(st.iteration), int(st.rounds))
+                 float(st.b_lo), int(st.iteration), int(st.rounds), True,
+                 st.shrink_demoted, st.shrink_gap, st.shrink_stall)
 
 
 class NonFiniteTrajectory(FloatingPointError):

@@ -328,7 +328,7 @@ def _finish(alpha_dev, f_dev, n: int, y_np, config: SVMConfig,
 
 def solve(x, y, config: SVMConfig, device=None, callback=None,
           checkpoint_path=None, resume: bool = False, alpha_init=None,
-          f_init=None, pad_to=None) -> SolveResult:
+          f_init=None, pad_to=None, warm_start=None) -> SolveResult:
     """Train binary C-SVC on one device with the engine config.engine
     names: "block" (and its fused variants), or the per-pair engines
     "xla" (with the row cache, the resident Gram and micro-batching) and
@@ -370,7 +370,28 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
     round's K(W, W) is a column gather of the gathered rows.
     gram_resident=True runs the block or xla engine on the (n, n) Gram
     of X, built once (memoized across solves on the same host X, as is
-    X's upload: _XDEV_MEMO, _GRAM_MEMO)."""
+    X's upload: _XDEV_MEMO, _GRAM_MEMO).
+
+    `warm_start` (solver/warmstart.py WarmStart) seeds the solve from a
+    previous model or alpha vector: repaired into this config's box and
+    equality constraint, its gradient rebuilt in one streamed pass over
+    X, then passed on as alpha_init / f_init (not both). A seed that
+    repairs to zeros runs the cold path bit for bit; stats["warm_start"]
+    reports the repair. config.ooc keeps X on the host and streams it
+    (solver/ooc.py solve_ooc; `x` may be an np.memmap)."""
+    if warm_start is not None:
+        if alpha_init is not None or f_init is not None:
+            raise ValueError(
+                "pass either warm_start or alpha_init/f_init, not both")
+        from dpsvm_tpu_torch.solver.warmstart import prepare_warm_start
+
+        a0, f0, wstats = prepare_warm_start(x, y, config, warm_start,
+                                            device=device)
+        res = solve(x, y, config, device=device, callback=callback,
+                    checkpoint_path=checkpoint_path, resume=resume,
+                    alpha_init=a0, f_init=f0, pad_to=pad_to)
+        res.stats["warm_start"] = wstats
+        return res
     if config.selection == "nu" and alpha_init is None:
         # The nu rule pairs within one class; from the C-SVC zero start no
         # class has both an I_up and an I_low member, so the gap would
@@ -379,6 +400,12 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
             "selection='nu' is internal to the nu duals — call "
             "train_nusvc/train_nusvr (models/nusvm.py) instead")
     config.check_ported()
+    if config.ooc:
+        from dpsvm_tpu_torch.solver.ooc import solve_ooc
+
+        return solve_ooc(x, y, config, callback=callback, device=device,
+                         checkpoint_path=checkpoint_path, resume=resume,
+                         alpha_init=alpha_init, f_init=f_init, pad_to=pad_to)
     if config.reconstruct_every:
         from dpsvm_tpu_torch.solver.reconstruct import solve_in_legs
 

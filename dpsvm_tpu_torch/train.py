@@ -19,19 +19,23 @@ def resolve_backend(backend: str, config: SVMConfig, device=None,
     is named and more than one card is visible (or asked for), and only
     where the mesh runs the request: engine="block" with a cold start
     (`warm` False; the mesh runs no warm start and no nu rule) and no
-    reconstruction legs. Otherwise the single device. An explicit "mesh"
-    stands: solve_mesh refuses what the mesh does not run. The host
-    backends are the NumPy oracle and the native sequential engine."""
+    reconstruction legs, no out-of-core stream. Otherwise the single
+    device. An explicit "mesh" stands: solve_mesh refuses what the mesh
+    does not run (ooc names ROADMAP queue A item 10b). The host backends
+    are the NumPy oracle and the native sequential engine."""
     if backend == "auto":
         import torch
 
         multi = (device is None
                  and (num_devices or torch.cuda.device_count()) > 1)
         # The mesh runs the block engine only; auto must not swap a
-        # per-pair request for another engine.
+        # per-pair request for another engine. It has no ooc stream yet
+        # (item 10b; the JAX package's auto keeps only the ooc cache and
+        # shrunken stream on one device).
         backend = ("mesh" if (multi or mesh is not None)
                    and config.engine == "block" and not warm
-                   and not config.reconstruct_every else "single")
+                   and not config.reconstruct_every
+                   and not config.ooc else "single")
     if backend not in ("single", "mesh", "reference", "native"):
         raise ValueError(f"unknown backend {backend!r}")
     return backend
@@ -110,7 +114,7 @@ def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "auto",
     solver/solve.py solve's contract; on the host backends the callback
     gets one final record."""
     backend = resolve_backend(backend, config, device, num_devices, mesh)
-    x = np.asarray(x, np.float32)
+    x = np.asarray(x, np.float32)  # a float32 memmap stays a lazy view
     y = np.asarray(y, np.int32)
     labels = set(np.unique(y).tolist())
     if labels != {-1, 1}:

@@ -13,6 +13,11 @@ The solver state is {alpha, f, iteration, b_hi, b_lo} plus the config
   compensated resume continues the uninterrupted carry exactly; a file
   without ``f_err`` behaves like v1. The port writes v2 with raw ``f``,
   ``f_err`` when compensated, and ``rounds`` on the block engines.
+  The out-of-core solver's shrunken stream (solver/ooc.py) rides three
+  OPTIONAL keys on the same version: ``shrink_demoted`` (the endgame
+  demotion is permanent), ``shrink_gap`` (the last cycle-start gap,
+  the stall test's baseline) and ``shrink_stall`` (the count of stalled
+  cycles in a row). A file without them means "not shrinking".
 
 DURABILITY: every write goes to a tmp file that is fsynced BEFORE the
 rename publishes its name, and the directory is fsynced AFTER it, so
@@ -58,6 +63,9 @@ class CheckpointState(NamedTuple):
     f_err: Optional[np.ndarray]
     rounds: int
     format_version: int
+    shrink_demoted: bool = False
+    shrink_gap: Optional[float] = None
+    shrink_stall: int = 0
 
 
 def fsync_dir(path: str) -> None:
@@ -80,10 +88,13 @@ def fsync_dir(path: str) -> None:
 
 def save_checkpoint(path: str, alpha, f, iteration: int, b_hi: float,
                     b_lo: float, config: SVMConfig, *, f_err=None,
-                    rounds: Optional[int] = None) -> None:
+                    rounds: Optional[int] = None,
+                    shrink_demoted: Optional[bool] = None,
+                    shrink_gap: Optional[float] = None,
+                    shrink_stall: Optional[int] = None) -> None:
     """Atomic durable write (tmp + fsync + rename + dir fsync).
-    ``f_err`` / ``rounds`` are the v2 extras; omitted ones are absent
-    from the file."""
+    ``f_err`` / ``rounds`` and the three shrink keys are the v2 extras;
+    omitted ones are absent from the file."""
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
@@ -101,6 +112,12 @@ def save_checkpoint(path: str, alpha, f, iteration: int, b_hi: float,
             payload["f_err"] = np.asarray(f_err, np.float32)
         if rounds is not None:
             payload["rounds"] = np.int64(rounds)
+        if shrink_demoted is not None:
+            payload["shrink_demoted"] = np.bool_(shrink_demoted)
+        if shrink_gap is not None:
+            payload["shrink_gap"] = np.float64(shrink_gap)
+        if shrink_stall is not None:
+            payload["shrink_stall"] = np.int64(shrink_stall)
         with os.fdopen(fd, "wb") as fh:
             np.savez_compressed(fh, **payload)
             # The tmp file's bytes must be on disk before the rename
@@ -138,6 +155,12 @@ def load_checkpoint_state(path: str) -> CheckpointState:
                else None),
         rounds=int(z["rounds"]) if "rounds" in z.files else 0,
         format_version=version,
+        shrink_demoted=(bool(z["shrink_demoted"])
+                        if "shrink_demoted" in z.files else False),
+        shrink_gap=(float(z["shrink_gap"])
+                    if "shrink_gap" in z.files else None),
+        shrink_stall=(int(z["shrink_stall"])
+                      if "shrink_stall" in z.files else 0),
     )
 
 
@@ -292,11 +315,15 @@ class PeriodicCheckpointer:
 
     def save(self, iteration: int, alpha, f, b_hi: float, b_lo: float,
              force: bool = False, f_err=None,
-             rounds: Optional[int] = None) -> bool:
+             rounds: Optional[int] = None,
+             shrink_demoted: Optional[bool] = None,
+             shrink_gap: Optional[float] = None,
+             shrink_stall: Optional[int] = None) -> bool:
         """Save when the cadence is due, or unconditionally with
         ``force`` (abort exits: the state being stopped at must not
-        exist only in memory). ``f_err``/``rounds`` ride through to the
-        v2 payload when the caller carries them.
+        exist only in memory). ``f_err``/``rounds`` and the shrink keys
+        (``shrink_demoted``, ``shrink_gap``, ``shrink_stall``) ride
+        through to the v2 payload when the caller carries them.
 
         Non-finite state is never persisted: the block engines' observed
         extrema lag the fold by one round, so the round that blows up the
@@ -319,7 +346,9 @@ class PeriodicCheckpointer:
             return False
         self._rotate()
         save_checkpoint(self.path, alpha, f, iteration, b_hi, b_lo,
-                        self.config, f_err=f_err, rounds=rounds)
+                        self.config, f_err=f_err, rounds=rounds,
+                        shrink_demoted=shrink_demoted, shrink_gap=shrink_gap,
+                        shrink_stall=shrink_stall)
         self.last = iteration
         return True
 

@@ -480,19 +480,25 @@ def test_jax_only_keys_at_defaults_load(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(reconcile_rounds=3), "item 10b"),
-    (dict(ooc=True, engine="block", ooc_tile_rows=64), "item 8"),
+    # ooc is ported (item 8): the file loads (item None).
+    (dict(ooc=True, engine="block", ooc_tile_rows=64), None),
 ])
 def test_jax_only_keys_off_default_refuse(tmp_path, kw, item):
     p = str(tmp_path / "j.npz")
     jck.save_checkpoint(p, np.zeros(3, np.float32), np.zeros(3, np.float32),
                         1, 0.0, 0.0, JaxConfig(**kw))
+    if item is None:
+        st = load_checkpoint_state(p)
+        assert st.config.ooc and st.config.ooc_tile_rows == 64
+        return
     with pytest.raises(NotImplementedError, match=item):
         load_checkpoint_state(p)
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(reconcile_rounds=3), "item 10b"),
-    (dict(ooc=True, engine="block", ooc_tile_rows=64), "item 8"),
+    # ooc is ported (item 8): an ooc solve resumes the file (item None).
+    (dict(ooc=True, engine="block", ooc_tile_rows=64), None),
 ])
 def test_jax_only_keys_off_default_refuse_resume(tmp_path, kw, item):
     """Resuming such a file refuses at once, naming the item; it is not
@@ -504,6 +510,12 @@ def test_jax_only_keys_off_default_refuse_resume(tmp_path, kw, item):
                         1, 0.0, 0.0, JaxConfig(**kw))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        if item is None:
+            res = cpu_solve(np.zeros((3, 2), np.float32),
+                            np.array([1, -1, 1]), SVMConfig(**kw),
+                            checkpoint_path=p, resume=True)
+            assert res.stats["ooc"] and res.stats["resumed_from"] == 1
+            return
         with pytest.raises(NotImplementedError, match=item):
             cpu_solve(np.zeros((3, 2), np.float32), np.array([1, -1, 1]),
                       CFG, checkpoint_path=p, resume=True)

@@ -221,6 +221,56 @@ def test_bf16_gram_flag(data, tmp_path, capsys):
     assert "use one or the other" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("flags", [
+    ["--ooc", "--ooc-tile-rows", "64"],
+    ["--ooc", "--ooc-tile-rows", "64", "--ooc-cache-lines", "64"],
+    ["--ooc", "--ooc-tile-rows", "32", "--ooc-shrink", "on",
+     "--active-set-size", "64"],
+], ids=["ooc", "cache", "shrink"])
+def test_ooc_flags_train_like_the_api_and_jax(data, tmp_path, capsys, flags):
+    """--ooc and its knobs reach SVMConfig: the CLI model is the API's
+    ooc solve bit for bit, and within the contract of the JAX CLI's."""
+    from dpsvm_tpu_torch import SVMConfig, train
+
+    x, y, csv, _ = data
+    block = ["--engine", "block", "--working-set-size", "16", "-g", "0.2"]
+    m, jm = str(tmp_path / "m.npz"), str(tmp_path / "jm.npz")
+    _train(cli.main, csv, m, block + flags, ("--device", "cpu"))
+    _train(jax_cli.main, csv, jm, block + flags)
+    kw = dict(ooc=True, ooc_tile_rows=int(flags[2]))
+    if "--ooc-cache-lines" in flags:
+        kw["ooc_cache_lines"] = 64
+    if "--ooc-shrink" in flags:
+        kw.update(ooc_shrink=True, active_set_size=64)
+    api, res = train(x, y, SVMConfig(c=1.0, epsilon=1e-3, gamma=0.2,
+                                     engine="block", working_set_size=16,
+                                     **kw), device="cpu")
+    assert res.stats["ooc"]
+    got, want = SVMModel.load(m), SVMModel.load(jm)
+    np.testing.assert_array_equal(got.dual_coef, api.dual_coef)
+    assert got.b == np.float32(api.b)
+    assert abs(got.sv_x.shape[0] - want.sv_x.shape[0]) <= max(
+        1, 0.02 * want.sv_x.shape[0])
+    assert abs(got.b - want.b) <= 5e-3
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--active-set-size", "64", "--engine", "block"], "item 4"),
+    (["--ooc", "--engine", "xla"], "block-engine path"),
+    (["--ooc-shrink", "on", "--engine", "block"], "set ooc=True"),
+    (["--ooc", "--engine", "block", "--backend", "mesh", "--num-devices",
+      "2"], "item 10b"),
+])
+def test_ooc_refusals(data, tmp_path, capsys, argv, match):
+    """The active-set engine without --ooc names item 4, --ooc on the
+    mesh names item 10b, and bad combinations say what SVMConfig says."""
+    _, _, csv, _ = data
+    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"), "-q",
+                   "--device", "cpu", *argv])
+    assert rc == 2
+    assert match in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--retry-faults", "0"], "item 11"),
     (["-t", "nu-svc", "-w1", "2"], "not applicable"),

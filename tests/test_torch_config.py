@@ -61,12 +61,15 @@ def test_invalid_values_raise_like_jax(kw):
         SVMConfig(**kw)
 
 
+# The ooc cases that stood here run since ooc was ported (they moved to
+# LIFTED); their places hold the JAX-only knobs that still refuse.
 UNPORTED = [
-    dict(ooc=True, selection="second_order"),
+    dict(reconcile_rounds=4, selection="second_order"),
     dict(selection="second_order", active_set_size=64),
-    dict(pair_batch=2, ooc=True),
+    dict(pair_batch=2, reconcile_rounds=2),
     dict(fused_fold=True, active_set_size=64),
-    dict(active_set_size=64), dict(ooc=True),
+    dict(active_set_size=64),
+    dict(obs={"enabled": True, "trace_dir": None, "runlog_dir": None}),
 ]
 
 # Knobs whose engines this port now has: check_ported passes them, and a
@@ -77,6 +80,8 @@ LIFTED = [
     dict(pipeline_rounds=True, gram_resident=True),
     dict(gram_resident=True), dict(gram_resident=True, compensated=True),
     dict(kernel="precomputed"), dict(engine="xla", fleet_size=4),
+    dict(ooc=True, selection="second_order"), dict(pair_batch=2, ooc=True),
+    dict(ooc=True, ooc_tile_rows=16, active_set_size=16),
 ]
 
 
@@ -222,18 +227,27 @@ def test_mesh_knob_validation_matches_jax(kw, match):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(engine="block", active_set_size=64), "item 4"),
-    (dict(engine="block", ooc=True), "item 8"),
+    # ooc runs on one device since item 8; on the mesh it names 10b.
+    (dict(engine="block", ooc=True), "item 10b"),
 ])
 def test_still_refused_knobs_name_their_roadmap_item(kw, item):
+    from dpsvm_tpu_torch.parallel.dist_smo import _refuse_unported
+
+    cfg = SVMConfig(**kw)
     with pytest.raises(NotImplementedError, match=item):
-        SVMConfig(**kw).check_ported()
+        if cfg.ooc:
+            cfg.check_ported()  # one device runs it
+            _refuse_unported(cfg)
+        else:
+            cfg.check_ported()
 
 
 JAX_ONLY = [
     (dict(reconcile_rounds=4), "item 10b"),
-    (dict(ooc=True, ooc_tile_rows=1024, engine="block"), "item 8"),
-    (dict(ooc=True, ooc_cache_lines=256, engine="block"), "item 8"),
-    (dict(ooc=True, ooc_shrink=True, engine="block"), "item 8"),
+    # The ooc fields are ported (item 8): accepted, item None.
+    (dict(ooc=True, ooc_tile_rows=1024, engine="block"), None),
+    (dict(ooc=True, ooc_cache_lines=256, engine="block"), None),
+    (dict(ooc=True, ooc_shrink=True, engine="block"), None),
     (dict(obs={"enabled": True, "trace_dir": None, "runlog_dir": None}),
      "item 11"),
 ]
@@ -242,10 +256,14 @@ JAX_ONLY = [
 @pytest.mark.parametrize("kw,item", JAX_ONLY)
 def test_jax_only_fields_refuse_naming_their_item(kw, item):
     """Fields the port carries only so configs load: any value but the
-    default is refused with the ROADMAP item that ports them. (The ooc
-    cases refuse ooc itself first; check_jax_only names the field.)"""
+    default is refused with the ROADMAP item that ports them. The ooc
+    fields, ported since item 8, pass both checks."""
     cfg = SVMConfig(**kw)
     JaxConfig(**kw)  # a valid JAX config
+    if item is None:
+        cfg.check_jax_only()
+        cfg.check_ported()
+        return
     with pytest.raises(NotImplementedError, match=item):
         cfg.check_jax_only()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

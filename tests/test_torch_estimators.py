@@ -2,8 +2,8 @@
 JAX package's on the same seeded data: each estimator's predictions
 within the whole-solve contract (labels agree, regression values within
 5e-3), get_params keys (JAX's, plus the port's ``device``), the
-precomputed SVC, svc_c_sweep through the fleet (and warm=True refused,
-naming ROADMAP item 8), and the fallback base classes with scikit-learn
+precomputed SVC, svc_c_sweep through the fleet (and warm=True, the
+ascending-C walk), and the fallback base classes with scikit-learn
 hidden."""
 
 import importlib.util
@@ -134,8 +134,14 @@ def test_svc_c_sweep_matches_jax(data):
         assert np.mean(a.predict(xb) == b.predict(xb)) >= 0.98
     fleet = port[0].fit_result_.stats["fleet"]
     assert fleet["size"] == 3 and fleet["bucket"] == 4
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_est.svc_c_sweep(xb, yb, cs, warm=True, device="cpu", **kw)
+    # warm=True (item 8, ported): the ascending-C walk reaches the same
+    # models as the fleet's cold sweep.
+    warm = port_est.svc_c_sweep(xb, yb, cs, warm=True, device="cpu", **kw)
+    for a, b in zip(warm, jax):
+        assert a.C == b.C and a.fit_result_.converged
+        assert abs(a.fit_result_.n_sv - b.fit_result_.n_sv) <= max(
+            1, 0.02 * b.fit_result_.n_sv)
+        assert np.mean(a.predict(xb) == b.predict(xb)) >= 0.98
     with pytest.raises(ValueError, match="fleet executor"):
         port_est.svc_c_sweep(xb, yb, cs, engine="block", device="cpu", **kw)
 

@@ -68,7 +68,9 @@ def test_scan_covers_the_package():
                 ("serving", "server.py"), ("serving", "client.py"),
                 ("serving", "replicas.py"), ("obs", "metrics.py"),
                 ("obs", "export.py"), ("obs", "trace.py"),
-                ("testing", "faults.py")):
+                ("testing", "faults.py"), ("ops", "ooc.py"),
+                ("solver", "ooc.py"), ("solver", "warmstart.py"),
+                ("solver", "cascade.py"), ("learn.py",)):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 
@@ -210,3 +212,37 @@ def test_serving_entry_points_raise_without_cuda(no_cuda):
     np.testing.assert_array_equal(
         srv.predict(x), predict(model, x, precision="float32",
                                 device="cpu"))
+
+
+def test_out_of_core_and_warm_entry_points_raise_without_cuda(no_cuda,
+                                                              tmp_path):
+    """solve with ooc or a warm start, the warm rebuild, the cascade, the
+    warm C sweep, the learning loop and `cli learn` refuse device=None
+    without a card, and run on device="cpu"."""
+    from dpsvm_tpu_torch.estimators import svc_c_sweep
+    from dpsvm_tpu_torch.learn import run_learn, synthetic_stream
+    from dpsvm_tpu_torch.solver.cascade import cascade_solve
+    from dpsvm_tpu_torch.solver.warmstart import WarmStart, warm_f_rebuild
+
+    x, y = _data()
+    cfg = SVMConfig(engine="block", working_set_size=4, gamma=0.5)
+    ooc = cfg.replace(ooc=True, ooc_tile_rows=8)
+    seed = WarmStart(alpha=np.full(8, 0.5))
+    kp = KernelParams("rbf", 0.5)
+    calls = (
+        lambda **d: solve(x, y, ooc, **d),
+        lambda **d: solve(x, y, cfg, warm_start=seed, **d),
+        lambda **d: warm_f_rebuild(x, y, np.full(8, 0.5), kp, **d),
+        lambda **d: cascade_solve(x, y, cfg, seed=seed, block_rows=4, **d),
+        lambda **d: svc_c_sweep(x, y, [0.5, 1.0], warm=True, gamma=0.5,
+                                backend="single", **d),
+        lambda **d: run_learn(synthetic_stream(0, 3, 24, 2, 0.1),
+                              SVMConfig(gamma=0.5), str(tmp_path / "m"),
+                              kp, **d),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["learn", "--smoke", "--model-dir", str(tmp_path / "l")])
