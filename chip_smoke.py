@@ -144,7 +144,7 @@ result line is printed:
                 engines' signs agreeing on >= 99.8% of the rows whose
                 |g| > eps in both (the free SVs sit on the boundary);
  14. svr     -- train_svr (tube 0.1) and train_nusvr (nu 0.4) on the first
-                20000 rows (a depth cut: 40000 duals) against a seeded
+                10000 rows (a depth cut: 20000 duals) against a seeded
                 smooth target (svr_target), each on the block engine (B1
                 once a round) and engine="xla" (no kernel): converged,
                 sum(a) - sum(a*) = 0 within 1e-4 C n, and the engines'
@@ -209,7 +209,7 @@ result line is printed:
                 SVC(probability=True) on 10000 multiclass rows
                 (predict_proba rows sum to 1 within 1e-6);
  23. estimators -- SVC, NuSVC, SVR, NuSVR, OneClassSVM on the first
-                20000 rows: each model its trainer's bit for bit (SVR and
+                10000 rows: each model its trainer's bit for bit (SVR and
                 NuSVR: the [svr] phase's models); svc_c_sweep over four
                 Cs as one fleet;
  24. cli multiclass -- the first 20000 multiclass rows as CSV: `train
@@ -253,8 +253,45 @@ result line is printed:
                 `cli learn --smoke`; `cli train --ooc` on [cli]'s CSV
                 under gate (a).
 
+ 28. mesh (d)-(g) -- beside [mesh] (a)-(c), each after a warm-up on
+                16384 rows and with every count set to 0 just before:
+                (d) pipeline_rounds=True, ring_exchange=True (B1 once a
+                round, B7 once a prefetch: rounds + chunks), (e)
+                fused_fold=True on two logical shards (q = 256 needs
+                n_loc >= 16384; B1 once a round, B2 once a shard and
+                round), (f) active_set_size=2048 (B1 once an inner
+                round), (g) engine="xla" (no kernel): converged, gate (a)
+                of [ooc] against the plain headline (SV count 3%, signs
+                99.8% on all rows; for (f) the SV count is reported and
+                gated at the oracle's eps in [mesh oracle]; (g) is gated
+                against phase 6's one-device per-pair run, its twin, and
+                reported against the block headline); then fused_round=True with the fused
+                fold: its warning, and (e)'s launches;
+ 29. active  -- the one-device headline with active_set_size=2048: its
+                warning, B1 once an inner round, signs at 99.8% of the
+                plain headline's (the SV count reported: at eps 0.01 the
+                active cycles keep more small-alpha SVs, as (f) does);
+                the oracle configuration with the same m against
+                artifacts/oracle60k;
+ 30. mesh oracle -- (f) at the oracle configuration against
+                artifacts/oracle60k (the oracle contract);
+ 31. mesh nu -- train_nusvc (nu 0.1) at NU_ORACLE on the mesh (B1, its
+                nu rule, once a round) against artifacts/oracle_nu60k;
+ 32. mesh warm -- [warm]'s increment at the oracle's eps, warm on the
+                mesh (the mesh rebuild) under gate (a) against the
+                one-device warm solve;
+ 33. mesh state -- (c) observed, stopped after its second chunk with a
+                file every chunk and resumed in a fresh call (launches
+                derived from the resumed call's rounds and syncs), gate
+                (a); [reconstruct]'s covtype stress in block legs on the
+                mesh: certified, gate (a) against the one-device legs;
+ 34. mesh predict -- decision_function_mesh of the headline model on
+                rows 50000-59999 within rtol / atol 1e-5 of
+                decision_function; ms per 8192-row block;
+ 35. cli smoke -- `cli smoke --num-devices 4` exits 0.
+
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-27 under "path_launches") and the card's
+kernel's launches on phases 15-35 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1319,39 +1356,68 @@ MESH_RUNS = (
 )
 
 
-def train_mesh_counted(x, y, cfg, mesh, label: str) -> tuple:
+def mesh_expect(st: dict, cfg, p_dev: int, kernels, start_rounds: int = 0
+                ) -> dict:
+    """The launches a mesh run's loop derives from its stats (rounds of
+    this call: outer_rounds less `start_rounds`, a resumed file's).
+    Global, pipelined, fused and active rounds: B1 once a round or
+    inner round (replicated work is computed once a device).
+    Shard-local rounds: B1 once a shard and local round, B8 once a sync.
+    Ring: B7 once a global round, or once a prefetch under the pipelined
+    runner (a round's, plus each chunk's seed). Fused fold: B2 once a
+    shard and round. The per-pair engine: none."""
+    expect = {k: 0 for k in kernels}
+    rounds = st.get("outer_rounds", 0) - start_rounds
+    syncs = st.get("shardlocal_syncs", 0)
+    local = syncs * cfg.sync_rounds
+    if cfg.engine == "block":
+        expect["solve_subproblem"] = p_dev * local + (rounds - local)
+    if st.get("ring_exchange"):
+        expect["ring_gather"] = (rounds + st["chunks"] if st.get("pipelined")
+                                 else rounds - local)
+        expect["ring_fold_window"] = syncs
+    if st.get("fused_fold"):
+        expect["fold_select"] = p_dev * rounds
+    return expect
+
+
+def train_mesh_counted(x, y, cfg, mesh, label: str, tag: str = "mesh",
+                       start_rounds: int = 0, **kw) -> tuple:
     """Train on the mesh with every launch count set to 0 just before and
-    read just after: it must converge and launch what its loops derive.
-    Global rounds: B1 once a round (replicated values are computed once a
-    device), B7 once a round with the ring. Shard-local rounds: B1 once a
-    shard and local round, B8 once a sync. Returns (model, result,
-    counts)."""
+    read just after: it must converge and launch what its loops derive
+    (mesh_expect). Returns (model, result, counts, warning texts)."""
+    import warnings
+
     from dpsvm_tpu_torch import train
 
     reset_counts()
-    model, res = train(x, y, cfg, backend="mesh", mesh=mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, res = train(x, y, cfg, backend="mesh", mesh=mesh, **kw)
     counts = read_counts()
+    texts = [str(w.message) for w in caught]
     st = res.stats
-    rounds = st["outer_rounds"]
-    syncs = st.get("shardlocal_syncs", 0)
-    local = syncs * cfg.sync_rounds
-    expect = {k: 0 for k in counts}
-    expect["solve_subproblem"] = mesh.size * local + (rounds - local)
-    if st.get("ring_exchange"):
-        expect["ring_gather"] = rounds - local
-        expect["ring_fold_window"] = syncs
-    print(f"[mesh] {label}: devices={st['mesh_devices']} "
+    expect = mesh_expect(st, cfg, mesh.size, counts, start_rounds)
+    engine = ("per-pair" if cfg.engine == "xla" else
+              [k for k in ("pipelined", "fused_fold", "active_set_size",
+                           "shardlocal_syncs", "ring_exchange")
+               if st.get(k)] or ["global"])
+    print(f"[{tag}] {label}: devices={st['mesh_devices']} engine={engine} "
           f"converged={res.converged} pairs={res.iterations} "
-          f"outer_rounds={rounds} syncs={syncs} demoted="
-          f"{st.get('shardlocal_demotion', 'none')} "
+          f"outer_rounds={st.get('outer_rounds', 'none')} "
+          f"chunks={st['chunks']} syncs={st.get('shardlocal_syncs', 0)} "
+          f"demoted={st.get('shardlocal_demotion', 'none')} "
           f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
           f"b={res.b:.6f} launches={counts}", flush=True)
+    for t in texts:
+        print(f"[{tag}] {label}: warning: {t}", flush=True)
     if not res.converged:
         raise AssertionError(f"mesh run {label} did not converge")
-    if counts != expect or rounds == 0:
+    if counts != expect or (cfg.engine == "block"
+                            and st["outer_rounds"] == start_rounds):
         raise AssertionError(f"mesh run {label}: launches {counts}, "
                              f"expected {expect}")
-    return model, res, counts
+    return model, res, counts, texts
 
 
 def phase_mesh(x, y, cfg, dev) -> tuple:
@@ -1373,8 +1439,8 @@ def phase_mesh(x, y, cfg, dev) -> tuple:
     results = {}
     launches = {}
     for label, kw in MESH_RUNS:
-        _, res, counts = train_mesh_counted(x, y, cfg.replace(**kw), mesh,
-                                            label)
+        _, res, counts, _ = train_mesh_counted(x, y, cfg.replace(**kw),
+                                               mesh, label)
         results[label[0]] = res
         for name in ("ring_gather", "ring_fold_window"):
             if counts[name]:
@@ -1417,7 +1483,7 @@ ONECLASS = dict(gamma=0.125, epsilon=0.01, max_iter=2_000_000,
 # for the rows' own residuals.
 ONECLASS_DG_EPS = 3.0
 # The SVRs at a depth cut: the first SVR_ROWS rows (2 x SVR_ROWS duals).
-SVR_ROWS = 20_000
+SVR_ROWS = 10_000
 SVR_RUN = dict(c=1.0, gamma=0.125, epsilon=0.01, max_iter=4_000_000,
                engine="block", working_set_size=256)
 SVR_EPSILON = 0.1
@@ -3012,10 +3078,11 @@ LEARN = dict(d=784, rows=20_000, generations=3, drift=0.1, seed=7)
 
 
 def agree_gate(label: str, model, ref_model, x, converged: bool = True,
-               gate: bool = True) -> float:
+               gate: bool = True, sv_gate: bool = True) -> float:
     """Gate (a): converged, SV count within SV_TOL of the reference model
     and decision signs on all rows of x agreeing at SIGN_TOL (`gate`
-    False only reports). Returns the sign agreement."""
+    False only reports; `sv_gate` False reports the SV count and gates
+    the rest). Returns the sign agreement."""
     from dpsvm_tpu_torch import decision_function
 
     agree = float(np.mean(np.sign(decision_function(model, x))
@@ -3029,7 +3096,7 @@ def agree_gate(label: str, model, ref_model, x, converged: bool = True,
         return agree
     if not converged:
         raise AssertionError(f"{label} did not converge")
-    if sv_dev > SV_TOL or agree < SIGN_TOL:
+    if (sv_gate and sv_dev > SV_TOL) or agree < SIGN_TOL:
         raise AssertionError(f"{label}: n_sv dev {sv_dev:.4f} / sign "
                              f"agreement {agree:.4f} outside the gate")
     return agree
@@ -3409,6 +3476,288 @@ def phase_warm(x, y, cfg, est_sweep, csv_path: str, head_model) -> dict:
     return paths
 
 
+# ---- the rest of the mesh and the active-set engine (phases 28-35)
+
+# [mesh] runs beside (a)-(c), on the headline configuration and data.
+MESH_MORE = (
+    ("d pipelined ring", dict(pipeline_rounds=True, ring_exchange=True)),
+    ("e fused fold", dict(fused_fold=True)),
+    ("f active", dict(active_set_size=2048)),
+    ("g xla", dict(engine="xla")),
+)
+ACTIVE_M = 2048  # reconcile_rounds stays at its default, 8
+# The fused fold needs q/2 <= n_loc/128 with n_loc padded to 1024: four
+# shards of 60000 rows hold 15360, which allows q <= 240 only, so (e)
+# runs the headline's q = 256 on two logical shards (n_loc 30720).
+FUSED_SHARDS = 2
+# [mesh state]: (c) observed in chunks of this many pairs, a file every
+# chunk, stopped after the second chunk and resumed in a fresh call.
+MESH_STATE_RUN = dict(local_working_sets=4, sync_rounds=2,
+                      ring_exchange=True, chunk_iters=4096,
+                      checkpoint_every=1)
+PREDICT_BLOCK = 8192
+PREDICT_ROWS = (50_000, 60_000)
+PREDICT_TOL = 1e-5  # rtol and atol (ROADMAP C.24)
+
+
+def phase_mesh_more(x, y, cfg, mesh, head_model, pair_model) -> dict:
+    """[mesh] (d)-(g): the pipelined runner with the ring (B1 a round, B7
+    a prefetch), the fused fold (on FUSED_SHARDS logical shards; B1 a
+    round, B2 a shard and round), the
+    active runner with m = ACTIVE_M (B1 an inner round) and the per-pair
+    mesh engine (no kernel), each after a warm-up on 16384 rows: every
+    one converged with its derived launches and under gate (a) against
+    the plain single-device headline. Then fused_round=True with the
+    fused fold: the warning, and (e)'s launches. Returns the launches
+    per path."""
+    from dpsvm_tpu_torch import train
+    from dpsvm_tpu_torch.parallel.mesh import Mesh
+
+    fused_mesh = Mesh([mesh.devices[0]] * FUSED_SHARDS)
+
+    def on(kw):
+        return fused_mesh if kw.get("fused_fold") else mesh
+
+    t0 = time.perf_counter()
+    for _, kw in MESH_MORE:
+        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **kw),
+              backend="mesh", mesh=on(kw))
+    print(f"[mesh] warm-up solves of (d)-(g) on 16384 rows in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    paths = {}
+    for label, kw in MESH_MORE:
+        model, res, counts, _ = train_mesh_counted(x, y, cfg.replace(**kw),
+                                                   on(kw), label)
+        paths[f"mesh {label}"] = counts
+        if kw.get("engine") == "xla":
+            # The per-pair engine's optimum at eps 0.01 has its own SV
+            # set (phase 6's one-device run keeps 5.7% fewer than the
+            # block headline, ROADMAP C.35): its twin is that run.
+            agree_gate(f"mesh {label} vs the block headline", model,
+                       head_model, x, res.converged, gate=False)
+            agree_gate(f"mesh {label} vs the one-device per-pair run",
+                       model, pair_model, x, res.converged)
+            continue
+        # The active cycles stop at eps 0.01 with more small-alpha SVs
+        # than the plain engine (ROADMAP C.34): the SV count is reported
+        # here and gated at the oracle's eps ([mesh oracle]).
+        agree_gate(f"mesh {label}", model, head_model, x, res.converged,
+                   sv_gate=not kw.get("active_set_size"))
+        if kw.get("fused_fold") and not res.stats["fused_fold"]:
+            raise AssertionError("(e) did not run the fused fold")
+    _, res, counts, texts = train_mesh_counted(
+        x, y, cfg.replace(fused_fold=True, fused_round=True), fused_mesh,
+        "e fused fold, fused_round=True")
+    if not (res.stats["fused_fold"] and counts["fold_select"]
+            and any("single-chip knob" in t for t in texts)):
+        raise AssertionError("fused_round=True on the mesh did not warn "
+                             "and run the fused fold")
+    paths["mesh e fused_round"] = counts
+    return paths
+
+
+def phase_active(x, y, cfg, head_model, oracle, sk_dec) -> dict:
+    """[active] The single-device headline with active_set_size=ACTIVE_M
+    (after a warm-up on 16384 rows): converged, B1 once an inner round,
+    the JAX package's warning, signs at SIGN_TOL against the plain
+    headline with the SV count reported (ROADMAP C.34); then the
+    oracle configuration with the same m against artifacts/oracle60k
+    (the oracle contract, SV count gated)."""
+    from dpsvm_tpu_torch import SVMConfig, train
+
+    acfg = cfg.replace(active_set_size=ACTIVE_M)
+    train(x[:16384], y[:16384], acfg.replace(max_iter=2048))
+    want = {"solve_subproblem": lambda r: r}
+    model, res, counts, texts = counted(
+        "active", lambda: train(x, y, acfg), want)
+    if not any("never beat the plain block" in t for t in texts):
+        raise AssertionError("[active] the engine ran without its warning")
+    agree_gate("active", model, head_model, x, res.converged, sv_gate=False)
+    omodel, ores, ocounts, _ = counted(
+        "active oracle", lambda: train(x, y, SVMConfig(
+            **ORACLE_RUN, active_set_size=ACTIVE_M)), want)
+    check_oracle(omodel, ores, x, oracle, sk_dec, "one device",
+                 tag="active oracle")
+    return {"active": counts, "active oracle": ocounts}
+
+
+def phase_mesh_oracle_nu(x, y, mesh) -> dict:
+    """[mesh oracle] run (f) at the oracle configuration against
+    artifacts/oracle60k; [mesh nu] nu-SVC (nu 0.1) at the oracle
+    configuration on the mesh against artifacts/oracle_nu60k, B1 (its
+    nu rule) once a round. Returns the launches per path."""
+    from dpsvm_tpu_torch import SVMConfig, train_nusvc
+
+    paths = {}
+    oracles = {}
+    for name in ("oracle60k", "oracle_nu60k"):
+        with open(os.path.join(ROOT, "artifacts", f"{name}.json")) as fh:
+            meta = json.load(fh)
+        with np.load(os.path.join(ROOT, "artifacts", f"{name}.npz")) as z:
+            oracles[name] = (meta, np.asarray(z["dec"]))
+    cfg = SVMConfig(**ORACLE_RUN, active_set_size=ACTIVE_M)
+    model, res, paths["mesh oracle f active"], _ = train_mesh_counted(
+        x, y, cfg, mesh, "f active (oracle configuration)",
+        tag="mesh oracle")
+    check_oracle(model, res, x, *oracles["oracle60k"], "mesh f active",
+                 tag="mesh oracle")
+    ncfg = SVMConfig(**NU_ORACLE)
+    reset_counts()
+    model, res = train_nusvc(x, y, NU, ncfg, backend="mesh", mesh=mesh)
+    counts = read_counts()
+    rounds = res.stats["outer_rounds"]
+    print(f"[mesh nu] nu-SVC nu {NU} on {res.stats['mesh_devices']}: "
+          f"rounds={rounds} launches={counts} nu_r={res.stats['nu_r']:.6f}",
+          flush=True)
+    if counts != {**{k: 0 for k in counts}, "solve_subproblem": rounds} \
+            or not rounds:
+        raise AssertionError(f"[mesh nu] launches {counts} over {rounds} "
+                             "rounds")
+    check_oracle(model, res, x, *oracles["oracle_nu60k"], "mesh block",
+                 tag="mesh nu")
+    paths["mesh nu"] = counts
+    return paths
+
+
+def phase_mesh_warm(x, y, mesh) -> dict:
+    """[mesh warm] [warm]'s increment at the oracle's eps (WARM_RUN):
+    rows 0-(WARM_BASE-1) on one device, then concat(sv_x, the rest) warm
+    from seed_from_model on one device and on the mesh (the mesh rebuild,
+    warm_rebuild_mesh): the mesh's warm model under gate (a) against the
+    single device's."""
+    from dpsvm_tpu_torch import SVMConfig, solve_mesh, train
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.solver.solve import solve
+    from dpsvm_tpu_torch.solver.warmstart import seed_from_model
+
+    cfg = SVMConfig(**WARM_RUN)
+    base, _ = train(x[:WARM_BASE], y[:WARM_BASE], cfg)
+    x_inc = np.concatenate([np.asarray(base.sv_x, np.float32),
+                            x[WARM_BASE:]])
+    y_inc = np.concatenate([np.asarray(base.sv_y, np.int32), y[WARM_BASE:]])
+    seed = seed_from_model(base)
+    one = solve(x_inc, y_inc, cfg, warm_start=seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_mesh(x_inc, y_inc, cfg, mesh=mesh, warm_start=seed)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rounds = res.stats["outer_rounds"]
+    print(f"[mesh warm] increment {len(y_inc)} rows ({base.sv_x.shape[0]} "
+          f"seed SVs): pairs mesh {res.iterations} one device "
+          f"{one.iterations}; rounds {rounds}; train_seconds "
+          f"{res.train_seconds:.4f} (one device {one.train_seconds:.4f}); "
+          f"wall {wall:.2f}s (rebuild included) launches={counts}",
+          flush=True)
+    if counts["solve_subproblem"] != rounds or not rounds:
+        raise AssertionError(f"[mesh warm] launches {counts}")
+    models = [SVMModel.from_dense(x_inc, y_inc, r.alpha, r.b, base.kernel)
+              for r in (res, one)]
+    agree_gate("mesh warm vs one-device warm", *models, x, res.converged)
+    return {"mesh warm": counts}
+
+
+def phase_mesh_state(x, y, cfg, mesh, head_model) -> dict:
+    """[mesh state] (c) stopped after its second chunk (a file every
+    chunk) and resumed in a fresh call: its launches derived from this
+    call's rounds and syncs, converged, gate (a) against the plain
+    headline. The [reconstruct] covtype stress in block legs on the
+    mesh: certified, gate (a) against the one-device block legs."""
+    from dpsvm_tpu_torch import SVMConfig, solve, solve_mesh
+    from dpsvm_tpu_torch.data.synth import make_covtype_like
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+    from dpsvm_tpu_torch.utils.checkpoint import load_checkpoint_state
+
+    paths = {}
+    scfg = cfg.replace(**MESH_STATE_RUN)
+    path = _fresh(os.path.join(smoke_dir(), "mesh_c.npz"))
+    reset_counts()
+    part = solve_mesh(x, y, scfg, mesh=mesh, checkpoint_path=path,
+                      callback=_abort_after(2))
+    paths["mesh state c stopped"] = read_counts()
+    st = load_checkpoint_state(path)
+    print(f"[mesh state] (c) stopped: pairs={part.iterations} chunks="
+          f"{part.stats['chunks']} file at pairs {st.iteration} rounds "
+          f"{st.rounds} launches={paths['mesh state c stopped']}",
+          flush=True)
+    if part.converged or st.iteration != part.iterations:
+        raise AssertionError("[mesh state] (c) did not stop at its file")
+    model, res, paths["mesh state c resumed"], _ = train_mesh_counted(
+        x, y, scfg, mesh, "c resumed", tag="mesh state",
+        start_rounds=st.rounds, checkpoint_path=path, resume=True)
+    agree_gate("mesh state c resumed", model, head_model, x, res.converged)
+
+    xc, yc = make_covtype_like(RECON_ROWS, seed=0)
+    lcfg = SVMConfig(**RECON_RUN, engine="block", reconstruct_every=200_000)
+    one = solve(xc, yc, lcfg)
+    reset_counts()
+    legs = solve_mesh(xc, yc, lcfg, mesh=mesh)
+    counts = read_counts()
+    paths["mesh reconstruct"] = counts
+    print(f"[mesh state] covtype stress {RECON_ROWS} rows in legs on the "
+          f"mesh: converged={legs.converged} pairs={legs.iterations} "
+          f"legs={legs.stats['legs']} true_gap={legs.stats['true_gap']:.6g}"
+          f" (one device {one.stats['true_gap']:.6g}, pairs "
+          f"{one.iterations}) train_seconds={legs.train_seconds:.4f} "
+          f"launches={counts}", flush=True)
+    if not legs.converged or legs.stats["true_gap"] > 2 * lcfg.epsilon:
+        raise AssertionError("[mesh state] the mesh legs are not certified")
+    if {k for k, v in counts.items() if v} != {"solve_subproblem"}:
+        raise AssertionError(f"[mesh state] mesh legs launched {counts}")
+    kp = KernelParams("rbf", lcfg.gamma)
+    agree_gate("mesh legs vs one-device legs",
+               *(SVMModel.from_dense(xc, yc, r.alpha, r.b, kp)
+                 for r in (legs, one)), xc, legs.converged)
+    return paths
+
+
+def phase_mesh_predict(x, mesh, head_model) -> None:
+    """[mesh predict] decision_function_mesh of the headline model on
+    rows PREDICT_ROWS against decision_function (rtol / atol
+    PREDICT_TOL); ms per PREDICT_BLOCK-row block, the prepared shards
+    cached on the model."""
+    from dpsvm_tpu_torch import decision_function
+    from dpsvm_tpu_torch.predict import decision_function_mesh
+
+    q = x[PREDICT_ROWS[0]:PREDICT_ROWS[1]]
+    want = decision_function(head_model, q)
+    got = decision_function_mesh(head_model, q, mesh=mesh,
+                                 block=PREDICT_BLOCK)
+    blocks = -(-len(q) // PREDICT_BLOCK)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        decision_function_mesh(head_model, q, mesh=mesh, block=PREDICT_BLOCK)
+    ms = (time.perf_counter() - t0) * 1e3 / (reps * blocks)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        decision_function(head_model, q, block=PREDICT_BLOCK)
+    ms_one = (time.perf_counter() - t0) * 1e3 / (reps * blocks)
+    err = float(np.max(np.abs(got - want)))
+    print(f"[mesh predict] {len(q)} rows, {head_model.n_sv} SVs on "
+          f"{mesh.describe()}: max |dec diff| {err:.3g}; {ms:.4f} ms per "
+          f"{PREDICT_BLOCK}-row block (host clock, the copy back included; "
+          f"decision_function {ms_one:.4f})", flush=True)
+    if not np.allclose(got, want, rtol=PREDICT_TOL, atol=PREDICT_TOL):
+        raise AssertionError("[mesh predict] decision_function_mesh parts "
+                             "from decision_function")
+
+
+def phase_cli_smoke() -> dict:
+    """`cli smoke --num-devices 4`: the matvec on the card and the sum
+    over four logical shards of it; exit code 0, no kernel launched."""
+    from dpsvm_tpu_torch import cli
+
+    reset_counts()
+    rc = cli.main(["smoke", "--num-devices", "4"])
+    counts = read_counts()
+    print(f"[cli smoke] exit code {rc}, launches={counts}", flush=True)
+    if rc != 0 or sum(counts.values()):
+        raise AssertionError("`cli smoke` failed")
+    return {"cli smoke": counts}
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -3708,6 +4057,24 @@ def main() -> int:
                             os.path.join(smoke_dir(), "train.csv"),
                             head_model))
     lap("warm")
+
+    # ---- 28-35. the rest of the mesh and the active-set engine
+    print(f"[mesh] {smi}", flush=True)
+    pair_model = SVMModel.from_dense(x, y, pair_res["xla"].alpha,
+                                     pair_res["xla"].b, head_model.kernel)
+    paths.update(phase_mesh_more(x, y, cfg, mesh, head_model, pair_model))
+    lap("mesh (d)-(g)")
+    paths.update(phase_active(x, y, cfg, head_model, oracle, sk_dec))
+    lap("active")
+    paths.update(phase_mesh_oracle_nu(x, y, mesh))
+    lap("mesh oracle, mesh nu")
+    paths.update(phase_mesh_warm(x, y, mesh))
+    lap("mesh warm")
+    paths.update(phase_mesh_state(x, y, cfg, mesh, head_model))
+    lap("mesh state")
+    phase_mesh_predict(x, mesh, head_model)
+    paths.update(phase_cli_smoke())
+    lap("mesh predict, cli smoke")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",

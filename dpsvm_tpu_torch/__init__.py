@@ -1,10 +1,11 @@
 """dpsvm_tpu_torch: the PyTorch/CUDA port of dpsvm_tpu for one NVIDIA
 Hopper card.
 
-Binary C-SVC, train -> save -> load -> predict, on the block engines,
-the per-pair engines and the mesh block engines (row shards over a
-parallel.mesh.Mesh); nu-SVC, epsilon-SVR, nu-SVR and one-class SVM on
-the single-device engines (models/); precomputed Grams
+Binary C-SVC, train -> save -> load -> predict, on the block engines
+(the active-set engine among them), the per-pair engines and the mesh
+engines (row shards over a parallel.mesh.Mesh: the block runners and the
+per-pair mesh engine); nu-SVC, epsilon-SVR, nu-SVR and one-class SVM on
+one device and on the mesh (models/); precomputed Grams
 (models/precomputed.py); multiclass OvR / OvO, sequential or batched in
 a fleet (models/multiclass.py, solver/fleet.py); Platt probabilities
 (models/platt.py) and the sklearn-style estimators (estimators, loaded

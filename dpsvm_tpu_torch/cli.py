@@ -1,5 +1,5 @@
-"""Command-line entry points ``train``, ``test``, ``serve`` and
-``learn`` (that subset of dpsvm_tpu/cli.py, same flag names, plus
+"""Command-line entry points ``train``, ``test``, ``serve``, ``smoke``
+and ``learn`` (that subset of dpsvm_tpu/cli.py, same flag names, plus
 ``--device``).
 
 Usage:
@@ -13,7 +13,9 @@ Usage:
         [--checkpoint ck.npz --checkpoint-every 4096 --checkpoint-keep 2
         --resume] [--chunk-iters 2048] [--bf16-gram] [-q]
         [--ooc --ooc-tile-rows 8192 --ooc-cache-lines 512
-        --ooc-shrink auto|on|off --active-set-size 4096]
+        --ooc-shrink auto|on|off] [--active-set-size 4096
+        --reconcile-rounds 8]
+    python -m dpsvm_tpu_torch.cli smoke [--num-devices 4] [--device cuda:0]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt \\
         [-o predictions.txt] [--precision auto|float32|float64] [-b 1]
     python -m dpsvm_tpu_torch.cli serve -m model.npz [--server-bench]
@@ -198,10 +200,14 @@ def _build_parser() -> argparse.ArgumentParser:
                         "and the endgame demotion; auto = off until an "
                         "H100 gate decides)")
     p.add_argument("--active-set-size", type=int, default=0,
-                   help="with --ooc: m, the size of the shrunken "
-                        "stream's active view (0 = auto-sized); without "
-                        "--ooc the active-set engine, not ported (ROADMAP "
-                        "queue A item 4)")
+                   help="block engine: shrink per-round work to the m "
+                        "most-violating rows, reconciling the full "
+                        "gradient in batches (0 = off; one device and the "
+                        "mesh; with --ooc, m sizes the shrunken tile "
+                        "stream's active view, 0 = auto-sized)")
+    p.add_argument("--reconcile-rounds", type=int, default=8,
+                   help="block engine shrinking: rounds between full-"
+                        "gradient reconciliations (default 8)")
     p.add_argument("--chunk-iters", type=int, default=2048,
                    help="pair updates per observed chunk (block engines: "
                         "chunk-iters // inner rounds)")
@@ -230,6 +236,16 @@ def _build_parser() -> argparse.ArgumentParser:
                         "every one of the N shards lives on (N logical "
                         "shards of it)")
 
+    p = sub.add_parser("smoke", help="device and mesh bring-up check: a "
+                       "known 3x3 matvec on every device and a sum over "
+                       "the mesh")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="shards of the mesh (default: the visible cards); "
+                        "more than the visible cards places logical shards "
+                        "on them in turn")
+    p.add_argument("--device", default=None,
+                   help="check this torch device only; the mesh is "
+                        "--num-devices logical shards of it")
     p = sub.add_parser("test", help="evaluate a trained model on a CSV")
     p.add_argument("-f", "--file-path", required=True,
                    help="test data (CSV or sparse LIBSVM format)")
@@ -408,6 +424,47 @@ def _fit(args, x, y, config, mesh):
     return models.train_oneclass(x, nu=args.nu, config=config, **common)
 
 
+def _cmd_smoke(args) -> int:
+    """Bring-up check (the JAX package's `smoke`, the role of the
+    reference's mpi_sample.cpp / testblas.c): a known 3x3 matvec on every
+    device, and a sum of ones over a mesh of --num-devices shards. With
+    --device D only D, the mesh D repeated; without, the visible CUDA
+    cards, and a mesh wider than them takes them in turn (logical
+    shards of one card on a one-card host)."""
+    import torch
+
+    from dpsvm_tpu_torch.parallel.mesh import Mesh
+
+    if args.device is not None:
+        devices = [torch.device(args.device)]
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        if not devices:
+            print("error: no CUDA device is visible; pass --device cpu to "
+                  "check the CPU path", file=sys.stderr)
+            return 2
+    print(f"platform={devices[0].type} devices={len(devices)}")
+    a = np.arange(9, dtype=np.float32).reshape(3, 3)
+    v = np.array([1.0, 2.0, 3.0], np.float32)
+    want = np.array([8.0, 26.0, 44.0], np.float32)
+    ok = True
+    for dev in devices:
+        got = (torch.as_tensor(a, device=dev)
+               @ torch.as_tensor(v, device=dev)).cpu().numpy()
+        good = bool(np.allclose(got, want))
+        ok &= good
+        print(f"  {dev}: matvec {'OK' if good else 'FAIL ' + str(got)}")
+    n = args.num_devices or len(devices)
+    mesh = Mesh([devices[i % len(devices)] for i in range(n)])
+    got = mesh.psum([torch.ones(1, device=dev) for dev in mesh.devices])
+    good = all(bool(np.allclose(t.cpu().numpy(), n)) for t in got)
+    ok &= good
+    print(f"  mesh({n}) {mesh.describe()} psum "
+          f"{'OK' if good else 'FAIL ' + str([t.item() for t in got])}")
+    return 0 if ok else 1
+
+
 def _cmd_train(args) -> int:
     from dpsvm_tpu_torch.config import SVMConfig
     from dpsvm_tpu_torch.data.loader import load_data
@@ -446,6 +503,7 @@ def _cmd_train(args) -> int:
             sync_rounds=args.sync_rounds,
             ring_exchange=_TRI[args.ring_exchange],
             bf16_gram=args.bf16_gram, active_set_size=args.active_set_size,
+            reconcile_rounds=args.reconcile_rounds,
             ooc=args.ooc, ooc_tile_rows=args.ooc_tile_rows,
             ooc_cache_lines=args.ooc_cache_lines,
             ooc_shrink=_TRI[args.ooc_shrink], chunk_iters=args.chunk_iters,
@@ -1373,6 +1431,8 @@ def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.command == "train":
         return _cmd_train(args)
+    if args.command == "smoke":
+        return _cmd_smoke(args)
     if args.command == "serve":
         return _cmd_serve(args)
     return _cmd_test(args)

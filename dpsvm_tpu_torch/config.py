@@ -84,8 +84,10 @@ class SVMConfig:
     # (ops/kernels.py resolve_bf16_gram) accepts; a refusal stays float32
     # and says so in stats["bf16_gram"] and a warning.
     bf16_gram: bool = False
-    # The active-set engine (not ported: check_ported) and, with ooc,
-    # the size of the shrunken tile stream's active view.
+    # The active-set engine (solver/block.py run_chunk_block_active, and
+    # the mesh's active runner): cycles of reconcile_rounds rounds on the
+    # active_set_size most-violating rows; with ooc, the size of the
+    # shrunken tile stream's active view.
     active_set_size: int = 0
     reconcile_rounds: int = 8
     # Out-of-core training (solver/ooc.py): X stays on the host and each
@@ -401,9 +403,6 @@ class SVMConfig:
         default; the message names the ROADMAP.md item that ports it."""
         default = SVMConfig()
         jax_only = (
-            ("reconcile_rounds",
-             "the active-set engines: ROADMAP queue A item 4, and item 10b on "
-             "the mesh"),
             ("obs", "ROADMAP queue A item 11"),
         )
         for name, item in jax_only:
@@ -416,18 +415,6 @@ class SVMConfig:
         """Raise NotImplementedError for any knob set to a value whose
         engine the port does not have yet; the message names the
         ROADMAP.md item that ports it."""
-        unported = (
-            # With ooc, active_set_size sizes the shrunken stream's view
-            # (solver/ooc.py); without it, it asks for the active-set
-            # engine.
-            (self.active_set_size > 0 and not self.ooc,
-             "active_set_size>0 (the active-set engine: ROADMAP queue A "
-             "item 4)"),
-        )
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported to dpsvm_tpu_torch yet")
         self.check_jax_only()
 
     def replace(self, **kw) -> "SVMConfig":

@@ -26,7 +26,6 @@ from typing import Optional
 import numpy as np
 
 from dpsvm_tpu_torch.config import SVMConfig
-from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.models.svm_model import SVMModel
 from dpsvm_tpu_torch.models.svr import (SVRModel, expand_2n, refuse_precomputed,
                                         regressor)
@@ -123,7 +122,7 @@ def train_nusvc(x, y, nu: float = 0.5, config: SVMConfig = SVMConfig(),
     `device` (None: the CUDA card). `callback`, `checkpoint_path` and
     `resume` follow solver/solve.py solve's contract (the checkpoint
     holds this dual's unscaled state)."""
-    from dpsvm_tpu_torch.train import resolve_backend, solve_on
+    from dpsvm_tpu_torch.train import host_device, resolve_backend, solve_on
 
     refuse_precomputed(config, "the nu-SVC dual rescales alpha")
     x = np.asarray(x, np.float32)
@@ -152,7 +151,7 @@ def train_nusvc(x, y, nu: float = 0.5, config: SVMConfig = SVMConfig(),
                       config.coef0)
     # p = 0: the indicator is f = y * Q alpha = K @ (alpha * y).
     f_init = blocked_kernel_matvec(x, alpha0 * y, kp, config.dtype,
-                                   device=resolve_device(device))
+                                   device=host_device(backend, device, mesh))
     result = solve_on(backend, x, y, cfg, device, num_devices, mesh,
                       alpha_init=alpha0, f_init=f_init, callback=callback,
                       checkpoint_path=checkpoint_path, resume=resume)

@@ -21,7 +21,6 @@ from typing import Optional
 import numpy as np
 
 from dpsvm_tpu_torch.config import SVMConfig
-from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.models.svm_model import SVMModel
 from dpsvm_tpu_torch.models.svr import refuse_precomputed
 from dpsvm_tpu_torch.ops.kernels import KernelParams, blocked_kernel_matvec
@@ -89,7 +88,7 @@ def train_oneclass(x, nu: float = 0.5, config: SVMConfig = SVMConfig(),
     ignored (the box is [0, 1]); config.epsilon stays the tolerance.
     Runs on `device` (None: the CUDA card). `callback`, `checkpoint_path`
     and `resume` follow solver/solve.py solve's contract."""
-    from dpsvm_tpu_torch.train import resolve_backend, solve_on
+    from dpsvm_tpu_torch.train import host_device, resolve_backend, solve_on
 
     refuse_precomputed(config, "one-class has no labels to pair with "
                                "kernel rows")
@@ -108,7 +107,7 @@ def train_oneclass(x, nu: float = 0.5, config: SVMConfig = SVMConfig(),
     kp = KernelParams(config.kernel, config.resolve_gamma(d), config.degree,
                       config.coef0)
     f_init = blocked_kernel_matvec(x, alpha0, kp, config.dtype,
-                                   device=resolve_device(device))
+                                   device=host_device(backend, device, mesh))
     y = np.ones((n,), np.int32)
     result = solve_on(backend, x, y, cfg, device, num_devices, mesh,
                       alpha_init=alpha0, f_init=f_init, callback=callback,

@@ -117,8 +117,8 @@ def train_svr(x, z, config: SVMConfig = SVMConfig(),
 
     `config.epsilon` stays the SMO tolerance; the tube width is
     `svr_epsilon` (LibSVM's -p against -e). Runs on `device` (None: the
-    CUDA card); the mesh runs no warm start (backend "auto" resolves to
-    the single device, "mesh" raises). `callback`, `checkpoint_path` and
+    CUDA card), or on `mesh` (backend "mesh", or "auto" with a mesh
+    given or several cards visible). `callback`, `checkpoint_path` and
     `resume` follow solver/solve.py solve's contract (the checkpoint
     holds the 2n-variable dual)."""
     from dpsvm_tpu_torch.train import resolve_backend, solve_on

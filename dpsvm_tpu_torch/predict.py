@@ -1,7 +1,9 @@
 """Batched inference (counterpart of dpsvm_tpu/predict.py).
 
 f(q) = sum_j alpha_j y_j K(x_j, q) - b, evaluated in float32 on the
-device in query blocks, or exactly in float64 on the host.
+device in query blocks, or exactly in float64 on the host;
+decision_function_mesh row-shards the support vectors over a mesh and
+sums the shards' partial decisions.
 """
 
 from __future__ import annotations
@@ -88,3 +90,40 @@ def accuracy(model: SVMModel, q, y, block: int = 8192,
     """Fraction of labels predicted correctly."""
     pred = predict(model, q, block, precision=precision, device=device)
     return float(np.mean(pred == np.asarray(y)))
+
+
+def decision_function_mesh(model: SVMModel, q, num_devices=None,
+                           block: int = 8192, mesh=None) -> np.ndarray:
+    """The decision function with the support vectors row-sharded over a
+    mesh (the JAX package's decision_function_mesh): each shard takes
+    its partial sum K(query block, sv shard) @ coef shard, and a sum over
+    the shards in rank order combines them; query blocks are replicated.
+    The kernel is decision_function's (kernel_matrix), so the two differ
+    only in how the float32 sum over the support vectors is grouped.
+    `mesh` is a parallel/mesh.py Mesh (None: the first `num_devices`
+    visible cards). The padded and sharded support vectors are cached on
+    the model (`_mesh_prepared`), so a serving loop uploads them once."""
+    from dpsvm_tpu_torch.parallel.mesh import make_data_mesh, shard_padded_rows
+
+    if mesh is None:
+        mesh = make_data_mesh(num_devices)
+    for dev in {d for d, _ in mesh.groups}:
+        resolve_device(dev)
+    q = np.asarray(q, np.float32)
+    prepared = getattr(model, "_mesh_prepared", None)
+    if prepared is not None and prepared[0] == mesh.devices:
+        sv_sh, coef_sh = prepared[1]
+    else:
+        sv_sh = shard_padded_rows(mesh, np.asarray(model.sv_x, np.float32))
+        # Padded rows carry coef 0: inert.
+        coef_sh = shard_padded_rows(mesh, np.asarray(model.dual_coef,
+                                                     np.float32))
+        model._mesh_prepared = (mesh.devices, (sv_sh, coef_sh))
+    out = []
+    for s in range(0, q.shape[0], block):
+        qb = [torch.as_tensor(q[s:s + block], device=dev)
+              for dev, _ in mesh.groups]
+        parts = [kernel_matrix(qb[mesh.group_of[r]], sv_sh[r], model.kernel)
+                 @ coef_sh[r] for r in range(mesh.size)]
+        out.append(mesh.psum(parts)[0].cpu().numpy() - model.b)
+    return np.concatenate(out) if out else np.zeros((0,), np.float32)

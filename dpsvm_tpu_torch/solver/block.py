@@ -16,6 +16,15 @@ run_local_round is the JAX package's _round_core and run_local_round in
 one, built from the four stage functions so each stage can also be timed
 alone.
 
+The active-set engine (run_chunk_block_active, the JAX package's
+_run_chunk_block_active) runs CYCLES: one select_block with q = m picks
+the m most-violating rows (and the exact extrema of the full gradient);
+up to k_rounds rounds then select, gather and fold on those (m,)-sized
+views only (active_round); one batched fold reconciles the full
+gradient with the cycle's deltas and the active rows are scattered
+back. The mesh's active runner (parallel/dist_block.py) replicates the
+same views and runs the same active_round.
+
 The fused engines (counterparts of _run_chunk_block_fused,
 _run_chunk_block_fusedround and _run_chunk_block_pipelined) pad n to a
 multiple of 1024 with `valid` marking real rows (solver/solve.py) and
@@ -55,7 +64,7 @@ from dpsvm_tpu_torch.ops.select import (candidate_live_mask,
                                         nu_stopping_pair, order_key,
                                         set_masks)
 from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
-from dpsvm_tpu_torch.solver.smo import eff_f, maybe_kahan
+from dpsvm_tpu_torch.solver.smo import eff_f, maybe_kahan, read_obs
 
 
 class BlockState(NamedTuple):
@@ -176,10 +185,10 @@ def fold_block(x, x_sq, qx, qsq, kp: KernelParams, f, f_err, coef,
 
 
 def scatter_alpha(alpha, w, slot_ok, a_w):
-    """alpha with the live slots of a_w written at w. Only live slots may
-    write: a dead slot's id is a real row (possibly the same row as a
-    live slot). Dead slots are sent to a scratch element past the end,
-    so the scatter needs no host sync."""
+    """alpha (or any row vector) with the live slots of a_w written at w.
+    Only live slots may write: a dead slot's id is a real row (possibly
+    the same row as a live slot). Dead slots are sent to a scratch
+    element past the end, so the scatter needs no host sync."""
     n = alpha.shape[0]
     safe_w = torch.where(slot_ok, w, n)
     buf = torch.cat([alpha, alpha.new_zeros(1)])
@@ -423,4 +432,117 @@ def run_chunk_block_pipelined(x, y, x_sq, k_diag, valid, state: BlockState,
         state = BlockState(alpha, f, nxt.b_hi, nxt.b_lo, state.pairs + t,
                            state.rounds + 1, f_err)
         cand = nxt
+    return state
+
+
+def active_round(x_act, y_act, sq_act, kd_act, act_ok, a_act, f_act,
+                 budget_left, kp: KernelParams, c, eps: float, tau: float,
+                 q: int, inner_iters: int, selection: str,
+                 pair_batch: int = 1):
+    """One block round on an active set's (m,)-sized views (the JAX
+    package's _round_core on them, then the active fold): `act_ok` masks
+    the dead filler slots out of the selection. The fold is a plain add
+    (the views carry no Kahan residual). Returns (a_act, f_act, w, coef,
+    t, open_a): w the working set as ACTIVE-slot ids, coef its fold
+    coefficients, t the pairs executed, open_a the gap of the active
+    views this round saw."""
+    w, slot_ok, b_hi, b_lo = select_block(f_act, a_act, y_act, c, q,
+                                          valid=act_ok, rule=selection)
+    open_a = b_lo > b_hi + 2.0 * eps
+    qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0 = gather_block(
+        x_act, y_act, sq_act, kd_act, f_act, a_act, w, kp)
+    limit = torch.clamp(budget_left, max=inner_iters)
+    limit = torch.where(open_a, limit, 0).to(torch.int32)
+    a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0,
+                                       c, eps, tau, limit, selection,
+                                       pair_batch)
+    f_act = f_act + coef @ kernel_rows(x_act, sq_act, qx, qsq, kp)
+    return (scatter_alpha(a_act, w, slot_ok, a_w), f_act, w, coef, t,
+            open_a)
+
+
+def active_cycle(views, pairs, max_iter: int, kp: KernelParams, c,
+                 eps: float, tau: float, q: int, inner_iters: int,
+                 k_rounds: int, selection: str, pair_batch: int = 1):
+    """The inner rounds of one cycle on the active views (x_act, y_act,
+    sq_act, kd_act, act_ok, a_act, f_act, open): rounds run while fewer
+    than k_rounds ran, the active gap is open and pairs + t < max_iter,
+    the condition read on the host once a round. Returns (a_act, f_act,
+    pend_w (k_rounds q,) active-slot ids, pend_c (k_rounds q,) coefs,
+    t, k_done, moved): rounds that did not run pend id 0 with coef 0,
+    the JAX package's (k_rounds, q) buffers; `moved` says t > 0."""
+    x_act, y_act, sq_act, kd_act, act_ok, a_act, f_act, open_a = views
+    dev = f_act.device
+    t_tot = torch.zeros((), dtype=torch.int32, device=dev)
+    pend_w, pend_c = [], []
+    k = 0
+    while True:
+        go = open_a & (pairs + t_tot < max_iter)
+        (go_h, moved), _ = read_obs((go, t_tot > 0))
+        if k >= k_rounds or not go_h:
+            break
+        a_act, f_act, w, coef, t, open_a = active_round(
+            x_act, y_act, sq_act, kd_act, act_ok, a_act, f_act,
+            max_iter - pairs - t_tot, kp, c, eps, tau, q, inner_iters,
+            selection, pair_batch)
+        pend_w.append(w)
+        pend_c.append(coef)
+        t_tot = t_tot + t
+        k += 1
+    for _ in range(k_rounds - k):
+        pend_w.append(torch.zeros(q, dtype=torch.int64, device=dev))
+        pend_c.append(torch.zeros(q, dtype=torch.float32, device=dev))
+    return (a_act, f_act, torch.cat(pend_w), torch.cat(pend_c), t_tot, k,
+            bool(moved))
+
+
+def run_chunk_block_active(x, y, x_sq, k_diag, valid, state: BlockState,
+                           max_iter: int, kp: KernelParams, c, eps: float,
+                           tau: float, q: int, inner_iters: int,
+                           selection: str = "mvp", pair_batch: int = 1,
+                           m: int = 0, k_rounds: int = 8,
+                           max_rounds: Optional[int] = None) -> BlockState:
+    """Active-set ("shrinking") cycles (the JAX package's
+    _run_chunk_block_active). One CYCLE:
+
+      1. select_block with q = m: the m most-violating rows A and the
+         EXACT extrema of the full gradient (convergence is only ever
+         declared from these);
+      2. up to k_rounds rounds on A's views (active_cycle): the
+         per-round fold is a (q, m) pass instead of (q, n);
+      3. one batched fold applies the cycle's (W, coef) deltas to the
+         full gradient with one (k_rounds q, n) kernel-row pass (none
+         on a cycle that moved nothing), then A's rows are scattered
+         back: the incrementally kept values overwrite the fold's
+         regrouped ones (their Kahan residual is reset).
+
+    f is linear in the round coefs, so deferring the non-active rows'
+    fold changes the float grouping only. Requires q <= m <= n;
+    max_rounds is checked at cycle granularity, so a chunk may overshoot
+    it by k_rounds - 1 rounds."""
+    n = y.shape[0]
+    done = 0
+    while _more(state, done, max_rounds, max_iter, eps):
+        f_cur = eff_f(state)
+        act_ids, act_ok, b_hi, b_lo = select_block(
+            f_cur, state.alpha, y, c, m, valid=valid, rule=selection)
+        views = (x[act_ids], y[act_ids], x_sq[act_ids], k_diag[act_ids],
+                 act_ok, state.alpha[act_ids], f_cur[act_ids],
+                 b_lo > b_hi + 2.0 * eps)
+        a_act, f_act, pend_w, pend_c, t, k, moved = active_cycle(
+            views, state.pairs, max_iter, kp, c, eps, tau, q, inner_iters,
+            k_rounds, selection, pair_batch)
+        f, f_err = state.f, state.f_err
+        if moved:
+            wf = act_ids[pend_w]
+            f, f_err = maybe_kahan(f, f_err, pend_c @ kernel_rows(
+                x, x_sq, x[wf], x_sq[wf], kp))
+        f = scatter_alpha(f, act_ids, act_ok, f_act)
+        if f_err is not None:
+            f_err = scatter_alpha(f_err, act_ids, act_ok,
+                                 torch.zeros_like(f_act))
+        alpha = scatter_alpha(state.alpha, act_ids, act_ok, a_act)
+        state = BlockState(alpha, f, b_hi, b_lo, state.pairs + t,
+                           state.rounds + k, f_err)
+        done += k
     return state

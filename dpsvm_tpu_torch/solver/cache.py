@@ -53,16 +53,12 @@ def _hit_slot(keys: np.ndarray, i: int):
     return int(hits[0]) if hits.size else None
 
 
-def lookup_pair(cache: CacheState, x: torch.Tensor, i_hi: int, i_lo: int,
-                it: int) -> tuple:
-    """Dot rows of rows i_hi and i_lo of x, through the cache. Returns
-    (row_hi, row_lo, n_hits).
-
-    The hi slot is its hit line or the least recently used one; the lo
-    slot its hit line or the least recently used line other than the hi
-    slot, so a double miss fills two distinct lines (one line can only
-    hold lo's). Stamps are 2 it + 1 (hi) and 2 it + 2 (lo); where both
-    land on one line, lo's write wins."""
+def _pair_slots(cache: CacheState, i_hi: int, i_lo: int) -> tuple:
+    """(h_hi, h_lo, slot_hi, slot_lo): each row's hit line (None on a
+    miss) and the line it lands in. The hi slot is its hit line or the
+    least recently used one; the lo slot its hit line or the least
+    recently used line other than the hi slot, so a double miss fills two
+    distinct lines (one line can only hold lo's)."""
     h_hi = _hit_slot(cache.keys, i_hi)
     h_lo = _hit_slot(cache.keys, i_lo)
     slot_hi = h_hi if h_hi is not None else int(np.argmin(cache.ticks))
@@ -72,14 +68,21 @@ def lookup_pair(cache: CacheState, x: torch.Tensor, i_hi: int, i_lo: int,
         masked = cache.ticks.copy()
         masked[slot_hi] = _I32_MAX
         slot_lo = int(np.argmin(masked))
-    data = cache.data
+    return h_hi, h_lo, slot_hi, slot_lo
+
+
+def _pair_fill(data, x, q_hi, q_lo, slots) -> tuple:
+    """The pair's dot rows against x for the query rows q_hi, q_lo, read
+    from `data`'s hit lines or computed (one (2, d) x (d, n) product on a
+    double miss), and the computed ones written to their lines."""
+    h_hi, h_lo, slot_hi, slot_lo = slots
     if h_hi is None and h_lo is None:
-        d2 = row_dots(x, torch.stack([x[i_hi], x[i_lo]]))
+        d2 = row_dots(x, torch.stack([q_hi, q_lo]))
         row_hi, row_lo = d2[0], d2[1]
     elif h_hi is None:
-        row_hi, row_lo = row_dots(x, x[i_hi]), data[h_lo]
+        row_hi, row_lo = row_dots(x, q_hi), data[h_lo]
     elif h_lo is None:
-        row_hi, row_lo = data[h_hi], row_dots(x, x[i_lo])
+        row_hi, row_lo = data[h_hi], row_dots(x, q_lo)
         if slot_lo == slot_hi:  # one line: lo's row replaces the hi row
             row_hi = row_hi.clone()
     else:
@@ -90,12 +93,44 @@ def lookup_pair(cache: CacheState, x: torch.Tensor, i_hi: int, i_lo: int,
         data[slot_hi] = row_hi
     if h_lo is None:
         data[slot_lo] = row_lo
+    return row_hi, row_lo
+
+
+def _pair_stamp(cache: CacheState, i_hi: int, i_lo: int, slots,
+                it: int) -> int:
+    """Key and stamp the pair's lines (2 it + 1 hi, 2 it + 2 lo; where
+    both land on one line, lo's write wins). Returns the hits."""
+    h_hi, h_lo, slot_hi, slot_lo = slots
     cache.keys[slot_hi] = i_hi
     cache.keys[slot_lo] = i_lo
     stamp = 2 * it
     cache.ticks[slot_hi] = stamp + 1
     cache.ticks[slot_lo] = stamp + 2
-    return row_hi, row_lo, int(h_hi is not None) + int(h_lo is not None)
+    return int(h_hi is not None) + int(h_lo is not None)
+
+
+def lookup_pair(cache: CacheState, x: torch.Tensor, i_hi: int, i_lo: int,
+                it: int) -> tuple:
+    """Dot rows of rows i_hi and i_lo of x, through the cache. Returns
+    (row_hi, row_lo, n_hits)."""
+    slots = _pair_slots(cache, i_hi, i_lo)
+    row_hi, row_lo = _pair_fill(cache.data, x, x[i_hi], x[i_lo], slots)
+    return row_hi, row_lo, _pair_stamp(cache, i_hi, i_lo, slots, it)
+
+
+def lookup_pair_sharded(cache: CacheState, xs, i_hi: int, i_lo: int,
+                        q_hi, q_lo, it: int) -> tuple:
+    """lookup_pair over a row-sharded cache (the mesh's per-pair engine):
+    cache.data is a list of (L, n_loc) lines, one per shard, keyed and
+    stamped together (the JAX package's CacheState with data sharded
+    along its columns); xs the shards of X and q_hi / q_lo the pair's
+    query rows per shard, in X's dtype. Returns (rows_hi, rows_lo) per
+    shard and the hits."""
+    slots = _pair_slots(cache, i_hi, i_lo)
+    rows = [_pair_fill(data, x, qh, ql, slots)
+            for data, x, qh, ql in zip(cache.data, xs, q_hi, q_lo)]
+    return ([r[0] for r in rows], [r[1] for r in rows],
+            _pair_stamp(cache, i_hi, i_lo, slots, it))
 
 
 def lookup_one(cache: CacheState, x: torch.Tensor, i: int,
@@ -103,14 +138,25 @@ def lookup_one(cache: CacheState, x: torch.Tensor, i: int,
     """The dot row of row i of x through the cache, stamped `stamp` (the
     second-order rule passes 2 it + 1, then 2 it + 2). Returns
     (row, hit)."""
+    rows, hit = lookup_one_sharded(cache, [x], i, [x[i]], stamp, [cache.data])
+    return rows[0], hit
+
+
+def lookup_one_sharded(cache: CacheState, xs, i: int, qs, stamp: int,
+                       datas=None) -> tuple:
+    """lookup_one over a row-sharded cache (datas, default cache.data:
+    one (L, n_loc) line block per shard, keyed together); qs the query
+    row per shard. Returns (rows per shard, hit)."""
+    datas = cache.data if datas is None else datas
     slot = _hit_slot(cache.keys, i)
     hit = slot is not None
     if not hit:
         slot = int(np.argmin(cache.ticks))
-        cache.data[slot] = row_dots(x, x[i])
+        for data, x, q in zip(datas, xs, qs):
+            data[slot] = row_dots(x, q)
     cache.keys[slot] = i
     cache.ticks[slot] = stamp
-    return cache.data[slot], hit
+    return [data[slot] for data in datas], hit
 
 
 # ---------------------------------------------------------------------

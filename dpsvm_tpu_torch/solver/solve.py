@@ -66,8 +66,10 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device,
     engines, and the pipelined engine's one-pass selection (on CUDA
     only, as the JAX package takes it on the TPU only), need q/2 <=
     n_pad/128 with n_pad = n rounded up to 1024; where that fails the
-    plain engine runs. Under selection="nu" the plain round runs whatever
-    the knobs say, as in the JAX package: the fused and pipelined
+    plain engine runs. active_set_size > 0 runs the active-set engine
+    (run_chunk_block_active), ahead of every knob. Under selection="nu"
+    the plain round runs whatever the knobs say, as in the JAX package:
+    the fused and pipelined
     engines select two-sided mvp candidates, which would pair across the
     nu duals' classes. A precomputed Gram (kernel="precomputed", or the
     resident Gram: `gram`) has no features to stream, so the fused
@@ -75,11 +77,13 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device,
     the pipelined round runs on it with its plain selection. Returns the
     flags under the JAX package's stats names and n_pad."""
     n_pad_fused = -(-n // 1024) * 1024
-    shape_ok = (config.selection != "nu"
+    active = config.active_set_size > 0
+    shape_ok = (config.selection != "nu" and not active
                 and config.kernel != "precomputed" and not gram
                 and min(config.working_set_size, n_pad_fused)
                 <= n_pad_fused // 64)
-    pipelined = bool(config.pipeline_rounds) and config.selection != "nu"
+    pipelined = (bool(config.pipeline_rounds) and config.selection != "nu"
+                 and not active)
     pipe_select = pipelined and dev.type == "cuda" and shape_ok
     fused_round = not pipelined and bool(config.fused_round) and shape_ok
     fused_fold = (not pipelined and not fused_round
@@ -88,6 +92,30 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device,
     return {"pipelined": pipelined, "pipe_select": pipe_select,
             "fused_round": fused_round, "fused_fold": fused_fold,
             "pad": pad, "n_pad": n_pad_fused if pad else n}
+
+
+def active_set_height(config: SVMConfig, q: int, rows: int) -> int:
+    """The active set's size m: active_set_size clamped to [q, rows] on
+    the selection's class granularity (2, or 4 under the nu rule), as
+    the JAX package clamps it (`rows` is n on one device, gran * n_loc
+    on the mesh). 0 when the engine is off."""
+    if not config.active_set_size:
+        return 0
+    gran = 4 if config.selection == "nu" else 2
+    m = max(q, min(config.active_set_size, rows))
+    return m - m % gran
+
+
+def warn_active_set() -> None:
+    """The JAX package's warning on active_set_size, without its TPU
+    figures: the engine never beat the plain block engine in any regime
+    measured on the TPU, and the H100 has no measurement deciding it."""
+    warnings.warn(
+        "active_set_size (shrinking) never beat the plain block engine in "
+        "any regime measured on the TPU (the JAX package's "
+        "BENCH_COVTYPE_SWEEP.md), and no measurement on this device says "
+        "otherwise yet — prefer active_set_size=0 unless you have "
+        "measured a win on your workload", stacklevel=4)
 
 
 def gram_budget_bytes(dev: torch.device) -> int:
@@ -465,7 +493,15 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
     rest = (int(config.max_iter), kp, config.c_bounds(), eps_run,
             float(config.tau), q, inner, config.selection,
             int(config.pair_batch))
-    if eng["pipelined"]:
+    m_act = active_set_height(config, q, n_pad)
+    if m_act:
+        warn_active_set()
+
+        def run_chunk(s):
+            return block.run_chunk_block_active(
+                *args, valid, s, *rest, m=m_act,
+                k_rounds=int(config.reconcile_rounds), max_rounds=bound)
+    elif eng["pipelined"]:
         def run_chunk(s):
             return block.run_chunk_block_pipelined(
                 *args, valid, s, *rest, pallas_select=eng["pipe_select"],
@@ -513,7 +549,8 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                "device": str(dev), "n_pad": n_pad, "chunks": out.chunks,
                "phase_seconds": out.phase_seconds,
                **{k: eng[k] for k in ("pipelined", "fused_fold",
-                                      "fused_round")}},
+                                      "fused_round")},
+               **({"active_set_size": m_act} if m_act else {})},
     )
 
 

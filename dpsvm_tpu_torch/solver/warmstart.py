@@ -18,10 +18,13 @@ fraction of a cold solve's pairs (Graf et al.'s cascade SVM). Pieces:
   float64 counterpart is solver/reconstruct.py gram_matvec_f64;
 * :func:`prepare_warm_start`: repair + rebuild, the solvers' front door.
 
+* :func:`warm_rebuild_mesh`: the same gradient on a mesh (solve_mesh's
+  warm starts): one masked sum a seed block gathers the seed rows from
+  the row-sharded X, and each shard folds its slice locally.
+
 The zero-seed contract: a seed that repairs to all zeros (warm_start=None
 included) returns (None, None, stats), so the solvers' cold branches run
-bit for bit. The mesh rebuild (warm_rebuild_mesh) and warm starts on the
-mesh are ROADMAP queue A item 10b.
+bit for bit.
 """
 
 from __future__ import annotations
@@ -193,17 +196,68 @@ def warm_f_rebuild(x, y, alpha: np.ndarray, kp, device=None,
     return f_dev.cpu().numpy()
 
 
+def warm_rebuild_mesh(x, y, alpha: np.ndarray, kp, mesh,
+                      q_block: int = Q_BLOCK,
+                      dtype: str = "float32") -> np.ndarray:
+    """The mesh form of :func:`warm_f_rebuild` (the JAX package's
+    warm_rebuild_mesh), same contract: X row-sharded over `mesh`
+    (parallel/mesh.py Mesh) as the solve shards it, in `dtype`; per
+    block of `q_block` seed rows ONE masked sum gathers the block's rows,
+    norms and coefficients from the shards that own them, and each shard
+    folds its gradient slice locally. The norms are the squared norms of
+    the stored rows, on the device."""
+    import torch
+
+    from dpsvm_tpu_torch.ops.kernels import kernel_rows, squared_norms
+    from dpsvm_tpu_torch.parallel.mesh import shard_padded_rows
+    from dpsvm_tpu_torch.solver.solve import _tdtype
+
+    x = np.asarray(x, np.float32)
+    n, d = x.shape
+    y_np = np.asarray(y, np.float32)
+    coef = (np.asarray(alpha, np.float64)
+            * np.asarray(y, np.float64)).astype(np.float32)
+    f = (-y_np).astype(np.float32)
+    nz = np.nonzero(coef != 0.0)[0]
+    if nz.size == 0:
+        return f
+    x_sh = shard_padded_rows(mesh, x, dtype=_tdtype(dtype))
+    n_loc = x_sh[0].shape[0]
+    xsq = [squared_norms(xr) for xr in x_sh]
+    f_sh = shard_padded_rows(mesh, np.pad(f, (0, n_loc * mesh.size - n)))
+    coef_sh = shard_padded_rows(mesh, np.pad(coef, (0, n_loc * mesh.size
+                                                    - n)))
+    for s in range(0, nz.size, q_block):
+        idx = np.zeros(q_block, np.int64)
+        idx[:min(q_block, nz.size - s)] = nz[s:s + q_block]
+        live = np.arange(q_block) < nz.size - s
+        parts = []
+        for r, (xr, sq, cr) in enumerate(zip(x_sh, xsq, coef_sh)):
+            loc = idx - r * n_loc
+            own = torch.as_tensor(live & (loc >= 0) & (loc < n_loc),
+                                  device=xr.device)[:, None]
+            l_safe = torch.as_tensor(np.clip(loc, 0, n_loc - 1),
+                                     device=xr.device)
+            packed = torch.cat([xr[l_safe].float(), sq[l_safe, None],
+                                cr[l_safe, None]], dim=1)
+            parts.append(torch.where(own, packed, 0.0))
+        seeds = mesh.psum(parts)  # (q_block, d + 2) per device group
+        for r, (xr, sq) in enumerate(zip(x_sh, xsq)):
+            seed = seeds[mesh.group_of[r]]
+            k = kernel_rows(xr, sq, seed[:, :d].to(xr.dtype), seed[:, d],
+                            kp)
+            f_sh[r] = f_sh[r] + seed[:, d + 1] @ k
+    return np.concatenate([t.cpu().numpy() for t in f_sh])[:n]
+
+
 def prepare_warm_start(x, y, config, warm: Optional[WarmStart],
-                       device=None, mesh_devices: Optional[int] = None):
+                       device=None, mesh=None):
     """Repair + rebuild. Returns (alpha_init, f_init, stats) as float32
     host arrays for the solvers' alpha_init / f_init, or (None, None,
     stats) when the repaired seed is all zeros, so the caller's cold
-    branch runs bit for bit. `mesh_devices` > 1 (the mesh rebuild) is
-    ROADMAP queue A item 10b."""
-    if mesh_devices and mesh_devices > 1:
-        raise NotImplementedError(
-            "the mesh warm rebuild (warm_rebuild_mesh) is not ported "
-            "(ROADMAP queue A item 10b); warm starts run on one device")
+    branch runs bit for bit. `mesh` (a parallel/mesh.py Mesh of more than
+    one shard) rebuilds the gradient on the mesh (warm_rebuild_mesh);
+    otherwise one streamed pass on `device` (warm_f_rebuild)."""
     x = np.asarray(x)
     n, d = x.shape
     stats: dict = {"seed_rows": 0}
@@ -219,7 +273,11 @@ def prepare_warm_start(x, y, config, warm: Optional[WarmStart],
 
     kp = KernelParams(config.kernel, config.resolve_gamma(d), config.degree,
                       config.coef0)
-    f = warm_f_rebuild(x, y, repaired, kp, device=device,
-                       tile_rows=int(config.ooc_tile_rows),
-                       dtype=config.dtype)
+    if mesh is not None and mesh.size > 1:
+        f = warm_rebuild_mesh(x, y, repaired, kp, mesh, dtype=config.dtype)
+    else:
+        f = warm_f_rebuild(x, y, repaired, kp,
+                           device=device if mesh is None else mesh.devices[0],
+                           tile_rows=int(config.ooc_tile_rows),
+                           dtype=config.dtype)
     return repaired.astype(np.float32), f, stats

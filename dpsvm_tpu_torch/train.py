@@ -16,29 +16,36 @@ def resolve_backend(backend: str, config: SVMConfig, device=None,
                     num_devices=None, mesh=None, warm: bool = False) -> str:
     """"single", "mesh", "reference" or "native" for a `backend`
     request. "auto" takes the mesh when one is given, or when no `device`
-    is named and more than one card is visible (or asked for), and only
-    where the mesh runs the request: engine="block" with a cold start
-    (`warm` False; the mesh runs no warm start and no nu rule) and no
-    reconstruction legs, no out-of-core stream. Otherwise the single
-    device. An explicit "mesh" stands: solve_mesh refuses what the mesh
-    does not run (ooc names ROADMAP queue A item 10b). The host backends
-    are the NumPy oracle and the native sequential engine."""
+    is named and more than one card is visible (or asked for), as the
+    JAX package's auto does: for train() (`warm` False) only where the
+    engine is "xla" or "block"; for the model families' warm-started
+    solves (`warm` True) whatever the engine. Out-of-core requests stay
+    on the single device (the mesh stream is ROADMAP queue A item 10b).
+    An explicit "mesh" stands: solve_mesh refuses what the mesh does not
+    run. The host backends are the NumPy oracle and the native
+    sequential engine."""
     if backend == "auto":
         import torch
 
         multi = (device is None
                  and (num_devices or torch.cuda.device_count()) > 1)
-        # The mesh runs the block engine only; auto must not swap a
-        # per-pair request for another engine. It has no ooc stream yet
-        # (item 10b; the JAX package's auto keeps only the ooc cache and
-        # shrunken stream on one device).
-        backend = ("mesh" if (multi or mesh is not None)
-                   and config.engine == "block" and not warm
-                   and not config.reconstruct_every
+        engine_ok = warm or config.engine in ("xla", "block")
+        backend = ("mesh" if (multi or mesh is not None) and engine_ok
                    and not config.ooc else "single")
     if backend not in ("single", "mesh", "reference", "native"):
         raise ValueError(f"unknown backend {backend!r}")
     return backend
+
+
+def host_device(backend: str, device=None, mesh=None):
+    """The device a model family computes its start gradient on: the
+    mesh's first device when the solve runs on a given mesh, else
+    `device` resolved (None: the CUDA card)."""
+    if backend == "mesh" and mesh is not None:
+        return mesh.devices[0]
+    from dpsvm_tpu_torch.device import resolve_device
+
+    return resolve_device(device)
 
 
 def solve_on(backend: str, x, y, config: SVMConfig, device=None,

@@ -255,18 +255,36 @@ def test_ooc_flags_train_like_the_api_and_jax(data, tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--active-set-size", "64", "--engine", "block"], "item 4"),
+    # The active-set engine without --ooc runs (match None): the model
+    # is the API's with the same knobs, --reconcile-rounds included.
+    (["--active-set-size", "64", "--reconcile-rounds", "4", "--engine",
+      "block"], None),
     (["--ooc", "--engine", "xla"], "block-engine path"),
     (["--ooc-shrink", "on", "--engine", "block"], "set ooc=True"),
     (["--ooc", "--engine", "block", "--backend", "mesh", "--num-devices",
       "2"], "item 10b"),
 ])
 def test_ooc_refusals(data, tmp_path, capsys, argv, match):
-    """The active-set engine without --ooc names item 4, --ooc on the
-    mesh names item 10b, and bad combinations say what SVMConfig says."""
-    _, _, csv, _ = data
-    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"), "-q",
-                   "--device", "cpu", *argv])
+    """--ooc on the mesh names item 10b, and bad combinations say what
+    SVMConfig says; --active-set-size without --ooc trains the active-set
+    engine."""
+    from dpsvm_tpu_torch import SVMConfig, train
+
+    x, y, csv, _ = data
+    m = str(tmp_path / "m.txt")
+    rc = cli.main(["train", "-f", csv, "-m", m, "-q", "--device", "cpu",
+                   "-c", "1", "-g", "0.2", "-e", "0.001",
+                   "--working-set-size", "16", *argv])
+    if match is None:
+        assert rc == 0
+        api, res = train(x, y, SVMConfig(
+            c=1.0, gamma=0.2, epsilon=1e-3, engine="block",
+            working_set_size=16, active_set_size=64, reconcile_rounds=4),
+            device="cpu")
+        assert res.stats["active_set_size"] == 64
+        got = SVMModel.load(m)
+        np.testing.assert_array_equal(got.dual_coef, api.dual_coef)
+        return
     assert rc == 2
     assert match in capsys.readouterr().err
 
@@ -583,3 +601,23 @@ def test_serve_refusals_match_jax(tmp_path, capsys):
             assert main(["serve", *argv, *dev]) == 2
             texts.append(capsys.readouterr().err.strip())
         assert texts[0] == texts[1], argv
+
+
+def test_smoke_command_on_cpu_shards(capsys, monkeypatch):
+    """`smoke` (the JAX package's bring-up check): the known 3x3 matvec
+    on the device and a sum over the mesh, here --num-devices 4 logical
+    shards of the CPU; the JAX package's command passes on its forced
+    host devices. Without --device and without a card: a message, exit
+    code 2."""
+    import torch
+
+    assert cli.main(["smoke", "--device", "cpu", "--num-devices", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "platform=cpu devices=1" in out
+    assert "cpu: matvec OK" in out
+    assert "mesh(4) ['cpu', 'cpu', 'cpu', 'cpu'] psum OK" in out
+    assert jax_cli.main(["smoke", "--num-devices", "4"]) == 0
+    assert "psum OK" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert cli.main(["smoke"]) == 2
+    assert "--device cpu" in capsys.readouterr().err

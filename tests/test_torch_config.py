@@ -61,15 +61,18 @@ def test_invalid_values_raise_like_jax(kw):
         SVMConfig(**kw)
 
 
-# The ooc cases that stood here run since ooc was ported (they moved to
-# LIFTED); their places hold the JAX-only knobs that still refuse.
+_OBS = {"enabled": True, "trace_dir": None, "runlog_dir": None}
+# The ooc cases that stood here run since ooc was ported, the active-set
+# cases since the active-set engine was (both moved to LIFTED); their
+# places hold the same knobs with the JAX-only obs field, which still
+# refuses whatever else the config holds.
 UNPORTED = [
-    dict(reconcile_rounds=4, selection="second_order"),
-    dict(selection="second_order", active_set_size=64),
-    dict(pair_batch=2, reconcile_rounds=2),
-    dict(fused_fold=True, active_set_size=64),
-    dict(active_set_size=64),
-    dict(obs={"enabled": True, "trace_dir": None, "runlog_dir": None}),
+    dict(reconcile_rounds=4, selection="second_order", obs=_OBS),
+    dict(selection="second_order", active_set_size=64, obs=_OBS),
+    dict(pair_batch=2, reconcile_rounds=2, obs=_OBS),
+    dict(fused_fold=True, active_set_size=64, obs=_OBS),
+    dict(active_set_size=64, obs=_OBS),
+    dict(obs=_OBS),
 ]
 
 # Knobs whose engines this port now has: check_ported passes them, and a
@@ -82,6 +85,11 @@ LIFTED = [
     dict(kernel="precomputed"), dict(engine="xla", fleet_size=4),
     dict(ooc=True, selection="second_order"), dict(pair_batch=2, ooc=True),
     dict(ooc=True, ooc_tile_rows=16, active_set_size=16),
+    dict(reconcile_rounds=4, selection="second_order"),
+    dict(selection="second_order", active_set_size=16),
+    dict(pair_batch=2, reconcile_rounds=2, active_set_size=16),
+    dict(fused_fold=True, active_set_size=16),
+    dict(active_set_size=16),
 ]
 
 
@@ -226,24 +234,32 @@ def test_mesh_knob_validation_matches_jax(kw, match):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="block", active_set_size=64), "item 4"),
+    # The active-set engine runs, on one device and on the mesh (item
+    # None).
+    (dict(engine="block", active_set_size=64), None),
     # ooc runs on one device since item 8; on the mesh it names 10b.
     (dict(engine="block", ooc=True), "item 10b"),
 ])
 def test_still_refused_knobs_name_their_roadmap_item(kw, item):
-    from dpsvm_tpu_torch.parallel.dist_smo import _refuse_unported
+    from dpsvm_tpu_torch import Mesh, solve_mesh
 
-    cfg = SVMConfig(**kw)
+    cfg = SVMConfig(**kw, working_set_size=8, gamma=0.5)
+    cfg.check_ported()  # one device runs both
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, 3)).astype(np.float32)
+    y = np.where(x[:, 0] > 0, 1, -1).astype(np.int32)
+    if item is None:
+        res = solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
+        # m clamped to 2 n_loc: 40 rows pad to two shards of 24.
+        assert res.converged and res.stats["active_set_size"] == 48
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if cfg.ooc:
-            cfg.check_ported()  # one device runs it
-            _refuse_unported(cfg)
-        else:
-            cfg.check_ported()
+        solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
 
 
 JAX_ONLY = [
-    (dict(reconcile_rounds=4), "item 10b"),
+    # The active-set engines are ported: accepted, item None.
+    (dict(reconcile_rounds=4), None),
     # The ooc fields are ported (item 8): accepted, item None.
     (dict(ooc=True, ooc_tile_rows=1024, engine="block"), None),
     (dict(ooc=True, ooc_cache_lines=256, engine="block"), None),
@@ -257,7 +273,8 @@ JAX_ONLY = [
 def test_jax_only_fields_refuse_naming_their_item(kw, item):
     """Fields the port carries only so configs load: any value but the
     default is refused with the ROADMAP item that ports them. The ooc
-    fields, ported since item 8, pass both checks."""
+    fields (item 8) and reconcile_rounds (the active-set engines), ported
+    since, pass both checks."""
     cfg = SVMConfig(**kw)
     JaxConfig(**kw)  # a valid JAX config
     if item is None:

@@ -253,8 +253,25 @@ def test_gather_ws_is_jaxs(p_dev, dtype):
 
 
 def test_nu_rule_is_refused_on_the_mesh():
-    mesh = Mesh(["cpu"] * 2)
-    z = [torch.zeros(8)] * 2
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tdb._select_block_mesh(mesh, z, z, z, [None, None], 1.0, 4,
-                               rule="nu")
+    """The nu rule on the mesh, which the port once refused: from the
+    same state, ties included, _select_block_mesh(rule="nu") gives the
+    JAX package's per-class quarters and stopping pair bit for bit."""
+    c = (1.0, 1.0)
+    for p_dev, q in ((2, 16), (4, 32)):
+        x, y, alpha, f, valid = _state(p_dev, True)
+        jw, jok, jbh, jbl = _jax_sharded(
+            lambda f_, a_, y_, v_: jdb._select_block_mesh(
+                f_, a_, y_, v_, c, q, rule="nu"),
+            p_dev, (SHARD,) * 4, (REP,) * 4, f, alpha, y, valid)
+        mesh = Mesh(["cpu"] * p_dev)
+        f_s, a_s, y_s, v_s = _shards(mesh, f, alpha, y, valid)
+        (tw, tok, tbh, tbl), = tdb._select_block_mesh(
+            mesh, f_s, a_s, y_s, v_s, c, q, rule="nu")
+        np.testing.assert_array_equal(tw.numpy(), jw)
+        np.testing.assert_array_equal(tok.numpy(), jok)
+        assert np.float32(tbh).tobytes() == np.float32(jbh).tobytes()
+        assert np.float32(tbl).tobytes() == np.float32(jbl).tobytes()
+        # Each half pairs within one class.
+        yw, ok = y[tw.numpy()], tok.numpy()
+        assert (yw[:q // 2][ok[:q // 2]] > 0).all()
+        assert (yw[q // 2:][ok[q // 2:]] < 0).all()

@@ -11,6 +11,9 @@ global rounds choose the same working set (the same extrema, bit for
 bit) for three rounds; the shard-local engine reports its demotion and
 converges; the knobs the mesh does not run raise."""
 
+import contextlib
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +39,13 @@ BASE = dict(c=5.0, gamma=0.1, epsilon=1e-3, max_iter=200_000,
             engine="block", working_set_size=16)
 
 
+@contextlib.contextmanager
+def _no_warning():
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        yield
+
+
 def _dual_obj(res, y):
     a = np.asarray(res.alpha, np.float64)
     f = np.asarray(res.stats["f"], np.float64)
@@ -43,13 +53,17 @@ def _dual_obj(res, y):
 
 
 def _assert_same_optimum(rt, rj, y, c, eps=1e-3):
+    """The whole-solve contract; the block engines' final state also
+    meets the stopping rule (a per-pair run ends with the update of the
+    trip that saw it met, as on one device: eps=None skips the test)."""
     assert rj.converged and rt.converged
     obj_j, obj_t = _dual_obj(rj, y), _dual_obj(rt, y)
     assert abs(obj_t - obj_j) <= 1e-4 * abs(obj_j), (obj_t, obj_j)
     assert abs(rt.n_sv - rj.n_sv) <= 0.02 * rj.n_sv, (rt.n_sv, rj.n_sv)
     assert abs(rt.b - rj.b) <= 5e-3, (rt.b, rj.b)
-    b_hi, b_lo = extrema_np(rt.stats["f"], rt.alpha, y, c)
-    assert b_lo <= b_hi + 2 * eps + 1e-6
+    if eps is not None:
+        b_hi, b_lo = extrema_np(rt.stats["f"], rt.alpha, y, c)
+        assert b_lo <= b_hi + 2 * eps + 1e-6
     assert rt.alpha.shape == y.shape
 
 
@@ -256,21 +270,58 @@ def test_budget_mode_runs_exact_pairs_on_the_mesh(blobs_small):
     dict(engine="xla"), dict(pipeline_rounds=True), dict(fused_fold=True),
     dict(fused_round=True), dict(active_set_size=64), dict(ooc=True)])
 def test_unported_mesh_knobs_name_their_roadmap_item(blobs_small, kw):
+    """The mesh knobs the port once refused run, each within the
+    whole-solve contract of the JAX package's mesh solve with the same
+    knobs: the per-pair engine, the pipelined, fused-fold and active
+    runners, and fused_round=True, which warns in both packages and
+    keeps the mesh's own runner (here the fused fold, asked with it).
+    ooc=True on the mesh still names item 10b."""
     x, y = blobs_small
-    cfg = SVMConfig(**{**BASE, **kw})
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        train(x, y, cfg, backend="mesh", mesh=Mesh(["cpu"] * 2))
+    if kw.get("ooc"):
+        cfg = SVMConfig(**{**BASE, **kw})
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            train(x, y, cfg, backend="mesh", mesh=Mesh(["cpu"] * 2))
+        return
+    if kw.get("fused_round"):
+        kw = {**kw, "fused_fold": True}
+    cfg = {**BASE, **kw}
+    if cfg.get("fused_fold"):
+        cfg["working_set_size"] = 8  # q/2 <= n_loc/128 at n_loc 1024
+    with pytest.warns(UserWarning) if kw.get("fused_round") else \
+            _no_warning():
+        rt = solve_mesh(x, y, SVMConfig(**cfg), mesh=Mesh(["cpu"] * 2))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rj = jax_solve_mesh(x, y, JaxConfig(**cfg), num_devices=2)
+    _assert_same_optimum(rt, rj, y, SVMConfig(**cfg).c_bounds(),
+                         1e-3 if cfg["engine"] == "block" else None)
+    st = rt.stats
+    if cfg["engine"] == "block":
+        assert st["pipelined"] == bool(cfg.get("pipeline_rounds"))
+        assert st["fused_fold"] == bool(cfg.get("fused_fold"))
+        assert st.get("active_set_size") == cfg.get("active_set_size")
+        assert st["n_pad"] == pad_rows(len(y), 2, 1024 if st["fused_fold"]
+                                       else 8)
+    else:
+        assert "outer_rounds" not in st and st["cache_lookups"] == 0
+    _, res = train(x, y, SVMConfig(**cfg), backend="mesh",
+                   mesh=Mesh(["cpu"] * 2))
+    np.testing.assert_array_equal(res.alpha, rt.alpha)
 
 
 def test_mesh_refusals(blobs_small, monkeypatch):
     x, y = blobs_small
     with pytest.raises(ValueError, match="single-chip solver only"):
         solve_mesh(x, y, SVMConfig(engine="pallas"), mesh=Mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        solve_mesh(x, y, SVMConfig(**{**BASE, "selection": "nu"}),
-                   mesh=Mesh(["cpu"] * 2))
+    # The nu rule without the nu trainers' seed: the JAX package's
+    # ValueError, in both packages.
+    for fn, kw in ((solve_mesh, dict(mesh=Mesh(["cpu"] * 2))),
+                   (jax_solve_mesh, dict(num_devices=2))):
+        cfg_cls = SVMConfig if fn is solve_mesh else JaxConfig
+        with pytest.raises(ValueError, match="internal to the nu duals"):
+            fn(x, y, cfg_cls(**{**BASE, "selection": "nu"}), **kw)
     # The host backends are ported; like the JAX package's they run the
     # per-pair mvp engine only.
     with pytest.raises(ValueError, match="fixed host engine"):
@@ -315,9 +366,10 @@ def test_train_and_auto_backend_reach_the_mesh(tiny, monkeypatch):
     np.testing.assert_array_equal(ra.alpha, res.alpha)
     _, rs = train(x, y, cfg, backend="auto", device="cpu")
     assert "mesh_devices" not in rs.stats
+    # The per-pair engine runs on the mesh too: auto takes it there.
     _, rx = train(x, y, cfg.replace(engine="xla"), backend="auto", mesh=mesh,
                   device="cpu")
-    assert "mesh_devices" not in rx.stats
+    assert rx.stats["mesh_devices"] == ["cpu", "cpu"]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -347,13 +399,17 @@ def test_cli_mesh_flags_reach_the_engines(tmp_path, capsys, monkeypatch):
     m2 = SVMModel.load(str(tmp_path / "m2.txt"))
     assert abs(m1.b - m2.b) < 5e-3 and abs(m1.n_sv - m2.n_sv) <= 2
     # sync_rounds without the shard-local engine, and a knob the mesh
-    # does not run: both refused with a message, exit code 2.
+    # does not run (the out-of-core stream): both refused with a
+    # message, exit code 2. The pipelined runner trains.
     assert cli.main(common + ["-m", str(tmp_path / "m3.txt"),
                               "--sync-rounds", "2"]) == 2
-    assert cli.main(common + ["-m", str(tmp_path / "m3.txt"),
-                              "--pipeline-rounds", "on"]) == 2
+    assert cli.main(common + ["-m", str(tmp_path / "m3.txt"), "--ooc"]) == 2
     err = capsys.readouterr().err
     assert "local_working_sets >= 2" in err and "item 10b" in err
+    assert cli.main(common + ["-m", str(tmp_path / "m4.txt"),
+                              "--pipeline-rounds", "on"]) == 0
+    m4 = SVMModel.load(str(tmp_path / "m4.txt"))
+    assert abs(m1.b - m4.b) < 5e-3 and abs(m1.n_sv - m4.n_sv) <= 2
     # More shards than cards and no --device: a message, not a traceback.
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert cli.main(common[:-2] + ["-m", str(tmp_path / "m3.txt")]) == 2
@@ -381,10 +437,15 @@ def test_train_defaults_to_auto_and_one_card_is_single(tiny, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     assert resolve_backend("auto", block) == "mesh"
     assert resolve_backend("auto", block, device="cuda:0") == "single"
-    assert resolve_backend("auto", block.replace(engine="xla")) == "single"
-    assert resolve_backend("auto", block, warm=True) == "single"
-    # An explicit mesh request stands; solve_mesh refuses the warm start
-    # (tests/test_torch_nusvm.py test_mesh_refuses_nu_naming_the_roadmap_item).
+    # As the JAX package's auto: the per-pair engine and the families'
+    # warm starts take the mesh too (the families whatever the engine);
+    # only the out-of-core stream stays on one device (item 10b).
+    assert resolve_backend("auto", block.replace(engine="xla")) == "mesh"
+    assert resolve_backend("auto", block, warm=True) == "mesh"
+    assert resolve_backend("auto", block.replace(engine="pallas")) == "single"
+    assert resolve_backend("auto", block.replace(engine="pallas"),
+                           warm=True) == "mesh"
+    assert resolve_backend("auto", block.replace(ooc=True)) == "single"
     assert resolve_backend("mesh", block, warm=True) == "mesh"
     x, y = tiny
     model, res = train(x, y, SVMConfig(**{**BASE, "epsilon": 1e-2}),

@@ -124,16 +124,19 @@ def test_cli_refuses_unported_engine(tmp_path, capsys):
     x, y = make_blobs_binary(n=20, d=3, seed=1)
     csv = str(tmp_path / "d.csv")
     save_csv(csv, x, y)
-    # The block engine's pair batch is ported; the pipelined rounds on the
-    # mesh are not.
+    # The block engine's pair batch and the pipelined rounds on the mesh
+    # are ported; the out-of-core stream on the mesh is not.
     rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
                    "--engine", "block", "--pair-batch", "2", "--device",
                    "cpu", "--working-set-size", "8"])
     assert rc == 0
+    mesh = ["--engine", "block", "--backend", "mesh", "--num-devices", "2",
+            "--device", "cpu", "--working-set-size", "8"]
     rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
-                   "--engine", "block", "--pipeline-rounds", "on",
-                   "--backend", "mesh", "--num-devices", "2", "--device",
-                   "cpu"])
+                   "--pipeline-rounds", "on", *mesh])
+    assert rc == 0
+    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
+                   "--ooc", *mesh])
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err
 

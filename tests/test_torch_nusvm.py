@@ -233,25 +233,38 @@ def test_compensated_rho_reads_the_effective_gradient(blobs):
 
 
 def test_mesh_refuses_nu_naming_the_roadmap_item(blobs):
+    """The nu duals on the mesh, which the port once refused (the JAX
+    package's tests/test_nusvm.py:73-140): warm starts and the nu rule
+    run there, and train_nusvc on Mesh(["cpu"] * 2), block and per-pair,
+    meets the whole-solve contract against the JAX package's mesh run;
+    backend="auto" with a mesh given takes it, as the JAX package's auto
+    takes the mesh for the families."""
     from dpsvm_tpu_torch import Mesh, solve_mesh
 
     x, y = blobs
     alpha0 = np.full(len(y), 0.1, np.float32)
     mesh = Mesh(["cpu"] * 2)
     cfg = SVMConfig(engine="block", working_set_size=16)
-    for kw, c in ((dict(alpha_init=alpha0), cfg),
-                  (dict(f_init=-y.astype(np.float32)), cfg),
-                  (dict(alpha_init=alpha0), cfg.replace(selection="nu"))):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            solve_mesh(x, y, c, mesh=mesh, **kw)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        train_nusvc(x, y, nu=0.3, config=cfg, backend="mesh", mesh=mesh,
-                    device="cpu")
-    # backend="auto" with a mesh given keeps the nu trainer on one
-    # device: the mesh does not run the request.
+    for kw in (dict(alpha_init=alpha0), dict(f_init=-y.astype(np.float32))):
+        assert solve_mesh(x, y, cfg, mesh=mesh, **kw).stats[
+            "mesh_devices"] == ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="internal to the nu duals"):
+        solve_mesh(x, y, cfg.replace(selection="nu"), mesh=mesh)
+    for engine in ("block", "xla"):
+        c = cfg.replace(engine=engine)
+        mj, rj = jnusvm.train_nusvc(x, y, nu=0.3, config=JaxConfig(
+            engine=engine, working_set_size=16), backend="mesh",
+            num_devices=2)
+        mt, rt = train_nusvc(x, y, nu=0.3, config=c, backend="mesh",
+                             mesh=mesh)
+        assert rt.converged and rj.converged
+        assert rt.stats["mesh_devices"] == ["cpu", "cpu"]
+        assert abs(mt.n_sv - mj.n_sv) <= max(2, 0.02 * mj.n_sv)
+        assert abs(mt.b - mj.b) <= 5e-3
+        assert abs(rt.stats["nu_r"] - rj.stats["nu_r"]) <= 5e-3
     _, res = train_nusvc(x, y, nu=0.3, config=cfg, device="cpu",
                          mesh=mesh)
-    assert res.converged and "mesh_devices" not in res.stats
+    assert res.converged and res.stats["mesh_devices"] == ["cpu", "cpu"]
 
 
 def test_trainers_default_to_the_card(blobs, monkeypatch):

@@ -188,10 +188,18 @@ def test_upfront_gate_on_the_cpu_is_off():
 
 
 def test_mesh_refuses_legs():
+    """Reconstruction legs around the mesh solve, which the port once
+    refused: certified (the float64 gap within 2 eps, the legs counted)
+    and at the single device's legs' optimum, on the 64-row stress."""
     from dpsvm_tpu_torch import Mesh, solve_mesh
 
     x, y = _stress(n=64)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        solve_mesh(x, y, STRESS.replace(engine="block",
-                                        reconstruct_every=1000),
-                   mesh=Mesh(["cpu"] * 2))
+    cfg = STRESS.replace(engine="block", compensated=True,
+                         reconstruct_every=1000)
+    rm = solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
+    r1 = solve(x, y, cfg, device="cpu")
+    assert rm.converged and r1.converged
+    assert rm.stats["true_gap"] <= 2 * cfg.epsilon
+    assert rm.stats["legs"] >= 1
+    assert abs(rm.b - r1.b) <= 5e-3 * max(1.0, abs(r1.b))
+    assert abs(rm.n_sv - r1.n_sv) <= max(1, 0.02 * r1.n_sv)
