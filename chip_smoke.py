@@ -150,12 +150,13 @@ result line is printed:
                 sum(a) - sum(a*) = 0 within 1e-4 C n, and the engines'
                 predictions within 0.1 of each other.
  15. cli     -- the headline through dpsvm_tpu_torch.cli.main: written as
-                a CSV file and as a LIBSVM file of the same 60000 rows
-                (write times and sizes printed), each trained with
-                --format auto (the CLI's parse time printed; the native
-                CSV parser must load): the same pairs and rounds as the
-                API headline, B1 once a round and nothing else, the model
-                file bitwise the API model; each model tested with -o at
+                a CSV file of its 60000 rows and a LIBSVM file of its
+                first 10000 (write times and sizes printed), each trained
+                with --format auto (the CLI's parse time printed; the
+                native CSV parser must load): the same pairs and rounds as
+                the API model of the same rows, B1 once a round and
+                nothing else, the model file bitwise the API model; each
+                model tested with -o at
                 --precision float32 and float64 on the first 10000 rows:
                 the labels are the API model's decision signs;
  16. state   -- the plain headline observed in >= 8 chunks (bitwise the
@@ -289,9 +290,34 @@ result line is printed:
                 rows 50000-59999 within rtol / atol 1e-5 of
                 decision_function; ms per 8192-row block;
  35. cli smoke -- `cli smoke --num-devices 4` exits 0.
+ 36. ooc mesh -- the out-of-core stream on Mesh([cuda:0] * 4) (solver/ooc.py
+                solve_ooc_mesh), OOC_TILE-row tiles: (a) the headline, B1
+                once a round, within the whole-solve contract (dual rel
+                1e-4, n_sv 2%, |db| 5e-3) of [ooc]'s one-device stream and
+                gate (a) against the in-core headline; seconds, GB
+                uploaded and GB/s; (b) the oracle configuration against
+                artifacts/oracle60k; (c) stopped after 3 rounds and
+                resumed: bitwise (a).
+ 37. obs     -- the plain headline with obs off and on, unchunked and
+                chunked, in turns (three each), and with obs and a
+                trace_dir: each bitwise its unobserved twin with the same
+                chunks and B1 launches; chunk deltas sum to the pairs; the
+                torch.profiler trace holds solver/chunk spans; `cli obs
+                report` reads the logs; every train_seconds and the
+                medians printed; a ServingEngine with obs on
+                serves the headline model as one with obs off and logs
+                register and hot_swap.
+ 38. faults  -- one injected fault each (testing/faults.py), each fired
+                once: ooc_tile_put on the mesh stream retried from its
+                checkpoint (bitwise the uninterrupted stream), dispatch on
+                the chunked plain headline retried (gate (a)),
+                nonfinite_obs on the bf16 fused_fold headline demoted to
+                float32 and the plain round (bitwise the float32 plain
+                headline with the same chunks), ckpt_truncate
+                keeping the previous file.
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-35 under "path_launches") and the card's
+kernel's launches on phases 15-38 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1692,6 +1718,9 @@ def phase_svr(x) -> dict:
 
 # [cli]: the CLI's test files hold the first CLI_TEST_ROWS rows.
 CLI_TEST_ROWS = 10_000
+# [cli]'s LIBSVM file: the headline's first rows (a depth cut; the reader
+# is a Python token loop, 0.77 ms a row).
+LIBSVM_ROWS = 10_000
 # [state]: 4 rounds a chunk at inner 512 (the headline's 77 rounds: 20
 # chunks); a checkpoint at every chunk, two generations kept; the abort
 # after chunk STATE_ABORT_CHUNK.
@@ -1788,38 +1817,48 @@ def _grab(pattern: str, text: str, label: str) -> str:
 
 
 def phase_cli(x, y, head_model, head_res) -> dict:
-    """The headline through dpsvm_tpu_torch.cli.main, from a CSV file and
-    from a LIBSVM file of the same rows (--format auto). Each CLI model
-    must be the API headline's: the same pairs and rounds, B1 once a
-    round and no other kernel, SV rows, coefficients and b bit for bit.
-    Each is tested (-o) at --precision float32 and float64 on the first
-    CLI_TEST_ROWS rows: the labels must be the signs of the API model's
-    decisions at the same precision. Returns the launch counts a run."""
-    from dpsvm_tpu_torch import SVMModel, decision_function
+    """The headline through dpsvm_tpu_torch.cli.main, from a CSV file of
+    its rows and from a LIBSVM file of its first LIBSVM_ROWS rows (a depth
+    cut: the LIBSVM reader is a Python token loop) (--format auto). Each
+    CLI model must be the API model of the same rows: the same pairs and
+    rounds, B1 once a round and no other kernel, SV rows, coefficients
+    and b bit for bit. Each is tested (-o) at --precision float32 and
+    float64 on the first CLI_TEST_ROWS rows: the labels must be the signs
+    of the API model's decisions at the same precision. Returns the
+    launch counts a run."""
+    from dpsvm_tpu_torch import SVMModel, SVMConfig, decision_function, train
     from dpsvm_tpu_torch.utils import native
 
     out = smoke_dir()
+    lib_model, lib_res = train(x[:LIBSVM_ROWS], y[:LIBSVM_ROWS],
+                               SVMConfig(**HEADLINE))
+    refs = {"csv": (head_model, head_res, len(y)),
+            "libsvm": (lib_model, lib_res, LIBSVM_ROWS)}
     files = {}
     for fmt, writer in (("csv", write_csv), ("libsvm", write_libsvm)):
+        rows = refs[fmt][2]
         train_p = os.path.join(out, f"train.{fmt}")
         test_p = os.path.join(out, f"test.{fmt}")
         t0 = time.perf_counter()
-        writer(train_p, x, y)
+        writer(train_p, x[:rows], y[:rows])
         dt = time.perf_counter() - t0
         writer(test_p, x[:CLI_TEST_ROWS], y[:CLI_TEST_ROWS])
         files[fmt] = (train_p, test_p)
-        print(f"[cli] wrote {fmt} {len(y)} x {x.shape[1]}: "
+        print(f"[cli] wrote {fmt} {rows} x {x.shape[1]}: "
               f"{os.path.getsize(train_p) / 2 ** 20:.1f} MiB in {dt:.2f}s",
               flush=True)
-    # The .npz holds b in float32: the API model with b rounded so.
-    head_model = SVMModel(head_model.sv_x, head_model.sv_alpha,
-                          head_model.sv_y, float(np.float32(head_model.b)),
-                          head_model.kernel)
-    want = {prec: np.where(decision_function(
-        head_model, x[:CLI_TEST_ROWS], precision=prec) >= 0, 1, -1)
-        for prec in ("float32", "float64")}
+    want = {}
+    for fmt, (m, r, _) in refs.items():
+        # The .npz holds b in float32: the API model with b rounded so.
+        m = SVMModel(m.sv_x, m.sv_alpha, m.sv_y, float(np.float32(m.b)),
+                     m.kernel)
+        refs[fmt] = (m, r)
+        want[fmt] = {prec: np.where(decision_function(
+            m, x[:CLI_TEST_ROWS], precision=prec) >= 0, 1, -1)
+            for prec in ("float32", "float64")}
     launches = {}
     for fmt, (train_p, test_p) in files.items():
+        head_model, head_res = refs[fmt]
         label = f"cli {fmt}"
         model_p = os.path.join(out, f"cli_{fmt}.npz")
         reset_counts()
@@ -1838,7 +1877,7 @@ def phase_cli(x, y, head_model, head_res) -> dict:
               f"launches={counts}", flush=True)
         if (pairs, rounds) != (head_res.iterations, want_rounds):
             raise AssertionError(f"{label}: {pairs} pairs / {rounds} rounds, "
-                                 "not the API headline's")
+                                 "not the API model's")
         expect = {k: rounds if k == "solve_subproblem" else 0
                   for k in counts}
         if counts != expect:
@@ -1849,23 +1888,24 @@ def phase_cli(x, y, head_model, head_res) -> dict:
                 and np.array_equal(m.dual_coef, head_model.dual_coef)
                 and m.b == head_model.b):
             raise AssertionError(f"{label}: the model is not the API "
-                                 "headline's bit for bit")
+                                 "model's bit for bit")
         for prec in ("float32", "float64"):
             out_p = os.path.join(out, f"cli_{fmt}_{prec}.out")
             run_cli(["test", "-f", test_p, "-m", model_p, "-o", out_p,
                      "--precision", prec], f"{label} test {prec}")
             got = np.loadtxt(out_p, dtype=np.int64)
-            if not np.array_equal(got, want[prec]):
+            if not np.array_equal(got, want[fmt][prec]):
                 raise AssertionError(
-                    f"{label} test {prec}: {int(np.sum(got != want[prec]))} "
-                    "labels differ from the API model's decisions")
-        print(f"[cli] {fmt}: model bitwise the API headline's; test labels "
+                    f"{label} test {prec}: "
+                    f"{int(np.sum(got != want[fmt][prec]))} labels differ "
+                    "from the API model's decisions")
+        print(f"[cli] {fmt}: model bitwise the API model's; test labels "
               "= the API decisions' signs at float32 and float64",
               flush=True)
     if native.get_fastcsv() is None:
         raise AssertionError(f"the native CSV parser did not build: "
                              f"{native.build_errors}")
-    agree = float(np.mean(want["float32"] == want["float64"]))
+    agree = float(np.mean(want["csv"]["float32"] == want["csv"]["float64"]))
     print(f"[cli] float32 vs float64 labels agree on {100 * agree:.3f}% of "
           f"{CLI_TEST_ROWS} rows", flush=True)
     return launches
@@ -3172,7 +3212,7 @@ def phase_ooc(x, y, cfg, head_model, head_res, oracle, sk_dec,
     (e) one warm_f_rebuild pass over a stream_rows x 784 float32 memmap:
     within rtol 1e-5 of the in-core blocked_kernel_matvec, its GB/s
     against the pinned-copy rate, the fold's share of the pass.
-    Returns the launches per path."""
+    Returns the launches per path and (a)'s (model, result)."""
     import torch
 
     from dpsvm_tpu_torch import SVMConfig, solve, train
@@ -3292,7 +3332,7 @@ def phase_ooc(x, y, cfg, head_model, head_res, oracle, sk_dec,
           flush=True)
     del xs, x_tile
     os.remove(sm_path)
-    return paths
+    return paths, (model, res)
 
 
 def warm_increment(x, y, cfg, label: str, gate: bool) -> tuple:
@@ -3744,6 +3784,314 @@ def phase_mesh_predict(x, mesh, head_model) -> None:
                              "from decision_function")
 
 
+# ---- 36-38. the out-of-core mesh stream, obs, fault recovery
+
+OOC_MESH_ABORT_ROUNDS = 3  # [ooc mesh] (c): stopped after this many rounds
+FAULT_TILE_PUT = 21  # [faults] (a): the upload that faults (round 3 or so)
+
+
+def phase_ooc_mesh(x, y, cfg, mesh, head_model, ooc_model, ooc_res, oracle,
+                   sk_dec) -> dict:
+    """[ooc mesh] the out-of-core stream on Mesh([cuda:0] * 4), OOC_TILE
+    rows a tile. (a) the headline: B1 once a round and no other kernel;
+    the whole-solve contract (dual rel 1e-4, n_sv 2%, |db| 5e-3) against
+    [ooc]'s one-device stream, gate (a) against the in-core headline;
+    seconds, GB uploaded and GB/s printed. (b) the oracle configuration
+    against artifacts/oracle60k. (c) stopped after OOC_MESH_ABORT_ROUNDS
+    rounds with a file and resumed: bitwise (a), as the one-device
+    stream's resume is ([ooc] (d)). Returns the launches per path and
+    (a)'s result."""
+    from dpsvm_tpu_torch import SVMConfig, solve_mesh, train
+
+    paths = {}
+    want_b1 = {"solve_subproblem": lambda r: r}
+    mcfg = cfg.replace(ooc=True, ooc_tile_rows=OOC_TILE)
+    model, res, counts, _ = counted(
+        "ooc mesh headline",
+        lambda: train(x, y, mcfg, backend="mesh", mesh=mesh), want_b1)
+    paths["ooc mesh headline"] = counts
+    st = res.stats
+    gb = st["tile_bytes_h2d"] / 1e9
+    rel, dsv, db = twin_contract("ooc mesh (a) vs the one-device stream",
+                                 res, ooc_res, y)
+    bitwise = (np.array_equal(res.alpha, ooc_res.alpha)
+               and res.iterations == ooc_res.iterations)
+    print(f"[ooc mesh] (a) headline on {st['mesh_devices']}: pairs="
+          f"{res.iterations} (one device {ooc_res.iterations}) rounds="
+          f"{st['outer_rounds']} (one device "
+          f"{ooc_res.stats['outer_rounds']}) B1={counts['solve_subproblem']}"
+          f" n_pad={st['n_pad']} tiles={st['tiles_streamed']} h2d={gb:.3f} "
+          f"GB in train_seconds={res.train_seconds:.4f} (one device "
+          f"{ooc_res.train_seconds:.4f}) = {gb / res.train_seconds:.2f} "
+          f"GB/s of solve; against the one-device stream: dual rel "
+          f"{rel:.3g}, n_sv {res.n_sv}/{ooc_res.n_sv}, |db| {db:.3g}, "
+          f"alpha bitwise {bitwise}", flush=True)
+    agree_gate("ooc mesh (a) headline", model, head_model, x, res.converged)
+    agree_gate("ooc mesh (a) vs the one-device stream", model, ooc_model, x,
+               res.converged)
+
+    omodel, ores, counts, _ = counted(
+        "ooc mesh oracle",
+        lambda: train(x, y, SVMConfig(**ORACLE_RUN, ooc=True,
+                                      ooc_tile_rows=OOC_TILE),
+                      backend="mesh", mesh=mesh), want_b1)
+    paths["ooc mesh oracle"] = counts
+    check_oracle(omodel, ores, x, oracle, sk_dec, "ooc mesh (b)")
+
+    ck = _fresh(os.path.join(smoke_dir(), "ooc_mesh_resume.npz"))
+    rcfg = mcfg.replace(checkpoint_every=10 ** 9)
+    reset_counts()
+    part = solve_mesh(x, y, rcfg, mesh=mesh, checkpoint_path=ck,
+                      callback=_abort_after(OOC_MESH_ABORT_ROUNDS))
+    resumed = solve_mesh(x, y, rcfg, mesh=mesh, checkpoint_path=ck,
+                         resume=True)
+    paths["ooc mesh resume"] = counts = read_counts()
+    same = _same_solve(resumed, res) and resumed.b == res.b
+    print(f"[ooc mesh] (c) stopped at {part.iterations} pairs "
+          f"({part.stats['outer_rounds']} rounds), resumed from "
+          f"{resumed.stats.get('resumed_from')}: {resumed.iterations} "
+          f"pairs, {resumed.stats['outer_rounds']} rounds; B1 over both "
+          f"calls "
+          f"{counts['solve_subproblem']}; bitwise the uninterrupted mesh "
+          f"stream: {same}", flush=True)
+    if part.converged or not same:
+        raise AssertionError("[ooc mesh] (c) the resumed mesh stream is not "
+                             "the uninterrupted one bit for bit")
+    return paths, res
+
+
+def phase_obs(x, y, cfg, head_model, smi: str) -> dict:
+    """[obs] the plain headline unobserved and with obs on (the run log),
+    unchunked and chunked by a callback, in turns (off, on, on, off, off,
+    on), then once with obs and a trace_dir: each the same pairs, rounds
+    and B1 launches and alpha bitwise the unobserved run of its kind; the
+    run log's chunk deltas sum to the pairs; the torch.profiler trace in
+    trace_dir holds solver/chunk spans; `cli obs report` reads the logs;
+    every train_seconds and the medians printed (the cost of
+    observation). A served headline model with obs on keeps the verdicts
+    and decisions of one with obs off and logs register and hot_swap."""
+    import contextlib
+    import io
+
+    from dpsvm_tpu_torch import cli as port_cli
+    from dpsvm_tpu_torch import train
+    from dpsvm_tpu_torch.config import ObsConfig, ServeConfig
+    from dpsvm_tpu_torch.obs import analyze
+    from dpsvm_tpu_torch.obs.runlog import read_runlog, records_for
+    from dpsvm_tpu_torch.serving import ServingEngine
+
+    paths = {}
+    out = smoke_dir()
+    runs = os.path.join(out, "obs_runs")
+    tdir = os.path.join(out, "obs_trace")
+    for d in (runs, tdir):
+        if os.path.isdir(d):
+            for f in os.listdir(d):
+                os.remove(os.path.join(d, f))
+    want_b1 = {"solve_subproblem": lambda r: r}
+    on = ObsConfig(enabled=True, runlog_dir=runs)
+    turns = ("off", "on", "on", "off", "off", "on")
+    legs = ([(f"{t}", cfg.replace(obs=on) if t == "on" else cfg, False)
+             for t in turns]
+            + [(f"{t} chunked", cfg.replace(obs=on) if t == "on" else cfg,
+                True) for t in turns]
+            + [("on+trace", cfg.replace(obs=on.replace(trace_dir=tdir)),
+                False)])
+    ref, times = {}, {}
+    for label, c, chunked in legs:
+        model, res, counts, _ = counted(
+            f"obs {label}",
+            lambda: train(x, y, c, callback=(_abort_after(10 ** 9)
+                                             if chunked else None)),
+            want_b1)
+        paths[f"obs {label}"] = counts
+        if chunked not in ref:
+            ref[chunked] = (res, counts)
+        base, base_counts = ref[chunked]
+        if not (_same_solve(res, base) and counts == base_counts
+                and res.stats["chunks"] == base.stats["chunks"]):
+            raise AssertionError(f"[obs] {label}: not bitwise the "
+                                 "unobserved run, or other launches")
+        times.setdefault(label, []).append(res.train_seconds)
+        line = (f"[obs] {label}: pairs={res.iterations} rounds="
+                f"{res.stats['outer_rounds']} chunks={res.stats['chunks']} "
+                f"B1={counts['solve_subproblem']} train_seconds="
+                f"{res.train_seconds:.4f} setup="
+                f"{res.stats['phase_seconds']['setup']:.4f} observe="
+                f"{res.stats['phase_seconds']['observe']:.4f}")
+        if c.obs.enabled:
+            recs = records_for(read_runlog(res.stats["obs_runlog"]),
+                               res.stats["obs_run_id"])
+            chunks = [r for r in recs if r["kind"] == "chunk"]
+            if sum(r["pairs_delta"] for r in chunks) != res.iterations:
+                raise AssertionError(f"[obs] {label}: chunk deltas do not "
+                                     "sum to the pairs")
+            line += f" run log {len(recs)} records, {len(chunks)} chunks"
+            if c.obs.trace_dir:
+                final = recs[-1]
+                with open(final["trace_path"]) as fh:
+                    text = fh.read()
+                hits = text.count('"solver/chunk"')
+                line += (f"; trace {final['trace_path']} "
+                         f"({len(text) / 1e6:.2f} MB) holds solver/chunk "
+                         f"{hits}x")
+                if not hits:
+                    raise AssertionError("[obs] the profiler trace holds no "
+                                         "solver/chunk span")
+                os.remove(final["trace_path"])
+        print(line, flush=True)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[obs] train_seconds medians over {len(turns) // 2} turns: "
+          f"off {med['off']:.4f}, on {med['on']:.4f}; chunked off "
+          f"{med['off chunked']:.4f}, on {med['on chunked']:.4f}; on+trace "
+          f"{med['on+trace']:.4f} (NVIDIA card, {smi})", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = port_cli.main(["obs", "report", runs])
+    for ln in buf.getvalue().splitlines():
+        print(f"[obs] report | {ln}", flush=True)
+    if rc != 0 or "7 run(s)" not in buf.getvalue():
+        raise AssertionError("[obs] `cli obs report` did not read the logs")
+
+    path = os.path.join(out, "obs_head.npz")
+    head_model.save(path)
+    verdicts = []
+    for obs in (ObsConfig(), on):
+        eng = ServingEngine(ServeConfig(buckets=(256,), obs=obs))
+        eng.register("head", path)
+        eng.swap("head", path)
+        t = eng.submit(x[:200], "head")
+        verdicts.append(eng.drain()[t])
+        eng.close()
+    events = [e["name"] for r in analyze.load_runs([runs])
+              if r.manifest.get("tool") == "serve" for e in r.events]
+    same = (verdicts[0].verdict == verdicts[1].verdict == "ok"
+            and np.array_equal(verdicts[0].decision, verdicts[1].decision))
+    print(f"[obs] serve: verdicts with obs on the same as off: {same}; run "
+          f"log events {events}; {smi}", flush=True)
+    if not same or not {"register", "hot_swap"} <= set(events):
+        raise AssertionError("[obs] the observed server lost its verdicts or "
+                             "its events")
+    return paths
+
+
+def phase_faults(x, y, cfg, mesh, head_model, ooc_mesh_res) -> dict:
+    """[faults] injected faults on the card, each one fired exactly once
+    (plan.fired): (a) ooc_tile_put on the mesh stream (a file every
+    round) retried from the run's checkpoint: bitwise [ooc mesh] (a);
+    (b) dispatch on the plain block headline observed in chunks with a
+    file every chunk: retried from it, gate (a) against the headline;
+    (c) nonfinite_obs on the bf16 fused_fold headline: demoted once to
+    float32 and the plain round, converged, bitwise the float32 plain
+    headline with the same chunks (gate (a) against the bf16 headline
+    reported); (d) ckpt_truncate
+    mid-save: the previous file unchanged and resumable."""
+    import warnings
+
+    from dpsvm_tpu_torch import train
+    from dpsvm_tpu_torch.solver import smo
+    from dpsvm_tpu_torch.testing import faults
+    from dpsvm_tpu_torch.utils.checkpoint import (load_checkpoint_state,
+                                                  save_checkpoint)
+
+    paths = {}
+    out = smoke_dir()
+    backoff, smo._RETRY_BACKOFF_S = smo._RETRY_BACKOFF_S, ()
+    try:
+        mcfg = cfg.replace(ooc=True, ooc_tile_rows=OOC_TILE,
+                           checkpoint_every=1)
+        ck = _fresh(os.path.join(out, "fault_ooc_mesh.npz"))
+        reset_counts()
+        with faults.install(faults.FaultPlan.parse(
+                f"ooc_tile_put@{FAULT_TILE_PUT}")) as plan:
+            t0 = time.perf_counter()
+            model, res = train(x, y, mcfg, backend="mesh", mesh=mesh,
+                               checkpoint_path=ck)
+            wall = time.perf_counter() - t0
+        paths["faults ooc_tile_put"] = read_counts()
+        same = _same_solve(res, ooc_mesh_res)
+        print(f"[faults] (a) ooc_tile_put@{FAULT_TILE_PUT} on the mesh "
+              f"stream: fired {plan.fired['ooc_tile_put']}x, resumed from "
+              f"{res.stats.get('resumed_from')} pairs, {res.iterations} "
+              f"pairs, wall {wall:.2f}s, launches "
+              f"{paths['faults ooc_tile_put']}; bitwise the uninterrupted "
+              f"mesh stream: {same}", flush=True)
+        if plan.fired["ooc_tile_put"] != 1 or not same \
+                or not res.stats.get("resumed_from"):
+            raise AssertionError("[faults] (a) the retried mesh stream is "
+                                 "not the uninterrupted one")
+
+        ck = _fresh(os.path.join(out, "fault_dispatch.npz"))
+        dcfg = cfg.replace(checkpoint_every=1)
+        reset_counts()
+        with faults.install(faults.FaultPlan.parse("dispatch@3")) as plan:
+            model, res = train(x, y, dcfg, checkpoint_path=ck,
+                               callback=_abort_after(10 ** 9))
+        paths["faults dispatch"] = read_counts()
+        print(f"[faults] (b) dispatch@3 on the plain headline (chunked, a "
+              f"file every chunk): fired {plan.fired['dispatch']}x, "
+              f"{res.iterations} pairs, {res.stats['outer_rounds']} rounds "
+              f"after the resume, launches {paths['faults dispatch']}",
+              flush=True)
+        if plan.fired["dispatch"] != 1:
+            raise AssertionError("[faults] (b) the dispatch fault did not "
+                                 "fire")
+        agree_gate("faults (b) dispatch retried", model, head_model, x,
+                   res.converged)
+
+        reset_counts()
+        with faults.install(faults.FaultPlan.parse("nonfinite_obs@2")) \
+                as plan, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model, res = train(x, y, cfg.replace(fused_fold=True),
+                               callback=_abort_after(10 ** 9))
+        paths["faults nonfinite_obs"] = read_counts()
+        demoting = [str(w.message) for w in caught
+                    if "DEMOTING" in str(w.message)]
+        # The safe configuration restarts from scratch (no file): the
+        # float32 plain headline with the same chunks, bit for bit.
+        _, safe = train(x, y, cfg.replace(dtype="float32"),
+                        callback=_abort_after(10 ** 9))
+        same = _same_solve(res, safe)
+        print(f"[faults] (c) nonfinite_obs@2 on the bf16 fused_fold "
+              f"headline: fired {plan.fired['nonfinite_obs']}x, demotion "
+              f"{res.stats.get('demotion')}, converged={res.converged} "
+              f"pairs={res.iterations} launches "
+              f"{paths['faults nonfinite_obs']}; bitwise the float32 "
+              f"plain headline: {same}", flush=True)
+        if plan.fired["nonfinite_obs"] != 1 or not demoting \
+                or res.stats.get("demoted_faults") != 1 or not same:
+            raise AssertionError("[faults] (c) no demotion to the safe "
+                                 "configuration")
+        # Reported only: the gate is (c)'s bits against the float32 solve.
+        agree_gate("faults (c) demoted (float32) against the bf16 "
+                   "headline", model, head_model, x, gate=False)
+
+        ck = _fresh(os.path.join(out, "fault_truncate.npz"))
+        save_checkpoint(ck, res.alpha, res.stats["f"], res.iterations,
+                        res.b_hi, res.b_lo, cfg)
+        before = open(ck, "rb").read()
+        raised = False
+        with faults.install(faults.FaultPlan.parse("ckpt_truncate")) as plan:
+            try:
+                save_checkpoint(ck, res.alpha * 0, res.stats["f"], 1, 0.0,
+                                0.0, cfg)
+            except faults.FaultInjected:
+                raised = True
+        kept = open(ck, "rb").read() == before
+        st = load_checkpoint_state(ck)
+        print(f"[faults] (d) ckpt_truncate: fired "
+              f"{plan.fired['ckpt_truncate']}x, the writer raised {raised}, "
+              f"the previous file kept bit for bit {kept} (iteration "
+              f"{st.iteration})", flush=True)
+        if not (raised and kept and st.iteration == res.iterations):
+            raise AssertionError("[faults] (d) the previous checkpoint did "
+                                 "not survive")
+    finally:
+        smo._RETRY_BACKOFF_S = backoff
+    return paths
+
+
 def phase_cli_smoke() -> dict:
     """`cli smoke --num-devices 4`: the matvec on the card and the sum
     over four logical shards of it; exit code 0, no kernel launched."""
@@ -4050,7 +4398,9 @@ def main() -> int:
     # ---- 26, 27. out of core; warm starts, the cascade, the learning
     # loop
     print(f"[ooc] {smi}", flush=True)
-    paths.update(phase_ooc(x, y, cfg, head_model, head_res, oracle, sk_dec))
+    ooc_paths, (ooc_model, ooc_res) = phase_ooc(x, y, cfg, head_model,
+                                                head_res, oracle, sk_dec)
+    paths.update(ooc_paths)
     lap("ooc")
     print(f"[warm] {smi}", flush=True)
     paths.update(phase_warm(x, y, cfg, est_sweep,
@@ -4075,6 +4425,18 @@ def main() -> int:
     phase_mesh_predict(x, mesh, head_model)
     paths.update(phase_cli_smoke())
     lap("mesh predict, cli smoke")
+
+    # ---- 36-38. the out-of-core mesh stream, obs, fault recovery
+    print(f"[ooc mesh] {smi}", flush=True)
+    om_paths, ooc_mesh_res = phase_ooc_mesh(x, y, cfg, mesh, head_model,
+                                            ooc_model, ooc_res, oracle,
+                                            sk_dec)
+    paths.update(om_paths)
+    lap("ooc mesh")
+    paths.update(phase_obs(x, y, cfg, head_model, smi))
+    lap("obs")
+    paths.update(phase_faults(x, y, cfg, mesh, head_model, ooc_mesh_res))
+    lap("faults")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",

@@ -47,6 +47,14 @@ def _build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     # `learn ...` is forwarded to learn.run_cli before parsing (main);
     # this entry lists it in --help.
+    # `obs ...` likewise goes verbatim to obs/analyze.py run_cli.
+    sub.add_parser(
+        "obs", add_help=False,
+        help="run-log analytics (obs/analyze.py): `obs report <paths>` "
+             "aggregates run summaries (--md for markdown), `obs diff A B` "
+             "attributes a regression to the phase that moved, `obs tail "
+             "<path>` shows the last records of a stream; reads files "
+             "only, no device")
     sub.add_parser(
         "learn", add_help=False,
         help="continuous-learning loop (learn.py): retrain each increment "
@@ -220,11 +228,30 @@ def _build_parser() -> argparse.ArgumentParser:
                         "path.1, ...); --resume falls back to the newest "
                         "loadable one (default 1 = overwrite in place)")
     p.add_argument("--retry-faults", type=int, default=2,
-                   help="accepted at its default only: automatic retries "
-                        "after device faults are not ported (ROADMAP "
-                        "queue A item 11); relaunch with --resume")
+                   help="automatic retries on transient device faults, "
+                        "resuming from --checkpoint when this run wrote "
+                        "it (default 2); a CUDA device-side fault is not "
+                        "retried in the process: relaunch with --resume")
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint if it exists")
+    p.add_argument("--metrics-jsonl", default=None,
+                   help="write per-chunk metrics records to this JSONL "
+                        "file (observes the solve chunk by chunk)")
+    p.add_argument("--trace-dir", "--profile-dir", dest="profile_dir",
+                   default=None,
+                   help="capture a torch.profiler trace (Chrome trace "
+                        "JSON) into this directory; with --obs the solver "
+                        "owns the capture and its spans appear named in "
+                        "it")
+    p.add_argument("--obs", action="store_true",
+                   help="write a schema-versioned JSONL run log "
+                        "(manifest / chunk / event / span / final "
+                        "records) with registry metrics and trace spans; "
+                        "launches, chunk cadence and results are "
+                        "unchanged")
+    p.add_argument("--obs-dir", default=None,
+                   help="run-log directory for --obs (default obs_runs; "
+                        "env DPSVM_OBS_DIR)")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="no load line and no per-chunk progress (an "
                         "unobserved solve runs as one chunk)")
@@ -357,10 +384,12 @@ def _build_serve_parser(sub) -> argparse.ArgumentParser:
     p.add_argument("--group", type=int, default=8,
                    help="--server-bench: requests arriving together")
     p.add_argument("--obs", action="store_true",
-                   help="the JAX package's serve run log; not ported "
-                        "(ROADMAP queue A item 11): refused")
+                   help="write a serve run log (manifest, events, the "
+                        "final snapshot) and trace spans around bucket "
+                        "dispatches")
     p.add_argument("--obs-dir", default=None,
-                   help="run-log directory for --obs; refused with it")
+                   help="run-log directory for --obs (default obs_runs; "
+                        "env DPSVM_OBS_DIR)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     p.add_argument("-q", "--quiet", action="store_true")
@@ -397,21 +426,18 @@ def _check_svm_type(args) -> str | None:
             return "-b 1 is not supported with --kernel precomputed"
         if args.backend in ("reference", "native"):
             return "--kernel precomputed needs the single or mesh backend"
-    if args.retry_faults != 2:
-        return ("--retry-faults: automatic retries after device faults are "
-                "not ported (ROADMAP queue A item 11); keep the default and "
-                "relaunch with --resume --checkpoint PATH after a fault")
     return None
 
 
-def _fit(args, x, y, config, mesh):
+def _fit(args, x, y, config, mesh, callback=None):
     """Train the requested svm type: (model, result)."""
     from dpsvm_tpu_torch import models
     from dpsvm_tpu_torch.train import train
 
     common = dict(backend=args.backend, device=args.device,
                   num_devices=args.num_devices, mesh=mesh,
-                  checkpoint_path=args.checkpoint, resume=args.resume)
+                  checkpoint_path=args.checkpoint, resume=args.resume,
+                  callback=callback)
     if args.svm_type == "c-svc":
         return train(x, y, config, **common)
     if args.svm_type == "nu-svc":
@@ -466,7 +492,7 @@ def _cmd_smoke(args) -> int:
 
 
 def _cmd_train(args) -> int:
-    from dpsvm_tpu_torch.config import SVMConfig
+    from dpsvm_tpu_torch.config import ObsConfig, SVMConfig
     from dpsvm_tpu_torch.data.loader import load_data
     from dpsvm_tpu_torch.predict import accuracy
 
@@ -508,7 +534,13 @@ def _cmd_train(args) -> int:
             ooc_cache_lines=args.ooc_cache_lines,
             ooc_shrink=_TRI[args.ooc_shrink], chunk_iters=args.chunk_iters,
             checkpoint_every=args.checkpoint_every,
-            checkpoint_keep=args.checkpoint_keep, verbose=not args.quiet)
+            checkpoint_keep=args.checkpoint_keep,
+            retry_faults=args.retry_faults, verbose=not args.quiet,
+            # With --obs the solver owns the trace (its spans appear
+            # named in it); without it profile_trace below wraps the run.
+            obs=ObsConfig(enabled=bool(args.obs),
+                          trace_dir=args.profile_dir if args.obs else None,
+                          runlog_dir=args.obs_dir))
         config.check_ported()
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -533,8 +565,19 @@ def _cmd_train(args) -> int:
         from dpsvm_tpu_torch.parallel.mesh import Mesh
 
         mesh = Mesh([args.device] * (args.num_devices or 1))
+    logger = None
+    if args.metrics_jsonl:
+        from dpsvm_tpu_torch.utils.metrics import MetricsLogger
+
+        logger = MetricsLogger(
+            jsonl_path=args.metrics_jsonl,
+            lookups_per_iter=0 if args.engine == "block" else 2)
+    trace_dir = None if config.obs.enabled else args.profile_dir
     try:
-        model, result = _fit(args, x, y, config, mesh)
+        from dpsvm_tpu_torch.utils.metrics import profile_trace
+
+        with profile_trace(trace_dir, device=_trace_device(args, mesh)):
+            model, result = _fit(args, x, y, config, mesh, callback=logger)
     except (ValueError, NotImplementedError) as e:
         hint = ""
         if args.backend == "mesh" and args.device is None:
@@ -542,6 +585,9 @@ def _cmd_train(args) -> int:
                     "one card)")
         print(f"error: {e}{hint}", file=sys.stderr)
         return 2
+    finally:
+        if logger is not None:
+            logger.close()
     if result.converged:
         print(f"converged at iteration {result.iterations}")
     else:
@@ -573,6 +619,16 @@ def _cmd_train(args) -> int:
     model.save(args.model)
     print(f"model written to {args.model}")
     return 0
+
+
+def _trace_device(args, mesh):
+    """The device a --trace-dir capture records: the mesh's, the named
+    one, or the card; the host backends run on the CPU."""
+    if mesh is not None:
+        return mesh.devices[0]
+    if args.backend in ("reference", "native"):
+        return "cpu"
+    return args.device
 
 
 def _log_loss(p, y) -> float:
@@ -1114,6 +1170,14 @@ def _cmd_test(args) -> int:
     return 0
 
 
+def _serve_obs(args):
+    """The serve run log's ObsConfig from --obs / --obs-dir."""
+    from dpsvm_tpu_torch.config import ObsConfig
+
+    return ObsConfig(enabled=bool(args.obs),
+                     runlog_dir=args.obs_dir)
+
+
 def _serve_buckets(text: str):
     """--buckets: None for 'auto' (the default ladder), else the ints."""
     if text.strip() == "auto":
@@ -1132,11 +1196,6 @@ def _cmd_serve(args) -> int:
     from dpsvm_tpu_torch.config import ServeConfig
     from dpsvm_tpu_torch.serve import PredictServer, offered_load_sweep
 
-    if args.obs or args.obs_dir:
-        print("error: --obs / --obs-dir (the serve run log) are not "
-              "ported to dpsvm_tpu_torch yet (ROADMAP queue A item 11)",
-              file=sys.stderr)
-        return 2
     if args.registry or args.journal or args.listen or args.replicas > 1:
         return _cmd_serve_v2(args)
     if not args.model:
@@ -1162,7 +1221,7 @@ def _cmd_serve(args) -> int:
                              num_devices=args.num_devices,
                              metrics_port=args.metrics_port,
                              metrics_host=args.metrics_host,
-                             slo_ms=args.slo_ms)
+                             slo_ms=args.slo_ms, obs=_serve_obs(args))
         t0 = time.perf_counter()
         server = PredictServer(model, config, device=args.device)
     except ValueError as e:
@@ -1278,7 +1337,7 @@ def _cmd_serve_v2(args) -> int:
             admission_max_rows=args.admission_max_rows,
             metrics_port=args.metrics_port,
             metrics_host=args.metrics_host, slo_ms=args.slo_ms,
-            **timeouts)
+            obs=_serve_obs(args), **timeouts)
         t0 = time.perf_counter()
         if config.replicas > 1:
             engine = ReplicaFleet(config, device=args.device)
@@ -1428,6 +1487,11 @@ def main(argv=None) -> int:
         from dpsvm_tpu_torch.learn import run_cli
 
         return run_cli(argv[1:])
+    if argv[:1] == ["obs"]:
+        # Forwarded verbatim: obs/analyze.py owns the flags.
+        from dpsvm_tpu_torch.obs.analyze import run_cli as obs_cli
+
+        return obs_cli(argv[1:])
     args = _build_parser().parse_args(argv)
     if args.command == "train":
         return _cmd_train(args)

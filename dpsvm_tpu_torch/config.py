@@ -3,10 +3,10 @@
 Every field of the JAX package's ``SVMConfig`` is carried, with the same
 name, default and validation, so a config written by either package (a
 checkpoint carries its config as JSON) reads the same in the other.
-Knobs whose engines are not ported yet stay settable, but
-``check_ported`` (called by every entry point and by the checkpoint
-reader) refuses them with ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Every field now has its engine in the port. ``check_ported`` (called by
+every entry point and by the checkpoint reader) stays the one place
+that would refuse a knob whose engine is missing, with
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -19,10 +19,19 @@ KERNELS = ("rbf", "linear", "poly", "sigmoid", "precomputed")
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """The JAX package's observability knobs (its dpsvm_tpu/obs run logs,
-    metrics and trace spans), carried so configs load. The port has no
-    obs layer yet: anything but the default is refused (ROADMAP queue A
-    item 11)."""
+    """Observability knobs (dpsvm_tpu_torch/obs), shared by SVMConfig and
+    ServeConfig as their ``obs`` field, the JAX package's.
+
+    enabled    -- run logs, registry metrics and trace spans; off by
+                  default and free when off. ``DPSVM_OBS=1`` enables
+                  them from the environment. Enabling obs never changes
+                  a solve: launches, chunk cadence and results are the
+                  same either way.
+    trace_dir  -- a torch.profiler trace of the run here, with the spans
+                  named in it (env override DPSVM_TRACE_DIR).
+    runlog_dir -- directory of the JSONL run logs, one append-only file
+                  per tool and process (default ./obs_runs; env
+                  override DPSVM_OBS_DIR)."""
 
     enabled: bool = False
     trace_dir: Optional[str] = None
@@ -115,9 +124,10 @@ class SVMConfig:
     # the real epsilon.
     budget_mode: bool = False
 
-    # Retries after a transient device fault (the JAX package's
-    # run_with_fault_retry). Carried so configs load; the port retries
-    # nothing (ROADMAP queue A item 11).
+    # Retries after a transient device fault (solver/smo.py
+    # run_with_fault_retry), each resuming from this run's checkpoint
+    # when it wrote one. A CUDA device-side fault is never retried in the
+    # process (its context is lost): relaunch with resume.
     retry_faults: int = 2
 
     tau: float = 1e-12  # eta clamp
@@ -400,11 +410,11 @@ class SVMConfig:
     def check_jax_only(self) -> None:
         """Raise NotImplementedError for a field of the JAX package that
         the port carries only so configs load, set to anything but its
-        default; the message names the ROADMAP.md item that ports it."""
+        default; the message names the ROADMAP.md item that ports it.
+        Since obs was ported no field is left, so this accepts every
+        valid config; the checkpoint reader still calls it."""
         default = SVMConfig()
-        jax_only = (
-            ("obs", "ROADMAP queue A item 11"),
-        )
+        jax_only = ()
         for name, item in jax_only:
             if getattr(self, name) != getattr(default, name):
                 raise NotImplementedError(
@@ -455,8 +465,8 @@ class ServeConfig:
     admission_max_rows, admission_retry_ms, conn_read_timeout_ms,
       conn_write_timeout_ms, max_frame_bytes: the front door's admission
       bound, retry hint and per-connection bounds.
-    obs: the JAX package's run-log switch, carried so configs read the
-      same; anything but the default is refused (check_ported).
+    obs: the run log of the engine's registrations, swaps, guards and
+      failures, and its spans (obs/__init__.py run_obs).
     """
 
     buckets: Optional[tuple] = (16, 64, 256, 1024, 4096)
@@ -583,13 +593,9 @@ class ServeConfig:
         return "bf16" if self.dtype == "bfloat16" else "f32"
 
     def check_ported(self) -> None:
-        """Raise NotImplementedError for ``obs`` off its default: the port
-        has no run logs or trace sessions yet (ROADMAP queue A item 11).
-        Called by every serving entry point."""
-        if self.obs != ObsConfig():
-            raise NotImplementedError(
-                f"obs={self.obs!r} is not ported to dpsvm_tpu_torch yet "
-                "(ROADMAP queue A item 11)")
+        """The serving entry points' check of knobs whose engine the port
+        lacks. Every field is ported (obs since its run logs were), so
+        it accepts every valid config."""
 
     def replace(self, **kw) -> "ServeConfig":
         return dataclasses.replace(self, **kw)

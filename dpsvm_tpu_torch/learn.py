@@ -16,9 +16,11 @@ cold solve of the same increment (``--cold-baseline``, forced by
 flagged ``estimated``). With an engine, the counters
 ``learn.generations_total``, ``learn.pairs_total`` and
 ``learn.pairs_saved_total`` go on ``engine.metrics`` (its /metrics
-exposition). The JAX package's run-log stream (the ``generation``
-events and the ``learn`` column of ``obs report``) waits for ROADMAP
-queue A item 11: the loop runs without it, and ``--obs`` is refused.
+exposition). With obs on (``config.obs``, ``--obs`` / ``--obs-dir`` or
+``DPSVM_OBS=1``) the loop writes a ``learn`` run log: one
+``generation`` event per generation (rows, seed SVs, pairs, pairs saved
+against cold, whether the cold figure is an estimate), which ``obs
+report``'s ``learn`` column reads.
 
 Solves run on `device` (None: the CUDA card; the tests pass "cpu").
 """
@@ -140,6 +142,28 @@ def run_learn(stream, config, model_dir: str, kp, block_rows: int = 4096,
     ``register`` for generation 0, ``swap`` after, then a probe of the
     fresh rows' first `probe_rows` through ``submit`` / ``drain``
     (info["probe_verdict"]). Returns the loop summary."""
+    from dpsvm_tpu_torch.obs import run_obs
+
+    obs = run_obs("learn", config, device=device,
+                  meta={"engine": "learn", "block_rows": int(block_rows),
+                        "cold_baseline": bool(cold_baseline),
+                        "serving": engine is not None})
+    try:
+        summary = _learn_loop(stream, config, model_dir, kp, block_rows,
+                              cold_baseline, engine, model_name,
+                              probe_rows, on_generation, device, obs)
+    except BaseException:
+        obs.finish(aborted=True)
+        raise
+    obs.finish(generations=summary["generations"],
+               pairs=summary["pairs_total"],
+               pairs_saved=summary["pairs_saved_total"], converged=True)
+    return summary
+
+
+def _learn_loop(stream, config, model_dir, kp, block_rows, cold_baseline,
+                engine, model_name, probe_rows, on_generation, device,
+                obs) -> dict:
     os.makedirs(model_dir, exist_ok=True)
     model, cold_rate = None, None
     gens = []
@@ -173,6 +197,11 @@ def run_learn(stream, config, model_dir: str, kp, block_rows: int = 4096,
             engine.metrics.counter("learn.pairs_total").add(info["pairs"])
             engine.metrics.counter("learn.pairs_saved_total").add(
                 max(0, info["pairs_saved"]))
+        obs.event("generation", gen=g, rows=info["rows"],
+                  seed_sv=info["seed_sv"], sv=info["sv"],
+                  pairs=info["pairs"], pairs_cold=info["pairs_cold"],
+                  pairs_saved=info["pairs_saved"],
+                  estimated=info["estimated"])
         gens.append(info)
         if on_generation is not None:
             on_generation(g, model, info)
@@ -230,8 +259,11 @@ def _build_parser() -> argparse.ArgumentParser:
     out.add_argument("--json", action="store_true",
                      help="print the loop summary as JSON")
     p.add_argument("--obs", action="store_true",
-                   help="the run-log stream (not ported: ROADMAP queue A "
-                        "item 11)")
+                   help="write the learn run log (generation events) and "
+                        "the engine's serve run log")
+    p.add_argument("--obs-dir", default=None,
+                   help="run-log directory for --obs (default ./obs_runs "
+                        "or DPSVM_OBS_DIR)")
     p.add_argument("--device", default=None,
                    help="torch device of the solves and the engine "
                         "(default: the CUDA card; 'cpu' for the plain "
@@ -245,13 +277,11 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def run_cli(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    from dpsvm_tpu_torch.config import ServeConfig, SVMConfig
+    from dpsvm_tpu_torch.config import ObsConfig, ServeConfig, SVMConfig
     from dpsvm_tpu_torch.ops.kernels import KernelParams
 
-    if args.obs:
-        print("error: --obs (the learn run-log stream) is not ported "
-              "(ROADMAP queue A item 11)", file=sys.stderr)
-        return 2
+    obs_cfg = ObsConfig(enabled=bool(args.obs),
+                        runlog_dir=args.obs_dir)
     if args.smoke:
         args.generations, args.rows, args.d = 2, 240, 6
         args.drift = max(args.drift, 0.1)
@@ -259,7 +289,7 @@ def run_cli(argv=None) -> int:
         args.serve = True
     gamma = args.gamma if args.gamma is not None else 1.0 / args.d
     cfg = SVMConfig(c=args.c, kernel=args.kernel, gamma=gamma,
-                    epsilon=args.tol, max_iter=args.max_iter)
+                    epsilon=args.tol, max_iter=args.max_iter, obs=obs_cfg)
     kp = KernelParams(cfg.kernel, gamma, cfg.degree, cfg.coef0)
     if args.stream:
         stream = file_stream(args.stream, args.increment_rows)
@@ -273,7 +303,7 @@ def run_cli(argv=None) -> int:
         from dpsvm_tpu_torch.serving import ServingEngine
 
         engine = ServingEngine(ServeConfig(
-            buckets=(64,), metrics_port=args.metrics_port),
+            buckets=(64,), metrics_port=args.metrics_port, obs=obs_cfg),
             device=args.device)
     try:
         summary = run_learn(stream, cfg, model_dir, kp,

@@ -1,5 +1,5 @@
-"""Process-local, bounded, lock-free counters and histograms (the
-always-on part of dpsvm_tpu/obs/metrics.py).
+"""Process-local, bounded, lock-free counters, gauges and histograms
+(counterpart of dpsvm_tpu/obs/metrics.py).
 
 Each instrument method is a few plain Python operations under the GIL,
 with nothing allocated on the hot path (the histogram's ring is
@@ -28,6 +28,25 @@ class Counter:
 
     def add(self, v: int = 1) -> None:
         self.value += v
+
+    def snapshot(self):
+        return self.value
+
+
+class Gauge:
+    """Last-written value."""
+
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = None
+
+    def set(self, v) -> None:
+        self.value = v
+
+    def snapshot(self):
+        return self.value
 
 
 class Histogram:
@@ -127,5 +146,15 @@ class Registry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str, window: int = 4096) -> Histogram:
         return self._get(name, Histogram, window=window)
+
+    def snapshot(self) -> dict:
+        """JSON-able {name: value-or-dict} of everything registered."""
+        return {k: v.snapshot() for k, v in sorted(self._m.items())}
+
+    def reset(self) -> None:
+        self._m.clear()

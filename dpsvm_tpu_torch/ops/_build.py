@@ -18,6 +18,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+
+from dpsvm_tpu_torch.obs import compilelog
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -90,12 +93,16 @@ def build(names, defines=()) -> dict:
 
 def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu built with the macros
-    `defines`, built first if needed."""
+    `defines`, built first if needed. A first load in this process is
+    reported to the build log (obs/compilelog.py) as ``build/<name>``
+    with the seconds the build and the load took."""
     key = (name, tuple(defines))
     with _lock:
         lib = _libs.get(key)
         if lib is None:
+            t0 = time.perf_counter()
             build([name], defines)
             lib = ctypes.CDLL(_lib_path(name, defines))
             _libs[key] = lib
+            compilelog.record(f"build/{name}", time.perf_counter() - t0)
         return lib

@@ -169,7 +169,7 @@ def _one_device(tensors, what: str) -> torch.device:
         if all(d.type == "cuda" for d in devs):
             raise NotImplementedError(
                 f"{what}: ranks on several cards need peer-mapped pointers "
-                "(ROADMAP queue A item 10b); use ring_exchange=False there")
+                "(ROADMAP queue A item 6); use ring_exchange=False there")
         raise ValueError(f"{what}: shards lie on {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):

@@ -57,7 +57,14 @@ solver/block.py run_chunk_block reads once a round. Replicated work
 distinct device, so logical shards of one card launch kernel B1 once a
 round.
 
-Not ported: the out-of-core mesh programs.
+Out-of-core mesh programs (ooc_mesh_select, ooc_mesh_fold,
+ooc_mesh_scatter, ooc_mesh_norms; driven by solver/ooc.py
+solve_ooc_mesh while the host streams every shard its own row tiles):
+selection is _select_block_mesh's, and the working set's (q, 5) scalars
+[x_sq, k_diag, alpha, y, f_eff] are gathered from their owners with ONE
+masked sum (exactly one nonzero float32 term per live slot, so it is
+exact); the fold of a stream step touches only each shard's own tile and
+exchanges nothing; alpha scatters back to its owners only.
 """
 
 from __future__ import annotations
@@ -67,7 +74,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
-                                         kernel_rows, mm_f32)
+                                         kernel_rows, mm_f32, squared_norms)
+from dpsvm_tpu_torch.ops.ooc import ooc_fold_tile
 from dpsvm_tpu_torch.ops.ring import (fold_window_peers, ring_fold_window,
                                       ring_gather)
 from dpsvm_tpu_torch.ops.fold_select import LANES, fold_select
@@ -805,3 +813,65 @@ def make_block_active_chunk_runner(mesh: Mesh, kp: KernelParams, c,
         return state
 
     return run
+
+
+# ---------------------------------------------------------------------
+# The out-of-core mesh programs (the JAX package's
+# make_ooc_mesh_programs). Shard r owns global rows [r n_loc, (r+1) n_loc)
+# with n_loc a whole number of stream tiles; stream step j carries tile j
+# of every shard. Pad rows (past n) are masked out of selection by
+# `valid`, and a tile's fold runs on its real rows only, so a shard's
+# tile is exactly the one-device stream's tile r * tiles_loc + j.
+
+
+def ooc_mesh_select(mesh: Mesh, f, f_err, alpha, y, x_sq, k_diag, valid, c,
+                    q: int, selection: str = "mvp"):
+    """The round's selection and working-set scalars. Per group:
+    (w, slot_ok, b_hi, b_lo, scal (q, 5)) with scal's columns [x_sq,
+    k_diag, alpha, y, f_eff] at W (zero at dead slots), gathered from the
+    owners with one masked sum; and per rank the owners (l, own,
+    l_safe)."""
+    f_cur = [_eff(f, f_err, r) for r in range(mesh.size)]
+    sel = _select_block_mesh(mesh, f_cur, alpha, y, valid, c, q,
+                             rule=selection)
+    owners = [_ws_owners(*sel[mesh.group_of[r]][:2], r, f[r].shape[0])
+              for r in range(mesh.size)]
+    scal = _psum_scal(mesh, [(x_sq[r], k_diag[r], alpha[r], y[r], f_cur[r])
+                             for r in range(mesh.size)], owners)
+    return [(*s[:4], sc) for s, sc in zip(sel, scal)], owners
+
+
+def ooc_mesh_fold(mesh: Mesh, tiles, j: int, tile: int, x_sq, f, f_err, qx,
+                  qsq, coef, kp: KernelParams) -> None:
+    """Stream step j's fold, in place: shard r folds its own tile
+    `tiles[r]` = (x_tile, rows) into f[r] (and f_err[r]) at local rows
+    [j tile, j tile + rows). qx, qsq, coef are per group. No exchange."""
+    s = j * tile
+    for r, (xt, rows) in enumerate(tiles):
+        if not rows:
+            continue
+        g = mesh.group_of[r]
+        ft, et, _ = ooc_fold_tile(
+            xt, x_sq[r][s:s + rows], f[r][s:s + rows],
+            None if f_err is None else f_err[r][s:s + rows], qx[g], qsq[g],
+            coef[g], kp, compensated=f_err is not None)
+        f[r][s:s + rows] = ft
+        if et is not None:
+            f_err[r][s:s + rows] = et
+
+
+def ooc_mesh_scatter(mesh: Mesh, alpha, owners, a_w) -> list:
+    """alpha with each shard's OWNED working-set slots set to the
+    subproblem's new values (a_w per group)."""
+    return [scatter_alpha(alpha[r], l, own, a_w[mesh.group_of[r]])
+            for r, (l, own, _) in enumerate(owners)]
+
+
+def ooc_mesh_norms(tiles, j: int, tile: int, x_sq) -> None:
+    """The setup stream's step j, in place: each shard's tile's squared
+    norms (the one-device stream's reduction per row, so the same
+    bits)."""
+    s = j * tile
+    for r, (xt, rows) in enumerate(tiles):
+        if rows:
+            x_sq[r][s:s + rows] = squared_norms(xt)

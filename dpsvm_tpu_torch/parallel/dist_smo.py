@@ -38,9 +38,11 @@ condition once every PAIR_TRIPS trips. The row cache keeps its keys on
 the host (solver/cache.py), so a cached trip reads its pair's ids, as
 the single-device engine does.
 
-Not ported (refused with NotImplementedError naming its ROADMAP item):
-the out-of-core mesh stream (ooc=True, queue A item 10b), fault retry
-and obs.
+config.ooc routes to the out-of-core mesh stream (solver/ooc.py
+solve_ooc_mesh). Every solve runs inside the fault retry and the
+non-finite demotion (solver/smo.py run_with_fault_retry,
+_solve_with_degradation) and writes a ``solve_mesh`` run log when obs is
+on, with the ``shardlocal_demotion`` event.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import precision_ctx, resolve_device
+from dpsvm_tpu_torch.obs import NULL_OBS
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                          kernel_from_dots, row_dots,
                                          squared_norms,
@@ -440,8 +443,9 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     `warm_start` is repaired and its gradient rebuilt on the mesh
     (solver/warmstart.py warm_rebuild_mesh), then passed on as
     alpha_init / f_init. config.reconstruct_every runs the solve in
-    float64 reconstruction legs. The out-of-core stream (ooc) is refused
-    (ROADMAP queue A item 10b).
+    float64 reconstruction legs. config.ooc runs the out-of-core mesh
+    stream (solver/ooc.py solve_ooc_mesh: X stays on the host, each
+    shard streams its own row tiles).
     """
     if config.engine not in ("xla", "block"):
         raise ValueError(
@@ -463,10 +467,18 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
             "selection='nu' is internal to the nu duals — call "
             "train_nusvc/train_nusvr (models/nusvm.py) instead")
     if config.ooc:
-        raise NotImplementedError(
-            "ooc=True on the mesh (the out-of-core mesh stream, "
-            "solve_ooc_mesh) is not ported (ROADMAP queue A item 10b); "
-            "out-of-core training runs on one device (backend='single')")
+        # Routed before the warm-start recursion: the stream solver
+        # repairs a seed and rebuilds its gradient itself.
+        from dpsvm_tpu_torch.solver.ooc import solve_ooc_mesh
+        from dpsvm_tpu_torch.solver.smo import _solve_with_degradation
+
+        return _solve_with_degradation(
+            config, checkpoint_path, resume,
+            lambda cfg, res: solve_ooc_mesh(
+                x, y, cfg, num_devices=num_devices, mesh=mesh,
+                callback=callback, checkpoint_path=checkpoint_path,
+                resume=res, alpha_init=alpha_init, f_init=f_init,
+                warm_start=warm_start))
     if mesh is None:
         mesh = make_data_mesh(num_devices)
     if warm_start is not None:
@@ -490,6 +502,27 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
                              checkpoint_path=checkpoint_path, resume=resume,
                              alpha_init=alpha_init, f_init=f_init)
     config.check_ported()
+    from dpsvm_tpu_torch.solver.smo import (_retry_callback,
+                                            _solve_with_degradation,
+                                            run_with_fault_retry)
+
+    def run(cfg, res):
+        def attempt(cfg_k, res_k, k):
+            return _solve_mesh_impl(
+                x, y, cfg_k, mesh,
+                _retry_callback(callback, cfg_k, checkpoint_path, k),
+                checkpoint_path, res_k, alpha_init, f_init)
+
+        return run_with_fault_retry(cfg, checkpoint_path, res, attempt)
+
+    return _solve_with_degradation(config, checkpoint_path, resume, run)
+
+
+def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
+                     checkpoint_path, resume, alpha_init,
+                     f_init) -> SolveResult:
+    """One attempt of solve_mesh: stage the shards, run the chunk loop,
+    assemble."""
     t_entry = time.perf_counter()
     x = np.asarray(x, np.float32)
     warn_if_bf16_degrades(x, config)
@@ -617,13 +650,28 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
         rounds = int(st.rounds[0]) if use_block else None
         return (unshard(st.alpha)[:n], unshard(st.f)[:n], err, rounds)
 
+    obs = chunks.open_run_obs(
+        "solve_mesh", config,
+        {"n": n, "d": d, "n_pad": n_pad, "n_devices": n_dev,
+         "engine": config.engine, "kernel": config.kernel,
+         "selection": config.selection,
+         "shardlocal": bool(use_shardlocal),
+         "pipelined": bool(use_block and use_pipe),
+         "fused_fold": bool(use_block and use_fused),
+         "ring_exchange": bool(use_ring), "observed_chunks": observe,
+         "mesh_devices": mesh.describe()}, list(mesh.devices))
+    fields = None
+    if use_block:
+        engine.obs_run = obs
+        fields = lambda: {"shardlocal": bool(engine.local)}  # noqa: E731
     with precision_ctx(config):
         out = chunks.run_chunks(
             run_chunk, state, read, config=config, eps_run=eps_run,
             callback=callback, ckpt=ckpt, start_iter=start.pairs,
             sync=mesh.synchronize, payload=payload,
             tensors=lambda st: (st.f, st.alpha), backend=f"mesh p={n_dev}",
-            t_entry=t_entry)
+            t_entry=t_entry, obs=obs, span="mesh/chunk",
+            chunk_fields=fields)
     t_fin = time.perf_counter()
     state = out.state
     it, b_hi, b_lo = out.it, out.b_hi, out.b_lo
@@ -654,10 +702,15 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
         stats.update(cache_hits=state.hits, cache_lookups=lookups,
                      cache_hit_rate=state.hits / lookups if lookups else 0.0)
     out.phase_seconds["finalize"] = time.perf_counter() - t_fin
-    return SolveResult(
+    res = SolveResult(
         alpha=alpha, b=float((b_lo + b_hi) / 2.0), b_hi=b_hi, b_lo=b_lo,
         iterations=it, converged=converged,
-        train_seconds=out.train_seconds, stats=stats)
+        train_seconds=out.train_seconds, stats=stats,
+        dispatches=out.chunks)
+    chunks.finish_run_obs(obs, res, out.chunks, **(
+        {"shardlocal_demoted": stats["shardlocal_demoted"]}
+        if "shardlocal_demoted" in stats else {}))
+    return res
 
 
 class _BlockEngine:
@@ -713,6 +766,7 @@ class _BlockEngine:
         self.runner = runner
         self.local = use["shardlocal"]
         self.obs = None
+        self.obs_run = NULL_OBS
         self.gap_ref = None
         self.demoted_at = None
         self.syncs = 0
@@ -736,6 +790,10 @@ class _BlockEngine:
                     self.local = False
                     self.demoted_at = {"pairs": it, "rounds": rounds_now,
                                        "gap": gap, "stalled": bool(stalled)}
+                    self.obs_run.event("shardlocal_demotion", pairs=it,
+                                       gap=float(gap),
+                                       stalled=bool(stalled),
+                                       rounds=int(rounds_now))
             was_local = self.local
             r0 = int(st.rounds[0]) if was_local else 0
             st = self.runner(*args, st, max_iter)

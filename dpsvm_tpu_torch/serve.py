@@ -29,8 +29,11 @@ partial decision columns. On CUDA a server owns one stream: queries
 cross through pinned host buffers (two per bucket, alternating) and the
 result comes back into pinned memory behind a recorded event, so a
 dispatch returns before the device finishes and waiting is the event's
-synchronize, never a device-wide one. Eager torch builds no executor, so
-the ``serve_compiles`` counter is exported and reads 0.
+synchronize, never a device-wide one. Eager torch builds no executor per
+bucket, and no kernel build or graph capture (what obs/compilelog.py
+counts) happens on the serving path, so the ``serve_compiles`` counter
+is exported and reads 0. With ``config.obs`` on, the server writes a
+``serve`` run log (manifest at construction, the snapshot at close()).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from dpsvm_tpu_torch.models.multiclass import (CompactedEnsemble,
                                                MulticlassSVM, compact_models,
                                                ovo_vote_fold)
 from dpsvm_tpu_torch.models.svm_model import SVMModel
+from dpsvm_tpu_torch.obs import run_obs
 from dpsvm_tpu_torch.obs import export as openmetrics
 from dpsvm_tpu_torch.obs.metrics import Registry
 from dpsvm_tpu_torch.obs.trace import span
@@ -83,7 +87,7 @@ def resolve_buckets(config: ServeConfig, device_kind: str = ""):
     """``(ladder, provenance)`` of ``ServeConfig.buckets``. An explicit
     tuple wins ({"source": "config"}); None gives the default ladder
     with the JAX package's no-profile record: the port has no device
-    profile (ROADMAP queue A item 11), so nothing is auto-applied."""
+    profile (ROADMAP queue A item 5b), so nothing is auto-applied."""
     if config.buckets is not None:
         return tuple(config.buckets), {
             "source": "config",
@@ -456,6 +460,14 @@ class PredictServer:
             "storage_guard": self.storage_guard,
             "bucket_provenance": self.bucket_provenance,
         }
+        # The run log (NULL_OBS unless config.obs / DPSVM_OBS).
+        self._obs = run_obs("serve", config, device=self.device,
+                            meta={"k": self.k, "d": self.d,
+                                  "n_union": int(self.ens.n_union),
+                                  "strategy": self.strategy,
+                                  "buckets": list(self.buckets),
+                                  "f64_columns": len(self.f64_cols),
+                                  "union_storage": self.union_storage})
         self._pending: list = []  # (ticket, (n, d) rows)
         self._pending_rows = 0
         self._done: dict = {}
@@ -732,6 +744,7 @@ class PredictServer:
         self._closing = True
         if self.exporter is not None:
             self.exporter.close()
+        self._obs.finish(**self.snapshot())
 
 
 def offered_load_sweep(server: PredictServer, request_sizes,

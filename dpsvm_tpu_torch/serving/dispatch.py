@@ -22,6 +22,7 @@ import numpy as np
 
 from dpsvm_tpu_torch.config import ServeConfig
 from dpsvm_tpu_torch.device import resolve_device
+from dpsvm_tpu_torch.obs import run_obs
 from dpsvm_tpu_torch.obs import export as openmetrics
 from dpsvm_tpu_torch.obs.metrics import Registry
 from dpsvm_tpu_torch.serve import (new_stream, resolve_buckets,
@@ -172,6 +173,18 @@ class ServingEngine:
 
         self._prep_lock = threading.Lock()
         self._preparing = 0  # in-flight swap preparations (admin thread)
+        # The run log (NULL_OBS unless config.obs / DPSVM_OBS): manifest
+        # now, events as they happen, the snapshot at close().
+        self._obs = run_obs(
+            "serve", config, device=self.device,
+            meta={"engine": "serving_v2",
+                  "buckets": list(self._bucket_ladder),
+                  "bucket_source": self.bucket_provenance["source"],
+                  "dtype": config.dtype,
+                  "union_storage": config.effective_union_storage(),
+                  "deadline_ms": config.deadline_ms,
+                  **({"replica": self.replica}
+                     if self.replica is not None else {})})
 
         # The render callback holds the engine weakly: the exporter's
         # daemon thread must not pin an un-closed engine.
@@ -211,15 +224,22 @@ class ServingEngine:
                                           int(rec["version"]))
                     self._model_metrics(name)
                     self._rehydrated.append(name)
+                if self._rehydrated:
+                    self._obs.event(
+                        "rehydrate", models=list(self._rehydrated),
+                        versions={n: int(entries[n]["version"])
+                                  for n in self._rehydrated})
                 self.registry.attach_journal(journal)
                 self.journal = journal
             except BaseException:
                 # Failed construction: close() is unreachable on a
                 # half-built engine, so stop the exporter here (a leaked
-                # one keeps the metrics port bound).
+                # one keeps the metrics port bound) and close the run
+                # log.
                 self._closing = True
                 if self.exporter is not None:
                     self.exporter.close()
+                self._obs.finish(aborted=True)
                 raise
 
     # ------------------------------------------------------ registration
@@ -239,6 +259,9 @@ class ServingEngine:
                 self.config.effective_union_storage(), stacklevel=7)
             entry.union_storage = st
             entry.storage_guard = guard
+            if guard.get("note"):
+                self._obs.event("storage_guard", model=entry.name,
+                                version=entry.version, **guard)
         return st
 
     def _members_for(self, key, extra=None) -> list:
@@ -288,9 +311,14 @@ class ServingEngine:
     def _on_swap(self, prev: LoadedModel, new: LoadedModel) -> None:
         self.hot_swaps.add(1)
         self._model_metrics(new.name)["swaps"].add(1)
+        self._obs.event("hot_swap", model=new.name,
+                        from_version=prev.version, to_version=new.version,
+                        union_changed=prev.union_fp != new.union_fp)
 
     def register(self, name: str, source) -> LoadedModel:
         entry = self.registry.register(name, source)
+        self._obs.event("register", model=name, version=entry.version,
+                        k=entry.k, d=entry.d, n_union=int(entry.ens.n_union))
         self._model_metrics(name)  # instruments exist before traffic
         return entry
 
@@ -525,6 +553,12 @@ class ServingEngine:
         (group, batch, used_rows, chain, final, rows_cum,
          dispatch_no), out, wait_s, window_s, err = item
         self.dispatch_seconds.observe(wait_s)
+        if self._obs.live:
+            self._obs.chunk(pairs=rows_cum, b_hi=0.0, b_lo=0.0,
+                            device_seconds=wait_s, dispatch=dispatch_no,
+                            rows=int(used_rows),
+                            window_seconds=round(window_s, 6),
+                            **({"failed": True} if err is not None else {}))
         if err is not None:
             return self._fail_batch(batch, chain, err, dispatch_no)
         if chain is not None:
@@ -560,6 +594,10 @@ class ServingEngine:
         self.dispatch_failures.add(1)
         if "watchdog" in err:
             self.watchdog_trips.add(1)
+        self._obs.event("dispatch_failed",
+                        models=sorted({r.entry.name for r in batch}),
+                        error=err[:200], dispatch=dispatch_no,
+                        watchdog=bool("watchdog" in err))
         now = time.perf_counter()
         for req in batch:
             mm = self._model_metrics(req.entry.name)
@@ -821,6 +859,7 @@ class ServingEngine:
             while self.scheduler.queue_depth or self._dispatcher.busy:
                 self.pump()
             self._gc_groups()
+            self._obs.finish(**self.snapshot())
             self._closed = True
 
     def __enter__(self):

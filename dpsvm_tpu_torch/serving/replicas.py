@@ -48,6 +48,7 @@ import threading
 
 from dpsvm_tpu_torch.config import ServeConfig
 from dpsvm_tpu_torch.obs import export as openmetrics
+from dpsvm_tpu_torch.obs import run_obs
 from dpsvm_tpu_torch.serving.dispatch import ServingEngine
 
 
@@ -73,6 +74,12 @@ class ReplicaFleet:
         # the exposition) and individually look like single-replica
         # configs — replica identity is the constructor arg.
         self._eng_config = config.replace(metrics_port=None, replicas=1)
+        self._obs = run_obs("serve", config, device=device,
+                            meta={"engine": "serving_fleet",
+                                  "replicas": config.replicas,
+                                  "buckets": list(config.buckets or ()),
+                                  "dtype": config.dtype,
+                                  "deadline_ms": config.deadline_ms})
         self._front = None
         self._closed = False
         self._lifecycle = threading.RLock()
@@ -83,6 +90,8 @@ class ReplicaFleet:
                 self.engines.append(
                     ServingEngine(self._eng_config, replica=i,
                                   device=device))
+            self._obs.event("fleet_up", replicas=len(self.engines),
+                            journal=bool(config.journal_path))
             if config.metrics_port is not None:
                 import weakref
 
@@ -107,6 +116,7 @@ class ReplicaFleet:
                     pass
             if self.exporter is not None:
                 self.exporter.close()
+            self._obs.finish(aborted=True)
             raise
 
     # ------------------------------------------------------ registration
@@ -128,6 +138,8 @@ class ReplicaFleet:
                 except Exception:
                     pass
             raise
+        self._obs.event("fleet_register", model=name, version=entry.version,
+                        replicas=len(self.engines))
         return entry
 
     def swap(self, name: str, source):
@@ -142,14 +154,26 @@ class ReplicaFleet:
         restarting at ANY instant rehydrates to a version some live
         replica is serving."""
         entry = None
-        for eng in self.engines:
-            entry = eng.swap(name, source)
+        flipped = 0
+        try:
+            for eng in self.engines:
+                entry = eng.swap(name, source)
+                flipped += 1
+        except BaseException:
+            if flipped:
+                self._obs.event("fleet_swap_split", model=name,
+                                flipped=flipped, replicas=len(self.engines))
+            raise
+        self._obs.event("fleet_swap", model=name, version=entry.version,
+                        replicas=len(self.engines))
         return entry
 
     def unregister(self, name: str):
         out = None
         for eng in self.engines:
             out = eng.unregister(name)
+        self._obs.event("fleet_unregister", model=name,
+                        replicas=len(self.engines))
         return out
 
     # -------------------------------------------------- rolling restart
@@ -171,6 +195,7 @@ class ReplicaFleet:
         with self._lifecycle:
             if self._closed:
                 raise RuntimeError("fleet is closed")
+            self._obs.event("restart_replica", phase="begin", replica=rep)
             if self._front is not None:
                 self._front.drain_replica(rep, timeout_s=timeout_s)
             old = self.engines[rep]
@@ -183,6 +208,8 @@ class ReplicaFleet:
             self.engines[rep] = fresh
             if self._front is not None:
                 self._front.resume_replica(rep)
+            self._obs.event("restart_replica", phase="end", replica=rep,
+                            rehydrated=list(fresh._rehydrated))
             return fresh
 
     # ---------------------------------------------------------- lifecycle
@@ -211,6 +238,7 @@ class ReplicaFleet:
                 self.exporter.close()
             for eng in self.engines:
                 eng.close()
+            self._obs.finish(**self.snapshot())
 
     def __enter__(self):
         return self

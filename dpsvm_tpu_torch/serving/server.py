@@ -330,6 +330,9 @@ class ServeServer:
         self._engine = None if self._fleet is not None else engine
         self._n_rep = (len(self._fleet.engines)
                        if self._fleet is not None else 1)
+        # The front door writes its events into the run log of the
+        # engine or fleet it serves (NULL_OBS when obs is off).
+        self._obs = engine._obs
         self._stats = _NetStats()
         self._inbox: queue.Queue = queue.Queue()
         self._inbox_pending = 0  # put-but-not-yet-handled (drain gate)
@@ -373,6 +376,9 @@ class ServeServer:
             for i in range(self._n_rep)]
         self._pump_thread = self._pump_threads[0]
         engine.attach_net(self)
+        self._obs.event("listen", host=self.host, port=self.port,
+                        admission_max_rows=self._admission_rows,
+                        replicas=self._n_rep)
         self._accept_thread.start()
         for th in self._pump_threads:
             th.start()
@@ -398,6 +404,7 @@ class ServeServer:
         with self._conns_lock:
             self._conns[cid] = conn
         self._stats.bump("conns_opened")
+        self._obs.event("conn_open", conn=cid, peer=f"{addr[0]}:{addr[1]}")
         # The HELLO banner: the client's proof this connection was
         # actually accepted (a handshake alone completes in the listen
         # backlog — EOF before HELLO is the retry-safe accept-drop).
@@ -449,6 +456,7 @@ class ServeServer:
         """A malformed frame kills ONLY its own connection, with an
         ERROR frame out first so the peer knows why."""
         self._stats.bump("protocol_errors")
+        self._obs.event("protocol_error", conn=conn.cid, error=msg[:200])
         conn.enqueue("error", wire.pack_error(0, msg))
 
     # ---------------------------------------------------------- pump side
@@ -628,6 +636,7 @@ class ServeServer:
             if self._conns.pop(conn.cid, None) is None:
                 return
         self._stats.bump("conns_closed")
+        self._obs.event("conn_close", conn=conn.cid)
 
     def drain(self, timeout_s: float = 60.0) -> dict:
         """Graceful drain: stop accepting, let queued work finish or
@@ -639,6 +648,9 @@ class ServeServer:
             if self._drained:
                 return self._stats.snapshot()
             self._draining = True
+            self._obs.event("drain", phase="begin", conns=len(self._conns),
+                            queued=sum(self._eng(i).scheduler.queue_depth
+                                       for i in range(self._n_rep)))
             self._tcp.shutdown()  # accept loop exits; no new conns
             # Quiescence: nothing unparsed in the inbox, no un-routed
             # ticket on ANY replica, every engine queue empty, no
@@ -676,6 +688,10 @@ class ServeServer:
             self._accept_thread.join(timeout=5.0)
             self._drained = True
             snap = self._stats.snapshot()
+            self._obs.event("drain", phase="end", **{
+                k: snap[k] for k in ("frames_accepted", "conns_opened",
+                                     "conns_closed", "goodbyes_sent",
+                                     "undeliverable_total")})
             return snap
 
     def close(self) -> dict:
@@ -714,9 +730,13 @@ class ServeServer:
                 self._rep_draining[rep] = True
                 if not already:
                     self._rep_parked[rep] = False
+            self._obs.event("drain_replica", phase="begin", replica=rep,
+                            queued=self._eng(rep).scheduler.queue_depth)
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline and not self._rep_parked[rep]:
             time.sleep(0.005)
+        self._obs.event("drain_replica", phase="end", replica=rep,
+                        parked=self._rep_parked[rep])
         return {"replica": rep, "parked": self._rep_parked[rep],
                 "verdicts": dict(self._rep_verdicts[rep])}
 
@@ -730,6 +750,7 @@ class ServeServer:
             with self._rep_lock:
                 self._rep_draining[rep] = False
                 self._rep_parked[rep] = False
+        self._obs.event("resume_replica", replica=rep)
 
     def __enter__(self):
         return self

@@ -184,6 +184,44 @@ def fold_block(x, x_sq, qx, qsq, kp: KernelParams, f, f_err, coef,
     return scatter_alpha(alpha, w, slot_ok, a_w), f, f_err
 
 
+#: The safe configuration of the graceful-degradation path, the JAX
+#: package's: float32 storage and the plain round. A non-finite carried
+#: gradient on a configuration with any of these knobs on demotes once
+#: to it (solver/smo.py _solve_with_degradation).
+_SAFE_KNOBS = (
+    ("dtype", "float32"),
+    ("bf16_gram", False),
+    ("fused_round", False),
+    ("fused_fold", False),
+    ("pipeline_rounds", False),
+)
+
+
+def demote_to_safe(config):
+    """(safe_config, dropped_knobs): the same config with every knob of
+    _SAFE_KNOBS at its safe value, or (None, ()) when the config is
+    already safe (a non-finite trajectory there is a real numerics fault
+    to propagate, not to retry). A knob counts as dropped only when it
+    was truthy; None (auto) is pinned to False without making a config
+    unsafe by itself."""
+    changes = {}
+    dropped = []
+    for knob, safe in _SAFE_KNOBS:
+        cur = getattr(config, knob)
+        if knob == "dtype":
+            if cur != safe:
+                changes[knob] = safe
+                dropped.append(f"dtype={cur}")
+        else:
+            if cur is not safe:
+                changes[knob] = safe
+            if cur:
+                dropped.append(knob)
+    if not dropped:
+        return None, ()
+    return config.replace(**changes), tuple(dropped)
+
+
 def scatter_alpha(alpha, w, slot_ok, a_w):
     """alpha (or any row vector) with the live slots of a_w written at w.
     Only live slots may write: a dead slot's id is a real row (possibly

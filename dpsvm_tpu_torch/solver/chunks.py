@@ -16,6 +16,13 @@ loop.
 The clock: train_seconds sums the chunks, each from its dispatch to its
 work retired on the device; observation runs with the clock stopped and
 is counted in phase_seconds["observe"].
+
+The run log (obs/__init__.py run_obs, NULL_OBS when off) is not part of
+`observed`: its chunk records ride whatever cadence the solve already
+has, so enabling it changes no chunking, launch or host read. Each chunk
+runs inside the span `span` and behind the ``dispatch`` fault seam; the
+``nonfinite_obs`` seam sits before the non-finite sentinel
+(testing/faults.py).
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import numpy as np
 import torch
 
 from dpsvm_tpu_torch.config import SVMConfig
-from dpsvm_tpu_torch.solver.smo import gap_open
+from dpsvm_tpu_torch.obs import NULL_OBS, run_obs
+from dpsvm_tpu_torch.solver.smo import drain_pending_obs_events, gap_open
+from dpsvm_tpu_torch.testing import faults
 from dpsvm_tpu_torch.utils.checkpoint import (PeriodicCheckpointer,
                                               resume_state)
 
@@ -161,18 +170,46 @@ class ChunkRun:
     phase_seconds: dict = field(default_factory=dict)
 
 
+def open_run_obs(tool: str, config: SVMConfig, meta: dict, device):
+    """The solve's run handle (NULL_OBS when obs is off), with the events
+    a faulted or demoted earlier attempt queued drained into it."""
+    obs = run_obs(tool, config, meta=meta, device=device)
+    drain_pending_obs_events(obs)
+    return obs
+
+
+def finish_run_obs(obs, res, dispatches: int, **fields) -> None:
+    """Close a live run with the result's host-held fields and name its
+    log in res.stats (obs_run_id, obs_runlog). Nothing when obs is off."""
+    if not obs.live:
+        return
+    res.stats["obs_run_id"] = obs.run_id
+    res.stats["obs_runlog"] = obs.path
+    obs.finish(iterations=int(res.iterations),
+               converged=bool(res.converged),
+               train_seconds=round(float(res.train_seconds), 6),
+               dispatches=int(dispatches), b_hi=float(res.b_hi),
+               b_lo=float(res.b_lo),
+               n_sv=int(np.count_nonzero(res.alpha > 0)),
+               phase_seconds={k: round(v, 6) for k, v in
+                              res.stats.get("phase_seconds", {}).items()},
+               **fields)
+
+
 def run_chunks(run_chunk: Callable, state, read: Callable, *,
                config: SVMConfig, eps_run: float, callback,
                ckpt: PeriodicCheckpointer, start_iter: int, sync: Callable,
                payload: Callable, tensors: Callable, backend: str,
-               t_entry: float) -> ChunkRun:
+               t_entry: float, obs=NULL_OBS, span: str = "solver/chunk",
+               chunk_fields: Optional[Callable] = None) -> ChunkRun:
     """Drive `run_chunk(state) -> state` chunk by chunk. `read(state)`
     returns the host's (pairs, b_hi, b_lo) in one read; `payload(state)`
     the checkpoint's arrays (alpha, f, f_err, rounds; the first n rows);
     `tensors(state)` (f tensors, alpha tensors) for check_numerics;
     `sync()` waits for the device. The loop ends when the carried gap
     closes (tested in float32, as the runners test it), the pair budget
-    is spent, or the callback asks to stop."""
+    is spent, or the callback asks to stop. `obs` gets a chunk record
+    per chunk (with `chunk_fields()`'s extra fields)."""
     if callback is not None and hasattr(callback, "on_start"):
         callback.on_start(start_iter)
     sync()
@@ -181,14 +218,24 @@ def run_chunks(run_chunk: Callable, state, read: Callable, *,
     train_seconds = 0.0
     chunks = 0
     while True:
-        t0 = time.perf_counter()
-        state = run_chunk(state)
-        sync()
-        train_seconds += time.perf_counter() - t0
+        with obs.span(span):
+            t0 = time.perf_counter()
+            faults.device_fault("dispatch", f"chunk {chunks + 1}")
+            state = run_chunk(state)
+            sync()
+            # The clock stops inside the span: the span's record is
+            # written as it closes, on observation time.
+            t_obs = time.perf_counter()
+        dt = t_obs - t0
+        train_seconds += dt
         chunks += 1
-        t_obs = time.perf_counter()
         it, b_hi, b_lo = read(state)
+        b_hi, b_lo = faults.poison_obs(b_hi, b_lo)
         check_obs_finite(b_hi, b_lo, it, it > start_iter, backend)
+        if obs.live:
+            obs.chunk(pairs=it, b_hi=b_hi, b_lo=b_lo, device_seconds=dt,
+                      dispatch=chunks,
+                      **(chunk_fields() if chunk_fields else {}))
         closed = not gap_open(b_hi, b_lo, eps_run)
         abort = bool(callback is not None
                      and callback(it, b_hi, b_lo, state))

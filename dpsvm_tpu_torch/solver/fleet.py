@@ -44,6 +44,7 @@ import torch
 
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import precision_ctx, resolve_device, synchronize
+from dpsvm_tpu_torch.obs import compilelog, run_obs
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_rows,
                                          resolve_bf16_gram,
                                          warn_if_bf16_degrades)
@@ -400,28 +401,50 @@ def solve_fleet(x, problems: list, config: SVMConfig, device=None,
     with precision_ctx(config):
         run = stage_fleet(x, problems, config, dev, pad_to)
         state, k_pad, eps_run = run.state, run.cb.shape[0], run.rest[2]
+        # One run log for the whole fleet (NULL_OBS when off): chunk
+        # records from the chunk's one host read, which the loop makes
+        # anyway; the graph's capture is a `compile` record.
+        n_rows, d = x.shape[0], x.shape[1]
+        run_log = run_obs("fleet", config, device=dev,
+                          meta={"n": n_rows, "d": d,
+                                "n_pad": int(state.alpha.shape[1]),
+                                "k": k_real, "bucket": k_pad,
+                                "kernel": config.kernel,
+                                "gram_resident": bool(run.use_gram)})
         t0 = time.perf_counter()
         graph = (FleetGraph(*run.args, state, *run.rest, FLEET_TRIPS)
                  if dev.type == "cuda" else None)
         synchronize(dev)
         capture_seconds = time.perf_counter() - t0
+        if graph is not None:
+            compilelog.record("graph/fleet", capture_seconds,
+                              shape=f"k={k_pad} trips={FLEET_TRIPS}")
         train_seconds = 0.0
         reads = 0
         while True:
-            t0 = time.perf_counter()
-            for _ in range(replays):
-                state = (graph.run() if graph is not None else
-                         run_fleet_chunk(*run.args, state, *run.rest,
-                                         FLEET_TRIPS))
-            # The chunk's one host read: the stop test and, with them,
-            # every problem's extrema and pair count.
-            act = active_mask(state, run.rest[0], eps_run)
-            obs = torch.cat([act.float(), state.b_hi, state.b_lo,
-                             state.it.float(), state.t.float()[None]])
-            obs = obs.cpu().numpy()
-            train_seconds += time.perf_counter() - t0
+            with run_log.span("fleet/chunk"):
+                t0 = time.perf_counter()
+                for _ in range(replays):
+                    state = (graph.run() if graph is not None else
+                             run_fleet_chunk(*run.args, state, *run.rest,
+                                             FLEET_TRIPS))
+                # The chunk's one host read: the stop test and, with
+                # them, every problem's extrema and pair count.
+                act = active_mask(state, run.rest[0], eps_run)
+                obs = torch.cat([act.float(), state.b_hi, state.b_lo,
+                                 state.it.float(), state.t.float()[None]])
+                obs = obs.cpu().numpy()
+            chunk_dt = time.perf_counter() - t0
+            train_seconds += chunk_dt
             reads += 1
             active = obs[:k_pad] > 0
+            pairs = int(obs[3 * k_pad:3 * k_pad + k_real].sum())
+            run_log.chunk(pairs=pairs,
+                          b_hi=float(np.min(obs[k_pad:k_pad + k_real])),
+                          b_lo=float(np.max(obs[2 * k_pad:
+                                                2 * k_pad + k_real])),
+                          device_seconds=chunk_dt, dispatch=reads,
+                          active=int(active[:k_real].sum()))
             if config.verbose:
                 gaps = (obs[2 * k_pad:3 * k_pad] - obs[k_pad:2 * k_pad])
                 print(f"[fleet] trips={int(obs[-1])} "
@@ -429,6 +452,9 @@ def solve_fleet(x, problems: list, config: SVMConfig, device=None,
                       f"max_gap={float(np.max(gaps[:k_real])):.6f}")
             if not active.any():
                 break
+        run_log.finish(dispatches=reads, pairs=pairs,
+                       train_seconds=round(train_seconds, 6),
+                       converged=int((~active[:k_real]).sum()))
     b_hi = state.b_hi.cpu().numpy()
     b_lo = state.b_lo.cpu().numpy()
     it = state.it.cpu().numpy()

@@ -438,3 +438,226 @@ def run_chunk_pallas(x, y, x_sq, valid, state: SMOState, max_iter: int,
         hits += n_hits
         (ih, il), (bh, bl) = read_obs((i_hi, i_lo), (b_hi, b_lo))
     return SMOState(alpha, f, bh, bl, it, state.cache, hits)
+
+
+# ---------------------------------------------------------------------
+# Fault recovery (the JAX package's run_with_fault_retry and
+# _solve_with_degradation, around every solve entry point).
+
+# Markers of a TRANSIENT device-runtime fault worth retrying, the JAX
+# package's: gRPC status codes (matched as the status word "CODE:", so
+# torch's "INTERNAL ASSERT FAILED" is not one) and prose markers
+# (lowercase). The injected ``UNAVAILABLE:`` fault carries the first.
+_GRPC_TRANSIENT = ("UNAVAILABLE", "DEADLINE_EXCEEDED", "ABORTED",
+                   "CANCELLED", "INTERNAL")
+_PROSE_TRANSIENT = ("connection", "socket")
+# What a CUDA device-side fault says. Such a fault is sticky for the
+# process's CUDA context: nothing in this process can launch again, so
+# it is never retried in-process.
+_CUDA_FAULT = ("CUDA error", "CUDA kernel errors", "device-side assert",
+               "cudaError")
+
+# Seconds to wait before re-dispatching after a fault (indexed by retry
+# number, clamped to the last entry), the JAX package's table; tests
+# patch it to ().
+_RETRY_BACKOFF_S = (5.0, 30.0, 90.0)
+
+
+def _is_cuda_fault(e: BaseException) -> bool:
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(e, accel):
+        return True
+    s = str(e)
+    return any(m in s for m in _CUDA_FAULT)
+
+
+def _is_transient_fault(e: BaseException) -> bool:
+    if _is_cuda_fault(e):
+        return False
+    s = str(e)
+    sl = s.lower()
+    return (any(f"{m}:" in s for m in _GRPC_TRANSIENT)
+            or any(m in sl for m in _PROSE_TRANSIENT))
+
+
+def _clear_caches() -> None:
+    """What a faulted attempt may leave stale for the next one (the JAX
+    package clears its compiled programs): the cross-solve memos of X on
+    the device and of the resident Gram (solver/solve.py). The fleet's
+    CUDA graphs are built per solve and the loaded kernel libraries
+    hold no device state, so nothing else is cached across attempts."""
+    from dpsvm_tpu_torch.solver import solve as solve_mod
+
+    solve_mod._XDEV_MEMO.clear()
+    solve_mod._GRAM_MEMO.clear()
+
+
+def run_with_fault_retry(config, checkpoint_path, resume, attempt_fn):
+    """Bounded automatic recovery around a whole solve attempt.
+    ``attempt_fn(cfg, resume, k)`` runs attempt k and returns a
+    SolveResult. On a transient fault (_is_transient_fault) with retries
+    left (config.retry_faults), the cross-attempt caches are cleared, the
+    retry waits _RETRY_BACKOFF_S, and attempt k runs with chunk_iters + k
+    and tau (1 + k 1e-6), the JAX package's perturbation, so a retried
+    trajectory is the same computation in both packages; it resumes from
+    the checkpoint only when THIS run wrote one (its mtime moved since
+    attempt 0), else restarts from the caller's start. A CUDA
+    device-side fault propagates at once with the relaunch advice; any
+    other error propagates unchanged."""
+    import os
+    import sys
+    import time
+
+    attempts = max(1, int(config.retry_faults) + 1)
+
+    def _mtime():
+        try:
+            return (os.path.getmtime(checkpoint_path) if checkpoint_path
+                    else None)
+        except OSError:
+            return None
+
+    baseline_mtime = _mtime()
+
+    def _resume_now():
+        return resume or (bool(checkpoint_path) and _mtime() is not None
+                          and _mtime() != baseline_mtime)
+
+    for k in range(attempts):
+        cfg_k = config if k == 0 else config.replace(
+            chunk_iters=config.chunk_iters + k,
+            tau=config.tau * (1.0 + k * 1e-6))
+        res_k = resume if k == 0 else _resume_now()
+        try:
+            return attempt_fn(cfg_k, res_k, k)
+        except RuntimeError as e:
+            if _is_cuda_fault(e):
+                clear_pending_obs_events()
+                raise RuntimeError(
+                    f"{e}\nA CUDA device-side fault is sticky for this "
+                    "process and is not retried in it: relaunch with "
+                    "--resume --checkpoint PATH (solve(..., resume=True, "
+                    "checkpoint_path=PATH)) to continue from the last "
+                    "checkpoint") from e
+            if k == attempts - 1 or not _is_transient_fault(e):
+                clear_pending_obs_events()
+                raise
+            nxt = "from checkpoint" if _resume_now() else "from scratch"
+            print(f"[fault-retry] transient device fault ({str(e)[:160]!r}); "
+                  f"retry {k + 1}/{attempts - 1} {nxt}", file=sys.stderr,
+                  flush=True)
+            # The faulted attempt's run log closed aborted with the
+            # exception; the next attempt's run drains these.
+            queue_pending_obs_event("fault", error=str(e)[:200], attempt=k,
+                                    transient=True)
+            queue_pending_obs_event("retry", attempt=k + 1,
+                                    resume=bool(_resume_now()))
+            _clear_caches()
+            if _RETRY_BACKOFF_S:
+                time.sleep(_RETRY_BACKOFF_S[min(k,
+                                                len(_RETRY_BACKOFF_S) - 1)])
+        except BaseException:
+            clear_pending_obs_events()
+            raise
+    raise AssertionError("unreachable")
+
+
+def _noop_callback(it, b_hi, b_lo, state):
+    """The observer a retry attempt runs with when nothing else observes
+    (chunked dispatches instead of one long one). Never aborts."""
+    return None
+
+
+def _retry_callback(callback, cfg_k, checkpoint_path, k):
+    """The callback of retry attempt k: unchanged on attempt 0 or when
+    anything already observes chunk boundaries, else the no-op observer,
+    as in the JAX package."""
+    if k > 0 and callback is None and not cfg_k.verbose \
+            and not cfg_k.check_numerics \
+            and not (cfg_k.checkpoint_every and checkpoint_path):
+        return _noop_callback
+    return callback
+
+
+# Cross-attempt obs handoff: a faulted or demoted attempt's run log is
+# closed when the decision to retry or demote is made, so the wrapper
+# queues the event here and the next attempt drains it into its own run
+# log right after run_obs(). Thread-local: concurrent solves must not
+# take each other's events.
+import threading as _threading  # noqa: E402
+
+_PENDING_OBS = _threading.local()
+
+
+def queue_pending_obs_event(name: str, **fields) -> None:
+    lst = getattr(_PENDING_OBS, "events", None)
+    if lst is None:
+        lst = _PENDING_OBS.events = []
+    lst.append((name, fields))
+
+
+def clear_pending_obs_events() -> None:
+    _PENDING_OBS.events = []
+
+
+def drain_pending_obs_events(obs) -> None:
+    """Emit (and clear) the queued cross-attempt events into a run's log.
+    Clears even when obs is off."""
+    lst = getattr(_PENDING_OBS, "events", None)
+    if not lst:
+        return
+    _PENDING_OBS.events = []
+    for name, fields in lst:
+        obs.event(name, **fields)
+
+
+def _solve_with_degradation(config, checkpoint_path, resume, run):
+    """Graceful degradation around a whole solve: on a
+    NonFiniteTrajectory (the chunk-boundary sentinel), resume the last
+    checkpoint this run wrote (or restart) and demote ONCE to the safe
+    configuration (solver/block.py demote_to_safe), with a warning,
+    stats["demoted_faults"] and a ``demotion`` run-log event. A config
+    that is already safe propagates the error: that is a real numerics
+    fault. ``run(cfg, resume)`` runs the retry-wrapped solve."""
+    import os
+    import warnings
+
+    from dpsvm_tpu_torch.solver.block import demote_to_safe
+    from dpsvm_tpu_torch.solver.chunks import NonFiniteTrajectory
+
+    def _mtime():
+        try:
+            return (os.path.getmtime(checkpoint_path) if checkpoint_path
+                    else None)
+        except OSError:
+            return None
+
+    baseline_mtime = _mtime()
+    try:
+        return run(config, resume)
+    except NonFiniteTrajectory as e:
+        safe_cfg, dropped = demote_to_safe(config)
+        if safe_cfg is None:
+            raise
+        res_now = resume or (bool(checkpoint_path) and _mtime() is not None
+                             and _mtime() != baseline_mtime)
+        warnings.warn(
+            f"non-finite solver trajectory ({e}); DEMOTING to the safe "
+            f"configuration (dropped: {', '.join(dropped)}) and "
+            + ("resuming from the last checkpoint" if res_now
+               else "restarting from scratch")
+            + " — results will be exact but slower; investigate the input "
+            "scaling / C / gamma that produced the blow-up", stacklevel=3)
+        queue_pending_obs_event("demotion", reason=str(e)[:200],
+                                dropped=list(dropped), resumed=bool(res_now))
+        try:
+            res = run(safe_cfg, res_now)
+        except BaseException:
+            clear_pending_obs_events()
+            raise
+        res.stats["demoted_faults"] = \
+            int(res.stats.get("demoted_faults", 0)) + 1
+        res.stats["demotion"] = {"dropped": list(dropped),
+                                 "resumed": bool(res_now),
+                                 "reason": str(e)[:200]}
+        return res

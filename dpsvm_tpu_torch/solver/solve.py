@@ -431,9 +431,13 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
     if config.ooc:
         from dpsvm_tpu_torch.solver.ooc import solve_ooc
 
-        return solve_ooc(x, y, config, callback=callback, device=device,
-                         checkpoint_path=checkpoint_path, resume=resume,
-                         alpha_init=alpha_init, f_init=f_init, pad_to=pad_to)
+        # solve_ooc runs its own fault retry; the demotion wraps it.
+        return smo._solve_with_degradation(
+            config, checkpoint_path, resume,
+            lambda cfg, res: solve_ooc(
+                x, y, cfg, callback=callback, device=device,
+                checkpoint_path=checkpoint_path, resume=res,
+                alpha_init=alpha_init, f_init=f_init, pad_to=pad_to))
     if config.reconstruct_every:
         from dpsvm_tpu_torch.solver.reconstruct import solve_in_legs
 
@@ -441,6 +445,22 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
                              checkpoint_path=checkpoint_path, resume=resume,
                              alpha_init=alpha_init, f_init=f_init,
                              device=device, pad_to=pad_to)
+
+    def run(cfg, res):
+        def attempt(cfg_k, res_k, k):
+            return _solve_impl(
+                x, y, cfg_k, device,
+                smo._retry_callback(callback, cfg_k, checkpoint_path, k),
+                checkpoint_path, res_k, alpha_init, f_init, pad_to)
+
+        return smo.run_with_fault_retry(cfg, checkpoint_path, res, attempt)
+
+    return smo._solve_with_degradation(config, checkpoint_path, resume, run)
+
+
+def _solve_impl(x, y, config: SVMConfig, device, callback, checkpoint_path,
+                resume, alpha_init, f_init, pad_to) -> SolveResult:
+    """One attempt of solve(): stage, run the chunk loop, assemble."""
     t_entry = time.perf_counter()
     x = np.asarray(x, np.float32)
     if config.kernel == "precomputed":
@@ -471,6 +491,17 @@ def solve(x, y, config: SVMConfig, device=None, callback=None,
             res = _solve_pair(*args, max(n, int(pad_to or 0)))
     res.stats.update(extra)
     return res
+
+
+def _run_meta(x, n_pad: int, config: SVMConfig, observe: bool,
+              **flags) -> dict:
+    """The run log's manifest meta of a one-device solve (the JAX
+    package's keys)."""
+    return {"n": int(x.shape[0]), "d": int(x.shape[1]), "n_pad": int(n_pad),
+            "engine": config.engine, "kernel": config.kernel,
+            "selection": config.selection,
+            **{k: bool(v) for k, v in flags.items()},
+            "observed_chunks": bool(observe)}
 
 
 def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
@@ -527,8 +558,12 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         return (s.alpha[:n].cpu().numpy(), s.f[:n].cpu().numpy(), err,
                 int(s.rounds))
 
+    obs = chunks.open_run_obs("solve", config, _run_meta(
+        x, n_pad, config, observe, gram_resident=use_gram,
+        **{k: eng[k] for k in ("pipelined", "fused_fold", "fused_round")}),
+        dev)
     out = loop(run_chunk, state, read, payload=payload,
-               tensors=lambda s: ((s.f,), (s.alpha,)))
+               tensors=lambda s: ((s.f,), (s.alpha,)), obs=obs)
     t_fin = time.perf_counter()
     state = out.state
     # Budget exits report the stopping rule at the REAL epsilon on the
@@ -537,7 +572,7 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         state.alpha, eff_f(state), n, y_np, config, eps_run, out.b_hi,
         out.b_lo, refresh=True)
     out.phase_seconds["finalize"] = time.perf_counter() - t_fin
-    return SolveResult(
+    res = SolveResult(
         alpha=alpha,
         b=float((b_lo + b_hi) / 2.0),
         b_hi=b_hi,
@@ -545,6 +580,7 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         iterations=out.it,
         converged=converged,
         train_seconds=out.train_seconds,
+        dispatches=out.chunks,
         stats={"f": f_final, "outer_rounds": int(state.rounds),
                "device": str(dev), "n_pad": n_pad, "chunks": out.chunks,
                "phase_seconds": out.phase_seconds,
@@ -552,6 +588,8 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                                       "fused_round")},
                **({"active_set_size": m_act} if m_act else {})},
     )
+    chunks.finish_run_obs(obs, res, out.chunks)
+    return res
 
 
 def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
@@ -596,8 +634,11 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         err = None if s.f_err is None else s.f_err[:n].cpu().numpy()
         return s.alpha[:n].cpu().numpy(), s.f[:n].cpu().numpy(), err, None
 
+    obs = chunks.open_run_obs("solve", config, _run_meta(
+        x, n_pad, config, observe, gram_resident=use_gram), dev)
     out = loop(run_chunk, state, lambda s: (s.it, s.b_hi, s.b_lo),
-               payload=payload, tensors=lambda s: ((s.f,), (s.alpha,)))
+               payload=payload, tensors=lambda s: ((s.f,), (s.alpha,)),
+               obs=obs)
     t_fin = time.perf_counter()
     state = out.state
     alpha, f_final, b_hi, b_lo, converged = _finish(
@@ -612,7 +653,7 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         filled = int(np.count_nonzero(state.cache.keys >= 0))
         evictions = max(0, lookups - state.hits - filled)
     out.phase_seconds["finalize"] = time.perf_counter() - t_fin
-    return SolveResult(
+    res = SolveResult(
         alpha=alpha,
         b=float((b_lo + b_hi) / 2.0),
         b_hi=b_hi,
@@ -620,6 +661,7 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         iterations=state.it,
         converged=converged,
         train_seconds=out.train_seconds,
+        dispatches=out.chunks,
         stats={"f": f_final, "device": str(dev), "n_pad": n_pad,
                "gram_resident": use_gram, "cache_hits": state.hits,
                "cache_lookups": lookups,
@@ -627,3 +669,8 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                "cache_evictions": evictions, "chunks": out.chunks,
                "phase_seconds": out.phase_seconds},
     )
+    chunks.finish_run_obs(obs, res, out.chunks, **(
+        {"cache_hits": state.hits, "cache_lookups": lookups,
+         "cache_hit_rate": round(res.stats["cache_hit_rate"], 6),
+         "cache_evictions": evictions} if use_cache else {}))
+    return res

@@ -19,16 +19,20 @@ comma-separated ``seam[@N][xK]``: fire on the N-th arrival (1-based,
 default 1) and the K-1 after it. ``DPSVM_FAULTS_SEED`` seeds the byte
 corruption (default 0).
 
-Seams armed by the port's serving path: ``swap_corrupt`` (a registry
-load reads a corrupted copy of the file), ``serve_dispatch`` (a bucket
-dispatch raises), ``serve_stall`` (a batch's materialization sleeps
-STALL_SECONDS in the watchdog's waiting thread), ``lock_stall``
+Seams armed by the solver: ``dispatch`` (a chunk or round dispatch of
+solve, solve_mesh and both out-of-core solvers raises the transient
+``UNAVAILABLE:`` fault that run_with_fault_retry retries),
+``ooc_tile_put`` (an out-of-core tile or stream-step upload raises the
+same), ``ckpt_truncate`` (a checkpoint write is truncated and dies
+between the tmp write and the rename) and ``nonfinite_obs`` (the
+chunk-boundary observation reads NaN, the trigger of the demotion to
+the safe configuration). Seams armed by serving: ``swap_corrupt`` (a
+registry load reads a corrupted copy of the file), ``serve_dispatch``
+(a bucket dispatch raises), ``serve_stall`` (a batch's materialization
+sleeps STALL_SECONDS in the watchdog's waiting thread), ``lock_stall``
 (ModelRegistry.get holds its lock), ``net_accept`` (the front door
 drops a connection at accept), and in the client ``net_conn_drop``,
-``net_read_stall`` and ``net_partial_write``. The others (``dispatch``,
-``ooc_tile_put``, ``ckpt_truncate``, ``nonfinite_obs``) parse, so
-plans written for either package read the same; nothing in the port
-arms them yet (ROADMAP queue A item 11). ``plan.fired`` counts the
+``net_read_stall`` and ``net_partial_write``. ``plan.fired`` counts the
 firings, so a test can assert that its fault really happened.
 """
 
@@ -201,13 +205,36 @@ def arrive(seam: str) -> bool:
 
 def device_fault(seam: str, detail: str = "") -> None:
     """Raise a transient device-runtime fault when `seam` fires: a
-    RuntimeError carrying the JAX package's ``UNAVAILABLE:`` text, the
-    class its retry classifier reads (not ported: ROADMAP queue A item
-    11)."""
+    RuntimeError whose text starts with ``UNAVAILABLE:``, the status the
+    retry classifier (solver/smo.py _is_transient_fault) reads as
+    transient, as the JAX package's injected fault is."""
     if arrive(seam):
         raise RuntimeError(
             f"UNAVAILABLE: injected fault at seam {seam!r}"
             + (f" ({detail})" if detail else ""))
+
+
+def damage_checkpoint(tmp_path: str) -> None:
+    """The ``ckpt_truncate`` seam: truncate the staged tmp file to half
+    its bytes and die before the atomic rename, which is what a
+    preemption mid-save leaves behind. The writer's except path must
+    unlink the wreck and leave the previous checkpoint intact."""
+    if arrive("ckpt_truncate"):
+        size = os.path.getsize(tmp_path)
+        with open(tmp_path, "r+b") as fh:
+            fh.truncate(size // 2)
+        raise FaultInjected(
+            f"injected preemption mid-checkpoint-save ({tmp_path}: "
+            f"{size} -> {size // 2} bytes, rename never ran)")
+
+
+def poison_obs(b_hi: float, b_lo: float):
+    """The ``nonfinite_obs`` seam: the chunk-boundary host observation
+    reads NaN, what a blown-up gradient looks like from the host.
+    Identity when disarmed."""
+    if arrive("nonfinite_obs"):
+        return float("nan"), float("nan")
+    return b_hi, b_lo
 
 
 def corrupt_bytes(data: bytes, seed: int = 0,

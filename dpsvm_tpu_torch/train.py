@@ -19,9 +19,11 @@ def resolve_backend(backend: str, config: SVMConfig, device=None,
     is named and more than one card is visible (or asked for), as the
     JAX package's auto does: for train() (`warm` False) only where the
     engine is "xla" or "block"; for the model families' warm-started
-    solves (`warm` True) whatever the engine. Out-of-core requests stay
-    on the single device (the mesh stream is ROADMAP queue A item 10b).
-    An explicit "mesh" stands: solve_mesh refuses what the mesh does not
+    solves (`warm` True) whatever the engine. Out-of-core requests take
+    the mesh too (its tile stream, solver/ooc.py solve_ooc_mesh), except
+    where they ask for the block cache, the shrunken stream or an active
+    set, which are single-device (the JAX package's single_only_ooc). An
+    explicit "mesh" stands: solve_mesh refuses what the mesh does not
     run. The host backends are the NumPy oracle and the native
     sequential engine."""
     if backend == "auto":
@@ -30,8 +32,11 @@ def resolve_backend(backend: str, config: SVMConfig, device=None,
         multi = (device is None
                  and (num_devices or torch.cuda.device_count()) > 1)
         engine_ok = warm or config.engine in ("xla", "block")
+        single_only_ooc = config.ooc and (
+            config.ooc_cache_lines > 0 or bool(config.ooc_shrink)
+            or config.active_set_size > 0)
         backend = ("mesh" if (multi or mesh is not None) and engine_ok
-                   and not config.ooc else "single")
+                   and not single_only_ooc else "single")
     if backend not in ("single", "mesh", "reference", "native"):
         raise ValueError(f"unknown backend {backend!r}")
     return backend

@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from dpsvm_tpu_torch.config import SVMConfig
+from dpsvm_tpu_torch.testing import faults
 
 FORMAT_VERSION = 2
 
@@ -124,6 +125,10 @@ def save_checkpoint(path: str, alpha, f, iteration: int, b_hi: float,
             # publishes its name.
             fh.flush()
             os.fsync(fh.fileno())
+        # The ckpt_truncate seam: a preemption after the tmp bytes exist
+        # and before the rename; the previous file at `path` must stay
+        # intact.
+        faults.damage_checkpoint(tmp)
         os.replace(tmp, path)
         fsync_dir(d)
     except BaseException:

@@ -509,6 +509,9 @@ def test_jax_only_keys_at_defaults_load(tmp_path):
     (dict(reconcile_rounds=3), None),
     # ooc is ported (item 8): the file loads (item None).
     (dict(ooc=True, engine="block", ooc_tile_rows=64), None),
+    # obs is ported (item 11): the file loads (item None).
+    (dict(obs={"enabled": True, "trace_dir": None, "runlog_dir": "r"}),
+     None),
 ])
 def test_jax_only_keys_off_default_refuse(tmp_path, kw, item):
     p = str(tmp_path / "j.npz")
@@ -517,7 +520,10 @@ def test_jax_only_keys_off_default_refuse(tmp_path, kw, item):
     if item is None:
         st = load_checkpoint_state(p)
         for key, value in kw.items():
-            assert getattr(st.config, key) == value
+            got = getattr(st.config, key)
+            if key == "obs":
+                got = dataclasses.asdict(got)
+            assert got == value
         return
     with pytest.raises(NotImplementedError, match=item):
         load_checkpoint_state(p)

@@ -261,13 +261,14 @@ def test_ooc_flags_train_like_the_api_and_jax(data, tmp_path, capsys, flags):
       "block"], None),
     (["--ooc", "--engine", "xla"], "block-engine path"),
     (["--ooc-shrink", "on", "--engine", "block"], "set ooc=True"),
+    # --ooc on the mesh runs its tile stream (match None).
     (["--ooc", "--engine", "block", "--backend", "mesh", "--num-devices",
-      "2"], "item 10b"),
+      "2"], None),
 ])
 def test_ooc_refusals(data, tmp_path, capsys, argv, match):
-    """--ooc on the mesh names item 10b, and bad combinations say what
-    SVMConfig says; --active-set-size without --ooc trains the active-set
-    engine."""
+    """--ooc on the mesh trains the mesh stream (the model is the API's),
+    and bad combinations say what SVMConfig says; --active-set-size
+    without --ooc trains the active-set engine."""
     from dpsvm_tpu_torch import SVMConfig, train
 
     x, y, csv, _ = data
@@ -275,6 +276,18 @@ def test_ooc_refusals(data, tmp_path, capsys, argv, match):
     rc = cli.main(["train", "-f", csv, "-m", m, "-q", "--device", "cpu",
                    "-c", "1", "-g", "0.2", "-e", "0.001",
                    "--working-set-size", "16", *argv])
+    if match is None and "--ooc" in argv:
+        from dpsvm_tpu_torch import Mesh
+
+        assert rc == 0
+        api, res = train(x, y, SVMConfig(
+            c=1.0, gamma=0.2, epsilon=1e-3, engine="block",
+            working_set_size=16, ooc=True), backend="mesh",
+            mesh=Mesh(["cpu"] * 2))
+        assert res.stats["ooc_mesh"]
+        np.testing.assert_array_equal(SVMModel.load(m).dual_coef,
+                                      api.dual_coef)
+        return
     if match is None:
         assert rc == 0
         api, res = train(x, y, SVMConfig(
@@ -290,7 +303,9 @@ def test_ooc_refusals(data, tmp_path, capsys, argv, match):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--retry-faults", "0"], "item 11"),
+    # --retry-faults runs at any count >= 0 since the retry was ported;
+    # a negative one is SVMConfig's ValueError.
+    (["--retry-faults", "-1"], "retry_faults must be >= 0"),
     (["-t", "nu-svc", "-w1", "2"], "not applicable"),
     (["--format", "libsvm", "-t", "eps-svr"], "regression targets"),
     (["--kernel", "precomputed", "-t", "nu-svc"], "supports c-svc only"),
@@ -584,11 +599,25 @@ def test_serve_v1_and_server_bench(multiclass_file, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flag", [["--obs"], ["--obs-dir", "runs"]])
-def test_serve_refuses_obs_naming_item_11(tmp_path, capsys, flag):
-    rc = cli.main(["serve", "--registry", "a=/dev/null", "--device", "cpu",
-                   *flag])
-    assert rc == 2
-    assert "ROADMAP queue A item 11" in capsys.readouterr().err
+def test_serve_refuses_obs_naming_item_11(tmp_path, capsys, monkeypatch,
+                                          flag):
+    """Once refused (item 11), --obs / --obs-dir are accepted: the serve
+    run is refused for its unloadable model, as with obs off (JAX's
+    wording), and --obs writes a serve run log, closed with the engine."""
+    from dpsvm_tpu_torch.obs.analyze import load_runs
+
+    monkeypatch.chdir(tmp_path)
+    args = ["serve", "--registry", "a=/dev/null", *flag]
+    texts = []
+    for argv in (args, ["serve", "--registry", "a=/dev/null"]):
+        assert cli.main([*argv, "--device", "cpu"]) == 2
+        texts.append(capsys.readouterr().err.strip())
+    assert texts[0] == texts[1] and texts[0].startswith("error:")
+    runs = (tmp_path / "obs_runs")
+    assert runs.exists() == (flag == ["--obs"])
+    if runs.exists():
+        (run,) = load_runs([str(runs)])
+        assert run.manifest["tool"] == "serve" and run.final is not None
 
 
 def test_serve_refusals_match_jax(tmp_path, capsys):

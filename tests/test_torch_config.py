@@ -64,8 +64,9 @@ def test_invalid_values_raise_like_jax(kw):
 _OBS = {"enabled": True, "trace_dir": None, "runlog_dir": None}
 # The ooc cases that stood here run since ooc was ported, the active-set
 # cases since the active-set engine was (both moved to LIFTED); their
-# places hold the same knobs with the JAX-only obs field, which still
-# refuses whatever else the config holds.
+# places held the same knobs with the obs field, which runs since the
+# run logs were ported: every case now passes check_ported and solves,
+# writing a run log.
 UNPORTED = [
     dict(reconcile_rounds=4, selection="second_order", obs=_OBS),
     dict(selection="second_order", active_set_size=64, obs=_OBS),
@@ -110,14 +111,20 @@ def test_lifted_knobs_pass_and_solve(kw):
 
 
 @pytest.mark.parametrize("kw", UNPORTED)
-def test_unported_knobs_raise(kw):
-    cfg = SVMConfig(**{"engine": "block", **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.check_ported()
-    x = np.zeros((4, 2), np.float32)
-    y = np.array([1, -1, 1, -1], np.int32)
-    with pytest.raises(NotImplementedError):
-        solve(x, y, cfg, device="cpu")
+def test_unported_knobs_raise(kw, tmp_path, monkeypatch):
+    """Once refusals (obs off its default), now run: check_ported passes
+    and the solve writes its run log (./obs_runs, here under tmp_path)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = SVMConfig(**{"engine": "block", "working_set_size": 8,
+                       "gamma": 0.5, **kw})
+    cfg.check_ported()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, 3)).astype(np.float32)
+    y = np.where(x[:, 0] > 0, 1, -1).astype(np.int32)
+    res = solve(x, y, cfg, device="cpu")
+    assert res.converged
+    assert res.stats["obs_runlog"].startswith("obs_runs")
+    assert (tmp_path / res.stats["obs_runlog"]).exists()
 
 
 def test_ported_block_config_passes():
@@ -237,8 +244,9 @@ def test_mesh_knob_validation_matches_jax(kw, match):
     # The active-set engine runs, on one device and on the mesh (item
     # None).
     (dict(engine="block", active_set_size=64), None),
-    # ooc runs on one device since item 8; on the mesh it names 10b.
-    (dict(engine="block", ooc=True), "item 10b"),
+    # ooc runs on one device since item 8, and on the mesh (its tile
+    # stream) since 10b (item None).
+    (dict(engine="block", ooc=True), None),
 ])
 def test_still_refused_knobs_name_their_roadmap_item(kw, item):
     from dpsvm_tpu_torch import Mesh, solve_mesh
@@ -250,8 +258,12 @@ def test_still_refused_knobs_name_their_roadmap_item(kw, item):
     y = np.where(x[:, 0] > 0, 1, -1).astype(np.int32)
     if item is None:
         res = solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
+        assert res.converged
+        if cfg.ooc:
+            assert res.stats["ooc_mesh"] and res.stats["ooc_devices"] == 2
+            return
         # m clamped to 2 n_loc: 40 rows pad to two shards of 24.
-        assert res.converged and res.stats["active_set_size"] == 48
+        assert res.stats["active_set_size"] == 48
         return
     with pytest.raises(NotImplementedError, match=item):
         solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
@@ -264,8 +276,9 @@ JAX_ONLY = [
     (dict(ooc=True, ooc_tile_rows=1024, engine="block"), None),
     (dict(ooc=True, ooc_cache_lines=256, engine="block"), None),
     (dict(ooc=True, ooc_shrink=True, engine="block"), None),
+    # obs is ported (the run logs, item 11): accepted, item None.
     (dict(obs={"enabled": True, "trace_dir": None, "runlog_dir": None}),
-     "item 11"),
+     None),
 ]
 
 
@@ -436,17 +449,27 @@ def test_serve_config_random_combinations_raise_like_jax(seed):
         assert out[0] is out[1], (kw, out)
 
 
-def test_serve_config_obs_refused_naming_item_11():
+def test_serve_config_obs_refused_naming_item_11(tmp_path):
+    """Once refused (item 11), obs now runs on every serving entry
+    point: each writes a serve run log that closes with its snapshot.
+    PredictServer(None, ...) still refuses the model, not the obs."""
     from dpsvm_tpu_torch.config import ObsConfig, ServeConfig
+    from dpsvm_tpu_torch.obs.analyze import load_runs
     from dpsvm_tpu_torch.serve import PredictServer
     from dpsvm_tpu_torch.serving import ReplicaFleet, ServingEngine
 
-    cfg = ServeConfig(obs=ObsConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cfg.check_ported()
+    runs = str(tmp_path / "runs")
+    cfg = ServeConfig(obs=ObsConfig(enabled=True, runlog_dir=runs))
+    cfg.check_ported()
     for make in (lambda: ServingEngine(cfg, device="cpu"),
-                 lambda: ReplicaFleet(cfg, device="cpu"),
-                 lambda: PredictServer(None, cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            make()
+                 lambda: ReplicaFleet(cfg.replace(replicas=2,
+                                                  listen="127.0.0.1:0"),
+                                      device="cpu")):
+        make().close()
+    with pytest.raises(TypeError, match="cannot serve"):
+        PredictServer(None, cfg, device="cpu")
+    done = [r for r in load_runs([runs]) if r.final is not None]
+    # The engine, the fleet and its two replicas.
+    assert len(done) == 4
+    assert all(r.manifest["tool"] == "serve" for r in done)
     ServeConfig().check_ported()

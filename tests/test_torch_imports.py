@@ -1,6 +1,7 @@
-"""The port stands alone: no module of dpsvm_tpu_torch (nor chip_smoke.py)
-imports jax or the JAX package, and its entry points refuse to fall back
-to the CPU when no CUDA device is there.
+"""The port stands alone: no module of dpsvm_tpu_torch (nor chip_smoke.py,
+nor tools/obs_idle_share.py) imports jax or the JAX package, and its
+entry points refuse to fall back to the CPU when no CUDA device is
+there.
 
 The check is an AST scan of the import statements: this container may
 import jax at interpreter start, so sys.modules proves nothing. The
@@ -25,7 +26,8 @@ PKG = os.path.dirname(dpsvm_tpu_torch.__file__)
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tools", "obs_idle_share.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -70,7 +72,10 @@ def test_scan_covers_the_package():
                 ("obs", "export.py"), ("obs", "trace.py"),
                 ("testing", "faults.py"), ("ops", "ooc.py"),
                 ("solver", "ooc.py"), ("solver", "warmstart.py"),
-                ("solver", "cascade.py"), ("learn.py",)):
+                ("solver", "cascade.py"), ("learn.py",),
+                ("obs", "__init__.py"), ("obs", "runlog.py"),
+                ("obs", "compilelog.py"), ("obs", "analyze.py"),
+                ("utils", "metrics.py")):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 
@@ -246,3 +251,40 @@ def test_out_of_core_and_warm_entry_points_raise_without_cuda(no_cuda,
         call(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["learn", "--smoke", "--model-dir", str(tmp_path / "l")])
+
+
+def test_obs_and_mesh_stream_entry_points_raise_without_cuda(no_cuda,
+                                                             tmp_path):
+    """The out-of-core mesh stream with no mesh, a run log asking for a
+    device trace, and `cli train --obs` refuse device=None without a
+    card and run on the CPU; `cli obs` reads files and needs no device."""
+    from dpsvm_tpu_torch import Mesh, solve_mesh
+    from dpsvm_tpu_torch.config import ObsConfig
+    from dpsvm_tpu_torch.obs import run_obs
+    from dpsvm_tpu_torch.solver.ooc import solve_ooc_mesh
+
+    x, y = _data()
+    ooc = SVMConfig(engine="block", working_set_size=4, gamma=0.5,
+                    ooc=True, ooc_tile_rows=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_ooc_mesh(x, y, ooc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_mesh(x, y, ooc)
+    assert solve_mesh(x, y, ooc, mesh=Mesh(["cpu"] * 2)).stats["ooc_mesh"]
+    traced = SVMConfig(obs=ObsConfig(enabled=True,
+                                     runlog_dir=str(tmp_path / "runs"),
+                                     trace_dir=str(tmp_path / "trace")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_obs("solve", traced)
+    run_obs("solve", traced, device="cpu").finish()
+    csv = tmp_path / "t.csv"
+    csv.write_text("".join(f"{int(b)},{a[0]},{a[1]},{a[2]}\n"
+                           for a, b in zip(x, y)))
+    argv = ["train", "-f", str(csv), "-m", str(tmp_path / "m.txt"),
+            "--engine", "block", "--working-set-size", "4", "--obs",
+            "--obs-dir", str(tmp_path / "runs"), "--trace-dir",
+            str(tmp_path / "trace")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert cli.main(argv + ["--device", "cpu", "-q"]) == 0
+    assert cli.main(["obs", "report", str(tmp_path / "runs")]) == 0

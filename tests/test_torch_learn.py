@@ -172,5 +172,17 @@ def test_cli_forwards_learn_and_refuses_obs(tmp_path, monkeypatch, capsys):
     payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert payload["generations"] == 2
     assert payload["gens"][1]["seed_sv"] > 0
-    assert cli.main(["learn", "--obs", "--device", "cpu"]) == 2
-    assert "item 11" in capsys.readouterr().err
+    # --obs, once refused (item 11), writes the learn run log: one
+    # generation event per generation, which obs report's learn column
+    # reads.
+    from dpsvm_tpu_torch.obs.analyze import (load_runs, render_report,
+                                             summarize_run)
+
+    runs = str(tmp_path / "runs")
+    assert cli.main(["learn", "--obs", "--obs-dir", runs, "--device",
+                     "cpu", "--generations", "2", "--rows", "96", "--d",
+                     "4", "--model-dir", str(tmp_path / "m2")]) == 0
+    learn = [r for r in load_runs([runs]) if r.manifest["tool"] == "learn"]
+    assert len(learn) == 1
+    assert [e["name"] for e in learn[0].events] == ["generation"] * 2
+    assert "gen=2" in render_report([summarize_run(learn[0])])

@@ -275,14 +275,19 @@ def test_unported_mesh_knobs_name_their_roadmap_item(blobs_small, kw):
     knobs: the per-pair engine, the pipelined, fused-fold and active
     runners, and fused_round=True, which warns in both packages and
     keeps the mesh's own runner (here the fused fold, asked with it).
-    ooc=True on the mesh still names item 10b."""
+    ooc=True on the mesh, once refused (item 10b), runs the mesh tile
+    stream, bit for bit the one-device stream."""
     x, y = blobs_small
     if kw.get("ooc"):
-        cfg = SVMConfig(**{**BASE, **kw})
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            train(x, y, cfg, backend="mesh", mesh=Mesh(["cpu"] * 2))
+        from dpsvm_tpu_torch import solve
+
+        cfg = SVMConfig(**{**BASE, **kw, "ooc_tile_rows": 64})
+        res = solve_mesh(x, y, cfg, mesh=Mesh(["cpu"] * 2))
+        one = solve(x, y, cfg, device="cpu")
+        np.testing.assert_array_equal(res.alpha, one.alpha)
+        assert res.iterations == one.iterations and res.stats["ooc_mesh"]
+        _, tr = train(x, y, cfg, backend="mesh", mesh=Mesh(["cpu"] * 2))
+        assert tr.stats["ooc_mesh"] and tr.converged
         return
     if kw.get("fused_round"):
         kw = {**kw, "fused_fold": True}
@@ -398,14 +403,16 @@ def test_cli_mesh_flags_reach_the_engines(tmp_path, capsys, monkeypatch):
     m1 = SVMModel.load(str(tmp_path / "m1.txt"))
     m2 = SVMModel.load(str(tmp_path / "m2.txt"))
     assert abs(m1.b - m2.b) < 5e-3 and abs(m1.n_sv - m2.n_sv) <= 2
-    # sync_rounds without the shard-local engine, and a knob the mesh
-    # does not run (the out-of-core stream): both refused with a
-    # message, exit code 2. The pipelined runner trains.
+    # sync_rounds without the shard-local engine: refused with a
+    # message, exit code 2. The out-of-core stream (once refused, item
+    # 10b) and the pipelined runner train.
     assert cli.main(common + ["-m", str(tmp_path / "m3.txt"),
                               "--sync-rounds", "2"]) == 2
-    assert cli.main(common + ["-m", str(tmp_path / "m3.txt"), "--ooc"]) == 2
-    err = capsys.readouterr().err
-    assert "local_working_sets >= 2" in err and "item 10b" in err
+    assert "local_working_sets >= 2" in capsys.readouterr().err
+    assert cli.main(common + ["-m", str(tmp_path / "m3.txt"), "--ooc",
+                              "--ooc-tile-rows", "64"]) == 0
+    m3 = SVMModel.load(str(tmp_path / "m3.txt"))
+    assert abs(m1.b - m3.b) < 5e-3 and abs(m1.n_sv - m3.n_sv) <= 2
     assert cli.main(common + ["-m", str(tmp_path / "m4.txt"),
                               "--pipeline-rounds", "on"]) == 0
     m4 = SVMModel.load(str(tmp_path / "m4.txt"))
@@ -438,14 +445,17 @@ def test_train_defaults_to_auto_and_one_card_is_single(tiny, monkeypatch):
     assert resolve_backend("auto", block) == "mesh"
     assert resolve_backend("auto", block, device="cuda:0") == "single"
     # As the JAX package's auto: the per-pair engine and the families'
-    # warm starts take the mesh too (the families whatever the engine);
-    # only the out-of-core stream stays on one device (item 10b).
+    # warm starts take the mesh too (the families whatever the engine),
+    # and so does the out-of-core stream (its mesh stream) unless it
+    # asks for the cache, the shrunken stream or an active set.
     assert resolve_backend("auto", block.replace(engine="xla")) == "mesh"
     assert resolve_backend("auto", block, warm=True) == "mesh"
     assert resolve_backend("auto", block.replace(engine="pallas")) == "single"
     assert resolve_backend("auto", block.replace(engine="pallas"),
                            warm=True) == "mesh"
-    assert resolve_backend("auto", block.replace(ooc=True)) == "single"
+    assert resolve_backend("auto", block.replace(ooc=True)) == "mesh"
+    assert resolve_backend("auto", block.replace(
+        ooc=True, ooc_cache_lines=256)) == "single"
     assert resolve_backend("mesh", block, warm=True) == "mesh"
     x, y = tiny
     model, res = train(x, y, SVMConfig(**{**BASE, "epsilon": 1e-2}),

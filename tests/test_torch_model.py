@@ -125,7 +125,8 @@ def test_cli_refuses_unported_engine(tmp_path, capsys):
     csv = str(tmp_path / "d.csv")
     save_csv(csv, x, y)
     # The block engine's pair batch and the pipelined rounds on the mesh
-    # are ported; the out-of-core stream on the mesh is not.
+    # are ported; so is the out-of-core stream on the mesh, once refused
+    # (ROADMAP item 10b): its model is the one-device stream's.
     rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
                    "--engine", "block", "--pair-batch", "2", "--device",
                    "cpu", "--working-set-size", "8"])
@@ -135,10 +136,17 @@ def test_cli_refuses_unported_engine(tmp_path, capsys):
     rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
                    "--pipeline-rounds", "on", *mesh])
     assert rc == 0
-    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "m.txt"),
+    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "mesh.txt"),
                    "--ooc", *mesh])
-    assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert rc == 0
+    rc = cli.main(["train", "-f", csv, "-m", str(tmp_path / "one.txt"),
+                   "--ooc", "--engine", "block", "--device", "cpu",
+                   "--working-set-size", "8"])
+    assert rc == 0
+    np.testing.assert_array_equal(
+        SVMModel.load(str(tmp_path / "mesh.txt")).dual_coef,
+        SVMModel.load(str(tmp_path / "one.txt")).dual_coef)
+    assert "error" not in capsys.readouterr().err
 
 
 def test_converted_block_state_selects_the_same_next_round(blobs_medium):

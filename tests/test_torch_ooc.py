@@ -454,18 +454,22 @@ def test_ooc_config_validation_matches_jax(kw):
 
 
 def test_mesh_refuses_ooc_and_auto_keeps_it_on_one_device(data):
+    """Once a refusal (item 10b): the mesh now runs the ooc stream, bit
+    for bit the one-device stream here, and auto keeps only the cache and
+    the shrunken stream on one device (the JAX package's
+    single_only_ooc)."""
     from dpsvm_tpu_torch import Mesh, solve_mesh, train
     from dpsvm_tpu_torch.train import resolve_backend
 
     x, y = data
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        solve_mesh(x, y, OOC, mesh=Mesh(["cpu"] * 2))
     mesh = Mesh(["cpu"] * 2)
-    for cfg in (OOC, OOC.replace(ooc_cache_lines=256),
+    _assert_bitwise(cpu_solve(x, y, OOC), solve_mesh(x, y, OOC, mesh=mesh))
+    for cfg in (OOC.replace(ooc_cache_lines=256),
                 OOC.replace(ooc_shrink=True)):
         assert resolve_backend("auto", cfg, mesh=mesh) == "single"
+    assert resolve_backend("auto", OOC, mesh=mesh) == "mesh"
     assert resolve_backend("auto", CFG, mesh=mesh) == "mesh"
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        train(x, y, OOC, backend="mesh", mesh=mesh)
+    _, res = train(x, y, OOC, backend="mesh", mesh=mesh)
+    assert res.stats["ooc_mesh"]
     model, res = train(x[:512], y[:512], OOC, device="cpu")
     assert res.stats["ooc"] and model.sv_x.shape[0] == res.n_sv

@@ -92,3 +92,62 @@ def test_card_ooc_launches_b1_each_round_and_meets_the_cpu(cuda, data):
     assert abs(res.b - cpu.b) <= 5e-3
     incore = solve(x, y, CFG.replace(ooc=False, ooc_tile_rows=8192))
     assert abs(res.n_sv - incore.n_sv) <= max(1, 0.02 * incore.n_sv)
+
+
+def _mesh4(cuda):
+    from dpsvm_tpu_torch import Mesh
+
+    return Mesh([cuda] * 4)
+
+
+@pytest.mark.cuda
+def test_mesh_stream_never_synchronizes_and_launches_b1_once_a_round(
+        cuda, data, monkeypatch):
+    """On four logical shards of the card the mesh stream's round loop
+    never synchronizes the whole device, B1 runs once a round (one
+    distinct device) and the solve meets the CPU mesh stream's."""
+    from dpsvm_tpu_torch import Mesh, solve_mesh
+
+    x, y = data
+    cpu = solve_mesh(x, y, CFG, mesh=Mesh(["cpu"] * 4))
+    solve_subproblem.launches = 0
+    sync = torch.cuda.synchronize
+
+    def refuse(*_a, **_k):
+        raise AssertionError("device-wide synchronize in the ooc round "
+                             "loop")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    # The setup's one synchronize (the phase clock) is mesh.synchronize;
+    # let it through, refuse any other.
+    monkeypatch.setattr(type(_mesh4(cuda)), "synchronize",
+                        lambda self: sync(cuda))
+    res = solve_mesh(x, y, CFG, mesh=_mesh4(cuda))
+    assert solve_subproblem.launches == res.stats["outer_rounds"] > 0
+    assert res.converged and res.stats["ooc_mesh"]
+    assert abs(res.n_sv - cpu.n_sv) <= max(1, 0.02 * cpu.n_sv)
+    assert abs(res.b - cpu.b) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mesh_stream_tiles_are_host_rows_behind_their_events(cuda, dtype):
+    """Each held-back step still reads its own tiles: a pinned block and
+    its device twin are rewritten only behind the folds' events."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(1000, 40)).astype(np.float32)
+    st = tooc.MeshTileStream(x, 1000, 40, 128, 256, _mesh4(cuda), dtype)
+    want_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    seen = []
+    for j, tiles in st.walk([0, 1, 0, 1]):
+        torch.cuda._sleep(2_000_000)
+        seen.append((j, [(t.clone() if t is not None else None, r)
+                         for t, r in tiles]))
+    for j, tiles in seen:
+        for r, (got, rows) in enumerate(tiles):
+            s = r * 256 + j * 128
+            assert rows == max(0, min(128, 1000 - s))
+            if rows:
+                want = torch.from_numpy(x[s:s + rows]).to(want_dt)
+                assert torch.equal(got.cpu(), want), (j, r)
+    assert st.bytes == 2 * 1000 * 40 * 4
