@@ -315,9 +315,28 @@ result line is printed:
                 float32 and the plain round (bitwise the float32 plain
                 headline with the same chunks), ckpt_truncate
                 keeping the previous file.
+ 39. autotune -- (a) one full probe pass (autotune/probes.py) on the
+                card into a temporary file: the one-device probes
+                authoritative, the mesh probes skipped (one card), the
+                pass's launches exactly those its code derives (B1 six
+                block sides of 3 reps (1 + tries) rounds; B2, B4, B5 one
+                side each; B3 one side plus a seed a chunk call); (b)
+                the committed profile of this card loaded (the honesty
+                rule), the headline with every engine knob at None under
+                it and under no profile (stats["autotune"], the engine
+                and its launches printed and held), the oracle
+                configuration under it against artifacts/oracle60k; (c)
+                a ServingEngine with buckets=None under it: its bucket
+                provenance, the ladder applied after two legs where the
+                profile arms the auto-apply, decisions within 1e-5.
+
+Phases 3-38 (and --turns, --serve-profile) run with no device profile
+(DPSVM_AUTOTUNE_PROFILE=off, set for this process and its CLI
+subprocesses), so the committed profile cannot move their engines or
+launch counts.
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-38 under "path_launches") and the card's
+kernel's launches on phases 15-39 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -4106,6 +4125,235 @@ def phase_cli_smoke() -> dict:
     return {"cli smoke": counts}
 
 
+def probe_launches(ctx, ooc_rounds: int) -> dict:
+    """The kernel launches of one pass of the probe list
+    (autotune/probes.py) on one card, derived from the probes' code:
+    every block probe side runs its chunk runner once to warm and `tries`
+    times timed at each of the chunk lengths reps and 2 reps, so 3 reps
+    (1 + tries) rounds a side; B1 once a round on the six sides
+    (pipeline, bf16_gram and fused_round, A and B each), B2 once a round
+    on the fused-fold side, B4 and B5 once a round on the one-pass side,
+    B3 once a round on the pipelined side plus one seed prefetch a chunk
+    call (2 (1 + tries) calls). The ooc probe's whole solves launch B1
+    once a round and nothing else: `ooc_rounds` is the rounds its solves
+    report in all (its record's rounds_run, both sides). The serving
+    probes and the skipped mesh probes launch none of B1-B8."""
+    rounds = 3 * ctx.reps * (1 + ctx.tries)
+    calls = 2 * (1 + ctx.tries)
+    want = {name: 0 for name in counters()}
+    want.update(solve_subproblem=6 * rounds + ooc_rounds,
+                fold_select=rounds, gather_gram=rounds,
+                fold_rows_select=rounds, select_rows=rounds + calls)
+    return want
+
+
+def profile_engine(decisions: dict):
+    """The engine a solve with every engine knob at None runs under these
+    profile decisions: solve.py choose_engine asks pipeline_rounds before
+    fused_round (the headline meets both engines' padding contract);
+    None is the plain round."""
+    for knob in ("pipeline_rounds", "fused_round"):
+        if decisions.get(knob):
+            return knob
+    return None
+
+
+def phase_autotune(x, y, cfg, head_model, oracle, sk_dec) -> dict:
+    """[autotune] (a) one full probe pass (autotune/probes.py run_probes)
+    on the card into a temporary file: the one-device probes
+    authoritative, the mesh probes skipped (one card: ROADMAP item 6),
+    the file loading back clean, and the pass's launches of B1-B8 exactly
+    probe_launches'; (b) the committed profile of this card
+    (dpsvm_tpu_torch/autotune/profiles/<slug>.json) loaded (the honesty
+    rule holds), then the headline solved with every engine knob at None
+    once under it and once under use_profile(None): each solve's
+    stats["autotune"] and engine printed, the engine the profile's
+    decisions choose (profile_engine; plain with no profile) the one
+    that ran and its launches that engine's; the oracle configuration
+    under the profile against artifacts/oracle60k (SV count 3%, signs
+    99.8%); the [ooc] headline with ooc_shrink at None once under the
+    profile and once under none: its rounds, tiles streamed and skipped
+    and train_seconds printed, the stream the profile decided the one
+    that ran, B1 once a round, each within gate (a) of the in-core
+    headline when the profile streams in full and within the stopping
+    rule (reported against the in-core headline) when it shrinks; (c) a ServingEngine
+    with buckets=None under the profile serving the headline model: its
+    bucket provenance printed and, where the profile arms the auto-apply,
+    the ladder it applied after two legs; every served decision within
+    SERVE_TOL of decision_function."""
+    import tempfile
+
+    import torch
+
+    from dpsvm_tpu_torch import SVMConfig, decision_function, train
+    from dpsvm_tpu_torch.autotune import (load_profile, profile_path,
+                                          run_probes, use_profile)
+    from dpsvm_tpu_torch.autotune.probes import (ONE_CARD_REASON,
+                                                 ProbeContext)
+    from dpsvm_tpu_torch.config import ServeConfig
+    from dpsvm_tpu_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    # (a) the probe pass
+    reset_counts()
+    t0 = time.perf_counter()
+    prof = run_probes(seed=0, device="cuda")
+    probe_s = time.perf_counter() - t0
+    counts = read_counts()
+    ooc_solves = prof.probes["ooc_shrink"]["solves"]
+    want = probe_launches(ProbeContext(device="cuda"),
+                          sum(v["rounds_run"] for v in ooc_solves.values()))
+    out = os.path.join(tempfile.mkdtemp(prefix="autotune_", dir=smoke_dir()),
+                       "probe.json")
+    prof.save(out)
+    back = load_profile(out)
+    for name, rec in back.probes.items():
+        print(f"[autotune] (a) {name}: "
+              + (f"skipped ({rec['skipped']})" if rec.get("skipped") else
+                 f"{rec['a']} {rec['a_seconds']:.9f}s {rec['b']} "
+                 f"{rec['b_seconds']:.9f}s ratio {rec['ratio']} "
+                 f"threshold {rec['threshold']} authoritative "
+                 f"{rec['authoritative']} verdict {rec['verdict']}"),
+              flush=True)
+    print(f"[autotune] (a) ooc_shrink solves: "
+          f"{json.dumps(ooc_solves, sort_keys=True)}", flush=True)
+    print(f"[autotune] (a) pass in {probe_s:.2f}s, decisions "
+          f"{back.decisions}, launches {counts} (derived {want})",
+          flush=True)
+    mesh_probes = ("shardlocal", "pipeline_mesh", "ring")
+    for name, rec in back.probes.items():
+        if name in mesh_probes and torch.cuda.device_count() < 2:
+            if rec.get("skipped") != ONE_CARD_REASON:
+                raise AssertionError(f"[autotune] mesh probe {name} ran on "
+                                     "one card")
+        elif not rec.get("authoritative"):
+            raise AssertionError(f"[autotune] probe {name} is not "
+                                 "authoritative on the card")
+    if back.device_kind != kind:
+        raise AssertionError(f"[autotune] the pass stamped "
+                             f"{back.device_kind!r}, not {kind!r}")
+    if counts != want:
+        raise AssertionError(f"[autotune] probe launches {counts}, derived "
+                             f"{want}")
+    # (b) the committed profile
+    path = profile_path(kind)
+    committed = load_profile(path)
+    print(f"[autotune] (b) {os.path.relpath(path, ROOT)}: torch "
+          f"{committed.torch}, utc {committed.utc}, decisions "
+          f"{committed.decisions}", flush=True)
+    solves = {}
+    for label, prof_arg, expect in (
+            ("profile", path, profile_engine(committed.decisions)),
+            ("no profile", None, None)):
+        with use_profile(prof_arg):
+            reset_counts()
+            model, res = train(x, y, cfg)
+            counts_b = read_counts()
+        ran = [k for k in ("pipelined", "fused_round", "fused_fold")
+               if res.stats.get(k)]
+        knob = {"pipelined": "pipeline_rounds"}.get(
+            ran[0], ran[0]) if ran else None
+        rounds = res.stats["outer_rounds"]
+        want_b = {k: 0 for k in counts_b}
+        want_b.update({k: f(rounds) for k, f in ENGINES.get(
+            expect, {"solve_subproblem": lambda r: r}).items()})
+        print(f"[autotune] (b) headline under {label}: engine "
+              f"{ran or ['plain']} (the decisions choose "
+              f"{expect or 'plain'}) converged={res.converged} "
+              f"pairs={res.iterations} outer_rounds={rounds} train_seconds="
+              f"{res.train_seconds:.4f} n_sv={res.n_sv} launches={counts_b} "
+              f"autotune={json.dumps(res.stats['autotune'])}", flush=True)
+        if knob != expect:
+            raise AssertionError(f"[autotune] headline under {label}: ran "
+                                 f"{knob or 'plain'}, the decisions choose "
+                                 f"{expect or 'plain'}")
+        if not res.converged or counts_b != want_b:
+            raise AssertionError(f"[autotune] headline under {label}: "
+                                 f"launches {counts_b}, derived {want_b}")
+        solves[label] = res
+    if any(g["source"] != "profile"
+           for g in solves["profile"].stats["autotune"]["gates"].values()):
+        raise AssertionError("[autotune] the committed profile did not "
+                             "resolve the headline's gates")
+    with use_profile(path):
+        model, ores = train(x, y, SVMConfig(**ORACLE_RUN))
+    print(f"[autotune] (b) oracle configuration under the profile: "
+          f"autotune={json.dumps(ores.stats['autotune'])}", flush=True)
+    check_oracle(model, ores, x, oracle, sk_dec, "under the profile",
+                 tag="autotune")
+    ocfg = cfg.replace(ooc=True, ooc_tile_rows=OOC_TILE)
+    for label, prof_arg, expect in (
+            ("profile", path, bool(committed.decisions.get("ooc_shrink"))),
+            ("no profile", None, False)):
+        with use_profile(prof_arg):
+            reset_counts()
+            omodel, ores = train(x, y, ocfg)
+            counts_o = read_counts()
+        st = ores.stats
+        want_o = {k: 0 for k in counts_o}
+        want_o["solve_subproblem"] = st["outer_rounds"]
+        print(f"[autotune] (b) ooc headline under {label}: ooc_shrink="
+              f"{st['ooc_shrink']} (the decision {expect}) converged="
+              f"{ores.converged} pairs={ores.iterations} rounds="
+              f"{st['outer_rounds']} tiles={st['tiles_streamed']} skipped="
+              f"{st.get('tiles_skipped', 0)} demoted="
+              f"{st.get('shrink_demoted')} train_seconds="
+              f"{ores.train_seconds:.4f} launches={counts_o} "
+              f"autotune={json.dumps(st.get('autotune'))}", flush=True)
+        if st["ooc_shrink"] is not expect or counts_o != want_o:
+            raise AssertionError(f"[autotune] ooc headline under {label}: "
+                                 f"ooc_shrink {st['ooc_shrink']} (decision "
+                                 f"{expect}), launches {counts_o}, derived "
+                                 f"{want_o}")
+        if expect:
+            criterion_met(f"autotune ooc headline under {label}", ores,
+                          cfg.epsilon)
+        agree_gate(f"autotune ooc headline under {label} against the "
+                   "in-core headline", omodel, head_model, x,
+                   ores.converged, gate=not expect)
+    # (c) the serving bucket ladder under the profile
+    mpath = os.path.join(smoke_dir(), "autotune_head.npz")
+    head_model.save(mpath)
+    rng = np.random.default_rng(11)
+    with use_profile(path):
+        eng = ServingEngine(ServeConfig(buckets=None))
+    try:
+        eng.register("head", mpath)
+        print(f"[autotune] (c) bucket provenance: "
+              f"{json.dumps(eng.bucket_provenance)}", flush=True)
+        worst = 0.0
+        for leg in range(2):
+            rows = {}
+            for _ in range(64):
+                r = rng.integers(0, len(x), size=int(rng.integers(1, 24)))
+                rows[eng.submit(x[r], "head")] = r
+            done = eng.drain()
+            for ticket, r in rows.items():
+                ref = decision_function(head_model, x[r])
+                got = np.asarray(done[ticket].decision).reshape(ref.shape)
+                worst = max(worst, float(np.max(
+                    np.abs(got - ref) / (SERVE_TOL + SERVE_TOL * np.abs(ref)))))
+            print(f"[autotune] (c) leg {leg + 1}: ladder "
+                  f"{list(eng._bucket_ladder)}", flush=True)
+        applied = eng.bucket_provenance.get("applied_buckets")
+        print(f"[autotune] (c) armed={eng.bucket_provenance['auto_apply']} "
+              f"applied={applied} worst |dec - ref| / (tol (1 + |ref|)) = "
+              f"{worst:.3g}", flush=True)
+        if worst > 1.0:
+            raise AssertionError("[autotune] served decisions off "
+                                 "decision_function")
+        if eng.bucket_provenance["auto_apply"] != bool(
+                committed.decisions.get("serve_buckets")):
+            raise AssertionError("[autotune] the engine's auto-apply does "
+                                 "not follow the profile's decision")
+    finally:
+        eng.close()
+    print(f"[autotune] phase in {time.perf_counter() - t_phase:.2f}s",
+          flush=True)
+    return {"autotune probes": counts}
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -4437,6 +4685,11 @@ def main() -> int:
     lap("obs")
     paths.update(phase_faults(x, y, cfg, mesh, head_model, ooc_mesh_res))
     lap("faults")
+
+    # ---- 39. the autotune pass and the committed profile's gates
+    print(f"[autotune] {smi}", flush=True)
+    paths.update(phase_autotune(x, y, cfg, head_model, oracle, sk_dec))
+    lap("autotune")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",
@@ -4951,6 +5204,12 @@ def cli() -> int:
     ap.add_argument("--serve-profile", action="store_true",
                     help="profile serving dispatches only (10 a reading)")
     args = ap.parse_args()
+    # Every mode pins its engines: no device profile resolves a None knob
+    # (in this process and the CLI processes it starts), so a committed
+    # profile cannot move a phase's engine or launch counts, nor what
+    # --turns times. [autotune] installs the profile itself (use_profile
+    # overrides this).
+    os.environ["DPSVM_AUTOTUNE_PROFILE"] = "off"
     if args.serve_profile:
         return serve_profile(10)
     if not args.turns:

@@ -55,6 +55,21 @@ def _build_parser() -> argparse.ArgumentParser:
              "attributes a regression to the phase that moved, `obs tail "
              "<path>` shows the last records of a stream; reads files "
              "only, no device")
+    # `autotune ...` goes verbatim to autotune/__init__.py run_cli, and
+    # `lint ...` to _cmd_lint (threadlint).
+    sub.add_parser(
+        "autotune", add_help=False,
+        help="measured device profiling for the solvers' auto gates "
+             "(autotune/): `autotune run [--device cpu] [--smoke] [--out "
+             "P]` probes the device and writes its profile, `autotune "
+             "show [P]` prints the active one, `autotune diff A B` "
+             "compares two")
+    sub.add_parser(
+        "lint", add_help=False,
+        help="threadlint: `lint --threads --check` diffs the threaded "
+             "modules' concurrency facts against the committed contracts "
+             "(analysis/contracts), `lint --threads --write-contracts` "
+             "regenerates them; host code only, no device")
     sub.add_parser(
         "learn", add_help=False,
         help="continuous-learning loop (learn.py): retrain each increment "
@@ -149,15 +164,19 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="block engine: one-pass rounds (gather, kernel "
                         "rows and Gram block in one pass over X, fold and "
                         "next selection in one pass over f; "
-                        "SVMConfig.fused_round). auto = off")
+                        "SVMConfig.fused_round). auto = the device "
+                        "profile's decision (autotune/), else off")
     p.add_argument("--pipeline-rounds", choices=["auto", "on", "off"],
                    default="auto",
                    help="block engine: select, gather and build the next "
                         "round's Gram block from the pre-fold gradient "
                         "(stale selection, exact updates; "
-                        "SVMConfig.pipeline_rounds). auto = off")
+                        "SVMConfig.pipeline_rounds). auto = the device "
+                        "profile's decision (autotune/), else off")
     p.add_argument("--local-working-sets", type=int, default=0,
-                   help="mesh block engine: 0 = auto (off), 1 = one "
+                   help="mesh block engine: 0 = auto (the device "
+                        "profile's decision with more than one shard, "
+                        "else off), 1 = one "
                         "global working set per round, >= 2 = shard-"
                         "parallel working sets: every shard solves a "
                         "subproblem selected from its OWN rows, "
@@ -174,7 +193,7 @@ def _build_parser() -> argparse.ArgumentParser:
                         "and the shard-local sync through the ring "
                         "kernels (ops/ring.py); bit-identical "
                         "trajectories (SVMConfig.ring_exchange). auto = "
-                        "off")
+                        "the device profile's decision, else off")
     p.add_argument("--backend",
                    choices=["auto", "single", "mesh", "reference", "native"],
                    default="auto",
@@ -205,8 +224,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="--ooc: the shrunken tile stream (in-cycle rounds "
                         "stream only the tiles of an active view of the m "
                         "most-violating rows, with full reconstructions "
-                        "and the endgame demotion; auto = off until an "
-                        "H100 gate decides)")
+                        "and the endgame demotion; auto = the device "
+                        "profile's decision (autotune/), else off)")
     p.add_argument("--active-set-size", type=int, default=0,
                    help="block engine: shrink per-round work to the m "
                         "most-violating rows, reconciling the full "
@@ -1480,6 +1499,20 @@ def _serve_listen(args, engine, stop_event=None) -> int:
     return 0
 
 
+def _cmd_lint(argv: list) -> int:
+    """`lint --threads ...` runs threadlint with the rest of argv. The
+    JAX package's other mode, tpulint, checks XLA HLO budgets; the port
+    compiles no XLA program, so `lint` without --threads exits 2."""
+    if "--threads" not in argv:
+        print("error: the port has no XLA HLO to lint (tpulint is the JAX "
+              "package's); use `lint --threads --check` or `lint "
+              "--threads --write-contracts` (threadlint)", file=sys.stderr)
+        return 2
+    from dpsvm_tpu_torch.analysis.threadlint import run_threadlint
+
+    return run_threadlint([a for a in argv if a != "--threads"])
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["learn"]:
@@ -1492,6 +1525,13 @@ def main(argv=None) -> int:
         from dpsvm_tpu_torch.obs.analyze import run_cli as obs_cli
 
         return obs_cli(argv[1:])
+    if argv[:1] == ["autotune"]:
+        # Forwarded verbatim: autotune/__init__.py owns the flags.
+        from dpsvm_tpu_torch.autotune import run_cli as autotune_cli
+
+        return autotune_cli(argv[1:])
+    if argv[:1] == ["lint"]:
+        return _cmd_lint(argv[1:])
     args = _build_parser().parse_args(argv)
     if args.command == "train":
         return _cmd_train(args)

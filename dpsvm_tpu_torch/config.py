@@ -67,17 +67,20 @@ class SVMConfig:
     pair_batch: int = 1
 
     # Fused block-round engines (solver/block.py): True runs the engine,
-    # None (auto) and False the plain one. No H100 gate decides auto yet.
+    # False the plain one. None (auto): pipeline_rounds and fused_round
+    # take the device profile's measured decision (autotune/, default
+    # off; provenance in stats["autotune"]); fused_fold stays off.
     fused_fold: Optional[bool] = None
     fused_round: Optional[bool] = None
     pipeline_rounds: Optional[bool] = None
     # Mesh block engine (parallel/dist_block.py). local_working_sets:
-    # None = auto (off: no H100 measurement decides it yet), 1 = one
-    # global working set a round, >= 2 = every shard selects and solves
-    # a working set from its own rows, reconciled every sync_rounds local
-    # rounds. ring_exchange: the candidate exchange (global runner) and
+    # None = auto (the device profile's decision, default off; only with
+    # more than one shard), 1 = one global working set a round, >= 2 =
+    # every shard selects and solves a working set from its own rows,
+    # reconciled every sync_rounds local rounds. ring_exchange: the candidate exchange (global runner) and
     # the sync (shard-local runner) through the ring kernels of
-    # ops/ring.py; None = auto (off), bit-identical either way.
+    # ops/ring.py; None = auto (the profile's decision, default off),
+    # bit-identical either way.
     local_working_sets: Optional[int] = None
     sync_rounds: int = 1
     ring_exchange: Optional[bool] = None
@@ -103,7 +106,8 @@ class SVMConfig:
     # round's fold streams over (ooc_tile_rows, d) tiles through two
     # pinned buffers; ooc_cache_lines > 0 keeps an (L, n) cache of dot
     # rows on the device; ooc_shrink streams only the tiles of an active
-    # view (None = auto: off, no H100 gate yet; True / False force it).
+    # view (None = auto: the device profile's decision, default off;
+    # True / False force it).
     ooc: bool = False
     ooc_tile_rows: int = 8192
     ooc_cache_lines: int = 0
@@ -329,7 +333,7 @@ class SVMConfig:
             (self.fleet_size < 1 or self.fleet_size > 64
              or self.fleet_size & (self.fleet_size - 1),
              "fleet_size must be a power of two in [1, 64]"),
-            (self.active_set_size > 0 and self.engine != "block",
+            (bool(self.active_set_size) and self.engine != "block",
              "active_set_size (shrinking) is a block-engine knob"),
             (self.reconcile_rounds < 1, "reconcile_rounds must be >= 1"),
             (self.reconstruct_every < 0,
@@ -338,7 +342,7 @@ class SVMConfig:
              "budget_mode runs exactly max_iter pairs in one dispatch "
              "sequence; reconstruction legs re-judge convergence and "
              "would break the pinned budget — use one or the other"),
-            (bool(self.gram_resident) and self.active_set_size > 0,
+            (bool(self.gram_resident) and bool(self.active_set_size),
              "gram_resident does not compose with active-set shrinking"),
             (self.bf16_gram and self.kernel == "precomputed",
              "bf16_gram supports feature kernels only"),
@@ -353,9 +357,10 @@ class SVMConfig:
             (self.ooc_tile_rows < 8, "ooc_tile_rows must be >= 8"),
             (self.ooc_cache_lines < 0,
              "ooc_cache_lines must be >= 0 (0 = off)"),
-            (self.ooc_cache_lines > 0 and not self.ooc,
+            (bool(self.ooc_cache_lines) and not self.ooc,
              "ooc_cache_lines is the ooc block cache's size; set ooc=True"),
-            (0 < self.ooc_cache_lines < self.working_set_size,
+            (bool(self.ooc_cache_lines)
+             and self.ooc_cache_lines < self.working_set_size,
              "ooc_cache_lines must be >= working_set_size"),
             (self.matmul_precision not in (None, "default", "high",
                                            "highest"),
@@ -439,8 +444,10 @@ class ServeConfig:
 
     buckets: ascending power-of-two query micro-batch sizes; requests
       merge and pad to the smallest that fits, larger batches loop over
-      the top one. None = the default ladder (serve.resolve_buckets;
-      the port has no device profile to consult).
+      the top one. None = the default ladder, whose provenance
+      consults the device profile's serve_buckets decision (an
+      authoritative pays verdict arms the serving engine's between-legs
+      auto-apply; serve.resolve_buckets).
     union_storage: "f32", "bf16", "int8" or "auto"; None derives it
       from the legacy ``dtype`` ("float32" -> "f32", "bfloat16" ->
       "bf16"). Narrow storage sits behind serve.resolve_union_storage.

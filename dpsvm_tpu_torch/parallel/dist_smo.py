@@ -74,7 +74,7 @@ from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh, pad_rows,
                                            replicate_array,
                                            shard_padded_rows, unshard)
 from dpsvm_tpu_torch.solver import chunks
-from dpsvm_tpu_torch.solver.block import scatter_alpha
+from dpsvm_tpu_torch.solver.block import autotune_gate_resolver, scatter_alpha
 from dpsvm_tpu_torch.solver.cache import (CacheState, init_cache,
                                           lookup_one_sharded,
                                           lookup_pair_sharded)
@@ -537,17 +537,32 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
     use_block = config.engine == "block"
     nu = config.selection == "nu"
     gram = kp.kind == "precomputed"
-    # The engine choice of the JAX package's _solve_mesh_impl, explicit
-    # knobs only: the autos stay off until an H100 measurement decides
-    # them. The nu rule and the active set keep the all_gather path.
+    # The engine choice of the JAX package's _solve_mesh_impl: an
+    # explicit knob always wins; a None (auto) local_working_sets,
+    # pipeline_rounds or ring_exchange asks the device profile's gate
+    # (default off), in the JAX package's order and only where the knob
+    # could run. The shard-local gate needs n_dev > 1 BEFORE the
+    # profile: one shard is pure sync overhead, which a verdict measured
+    # on several must not engage. The mesh's pipelined engine has its
+    # own gate ("pipeline_rounds_mesh"): its overlap is the exchange
+    # racing the replicated chain, not the one-device kernel order. The
+    # nu rule and the active set keep the all_gather path.
+    gate, autotune_embed = autotune_gate_resolver(mesh.devices[0])
     lws = config.local_working_sets
-    plain_only = not use_block or nu or gram or config.active_set_size > 0
-    use_shardlocal = (not plain_only and lws is not None and lws >= 2
-                      and not config.budget_mode
-                      and not config.pipeline_rounds)
+    plain_only = not use_block or nu or gram or bool(config.active_set_size)
+    use_shardlocal = (not plain_only and not config.budget_mode
+                      and not config.pipeline_rounds
+                      and (lws >= 2 if lws is not None
+                           else (n_dev > 1
+                                 and gate("local_working_sets", False))))
     use_pipe = (not plain_only and not use_shardlocal
-                and bool(config.pipeline_rounds))
-    use_ring = not plain_only and n_dev > 1 and bool(config.ring_exchange)
+                and (config.pipeline_rounds
+                     if config.pipeline_rounds is not None
+                     else gate("pipeline_rounds_mesh", False)))
+    use_ring = (not plain_only and n_dev > 1
+                and (config.ring_exchange
+                     if config.ring_exchange is not None
+                     else gate("ring_exchange", False)))
     n_loc_f = pad_rows(n, n_dev, multiple=1024) // n_dev
     use_fused = (not plain_only and not use_pipe and not use_shardlocal
                  and not use_ring and bool(config.fused_fold)
@@ -659,7 +674,8 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
          "pipelined": bool(use_block and use_pipe),
          "fused_fold": bool(use_block and use_fused),
          "ring_exchange": bool(use_ring), "observed_chunks": observe,
-         "mesh_devices": mesh.describe()}, list(mesh.devices))
+         "mesh_devices": mesh.describe(), **autotune_embed()},
+        list(mesh.devices))
     fields = None
     if use_block:
         engine.obs_run = obs
@@ -694,6 +710,7 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
         "chunks": out.chunks,
         "phase_seconds": out.phase_seconds,
         **extra,
+        **autotune_embed(),
     }
     if use_block:
         stats.update(engine.stats(state))

@@ -47,6 +47,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from dpsvm_tpu_torch.autotune.profile import device_kind_of
 from dpsvm_tpu_torch.config import ServeConfig
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.models.multiclass import (CompactedEnsemble,
@@ -84,18 +85,39 @@ def effective_buckets(buckets, s_rows: int) -> tuple:
 
 
 def resolve_buckets(config: ServeConfig, device_kind: str = ""):
-    """``(ladder, provenance)`` of ``ServeConfig.buckets``. An explicit
-    tuple wins ({"source": "config"}); None gives the default ladder
-    with the JAX package's no-profile record: the port has no device
-    profile (ROADMAP queue A item 5b), so nothing is auto-applied."""
+    """``(ladder, provenance)`` of ``ServeConfig.buckets`` (the JAX
+    package's, the solvers' resolve_auto_gate discipline applied to the
+    bucket ladder).
+
+    An explicit tuple ALWAYS wins: ``{"source": "config"}``, no profile
+    consulted, no auto-apply. ``buckets=None`` consults the device
+    profile's ``serve_buckets`` decision for `device_kind` (""
+    = the CUDA card's): the ladder starts at the default either way (the
+    probe measures whether dispatch cost tracks the bucket on this
+    device, not what traffic will arrive), and the provenance carries
+    ``auto_apply``, True only on an AUTHORITATIVE pays verdict (a CUDA
+    probe; the CPU profile's verdicts are pinned False). With
+    ``auto_apply`` the serving engine applies its own occupancy
+    suggestion between serving legs
+    (serving/dispatch.py maybe_apply_bucket_suggestion) and records what
+    it applied in the same provenance record."""
     if config.buckets is not None:
         return tuple(config.buckets), {
             "source": "config",
             "buckets": [int(b) for b in config.buckets]}
+    from dpsvm_tpu_torch.autotune.profile import gate_decision
+
+    gd = gate_decision("serve_buckets", device_kind or None)
+    if gd is None:
+        return DEFAULT_BUCKETS, {
+            "source": "default", "buckets": list(DEFAULT_BUCKETS),
+            "auto_apply": False,
+            "note": "no profile decision for serve_buckets; "
+                    "default ladder"}
     return DEFAULT_BUCKETS, {
-        "source": "default", "buckets": list(DEFAULT_BUCKETS),
-        "auto_apply": False,
-        "note": "no profile decision for serve_buckets; default ladder"}
+        "source": "profile", **gd,
+        "buckets": list(DEFAULT_BUCKETS),
+        "auto_apply": bool(gd["decision"])}
 
 
 def stage_union_host(sv_f32: np.ndarray, storage: str):
@@ -433,7 +455,8 @@ class PredictServer:
         self._all_f64 = len(self.f64_cols) == self.k
 
         s_rows = int(self.ens.sv_union.shape[0])
-        ladder, self.bucket_provenance = resolve_buckets(config)
+        ladder, self.bucket_provenance = resolve_buckets(
+            config, device_kind_of(self.device))
         self.buckets = effective_buckets(ladder, s_rows)
         self.mesh = serve_mesh(config.num_devices, self.device,
                                device is not None)

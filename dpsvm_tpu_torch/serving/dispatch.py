@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from dpsvm_tpu_torch.autotune.profile import device_kind_of
 from dpsvm_tpu_torch.config import ServeConfig
 from dpsvm_tpu_torch.device import resolve_device
 from dpsvm_tpu_torch.obs import run_obs
@@ -112,10 +113,12 @@ class ServingEngine:
         self.mesh = serve_mesh(config.num_devices, self.device,
                                device is not None)
         self.stream = new_stream(self.device)
-        # Bucket ladder: explicit config wins; buckets=None is the
-        # default ladder (no device profile is consulted in the port, so
-        # the provenance never arms the auto-apply).
-        ladder, self.bucket_provenance = resolve_buckets(config)
+        # Bucket ladder: explicit config wins; buckets=None consults the
+        # device profile's serve_buckets decision (the ladder starts at
+        # the default; an authoritative pays verdict arms the
+        # between-legs auto-apply, maybe_apply_bucket_suggestion).
+        ladder, self.bucket_provenance = resolve_buckets(
+            config, device_kind_of(self.device))
         self._bucket_ladder = tuple(ladder)
         self.scheduler = Scheduler()
         self.registry = ModelRegistry(prepare=self._prepare_entry,
@@ -296,8 +299,8 @@ class ServingEngine:
             key = entry.group_key(storage)
             group = UnionGroup(key,
                                self._members_for(key, extra=entry),
-                               self.config, self.mesh,
-                               self.stream, storage=storage)
+                               self._bucket_ladder, self.mesh,
+                               self.stream, storage)
             group.warm()
             # Publish the staged group. In-flight dispatches captured
             # their group object; queued requests of existing members
@@ -431,6 +434,10 @@ class ServingEngine:
             while self.scheduler.queue_depth or self._dispatcher.busy:
                 self.pump()
             self._gc_groups()
+            # Between-legs idle moment: the only place the profile-gated
+            # bucket auto-apply may swap the ladder (queues are empty,
+            # nothing staged is mid-flight).
+            self.maybe_apply_bucket_suggestion()
             return self.results()
 
     def results(self) -> dict:
@@ -449,8 +456,8 @@ class ServingEngine:
                   if e.group_key(self._storage_of(e)) == key}
         if group is None or not needed <= group.member_set():
             group = UnionGroup(key, self._members_for(key),
-                               self.config, self.mesh,
-                               self.stream, storage=key[-1])
+                               self._bucket_ladder, self.mesh,
+                               self.stream, key[-1])
             group.warm()
             self._groups[key] = group
         return group
@@ -474,9 +481,8 @@ class ServingEngine:
             if members is None:
                 del self._groups[key]
             elif set(members) != self._groups[key].member_set():
-                group = UnionGroup(key, members, self.config,
-                                   self.mesh, self.stream,
-                                   storage=key[-1])
+                group = UnionGroup(key, members, self._bucket_ladder,
+                                   self.mesh, self.stream, key[-1])
                 group.warm()
                 self._groups[key] = group
 
@@ -670,11 +676,54 @@ class ServingEngine:
     def bucket_suggestion(self) -> dict:
         """Occupancy-driven ``ServeConfig.buckets`` advice from the
         engine's own dispatch telemetry (a host read of the batch_rows
-        window), report-only: applying it would need a device profile
-        saying right-sizing pays on this card (ROADMAP queue A item
-        11)."""
+        window). Report-only UNLESS ``buckets=None`` resolved to an
+        armed auto-apply (maybe_apply_bucket_suggestion): whether
+        right-sizing pays at all is a device property, which the
+        autotune ``serve_buckets`` probe measures."""
         return suggest_buckets(self.batch_rows.window_values(),
                                self._bucket_ladder)
+
+    def maybe_apply_bucket_suggestion(self):
+        """Profile-gated bucket AUTO-APPLY. A no-op returning None unless
+        ALL of:
+          * ``config.buckets is None`` (an explicit ladder always wins);
+          * the resolved provenance carries ``auto_apply`` (an
+            AUTHORITATIVE serve_buckets pays verdict in the active
+            DeviceProfile; the CPU profile pins it False);
+          * the occupancy suggestion exists and differs from the
+            current ladder.
+          * no admin thread is preparing a swap (``_preparing``, as
+            _gc_groups checks it).
+        On apply: swaps the engine's ladder, drops the staged groups
+        (they restage lazily, at the next request; drain() calls this
+        between serving legs, with the queues empty) and extends the
+        provenance with what was applied, so the snapshot carries the
+        whole decision trail. Returns the applied ladder.
+
+        The swap and the clear hold ``_prep_lock``: a preparation that
+        started earlier would publish a group staged under the old
+        ladder after the clear (so the swap waits for the next leg), and
+        one that starts later reads the new ladder."""
+        if self.config.buckets is not None \
+                or not self.bucket_provenance.get("auto_apply"):
+            return None
+        sug = self.bucket_suggestion()
+        ladder = sug.get("suggested_buckets")
+        if not ladder or tuple(ladder) == self._bucket_ladder:
+            return None
+        with self._prep_lock:
+            if self._preparing:
+                return None
+            self._bucket_ladder = tuple(int(b) for b in ladder)
+            self.bucket_provenance = {
+                **self.bucket_provenance,
+                "applied_buckets": list(self._bucket_ladder),
+                "suggestion": sug}
+            self._groups.clear()
+        self._obs.event("buckets_auto_applied",
+                        buckets=list(self._bucket_ladder),
+                        occupancy=sug.get("projected_occupancy"))
+        return list(self._bucket_ladder)
 
     def snapshot(self) -> dict:
         """JSON-able engine state: counters, queue state, histogram

@@ -18,8 +18,9 @@ serving/dispatch.py.
   memory. An optional serial device-time floor
   (ServeConfig.device_floor_us_per_row) emulates a device-bound
   timeline on a host-bound harness.
-* :func:`suggest_buckets` — the report-only occupancy-driven bucket
-  advice (host function).
+* :func:`suggest_buckets` — the occupancy-driven bucket advice (host
+  function; report-only unless a device profile arms the engine's
+  between-legs auto-apply, dispatch.py maybe_apply_bucket_suggestion).
 * :func:`_overwrite_f64` — the host float64 evaluation of risk-routed
   columns.
 
@@ -36,10 +37,8 @@ from typing import Optional
 
 import numpy as np
 
-from dpsvm_tpu_torch.config import ServeConfig
 from dpsvm_tpu_torch.obs.trace import span
 from dpsvm_tpu_torch.serve import (Pending, StagedUnion, effective_buckets,
-                                   resolve_buckets, resolve_union_storage,
                                    union_nbytes)
 from dpsvm_tpu_torch.serving.registry import LoadedModel
 from dpsvm_tpu_torch.solver.reconstruct import gram_matvec_f64
@@ -56,27 +55,21 @@ class UnionGroup:
 
     ``mesh`` is the engine's mesh (one shard, or ``config.num_devices``
     shards); ``mesh_devices`` its size. ``stream`` is the engine's CUDA
-    stream (None on the CPU). ``storage`` is the RESOLVED union storage
-    ('f32' | 'bf16' | 'int8'), part of the group key, so every member
-    accepted it; None resolves it here from the config against the
-    base member."""
+    stream (None on the CPU). ``buckets`` is the engine's current bucket
+    ladder (dispatch.py ``_bucket_ladder``: the resolved ladder, or the
+    one the auto-apply swapped in). ``storage`` is the RESOLVED union
+    storage ('f32' | 'bf16' | 'int8'), part of the group key, so every
+    member accepted it."""
 
-    def __init__(self, key, members, config: ServeConfig, mesh,
-                 stream=None, storage: str = None):
+    def __init__(self, key, members, buckets, mesh, stream, storage: str):
         self.key = key
         self.members = list(members)
         base = self.members[0].ens
         self.kp = base.kernel
         self.d = int(base.sv_union.shape[1])
         self.s_rows = int(base.sv_union.shape[0])
-        buckets = config.buckets
-        if buckets is None:
-            buckets, _ = resolve_buckets(config)
         self.buckets = effective_buckets(buckets, self.s_rows)
         self.mesh_devices = mesh.size
-        if storage is None:
-            storage, _ = resolve_union_storage(
-                base, self.kp, config.effective_union_storage())
         self.union_storage = storage
         self.union_bytes = union_nbytes(storage, self.s_rows, self.d)
         self.slices: dict = {}
@@ -222,7 +215,8 @@ class AsyncDispatcher:
 
 
 def suggest_buckets(row_samples, current_buckets) -> dict:
-    """Occupancy-driven ``ServeConfig.buckets`` advice, report-only.
+    """Occupancy-driven ``ServeConfig.buckets`` advice (applied only by
+    the engine's profile-gated auto-apply).
 
     `row_samples` are live rows per dispatch (the engine's batch_rows
     window); the suggestion is the ladder whose rungs sit at the next

@@ -197,6 +197,55 @@ _SAFE_KNOBS = (
 )
 
 
+def resolve_auto_gate(knob: str, default: bool,
+                      device_kind: str = "") -> tuple:
+    """Resolve one ``None``-valued (auto) accelerator knob: the
+    installed DeviceProfile's measured verdict for this device kind
+    (dpsvm_tpu_torch/autotune) when one exists, else `default` (False
+    for every profile-gated knob in the port).
+
+    Returns ``(decision, provenance)``, provenance being the JSON-able
+    record the solvers embed in ``SolveResult.stats['autotune']`` and
+    the run-log manifest: ``{"source": "profile", profile file, probe
+    ratio, threshold, ...}`` or ``{"source": "default", "decision":
+    ...}``. A profile can only carry a True verdict from an
+    AUTHORITATIVE (CUDA) probe, so the committed CPU profile never
+    changes what a CPU solve runs."""
+    from dpsvm_tpu_torch.autotune.profile import gate_decision
+
+    hit = gate_decision(knob, device_kind=device_kind or None)
+    if hit is None:
+        return bool(default), {"source": "default",
+                               "decision": bool(default)}
+    return bool(hit["decision"]), {"source": "profile", **hit}
+
+
+def autotune_gate_resolver(device) -> tuple:
+    """The solvers' shared gate-resolution scaffold: ``(gate, embed)``
+    where ``gate(knob, default)`` resolves one auto knob through
+    :func:`resolve_auto_gate` (accumulating provenance) and ``embed()``
+    renders the accumulated records as the ``{"autotune": {...}}``
+    fragment solve, solve_ooc and solve_mesh splat into
+    ``SolveResult.stats`` AND the run-log manifest (empty when no gate
+    was consulted): one definition of the record the obs report's
+    profile column reads."""
+    from dpsvm_tpu_torch.autotune.profile import device_kind_of
+
+    dev_kind = device_kind_of(device)
+    prov: dict = {}
+
+    def gate(knob: str, default: bool) -> bool:
+        dec, rec = resolve_auto_gate(knob, default, device_kind=dev_kind)
+        prov[knob] = rec
+        return dec
+
+    def embed() -> dict:
+        return ({"autotune": {"device_kind": dev_kind, "gates": prov}}
+                if prov else {})
+
+    return gate, embed
+
+
 def demote_to_safe(config):
     """(safe_config, dropped_knobs): the same config with every knob of
     _SAFE_KNOBS at its safe value, or (None, ()) when the config is

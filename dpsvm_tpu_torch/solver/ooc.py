@@ -294,14 +294,17 @@ def _solve_ooc_impl(x, y, config: SVMConfig, callback, dev, checkpoint_path,
     use_cache = lines > 0
 
     # The shrunken stream: active_set_size asks for it and sizes the
-    # view; ooc_shrink=True asks for the auto-sized view; None is the
-    # JAX package's no-profile gate, off (no H100 measurement decides
-    # it yet). The auto view is sized on the whole tiles' rows, as the
-    # JAX package sizes it on its padded rows.
+    # view; ooc_shrink=True asks for the auto-sized view; None consults
+    # the device profile's ooc_shrink gate (default off). The auto view
+    # is sized on the whole tiles' rows, as the JAX package sizes it on
+    # its padded rows.
+    gate, autotune_embed = block.autotune_gate_resolver(dev)
     if config.active_set_size:
         use_shrink, shrink_m = True, int(config.active_set_size)
-    else:
+    elif config.ooc_shrink is not None:
         use_shrink, shrink_m = bool(config.ooc_shrink), 0
+    else:
+        use_shrink, shrink_m = bool(gate("ooc_shrink", False)), 0
     if use_shrink:
         rows_pad = tiles * tile
         if shrink_m <= 0:
@@ -315,7 +318,8 @@ def _solve_ooc_impl(x, y, config: SVMConfig, callback, dev, checkpoint_path,
          "kernel": config.kernel, "selection": config.selection,
          "ooc": True, "ooc_tile_rows": tile, "ooc_tiles": tiles,
          "ooc_cache_lines": lines, "ooc_shrink": use_shrink,
-         "shrink_m": shrink_m if use_shrink else 0}, dev)
+         "shrink_m": shrink_m if use_shrink else 0, **autotune_embed()},
+        dev)
     y_dev = torch.as_tensor(y_np.astype(np.float32), device=dev)
     stream = TileStream(x, n, d, tile, dev, dtype)
     # The setup pass: the squared norms of the STORED rows, tile by tile
@@ -611,6 +615,7 @@ def _solve_ooc_impl(x, y, config: SVMConfig, callback, dev, checkpoint_path,
             tile_bytes_skipped=bytes_skipped,
             shrink_tiles_in_cycle=tiles_in_cycle,
             shrink_active_fraction=round(min(1.0, shrink_m / max(n, 1)), 6))
+    stats.update(autotune_embed())
     if start.resumed:
         stats["resumed_from"] = start.pairs
         stats["cache_cold_restart"] = use_cache

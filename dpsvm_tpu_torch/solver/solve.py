@@ -58,11 +58,16 @@ def block_height(config: SVMConfig, n: int) -> tuple:
 
 
 def choose_engine(config: SVMConfig, n: int, dev: torch.device,
-                  gram: bool = False) -> dict:
+                  gram: bool = False, gate=None) -> dict:
     """Which block engine runs, as the JAX package's solve picks it
     (solver/smo.py): pipeline_rounds first, then fused_round, then
-    fused_fold, each only when its knob is True; None (auto) stays off
-    on every device until an H100 measurement decides a gate. The fused
+    fused_fold. An explicit knob always wins. A None (auto)
+    pipeline_rounds or fused_round asks `gate(knob, default)` (the
+    solve's block.autotune_gate_resolver: the device profile's measured
+    decision, default off), in the JAX package's order and only where
+    that knob could run, so the provenance records exactly the gates
+    consulted; gate=None takes every default. fused_fold=None stays off:
+    no probe measures it (the JAX package's default is the TPU's). The fused
     engines, and the pipelined engine's one-pass selection (on CUDA
     only, as the JAX package takes it on the TPU only), need q/2 <=
     n_pad/128 with n_pad = n rounded up to 1024; where that fails the
@@ -82,15 +87,23 @@ def choose_engine(config: SVMConfig, n: int, dev: torch.device,
                 and config.kernel != "precomputed" and not gram
                 and min(config.working_set_size, n_pad_fused)
                 <= n_pad_fused // 64)
-    pipelined = (bool(config.pipeline_rounds) and config.selection != "nu"
-                 and not active)
+    if gate is None:
+        def gate(_knob, default):
+            return default
+    pipelined = (config.selection != "nu" and not active
+                 and (config.pipeline_rounds
+                      if config.pipeline_rounds is not None
+                      else (not config.fused_round
+                            and gate("pipeline_rounds", False))))
     pipe_select = pipelined and dev.type == "cuda" and shape_ok
-    fused_round = not pipelined and bool(config.fused_round) and shape_ok
+    fused_round = (not pipelined and shape_ok
+                   and (config.fused_round if config.fused_round is not None
+                        else gate("fused_round", False)))
     fused_fold = (not pipelined and not fused_round
                   and bool(config.fused_fold) and shape_ok)
     pad = fused_fold or fused_round or pipe_select
-    return {"pipelined": pipelined, "pipe_select": pipe_select,
-            "fused_round": fused_round, "fused_fold": fused_fold,
+    return {"pipelined": bool(pipelined), "pipe_select": bool(pipe_select),
+            "fused_round": bool(fused_round), "fused_fold": bool(fused_fold),
             "pad": pad, "n_pad": n_pad_fused if pad else n}
 
 
@@ -508,7 +521,8 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                  observe, loop) -> SolveResult:
     n = x.shape[0]
     use_gram = resolve_gram(config, n, dev)
-    eng = choose_engine(config, n, dev, gram=use_gram)
+    gate, autotune_embed = block.autotune_gate_resolver(dev)
+    eng = choose_engine(config, n, dev, gram=use_gram, gate=gate)
     n_pad = eng["n_pad"]
     x_dev, x_sq, k_diag, kp = stage_x(x, n_pad, store_dtype, kp, use_gram,
                                       config, dev)
@@ -558,10 +572,10 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         return (s.alpha[:n].cpu().numpy(), s.f[:n].cpu().numpy(), err,
                 int(s.rounds))
 
-    obs = chunks.open_run_obs("solve", config, _run_meta(
+    obs = chunks.open_run_obs("solve", config, {**_run_meta(
         x, n_pad, config, observe, gram_resident=use_gram,
         **{k: eng[k] for k in ("pipelined", "fused_fold", "fused_round")}),
-        dev)
+        **autotune_embed()}, dev)
     out = loop(run_chunk, state, read, payload=payload,
                tensors=lambda s: ((s.f,), (s.alpha,)), obs=obs)
     t_fin = time.perf_counter()
@@ -586,7 +600,8 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
                "phase_seconds": out.phase_seconds,
                **{k: eng[k] for k in ("pipelined", "fused_fold",
                                       "fused_round")},
-               **({"active_set_size": m_act} if m_act else {})},
+               **({"active_set_size": m_act} if m_act else {}),
+               **autotune_embed()},
     )
     chunks.finish_run_obs(obs, res, out.chunks)
     return res

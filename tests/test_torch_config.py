@@ -473,3 +473,20 @@ def test_serve_config_obs_refused_naming_item_11(tmp_path):
     assert len(done) == 4
     assert all(r.manifest["tool"] == "serve" for r in done)
     ServeConfig().check_ported()
+
+
+@pytest.mark.parametrize("kw,phrase", [
+    (dict(active_set_size=float("nan")),
+     "active_set_size (shrinking) is a block-engine knob"),
+    (dict(ooc_cache_lines=float("nan")),
+     "ooc_cache_lines is the ooc block cache's size"),
+])
+def test_nan_counts_are_tested_by_truth_like_jax(kw, phrase):
+    """A NaN count is truthy: both packages refuse it with the same
+    exception and key phrase (a `> 0` test would let it through)."""
+    import re
+
+    with pytest.raises(ValueError, match=re.escape(phrase)):
+        JaxConfig(**kw)
+    with pytest.raises(ValueError, match=re.escape(phrase)):
+        SVMConfig(**kw)

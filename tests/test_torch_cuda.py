@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from dpsvm_tpu_torch.autotune import use_profile
 from dpsvm_tpu_torch import Mesh, SVMConfig, solve, solve_mesh
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
 from dpsvm_tpu_torch.ops import fold_select as tfs
@@ -31,7 +32,10 @@ B1_QS = [64, 100, 128, 129, 256, 257, 400, 512, 1500, 3000]
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels have no CPU form")
-    return torch.device("cuda")
+    # Written against the auto gates' defaults: no device profile
+    # resolves a None knob here (autotune/profile.py).
+    with use_profile(None):
+        yield torch.device("cuda")
 
 
 @pytest.mark.cuda

@@ -75,7 +75,11 @@ def test_scan_covers_the_package():
                 ("solver", "cascade.py"), ("learn.py",),
                 ("obs", "__init__.py"), ("obs", "runlog.py"),
                 ("obs", "compilelog.py"), ("obs", "analyze.py"),
-                ("utils", "metrics.py")):
+                ("utils", "metrics.py"), ("autotune", "__init__.py"),
+                ("autotune", "probe.py"), ("autotune", "probes.py"),
+                ("autotune", "profile.py"), ("analysis", "__init__.py"),
+                ("analysis", "concurrency_facts.py"),
+                ("analysis", "threadlint.py")):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 
@@ -288,3 +292,15 @@ def test_obs_and_mesh_stream_entry_points_raise_without_cuda(no_cuda,
         cli.main(argv)
     assert cli.main(argv + ["--device", "cpu", "-q"]) == 0
     assert cli.main(["obs", "report", str(tmp_path / "runs")]) == 0
+
+
+def test_autotune_entry_points_raise_without_cuda(no_cuda):
+    """A probe pass and `autotune show` look at the CUDA card unless told
+    otherwise: no silent CPU profile."""
+    from dpsvm_tpu_torch.autotune import run_probes
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_probes(knobs=["pipeline"], smoke=True, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["autotune", "show"])
+    assert cli.main(["autotune", "show", "--device", "cpu"]) == 0

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from dpsvm_tpu_torch.autotune import use_profile
 from dpsvm_tpu_torch import Mesh, SVMConfig, cli, decision_function, train
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
 from dpsvm_tpu_torch.ops import fold_select as fs
@@ -36,7 +37,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels B1, B2 and B7 and "
                     "the logical shards of one card are CUDA only")
-    return torch.device("cuda", 0)
+    # Written against the auto gates' defaults: no device profile
+    # resolves a None knob here (autotune/profile.py).
+    with use_profile(None):
+        yield torch.device("cuda", 0)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dpsvm_tpu_torch.autotune import use_profile
 from dpsvm_tpu_torch import SVMConfig, solve
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
 from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
@@ -27,7 +28,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the ooc stream's pinned "
                     "buffers, side stream and events are CUDA only")
-    return torch.device("cuda")
+    # Written against the auto gates' defaults: no device profile
+    # resolves a None knob here (autotune/profile.py).
+    with use_profile(None):
+        yield torch.device("cuda")
 
 
 @pytest.fixture(scope="module")

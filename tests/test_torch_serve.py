@@ -197,10 +197,19 @@ def test_mesh_rbf_matches_jax_mesh(models, n_dev, storage):
 
 
 def test_bucket_resolution_and_cap_match_jax(models):
-    for buckets in (None, (16, 64)):
-        assert tserve.resolve_buckets(ServeConfig(buckets=buckets)) == \
-            jserve.resolve_buckets(JaxServeConfig(buckets=buckets),
-                                   device_kind="NVIDIA H100 80GB HBM3")
+    # Both packages resolve buckets=None through a device profile; with
+    # none installed each gives the default ladder and the same record
+    # (tests/test_torch_autotune.py holds them equal under a profile).
+    from dpsvm_tpu.autotune import use_profile as jax_use_profile
+    from dpsvm_tpu_torch.autotune import use_profile
+
+    kind = "NVIDIA H100 80GB HBM3"
+    with use_profile(None), jax_use_profile(None):
+        for buckets in (None, (16, 64)):
+            assert tserve.resolve_buckets(ServeConfig(buckets=buckets),
+                                          device_kind=kind) == \
+                jserve.resolve_buckets(JaxServeConfig(buckets=buckets),
+                                       device_kind=kind)
     for s_rows in (1, 100, 65537, 1 << 20, 1 << 29):
         assert tserve.effective_buckets((16, 64, 4096), s_rows) == \
             jserve.effective_buckets((16, 64, 4096), s_rows)

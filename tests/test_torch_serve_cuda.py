@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from dpsvm_tpu_torch.autotune import use_profile
 from dpsvm_tpu_torch import PredictServer, ServeConfig, SVMModel
 from dpsvm_tpu_torch.ops.kernels import KernelParams, mm_i8_i32
 from dpsvm_tpu_torch.serve import quantize_queries_int8
@@ -26,7 +27,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the serving path's stream, "
                     "pinned buffers and int8 GEMM are CUDA only")
-    return torch.device("cuda")
+    # Written against the auto gates' defaults: no device profile
+    # resolves a None knob here (autotune/profile.py).
+    with use_profile(None):
+        yield torch.device("cuda")
 
 
 def _model(d=54, n_sv=300, seed=0, coef_scale=0.05):

@@ -109,6 +109,10 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=60_000)
     args = ap.parse_args()
 
+    # The runs are the plain engine and the full stream: no device
+    # profile resolves a None knob (a profile could turn on fused_round
+    # or the shrunken stream).
+    os.environ["DPSVM_AUTOTUNE_PROFILE"] = "off"
     from dpsvm_tpu_torch import Mesh, SVMConfig, train
     from dpsvm_tpu_torch.config import ObsConfig
     from dpsvm_tpu_torch.data.synth import make_mnist_like
