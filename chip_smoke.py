@@ -171,9 +171,10 @@ result line is printed:
                 one-device checkpoint: n_sv and signs within the oracle
                 tolerances of the one-device headline;
  17. reconstruct -- the covtype stress configuration (c = 2048, gamma =
-                0.03125, Kahan carry) on make_covtype_like's first 2000
-                rows in float64 reconstruction legs on the block engine
-                (B1) and engine="xla": certified true gap <= 2 eps,
+                0.03125, Kahan carry) on make_covtype_like's 2000 rows
+                in float64 reconstruction legs on the block engine (B1)
+                and on 1000 rows with engine="xla" (a depth cut):
+                certified true gap <= 2 eps,
                 matched by an independent float64 gradient of the
                 returned alpha;
  18. bf16_gram -- the headline in float32 with bf16_gram=True: the gate's
@@ -329,6 +330,21 @@ result line is printed:
                 a ServingEngine with buckets=None under it: its bucket
                 provenance, the ladder applied after two legs where the
                 profile arms the auto-apply, decisions within 1e-5.
+ 40. multiproc -- the multi-process job (parallel/mesh.py
+                initialize_multihost): two processes of `cli train`
+                (this script's --cli-child: cli.main and the process's
+                launch counts), each with 2 logical shards of cuda:0, on
+                gloo: (a) the headline, process 0's model, pairs, rounds
+                and n_sv bitwise [mesh] (a) (4 shards in one process),
+                B1 once a round in each process, the exchange's ms a
+                round and share of train_seconds; (b) the per-pair engine
+                at full width on rows 0-9999 ([cli]'s test.csv) bitwise
+                its one-process twin, no kernel; (c) the block engine on
+                those rows stopped at --max-iter, relaunched with
+                --resume: bitwise the one-process resume of the same
+                file, B1 once a round of each job; (d)
+                parallel/multihost_check.py on the card.
+                Every child has a hard limit and is killed on failure.
 
 Phases 3-38 (and --turns, --serve-profile) run with no device profile
 (DPSVM_AUTOTUNE_PROFILE=off, set for this process and its CLI
@@ -336,7 +352,7 @@ subprocesses), so the committed profile cannot move their engines or
 launch counts.
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-39 under "path_launches") and the card's
+kernel's launches on phases 15-40 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -344,8 +360,11 @@ name and power limit; the last line is
 from __future__ import annotations
 
 import functools
+import glob
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1467,7 +1486,7 @@ def train_mesh_counted(x, y, cfg, mesh, label: str, tag: str = "mesh",
 
 def phase_mesh(x, y, cfg, dev) -> tuple:
     """The headline on four logical shards of the card. Returns
-    ({kernel: launches}, the mesh)."""
+    ({kernel: launches}, the mesh, run (a)'s result)."""
     from dpsvm_tpu_torch import train
     from dpsvm_tpu_torch.parallel.mesh import Mesh
 
@@ -1504,7 +1523,7 @@ def phase_mesh(x, y, cfg, dev) -> tuple:
         raise AssertionError("the shard-local run made no sync")
     if set(launches) != {"ring_gather", "ring_fold_window"}:
         raise AssertionError(f"the mesh runs launched {launches}")
-    return launches, mesh
+    return launches, mesh, a
 
 
 # ---- the model families (phases 12-14)
@@ -1768,8 +1787,14 @@ STATE_ORACLE = (
 RECON_ROWS = 2000
 RECON_RUN = dict(c=2048.0, gamma=0.03125, epsilon=1e-3, max_iter=2_000_000,
                  working_set_size=256, compensated=True)
-RECON_LEGS = (("block", dict(engine="block", reconstruct_every=200_000)),
-              ("xla", dict(engine="xla", reconstruct_every=50_000)))
+# The per-pair leg on a draw of RECON_XLA_ROWS rows (a
+# depth cut: on RECON_ROWS it runs 50000 pairs at ~1.4 ms each; on 1000
+# rows ~16000 pairs), the block leg on RECON_ROWS.
+RECON_XLA_ROWS = 1000
+RECON_LEGS = (("block", RECON_ROWS,
+               dict(engine="block", reconstruct_every=200_000)),
+              ("xla", RECON_XLA_ROWS,
+               dict(engine="xla", reconstruct_every=50_000)))
 # [bf16_gram]: the whole-solve contract against the float32 solve.
 DUAL_RTOL = 0.005
 SV_RTOL = 0.10
@@ -2124,17 +2149,18 @@ def f64_gradient(x, y, alpha, gamma: float) -> np.ndarray:
 
 def phase_reconstruct() -> dict:
     """The covtype stress configuration (RECON_RUN, make_covtype_like on
-    RECON_ROWS rows) in float64 reconstruction legs on the block engine
-    (B1 in its block legs) and engine="xla": converged, the reported true
-    gap <= 2 eps, and an independent float64 gradient of the returned
-    alpha (f64_gradient) certifying the same gap and b."""
+    RECON_ROWS rows; RECON_XLA_ROWS for engine="xla") in float64
+    reconstruction legs on the block engine (B1 in its block legs) and
+    engine="xla": converged, the reported true gap <= 2 eps, and an
+    independent float64 gradient of the returned alpha (f64_gradient)
+    certifying the same gap and b."""
     from dpsvm_tpu_torch import SVMConfig, solve
     from dpsvm_tpu_torch.data.synth import make_covtype_like
 
-    x, y = make_covtype_like(RECON_ROWS, seed=0)
-    yf = y.astype(np.float64)
     launches = {}
-    for label, kw in RECON_LEGS:
+    for label, rows, kw in RECON_LEGS:
+        x, y = make_covtype_like(rows, seed=0)
+        yf = y.astype(np.float64)
         cfg = SVMConfig(**RECON_RUN, **kw)
         reset_counts()
         t0 = time.perf_counter()
@@ -2148,7 +2174,7 @@ def phase_reconstruct() -> dict:
         up = np.where(y > 0, a < cfg.c, a > 0)
         low = np.where(y > 0, a > 0, a < cfg.c)
         b_hi, b_lo = float(f64[up].min()), float(f64[low].max())
-        print(f"[reconstruct] {label} {RECON_ROWS} x 54: converged="
+        print(f"[reconstruct] {label} {rows} x 54: converged="
               f"{res.converged} pairs={res.iterations} legs={st['legs']} "
               f"reconstructions={st['reconstructions']} true_gap="
               f"{st['true_gap']:.6g} (independent {b_lo - b_hi:.6g}) "
@@ -4354,6 +4380,291 @@ def phase_autotune(x, y, cfg, head_model, oracle, sk_dec) -> dict:
     return {"autotune probes": counts}
 
 
+# ---- 40. the multi-process job
+
+MP_DEVICE = "cuda:0"
+MP_LOCAL = 2  # logical shards of MP_DEVICE in each of the two processes
+# (b) and (c) read [cli]'s test.csv: rows 0-9999 at full width.
+MP_PAIR_ROWS = CLI_TEST_ROWS
+MP_STOP_PAIRS = 2048  # (c)'s --max-iter: four chunks of 512 pairs
+MP_TIMEOUT_S = 300  # a child's hard limit
+MP_HEAD_ARGV = ["-c", "10", "-g", "0.125", "-e", "0.01",
+                "--working-set-size", "256", "--inner-iters", "512",
+                "--dtype", "bfloat16", "--backend", "mesh", "-q"]
+
+
+def mp_child(argv: list) -> int:
+    """One process of a multi-process job: `cli.main(argv)` (what
+    `python -m dpsvm_tpu_torch.cli` runs), then the kernel wrappers'
+    launch counts of the process, on a line of their own."""
+    from dpsvm_tpu_torch import cli as port_cli
+
+    reset_counts()
+    rc = port_cli.main(argv)
+    print(f"[launches] {json.dumps(read_counts())}", flush=True)
+    return rc
+
+
+def mp_start(argv: list) -> list:
+    """Start one two-process `cli train` job (`argv` without the
+    multihost flags; --num-devices MP_LOCAL) on a fresh loopback port:
+    its two processes (mp_wait collects them)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmds = [[sys.executable, os.path.abspath(__file__), "--cli-child",
+             *argv, "--num-devices", str(MP_LOCAL), "--coordinator-address",
+             f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+             str(k)] for k in range(2)]
+    return [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for c in cmds]
+
+
+def mp_kill(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def mp_wait(procs: list, label: str) -> list:
+    """Wait for a job's processes: every child has a hard limit and is
+    killed on the way out; a failed or late child fails the phase.
+    Returns per process (output, launch counts)."""
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MP_TIMEOUT_S)
+            outs.append((p.returncode, out))
+    finally:
+        mp_kill(procs)
+    result = []
+    for k, (rc, out) in enumerate(outs):
+        for line in out.splitlines():
+            if "hostname of the client socket" not in line:
+                print(f"[multiproc] {label} p{k}: {line}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"[multiproc] {label}: process {k} exited "
+                                 f"{rc}")
+        counts = json.loads(_grab(r"\[launches\] (\{.*\})", out, label))
+        result.append((out, counts))
+    return result
+
+
+def mp_job(argv: list, label: str) -> list:
+    """One two-process job, started and waited for."""
+    return mp_wait(mp_start(argv), label)
+
+
+def mp_model_check(label: str, path: str, want) -> None:
+    """The job's model file against the one-process model `want` (b
+    rounded to the .npz's float32): SV rows, coefficients and b bit for
+    bit."""
+    from dpsvm_tpu_torch import SVMModel
+
+    m = SVMModel.load(path)
+    if not (np.array_equal(m.sv_x, want.sv_x)
+            and np.array_equal(m.dual_coef, want.dual_coef)
+            and m.b == float(np.float32(want.b))):
+        raise AssertionError(f"[multiproc] {label}: process 0's model is "
+                             "not the one-process mesh's bit for bit")
+
+
+def mp_solve_line(label: str, out: str) -> tuple:
+    """(pairs, rounds or None, n_sv, train_seconds, exchanges, exchange
+    seconds) from a process's output."""
+    pairs = int(_grab(r"converged at iteration (\d+)", out, label))
+    rounds = re.search(r"\((\d+) rounds\)", out)
+    n_sv = int(_grab(r"support vectors: (\d+)", out, label))
+    secs = float(_grab(r"training took ([0-9.]+)s", out, label))
+    ex = re.search(r"cross-process exchange: (\d+) exchanges in "
+                   r"([0-9.]+)s \((\w+)\)", out)
+    if ex is None or ex.group(3) != "gloo":
+        raise AssertionError(f"[multiproc] {label}: no gloo exchange line")
+    return (pairs, int(rounds.group(1)) if rounds else None, n_sv, secs,
+            int(ex.group(1)), float(ex.group(2)))
+
+
+def phase_multiproc(x, y, cfg, mesh, mesh_a) -> dict:
+    """The multi-process job (parallel/mesh.py initialize_multihost):
+    two processes of `cli train`, each with MP_LOCAL logical shards of
+    cuda:0 on gloo, against the one-process mesh of four:
+    (a) the headline on the block engine, process 0's model bitwise
+        [mesh] (a)'s, its pairs, rounds and n_sv the same, B1 once a
+        round in each process; the exchange's time a round and its share
+        of the solve;
+    (b) the per-pair engine at full width on MP_PAIR_ROWS rows, bitwise
+        its one-process twin, no kernel launched;
+    (c) the block engine on the same rows, stopped at --max-iter
+        MP_STOP_PAIRS with a checkpoint a chunk, relaunched with
+        --resume: bitwise the one-process resume of the same file;
+    (d) parallel/multihost_check.py on the card, beside (c)'s stopped
+        job.
+    (b)'s twin and (c)'s one-process resume run while their jobs'
+    processes start; (a) runs alone, so its exchange times are clean.
+    Returns the launch counts a job (both processes summed)."""
+    from dpsvm_tpu_torch import SVMModel, train
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(smoke_dir(), "multiproc")
+    os.makedirs(out_dir, exist_ok=True)
+    head_csv = os.path.join(smoke_dir(), "train.csv")  # [cli]'s file
+    kernel = KernelParams("rbf", cfg.gamma)
+    head = [*MP_HEAD_ARGV, "--device", MP_DEVICE]
+    paths = {}
+
+    def summed(runs):
+        total = {}
+        for _, counts in runs:
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    # (a) the headline
+    model_p = os.path.join(out_dir, "head.npz")
+    t0 = time.perf_counter()
+    runs = mp_job(["train", "-f", head_csv, "-m", model_p, "--engine",
+                   "block", *head], "(a) headline")
+    wall = time.perf_counter() - t0
+    want_a = SVMModel.from_dense(x, y, mesh_a.alpha, mesh_a.b, kernel)
+    mp_model_check("(a) headline", model_p, want_a)
+    for k, (out, counts) in enumerate(runs):
+        pairs, rounds, n_sv, secs, n_ex, ex_s = mp_solve_line(
+            f"(a) p{k}", out)
+        if (pairs, rounds, n_sv) != (mesh_a.iterations,
+                                     mesh_a.stats["outer_rounds"],
+                                     mesh_a.n_sv):
+            raise AssertionError(
+                f"[multiproc] (a) p{k}: {pairs} pairs, {rounds} rounds, "
+                f"{n_sv} SVs; [mesh] (a): {mesh_a.iterations}, "
+                f"{mesh_a.stats['outer_rounds']}, {mesh_a.n_sv}")
+        expect = {n: rounds if n == "solve_subproblem" else 0
+                  for n in counts}
+        if counts != expect:
+            raise AssertionError(f"[multiproc] (a) p{k}: launches {counts}, "
+                                 f"expected {expect}")
+        print(f"[multiproc] (a) p{k}: gloo exchange {1e3 * ex_s / rounds:.4f}"
+              f" ms a round ({n_ex} exchanges, {n_ex / rounds:.3f} a round), "
+              f"{100 * ex_s / secs:.2f}% of train_seconds {secs:.4f} "
+              f"([mesh] (a) one process: {mesh_a.train_seconds:.4f}s)",
+              flush=True)
+    print(f"[multiproc] (a) headline: model bitwise [mesh] (a)'s, pairs="
+          f"{mesh_a.iterations} rounds={mesh_a.stats['outer_rounds']} "
+          f"n_sv={mesh_a.n_sv}; job wall {wall:.2f}s", flush=True)
+    paths["multiproc headline"] = summed(runs)
+
+    # (b) the per-pair engine on MP_PAIR_ROWS rows
+    pair_csv = os.path.join(smoke_dir(), "test.csv")  # [cli]'s file
+    pcfg = cfg.replace(engine="xla", inner_iters=512)
+    model_p = os.path.join(out_dir, "pair.npz")
+    t0 = time.perf_counter()
+    procs = mp_start(["train", "-f", pair_csv, "-m", model_p, "--engine",
+                      "xla", *head])
+    # The twin runs while the job's processes start (and into their
+    # solve): (b)'s times are those of a shared host.
+    try:
+        twin_m, twin = train(x[:MP_PAIR_ROWS], y[:MP_PAIR_ROWS], pcfg,
+                             backend="mesh", mesh=mesh)
+    except BaseException:
+        mp_kill(procs)
+        raise
+    twin_s = time.perf_counter() - t0
+    runs = mp_wait(procs, "(b) per-pair")
+    wall = time.perf_counter() - t0
+    mp_model_check("(b) per-pair", model_p, twin_m)
+    for k, (out, counts) in enumerate(runs):
+        pairs, _, n_sv, secs, n_ex, ex_s = mp_solve_line(f"(b) p{k}", out)
+        if (pairs, n_sv) != (twin.iterations, twin.n_sv) or any(
+                counts.values()):
+            raise AssertionError(f"[multiproc] (b) p{k}: {pairs} pairs, "
+                                 f"{n_sv} SVs, launches {counts}; twin "
+                                 f"{twin.iterations}, {twin.n_sv}")
+        print(f"[multiproc] (b) p{k}: gloo exchange {1e3 * ex_s / pairs:.4f}"
+              f" ms a pair ({n_ex / pairs:.3f} exchanges a pair), "
+              f"{100 * ex_s / secs:.2f}% of train_seconds {secs:.4f} (twin "
+              f"one process: {twin.train_seconds:.4f}s)", flush=True)
+    print(f"[multiproc] (b) per-pair {MP_PAIR_ROWS} rows: model bitwise the "
+          f"one-process twin's, pairs={twin.iterations}; job wall "
+          f"{wall:.2f}s, the twin beside it {twin_s:.2f}s", flush=True)
+    paths["multiproc per-pair"] = summed(runs)
+
+    # (c) stop at --max-iter, relaunch with --resume
+    ckpt = os.path.join(out_dir, "ckpt.npz")
+    for f in glob.glob(ckpt + "*"):
+        os.remove(f)
+    state_argv = ["--checkpoint", ckpt, "--checkpoint-every", "1",
+                  "--chunk-iters", "512"]
+    # (d) the bring-up check, beside the stopped job
+    t_chk = time.perf_counter()
+    chk = subprocess.Popen([sys.executable, "-m",
+                            "dpsvm_tpu_torch.parallel.multihost_check",
+                            "--device", MP_DEVICE], cwd=ROOT,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    try:
+        runs = mp_job(["train", "-f", pair_csv, "-m",
+                       os.path.join(out_dir, "stop.npz"), "--engine",
+                       "block", *head, *state_argv, "--max-iter",
+                       str(MP_STOP_PAIRS)], "(c) stopped")
+        chk_out, _ = chk.communicate(timeout=2 * MP_TIMEOUT_S + 60)
+    finally:
+        mp_kill([chk])
+    chk_s = time.perf_counter() - t_chk
+    for line in chk_out.splitlines():
+        if "hostname of the client socket" not in line:
+            print(f"[multiproc] (d) {line}", flush=True)
+    if chk.returncode != 0 or "MULTIHOST CHECK: PASS" not in chk_out:
+        raise AssertionError("[multiproc] (d) multihost_check failed")
+    print(f"[multiproc] (d) multihost_check on {MP_DEVICE} in {chk_s:.2f}s "
+          "(beside (c)'s stopped job)", flush=True)
+    stop_rounds = []
+    for k, (out, counts) in enumerate(runs):
+        rounds = int(_grab(r"\((\d+) rounds\)", out, "(c) stopped"))
+        stop_rounds.append(rounds)
+        if (f"stopped at max-iter {MP_STOP_PAIRS}" not in out
+                or counts["solve_subproblem"] != rounds):
+            raise AssertionError(f"[multiproc] (c) p{k} did not stop at "
+                                 f"{MP_STOP_PAIRS} pairs after B1 once a "
+                                 f"round: {rounds} rounds, {counts}")
+    paths["multiproc stopped"] = summed(runs)
+    twin_ckpt = os.path.join(out_dir, "ckpt_one.npz")
+    shutil.copyfile(ckpt, twin_ckpt)
+    model_p = os.path.join(out_dir, "resumed.npz")
+    procs = mp_start(["train", "-f", pair_csv, "-m", model_p, "--engine",
+                      "block", *head, *state_argv, "--resume"])
+    one_p = os.path.join(out_dir, "resumed_one.npz")
+    try:  # the one-process resume while the job's processes start
+        text = run_cli(["train", "-f", pair_csv, "-m", one_p, "--engine",
+                        "block", *head, "--num-devices", "4",
+                        "--checkpoint", twin_ckpt, *state_argv[2:],
+                        "--resume"], "multiproc (c) one process")
+    except BaseException:
+        mp_kill(procs)
+        raise
+    runs = mp_wait(procs, "(c) resumed")
+    mp_model_check("(c) resumed", model_p, SVMModel.load(one_p))
+    want_pairs = int(_grab(r"converged at iteration (\d+)", text, "(c)"))
+    for k, (out, counts) in enumerate(runs):
+        pairs, rounds, _, _, _, _ = mp_solve_line(f"(c) p{k}", out)
+        if (pairs != want_pairs
+                or counts["solve_subproblem"] != rounds - stop_rounds[k]):
+            raise AssertionError(f"[multiproc] (c) p{k}: {pairs} pairs "
+                                 f"(one process {want_pairs}), {rounds} "
+                                 f"rounds, launches {counts}")
+    print(f"[multiproc] (c) {MP_PAIR_ROWS} rows stopped at {MP_STOP_PAIRS} "
+          "pairs and resumed: "
+          f"model bitwise the one-process resume of the same checkpoint, "
+          f"pairs={want_pairs}", flush=True)
+    paths["multiproc resumed"] = summed(runs)
+    print(f"[multiproc] phase {time.perf_counter() - t_phase:.2f}s",
+          flush=True)
+    return paths
+
+
 def check_tensor_cores() -> None:
     """Count the tensor-core instructions (HMMA) in the SASS of the
     kernels that must do their products on them (MMA_KERNELS), with
@@ -4555,7 +4866,7 @@ def main() -> int:
     lap("ring kernels B7, B8")
 
     # ---- 9. the mesh block engines on four logical shards
-    mesh_launches, mesh = phase_mesh(x, y, cfg, dev)
+    mesh_launches, mesh, mesh_a = phase_mesh(x, y, cfg, dev)
     launches.update(mesh_launches)
 
     lap("mesh runs")
@@ -4690,6 +5001,12 @@ def main() -> int:
     print(f"[autotune] {smi}", flush=True)
     paths.update(phase_autotune(x, y, cfg, head_model, oracle, sk_dec))
     lap("autotune")
+
+    # ---- 40. the multi-process job: two processes of `cli train` on
+    # logical shards of the card
+    print(f"[multiproc] {smi}", flush=True)
+    paths.update(phase_multiproc(x, y, cfg, mesh, mesh_a))
+    lap("multiproc")
 
     meta = {
         "solve_subproblem": ("subproblem.cu",
@@ -5203,6 +5520,10 @@ def cli() -> int:
                     help="with --turns: timed calls per reading")
     ap.add_argument("--serve-profile", action="store_true",
                     help="profile serving dispatches only (10 a reading)")
+    if sys.argv[1:2] == ["--cli-child"]:
+        # A process of [multiproc]'s jobs: the profile stays off there too.
+        os.environ["DPSVM_AUTOTUNE_PROFILE"] = "off"
+        return mp_child(sys.argv[2:])
     args = ap.parse_args()
     # Every mode pins its engines: no device profile resolves a None knob
     # (in this process and the CLI processes it starts), so a committed

@@ -14,7 +14,8 @@ Usage:
         --resume] [--chunk-iters 2048] [--bf16-gram] [-q]
         [--ooc --ooc-tile-rows 8192 --ooc-cache-lines 512
         --ooc-shrink auto|on|off] [--active-set-size 4096
-        --reconcile-rounds 8]
+        --reconcile-rounds 8] [--coordinator-address HOST:PORT
+        --num-processes W --process-id K]
     python -m dpsvm_tpu_torch.cli smoke [--num-devices 4] [--device cuda:0]
     python -m dpsvm_tpu_torch.cli test -f test.csv -m model.txt \\
         [-o predictions.txt] [--precision auto|float32|float64] [-b 1]
@@ -29,6 +30,13 @@ A training file whose labels are not +-1 trains a multiclass bundle
 (.npz) by the OvR / OvO reduction; --kernel precomputed reads the square
 (n, n) Gram as the features and saves SV indices (.npz), and its test
 file holds K(test, train) rows.
+
+A multi-process job (the JAX package's multi-host launch, the
+reference's ``mpirun``): every process runs the same ``train`` command
+with its own ``--process-id``; ``--backend mesh --num-devices L --device
+cuda:0`` gives each process L logical shards of the card (without
+``--device``, its L visible cards). Process 0 writes the model, the
+checkpoint and the run log.
 """
 
 from __future__ import annotations
@@ -281,6 +289,16 @@ def _build_parser() -> argparse.ArgumentParser:
                         "--backend mesh and --num-devices N, the device "
                         "every one of the N shards lives on (N logical "
                         "shards of it)")
+    # The multi-process launch (the JAX package's multi-host flags, the
+    # reference's `mpirun --hostfile` role): every process runs the same
+    # command with its own --process-id.
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of process 0 for a multi-process job "
+                        "(parallel/mesh.py initialize_multihost)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total processes in the multi-process job")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index in the multi-process job")
 
     p = sub.add_parser("smoke", help="device and mesh bring-up check: a "
                        "known 3x3 matvec on every device and a sum over "
@@ -511,7 +529,65 @@ def _cmd_smoke(args) -> int:
 
 
 def _cmd_train(args) -> int:
+    """train, in one process or as one process of a multi-process job
+    (the three multihost flags): the process group is made first, and
+    left at the end whatever happens."""
+    if not (args.coordinator_address or args.num_processes
+            or args.process_id is not None):
+        return _train(args)
+    from dpsvm_tpu_torch.parallel.mesh import (initialize_multihost,
+                                               shutdown_multihost)
+
+    bad = _multiprocess_refusal(args)
+    if bad:
+        print(f"error: {bad}", file=sys.stderr)
+        return 2
+    try:
+        backend = initialize_multihost(
+            args.coordinator_address, args.num_processes, args.process_id,
+            devices=_process_devices(args))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"process {args.process_id} of {args.num_processes}: {backend} "
+          "process group", flush=True)
+    try:
+        return _train(args)
+    finally:
+        shutdown_multihost()
+
+
+def _multiprocess_refusal(args):
+    """Why a multi-process train cannot run, or None. The job runs the
+    binary solves of every svm type on the mesh; the rest stays in one
+    process (ROADMAP item A.13c)."""
+    if args.backend not in ("auto", "mesh"):
+        return (f"--backend {args.backend} runs in one process; a "
+                "multi-process job trains on the mesh (--backend mesh)")
+    for flag, on in (("-v", args.cross_validate), ("-b 1", args.probability),
+                     ("--kernel precomputed", args.kernel == "precomputed")):
+        if on:
+            return (f"{flag} does not run in a multi-process job (ROADMAP "
+                    "item A.13c); run it in one process")
+    return None
+
+
+def _process_devices(args):
+    """The devices this process of a job holds shards on: --device, or
+    its first --num-devices visible cards (None: initialize_multihost
+    takes the visible cards, and raises without one)."""
+    if args.device is not None:
+        return [args.device]
+    import torch
+
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    return cards[:args.num_devices] or None
+
+
+def _train(args) -> int:
     from dpsvm_tpu_torch.config import ObsConfig, SVMConfig
+    from dpsvm_tpu_torch.parallel.mesh import process_count, process_index
     from dpsvm_tpu_torch.data.loader import load_data
     from dpsvm_tpu_torch.predict import accuracy
 
@@ -574,23 +650,35 @@ def _cmd_train(args) -> int:
                   file=sys.stderr)
             return 2
         if not set(classes.tolist()) <= {-1, 1}:
+            if process_count() > 1:
+                print("error: multiclass training does not run in a "
+                      "multi-process job (ROADMAP item A.13c); run it in "
+                      "one process", file=sys.stderr)
+                return 2
             return _train_multiclass_cli(args, x, y, config)
     if args.cross_validate:
         return _cross_validate(args, x, y, config)
     if args.kernel == "precomputed":
         return _train_precomputed(args, x, y, config)
     mesh = None
-    if args.backend == "mesh" and args.device is not None:
+    if args.device is not None and (args.backend == "mesh"
+                                    or process_count() > 1):
         from dpsvm_tpu_torch.parallel.mesh import Mesh
 
-        mesh = Mesh([args.device] * (args.num_devices or 1))
+        mesh = Mesh([args.device] * (args.num_devices or 1),
+                    span_processes=True)
     logger = None
-    if args.metrics_jsonl:
+    if args.metrics_jsonl and process_index() == 0:
         from dpsvm_tpu_torch.utils.metrics import MetricsLogger
 
         logger = MetricsLogger(
             jsonl_path=args.metrics_jsonl,
             lookups_per_iter=0 if args.engine == "block" else 2)
+    elif args.metrics_jsonl:
+        # Process k > 0 observes the same chunks as process 0, whose
+        # logger writes the file: the chunking (and so every collective)
+        # is the same in every process.
+        from dpsvm_tpu_torch.solver.smo import _noop_callback as logger
     trace_dir = None if config.obs.enabled else args.profile_dir
     try:
         from dpsvm_tpu_torch.utils.metrics import profile_trace
@@ -605,7 +693,7 @@ def _cmd_train(args) -> int:
         print(f"error: {e}{hint}", file=sys.stderr)
         return 2
     finally:
-        if logger is not None:
+        if logger is not None and hasattr(logger, "close"):
             logger.close()
     if result.converged:
         print(f"converged at iteration {result.iterations}")
@@ -618,6 +706,10 @@ def _cmd_train(args) -> int:
           + (f" ({rounds} rounds)" if rounds is not None else ""))
     if result.stats.get("cache_lookups"):
         print(f"cache hit rate: {result.stats['cache_hit_rate']:.4f}")
+    if "exchanges" in result.stats:
+        print(f"cross-process exchange: {result.stats['exchanges']} "
+              f"exchanges in {result.stats['exchange_seconds']:.6f}s "
+              f"({result.stats['process_backend']})")
     print(f"b: {result.b:.6f}")
     print(f"support vectors: {result.n_sv}")
     if args.svm_type in ("c-svc", "nu-svc"):
@@ -635,8 +727,11 @@ def _cmd_train(args) -> int:
             and not args.model.endswith(".npz"):
         args.model += ".npz"
         print(f"note: {args.svm_type} models use the .npz format")
-    model.save(args.model)
-    print(f"model written to {args.model}")
+    if process_index() == 0:
+        model.save(args.model)
+        print(f"model written to {args.model}")
+    else:
+        print(f"model written to {args.model} by process 0")
     return 0
 
 

@@ -111,8 +111,9 @@ def block_state_from_reference(st, device) -> BlockState:
 def shard_state(alpha, f, f_err, mesh) -> tuple:
     """A solver state of n_pad rows (JAX or numpy arrays; n_pad divisible
     by the mesh's size) as the port's per-shard lists: (alpha, f, f_err),
-    each a list of P float32 tensors, shard r on mesh.devices[r]; f_err
-    None when not carried."""
+    each a list of float32 tensors, one per local rank (shard i on
+    mesh.devices[i]; all P in one process); f_err None when not
+    carried."""
     def cut(a):
         if a is None:
             return None
@@ -122,7 +123,7 @@ def shard_state(alpha, f, f_err, mesh) -> tuple:
                              f"{mesh.size} shards")
         n_loc = a.shape[0] // mesh.size
         return [torch.tensor(a[r * n_loc:(r + 1) * n_loc], device=dev)
-                for r, dev in enumerate(mesh.devices)]
+                for r, dev in zip(mesh.local_ranks, mesh.devices)]
 
     return cut(alpha), cut(f), cut(f_err)
 

@@ -132,8 +132,12 @@ def device_topology() -> dict:
     not already use beyond torch.cuda's own queries."""
     import torch
 
+    from dpsvm_tpu_torch.parallel.mesh import process_count, process_index
+
     out = {"torch": torch.__version__, "backend": "cpu",
-           "device_kind": "cpu", "n_devices": 1, "process_count": 1}
+           "device_kind": "cpu", "n_devices": 1,
+           "process_count": process_count(),
+           "process_index": process_index()}
     try:
         if torch.cuda.is_available():
             props = torch.cuda.get_device_properties(0)

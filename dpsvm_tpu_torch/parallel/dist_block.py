@@ -2,10 +2,16 @@
 dpsvm_tpu/parallel/dist_block.py: the global and the shard-local
 runners).
 
-A row-sharded array is a list of P tensors (parallel/mesh.py); a
-replicated value is one tensor per distinct device of the mesh, computed
-once there and shared by the shards that live on it (the JAX package
-computes it identically on every device, so this changes no result).
+A row-sharded array is a list of tensors, one per rank this process
+owns (parallel/mesh.py; all P ranks in one process); a replicated value
+is one tensor per distinct local device of the mesh, computed once there
+and shared by the shards that live on it (the JAX package computes it
+identically on every device, so this changes no result). The runners
+loop over the local ranks and name rows by global rank; across
+processes every collective is one exchange, and each process computes
+the same replicated values (kernel B1 runs once a round per process and
+local device). The ring exchange (kernels B7 / B8) stays within one
+process: across processes it is refused (ROADMAP item 6).
 
 Global runner, per round:
   1. per shard: local top-h of I_up (smallest f) and I_low (largest f),
@@ -131,12 +137,13 @@ def _local_top(f, alpha, y, valid, c, h: int, rule: str = "mvp"):
 
 def _global_top(mesh: Mesh, vs, gs, h: int):
     """Replicated global top-h per score row from the per-shard top-h
-    candidates. vs[r] (rows, h) scores with -inf at inadmissible entries,
-    gs[r] (rows, h) global ids. Per group: (g_ids (rows, h), ok (rows, h),
-    vals (rows, h)); ties go to the lowest position of the device-major
-    (rows, P h) candidate axis, as lax.top_k off the TPU."""
+    candidates. vs[i] (rows, h) scores with -inf at inadmissible entries,
+    gs[i] (rows, h) global ids, per local rank. Per group: (g_ids (rows,
+    h), ok (rows, h), vals (rows, h)); ties go to the lowest position of
+    the device-major (rows, P h) candidate axis, as lax.top_k off the
+    TPU."""
     out = []
-    for av, ag in zip(mesh.all_gather(vs), mesh.all_gather(gs)):
+    for av, ag in zip(*mesh.all_gather_many(vs, gs)):
         rows = av.shape[1]
         av = av.movedim(0, 1).reshape(rows, -1)  # (rows, P h), device-major
         ag = ag.movedim(0, 1).reshape(rows, -1)
@@ -154,10 +161,10 @@ def _select_block_mesh(mesh: Mesh, f, alpha, y, valid, c, q: int,
     and globally reduced."""
     h = q // 4 if rule == "nu" else q // 2
     vs, gs = [], []
-    for r in range(mesh.size):
-        v, i = _local_top(f[r], alpha[r], y[r], valid[r], c, h, rule)
+    for i, r in enumerate(mesh.local_ranks):
+        v, loc = _local_top(f[i], alpha[i], y[i], valid[i], c, h, rule)
         vs.append(v)
-        gs.append(_global_ids(r, f[r].shape[0], f[r].device)[i])
+        gs.append(_global_ids(r, f[i].shape[0], f[i].device)[loc])
     out = []
     for ids, ok, gv in _global_top(mesh, vs, gs, h):
         if rule == "nu":
@@ -175,10 +182,13 @@ def _select_block_mesh(mesh: Mesh, f, alpha, y, valid, c, q: int,
 
 def _check_ring(ring_exchange: bool, mesh: Mesh, kp: KernelParams,
                 selection: str) -> None:
-    """Factory-time guard of the ring-exchange runners: feature kernels,
-    the two-sided rules, at least two shards."""
+    """Factory-time guard of the ring-exchange runners: one process,
+    feature kernels, the two-sided rules, at least two shards."""
     if not ring_exchange:
         return
+    mesh.require_one_process(
+        "ring_exchange (kernels B7 / B8 move peer shards within one "
+        "process)", "item 6")
     if kp.kind == "precomputed":
         raise ValueError(
             "ring_exchange supports feature kernels only (a precomputed "
@@ -255,28 +265,38 @@ def _ws_owners(w, slot_ok, rank: int, n_loc: int):
     return l, own, l.clamp(0, n_loc - 1)
 
 
-def _psum_scal(mesh: Mesh, scal_cols, owners):
-    """Replicate the working set's per-row scalars: one (q, S) sum."""
+def _scal_parts(scal_cols, owners) -> list:
+    """Per local rank, the owned rows of the working set's per-row
+    scalars, zero elsewhere: the terms of one (q, S) masked sum."""
     parts = []
     for cols, (_, own, l_safe) in zip(scal_cols, owners):
         scal = torch.stack([col[l_safe] for col in cols], dim=1)
         parts.append(torch.where(own[:, None], scal, 0.0))
-    return mesh.psum(parts)
+    return parts
+
+
+def _psum_scal(mesh: Mesh, scal_cols, owners):
+    """Replicate the working set's per-row scalars: one (q, S) sum."""
+    return mesh.psum(_scal_parts(scal_cols, owners))
+
+
+def _local_owners(mesh: Mesh, sel, n_loc: int) -> list:
+    """Per local rank, the ownership (l, own, l_safe) of its group's
+    working set sel[g] = (w, slot_ok)."""
+    return [_ws_owners(*sel[mesh.group_of[i]][:2], r, n_loc)
+            for i, r in enumerate(mesh.local_ranks)]
 
 
 def _gather_ws(mesh: Mesh, x, scal_cols, sel):
     """Recover the working set's rows and per-row scalars from the shards
-    with one (q, d) and one (q, S) masked sum. sel[g] = (w, slot_ok) per
-    group. Returns (qx per group (q, d) float32, scal per group (q, S),
-    owners per rank (l, own, l_safe))."""
-    owners, parts = [], []
-    for r in range(mesh.size):
-        w, slot_ok = sel[mesh.group_of[r]]
-        n_loc = x[r].shape[0]
-        l, own, l_safe = _ws_owners(w, slot_ok, r, n_loc)
-        owners.append((l, own, l_safe))
-        parts.append(torch.where(own[:, None], x[r][l_safe].float(), 0.0))
-    return mesh.psum(parts), _psum_scal(mesh, scal_cols, owners), owners
+    with one (q, d) and one (q, S) masked sum (one exchange). sel[g] =
+    (w, slot_ok) per group. Returns (qx per group (q, d) float32, scal
+    per group (q, S), owners per local rank (l, own, l_safe))."""
+    owners = _local_owners(mesh, sel, x[0].shape[0])
+    parts = [torch.where(own[:, None], x[i][l_safe].float(), 0.0)
+             for i, (_, own, l_safe) in enumerate(owners)]
+    qx, scal = mesh.psum_many(parts, _scal_parts(scal_cols, owners))
+    return qx, scal, owners
 
 
 def _gather_ws_gram(mesh: Mesh, x, scal_cols, sel):
@@ -286,14 +306,13 @@ def _gather_ws_gram(mesh: Mesh, x, scal_cols, sel):
     (q, n) row sum), and the fold's rows K(W, shard) are the local
     column gather x[r][:, W] (no traffic). Returns (kb per group (q, q),
     scal per group (q, S), owners per rank)."""
-    owners, parts = [], []
-    for r in range(mesh.size):
-        w, slot_ok = sel[mesh.group_of[r]]
-        l, own, l_safe = _ws_owners(w, slot_ok, r, x[r].shape[0])
-        owners.append((l, own, l_safe))
-        rows_own = torch.where(own[:, None], x[r][l_safe].float(), 0.0)
-        parts.append(rows_own[:, w])
-    return mesh.psum(parts), _psum_scal(mesh, scal_cols, owners), owners
+    owners = _local_owners(mesh, sel, x[0].shape[0])
+    parts = []
+    for i, (_, own, l_safe) in enumerate(owners):
+        rows_own = torch.where(own[:, None], x[i][l_safe].float(), 0.0)
+        parts.append(rows_own[:, sel[mesh.group_of[i]][0]])
+    kb, scal = mesh.psum_many(parts, _scal_parts(scal_cols, owners))
+    return kb, scal, owners
 
 
 def _mesh_round_core(qx, scal, slot_ok, gap_open, budget_left,
@@ -343,20 +362,19 @@ def make_block_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
     B7, with bit-identical trajectories."""
     _check_ring(ring_exchange, mesh, kp, selection)
     gram = kp.kind == "precomputed"
-    p_dev = mesh.size
+    p_loc = len(mesh.devices)
 
     def one_round(x, y, x_sq, k_diag, valid, st: MeshBlockState, max_iter):
-        f_cur = [_eff(st.f, st.f_err, r) for r in range(p_dev)]
-        scal_cols = [(x_sq[r], k_diag[r], st.alpha[r], y[r], f_cur[r])
-                     for r in range(p_dev)]
+        f_cur = [_eff(st.f, st.f_err, i) for i in range(p_loc)]
+        scal_cols = [(x_sq[i], k_diag[i], st.alpha[i], y[i], f_cur[i])
+                     for i in range(p_loc)]
         d = x[0].shape[1]
         if ring_exchange:
             sel = _select_block_mesh_ring(mesh, f_cur, st.alpha, y, valid, c,
                                           q, x, scal_cols)
             qx = [s[4][:, :d].contiguous() for s in sel]
             scal = [s[4][:, d:] for s in sel]
-            owners = [_ws_owners(*sel[mesh.group_of[r]][:2], r,
-                                 x[r].shape[0]) for r in range(p_dev)]
+            owners = _local_owners(mesh, sel, x[0].shape[0])
         else:
             sel = _select_block_mesh(mesh, f_cur, st.alpha, y, valid, c, q,
                                      rule=selection)
@@ -371,23 +389,23 @@ def make_block_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
                 max_iter - st.pairs[g], kp, c, eps, tau, inner_iters,
                 selection, pair_batch, kb_w=qx[g] if gram else None))
         alpha, f, f_err = [], [], ([] if compensated else None)
-        for r in range(p_dev):
-            g = mesh.group_of[r]
+        for i in range(p_loc):
+            g = mesh.group_of[i]
             alpha_w, coef, _ = core[g]
-            l, own, _ = owners[r]
+            l, own, _ = owners[i]
             # The fold is LOCAL: the (q, n_loc) kernel rows of this shard
             # (on a precomputed Gram, by symmetry its columns W).
             if gram:
-                k_rows = x[r][:, sel[g][0]].float().t()
+                k_rows = x[i][:, sel[g][0]].float().t()
             else:
-                k_rows = kernel_rows(x[r], x_sq[r], qx[g].to(x[r].dtype),
+                k_rows = kernel_rows(x[i], x_sq[i], qx[g].to(x[i].dtype),
                                      scal[g][:, 0], kp)
-            f_r, e_r = maybe_kahan(st.f[r],
-                                   st.f_err[r] if compensated else None,
+            f_r, e_r = maybe_kahan(st.f[i],
+                                   st.f_err[i] if compensated else None,
                                    coef @ k_rows)
             # Scatter the owned slots (the inert index is one past the
             # end, never -1, which would wrap to the shard's last row).
-            alpha.append(scatter_alpha(st.alpha[r], l, own, alpha_w))
+            alpha.append(scatter_alpha(st.alpha[i], l, own, alpha_w))
             f.append(f_r)
             if compensated:
                 f_err.append(e_r)
@@ -454,24 +472,24 @@ def make_block_shardlocal_chunk_runner(mesh: Mesh, kp: KernelParams, c,
             "'second_order'} (the nu rule's per-class stopping pair does "
             "not reduce shard-locally)")
     _check_ring(ring_exchange, mesh, kp, selection)
-    p_dev = mesh.size
+    p_loc = len(mesh.devices)
     r_sync = int(sync_rounds)
 
     def window(x, y, x_sq, k_diag, valid, st: MeshBlockState, max_iter):
         d = x[0].shape[1]
         alpha, f, pends = [], [], []
         f_err = [] if compensated else None
-        for r in range(p_dev):
-            a_r, f_r = st.alpha[r], st.f[r]
-            e_r = st.f_err[r] if compensated else None
-            budget = max_iter - st.pairs[mesh.group_of[r]]
+        for i in range(p_loc):
+            a_r, f_r = st.alpha[i], st.f[i]
+            e_r = st.f_err[i] if compensated else None
+            budget = max_iter - st.pairs[mesh.group_of[i]]
             blks = []
             for _ in range(r_sync):
                 # The single-device round body on the shard's views. Its
                 # extrema are the shard-LOCAL pair: they gate this shard's
                 # budget and are otherwise dropped.
                 a_r, f_r, e_r, _, _, t, coef, qx, qsq = run_local_round(
-                    x[r], y[r], x_sq[r], k_diag[r], valid[r], a_r, f_r, e_r,
+                    x[i], y[i], x_sq[i], k_diag[i], valid[i], a_r, f_r, e_r,
                     budget, kp, c, eps, tau, q, inner_iters, selection,
                     pair_batch)
                 budget = budget - t
@@ -497,8 +515,9 @@ def make_block_shardlocal_chunk_runner(mesh: Mesh, kp: KernelParams, c,
         else:
             ag = mesh.all_gather(pends)  # per group (P, R q, d + 3)
             folded = [fold_window_peers(
-                ag[mesh.group_of[r]], r, x[r], x_sq[r], f[r],
-                f_err[r] if compensated else None, kp) for r in range(p_dev)]
+                ag[mesh.group_of[i]], r, x[i], x_sq[i], f[i],
+                f_err[i] if compensated else None, kp)
+                for i, r in enumerate(mesh.local_ranks)]
             f = [o[0] for o in folded]
             f_err = [o[1] for o in folded] if compensated else None
         pairs = [st.pairs[g] + a[:, :, d + 2].sum().to(torch.int32)
@@ -506,9 +525,9 @@ def make_block_shardlocal_chunk_runner(mesh: Mesh, kp: KernelParams, c,
 
         # The global stopping pair from the CORRECTED gradient.
         ext = []
-        for r in range(p_dev):
-            bh, bl = stopping_extrema(_eff(f, f_err, r), alpha[r], y[r], c,
-                                      valid=valid[r], rule=selection)
+        for i in range(p_loc):
+            bh, bl = stopping_extrema(_eff(f, f_err, i), alpha[i], y[i], c,
+                                      valid=valid[i], rule=selection)
             ext.append(torch.stack([-bh, bl]))
         gmax = mesh.pmax(ext)
         return MeshBlockState(alpha, f, [-m[0] for m in gmax],
@@ -556,10 +575,10 @@ def make_block_pipelined_chunk_runner(mesh: Mesh, kp: KernelParams, c,
             "precomputed Gram's symmetric round has no (q, d) exchange to "
             "hide; use make_block_chunk_runner)")
     _check_ring(ring_exchange, mesh, kp, selection)
-    p_dev = mesh.size
+    p_loc = len(mesh.devices)
 
     def prefetch(x, y, x_sq, k_diag, valid, f_eff, alpha):
-        cols = [(x_sq[r], k_diag[r], y[r]) for r in range(p_dev)]
+        cols = [(x_sq[i], k_diag[i], y[i]) for i in range(p_loc)]
         if ring_exchange:
             sel = _select_block_mesh_ring(mesh, f_eff, alpha, y, valid, c,
                                           q, x, cols)
@@ -580,12 +599,10 @@ def make_block_pipelined_chunk_runner(mesh: Mesh, kp: KernelParams, c,
 
     def one_round(x, y, x_sq, k_diag, valid, st: MeshBlockState, cand,
                   max_iter):
-        f_cur = [_eff(st.f, st.f_err, r) for r in range(p_dev)]
-        owners = [_ws_owners(cand[mesh.group_of[r]][0],
-                             cand[mesh.group_of[r]][1], r, x[r].shape[0])
-                  for r in range(p_dev)]
-        dyn = _psum_scal(mesh, [(st.alpha[r], f_cur[r])
-                                for r in range(p_dev)], owners)
+        f_cur = [_eff(st.f, st.f_err, i) for i in range(p_loc)]
+        owners = _local_owners(mesh, cand, x[0].shape[0])
+        dyn = _psum_scal(mesh, [(st.alpha[i], f_cur[i])
+                                for i in range(p_loc)], owners)
         core = []
         for g, (w, ok0, _, _, qx, stat, kb) in enumerate(cand):
             a_w0, f_w0 = dyn[g][:, 0].contiguous(), dyn[g][:, 1].contiguous()
@@ -602,17 +619,17 @@ def make_block_pipelined_chunk_runner(mesh: Mesh, kp: KernelParams, c,
             core.append((slot_ok, alpha_w, coef, t))
         nxt = prefetch(x, y, x_sq, k_diag, valid, f_cur, st.alpha)
         alpha, f, f_err = [], [], ([] if compensated else None)
-        for r in range(p_dev):
-            g = mesh.group_of[r]
+        for i in range(p_loc):
+            g = mesh.group_of[i]
             slot_ok, alpha_w, coef, _ = core[g]
             qx, stat = cand[g][4], cand[g][5]
-            l, own, _ = owners[r]
-            k_rows = kernel_rows(x[r], x_sq[r], qx.to(x[r].dtype),
+            l, own, _ = owners[i]
+            k_rows = kernel_rows(x[i], x_sq[i], qx.to(x[i].dtype),
                                  stat[:, 0], kp)
-            f_r, e_r = maybe_kahan(st.f[r],
-                                   st.f_err[r] if compensated else None,
+            f_r, e_r = maybe_kahan(st.f[i],
+                                   st.f_err[i] if compensated else None,
                                    coef @ k_rows)
-            alpha.append(scatter_alpha(st.alpha[r], l, own & slot_ok,
+            alpha.append(scatter_alpha(st.alpha[i], l, own & slot_ok,
                                       alpha_w))
             f.append(f_r)
             if compensated:
@@ -623,7 +640,7 @@ def make_block_pipelined_chunk_runner(mesh: Mesh, kp: KernelParams, c,
             [rd + 1 for rd in st.rounds], f_err), nxt
 
     def run(x, y, x_sq, k_diag, valid, state: MeshBlockState, max_iter: int):
-        f_eff = [_eff(state.f, state.f_err, r) for r in range(p_dev)]
+        f_eff = [_eff(state.f, state.f_err, i) for i in range(p_loc)]
         cand = prefetch(x, y, x_sq, k_diag, valid, f_eff, state.alpha)
         state = state._replace(b_hi=[c_[2] for c_ in cand],
                                b_lo=[c_[3] for c_ in cand])
@@ -675,35 +692,35 @@ def make_block_fused_chunk_runner(mesh: Mesh, kp: KernelParams, c,
     Requires n_loc a multiple of 1024 (solve_mesh pads with
     pad_rows(multiple=1024)), q/2 <= n_loc/128, selection in {mvp,
     second_order}, feature kernels. B2 launches once a shard and round."""
-    p_dev = mesh.size
+    p_loc = len(mesh.devices)
     h = q // 2
 
     def one_round(x, y, x_sq, k_diag, valid, y2d, valid2d,
                   st: MeshBlockState, sel, max_iter):
-        f_cur = [_eff(st.f, st.f_err, r) for r in range(p_dev)]
-        cols = [(x_sq[r], k_diag[r], st.alpha[r], y[r], f_cur[r])
-                for r in range(p_dev)]
+        f_cur = [_eff(st.f, st.f_err, i) for i in range(p_loc)]
+        cols = [(x_sq[i], k_diag[i], st.alpha[i], y[i], f_cur[i])
+                for i in range(p_loc)]
         qx, scal, owners = _gather_ws(mesh, x, cols, sel)
         core = [_mesh_round_core(
             qx[g], scal[g], sel[g][1], st.b_lo[g] > st.b_hi[g] + 2.0 * eps,
             max_iter - st.pairs[g], kp, c, eps, tau, inner_iters, selection,
             pair_batch) for g in range(len(sel))]
         alpha, f, f_err, cands = [], [], ([] if compensated else None), []
-        for r in range(p_dev):
-            g = mesh.group_of[r]
+        for i, r in enumerate(mesh.local_ranks):
+            g = mesh.group_of[i]
             alpha_w, coef, _ = core[g]
-            l, own, _ = owners[r]
-            n_loc = x[r].shape[0]
+            l, own, _ = owners[i]
+            n_loc = x[i].shape[0]
             shp = (n_loc // LANES, LANES)
-            k_rows = kernel_rows(x[r], x_sq[r], qx[g].to(x[r].dtype),
+            k_rows = kernel_rows(x[i], x_sq[i], qx[g].to(x[i].dtype),
                                  scal[g][:, 0], kp)
             # The owned slots are scattered BEFORE the fused pass: its
             # masks must see the new box membership.
-            a_r = scatter_alpha(st.alpha[r], l, own, alpha_w)
+            a_r = scatter_alpha(st.alpha[i], l, own, alpha_w)
             f2d, err2d, upv, upi, lov, loi = fold_select(
-                st.f[r].view(shp),
-                st.f_err[r].view(shp) if compensated else None,
-                a_r.view(shp), y2d[r], valid2d[r], (coef @ k_rows).view(shp),
+                st.f[i].view(shp),
+                st.f_err[i].view(shp) if compensated else None,
+                a_r.view(shp), y2d[i], valid2d[i], (coef @ k_rows).view(shp),
                 c, compensated=compensated)
             off = r * n_loc
             cands.append((upv, upi.long() + off, lov, loi.long() + off))
@@ -721,7 +738,7 @@ def make_block_fused_chunk_runner(mesh: Mesh, kp: KernelParams, c,
         shp = (x[0].shape[0] // LANES, LANES)
         y2d = [t.view(shp) for t in y]
         valid2d = [t.float().view(shp) for t in valid]
-        f_eff = [_eff(state.f, state.f_err, r) for r in range(p_dev)]
+        f_eff = [_eff(state.f, state.f_err, i) for i in range(p_loc)]
         seed = _select_block_mesh(mesh, f_eff, state.alpha, y, valid, c, q,
                                   rule=selection)
         state = state._replace(b_hi=[s[2] for s in seed],
@@ -763,14 +780,14 @@ def make_block_active_chunk_runner(mesh: Mesh, kp: KernelParams, c,
 
     Requires q <= m <= gran n_loc (solve_mesh clamps m). max_rounds is
     checked at cycle granularity."""
-    p_dev = mesh.size
+    p_loc = len(mesh.devices)
 
     def cycle(x, y, x_sq, k_diag, valid, st: MeshBlockState, max_iter):
-        f_cur = [_eff(st.f, st.f_err, r) for r in range(p_dev)]
+        f_cur = [_eff(st.f, st.f_err, i) for i in range(p_loc)]
         sel = _select_block_mesh(mesh, f_cur, st.alpha, y, valid, c, m,
                                  rule=selection)
-        cols = [(x_sq[r], k_diag[r], st.alpha[r], y[r], f_cur[r])
-                for r in range(p_dev)]
+        cols = [(x_sq[i], k_diag[i], st.alpha[i], y[i], f_cur[i])
+                for i in range(p_loc)]
         x_act, scal, owners = _gather_ws(mesh, x, cols,
                                          [s[:2] for s in sel])
         runs = []
@@ -784,20 +801,20 @@ def make_block_active_chunk_runner(mesh: Mesh, kp: KernelParams, c,
                 views, st.pairs[g], max_iter, kp, c, eps, tau, q,
                 inner_iters, k_rounds, selection, pair_batch))
         alpha, f, f_err = [], [], ([] if compensated else None)
-        for r in range(p_dev):
+        for i in range(p_loc):
             xa, sq_a, a_act, f_act, pend_w, pend_c, _, _, moved = \
-                runs[mesh.group_of[r]]
-            l, own, _ = owners[r]
-            f_r = st.f[r]
-            e_r = st.f_err[r] if compensated else None
+                runs[mesh.group_of[i]]
+            l, own, _ = owners[i]
+            f_r = st.f[i]
+            e_r = st.f_err[i] if compensated else None
             if moved:
                 f_r, e_r = maybe_kahan(f_r, e_r, pend_c @ kernel_rows(
-                    x[r], x_sq[r], xa[pend_w], sq_a[pend_w], kp))
+                    x[i], x_sq[i], xa[pend_w], sq_a[pend_w], kp))
             f.append(scatter_alpha(f_r, l, own, f_act))
             if compensated:
                 f_err.append(scatter_alpha(e_r, l, own,
                                           torch.zeros_like(f_act)))
-            alpha.append(scatter_alpha(st.alpha[r], l, own, a_act))
+            alpha.append(scatter_alpha(st.alpha[i], l, own, a_act))
         ks = [run[7] for run in runs]
         return MeshBlockState(
             alpha, f, [s[2] for s in sel], [s[3] for s in sel],
@@ -831,13 +848,12 @@ def ooc_mesh_select(mesh: Mesh, f, f_err, alpha, y, x_sq, k_diag, valid, c,
     k_diag, alpha, y, f_eff] at W (zero at dead slots), gathered from the
     owners with one masked sum; and per rank the owners (l, own,
     l_safe)."""
-    f_cur = [_eff(f, f_err, r) for r in range(mesh.size)]
+    f_cur = [_eff(f, f_err, i) for i in range(len(mesh.devices))]
     sel = _select_block_mesh(mesh, f_cur, alpha, y, valid, c, q,
                              rule=selection)
-    owners = [_ws_owners(*sel[mesh.group_of[r]][:2], r, f[r].shape[0])
-              for r in range(mesh.size)]
-    scal = _psum_scal(mesh, [(x_sq[r], k_diag[r], alpha[r], y[r], f_cur[r])
-                             for r in range(mesh.size)], owners)
+    owners = _local_owners(mesh, sel, f[0].shape[0])
+    scal = _psum_scal(mesh, [(x_sq[i], k_diag[i], alpha[i], y[i], f_cur[i])
+                             for i in range(len(mesh.devices))], owners)
     return [(*s[:4], sc) for s, sc in zip(sel, scal)], owners
 
 

@@ -6,7 +6,16 @@ Everything row-indexed is sharded over the mesh's ranks: X, y, f, alpha
 (and the per-pair engine's row cache). Shards are equal by construction:
 rows are padded to a multiple of the shard count (of 1024 a shard for
 the fused-fold runner) and masked out of selection. One Python process
-drives all shards (parallel/mesh.py).
+drives its shards (parallel/mesh.py): all of them, or, on a mesh that
+spans processes (initialize_multihost), its contiguous block of ranks,
+with every collective exchanged across the processes. Every process runs
+the same solve on the same data and holds the same replicated state, so
+the trajectory is bit for bit that of one process driving all P ranks.
+Across processes the checkpoint and the run log are written by process
+0 from the gathered state, in-process fault retry is off (a faulted
+process cannot re-sync its peers' collectives: the job is relaunched
+with --resume), and the out-of-core mesh stream, the mesh warm rebuild
+and the ring exchange are refused (ROADMAP items A.13a, A.13b and 6).
 
 Engines: engine="xla" runs the per-pair mesh engine below; engine="block"
 the block runners of parallel/dist_block.py, chosen with the JAX
@@ -71,7 +80,7 @@ from dpsvm_tpu_torch.parallel.dist_block import (
     make_block_chunk_runner, make_block_fused_chunk_runner,
     make_block_pipelined_chunk_runner, make_block_shardlocal_chunk_runner)
 from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh, pad_rows,
-                                           replicate_array,
+                                           process_count, replicate_array,
                                            shard_padded_rows, unshard)
 from dpsvm_tpu_torch.solver import chunks
 from dpsvm_tpu_torch.solver.block import autotune_gate_resolver, scatter_alpha
@@ -95,6 +104,30 @@ _SHARDLOCAL_WINDOWS_PER_CHUNK = 8
 # condition (uncached): at most this many gated no-op trips run after
 # the loop's end.
 PAIR_TRIPS = 256
+
+# One-time flag of _warn_multihost_retry_dropped: a job of many solves
+# (the model families' legs) warns once.
+_WARNED_MULTIHOST_RETRY = False
+
+
+def _warn_multihost_retry_dropped(config: SVMConfig, processes: int) -> None:
+    """The JAX package's one-time notice that retry_faults was dropped:
+    across processes a faulted process cannot re-sync its peers'
+    collectives mid-job, so the recovery is a relaunch of the whole job
+    with --resume against the same --checkpoint (written by process 0,
+    readable by either package)."""
+    global _WARNED_MULTIHOST_RETRY
+    if _WARNED_MULTIHOST_RETRY or config.retry_faults <= 0:
+        return
+    _WARNED_MULTIHOST_RETRY = True
+    warnings.warn(
+        f"retry_faults={config.retry_faults} is disabled on this "
+        f"{processes}-process job: a faulted process cannot re-sync its "
+        "peers' collectives mid-job, so in-process retry cannot work "
+        "across processes. Recovery procedure: run with --checkpoint "
+        "PATH --checkpoint-every N, and on a fault RELAUNCH the whole "
+        "job with --resume: training continues from the last "
+        "checkpoint.", stacklevel=5)
 
 _INF = float("inf")
 _ID_MAX = 2 ** 62
@@ -131,21 +164,20 @@ def _owner(i, rank: int, n_loc: int) -> tuple:
     return (l >= 0) & (l < n_loc), l.clamp(0, n_loc - 1).reshape(1)
 
 
-def _gather_scalar(mesh: Mesh, vs, owners) -> list:
-    """The owned entry of a row-sharded vector, replicated: a masked sum
-    over the shards (the JAX package's _gather_scalar; + 0.0 turns a
-    -0.0 into the +0.0 its reduction gives). Per group, 0-d."""
-    return mesh.psum([torch.where(own, v.index_select(0, ls).reshape(()),
-                                  0.0) + 0.0
-                      for v, (own, ls) in zip(vs, owners)])
+def _scalar_parts(vs, owners) -> list:
+    """The terms of the owned entry of a row-sharded vector, replicated
+    by a masked sum over the shards (the JAX package's _gather_scalar;
+    + 0.0 turns a -0.0 into the +0.0 its reduction gives). Per local
+    rank, 0-d."""
+    return [torch.where(own, v.index_select(0, ls).reshape(()), 0.0) + 0.0
+            for v, (own, ls) in zip(vs, owners)]
 
 
-def _gather_row(mesh: Mesh, x, owners) -> list:
-    """The owned row of the row-sharded X as float32, replicated (the
-    JAX package's _gather_row). Per group, (d,)."""
-    return mesh.psum([torch.where(own, xr.index_select(0, ls)[0].float(),
-                                  0.0) + 0.0
-                      for xr, (own, ls) in zip(x, owners)])
+def _row_parts(x, owners) -> list:
+    """The terms of the owned row of the row-sharded X as float32 (the
+    JAX package's _gather_row). Per local rank, (d,)."""
+    return [torch.where(own, xr.index_select(0, ls)[0].float(), 0.0) + 0.0
+            for xr, (own, ls) in zip(x, owners)]
 
 
 def _reduce_pair(g_vals, g_idx, col: int, take_min: bool):
@@ -162,22 +194,22 @@ def _select_pair_mesh(mesh: Mesh, f, alpha, y, valid, c, rule: str):
     the masked extrema and their global ids, one gather, the replicated
     reduction. Per group (i_hi, b_hi, i_lo, b_lo)."""
     vals, idx = [], []
-    for r in range(mesh.size):
-        up, low = set_masks(alpha[r], y[r], c, valid[r])
-        classes = ((y[r] > 0, y[r] <= 0) if rule == "nu" else (None,))
+    for i, r in enumerate(mesh.local_ranks):
+        up, low = set_masks(alpha[i], y[i], c, valid[i])
+        classes = ((y[i] > 0, y[i] <= 0) if rule == "nu" else (None,))
         v_r, i_r = [], []
         for cls in classes:
             u, lo = (up, low) if cls is None else (up & cls, low & cls)
-            f_up = torch.where(u, f[r], _INF)
-            f_low = torch.where(lo, f[r], -_INF)
+            f_up = torch.where(u, f[i], _INF)
+            f_low = torch.where(lo, f[i], -_INF)
             l_hi, l_lo = torch.argmin(f_up), torch.argmax(f_low)
             v_r += [take(f_up, l_hi), take(f_low, l_lo)]
             i_r += [l_hi, l_lo]
-        off = r * f[r].shape[0]
+        off = r * f[i].shape[0]
         vals.append(torch.stack(v_r))
         idx.append(torch.stack(i_r) + off)
     out = []
-    for g_vals, g_idx in zip(mesh.all_gather(vals), mesh.all_gather(idx)):
+    for g_vals, g_idx in zip(*mesh.all_gather_many(vals, idx)):
         bh, ih = _reduce_pair(g_vals, g_idx, 0, True)
         bl, il = _reduce_pair(g_vals, g_idx, 1, False)
         if rule == "nu":
@@ -191,18 +223,17 @@ def _select_pair_mesh(mesh: Mesh, f, alpha, y, valid, c, rule: str):
     return out
 
 
-def _pair_tail(mesh: Mesh, st: MeshPairState, y, sel, own_hi, own_lo,
-               k_hi, k_lo, eta, c, gate):
+def _pair_tail(mesh: Mesh, st: MeshPairState, sel, pair_scal, own_hi,
+               own_lo, k_hi, k_lo, eta, c, gate):
     """The replicated alpha-pair algebra, the owned alpha writes (lo
     first, hi wins on i_hi == i_lo) and each shard's rank-2 gradient
     update in two fused multiply-adds, as the single-device engine
-    (solver/smo.py apply_pair_update). `gate` (per group) forces an
-    exact no-op. Returns (alpha, f, f_err) per rank."""
+    (solver/smo.py apply_pair_update). `pair_scal` is (y_hi, y_lo,
+    a_hi0, a_lo0), each per group (gathered with the pair's rows).
+    `gate` (per group) forces an exact no-op. Returns (alpha, f, f_err)
+    per local rank."""
     cp, cn = split_c(c)
-    y_hi = _gather_scalar(mesh, y, own_hi)
-    y_lo = _gather_scalar(mesh, y, own_lo)
-    a_hi0 = _gather_scalar(mesh, st.alpha, own_hi)
-    a_lo0 = _gather_scalar(mesh, st.alpha, own_lo)
+    y_hi, y_lo, a_hi0, a_lo0 = pair_scal
     coefs = []
     for g, (_, b_hi, _, b_lo) in enumerate(sel):
         a_hi, a_lo = pair_alpha_update(
@@ -211,17 +242,17 @@ def _pair_tail(mesh: Mesh, st: MeshPairState, y, sel, own_hi, own_lo,
         coefs.append((a_hi, a_lo, (a_hi - a_hi0[g]) * y_hi[g],
                       (a_lo - a_lo0[g]) * y_lo[g]))
     alpha, f, f_err = [], [], ([] if st.f_err is not None else None)
-    for r in range(mesh.size):
-        a_hi, a_lo, coef_hi, coef_lo = coefs[mesh.group_of[r]]
-        (oh, lh), (ol, ll) = own_hi[r], own_lo[r]
-        a_r = scatter_alpha(st.alpha[r], ll, ol.reshape(1), a_lo.reshape(1))
+    for i in range(len(mesh.devices)):
+        a_hi, a_lo, coef_hi, coef_lo = coefs[mesh.group_of[i]]
+        (oh, lh), (ol, ll) = own_hi[i], own_lo[i]
+        a_r = scatter_alpha(st.alpha[i], ll, ol.reshape(1), a_lo.reshape(1))
         alpha.append(scatter_alpha(a_r, lh, oh.reshape(1), a_hi.reshape(1)))
         if st.f_err is None:
-            f.append(fma32(coef_lo, k_lo[r], fma32(coef_hi, k_hi[r],
-                                                   st.f[r])))
+            f.append(fma32(coef_lo, k_lo[i], fma32(coef_hi, k_hi[i],
+                                                   st.f[i])))
         else:
-            f_r, e_r = maybe_kahan(st.f[r], st.f_err[r], fma32(
-                coef_lo, k_lo[r], coef_hi * k_hi[r]))
+            f_r, e_r = maybe_kahan(st.f[i], st.f_err[i], fma32(
+                coef_lo, k_lo[i], coef_hi * k_hi[i]))
             f.append(f_r)
             f_err.append(e_r)
     return alpha, f, f_err
@@ -229,23 +260,24 @@ def _pair_tail(mesh: Mesh, st: MeshPairState, y, sel, own_hi, own_lo,
 
 def _kernel_rows(mesh: Mesh, x, x_sq, kp: KernelParams, q_rows, q_sq,
                  dots=None) -> list:
-    """Per rank, the kernel rows of the group's query rows against the
-    shard: q_rows[g] (k, d) float32 and q_sq[g] (k,), or the dot rows
-    `dots` per rank (from the cache) with q_sq[g] 0-d. One product a
-    shard when `dots` is None."""
+    """Per local rank, the kernel rows of the group's query rows against
+    the shard: q_rows[g] (k, d) float32 and q_sq[g] (k,), or the dot
+    rows `dots` per local rank (from the cache) with q_sq[g] 0-d. One
+    product a shard when `dots` is None."""
     out = []
-    for r in range(mesh.size):
-        g = mesh.group_of[r]
-        d = (row_dots(x[r], q_rows[g].to(x[r].dtype)) if dots is None
-             else dots[r])
-        out.append(kernel_from_dots(d, x_sq[r], q_sq[g], kp))
+    for i in range(len(mesh.devices)):
+        g = mesh.group_of[i]
+        d = (row_dots(x[i], q_rows[g].to(x[i].dtype)) if dots is None
+             else dots[i])
+        out.append(kernel_from_dots(d, x_sq[i], q_sq[g], kp))
     return out
 
 
 def _on_ranks(mesh: Mesh, x, per_group) -> list:
-    """A per-group query row, per rank in the shard's storage dtype."""
-    return [per_group[mesh.group_of[r]].to(x[r].dtype)
-            for r in range(mesh.size)]
+    """A per-group query row, per local rank in the shard's storage
+    dtype."""
+    return [per_group[mesh.group_of[i]].to(x[i].dtype)
+            for i in range(len(mesh.devices))]
 
 
 def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
@@ -256,28 +288,33 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
     sees the closed gap still runs its (degenerate) update and counts,
     as on one device. selection "mvp", "nu" (the per-class pair) or
     "second_order" (i by violation, j by the largest gain over the
-    sharded candidates: two gathers a trip)."""
-    p_dev = mesh.size
+    sharded candidates: two gathers a trip). A trip is three exchanges
+    (four under second_order): the candidates, then the pair's rows with
+    their per-row scalars in one masked sum, then the kernel entries
+    eta reads."""
+    p_loc = len(mesh.devices)
 
     def owners_of(ids, n_loc):
-        return [_owner(ids[mesh.group_of[r]], r, n_loc)
-                for r in range(p_dev)]
+        return [_owner(ids[mesh.group_of[i]], r, n_loc)
+                for i, r in enumerate(mesh.local_ranks)]
 
     def first_order(x, y, x_sq, valid, st, f_cur, it_h):
-        """mvp / nu: (pair, extrema, own_hi, own_lo, k_hi, k_lo, eta,
-        elig, hits); pair = (i_hi, b_hi, i_lo, b_lo) per group."""
+        """mvp / nu: (pair, extrema, pair scalars, own_hi, own_lo, k_hi,
+        k_lo, eta, elig, hits); pair = (i_hi, b_hi, i_lo, b_lo) per
+        group."""
         n_loc = y[0].shape[0]
         sel = _select_pair_mesh(mesh, f_cur, st.alpha, y, valid, c,
                                 selection)
         own_hi = owners_of([s[0] for s in sel], n_loc)
         own_lo = owners_of([s[2] for s in sel], n_loc)
-        q_hi = _gather_row(mesh, x, own_hi)
-        q_lo = _gather_row(mesh, x, own_lo)
         # The squared norms from the owner, not from the fetched row: a
         # re-reduction may differ in the last ulp (the JAX package's
         # bit-parity note).
-        sq_hi = _gather_scalar(mesh, x_sq, own_hi)
-        sq_lo = _gather_scalar(mesh, x_sq, own_lo)
+        q_hi, q_lo, sq_hi, sq_lo, *pair_scal = mesh.psum_many(
+            _row_parts(x, own_hi), _row_parts(x, own_lo),
+            _scalar_parts(x_sq, own_hi), _scalar_parts(x_sq, own_lo),
+            _scalar_parts(y, own_hi), _scalar_parts(y, own_lo),
+            _scalar_parts(st.alpha, own_hi), _scalar_parts(st.alpha, own_lo))
         hits = 0
         if st.cache is not None:
             (ih, il), _ = read_obs((sel[0][0], sel[0][2]))
@@ -293,13 +330,13 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             k_hi, k_lo = [k[0] for k in k2], [k[1] for k in k2]
         # eta from the owners' kernel entries, as one device reads
         # k_hi[i_hi], k_lo[i_lo] and k_hi[i_lo].
-        k_hh = _gather_scalar(mesh, k_hi, own_hi)
-        k_ll = _gather_scalar(mesh, k_lo, own_lo)
-        k_hl = _gather_scalar(mesh, k_hi, own_lo)
+        k_hh, k_ll, k_hl = mesh.psum_many(
+            _scalar_parts(k_hi, own_hi), _scalar_parts(k_lo, own_lo),
+            _scalar_parts(k_hi, own_lo))
         eta = [torch.clamp(a + b - 2.0 * h, min=tau)
                for a, b, h in zip(k_hh, k_ll, k_hl)]
-        return (sel, [(s[1], s[3]) for s in sel], own_hi, own_lo, k_hi,
-                k_lo, eta, None, hits)
+        return (sel, [(s[1], s[3]) for s in sel], pair_scal, own_hi, own_lo,
+                k_hi, k_lo, eta, None, hits)
 
     def second_order(x, y, x_sq, k_diag, valid, st, f_cur, it_h):
         """The second-order pair (the JAX package's _iteration_wss2): i
@@ -307,23 +344,25 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
         the update runs on (b_hi, f_j), gated on an eligible j."""
         n_loc = y[0].shape[0]
         vals, idx, lows = [], [], []
-        for r in range(p_dev):
-            up, low = set_masks(st.alpha[r], y[r], c, valid[r])
+        for i, r in enumerate(mesh.local_ranks):
+            up, low = set_masks(st.alpha[i], y[i], c, valid[i])
             lows.append(low)
-            f_up = torch.where(up, f_cur[r], _INF)
+            f_up = torch.where(up, f_cur[i], _INF)
             l_hi = torch.argmin(f_up)
             vals.append(torch.stack([take(f_up, l_hi), ieee_max(
-                torch.where(low, f_cur[r], -_INF))]))
+                torch.where(low, f_cur[i], -_INF))]))
             idx.append(torch.stack([l_hi + r * n_loc,
                                     torch.zeros_like(l_hi)]))
         first = []
-        for g_vals, g_idx in zip(mesh.all_gather(vals),
-                                 mesh.all_gather(idx)):
+        for g_vals, g_idx in zip(*mesh.all_gather_many(vals, idx)):
             b_hi, i_hi = _reduce_pair(g_vals, g_idx, 0, True)
             first.append((i_hi, b_hi, ieee_max(g_vals[:, 1])))
         own_hi = owners_of([s[0] for s in first], n_loc)
-        q_hi = _gather_row(mesh, x, own_hi)
-        sq_hi = _gather_scalar(mesh, x_sq, own_hi)
+        # K(hi, hi) from the diagonal, as one device reads k_diag[i_hi].
+        q_hi, sq_hi, k_hh, y_hi, a_hi0 = mesh.psum_many(
+            _row_parts(x, own_hi), _scalar_parts(x_sq, own_hi),
+            _scalar_parts(k_diag, own_hi), _scalar_parts(y, own_hi),
+            _scalar_parts(st.alpha, own_hi))
         hits = 0
         if st.cache is not None:
             (ih,), _ = read_obs((first[0][0],))
@@ -337,29 +376,29 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             k_hi = [k[0] for k in _kernel_rows(
                 mesh, x, x_sq, kp, [q[None] for q in q_hi],
                 [s.reshape(1) for s in sq_hi])]
-        # K(hi, hi) from the diagonal, as one device reads k_diag[i_hi].
-        k_hh = _gather_scalar(mesh, k_diag, own_hi)
         gains, jidx = [], []
-        for r in range(p_dev):
-            g = mesh.group_of[r]
-            diff = f_cur[r] - first[g][1]
-            eta_j = torch.clamp(k_hh[g] + k_diag[r] - 2.0 * k_hi[r], min=tau)
-            gain = torch.where(lows[r] & (diff > 0), diff * diff / eta_j,
+        for i, r in enumerate(mesh.local_ranks):
+            g = mesh.group_of[i]
+            diff = f_cur[i] - first[g][1]
+            eta_j = torch.clamp(k_hh[g] + k_diag[i] - 2.0 * k_hi[i], min=tau)
+            gain = torch.where(lows[i] & (diff > 0), diff * diff / eta_j,
                                -_INF)
             l_lo = torch.argmax(gain)
             gains.append(take(gain, l_lo).reshape(1, 1))
             jidx.append((l_lo + r * n_loc).reshape(1, 1))
         i_lo, elig = [], []
-        for g, (g_gain, g_j) in enumerate(zip(mesh.all_gather(gains),
-                                              mesh.all_gather(jidx))):
+        for g, (g_gain, g_j) in enumerate(zip(*mesh.all_gather_many(gains,
+                                                                    jidx))):
             best, j = _reduce_pair(g_gain[:, 0], g_j[:, 0], 0, False)
             any_elig = best > -_INF
             i_lo.append(torch.where(any_elig, j, first[g][0]))
             elig.append(any_elig)
         own_lo = owners_of(i_lo, n_loc)
-        f_lo = _gather_scalar(mesh, f_cur, own_lo)
-        q_lo = _gather_row(mesh, x, own_lo)
-        sq_lo = _gather_scalar(mesh, x_sq, own_lo)
+        f_lo, q_lo, sq_lo, k_ll, k_hl, y_lo, a_lo0 = mesh.psum_many(
+            _scalar_parts(f_cur, own_lo), _row_parts(x, own_lo),
+            _scalar_parts(x_sq, own_lo), _scalar_parts(k_diag, own_lo),
+            _scalar_parts(k_hi, own_lo), _scalar_parts(y, own_lo),
+            _scalar_parts(st.alpha, own_lo))
         if st.cache is not None:
             (il,), _ = read_obs((i_lo[0],))
             d_lo, hit = lookup_one_sharded(
@@ -370,13 +409,12 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             k_lo = [k[0] for k in _kernel_rows(
                 mesh, x, x_sq, kp, [q[None] for q in q_lo],
                 [s.reshape(1) for s in sq_lo])]
-        k_ll = _gather_scalar(mesh, k_diag, own_lo)
-        k_hl = _gather_scalar(mesh, k_hi, own_lo)
         eta = [torch.clamp(a + b - 2.0 * h, min=tau)
                for a, b, h in zip(k_hh, k_ll, k_hl)]
         pair = [(s[0], s[1], il, fl) for s, il, fl in zip(first, i_lo, f_lo)]
-        return (pair, [(s[1], s[2]) for s in first], own_hi, own_lo, k_hi,
-                k_lo, eta, elig, hits)
+        return (pair, [(s[1], s[2]) for s in first], (y_hi, y_lo, a_hi0,
+                                                       a_lo0),
+                own_hi, own_lo, k_hi, k_lo, eta, elig, hits)
 
     def trip(x, y, x_sq, k_diag, valid, st: MeshPairState, end: int):
         f_cur = (st.f if st.f_err is None
@@ -390,12 +428,13 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             out = second_order(x, y, x_sq, k_diag, valid, st, f_cur, it_h)
         else:
             out = first_order(x, y, x_sq, valid, st, f_cur, it_h)
-        pair, ext, own_hi, own_lo, k_hi, k_lo, eta, elig, hits = out
+        pair, ext, pair_scal, own_hi, own_lo, k_hi, k_lo, eta, elig, \
+            hits = out
         gate = active if elig is None else [a & e for a, e in
                                             zip(active, elig)]
-        alpha, f, f_err = _pair_tail(mesh, st, y, pair, own_hi, own_lo,
-                                     k_hi, k_lo, eta, c, gate)
-        keep = [active[mesh.group_of[r]] for r in range(p_dev)]
+        alpha, f, f_err = _pair_tail(mesh, st, pair, pair_scal, own_hi,
+                                     own_lo, k_hi, k_lo, eta, c, gate)
+        keep = [active[mesh.group_of[i]] for i in range(p_loc)]
         f = [torch.where(k, a, b) for k, a, b in zip(keep, f, st.f)]
         if f_err is not None:
             f_err = [torch.where(k, a, b)
@@ -446,6 +485,12 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     float64 reconstruction legs. config.ooc runs the out-of-core mesh
     stream (solver/ooc.py solve_ooc_mesh: X stays on the host, each
     shard streams its own row tiles).
+
+    On a mesh that spans processes (parallel/mesh.py
+    initialize_multihost; `mesh=None` spans them too) every process
+    calls solve_mesh with the same arguments and gets the same result;
+    the callback must decide the same in every process (it sees the same
+    observations).
     """
     if config.engine not in ("xla", "block"):
         raise ValueError(
@@ -466,6 +511,10 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
         raise ValueError(
             "selection='nu' is internal to the nu duals — call "
             "train_nusvc/train_nusvr (models/nusvm.py) instead")
+    spans = (mesh.num_processes > 1 if mesh is not None
+             else process_count() > 1)
+    if spans:
+        _refuse_across_processes(config, warm_start)
     if config.ooc:
         # Routed before the warm-start recursion: the stream solver
         # repairs a seed and rebuilds its gradient itself.
@@ -513,9 +562,36 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
                 _retry_callback(callback, cfg_k, checkpoint_path, k),
                 checkpoint_path, res_k, alpha_init, f_init)
 
+        # In-process retry is single-controller only: across processes
+        # the recovery is a relaunch with --resume, which the one-time
+        # warning names.
+        if mesh.num_processes > 1:
+            _warn_multihost_retry_dropped(cfg, mesh.num_processes)
+            cfg = cfg.replace(retry_faults=0)
         return run_with_fault_retry(cfg, checkpoint_path, res, attempt)
 
     return _solve_with_degradation(config, checkpoint_path, resume, run)
+
+
+def _refuse_across_processes(config: SVMConfig, warm_start) -> None:
+    """The mesh paths that do not run across processes, refused at
+    solve_mesh's entry with the ROADMAP item that carries each."""
+    if config.ooc:
+        raise ValueError(
+            "the out-of-core mesh stream (config.ooc) does not run on a "
+            "mesh that spans processes (ROADMAP item A.13a); run it in "
+            "one process")
+    if warm_start is not None:
+        raise ValueError(
+            "warm_start's mesh rebuild does not run on a mesh that spans "
+            "processes (ROADMAP item A.13b); pass alpha_init / f_init or "
+            "run it in one process")
+    if config.ring_exchange:
+        raise ValueError(
+            "ring_exchange=True does not run on a mesh that spans "
+            "processes: kernels B7 / B8 move peer shards within one "
+            "process, as ops/ring.py refuses several cards (ROADMAP item "
+            "6)")
 
 
 def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
@@ -559,7 +635,9 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
                 and (config.pipeline_rounds
                      if config.pipeline_rounds is not None
                      else gate("pipeline_rounds_mesh", False)))
-    use_ring = (not plain_only and n_dev > 1
+    # Across processes the ring is refused at the entry, and its gate is
+    # not asked.
+    use_ring = (not plain_only and n_dev > 1 and mesh.num_processes == 1
                 and (config.ring_exchange
                      if config.ring_exchange is not None
                      else gate("ring_exchange", False)))
@@ -661,9 +739,12 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
         return it, b_hi, b_lo
 
     def payload(st):
-        err = None if st.f_err is None else unshard(st.f_err)[:n]
+        # Gathered from every process (a collective: every process's
+        # checkpointer is due at the same pair count).
+        err = None if st.f_err is None else unshard(st.f_err, mesh)[:n]
         rounds = int(st.rounds[0]) if use_block else None
-        return (unshard(st.alpha)[:n], unshard(st.f)[:n], err, rounds)
+        return (unshard(st.alpha, mesh)[:n], unshard(st.f, mesh)[:n], err,
+                rounds)
 
     obs = chunks.open_run_obs(
         "solve_mesh", config,
@@ -675,7 +756,8 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
          "fused_fold": bool(use_block and use_fused),
          "ring_exchange": bool(use_ring), "observed_chunks": observe,
          "mesh_devices": mesh.describe(), **autotune_embed()},
-        list(mesh.devices))
+        list(mesh.devices), write=mesh.process_index == 0)
+    ex0 = (mesh.exchanges, mesh.exchange_seconds)
     fields = None
     if use_block:
         engine.obs_run = obs
@@ -692,10 +774,10 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
     state = out.state
     it, b_hi, b_lo = out.it, out.b_hi, out.b_lo
     converged = not (b_lo > b_hi + 2.0 * eps_run)
-    alpha = unshard(state.alpha)[:n]
+    alpha = unshard(state.alpha, mesh)[:n]
     f_parts = (state.f if state.f_err is None
                else [f - e for f, e in zip(state.f, state.f_err)])
-    f_final = unshard(f_parts)[:n]
+    f_final = unshard(f_parts, mesh)[:n]
     if (use_block or config.budget_mode) and not converged:
         b_hi, b_lo, converged = refresh_extrema_host(
             f_final, alpha, y_np, config.c_bounds(), config.epsilon,
@@ -712,6 +794,11 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
         **extra,
         **autotune_embed(),
     }
+    if mesh.num_processes > 1:
+        stats.update(num_processes=mesh.num_processes,
+                     process_backend=mesh.backend,
+                     exchanges=mesh.exchanges - ex0[0],
+                     exchange_seconds=mesh.exchange_seconds - ex0[1])
     if use_block:
         stats.update(engine.stats(state))
     else:

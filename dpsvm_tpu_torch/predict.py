@@ -107,6 +107,7 @@ def decision_function_mesh(model: SVMModel, q, num_devices=None,
 
     if mesh is None:
         mesh = make_data_mesh(num_devices)
+    mesh.require_one_process("decision_function_mesh", "A.13c")
     for dev in {d for d, _ in mesh.groups}:
         resolve_device(dev)
     q = np.asarray(q, np.float32)

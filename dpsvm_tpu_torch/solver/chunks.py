@@ -170,10 +170,14 @@ class ChunkRun:
     phase_seconds: dict = field(default_factory=dict)
 
 
-def open_run_obs(tool: str, config: SVMConfig, meta: dict, device):
-    """The solve's run handle (NULL_OBS when obs is off), with the events
-    a faulted or demoted earlier attempt queued drained into it."""
-    obs = run_obs(tool, config, meta=meta, device=device)
+def open_run_obs(tool: str, config: SVMConfig, meta: dict, device,
+                 write: bool = True):
+    """The solve's run handle (NULL_OBS when obs is off, or when this
+    process does not `write` the run log: a multi-process job's process
+    k > 0), with the events a faulted or demoted earlier attempt queued
+    drained into it."""
+    obs = run_obs(tool, config, meta=meta, device=device) if write \
+        else NULL_OBS
     drain_pending_obs_events(obs)
     return obs
 

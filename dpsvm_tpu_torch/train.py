@@ -15,9 +15,10 @@ from dpsvm_tpu_torch.solver.solve import solve
 def resolve_backend(backend: str, config: SVMConfig, device=None,
                     num_devices=None, mesh=None, warm: bool = False) -> str:
     """"single", "mesh", "reference" or "native" for a `backend`
-    request. "auto" takes the mesh when one is given, or when no `device`
-    is named and more than one card is visible (or asked for), as the
-    JAX package's auto does: for train() (`warm` False) only where the
+    request. "auto" takes the mesh when one is given, when the job spans
+    several processes (parallel/mesh.py initialize_multihost), or when
+    no `device` is named and more than one card is visible (or asked
+    for), as the JAX package's auto does: for train() (`warm` False) only where the
     engine is "xla" or "block"; for the model families' warm-started
     solves (`warm` True) whatever the engine. Out-of-core requests take
     the mesh too (its tile stream, solver/ooc.py solve_ooc_mesh), except
@@ -29,8 +30,11 @@ def resolve_backend(backend: str, config: SVMConfig, device=None,
     if backend == "auto":
         import torch
 
-        multi = (device is None
-                 and (num_devices or torch.cuda.device_count()) > 1)
+        from dpsvm_tpu_torch.parallel.mesh import process_count
+
+        multi = process_count() > 1 or (
+            device is None
+            and (num_devices or torch.cuda.device_count()) > 1)
         engine_ok = warm or config.engine in ("xla", "block")
         single_only_ooc = config.ooc and (
             config.ooc_cache_lines > 0 or bool(config.ooc_shrink)

@@ -296,6 +296,13 @@ def resume_state(path: Optional[str], config: SVMConfig,
 class PeriodicCheckpointer:
     """Chunk-cadence checkpoint trigger shared by all solver backends.
 
+    In a multi-process job (parallel/mesh.py initialize_multihost) every
+    process calls ``save`` with the same gathered state at the same pair
+    count; process 0 writes the file and the others wait for it, so the
+    file exists in every process when ``save`` returns. The format is the
+    one-process format: the job resumes in one process, in several, or in
+    the JAX package.
+
     ``config.checkpoint_keep = K`` (default 1: overwrite in place) keeps
     K rotating generations: each save first shifts ``path -> path.1 ->
     ... -> path.(K-1)`` and then writes the new state at ``path``, so a
@@ -349,11 +356,19 @@ class PeriodicCheckpointer:
                 "previous checkpoint is kept as the restore point",
                 stacklevel=3)
             return False
-        self._rotate()
-        save_checkpoint(self.path, alpha, f, iteration, b_hi, b_lo,
-                        self.config, f_err=f_err, rounds=rounds,
-                        shrink_demoted=shrink_demoted, shrink_gap=shrink_gap,
-                        shrink_stall=shrink_stall)
+        from dpsvm_tpu_torch.parallel.mesh import (process_count,
+                                                   process_index)
+
+        if process_index() == 0:
+            self._rotate()
+            save_checkpoint(self.path, alpha, f, iteration, b_hi, b_lo,
+                            self.config, f_err=f_err, rounds=rounds,
+                            shrink_demoted=shrink_demoted,
+                            shrink_gap=shrink_gap, shrink_stall=shrink_stall)
+        if process_count() > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
         self.last = iteration
         return True
 
