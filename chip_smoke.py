@@ -143,8 +143,9 @@ result line is printed:
                 >= 1 - nu - 0.01, SV fraction >= nu - 0.01, and the
                 engines' signs agreeing on >= 99.8% of the rows whose
                 |g| > eps in both (the free SVs sit on the boundary);
- 14. svr     -- train_svr (tube 0.1) and train_nusvr (nu 0.4) on the first
-                10000 rows (a depth cut: 20000 duals) against a seeded
+ 14. svr     -- train_svr (tube 0.1) on the first 10000 rows and
+                train_nusvr (nu 0.4) on the first 2500 of them (depth
+                cuts: 20000 and 5000 duals) against a seeded
                 smooth target (svr_target), each on the block engine (B1
                 once a round) and engine="xla" (no kernel): converged,
                 sum(a) - sum(a*) = 0 within 1e-4 C n, and the engines'
@@ -211,8 +212,9 @@ result line is printed:
                 SVC(probability=True) on 10000 multiclass rows
                 (predict_proba rows sum to 1 within 1e-6);
  23. estimators -- SVC, NuSVC, SVR, NuSVR, OneClassSVM on the first
-                10000 rows: each model its trainer's bit for bit (SVR and
-                NuSVR: the [svr] phase's models); svc_c_sweep over four
+                10000 rows (NuSVR on 2500): each model its trainer's bit
+                for bit (SVR and NuSVR: the [svr] phase's models);
+                svc_c_sweep over four
                 Cs as one fleet;
  24. cli multiclass -- the first 20000 multiclass rows as CSV: `train
                 --multiclass ovo` and `test` (labels = the API's); `train
@@ -338,12 +340,20 @@ result line is printed:
                 and n_sv bitwise [mesh] (a) (4 shards in one process),
                 B1 once a round in each process, the exchange's ms a
                 round and share of train_seconds; (b) the per-pair engine
-                at full width on rows 0-9999 ([cli]'s test.csv) bitwise
-                its one-process twin, no kernel; (c) the block engine on
-                those rows stopped at --max-iter, relaunched with
-                --resume: bitwise the one-process resume of the same
+                at full width on rows 0-499 ([cli]'s test.csv, -x)
+                bitwise its one-process twin, no kernel; (c) the block
+                engine on rows 0-9999 stopped at --max-iter, relaunched
+                with --resume: bitwise the one-process resume of the same
                 file, B1 once a round of each job; (d)
-                parallel/multihost_check.py on the card.
+                parallel/multihost_check.py on the card, with (f) the
+                mesh warm rebuild, decision_function_mesh and an ooc
+                solve across its two processes; then one job of five
+                legs, each bitwise its one-process twin with B1 once a
+                round in each process: (e) --ooc on the headline
+                (bitwise [ooc mesh] (a), tiles and GB a process), (g) an
+                OvR multiclass file (rows 0-19999 of [cli multiclass]),
+                (h) -b 1, (i) -v 3 on rows 0-9999 and --kernel
+                precomputed on [cli multiclass]'s 2000-row Gram.
                 Every child has a hard limit and is killed on failure.
 
 Phases 3-38 (and --turns, --serve-profile) run with no device profile
@@ -1548,6 +1558,9 @@ ONECLASS = dict(gamma=0.125, epsilon=0.01, max_iter=2_000_000,
 ONECLASS_DG_EPS = 3.0
 # The SVRs at a depth cut: the first SVR_ROWS rows (2 x SVR_ROWS duals).
 SVR_ROWS = 10_000
+# nu-SVR (its per-pair run the longest leg of [svr] and [estimators])
+# on the first NU_SVR_ROWS of those rows: a depth cut.
+NU_SVR_ROWS = 2_500
 SVR_RUN = dict(c=1.0, gamma=0.125, epsilon=0.01, max_iter=4_000_000,
                engine="block", working_set_size=256)
 SVR_EPSILON = 0.1
@@ -1707,8 +1720,9 @@ def phase_oneclass(x) -> dict:
 
 
 def phase_svr(x) -> dict:
-    """epsilon-SVR and nu-SVR on the first SVR_ROWS rows (a depth cut)
-    against svr_target, each on the block engine and engine="xla":
+    """epsilon-SVR on the first SVR_ROWS rows and nu-SVR on the first
+    NU_SVR_ROWS (depth cuts) against svr_target, each on the block
+    engine and engine="xla":
     converged, sum(a) - sum(a*) = 0 within 1e-4 C n, and the two
     engines' predictions within SVR_PRED_TOL. Returns the models by
     (trainer, engine)."""
@@ -1718,12 +1732,14 @@ def phase_svr(x) -> dict:
     z = svr_target(xs)
     print(f"[svr] {SVR_ROWS} rows, target z in [{z.min():.4f}, "
           f"{z.max():.4f}] std {z.std():.4f}", flush=True)
+    m = NU_SVR_ROWS
     trainers = (
-        ("eps-svr", lambda cfg: train_svr(xs, z, cfg,
-                                          svr_epsilon=SVR_EPSILON)),
-        ("nu-svr", lambda cfg: train_nusvr(xs, z, nu=NU_SVR, config=cfg)))
+        ("eps-svr", SVR_ROWS,
+         lambda cfg: train_svr(xs, z, cfg, svr_epsilon=SVR_EPSILON)),
+        ("nu-svr", m,
+         lambda cfg: train_nusvr(xs[:m], z[:m], nu=NU_SVR, config=cfg)))
     models = {}
-    for name, fit in trainers:
+    for name, rows, fit in trainers:
         preds = {}
         for eng in ("block", "xla"):
             cfg = SVMConfig(**{**SVR_RUN, "engine": eng})
@@ -1732,15 +1748,15 @@ def phase_svr(x) -> dict:
                 {"solve_subproblem": lambda r: r} if eng == "block" else {})
             models[name, eng] = model
             a = res.alpha.astype(np.float64)
-            drift = abs(a[:SVR_ROWS].sum() - a[SVR_ROWS:].sum())
-            preds[eng] = model.predict(xs)
-            rmse = float(np.sqrt(np.mean((preds[eng] - z) ** 2)))
+            drift = abs(a[:rows].sum() - a[rows:].sum())
+            preds[eng] = model.predict(xs[:rows])
+            rmse = float(np.sqrt(np.mean((preds[eng] - z[:rows]) ** 2)))
             extra = (f" tube={res.stats['nu_tube_eps']:.6f}"
                      if "nu_tube_eps" in res.stats else "")
             print(f"[svr] {name} {eng}: |sum(a) - sum(a*)|={drift:.3g} "
                   f"rmse={rmse:.6f} model_sv={model.n_sv}{extra}",
                   flush=True)
-            if drift > SUM_RTOL * SVR_RUN["c"] * SVR_ROWS:
+            if drift > SUM_RTOL * SVR_RUN["c"] * rows:
                 raise AssertionError(f"{name} {eng}: sum(a) - sum(a*) = "
                                      f"{drift}")
         gap = float(np.max(np.abs(preds["block"] - preds["xla"])))
@@ -2681,9 +2697,10 @@ def _same_model(a, b) -> bool:
 
 def phase_estimators(x, y, svr_models) -> dict:
     """[estimators]: SVC, NuSVC, SVR, NuSVR and OneClassSVM fit, predict
-    and score on the first EST_ROWS rows (the [svr] phase's cut); each
-    estimator's model is its trainer's bit for bit (SVR and NuSVR against
-    the [svr] phase's block and xla models of the same configuration).
+    and score on the first EST_ROWS rows (the [svr] phase's cut; NuSVR on
+    NU_SVR_ROWS); each estimator's model is its trainer's bit for bit
+    (SVR and NuSVR against the [svr] phase's block and xla models of the
+    same configuration).
     svc_c_sweep over SWEEP_CS runs as one fleet. Returns the launches
     and the sweep's fitted estimators (phase 27 holds its warm walk to
     them)."""
@@ -2713,14 +2730,17 @@ def phase_estimators(x, y, svr_models) -> dict:
     )
     launches = {}
     for name, est, target, twin, attr in cases:
+        rows = NU_SVR_ROWS if name == "NuSVR" else EST_ROWS
+        xe = xs[:rows]
+        target = None if target is None else target[:rows]
         reset_counts()
         t0 = time.perf_counter()
-        est.fit(xs, target)
+        est.fit(xe, target)
         fit_s = time.perf_counter() - t0
         counts = read_counts()
         launches[f"estimators {name}"] = counts
-        pred = est.predict(xs)
-        score = est.score(xs, target) if target is not None else float(
+        pred = est.predict(xe)
+        score = est.score(xe, target) if target is not None else float(
             np.mean(pred > 0))
         cfg = est_mod._base_config(est, 0.125)
         same = _same_model(getattr(est, attr), twin(cfg))
@@ -3605,7 +3625,9 @@ def phase_mesh_more(x, y, cfg, mesh, head_model, pair_model) -> dict:
 
     t0 = time.perf_counter()
     for _, kw in MESH_MORE:
-        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **kw),
+        # 64 pairs set the per-pair engine up (2048 took ~20 s a run).
+        warm = 64 if kw.get("engine") == "xla" else 2048
+        train(x[:16384], y[:16384], cfg.replace(max_iter=warm, **kw),
               backend="mesh", mesh=on(kw))
     print(f"[mesh] warm-up solves of (d)-(g) on 16384 rows in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
@@ -4384,40 +4406,65 @@ def phase_autotune(x, y, cfg, head_model, oracle, sk_dec) -> dict:
 
 MP_DEVICE = "cuda:0"
 MP_LOCAL = 2  # logical shards of MP_DEVICE in each of the two processes
-# (b) and (c) read [cli]'s test.csv: rows 0-9999 at full width.
-MP_PAIR_ROWS = CLI_TEST_ROWS
+# (b) reads the first MP_PAIR_ROWS rows of [cli]'s test.csv (rows 0-9999
+# at full width; -x cuts it), (c), (h) and (i)'s -v all of them.
+MP_PAIR_ROWS = 500
 MP_STOP_PAIRS = 2048  # (c)'s --max-iter: four chunks of 512 pairs
 MP_TIMEOUT_S = 300  # a child's hard limit
 MP_HEAD_ARGV = ["-c", "10", "-g", "0.125", "-e", "0.01",
                 "--working-set-size", "256", "--inner-iters", "512",
                 "--dtype", "bfloat16", "--backend", "mesh", "-q"]
+MP_NEXT_LEG = "--next-leg"  # separates the legs of one child's argv
 
 
 def mp_child(argv: list) -> int:
-    """One process of a multi-process job: `cli.main(argv)` (what
-    `python -m dpsvm_tpu_torch.cli` runs), then the kernel wrappers'
-    launch counts of the process, on a line of their own."""
+    """One process of a multi-process job: each leg of `argv` (`cli
+    train` argvs separated by MP_NEXT_LEG) in turn through `cli.main`
+    (what `python -m dpsvm_tpu_torch.cli` runs), each followed by its
+    wall seconds and the kernel wrappers' launch counts of the process
+    on lines of their own."""
     from dpsvm_tpu_torch import cli as port_cli
 
-    reset_counts()
-    rc = port_cli.main(argv)
-    print(f"[launches] {json.dumps(read_counts())}", flush=True)
-    return rc
+    legs = [[]]
+    for a in argv:
+        if a == MP_NEXT_LEG:
+            legs.append([])
+        else:
+            legs[-1].append(a)
+    for leg in legs:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = port_cli.main(leg)
+        print(f"[leg seconds] {time.perf_counter() - t0:.3f}", flush=True)
+        print(f"[launches] {json.dumps(read_counts())}", flush=True)
+        if rc != 0:
+            return rc
+    return 0
 
 
-def mp_start(argv: list) -> list:
-    """Start one two-process `cli train` job (`argv` without the
-    multihost flags; --num-devices MP_LOCAL) on a fresh loopback port:
-    its two processes (mp_wait collects them)."""
+def mp_start(*legs) -> list:
+    """Start one two-process job of one or more `cli train` legs (each
+    argv without the multihost flags; --num-devices MP_LOCAL), each leg
+    its own process group on a fresh loopback port: its two processes
+    (mp_wait collects them)."""
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    cmds = [[sys.executable, os.path.abspath(__file__), "--cli-child",
-             *argv, "--num-devices", str(MP_LOCAL), "--coordinator-address",
-             f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
-             str(k)] for k in range(2)]
+    def port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    ports = [port() for _ in legs]
+    cmds = []
+    for k in range(2):
+        argv = []
+        for i, (leg, p) in enumerate(zip(legs, ports)):
+            argv += [MP_NEXT_LEG] if i else []
+            argv += [*leg, "--num-devices", str(MP_LOCAL),
+                     "--coordinator-address", f"127.0.0.1:{p}",
+                     "--num-processes", "2", "--process-id", str(k)]
+        cmds.append([sys.executable, os.path.abspath(__file__),
+                     "--cli-child", *argv])
     return [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
             for c in cmds]
@@ -4430,14 +4477,14 @@ def mp_kill(procs: list) -> None:
             p.wait()
 
 
-def mp_wait(procs: list, label: str) -> list:
+def mp_wait_legs(procs: list, label: str, timeout=MP_TIMEOUT_S) -> list:
     """Wait for a job's processes: every child has a hard limit and is
     killed on the way out; a failed or late child fails the phase.
-    Returns per process (output, launch counts)."""
+    Returns per process, per leg (output, launch counts, wall seconds)."""
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=MP_TIMEOUT_S)
+            out, _ = p.communicate(timeout=timeout)
             outs.append((p.returncode, out))
     finally:
         mp_kill(procs)
@@ -4449,9 +4496,23 @@ def mp_wait(procs: list, label: str) -> list:
         if rc != 0:
             raise AssertionError(f"[multiproc] {label}: process {k} exited "
                                  f"{rc}")
-        counts = json.loads(_grab(r"\[launches\] (\{.*\})", out, label))
-        result.append((out, counts))
+        legs, text = [], ""
+        for line in out.splitlines(keepends=True):
+            text += line
+            if line.startswith("[launches] "):
+                secs = float(_grab(r"\[leg seconds\] ([0-9.]+)", text,
+                                   label))
+                legs.append((text, json.loads(line[len("[launches] "):]),
+                             secs))
+                text = ""
+        result.append(legs)
     return result
+
+
+def mp_wait(procs: list, label: str) -> list:
+    """mp_wait_legs of a one-leg job: per process (output, launch
+    counts)."""
+    return [legs[0][:2] for legs in mp_wait_legs(procs, label)]
 
 
 def mp_job(argv: list, label: str) -> list:
@@ -4488,7 +4549,8 @@ def mp_solve_line(label: str, out: str) -> tuple:
             int(ex.group(1)), float(ex.group(2)))
 
 
-def phase_multiproc(x, y, cfg, mesh, mesh_a) -> dict:
+def phase_multiproc(x, y, cfg, mesh, mesh_a, ooc_mesh_res, x_mc,
+                    y_mc) -> dict:
     """The multi-process job (parallel/mesh.py initialize_multihost):
     two processes of `cli train`, each with MP_LOCAL logical shards of
     cuda:0 on gloo, against the one-process mesh of four:
@@ -4498,11 +4560,14 @@ def phase_multiproc(x, y, cfg, mesh, mesh_a) -> dict:
         of the solve;
     (b) the per-pair engine at full width on MP_PAIR_ROWS rows, bitwise
         its one-process twin, no kernel launched;
-    (c) the block engine on the same rows, stopped at --max-iter
+    (c) the block engine on [cli]'s test rows, stopped at --max-iter
         MP_STOP_PAIRS with a checkpoint a chunk, relaunched with
         --resume: bitwise the one-process resume of the same file;
     (d) parallel/multihost_check.py on the card, beside (c)'s stopped
-        job.
+        job; (f) rides in it: the mesh warm rebuild, decision_function_mesh
+        and an out-of-core solve across the two processes, each bitwise
+        the one-process mesh;
+    (e)-(i) the other paths of `train`, legs of one job (mp_paths).
     (b)'s twin and (c)'s one-process resume run while their jobs'
     processes start; (a) runs alone, so its exchange times are clean.
     Returns the launch counts a job (both processes summed)."""
@@ -4562,8 +4627,8 @@ def phase_multiproc(x, y, cfg, mesh, mesh_a) -> dict:
     pcfg = cfg.replace(engine="xla", inner_iters=512)
     model_p = os.path.join(out_dir, "pair.npz")
     t0 = time.perf_counter()
-    procs = mp_start(["train", "-f", pair_csv, "-m", model_p, "--engine",
-                      "xla", *head])
+    procs = mp_start(["train", "-f", pair_csv, "-x", str(MP_PAIR_ROWS),
+                      "-m", model_p, "--engine", "xla", *head])
     # The twin runs while the job's processes start (and into their
     # solve): (b)'s times are those of a shared host.
     try:
@@ -4617,10 +4682,14 @@ def phase_multiproc(x, y, cfg, mesh, mesh_a) -> dict:
     for line in chk_out.splitlines():
         if "hostname of the client socket" not in line:
             print(f"[multiproc] (d) {line}", flush=True)
-    if chk.returncode != 0 or "MULTIHOST CHECK: PASS" not in chk_out:
+    if chk.returncode != 0 or "MULTIHOST CHECK: PASS" not in chk_out \
+            or chk_out.count("warm rebuild, decision function and ooc "
+                             "solve") != 2:
         raise AssertionError("[multiproc] (d) multihost_check failed")
     print(f"[multiproc] (d) multihost_check on {MP_DEVICE} in {chk_s:.2f}s "
-          "(beside (c)'s stopped job)", flush=True)
+          "(beside (c)'s stopped job); (f) the warm rebuild, "
+          "decision_function_mesh and an ooc solve bitwise the one-process "
+          "mesh in both processes", flush=True)
     stop_rounds = []
     for k, (out, counts) in enumerate(runs):
         rounds = int(_grab(r"\((\d+) rounds\)", out, "(c) stopped"))
@@ -4655,13 +4724,160 @@ def phase_multiproc(x, y, cfg, mesh, mesh_a) -> dict:
             raise AssertionError(f"[multiproc] (c) p{k}: {pairs} pairs "
                                  f"(one process {want_pairs}), {rounds} "
                                  f"rounds, launches {counts}")
-    print(f"[multiproc] (c) {MP_PAIR_ROWS} rows stopped at {MP_STOP_PAIRS} "
-          "pairs and resumed: "
+    print(f"[multiproc] (c) {CLI_TEST_ROWS} rows stopped at "
+          f"{MP_STOP_PAIRS} pairs and resumed: "
           f"model bitwise the one-process resume of the same checkpoint, "
           f"pairs={want_pairs}", flush=True)
     paths["multiproc resumed"] = summed(runs)
+    paths.update(mp_paths(x, y, cfg, mesh, ooc_mesh_res, x_mc, y_mc, out_dir,
+                          summed))
     print(f"[multiproc] phase {time.perf_counter() - t_phase:.2f}s",
           flush=True)
+    return paths
+
+
+def mp_exchange(label: str, out: str, rounds: int) -> str:
+    """A leg's cross-process exchanges (every solve of the leg) and
+    their ms a round, from a process's output."""
+    n_ex = int(_grab(r"job exchanges: (\d+) in", out, label))
+    secs = float(_grab(r"job exchanges: \d+ in ([0-9.]+)s", out, label))
+    return (f"{n_ex} exchanges ({n_ex / max(rounds, 1):.3f} a round) in "
+            f"{secs:.4f}s, {1e3 * secs / max(rounds, 1):.4f} ms a round")
+
+
+def mp_paths(x, y, cfg, mesh, ooc_mesh_res, x_mc, y_mc, out_dir,
+             summed) -> dict:
+    """[multiproc] (e)-(i): the paths of `cli train` a job runs besides
+    the binary solve, as legs of ONE two-process job (each leg its own
+    process group), each against its one-process twin on `mesh` (four
+    logical shards), computed here while the job runs:
+    (e) --ooc on the headline with [ooc mesh]'s tiles: process 0's model
+        bitwise [ooc mesh] (a)'s, pairs and rounds the same; tiles and
+        GB for the job and each process;
+    (g) an OvR multiclass file ([cli multiclass]'s CLI_MC_ROWS rows at
+        full width): process 0's bundle bitwise
+        train_multiclass(backend="mesh", mesh=mesh)'s;
+    (h) -b 1 on [cli]'s test rows: the model file, prob_a and prob_b
+        included, bitwise the twin's;
+    (i) -v 3 on the same rows (process 0's accuracy line) and --kernel
+        precomputed on [cli multiclass]'s CLI_PRE_ROWS-row Gram (the
+        model file), each bitwise its twin's.
+    Each leg: B1 in each process the twin's (once a round) and no other
+    kernel, the exchanges and their ms a round, the wall. Returns the
+    launches a leg (both processes summed)."""
+    from dpsvm_tpu_torch import SVMModel
+    from dpsvm_tpu_torch.models.multiclass import train_multiclass
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+
+    smoke = smoke_dir()
+    head = [*MP_HEAD_ARGV, "--device", MP_DEVICE]
+    test_csv = os.path.join(smoke, "test.csv")  # [cli]'s files
+    # label -> (argv without -m, the model file, None: -v writes none)
+    legs = {
+        "(e) ooc": (["-f", os.path.join(smoke, "train.csv"), "--engine",
+                     "block", "--ooc", "--ooc-tile-rows", str(OOC_TILE),
+                     *head], "ooc.npz"),
+        "(g) multiclass": (["-f", os.path.join(smoke, "mc_train.csv"),
+                            "--engine", "block", "--multiclass", "ovr",
+                            *head], "mc.npz"),
+        "(h) -b 1": (["-f", test_csv, "--engine", "block", "-b", "1",
+                      *head], "prob.npz"),
+        "(i) -v 3": (["-f", test_csv, "--engine", "block", "-v", "3",
+                      *head], None),
+        "(i) precomputed": (["-f", os.path.join(smoke, "gram.csv"),
+                             "--kernel", "precomputed", "-c", "10", "-e",
+                             "0.01", "--engine", "block",
+                             "--working-set-size", "256", "--backend",
+                             "mesh", "-q", "--device", MP_DEVICE],
+                            "pre.npz"),
+    }
+
+    def argv(label, prefix=""):
+        flags, name = legs[label]
+        return ["train", *flags, "-m",
+                os.path.join(out_dir, prefix + (name or "cv.npz"))]
+
+    t0 = time.perf_counter()
+    procs = mp_start(*(argv(label) for label in legs))
+    twins = {}
+    try:  # the twins while the job runs (a shared host)
+        reset_counts()
+        mc_model, _ = train_multiclass(
+            x_mc[:CLI_MC_ROWS], y_mc[:CLI_MC_ROWS],
+            cfg.replace(inner_iters=512), strategy="ovr", backend="mesh",
+            mesh=mesh)
+        mc_model.save(os.path.join(out_dir, "one_mc.npz"))
+        twins["(g) multiclass"] = (read_counts(), "")
+        for label in legs:
+            if label not in twins and label != "(e) ooc":
+                reset_counts()
+                text = run_cli([*argv(label, "one_"), "--num-devices", "4"],
+                               f"multiproc {label} one process")
+                twins[label] = (read_counts(), text)
+    except BaseException:
+        mp_kill(procs)
+        raise
+    twin_s = time.perf_counter() - t0
+    runs = mp_wait_legs(procs, "(e)-(i)", timeout=2 * MP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    res = ooc_mesh_res
+    paths = {}
+    for i, label in enumerate(legs):
+        per = [legs_k[i] for legs_k in runs]
+        paths[f"multiproc {label}"] = summed([p[:2] for p in per])
+        want_b1 = (res.stats["outer_rounds"] if label == "(e) ooc"
+                   else twins[label][0]["solve_subproblem"])
+        for k, (out, counts, secs) in enumerate(per):
+            b1 = counts["solve_subproblem"]
+            if b1 != want_b1 or sum(counts.values()) != b1:
+                raise AssertionError(
+                    f"[multiproc] {label} p{k}: launches {counts}; B1 "
+                    f"{want_b1} (once a round) and nothing else expected")
+            print(f"[multiproc] {label} p{k}: B1 {b1}, "
+                  f"{mp_exchange(label, out, b1)}; leg wall {secs:.2f}s",
+                  flush=True)
+        name = legs[label][1]
+        if label == "(e) ooc":
+            mp_model_check(label, os.path.join(out_dir, name),
+                           SVMModel.from_dense(x, y, res.alpha, res.b,
+                                               KernelParams("rbf",
+                                                            cfg.gamma)))
+            for k, (out, _, _) in enumerate(per):
+                got = mp_solve_line(f"{label} p{k}", out)[:3]
+                want = (res.iterations, res.stats["outer_rounds"], res.n_sv)
+                if got != want:
+                    raise AssertionError(f"[multiproc] {label} p{k}: pairs, "
+                                         f"rounds, n_sv {got}; [ooc mesh] "
+                                         f"(a) {want}")
+                print(f"[multiproc] {label} p{k}: "
+                      f"{_grab(r'(ooc stream: .*)', out, label)}; one "
+                      f"process {res.stats['tiles_streamed']} tiles, "
+                      f"{res.stats['tile_bytes_h2d'] / 1e9:.6f} GB",
+                      flush=True)
+        elif name is None:  # -v: process 0's accuracy line
+            pat = r"(Cross Validation Accuracy = [0-9.]+%)"
+            line = _grab(pat, per[0][0], label)
+            if line != _grab(pat, twins[label][1], label) \
+                    or "Cross Validation" in per[1][0]:
+                raise AssertionError(f"[multiproc] {label}: process 0's "
+                                     "line is not the twin's (or process 1 "
+                                     "printed one)")
+        else:
+            with np.load(os.path.join(out_dir, name)) as z0, \
+                    np.load(os.path.join(out_dir, "one_" + name)) as z1:
+                if z0.files != z1.files or any(
+                        z0[f].tobytes() != z1[f].tobytes()
+                        for f in z0.files):
+                    raise AssertionError(f"[multiproc] {label}: process 0's "
+                                         f"{name} is not the twin's")
+                if "prob_a" in z0.files:
+                    print(f"[multiproc] {label}: prob_a "
+                          f"{float(z0['prob_a'])!r} prob_b "
+                          f"{float(z0['prob_b'])!r}", flush=True)
+        print(f"[multiproc] {label}: bitwise the one-process twin's",
+              flush=True)
+    print(f"[multiproc] (e)-(i): job wall {wall:.2f}s, the twins beside it "
+          f"{twin_s:.2f}s", flush=True)
     return paths
 
 
@@ -5005,7 +5221,8 @@ def main() -> int:
     # ---- 40. the multi-process job: two processes of `cli train` on
     # logical shards of the card
     print(f"[multiproc] {smi}", flush=True)
-    paths.update(phase_multiproc(x, y, cfg, mesh, mesh_a))
+    paths.update(phase_multiproc(x, y, cfg, mesh, mesh_a, ooc_mesh_res,
+                                 x_mc, y_mc))
     lap("multiproc")
 
     meta = {

@@ -35,8 +35,11 @@ A multi-process job (the JAX package's multi-host launch, the
 reference's ``mpirun``): every process runs the same ``train`` command
 with its own ``--process-id``; ``--backend mesh --num-devices L --device
 cuda:0`` gives each process L logical shards of the card (without
-``--device``, its L visible cards). Process 0 writes the model, the
-checkpoint and the run log.
+``--device``, its L visible cards). Every path of ``train`` runs in a
+job: the svm types, multiclass files, ``-v``, ``-b 1``, ``--kernel
+precomputed`` and ``--ooc``. Process 0 writes the model, the checkpoint
+and the run log, and prints the scores (train accuracy, cross-validation,
+the Platt calibration).
 """
 
 from __future__ import annotations
@@ -552,23 +555,29 @@ def _cmd_train(args) -> int:
     print(f"process {args.process_id} of {args.num_processes}: {backend} "
           "process group", flush=True)
     try:
-        return _train(args)
+        try:
+            mesh = _train_mesh(args)
+        except (ValueError, RuntimeError) as e:
+            hint = ("" if args.device is not None else " (--device cuda:0 "
+                    "runs --num-devices logical shards of one card)")
+            print(f"error: {e}{hint}", file=sys.stderr)
+            return 2
+        rc = _train(args, mesh)
     finally:
         shutdown_multihost()
+    # Every solve of the job ran on this mesh (a multiclass file's
+    # submodels, the refits of -v and -b 1 too).
+    print(f"process {args.process_id} job exchanges: {mesh.exchanges} in "
+          f"{mesh.exchange_seconds:.6f}s", flush=True)
+    return rc
 
 
 def _multiprocess_refusal(args):
-    """Why a multi-process train cannot run, or None. The job runs the
-    binary solves of every svm type on the mesh; the rest stays in one
-    process (ROADMAP item A.13c)."""
+    """Why a multi-process train cannot run, or None: the job trains on
+    the mesh, so a one-device or host backend is refused."""
     if args.backend not in ("auto", "mesh"):
         return (f"--backend {args.backend} runs in one process; a "
                 "multi-process job trains on the mesh (--backend mesh)")
-    for flag, on in (("-v", args.cross_validate), ("-b 1", args.probability),
-                     ("--kernel precomputed", args.kernel == "precomputed")):
-        if on:
-            return (f"{flag} does not run in a multi-process job (ROADMAP "
-                    "item A.13c); run it in one process")
     return None
 
 
@@ -585,11 +594,27 @@ def _process_devices(args):
     return cards[:args.num_devices] or None
 
 
-def _train(args) -> int:
+def _train_mesh(args):
+    """The mesh every path of `train` runs on: --num-devices logical
+    shards of --device with --backend mesh or in a job; in a job without
+    --device, the process's first --num-devices visible cards; else None
+    (the solver takes the visible cards). In a job it spans the
+    processes."""
+    from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh,
+                                               process_count)
+
+    job = process_count() > 1
+    if args.device is not None and (args.backend == "mesh" or job):
+        return Mesh([args.device] * (args.num_devices or 1),
+                    span_processes=True)
+    return make_data_mesh(args.num_devices) if job else None
+
+
+def _train(args, mesh=None) -> int:
+    """train in one process, or in a job on its mesh (_train_mesh)."""
     from dpsvm_tpu_torch.config import ObsConfig, SVMConfig
-    from dpsvm_tpu_torch.parallel.mesh import process_count, process_index
+    from dpsvm_tpu_torch.parallel.mesh import process_index
     from dpsvm_tpu_torch.data.loader import load_data
-    from dpsvm_tpu_torch.predict import accuracy
 
     bad = _check_svm_type(args)
     if bad:
@@ -640,6 +665,8 @@ def _train(args) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if mesh is None:
+        mesh = _train_mesh(args)  # every path below trains on it
     # Labels other than +-1 train the OvR / OvO reduction (as LibSVM's
     # svm-train trains a multiclass file); two arbitrary labels too, so
     # the model predicts the file's own labels.
@@ -650,23 +677,11 @@ def _train(args) -> int:
                   file=sys.stderr)
             return 2
         if not set(classes.tolist()) <= {-1, 1}:
-            if process_count() > 1:
-                print("error: multiclass training does not run in a "
-                      "multi-process job (ROADMAP item A.13c); run it in "
-                      "one process", file=sys.stderr)
-                return 2
-            return _train_multiclass_cli(args, x, y, config)
+            return _train_multiclass_cli(args, x, y, config, mesh)
     if args.cross_validate:
-        return _cross_validate(args, x, y, config)
+        return _cross_validate(args, x, y, config, mesh)
     if args.kernel == "precomputed":
-        return _train_precomputed(args, x, y, config)
-    mesh = None
-    if args.device is not None and (args.backend == "mesh"
-                                    or process_count() > 1):
-        from dpsvm_tpu_torch.parallel.mesh import Mesh
-
-        mesh = Mesh([args.device] * (args.num_devices or 1),
-                    span_processes=True)
+        return _train_precomputed(args, x, y, config, mesh)
     logger = None
     if args.metrics_jsonl and process_index() == 0:
         from dpsvm_tpu_torch.utils.metrics import MetricsLogger
@@ -706,12 +721,35 @@ def _train(args) -> int:
           + (f" ({rounds} rounds)" if rounds is not None else ""))
     if result.stats.get("cache_lookups"):
         print(f"cache hit rate: {result.stats['cache_hit_rate']:.4f}")
+    if "tiles_streamed" in result.stats:
+        st = result.stats
+        own = ""
+        if "process_tiles_streamed" in st:
+            own = (f" (this process {st['process_tiles_streamed']} tiles, "
+                   f"{st['process_tile_bytes_h2d'] / 1e9:.6f} GB)")
+        print(f"ooc stream: {st['tiles_streamed']} tiles, "
+              f"{st['tile_bytes_h2d'] / 1e9:.6f} GB host to device{own}")
     if "exchanges" in result.stats:
         print(f"cross-process exchange: {result.stats['exchanges']} "
               f"exchanges in {result.stats['exchange_seconds']:.6f}s "
               f"({result.stats['process_backend']})")
     print(f"b: {result.b:.6f}")
     print(f"support vectors: {result.n_sv}")
+    if process_index() == 0:  # the job's scores come from process 0
+        _print_train_score(args, model, x, y, regression)
+    if args.probability:
+        _fit_probability(args, model, x, y, config, mesh)
+    if args.svm_type in ("eps-svr", "nu-svr", "one-class") \
+            and not args.model.endswith(".npz"):
+        args.model += ".npz"
+        print(f"note: {args.svm_type} models use the .npz format")
+    _write_model(model, args.model)
+    return 0
+
+
+def _print_train_score(args, model, x, y, regression: bool) -> None:
+    from dpsvm_tpu_torch.predict import accuracy
+
     if args.svm_type in ("c-svc", "nu-svc"):
         print(f"train accuracy: "
               f"{accuracy(model, x, y, device=args.device):.4f}")
@@ -721,18 +759,18 @@ def _train(args) -> int:
     else:
         inlier = float(np.mean(model.predict(x, device=args.device) > 0))
         print(f"train inlier fraction: {inlier:.4f} (nu={args.nu})")
-    if args.probability:
-        _fit_probability(args, model, x, y, config)
-    if args.svm_type in ("eps-svr", "nu-svr", "one-class") \
-            and not args.model.endswith(".npz"):
-        args.model += ".npz"
-        print(f"note: {args.svm_type} models use the .npz format")
+
+
+def _write_model(model, path: str) -> None:
+    """Save the model: process 0 of a multi-process job writes it, the
+    others name the writer."""
+    from dpsvm_tpu_torch.parallel.mesh import process_index
+
     if process_index() == 0:
-        model.save(args.model)
-        print(f"model written to {args.model}")
+        model.save(path)
+        print(f"model written to {path}")
     else:
-        print(f"model written to {args.model} by process 0")
-    return 0
+        print(f"model written to {path} by process 0")
 
 
 def _trace_device(args, mesh):
@@ -751,39 +789,46 @@ def _log_loss(p, y) -> float:
     return float(-np.mean(t * np.log(p) + (1 - t) * np.log(1 - p)))
 
 
-def _fit_probability(args, model, x, y, config) -> None:
+def _fit_probability(args, model, x, y, config, mesh=None) -> None:
     """-b 1: the Platt pair from 5-fold refits of the same dual (in-sample
     decision values are margin-biased; models/platt.py fit_platt_cv),
-    set on the model, which then saves as .npz."""
+    set on the model, which then saves as .npz. The refits train on
+    `mesh` where the backend takes it (every process of a job); process
+    0 prints the calibration."""
     from dpsvm_tpu_torch.models.platt import fit_platt_cv, platt_probability
+    from dpsvm_tpu_torch.parallel.mesh import process_index
     from dpsvm_tpu_torch.predict import decision_function
 
     train_fn = None
     if args.svm_type == "nu-svc":
         from dpsvm_tpu_torch.models.nusvm import train_nusvc
 
-        def train_fn(xf, yf, cfg, backend="auto", num_devices=None):
+        def train_fn(xf, yf, cfg, backend="auto", num_devices=None,
+                     mesh=None):
             return train_nusvc(xf, yf, nu=args.nu, config=cfg,
                                backend=backend, num_devices=num_devices,
-                               device=args.device)
+                               device=args.device, mesh=mesh)
     model.prob_a, model.prob_b = fit_platt_cv(
         x, y, config, backend=args.backend, num_devices=args.num_devices,
-        train_fn=train_fn, device=args.device)
-    dec = np.asarray(decision_function(model, x, device=args.device),
-                     np.float64)
-    p = platt_probability(dec, model.prob_a, model.prob_b)
-    print(f"platt calibration: A={model.prob_a:.6f} B={model.prob_b:.6f} "
-          f"train log-loss={_log_loss(p, y):.4f}")
+        train_fn=train_fn, device=args.device, mesh=mesh)
+    if process_index() == 0:
+        dec = np.asarray(decision_function(model, x, device=args.device),
+                         np.float64)
+        p = platt_probability(dec, model.prob_a, model.prob_b)
+        print(f"platt calibration: A={model.prob_a:.6f} "
+              f"B={model.prob_b:.6f} train log-loss={_log_loss(p, y):.4f}")
     if not args.model.endswith(".npz"):
         args.model += ".npz"
         print("note: probability models use the .npz format (the "
               "reference text format cannot carry the calibration)")
 
 
-def _train_multiclass_cli(args, x, y, config) -> int:
+def _train_multiclass_cli(args, x, y, config, mesh=None) -> int:
     """A file whose labels are not +-1: the OvR / OvO reduction
     (models/multiclass.py), saved as the .npz bundle `test` dispatches
-    on; -v cross-validates it instead."""
+    on; -v cross-validates it instead. The submodels train on `mesh`
+    where the backend takes it (every process of a job, in the same
+    order); process 0 scores and writes the bundle."""
     classes = np.unique(y)
     blockers = [
         ("-t nu-svc", args.svm_type != "c-svc"),
@@ -802,9 +847,10 @@ def _train_multiclass_cli(args, x, y, config) -> int:
               "binary C-SVC submodels", file=sys.stderr)
         return 2
     if args.cross_validate:
-        return _cross_validate_multiclass(args, x, y, config)
+        return _cross_validate_multiclass(args, x, y, config, mesh)
     from dpsvm_tpu_torch.models.multiclass import (accuracy_multiclass,
                                                    train_multiclass)
+    from dpsvm_tpu_torch.parallel.mesh import process_index
 
     if not args.quiet:
         k = len(classes)
@@ -819,7 +865,7 @@ def _train_multiclass_cli(args, x, y, config) -> int:
         model, results = train_multiclass(
             x, y, config, strategy=args.multiclass, backend=args.backend,
             num_devices=args.num_devices, verbose=not args.quiet,
-            device=args.device)
+            device=args.device, mesh=mesh)
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -828,25 +874,25 @@ def _train_multiclass_cli(args, x, y, config) -> int:
     conv = sum(r.converged for r in results)
     print(f"training took {wall:.2f}s ({dev_s:.2f}s device; "
           f"{conv}/{len(results)} submodels converged)")
-    print(f"train accuracy: "
-          f"{accuracy_multiclass(model, x, y, device=args.device):.4f}")
+    if process_index() == 0:
+        print(f"train accuracy: "
+              f"{accuracy_multiclass(model, x, y, device=args.device):.4f}")
     if not args.model.endswith(".npz"):
         args.model += ".npz"
         print("note: multiclass models use the .npz format (the "
               "reference text format is binary-only)")
-    model.save(args.model)
-    print(f"model written to {args.model}")
+    _write_model(model, args.model)
     return 0
 
 
-def _fold_fit_factory(args, config):
+def _fold_fit_factory(args, config, mesh=None):
     """The fold refit of -v for each svm type: a throwaway model, no
-    callbacks or checkpoints."""
+    callbacks or checkpoints, on `mesh` where the backend takes it."""
     from dpsvm_tpu_torch import models
     from dpsvm_tpu_torch.train import train
 
     common = dict(backend=args.backend, num_devices=args.num_devices,
-                  device=args.device)
+                  device=args.device, mesh=mesh)
     if args.svm_type == "c-svc":
         def fit(xf, yf):
             return train(xf, yf, config, **common)[0]
@@ -919,9 +965,10 @@ def _run_folds(args, x, y, folds, fit_predict) -> np.ndarray:
     return pred
 
 
-def _cross_validate(args, x, y, config) -> int:
+def _cross_validate(args, x, y, config, mesh=None) -> int:
     """LibSVM svm-train -v: stratified (classifiers) k-fold refits of the
-    requested family, LibSVM's output lines, and no model file."""
+    requested family, LibSVM's output lines (process 0's in a job), and
+    no model file."""
     if args.svm_type == "one-class":
         print("error: -v cross-validation is not defined for one-class "
               "(no held-out labels to score)", file=sys.stderr)
@@ -943,9 +990,10 @@ def _cross_validate(args, x, y, config) -> int:
     folds = _cv_folds(args, y, classify)
     if folds is None:
         return 2
+    from dpsvm_tpu_torch.parallel.mesh import process_index
     from dpsvm_tpu_torch.predict import predict
 
-    fit = _fold_fit_factory(args, config)
+    fit = _fold_fit_factory(args, config, mesh)
 
     def fit_predict(xt, yt, xh):
         model = fit(xt, yt)
@@ -955,6 +1003,8 @@ def _cross_validate(args, x, y, config) -> int:
 
     t0 = time.perf_counter()
     pred = _run_folds(args, x, y, folds, fit_predict)
+    if process_index() != 0:  # the job's report comes from process 0
+        return 0
     if classify:
         acc = float(np.mean(pred == y))
         print(f"Cross Validation Accuracy = {100.0 * acc:g}%")
@@ -973,11 +1023,13 @@ def _cross_validate(args, x, y, config) -> int:
     return 0
 
 
-def _cross_validate_multiclass(args, x, y, config) -> int:
+def _cross_validate_multiclass(args, x, y, config, mesh=None) -> int:
     """svm-train -v on a multiclass file: stratified k-fold over the
-    OvR / OvO reduction, LibSVM's accuracy line, no model file."""
+    OvR / OvO reduction (on `mesh` where the backend takes it), LibSVM's
+    accuracy line (process 0's in a job), no model file."""
     from dpsvm_tpu_torch.models.multiclass import (predict_multiclass,
                                                    train_multiclass)
+    from dpsvm_tpu_torch.parallel.mesh import process_index
 
     folds = _cv_folds(args, y, classify=True)
     if folds is None:
@@ -988,13 +1040,14 @@ def _cross_validate_multiclass(args, x, y, config) -> int:
                                     strategy=args.multiclass,
                                     backend=args.backend,
                                     num_devices=args.num_devices,
-                                    device=args.device)
+                                    device=args.device, mesh=mesh)
         return predict_multiclass(model, xh, device=args.device)
 
     t0 = time.perf_counter()
     pred = _run_folds(args, x, y, folds, fit_predict)
     acc = float(np.mean(pred == np.asarray(y, np.float64)))
-    print(f"Cross Validation Accuracy = {100.0 * acc:g}%")
+    if process_index() == 0:
+        print(f"Cross Validation Accuracy = {100.0 * acc:g}%")
     if not args.quiet:
         print(f"({len(folds)}-fold over {len(y)} rows in "
               f"{time.perf_counter() - t0:.2f}s; no model file written — "
@@ -1002,10 +1055,12 @@ def _cross_validate_multiclass(args, x, y, config) -> int:
     return 0
 
 
-def _train_precomputed(args, x, y, config) -> int:
-    """Train on a user-supplied Gram matrix (LibSVM -t 4). The model
-    carries SV indices (models/precomputed.py) and saves as .npz."""
+def _train_precomputed(args, x, y, config, mesh=None) -> int:
+    """Train on a user-supplied Gram matrix (LibSVM -t 4), on `mesh`
+    where the backend takes it. The model carries SV indices
+    (models/precomputed.py) and saves as .npz (process 0's in a job)."""
     from dpsvm_tpu_torch.models.precomputed import PrecomputedSVCModel
+    from dpsvm_tpu_torch.parallel.mesh import process_index
     from dpsvm_tpu_torch.train import resolve_backend, solve_on
 
     n = x.shape[0]
@@ -1014,11 +1069,6 @@ def _train_precomputed(args, x, y, config) -> int:
               f"matrix as features; {args.file_path} is {x.shape[0]} x "
               f"{x.shape[1]}", file=sys.stderr)
         return 2
-    mesh = None
-    if args.backend == "mesh" and args.device is not None:
-        from dpsvm_tpu_torch.parallel.mesh import Mesh
-
-        mesh = Mesh([args.device] * (args.num_devices or 1))
     try:
         # The mesh's precomputed path is the block engine's (auto takes
         # the mesh only there).
@@ -1039,15 +1089,15 @@ def _train_precomputed(args, x, y, config) -> int:
     print(f"training took {result.train_seconds:.2f}s")
     print(f"b: {result.b:.6f}")
     print(f"support vectors: {model.n_sv}")
-    # The training Gram's rows ARE K(train, train).
-    acc = float(np.mean(model.predict(x, device=args.device) == y))
-    print(f"train accuracy: {acc:.4f}")
+    if process_index() == 0:
+        # The training Gram's rows ARE K(train, train).
+        acc = float(np.mean(model.predict(x, device=args.device) == y))
+        print(f"train accuracy: {acc:.4f}")
     if not args.model.endswith(".npz"):
         args.model += ".npz"
         print("note: precomputed-kernel models use the .npz format "
               "(they store SV indices, not feature rows)")
-    model.save(args.model)
-    print(f"model written to {args.model}")
+    _write_model(model, args.model)
     return 0
 
 

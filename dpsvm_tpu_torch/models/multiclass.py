@@ -234,7 +234,7 @@ class MulticlassSVM:
 
 def _fleet_eligible(config: SVMConfig, backend: str,
                     num_devices: Optional[int], trainer, device=None,
-                    forced: bool = False) -> bool:
+                    forced: bool = False, mesh=None) -> bool:
     """Whether the reduction routes through the fleet (solver/fleet.py)
     instead of K sequential solves: the plain C-SVC trainer on one
     device, with a config whose iteration the fleet reproduces. `forced`
@@ -252,7 +252,7 @@ def _fleet_eligible(config: SVMConfig, backend: str,
     if config.budget_mode:
         reasons.append("budget_mode pins per-solve pair budgets")
     if backend == "auto" and not reasons and resolve_backend(
-            backend, config, device, num_devices) != "single":
+            backend, config, device, num_devices, mesh) != "single":
         reasons.append("auto backend resolves to the mesh "
                        "(pass backend='single' to batch the fleet)")
     if reasons and forced:
@@ -314,9 +314,13 @@ def train_multiclass(x, y, config: SVMConfig = SVMConfig(),
                      num_devices: Optional[int] = None,
                      verbose: bool = False, trainer=None,
                      use_fleet: Optional[bool] = None,
-                     device=None) -> tuple:
+                     device=None, mesh=None) -> tuple:
     """Train a multiclass SVM on `device` (None: the CUDA card); y may
     hold any integer labels. Returns (MulticlassSVM, [SolveResult]).
+    `mesh` (parallel/mesh.py Mesh) reaches every submodel's solve: with
+    backend "mesh" (or "auto", which then takes it) each submodel trains
+    on it, in a job that spans processes in every process, the same
+    submodels in the same order.
 
     `trainer(x, y_pm, config, backend=..., num_devices=..., pad_to=...)
     -> (SVMModel, SolveResult)` swaps the binary solver under the
@@ -341,7 +345,7 @@ def train_multiclass(x, y, config: SVMConfig = SVMConfig(),
         def trainer(xx, yy, cfg, backend="auto", num_devices=None,
                     pad_to=None):
             return train(xx, yy, cfg, backend=backend, device=device,
-                         num_devices=num_devices, pad_to=pad_to)
+                         num_devices=num_devices, mesh=mesh, pad_to=pad_to)
 
     x = np.asarray(x, np.float32)
     y = np.asarray(y)
@@ -353,7 +357,8 @@ def train_multiclass(x, y, config: SVMConfig = SVMConfig(),
         strategy = "ovo"
     if strategy in ("ovr", "ovo") and use_fleet is not False \
             and _fleet_eligible(config, backend, num_devices, user_trainer,
-                                device, forced=use_fleet is True):
+                                device, forced=use_fleet is True,
+                                mesh=mesh):
         return _train_multiclass_fleet(x, y, classes, config, strategy,
                                        verbose, device)
     models, results = [], []

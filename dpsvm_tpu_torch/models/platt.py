@@ -95,22 +95,36 @@ def platt_probability_matrix(decision: np.ndarray, ab) -> np.ndarray:
 
 def fit_platt_cv(x, y_pm, config, backend: str = "auto",
                  num_devices=None, k: int = 5, seed=0, train_fn=None,
-                 device=None) -> tuple[float, float]:
+                 device=None, mesh=None) -> tuple[float, float]:
     """(A, B) from decision values on held-out folds, LibSVM-style: k-fold
     refits, so the calibration never sees its own training residuals
     (in-sample |f| is biased toward the margin). Shared by
     estimators.SVC and the CLI's -b 1. `seed` None gives fresh-entropy
     fold shuffles (sklearn's random_state=None); the default 0 keeps the
-    CLI deterministic. `train_fn(x, y, config, backend=, num_devices=)
-    -> (model, result)` refits another family (nu-SVC); the default is
-    C-SVC train on `device` (None: the CUDA card)."""
+    CLI deterministic. `train_fn(x, y, config, backend=, num_devices=,
+    mesh=) -> (model, result)` refits another family (nu-SVC); the
+    default is C-SVC train on `device` (None: the CUDA card), or on
+    `mesh` (parallel/mesh.py Mesh) where the backend takes it.
+
+    In a job that spans processes every process refits the same folds,
+    so `seed` None (each process's own entropy, different folds, and
+    collectives that no longer line up) is refused with ValueError."""
+    from dpsvm_tpu_torch.parallel.mesh import process_count
     from dpsvm_tpu_torch.predict import decision_function
     from dpsvm_tpu_torch.train import train
 
+    spans = (mesh.num_processes > 1 if mesh is not None
+             else process_count() > 1)
+    if seed is None and spans:
+        raise ValueError(
+            "fit_platt_cv(seed=None) draws each process's folds from its "
+            "own entropy; a job that spans processes needs the same folds "
+            "in every process: pass an integer seed")
     if train_fn is None:
-        def train_fn(xf, yf, cfg, backend="auto", num_devices=None):
+        def train_fn(xf, yf, cfg, backend="auto", num_devices=None,
+                     mesh=None):
             return train(xf, yf, cfg, backend=backend, device=device,
-                         num_devices=num_devices)
+                         num_devices=num_devices, mesh=mesh)
     x = np.asarray(x, np.float32)
     y_pm = np.asarray(y_pm)
     k = max(2, int(k))
@@ -125,6 +139,6 @@ def fit_platt_cv(x, y_pm, config, backend: str = "auto",
                 "probability calibration fold lost a class; lower the "
                 "fold count or provide more data")
         m, _ = train_fn(x[tr], y_pm[tr], config, backend=backend,
-                        num_devices=num_devices)
+                        num_devices=num_devices, mesh=mesh)
         dec[held] = decision_function(m, x[held], device=device)
     return fit_platt(dec, y_pm)

@@ -838,7 +838,9 @@ def make_block_active_chunk_runner(mesh: Mesh, kp: KernelParams, c,
 # with n_loc a whole number of stream tiles; stream step j carries tile j
 # of every shard. Pad rows (past n) are masked out of selection by
 # `valid`, and a tile's fold runs on its real rows only, so a shard's
-# tile is exactly the one-device stream's tile r * tiles_loc + j.
+# tile is exactly the one-device stream's tile r * tiles_loc + j. The
+# lists (tiles, f, x_sq, owners) hold this process's ranks by local
+# position; the owners carry the global rank offsets (_local_owners).
 
 
 def ooc_mesh_select(mesh: Mesh, f, f_err, alpha, y, x_sq, k_diag, valid, c,

@@ -14,8 +14,9 @@ the trajectory is bit for bit that of one process driving all P ranks.
 Across processes the checkpoint and the run log are written by process
 0 from the gathered state, in-process fault retry is off (a faulted
 process cannot re-sync its peers' collectives: the job is relaunched
-with --resume), and the out-of-core mesh stream, the mesh warm rebuild
-and the ring exchange are refused (ROADMAP items A.13a, A.13b and 6).
+with --resume), the out-of-core mesh stream streams each process's own
+ranks' tiles, the warm rebuild folds each process's own shards, and the
+ring exchange is refused (ROADMAP item 6).
 
 Engines: engine="xla" runs the per-pair mesh engine below; engine="block"
 the block runners of parallel/dist_block.py, chosen with the JAX
@@ -514,7 +515,7 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     spans = (mesh.num_processes > 1 if mesh is not None
              else process_count() > 1)
     if spans:
-        _refuse_across_processes(config, warm_start)
+        _refuse_across_processes(config)
     if config.ooc:
         # Routed before the warm-start recursion: the stream solver
         # repairs a seed and rebuilds its gradient itself.
@@ -573,19 +574,9 @@ def solve_mesh(x, y, config: SVMConfig, num_devices: Optional[int] = None,
     return _solve_with_degradation(config, checkpoint_path, resume, run)
 
 
-def _refuse_across_processes(config: SVMConfig, warm_start) -> None:
-    """The mesh paths that do not run across processes, refused at
-    solve_mesh's entry with the ROADMAP item that carries each."""
-    if config.ooc:
-        raise ValueError(
-            "the out-of-core mesh stream (config.ooc) does not run on a "
-            "mesh that spans processes (ROADMAP item A.13a); run it in "
-            "one process")
-    if warm_start is not None:
-        raise ValueError(
-            "warm_start's mesh rebuild does not run on a mesh that spans "
-            "processes (ROADMAP item A.13b); pass alpha_init / f_init or "
-            "run it in one process")
+def _refuse_across_processes(config: SVMConfig) -> None:
+    """The mesh path that does not run across processes, refused at
+    solve_mesh's entry with the ROADMAP item that carries it."""
     if config.ring_exchange:
         raise ValueError(
             "ring_exchange=True does not run on a mesh that spans "

@@ -15,7 +15,12 @@ engines rely on:
     reference's ``MPI_Allgather``), in global rank order;
   * one global block chunk (parallel/dist_block.py, kernel B1 on the
     card) over process-local shards of a small problem, bit for bit the
-    same chunk on one process's logical mesh of all the ranks.
+    same chunk on one process's logical mesh of all the ranks;
+  * the mesh warm rebuild (solver/warmstart.py warm_rebuild_mesh), the
+    mesh decision function (predict.py decision_function_mesh) and a
+    small out-of-core mesh solve (solve_mesh with config.ooc, kernel B1
+    once a round on the card), each bit for bit the same call on the
+    one-process mesh.
 
 ``--nccl-same-card`` instead asks NCCL for two ranks on one card and
 prints what NCCL answers (the backend rule takes gloo there).
@@ -116,6 +121,48 @@ def _check_block_chunk(mesh, dev) -> tuple:
     return rounds, pairs
 
 
+def _check_mesh_paths(mesh, dev) -> int:
+    """The warm rebuild, the decision function and an out-of-core solve
+    over the process-local shards, each against the same call on a
+    one-process mesh of P logical shards of `dev`. Returns the ooc
+    solve's rounds."""
+    import numpy as np
+
+    from dpsvm_tpu_torch.config import SVMConfig
+    from dpsvm_tpu_torch.data import make_blobs_binary
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
+    from dpsvm_tpu_torch.ops.kernels import KernelParams
+    from dpsvm_tpu_torch.parallel.dist_smo import solve_mesh
+    from dpsvm_tpu_torch.parallel.mesh import Mesh
+    from dpsvm_tpu_torch.predict import decision_function_mesh
+    from dpsvm_tpu_torch.solver.warmstart import warm_rebuild_mesh
+
+    n, d = 300, 16  # 300 rows: padded tails on 4 shards and in the tiles
+    x, y = make_blobs_binary(n=n, d=d, seed=1, sep=1.5)
+    kp = KernelParams("rbf", 0.1)
+    seed = np.where(np.arange(n) % 3 == 0, 0.5, 0.0).astype(np.float32)
+    model = SVMModel.from_dense(x, y, seed, 0.25, kp)
+    cfg = SVMConfig(c=1.0, gamma=0.1, epsilon=1e-3, engine="block",
+                    working_set_size=16, ooc=True, ooc_tile_rows=48,
+                    retry_faults=0)
+
+    def run(m):
+        res = solve_mesh(x, y, cfg, mesh=m)
+        return (warm_rebuild_mesh(x, y, seed, kp, m),
+                decision_function_mesh(model, x, mesh=m, block=128),
+                res.alpha, res.stats["f"], res.iterations,
+                res.stats["outer_rounds"])
+
+    got = run(mesh)
+    want = run(Mesh([dev] * mesh.size))
+    for name, a, b in zip(("warm rebuild", "decision function", "ooc alpha",
+                           "ooc f"), got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    assert got[4:] == want[4:], (got[4:], want[4:])
+    return got[5]
+
+
 def child_main(coordinator: str, process_id: int, device: str, local: int,
                threads: int, nccl_same_card: bool) -> int:
     import torch
@@ -151,10 +198,13 @@ def child_main(coordinator: str, process_id: int, device: str, local: int,
             range(process_id * local, (process_id + 1) * local))
         _check_collectives(mesh, dev)
         rounds, pairs = _check_block_chunk(mesh, dev)
+        ooc_rounds = _check_mesh_paths(mesh, dev)
         print(f"[proc {process_id}] OK: {NPROC} processes on {backend}, "
               f"{mesh.size} ranks {mesh.describe()}, psum/all_gather in "
-              f"rank order, block chunk {rounds} rounds / {pairs} pairs "
-              "bitwise the one-process mesh", flush=True)
+              f"rank order, block chunk {rounds} rounds / {pairs} pairs, "
+              "warm rebuild, decision function and ooc solve "
+              f"({ooc_rounds} rounds) bitwise the one-process mesh",
+              flush=True)
     finally:
         shutdown_multihost()
     return 0

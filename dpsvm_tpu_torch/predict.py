@@ -102,29 +102,36 @@ def decision_function_mesh(model: SVMModel, q, num_devices=None,
     only in how the float32 sum over the support vectors is grouped.
     `mesh` is a parallel/mesh.py Mesh (None: the first `num_devices`
     visible cards). The padded and sharded support vectors are cached on
-    the model (`_mesh_prepared`), so a serving loop uploads them once."""
+    the model (`_mesh_prepared`), so a serving loop uploads them once.
+    On a mesh that spans processes every process calls this with the
+    same model and queries: each takes its own ranks' partial sums, and
+    one psum a query block adds them in global rank order, so every
+    process gets the one-process mesh's bits."""
     from dpsvm_tpu_torch.parallel.mesh import make_data_mesh, shard_padded_rows
 
     if mesh is None:
         mesh = make_data_mesh(num_devices)
-    mesh.require_one_process("decision_function_mesh", "A.13c")
     for dev in {d for d, _ in mesh.groups}:
         resolve_device(dev)
     q = np.asarray(q, np.float32)
+    # Keyed on the devices and on the process layout (the global ranks
+    # this process owns, of how many).
+    layout = (mesh.local_ranks, mesh.size)
     prepared = getattr(model, "_mesh_prepared", None)
-    if prepared is not None and prepared[0] == mesh.devices:
+    if prepared is not None and prepared[0] == mesh.devices \
+            and prepared[2] == layout:
         sv_sh, coef_sh = prepared[1]
     else:
         sv_sh = shard_padded_rows(mesh, np.asarray(model.sv_x, np.float32))
         # Padded rows carry coef 0: inert.
         coef_sh = shard_padded_rows(mesh, np.asarray(model.dual_coef,
                                                      np.float32))
-        model._mesh_prepared = (mesh.devices, (sv_sh, coef_sh))
+        model._mesh_prepared = (mesh.devices, (sv_sh, coef_sh), layout)
     out = []
     for s in range(0, q.shape[0], block):
         qb = [torch.as_tensor(q[s:s + block], device=dev)
               for dev, _ in mesh.groups]
-        parts = [kernel_matrix(qb[mesh.group_of[r]], sv_sh[r], model.kernel)
-                 @ coef_sh[r] for r in range(mesh.size)]
+        parts = [kernel_matrix(qb[mesh.group_of[i]], sv_sh[i], model.kernel)
+                 @ coef_sh[i] for i in range(len(mesh.devices))]
         out.append(mesh.psum(parts)[0].cpu().numpy() - model.b)
     return np.concatenate(out) if out else np.zeros((0,), np.float32)

@@ -643,54 +643,72 @@ def _solve_ooc_impl(x, y, config: SVMConfig, callback, dev, checkpoint_path,
 class MeshTileStream:
     """Host X streamed to the shards of a mesh: stream step j carries
     tile j of every shard (shard r's rows [r n_loc + j tile, + tile),
-    clipped at n).
+    clipped at n). A process streams its own ranks only: on a mesh that
+    spans processes, local position i holds global rank
+    ``mesh.local_ranks[i]``.
 
-    ``walk(steps)`` yields (j, tiles) with tiles[r] = (x_tile, rows): shard
-    r's real rows on its device in the storage dtype (None where a shard
-    has no real row in the step), valid until the next step. On CUDA a
-    step's P tiles are copied into one of two pinned (P tile, d) blocks,
-    laid out device by device, and uploaded once per distinct device on
-    that device's side stream; the compute streams wait on the upload's
-    event, and a pinned block and its device twins are rewritten only
-    after the events recorded behind the folds that read them, so the
-    host's copy of step j+1 overlaps the upload and folds of step j and
-    nothing synchronizes the device. The ``ooc_tile_put`` seam fires
-    before each step while `seam` is set. `bytes` counts the float32
-    bytes of the real rows uploaded."""
+    ``walk(steps)`` yields (j, tiles) with tiles[i] = (x_tile, rows): local
+    position i's real rows on its device in the storage dtype (None where
+    a shard has no real row in the step), valid until the next step. On
+    CUDA a step's L local tiles are copied into one of two pinned
+    (L tile, d) blocks, laid out device by device, and uploaded once per
+    distinct device on that device's side stream; the compute streams
+    wait on the upload's event, and a pinned block and its device twins
+    are rewritten only after the events recorded behind the folds that
+    read them, so the host's copy of step j+1 overlaps the upload and
+    folds of step j and nothing synchronizes the device. The
+    ``ooc_tile_put`` seam fires before each step while `seam` is set.
+    `bytes` and `tiles` count the float32 bytes and the tiles of real
+    rows this process uploaded; `job_bytes` and `job_tiles` those of
+    every process of the job (the same numbers in one process)."""
 
     def __init__(self, x, n: int, d: int, tile: int, n_loc: int, mesh,
                  dtype: str = "float32"):
         self.x, self.n, self.d, self.tile, self.n_loc = x, n, d, tile, n_loc
         self.mesh = mesh
+        self.ranks = mesh.local_ranks  # local position -> global rank
         self.dtype = _tdtype(dtype)
-        self.bytes = 0
+        self.bytes = self.tiles = self.job_bytes = self.job_tiles = 0
         self.seam = True
         self.cuda = mesh.devices[0].type == "cuda"
-        # Rank r's row offset in the pinned block: device by device.
-        self.offset = [0] * mesh.size
+        # Local position i's row offset in the pinned block: device by
+        # device.
+        self.offset = [0] * len(mesh.devices)
         pos = 0
         self.group_rows = []
-        for _, ranks in mesh.groups:
+        for _, positions in mesh.groups:
             self.group_rows.append(pos * tile)
-            for r in ranks:
-                self.offset[r] = pos * tile
+            for i in positions:
+                self.offset[i] = pos * tile
                 pos += 1
         if self.cuda:
-            self.pinned = [torch.empty((mesh.size * tile, d),
+            self.pinned = [torch.empty((len(mesh.devices) * tile, d),
                                        dtype=torch.float32, pin_memory=True)
                            for _ in range(2)]
-            self.staged = [[torch.empty((len(ranks) * tile, d),
+            self.staged = [[torch.empty((len(positions) * tile, d),
                                         dtype=torch.float32, device=dev)
-                            for dev, ranks in mesh.groups] for _ in range(2)]
+                            for dev, positions in mesh.groups]
+                           for _ in range(2)]
             self.copier = [torch.cuda.Stream(device=dev)
                            for dev, _ in mesh.groups]
             self.copied = [None, None]
             self.released = [None, None]
 
     def shard_rows(self, r: int, j: int) -> int:
-        """Shard r's real rows in step j."""
+        """Global rank r's real rows in step j."""
         s = r * self.n_loc + j * self.tile
         return max(0, min(self.tile, self.n - s))
+
+    def _count(self, j: int) -> None:
+        """Step j's uploads: this process's and the job's."""
+        for r in range(self.mesh.size):
+            rows = self.shard_rows(r, j)
+            if rows:
+                self.job_tiles += 1
+                self.job_bytes += rows * self.d * 4
+                if r in self.ranks:
+                    self.tiles += 1
+                    self.bytes += rows * self.d * 4
 
     def _host(self, r: int, j: int, rows: int) -> np.ndarray:
         s = r * self.n_loc + j * self.tile
@@ -711,19 +729,17 @@ class MeshTileStream:
             for ev in done:
                 ev.synchronize()  # the folds that read this slot have run
         pin = self.pinned[slot].numpy()
-        real = 0
-        for r in range(self.mesh.size):
+        for i, r in enumerate(self.ranks):
             rows = self.shard_rows(r, j)
             if rows:
-                o = self.offset[r]
+                o = self.offset[i]
                 np.copyto(pin[o:o + rows], self._host(r, j, rows),
                           casting="same_kind")
-                real += rows
         events = []
-        for g, (dev, ranks) in enumerate(self.mesh.groups):
+        for g, (dev, positions) in enumerate(self.mesh.groups):
             # A group's real rows are a prefix of its slice: full tiles,
             # then at most one partial tile, then empty ones.
-            cnt = sum(self.shard_rows(r, j) for r in ranks)
+            cnt = sum(self.shard_rows(self.ranks[i], j) for i in positions)
             with torch.cuda.stream(self.copier[g]):
                 if done is not None:
                     self.copier[g].wait_event(done[g])
@@ -735,7 +751,7 @@ class MeshTileStream:
                 ev.record(self.copier[g])
             events.append(ev)
         self.copied[slot] = events
-        self.bytes += real * self.d * 4
+        self._count(j)
 
     def walk(self, steps):
         steps = list(steps)
@@ -744,7 +760,7 @@ class MeshTileStream:
             for j in steps:
                 self._seam(j)
                 tiles = []
-                for r, dev in enumerate(mesh.devices):
+                for r, dev in zip(self.ranks, mesh.devices):
                     rows = self.shard_rows(r, j)
                     if not rows:
                         tiles.append((None, 0))
@@ -753,9 +769,9 @@ class MeshTileStream:
                                      rows, self.n, self.d)
                     if not blk.flags.writeable:  # a read-only memmap's view
                         blk = blk.copy()
-                    self.bytes += rows * self.d * 4
                     tiles.append((torch.from_numpy(blk).to(dev).to(
                         self.dtype), rows))
+                self._count(j)
                 yield j, tiles
             return
         if not steps:
@@ -769,13 +785,13 @@ class MeshTileStream:
             for g in range(len(mesh.groups)):
                 compute[g].wait_event(self.copied[slot][g])
             tiles = []
-            for r in range(mesh.size):
+            for i, r in enumerate(self.ranks):
                 rows = self.shard_rows(r, j)
                 if not rows:
                     tiles.append((None, 0))
                     continue
-                g = mesh.group_of[r]
-                o = self.offset[r] - self.group_rows[g]
+                g = mesh.group_of[i]
+                o = self.offset[i] - self.group_rows[g]
                 tiles.append((self.staged[slot][g][o:o + rows].to(self.dtype),
                               rows))
             yield j, tiles
@@ -844,7 +860,15 @@ def solve_ooc_mesh(x, y, config: SVMConfig, num_devices=None, mesh=None,
     then passed on as alpha_init / f_init. A transient fault is retried
     (config.retry_faults) from this run's last checkpoint. The block
     cache and the shrunken stream are single-device: refused with
-    ValueError, as in the JAX package."""
+    ValueError, as in the JAX package.
+
+    On a mesh that spans processes every process streams its own ranks'
+    tiles from its own host X, computes the same round from the same
+    gathered candidates, and gets the same result; checkpoints and the
+    run log come from process 0, `tiles_streamed` / `tile_bytes_h2d`
+    count the job's uploads (`process_tiles_streamed` /
+    `process_tile_bytes_h2d` this process's), and in-process fault retry
+    is off, as in solve_mesh."""
     if config.ooc_cache_lines:
         raise ValueError(_MESH_CACHE_REFUSAL)
     if config.active_set_size or config.ooc_shrink:
@@ -875,6 +899,14 @@ def solve_ooc_mesh(x, y, config: SVMConfig, num_devices=None, mesh=None,
                                     checkpoint_path, res_k, alpha_init,
                                     f_init)
 
+    if mesh.num_processes > 1:
+        # As solve_mesh: across processes the recovery is a relaunch with
+        # --resume, not an in-process retry.
+        from dpsvm_tpu_torch.parallel.dist_smo import (
+            _warn_multihost_retry_dropped)
+
+        _warn_multihost_retry_dropped(config, mesh.num_processes)
+        config = config.replace(retry_faults=0)
     with precision_ctx(config):
         return run_with_fault_retry(config, checkpoint_path, resume, attempt)
 
@@ -898,6 +930,8 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
         warn_if_bf16_degrades(np.asarray(x[:min(n, 4096)], np.float32),
                               config)
     n_dev = mesh.size
+    # Process 0 of a job writes the run log and the verbose lines.
+    lead = mesh.process_index == 0
     # Every shard a whole number of stream tiles.
     tile = min(int(config.ooc_tile_rows), n)
     n_loc = -(-n // (n_dev * tile)) * tile
@@ -916,7 +950,7 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
     def shard(arr, dt=torch.float32):
         return [torch.as_tensor(arr[r * n_loc:(r + 1) * n_loc],
                                 device=dev).to(dt)
-                for r, dev in enumerate(mesh.devices)]
+                for r, dev in zip(mesh.local_ranks, mesh.devices)]
 
     y_p = np.ones((n_pad,), np.float32)
     y_p[:n] = y_np
@@ -932,7 +966,8 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
          "ooc": True, "ooc_mesh": True, "devices": n_dev,
          "mesh_devices": mesh.describe(), "ooc_tile_rows": tile,
          "ooc_tiles": steps * n_dev, "ooc_cache_lines": 0,
-         "ooc_shrink": False, "shrink_m": 0}, list(mesh.devices))
+         "ooc_shrink": False, "shrink_m": 0}, list(mesh.devices),
+        write=lead)
 
     stream = MeshTileStream(x, n, d, tile, n_loc, mesh, dtype)
     with obs.span("solver/ooc_setup_stream"):
@@ -941,7 +976,7 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
         for j, tiles in stream.walk(range(steps)):
             ooc_mesh_norms(tiles, j, tile, x_sq)
         k_diag = [kernel_diag(s, kp) for s in x_sq]
-    setup_bytes = stream.bytes
+    setup = (stream.tiles, stream.bytes, stream.job_bytes)
 
     start = chunks.start_state(y_np, config, checkpoint_path, resume,
                                alpha_init, f_init)
@@ -957,6 +992,7 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
     if callback is not None and hasattr(callback, "on_start"):
         callback.on_start(start.pairs)
     mesh.synchronize()
+    ex0 = (mesh.exchanges, mesh.exchange_seconds)
     pairs, rounds = start.pairs, start.rounds
     tiles_streamed = dispatches = 0
     b_hi, b_lo = -np.inf, np.inf
@@ -1007,10 +1043,11 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
             qx = [cr[0] for cr in core]
             coef = [cr[2] for cr in core]
             qsq = [cr[4] for cr in core]
+            job_tiles = stream.job_tiles
             for j, tiles in stream.walk(range(steps)):
                 ooc_mesh_fold(mesh, tiles, j, tile, x_sq, f, f_err, qx, qsq,
                               coef, kp)
-                round_tiles += sum(1 for _, rows in tiles if rows)
+            round_tiles = stream.job_tiles - job_tiles
             alpha = ooc_mesh_scatter(mesh, alpha, owners,
                                      [cr[1] for cr in core])
             pairs += int(core[0][3])
@@ -1034,13 +1071,15 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
         if config.check_numerics:
             chunks.assert_finite_state((f, alpha), pairs, "ooc")
         if ckpt.due(pairs) or (abort and ckpt.active):
-            # The one-device stream's v2 file, gathered to the host: the
-            # raw f with its residual.
-            ckpt.save(pairs, unshard(alpha)[:n], unshard(f)[:n], b_hi, b_lo,
-                      force=True,
-                      f_err=None if f_err is None else unshard(f_err)[:n],
+            # The one-device stream's v2 file, gathered to the host (a
+            # collective: `pairs` is the same in every process): the raw
+            # f with its residual.
+            ckpt.save(pairs, unshard(alpha, mesh)[:n], unshard(f, mesh)[:n],
+                      b_hi, b_lo, force=True,
+                      f_err=(None if f_err is None
+                             else unshard(f_err, mesh)[:n]),
                       rounds=rounds)
-        if config.verbose:
+        if config.verbose and lead:
             print(f"[ooc-mesh] round={rounds} pairs={pairs} "
                   f"gap={b_lo - b_hi:.6f} tiles={round_tiles} "
                   f"devices={n_dev}", flush=True)
@@ -1049,9 +1088,9 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
             break
 
     t_fin = time.perf_counter()
-    alpha_np = unshard(alpha)[:n]
+    alpha_np = unshard(alpha, mesh)[:n]
     f_eff = f if f_err is None else [a - b for a, b in zip(f, f_err)]
-    f_final = unshard(f_eff)[:n]
+    f_final = unshard(f_eff, mesh)[:n]
     if not converged:
         b_hi, b_lo, converged = refresh_extrema_host(
             f_final, alpha_np, y_np, c, config.epsilon, rule=config.selection)
@@ -1063,11 +1102,19 @@ def _solve_ooc_mesh_impl(x, y, config: SVMConfig, mesh, callback,
         "num_devices": n_dev, "mesh_devices": mesh.describe(),
         "ooc_tile_rows": tile, "ooc_tiles": steps * n_dev,
         "tiles_streamed": tiles_streamed,
-        "tile_bytes_h2d": stream.bytes - setup_bytes, "cached_rounds": 0,
+        "tile_bytes_h2d": stream.job_bytes - setup[2], "cached_rounds": 0,
         "cache_hits": 0, "cache_lookups": 0, "cache_hit_rate": 0.0,
         "cache_evictions": 0, "phase_seconds": phase_seconds,
         "ooc_shrink": False,
     }
+    if mesh.num_processes > 1:
+        # The job's totals above; this process's own uploads beside them.
+        stats.update(num_processes=mesh.num_processes,
+                     process_backend=mesh.backend,
+                     exchanges=mesh.exchanges - ex0[0],
+                     exchange_seconds=mesh.exchange_seconds - ex0[1],
+                     process_tiles_streamed=stream.tiles - setup[0],
+                     process_tile_bytes_h2d=stream.bytes - setup[1])
     if start.resumed:
         stats["resumed_from"] = start.pairs
     res = SolveResult(

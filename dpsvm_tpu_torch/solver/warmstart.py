@@ -205,11 +205,13 @@ def warm_rebuild_mesh(x, y, alpha: np.ndarray, kp, mesh,
     block of `q_block` seed rows ONE masked sum gathers the block's rows,
     norms and coefficients from the shards that own them, and each shard
     folds its gradient slice locally. The norms are the squared norms of
-    the stored rows, on the device."""
+    the stored rows, on the device. On a mesh that spans processes each
+    process folds its own ranks' slices and the result is gathered from
+    every process (the same array in each)."""
     import torch
 
     from dpsvm_tpu_torch.ops.kernels import kernel_rows, squared_norms
-    from dpsvm_tpu_torch.parallel.mesh import shard_padded_rows
+    from dpsvm_tpu_torch.parallel.mesh import shard_padded_rows, unshard
     from dpsvm_tpu_torch.solver.solve import _tdtype
 
     x = np.asarray(x, np.float32)
@@ -232,7 +234,7 @@ def warm_rebuild_mesh(x, y, alpha: np.ndarray, kp, mesh,
         idx[:min(q_block, nz.size - s)] = nz[s:s + q_block]
         live = np.arange(q_block) < nz.size - s
         parts = []
-        for r, (xr, sq, cr) in enumerate(zip(x_sh, xsq, coef_sh)):
+        for r, xr, sq, cr in zip(mesh.local_ranks, x_sh, xsq, coef_sh):
             loc = idx - r * n_loc
             own = torch.as_tensor(live & (loc >= 0) & (loc < n_loc),
                                   device=xr.device)[:, None]
@@ -242,12 +244,12 @@ def warm_rebuild_mesh(x, y, alpha: np.ndarray, kp, mesh,
                                 cr[l_safe, None]], dim=1)
             parts.append(torch.where(own, packed, 0.0))
         seeds = mesh.psum(parts)  # (q_block, d + 2) per device group
-        for r, (xr, sq) in enumerate(zip(x_sh, xsq)):
-            seed = seeds[mesh.group_of[r]]
+        for i, (xr, sq) in enumerate(zip(x_sh, xsq)):
+            seed = seeds[mesh.group_of[i]]
             k = kernel_rows(xr, sq, seed[:, :d].to(xr.dtype), seed[:, d],
                             kp)
-            f_sh[r] = f_sh[r] + seed[:, d + 1] @ k
-    return np.concatenate([t.cpu().numpy() for t in f_sh])[:n]
+            f_sh[i] = f_sh[i] + seed[:, d + 1] @ k
+    return unshard(f_sh, mesh)[:n]
 
 
 def prepare_warm_start(x, y, config, warm: Optional[WarmStart],

@@ -5,11 +5,16 @@ processes, each holding two CPU shards, joined by gloo over loopback.
 Every mesh engine the job runs is held BITWISE to the one-process mesh of
 four CPU shards on the same inputs (alpha, f, b, pairs and rounds), which
 tests/test_torch_mesh_solve.py holds against the JAX package's
-solve_mesh; one two-process solve also meets that file's whole-solve
-contract against JAX's solve_mesh on four forced host devices, here.
-Also pinned: the collectives' global rank order, a stop and resume
-across processes (and the two-process checkpoint resumed in one
-process), every refusal and the one-time retry warning.
+solve_mesh; so are the out-of-core mesh stream (plain, compensated,
+stopped and resumed, warm-started), the mesh warm rebuild and the mesh
+decision function (the decisions), which tests/test_torch_ooc_mesh.py,
+test_torch_warmstart.py and test_torch_predict_mesh.py hold against the
+JAX package. One two-process in-core solve and one out-of-core solve
+also meet the whole-solve contract against JAX's solve_mesh on four
+forced host devices, here. Also pinned: the collectives' global rank
+order, a stop and resume across processes (and the two-process
+checkpoint resumed in one process), the auto backend's route of an
+out-of-core job, every refusal and the one-time retry warning.
 
 The children are this file run as a script (``--child``): they import
 torch and the port only. One spawn of two children runs every case and
@@ -41,8 +46,14 @@ BASE = dict(c=5.0, gamma=0.1, epsilon=1e-3, max_iter=200_000,
 PAIR = dict(engine="xla", epsilon=1e-2)
 NU = 0.3
 STOP_CHUNKS = 3
+# The out-of-core cases: 24-row tiles, so each of the four shards owns
+# two (48 rows, 192 padded) and the last shard's second tile is empty.
+OOC = dict(ooc=True, ooc_tile_rows=24)
 # name -> (how, config knobs over BASE). "solve": solve_mesh; "nusvc":
-# train_nusvc on the mesh (the nu rule); "gram": the precomputed Gram.
+# train_nusvc on the mesh (the nu rule); "gram": the precomputed Gram;
+# "stop": stopped by the callback after STOP_CHUNKS observations and
+# resumed from the checkpoint; "warm": solve_mesh from a WarmStart;
+# "predict": decision_function_mesh of a fixed model.
 RUNS = {
     "global_mvp": ("solve", {}),
     "global_compensated": ("solve", dict(compensated=True)),
@@ -58,11 +69,16 @@ RUNS = {
     "fused_fold": ("solve", dict(fused_fold=True, max_iter=600)),
     "active": ("solve", dict(active_set_size=64, reconcile_rounds=4)),
     "shardlocal": ("solve", dict(local_working_sets=4, sync_rounds=2)),
+    "ooc": ("solve", OOC),
+    "ooc_compensated": ("solve", dict(OOC, compensated=True)),
+    "ooc_stop_resume": ("stop", dict(OOC, checkpoint_every=1)),
+    "warm_start": ("warm", {}),
+    "ooc_warm": ("warm", OOC),
+    "predict_mesh": ("predict", {}),
 }
 # The stop / resume pair runs observed chunks of this many pairs.
 STOP_RUN = dict(chunk_iters=256, checkpoint_every=1)
-REFUSALS = ("ooc", "warm_start", "ring_exchange", "ring_runner",
-            "predict_mesh", "unequal_ranks")
+REFUSALS = ("ring_exchange", "ring_runner", "unequal_ranks")
 
 
 def _data():
@@ -71,15 +87,37 @@ def _data():
     return make_blobs_binary(**DATA)
 
 
-def _run(name, mesh, x, y, **kw):
-    """RUNS[name] on `mesh`: (alpha, f, b, pairs, rounds, converged)."""
+def _warm_seed(y) -> np.ndarray:
+    """A warm start of a third of the rows at C / 2 (repaired on use)."""
+    return np.where(np.arange(len(y)) % 3 == 0, 0.5 * BASE["c"],
+                    0.0).astype(np.float32)
+
+
+def _run(name, mesh, x, y, workdir, **kw):
+    """RUNS[name] on `mesh` (a "stop" run keeps its checkpoint in
+    `workdir`): (alpha, f, b, pairs, rounds, converged), or a "predict"
+    run's decisions."""
     from dpsvm_tpu_torch import SVMConfig, solve_mesh
     from dpsvm_tpu_torch.models import train_nusvc
+    from dpsvm_tpu_torch.models.svm_model import SVMModel
     from dpsvm_tpu_torch.ops.kernels import KernelParams, kernel_matrix
+    from dpsvm_tpu_torch.predict import decision_function_mesh
+    from dpsvm_tpu_torch.solver.warmstart import WarmStart
 
     how, knobs = RUNS[name]
     cfg = SVMConfig(**{**BASE, **knobs})
-    if how == "nusvc":
+    if how == "predict":
+        model = SVMModel.from_dense(x, y, _warm_seed(y), 0.25,
+                                    KernelParams("rbf", cfg.gamma))
+        return {"dec": decision_function_mesh(model, x, mesh=mesh,
+                                              block=64)}
+    if how == "stop":
+        return _stop_resume(mesh, x, y, cfg,
+                            os.path.join(workdir, f"{name}.npz"))
+    if how == "warm":
+        res = solve_mesh(x, y, cfg, mesh=mesh,
+                         warm_start=WarmStart(_warm_seed(y)), **kw)
+    elif how == "nusvc":
         _, res = train_nusvc(x, y, nu=NU, config=cfg, backend="mesh",
                              mesh=mesh, **kw)
     elif how == "gram":
@@ -102,15 +140,14 @@ def _pack(res) -> dict:
             "converged": np.bool_(res.converged)}
 
 
-def _stop_resume(mesh, x, y, ckpt: str, keep: str) -> dict:
-    """A global solve stopped by its callback after STOP_CHUNKS chunks
-    (the checkpoint then copied to `keep`), then resumed from the
-    checkpoint."""
+def _stop_resume(mesh, x, y, cfg, ckpt: str, keep=None) -> dict:
+    """A solve stopped by its callback after STOP_CHUNKS chunks (rounds
+    out of core; the checkpoint then copied to `keep`), then resumed
+    from the checkpoint."""
     import torch.distributed
 
-    from dpsvm_tpu_torch import SVMConfig, solve_mesh
+    from dpsvm_tpu_torch import solve_mesh
 
-    cfg = SVMConfig(**{**BASE, **STOP_RUN})
     seen = []
 
     def stop(it, b_hi, b_lo, state):
@@ -119,9 +156,10 @@ def _stop_resume(mesh, x, y, ckpt: str, keep: str) -> dict:
 
     first = solve_mesh(x, y, cfg, mesh=mesh, callback=stop,
                        checkpoint_path=ckpt)
-    if mesh.process_index == 0:
+    if keep is not None and mesh.process_index == 0:
         shutil.copyfile(ckpt, keep)
-    torch.distributed.barrier()
+    if mesh.num_processes > 1:
+        torch.distributed.barrier()
     res = solve_mesh(x, y, cfg, mesh=mesh, checkpoint_path=ckpt, resume=True)
     out = _pack(res)
     out["stopped_at"] = np.int64(first.iterations)
@@ -157,28 +195,16 @@ def _refusals(mesh, x, y) -> dict:
     import torch
 
     from dpsvm_tpu_torch import Mesh, SVMConfig, solve_mesh
-    from dpsvm_tpu_torch.models.svm_model import SVMModel
     from dpsvm_tpu_torch.ops.kernels import KernelParams
     from dpsvm_tpu_torch.parallel.dist_block import make_block_chunk_runner
-    from dpsvm_tpu_torch.predict import decision_function_mesh
-    from dpsvm_tpu_torch.solver.warmstart import WarmStart
 
     cfg = SVMConfig(**BASE)
-    model = SVMModel.from_dense(x, y, np.full(len(y), 0.5, np.float32), 0.0,
-                                KernelParams("rbf", cfg.gamma))
     calls = {
-        "ooc": lambda: solve_mesh(x, y, cfg.replace(ooc=True,
-                                                    ooc_tile_rows=64),
-                                  mesh=mesh),
-        "warm_start": lambda: solve_mesh(
-            x, y, cfg, mesh=mesh,
-            warm_start=WarmStart(np.zeros(len(y), np.float32))),
         "ring_exchange": lambda: solve_mesh(
             x, y, cfg.replace(ring_exchange=True), mesh=mesh),
         "ring_runner": lambda: make_block_chunk_runner(
             mesh, KernelParams("rbf", cfg.gamma), cfg.c_bounds(), 1e-3,
             1e-12, 16, 32, ring_exchange=True),
-        "predict_mesh": lambda: decision_function_mesh(model, x, mesh=mesh),
         "unequal_ranks": lambda: Mesh(
             [torch.device("cpu")] * (2 if mesh.process_index == 0 else 1),
             span_processes=True),
@@ -196,9 +222,10 @@ def _refusals(mesh, x, y) -> dict:
 def child_main(coordinator: str, process_id: int, out_dir: str) -> int:
     import torch
 
-    from dpsvm_tpu_torch import Mesh
+    from dpsvm_tpu_torch import Mesh, SVMConfig
     from dpsvm_tpu_torch.parallel.mesh import (initialize_multihost,
                                                shutdown_multihost)
+    from dpsvm_tpu_torch.train import resolve_backend
 
     torch.set_num_threads(1)
     backend = initialize_multihost(coordinator, NPROC, process_id,
@@ -212,15 +239,18 @@ def child_main(coordinator: str, process_id: int, out_dir: str) -> int:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             for name in RUNS:
-                for k, v in _run(name, mesh, x, y).items():
+                for k, v in _run(name, mesh, x, y, out_dir).items():
                     out[f"{name}/{k}"] = v
         out["retry_warnings"] = np.int64(sum(
             "retry_faults=2 is disabled on this 2-process job" in str(w.message)
             for w in caught))
         for k, v in _stop_resume(
-                mesh, x, y, os.path.join(out_dir, "ckpt.npz"),
+                mesh, x, y, SVMConfig(**{**BASE, **STOP_RUN}),
+                os.path.join(out_dir, "ckpt.npz"),
                 os.path.join(out_dir, "ckpt_stop.npz")).items():
             out[f"stop_resume/{k}"] = v
+        out["auto_backend"] = np.str_(resolve_backend(
+            "auto", SVMConfig(**{**BASE, **OOC})))
         for k, v in _collectives(mesh).items():
             out[f"coll/{k}"] = v
         for k, v in _refusals(mesh, x, y).items():
@@ -296,6 +326,7 @@ def job(tmp_path_factory, one_thread):
     from dpsvm_tpu_torch import Mesh
 
     out_dir = str(tmp_path_factory.mktemp("multiproc"))
+    twin_dir = str(tmp_path_factory.mktemp("multiproc_twin"))
     addr = f"127.0.0.1:{free_port()}"
     procs = spawn([[sys.executable, os.path.abspath(__file__), "--child",
                     addr, str(k), out_dir] for k in range(NPROC)],
@@ -305,7 +336,7 @@ def job(tmp_path_factory, one_thread):
         mesh = Mesh(["cpu"] * (NPROC * LOCAL))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            twin = {name: _run(name, mesh, x, y) for name in RUNS}
+            twin = {name: _run(name, mesh, x, y, twin_dir) for name in RUNS}
     finally:
         runs = collect(procs)
     for rc, out in runs:
@@ -336,15 +367,20 @@ def _same(a, b) -> bool:
 
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_two_processes_bitwise_one_process(children, twin, name):
-    """alpha, f, b, pairs and rounds of 2 processes x 2 shards are the
-    bits of one process driving 4 shards, in both processes."""
+    """alpha, f, b, pairs and rounds (a predict run: the decisions) of 2
+    processes x 2 shards are the bits of one process driving 4 shards,
+    in both processes."""
     procs, _ = children
     want = twin[name]
     for proc in procs:
         for key, val in want.items():
             assert _same(proc[f"{name}/{key}"], val), (name, key)
-    if name != "fused_fold":  # a budget-capped run
+    if "converged" in want and name != "fused_fold":  # a capped run
         assert bool(want["converged"])
+    if RUNS[name][0] == "stop":  # and resumed: the uninterrupted bits
+        assert 0 < int(want["stopped_at"]) < int(want["pairs"])
+        for key in ("alpha", "f", "b", "pairs", "rounds"):
+            assert _same(want[key], twin["ooc"][key]), key
 
 
 def test_the_job_spans_processes(children):
@@ -388,26 +424,44 @@ def test_two_process_checkpoint_resumes_in_one_process(children, one_thread,
 def test_two_processes_meet_jax_solve_mesh_contract(children):
     """The whole-solve contract of tests/test_torch_mesh_solve.py against
     the JAX package's solve_mesh on four forced host devices."""
+    _assert_jax_contract(children[0], "global_mvp", {})
+
+
+def test_two_process_ooc_meets_jax_solve_mesh_contract(children):
+    """The same contract out of core: the two-process mesh stream against
+    the JAX package's solve_mesh(ooc=True) on the same tiles."""
+    _assert_jax_contract(children[0], "ooc", OOC)
+
+
+def _assert_jax_contract(procs, name: str, knobs: dict) -> None:
     from dpsvm_tpu.config import SVMConfig as JaxConfig
     from dpsvm_tpu.parallel.dist_smo import solve_mesh as jax_solve_mesh
     from dpsvm_tpu_torch.ops.select import extrema_np
 
-    procs, _ = children
     x, y = _data()
-    rj = jax_solve_mesh(x, y, JaxConfig(**BASE), num_devices=4)
-    a = procs[0]["global_mvp/alpha"].astype(np.float64)
-    f = procs[0]["global_mvp/f"].astype(np.float64)
+    jcfg = JaxConfig(**{**BASE, **knobs})
+    assert jcfg.kernel != "sigmoid"  # C.42: not held to the contract
+    rj = jax_solve_mesh(x, y, jcfg, num_devices=4)
+    a = procs[0][f"{name}/alpha"].astype(np.float64)
+    f = procs[0][f"{name}/f"].astype(np.float64)
     aj = np.asarray(rj.alpha, np.float64)
     fj = np.asarray(rj.stats["f"], np.float64)
     obj = a.sum() - 0.5 * np.sum(a * y * (f + y))
     obj_j = aj.sum() - 0.5 * np.sum(aj * y * (fj + y))
-    assert rj.converged and bool(procs[0]["global_mvp/converged"])
+    assert rj.converged and bool(procs[0][f"{name}/converged"])
     assert abs(obj - obj_j) <= 1e-4 * abs(obj_j), (obj, obj_j)
     n_sv, n_sv_j = int(np.count_nonzero(a)), int(rj.n_sv)
     assert abs(n_sv - n_sv_j) <= 0.02 * n_sv_j, (n_sv, n_sv_j)
-    assert abs(float(procs[0]["global_mvp/b"]) - rj.b) <= 5e-3
+    assert abs(float(procs[0][f"{name}/b"]) - rj.b) <= 5e-3
     b_hi, b_lo = extrema_np(f, a, y, (BASE["c"], BASE["c"]))
     assert b_lo <= b_hi + 2 * BASE["epsilon"] + 1e-6
+
+
+def test_auto_backend_takes_the_mesh_for_an_ooc_job(children):
+    """train.py resolve_backend: "auto" in a job of two processes routes
+    a plain out-of-core request to the mesh stream."""
+    for proc in children[0]:
+        assert str(proc["auto_backend"]) == "mesh"
 
 
 P = NPROC * LOCAL
@@ -441,9 +495,8 @@ def test_psum_adds_in_global_rank_order(children):
 
 
 @pytest.mark.parametrize("name,marks", [
-    ("ooc", ("A.13a",)), ("warm_start", ("A.13b",)),
     ("ring_exchange", ("item 6",)), ("ring_runner", ("item 6",)),
-    ("predict_mesh", ("A.13c",)), ("unequal_ranks", ("[2, 1]",))])
+    ("unequal_ranks", ("[2, 1]",))])
 def test_refused_across_processes(children, name, marks):
     """What does not run across processes raises a ValueError naming its
     ROADMAP item (every process refuses alike)."""

@@ -5,23 +5,60 @@ written once by process 0 and equal to the one-process mesh's; a run log
 from process 0 whose manifest reads process_count 2; a job stopped at
 --max-iter and relaunched with --resume, bit for bit the one-process
 resume of the same checkpoint; the one-time retry warning; the CLI's
-refusals. Each process holds two CPU shards (--backend mesh
---num-devices 2 --device cpu); the one-process twins run four shards in
-this process with the children's one torch thread."""
+refusal of a one-device backend. The other paths of ``train`` run as
+jobs too, each bit for bit its one-process twin (the model file and
+process 0's score lines): ``-v 3``, ``-b 1``, ``--kernel precomputed``,
+a three-class OvR file and ``--ooc``. Each process holds two CPU shards
+(--backend mesh --num-devices 2 --device cpu); the one-process twins run
+four shards in this process with the children's one torch thread.
+
+The five path jobs share one spawn: each child (this file run as a
+script, ``--child``) runs them in turn through ``cli.main``, and each
+makes and leaves its own process group on a fresh port."""
 
 from __future__ import annotations
 
-import glob
 import json
 import os
-import shutil
 import sys
 
-import numpy as np
-import pytest
-import torch
+LEG_MARK = "=== leg "
 
-from test_torch_multiproc import free_port, spawn_pair
+
+def child_main(process_id: int, legs: list) -> int:
+    """Run each (name, argv, port) leg of the job as process
+    `process_id`, its output after a marker line."""
+    import torch
+
+    from dpsvm_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    for name, argv, port in legs:
+        print(f"{LEG_MARK}{name}", flush=True)
+        rc = cli.main([*argv, "--coordinator-address", f"127.0.0.1:{port}",
+                       "--num-processes", "2", "--process-id",
+                       str(process_id)])
+        print(f"{LEG_MARK}{name} exit {rc}", flush=True)
+        if rc != 0:
+            return rc
+    return 0
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--child"]:
+    sys.exit(child_main(int(sys.argv[2]), json.loads(sys.argv[3])))
+
+# ---------------------------------------------------------------------
+# The tests (pytest imports this module; the children never reach here).
+
+import glob  # noqa: E402
+import shutil  # noqa: E402
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from test_torch_multiproc import (collect, free_port, spawn,  # noqa: E402
+                                  spawn_pair)
 
 C, GAMMA, EPS, Q = "5", "0.1", "0.001", "16"
 STOP_AT = "300"
@@ -46,16 +83,23 @@ def _job(tmp, data, model, *extra) -> list:
     return runs
 
 
-def _one_process(tmp, data, model, *extra) -> None:
+def _one_process(tmp, data, model, *extra) -> str:
+    """The one-process twin through cli.main: its printed output."""
+    import contextlib
+    import io
+
     from dpsvm_tpu_torch import cli
 
     before = torch.get_num_threads()
     torch.set_num_threads(1)
+    out = io.StringIO()
     try:
-        assert cli.main(_train_argv(data, os.path.join(tmp, model),
-                                    "--num-devices", "4", *extra)) == 0
+        with contextlib.redirect_stdout(out):
+            assert cli.main(_train_argv(data, os.path.join(tmp, model),
+                                        "--num-devices", "4", *extra)) == 0
     finally:
         torch.set_num_threads(before)
+    return out.getvalue()
 
 
 @pytest.fixture(scope="module")
@@ -147,9 +191,6 @@ def test_stopped_job_resumes_like_one_process(job, k, tmp_path):
 
 @pytest.mark.parametrize("extra,why", [
     (["--backend", "single"], "--backend single runs in one process"),
-    (["-v", "3"], "A.13c"),
-    (["-b", "1"], "A.13c"),
-    (["--kernel", "precomputed"], "A.13c"),
 ])
 def test_cli_refuses_what_stays_in_one_process(tmp_path, capsys, extra, why):
     """Refused before any process group is made (no peer is needed)."""
@@ -160,3 +201,97 @@ def test_cli_refuses_what_stays_in_one_process(tmp_path, capsys, extra, why):
             "--process-id", "0", *extra]
     assert cli.main(argv) == 2
     assert why in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------
+# The other paths of `train` as jobs: name -> (data file, the flags,
+# the model file, the score lines process 0 prints).
+LEGS = {
+    "cv": ("train.csv", ["-v", "3"], None,
+           ("Cross Validation Accuracy",)),
+    "probability": ("train.csv", ["-b", "1"], "prob.npz",
+                    ("train accuracy", "platt calibration")),
+    "precomputed": ("gram.csv", ["--kernel", "precomputed"], "pre.npz",
+                    ("train accuracy",)),
+    "multiclass": ("mc.csv", ["--multiclass", "ovr"], "mc.npz",
+                   ("train accuracy",)),
+    "ooc": ("train.csv", ["--ooc", "--ooc-tile-rows", "24"], "ooc.npz",
+            ("train accuracy",)),
+}
+
+
+def _lines(out: str, prefixes) -> list:
+    return [ln for ln in out.splitlines() if ln.startswith(tuple(prefixes))]
+
+
+def _leg_outputs(out: str) -> dict:
+    """A child's output cut at the leg markers: name -> its lines."""
+    legs, name = {}, None
+    for line in out.splitlines(keepends=True):
+        if line.startswith(LEG_MARK):
+            name = None if " exit " in line else line[len(LEG_MARK):].strip()
+            if name is not None:
+                legs[name] = ""
+        elif name is not None:
+            legs[name] += line
+    return legs
+
+
+@pytest.fixture(scope="module")
+def legs(tmp_path_factory):
+    """Every LEGS job run by one spawn of two children (their outputs
+    per leg), and each leg's one-process twin, run here meanwhile."""
+    from dpsvm_tpu_torch.data import make_blobs_binary, save_csv
+    from dpsvm_tpu_torch.ops.kernels import KernelParams, kernel_matrix
+
+    tmp = str(tmp_path_factory.mktemp("multiproc_cli_legs"))
+    x, y = make_blobs_binary(n=160, d=8, seed=3, sep=1.2)
+    save_csv(os.path.join(tmp, "train.csv"), x, y)
+    xt = torch.as_tensor(x)
+    save_csv(os.path.join(tmp, "gram.csv"),
+             kernel_matrix(xt, xt, KernelParams("rbf", float(GAMMA))).numpy(),
+             y)
+    rng = np.random.default_rng(5)
+    label = np.arange(150) % 3
+    xm = (2.0 * rng.normal(size=(3, 8))[label]
+          + rng.normal(size=(150, 8))).astype(np.float32)
+    save_csv(os.path.join(tmp, "mc.csv"), xm, label)
+    spec = [(name, _train_argv(os.path.join(tmp, data),
+                               os.path.join(tmp, model or f"{name}.npz"),
+                               "--num-devices", "2", *flags), free_port())
+            for name, (data, flags, model, _) in LEGS.items()]
+    procs = spawn([[sys.executable, os.path.abspath(__file__), "--child",
+                    str(k), json.dumps(spec)] for k in range(2)], cwd=tmp)
+    twin_dir = os.path.join(tmp, "twin")
+    os.makedirs(twin_dir)
+    try:
+        twins = {name: _one_process(twin_dir, os.path.join(tmp, data),
+                                    model or f"{name}.npz", *flags)
+                 for name, (data, flags, model, _) in LEGS.items()}
+    finally:
+        runs = collect(procs)
+    for rc, out in runs:
+        assert rc == 0, out[-4000:]
+    return tmp, [_leg_outputs(out) for _, out in runs], twins
+
+
+@pytest.mark.parametrize("name", sorted(LEGS))
+def test_job_path_bitwise_one_process(legs, name):
+    """The job's model file (process 0's) and process 0's score lines
+    are the one-process twin's, bit for bit; process 1 prints no score
+    and names process 0 as the writer."""
+    tmp, outs, twins = legs
+    _, _, model, scores = LEGS[name]
+    want = _lines(twins[name], scores)
+    assert len(want) == len(scores), twins[name]
+    assert _lines(outs[0][name], scores) == want, outs[0][name]
+    assert _lines(outs[1][name], scores) == []
+    for out in outs:
+        assert "gloo process group" in out[name]
+    if model is None:  # -v writes no model
+        assert not os.path.exists(os.path.join(tmp, f"{name}.npz"))
+        return
+    assert f"model written to {os.path.join(tmp, model)}\n" in outs[0][name]
+    assert "by process 0" in outs[1][name]
+    assert _same_model(_model(os.path.join(tmp, model)),
+                       _model(os.path.join(tmp, "twin", model)))
