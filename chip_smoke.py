@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns [--package DIR] [--reps N]
     python3 chip_smoke.py --serve-profile
+    python3 chip_smoke.py --lint
 
 With no arguments it runs the phases below. --turns runs none of them: it
 times kernels B5 and B6 at the headline shapes and B2 and B3 at the
@@ -14,7 +15,8 @@ prints one JSON line (see turns()); --package DIR times the
 dpsvm_tpu_torch found in DIR instead of this checkout's, so an earlier
 commit unpacked there (git archive) and this one can be timed in turns on
 one card. --serve-profile runs none of the phases either: it prints where
-a serving dispatch spends its time (serve_profile).
+a serving dispatch spends its time (serve_profile). --lint builds the
+kernels and runs phase 41 alone.
 
 Phases, each printed on its own lines; any failure exits non-zero and no
 result line is printed:
@@ -152,14 +154,15 @@ result line is printed:
                 predictions within 0.1 of each other.
  15. cli     -- the headline through dpsvm_tpu_torch.cli.main: written as
                 a CSV file of its 60000 rows and a LIBSVM file of its
-                first 10000 (write times and sizes printed), each trained
+                first 2000 (write times and sizes printed), each trained
                 with --format auto (the CLI's parse time printed; the
                 native CSV parser must load): the same pairs and rounds as
                 the API model of the same rows, B1 once a round and
                 nothing else, the model file bitwise the API model; each
                 model tested with -o at
-                --precision float32 and float64 on the first 10000 rows:
-                the labels are the API model's decision signs;
+                --precision float32 and float64 on the first 10000 rows
+                (the LIBSVM model on its 2000): the labels are the API
+                model's decision signs;
  16. state   -- the plain headline observed in >= 8 chunks (bitwise the
                 unobserved run; both train_seconds printed), stopped by a
                 callback after chunk 3 with a checkpoint every chunk (two
@@ -355,14 +358,24 @@ result line is printed:
                 (h) -b 1, (i) -v 3 on rows 0-9999 and --kernel
                 precomputed on [cli multiclass]'s 2000-row Gram.
                 Every child has a hard limit and is killed on failure.
+ 41. lint    -- the structural linter's 25 manifest entries
+                (analysis/manifest.py) on cuda:0, the mesh entries on
+                Mesh([cuda:0] * 8): each unit's kernel calls,
+                collectives and host reads and each entry's dispatches
+                against the committed CPU budgets (analysis/budgets); the
+                kernel calls equal the wrappers' launch counts; every
+                synchronizing call set_sync_debug_mode("warn") reports is
+                a host read, host write or implicit sync the recorder
+                counted. ops, dtypes and memory printed beside the CPU's,
+                with the card's peak allocation per entry.
 
-Phases 3-38 (and --turns, --serve-profile) run with no device profile
-(DPSVM_AUTOTUNE_PROFILE=off, set for this process and its CLI
-subprocesses), so the committed profile cannot move their engines or
+Phases 3-38 and 40-41 (and --turns, --serve-profile, --lint) run with no
+device profile (DPSVM_AUTOTUNE_PROFILE=off, set for this process and its
+CLI subprocesses), so the committed profile cannot move their engines or
 launch counts.
 
 The second-to-last lines are the per-kernel JSON record (with each
-kernel's launches on phases 15-40 under "path_launches") and the card's
+kernel's launches on phases 15-41 under "path_launches") and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1770,11 +1783,12 @@ def phase_svr(x) -> dict:
 # ---- this slice's phases (15-18): the CLI and data surface, solver
 # state, reconstruction legs and the bf16 Gram gate
 
-# [cli]: the CLI's test files hold the first CLI_TEST_ROWS rows.
+# [cli]: the CLI's CSV test file holds the first CLI_TEST_ROWS rows.
 CLI_TEST_ROWS = 10_000
-# [cli]'s LIBSVM file: the headline's first rows (a depth cut; the reader
-# is a Python token loop, 0.77 ms a row).
-LIBSVM_ROWS = 10_000
+# [cli]'s LIBSVM files: the headline's first rows, for training and for
+# the tests (a depth cut; the reader is a Python token loop, 0.77 ms a
+# row).
+LIBSVM_ROWS = 2_000
 # [state]: 4 rounds a chunk at inner 512 (the headline's 77 rounds: 20
 # chunks); a checkpoint at every chunk, two generations kept; the abort
 # after chunk STATE_ABORT_CHUNK.
@@ -1883,9 +1897,9 @@ def phase_cli(x, y, head_model, head_res) -> dict:
     CLI model must be the API model of the same rows: the same pairs and
     rounds, B1 once a round and no other kernel, SV rows, coefficients
     and b bit for bit. Each is tested (-o) at --precision float32 and
-    float64 on the first CLI_TEST_ROWS rows: the labels must be the signs
-    of the API model's decisions at the same precision. Returns the
-    launch counts a run."""
+    float64 on the first CLI_TEST_ROWS rows (LIBSVM_ROWS for the LIBSVM
+    file): the labels must be the signs of the API model's decisions at
+    the same precision. Returns the launch counts a run."""
     from dpsvm_tpu_torch import SVMModel, SVMConfig, decision_function, train
     from dpsvm_tpu_torch.utils import native
 
@@ -1894,6 +1908,7 @@ def phase_cli(x, y, head_model, head_res) -> dict:
                                SVMConfig(**HEADLINE))
     refs = {"csv": (head_model, head_res, len(y)),
             "libsvm": (lib_model, lib_res, LIBSVM_ROWS)}
+    test_rows = {"csv": CLI_TEST_ROWS, "libsvm": LIBSVM_ROWS}
     files = {}
     for fmt, writer in (("csv", write_csv), ("libsvm", write_libsvm)):
         rows = refs[fmt][2]
@@ -1902,7 +1917,7 @@ def phase_cli(x, y, head_model, head_res) -> dict:
         t0 = time.perf_counter()
         writer(train_p, x[:rows], y[:rows])
         dt = time.perf_counter() - t0
-        writer(test_p, x[:CLI_TEST_ROWS], y[:CLI_TEST_ROWS])
+        writer(test_p, x[:test_rows[fmt]], y[:test_rows[fmt]])
         files[fmt] = (train_p, test_p)
         print(f"[cli] wrote {fmt} {rows} x {x.shape[1]}: "
               f"{os.path.getsize(train_p) / 2 ** 20:.1f} MiB in {dt:.2f}s",
@@ -1914,7 +1929,7 @@ def phase_cli(x, y, head_model, head_res) -> dict:
                      m.kernel)
         refs[fmt] = (m, r)
         want[fmt] = {prec: np.where(decision_function(
-            m, x[:CLI_TEST_ROWS], precision=prec) >= 0, 1, -1)
+            m, x[:test_rows[fmt]], precision=prec) >= 0, 1, -1)
             for prec in ("float32", "float64")}
     launches = {}
     for fmt, (train_p, test_p) in files.items():
@@ -4417,6 +4432,176 @@ MP_HEAD_ARGV = ["-c", "10", "-g", "0.125", "-e", "0.01",
 MP_NEXT_LEG = "--next-leg"  # separates the legs of one child's argv
 
 
+#: The manifest's kernel ids (analysis/op_facts.py) by wrapper name.
+LINT_IDS = {"solve_subproblem": "B1", "fold_select": "B2",
+            "select_rows": "B3", "gather_gram": "B4",
+            "fold_rows_select": "B5", "fused_update_select": "B6",
+            "ring_gather": "B7", "ring_fold_window": "B8"}
+
+
+def phase_lint(smi: str) -> dict:
+    """41. lint: the structural linter's 25 manifest entries
+    (dpsvm_tpu_torch/analysis/manifest.py) run on cuda:0, the mesh
+    entries on Mesh([cuda:0] * 8); each entry recorded once with its
+    facts dropped (first calls set libraries up), then each unit
+    recorded as on the CPU (analysis/extract.py extract_entries), the
+    synchronizing calls torch reports caught with their Python stacks
+    (printed for a violation). Gated per entry against the
+    committed CPU budget (analysis/budget.py check_entry, gated): every
+    unit's kernel calls (B1-B8), collectives, host reads and the
+    entry's dispatches. Per unit also: the kernel calls equal the
+    wrappers' .launches deltas, and every synchronizing call that
+    torch.cuda.set_sync_debug_mode("warn") reports is one the recorder
+    accounts for (host reads, host writes, implicit syncs). Printed, not
+    gated: ops, dtypes and memory on the CPU and on the card, and the
+    card's peak allocation per entry. Every violation is printed, then
+    the phase fails. Returns the launch counts of the recorded pass."""
+    import contextlib
+    import traceback
+    import warnings
+
+    import torch
+
+    from dpsvm_tpu_torch.analysis import budget
+    from dpsvm_tpu_torch.analysis.extract import extract_entries
+    from dpsvm_tpu_torch.analysis.manifest import MANIFEST
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    seen = {}  # unit name -> (launch deltas by id, sites of syncs)
+
+    @contextlib.contextmanager
+    def around(unit):
+        torch.cuda.synchronize()
+        before = read_counts()
+        sites = []  # each reported sync's Python call stack
+
+        def show(message, *rest):
+            # torch's own words (c10/cuda warn_or_error_on_sync); its
+            # one-time note that the mode is a prototype is not a sync.
+            if "called a synchronizing CUDA operation" in str(message):
+                sites.append(traceback.extract_stack()[:-1])
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        after = read_counts()
+        seen[unit.name] = ({LINT_IDS[k]: after[k] - before[k]
+                            for k in after}, sites)
+        for k in after:
+            total[k] += after[k] - before[k]
+
+    bad = []
+    total = {name: 0 for name in counters()}  # the recorded pass's
+    for name in MANIFEST:
+        # One pass first, its facts dropped: a process's first call of a
+        # kernel, a library or the recorder sets it up (the first
+        # recorded unit of a process reports one synchronize more), which
+        # is not the step's structure.
+        extract_entries(MANIFEST, [name], device=dev)
+        seen.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        facts = extract_entries(MANIFEST, [name], device=dev,
+                                around=around)[name]
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        res = budget.check_entry(name, facts, gated=True)
+        if res["verdict"] != budget.PASS:
+            bad.append(budget.drift_table([res]))
+        want = budget.load_budget(name)["facts"]["units"]
+        for unit, uf in facts["units"].items():
+            if "run_error" in uf:
+                bad.append(f"{name}/{unit}: raised {uf['run_error']}")
+                continue
+            launches, stacks = seen[unit]
+            syncs = len(stacks)
+            sites = [_site(st) for st in stacks]
+            calls = {k: v for k, v in uf["kernels"].items() if v}
+            if {k: v for k, v in launches.items() if v} != calls:
+                bad.append(f"{name}/{unit}: kernel calls {calls}, launches "
+                           f"{launches}")
+            tr = uf["transfers"]
+            accounted = (tr["host_reads"] + tr["host_writes"]
+                         + tr["implicit_syncs"])
+            if syncs > accounted:
+                bad.append(f"{name}/{unit}: {syncs} synchronizing calls "
+                           f"reported, {accounted} accounted for ({tr}); "
+                           "their stacks:\n" + "\n".join(
+                               "".join(traceback.format_list(st[-12:]))
+                               for st in stacks))
+            cpu = want.get(unit, {})
+            coll = {k: v["count"] for k, v in uf["collectives"].items()
+                    if v["count"]}
+            print(f"[lint] {name}/{unit}: {res['verdict']} kernels {calls} "
+                  f"collectives {coll} host_reads {tr['host_reads']} "
+                  f"(writes {tr['host_writes']}, implicit "
+                  f"{tr['implicit_syncs']}; syncs reported {syncs}"
+                  f"{' at ' + ', '.join(sorted(set(sites))) if sites else ''})"
+                  f" | ops "
+                  f"cpu {cpu.get('ops', {}).get('count')} card "
+                  f"{uf['ops']['count']} | dtypes cpu "
+                  f"{_nonzero(cpu.get('dtypes', {}))} card "
+                  f"{_nonzero(uf['dtypes'])} | memory cpu "
+                  f"{cpu.get('memory')} card {uf['memory']}", flush=True)
+        print(f"[lint] {name}: dispatches {facts['dispatches']}, "
+              f"{dt:.2f}s, peak {(peak - held) / 2 ** 20:.1f} MiB allocated "
+              f"over the {held / 2 ** 20:.1f} MiB held before ({smi})",
+              flush=True)
+    for line in bad:
+        print(f"[lint] FAIL {line}", flush=True)
+    if bad:
+        raise AssertionError(f"lint: {len(bad)} violations on the card")
+    print(f"[lint] {len(MANIFEST)}/{len(MANIFEST)} entrypoints within "
+          f"budget on {torch.cuda.get_device_name(0)}; launches {total}; "
+          f"phase {time.perf_counter() - t_phase:.2f}s ({smi})", flush=True)
+    return {"lint": total}
+
+
+def _site(stack) -> str:
+    """The innermost frame of a call stack outside the recorder."""
+    frames = [f for f in stack
+              if os.path.basename(f.filename) not in ("op_facts.py",
+                                                      "warnings.py")]
+    f = (frames or stack)[-1]
+    return f"{os.path.basename(f.filename)}:{f.lineno}"
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def lint_only() -> int:
+    """--lint: the device line, the kernel builds and phase 41 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from dpsvm_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    _build.build(SOURCES)
+    print(f"[build] {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    phase_lint(smi)
+    return 0
+
+
 def mp_child(argv: list) -> int:
     """One process of a multi-process job: each leg of `argv` (`cli
     train` argvs separated by MP_NEXT_LEG) in turn through `cli.main`
@@ -4465,9 +4650,21 @@ def mp_start(*legs) -> list:
                      "--num-processes", "2", "--process-id", str(k)]
         cmds.append([sys.executable, os.path.abspath(__file__),
                      "--cli-child", *argv])
-    return [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+    env = mp_env()
+    return [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
             for c in cmds]
+
+
+def mp_env() -> dict:
+    """A child's environment: this checkout first on PYTHONPATH and this
+    process's torch thread count, so a child and its one-process twin
+    here reduce alike (utils/hostenv.py child_env)."""
+    import torch
+
+    from dpsvm_tpu_torch.utils.hostenv import child_env
+
+    return child_env(ROOT, threads=torch.get_num_threads())
 
 
 def mp_kill(procs: list) -> None:
@@ -4667,7 +4864,7 @@ def phase_multiproc(x, y, cfg, mesh, mesh_a, ooc_mesh_res, x_mc,
     t_chk = time.perf_counter()
     chk = subprocess.Popen([sys.executable, "-m",
                             "dpsvm_tpu_torch.parallel.multihost_check",
-                            "--device", MP_DEVICE], cwd=ROOT,
+                            "--device", MP_DEVICE], cwd=ROOT, env=mp_env(),
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True)
     try:
@@ -5225,6 +5422,11 @@ def main() -> int:
                                  x_mc, y_mc))
     lap("multiproc")
 
+    # ---- 41. the structural linter's manifest on the card
+    print(f"[lint] {smi}", flush=True)
+    paths.update(phase_lint(smi))
+    lap("lint")
+
     meta = {
         "solve_subproblem": ("subproblem.cu",
                              "dpsvm_tpu/ops/pallas_subproblem.py:253"),
@@ -5737,6 +5939,8 @@ def cli() -> int:
                     help="with --turns: timed calls per reading")
     ap.add_argument("--serve-profile", action="store_true",
                     help="profile serving dispatches only (10 a reading)")
+    ap.add_argument("--lint", action="store_true",
+                    help="build the kernels and run phase 41 [lint] only")
     if sys.argv[1:2] == ["--cli-child"]:
         # A process of [multiproc]'s jobs: the profile stays off there too.
         os.environ["DPSVM_AUTOTUNE_PROFILE"] = "off"
@@ -5750,6 +5954,8 @@ def cli() -> int:
     os.environ["DPSVM_AUTOTUNE_PROFILE"] = "off"
     if args.serve_profile:
         return serve_profile(10)
+    if args.lint:
+        return lint_only()
     if not args.turns:
         return main()
     return turns(args.package, args.reps)

@@ -67,7 +67,7 @@ def _build_parser() -> argparse.ArgumentParser:
              "<path>` shows the last records of a stream; reads files "
              "only, no device")
     # `autotune ...` goes verbatim to autotune/__init__.py run_cli, and
-    # `lint ...` to _cmd_lint (threadlint).
+    # `lint ...` to _cmd_lint (the structural linter, or threadlint).
     sub.add_parser(
         "autotune", add_help=False,
         help="measured device profiling for the solvers' auto gates "
@@ -77,10 +77,13 @@ def _build_parser() -> argparse.ArgumentParser:
              "compares two")
     sub.add_parser(
         "lint", add_help=False,
-        help="threadlint: `lint --threads --check` diffs the threaded "
-             "modules' concurrency facts against the committed contracts "
-             "(analysis/contracts), `lint --threads --write-contracts` "
-             "regenerates them; host code only, no device")
+        help="`lint --check [--entries a,b] [--device cpu]` runs the hot "
+             "entrypoints one step each and diffs their ops, host reads, "
+             "collectives and kernel calls against the committed budgets "
+             "(analysis/budgets), `lint --write-budgets` regenerates them; "
+             "`lint --threads --check` diffs the threaded modules' "
+             "concurrency facts against analysis/contracts (threadlint), "
+             "`lint --threads --write-contracts` regenerates them")
     sub.add_parser(
         "learn", add_help=False,
         help="continuous-learning loop (learn.py): retrain each increment "
@@ -1645,14 +1648,13 @@ def _serve_listen(args, engine, stop_event=None) -> int:
 
 
 def _cmd_lint(argv: list) -> int:
-    """`lint --threads ...` runs threadlint with the rest of argv. The
-    JAX package's other mode, tpulint, checks XLA HLO budgets; the port
-    compiles no XLA program, so `lint` without --threads exits 2."""
+    """`lint --threads ...` runs threadlint with the rest of argv; `lint
+    ...` without it the structural linter (analysis/budget.py run_lint,
+    the JAX package's tpulint)."""
     if "--threads" not in argv:
-        print("error: the port has no XLA HLO to lint (tpulint is the JAX "
-              "package's); use `lint --threads --check` or `lint "
-              "--threads --write-contracts` (threadlint)", file=sys.stderr)
-        return 2
+        from dpsvm_tpu_torch.analysis.budget import run_lint
+
+        return run_lint(argv)
     from dpsvm_tpu_torch.analysis.threadlint import run_threadlint
 
     return run_threadlint([a for a in argv if a != "--threads"])

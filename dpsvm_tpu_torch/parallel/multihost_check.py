@@ -38,6 +38,8 @@ import socket
 import subprocess
 import sys
 
+from dpsvm_tpu_torch.utils.hostenv import child_env
+
 NPROC = 2
 CHILD_TIMEOUT_S = 240.0
 
@@ -215,9 +217,7 @@ def _spawn(args, port: int) -> tuple:
     killed on the way out."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env = child_env(root, threads=args.threads)
     cmd = [sys.executable, "-m", "dpsvm_tpu_torch.parallel.multihost_check",
            "--child", f"127.0.0.1:{port}", "--device", args.device,
            "--local", str(args.local), "--threads", str(args.threads)]

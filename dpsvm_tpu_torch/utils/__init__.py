@@ -1,1 +1,2 @@
-"""Host utilities: native bridges and solver checkpoints."""
+"""Host utilities: native bridges, solver checkpoints and the environment
+of child processes."""

@@ -684,11 +684,24 @@ def test_cli_autotune_run_show_diff(tmp_path, capsys):
     assert cli.main(["autotune", "show", bad]) == 2
 
 
-def test_cli_lint_threads_check_passes(capsys):
+def test_cli_lint_threads_check_passes(capsys, tmp_path):
     assert cli.main(["lint", "--threads", "--check"]) == 0
     assert "PASS" in capsys.readouterr().out
-    assert cli.main(["lint"]) == 2
-    assert "no XLA HLO" in capsys.readouterr().err
+    # Without --threads: the structural linter against its budgets.
+    assert cli.main(["lint", "--check", "--entries",
+                     "block_chunk_single"]) == 0
+    assert "1/1 entrypoints within budget" in capsys.readouterr().out
+    # A drifted budget in a temporary directory fails the check.
+    from dpsvm_tpu_torch.analysis import budget
+
+    doc = budget.load_budget("block_chunk_single")
+    doc["facts"]["units"]["chunk"]["kernels"]["B1"] += 1
+    budget.budget_path("block_chunk_single", tmp_path).write_text(
+        json.dumps(doc))
+    assert cli.main(["lint", "--check", "--entries", "block_chunk_single",
+                     "--budgets-dir", str(tmp_path)]) == 1
+    assert ("DRIFT block_chunk_single: units.chunk.kernels.B1"
+            in capsys.readouterr().out)
 
 
 def test_decision_table_and_stable_view_shape():

@@ -79,7 +79,9 @@ def test_scan_covers_the_package():
                 ("autotune", "probe.py"), ("autotune", "probes.py"),
                 ("autotune", "profile.py"), ("analysis", "__init__.py"),
                 ("analysis", "concurrency_facts.py"),
-                ("analysis", "threadlint.py")):
+                ("analysis", "threadlint.py"), ("analysis", "op_facts.py"),
+                ("analysis", "extract.py"), ("analysis", "manifest.py"),
+                ("analysis", "budget.py"), ("utils", "hostenv.py")):
         assert os.path.join("dpsvm_tpu_torch", *mod) in names
 
 

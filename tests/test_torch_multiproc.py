@@ -270,6 +270,8 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--child"]:
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from dpsvm_tpu_torch.utils.hostenv import child_env  # noqa: E402
+
 
 def free_port() -> int:
     with socket.socket() as s:
@@ -279,10 +281,7 @@ def free_port() -> int:
 
 def spawn(argvs, cwd) -> list:
     """Start one process per argv (collect() waits for them)."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    env["OMP_NUM_THREADS"] = "1"
+    env = child_env(ROOT, threads=1)
     return [subprocess.Popen(a, cwd=cwd, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
             for a in argvs]
@@ -363,6 +362,19 @@ def _same(a, b) -> bool:
     a, b = np.asarray(a), np.asarray(b)
     return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == \
         b.tobytes()
+
+
+def test_child_env_puts_the_root_first_and_pins_threads():
+    env = child_env("/repo", threads=3,
+                    base={"PYTHONPATH": os.pathsep.join(["/x", "/repo"]),
+                          "OMP_NUM_THREADS": "8", "KEEP": "1"})
+    assert env["PYTHONPATH"] == os.pathsep.join(["/repo", "/x"])
+    assert env["OMP_NUM_THREADS"] == "3" and env["KEEP"] == "1"
+    assert "OMP_NUM_THREADS" not in child_env("/repo", threads=None,
+                                              base={})
+    assert child_env("/repo", base={})["PYTHONPATH"] == "/repo"
+    with pytest.raises(ValueError, match="threads"):
+        child_env("/repo", threads=0)
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
