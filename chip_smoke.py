@@ -10,8 +10,9 @@ With no arguments it runs the phases below. --turns runs none of them: it
 times kernels B5 and B6 at the headline shapes and B2 and B3 at the
 headline's and covtype scale's rows on fixed seeded inputs, splits B2
 and B3's time by the stamps of a timing build of csrc/fold_select.cu,
-trains the headline with the fused fold and the pipelined engine, and
-prints one JSON line (see turns()); --package DIR times the
+trains the headline with the fused fold, the pipelined engine and the
+per-pair engines xla and pallas, and prints one JSON line (see
+turns()); --package DIR times the
 dpsvm_tpu_torch found in DIR instead of this checkout's, so an earlier
 commit unpacked there (git archive) and this one can be timed in turns on
 one card. --serve-profile runs none of the phases either: it prints where
@@ -24,8 +25,8 @@ result line is printed:
   1. device  -- the card's name and power limit (nvidia-smi); no CUDA
                 device is a failure;
   2. build   -- every kernel built from csrc/ with nvcc (subproblem.cu,
-                fold_select.cu, gather_gram.cu, fused_update.cu, ring.cu;
-                one nvcc each, in parallel), with each kernel's registers
+                fold_select.cu, gather_gram.cu, fused_update.cu, ring.cu,
+                cache_fill.cu; one nvcc each, in parallel), with each kernel's registers
                 and static shared memory from ptxas; the SASS of B4 and of
                 B8's fold (cuobjdump) must hold bf16 HMMAs for bfloat16 X
                 and 3 x 2 times as many tf32 HMMAs for float32 X (3xTF32);
@@ -83,16 +84,34 @@ result line is printed:
                 with the row cache (gram_resident=False, cache_lines=512),
                 "xla" with pair_batch=8, "xla" with second_order, and
                 "pallas": converged; no kernel launched but B6 on
-                "pallas", once per pair update. Then the xla and pallas
-                runs once more with the host time of their stages;
-  7. b6      -- kernel B6 against its plain version at the padded shape
+                "pallas", once a trip queued, and cache_fill on the cached
+                run, once a lookup; each prints its trips queued, host
+                reads (one a batch of smo.TRIPS trips, plus one a chunk)
+                and us a pair, and its active trips must be its pairs;
+                no trip makes a call that
+                torch.cuda.set_sync_debug_mode("warn") reports (on
+                while the runners queue trips, off for their one read a
+                batch).
+                The cached run's pairs are replayed on the host-keyed
+                cache rules: the same hits. Then the xla and pallas runs
+                once more with the host's enqueue time of their stages a
+                trip and its wait at each read;
+  7. b6, cache_fill -- kernel B6 against its plain version at the padded shape
                 (n_pad 65536) on the dot rows of a real pair at the start
                 point and at the per-pair headline's end state, rbf and
                 linear: f' within 2 ulps of the update's scale, extrema
                 and ids exactly those the plain reduction gives from the
                 kernel's own f'; kernel and plain times with L2 flushed,
                 beside the timer's launch floor, the launch plan and the
-                earlier design's time;
+                earlier design's time. Then cache_fill against its plain
+                version at 60000 x 784, float32 and bfloat16, in each
+                case of a lookup (both miss, either, both hit,
+                lookup_one's miss): computed rows within 2 d 2^-24 of
+                their sum of |products|, other lines untouched, repeat
+                launches bitwise; timed beside the plain version, the
+                bound and cuBLAS's row_dots. Then engine="xla" and
+                "pallas" on 16384 rows with smo.TRIPS = 1 and = 256:
+                alpha, f, pairs and b bitwise;
   8. ring    -- kernels B7 and B8 on logical shards of the card. B7
                 (ring_gather) at P = 2, 4, 8 on seeded (256, 792) blocks:
                 every rank's output bitwise torch.stack(blocks), twice in a
@@ -382,6 +401,7 @@ name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import glob
 import json
@@ -391,6 +411,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -421,7 +442,7 @@ EARLIER_US_PER_PAIR = {"mvp": 1.010, "nu": 1.434}
 MMA_KERNELS = (("gather_gram", "gather_gram_kernel"),
                ("ring", "ring_fold_kernel"))
 SOURCES = ("subproblem", "fold_select", "gather_gram", "fused_update",
-           "ring")
+           "ring", "cache_fill")
 
 HEADLINE = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=150_000,
                 engine="block", working_set_size=256, dtype="bfloat16")
@@ -503,10 +524,12 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 
 
 def counters() -> dict:
-    """Every kernel wrapper of the port by kernel name (B1-B8)."""
+    """Every kernel wrapper of the port by kernel name (B1-B8 and
+    cache_fill)."""
     from dpsvm_tpu_torch.ops import fold_select as fs
     from dpsvm_tpu_torch.ops import ring
     from dpsvm_tpu_torch.ops import round as rnd
+    from dpsvm_tpu_torch.ops.cache_fill import cache_fill
     from dpsvm_tpu_torch.ops.fused_update import fused_update_select
     from dpsvm_tpu_torch.ops.subproblem import solve_subproblem
 
@@ -516,7 +539,8 @@ def counters() -> dict:
             "fold_rows_select": rnd.fold_rows_select,
             "fused_update_select": fused_update_select,
             "ring_gather": ring.ring_gather,
-            "ring_fold_window": ring.ring_fold_window}
+            "ring_fold_window": ring.ring_fold_window,
+            "cache_fill": cache_fill}
 
 
 def reset_counts() -> None:
@@ -1035,53 +1059,157 @@ PER_PAIR = (("xla", dict(engine="xla")),
             ("xla second_order", dict(engine="xla",
                                       selection="second_order")),
             ("pallas", dict(engine="pallas")))
-# Their host-timed stages (module under dpsvm_tpu_torch, function).
+# Their host-timed stages (module under dpsvm_tpu_torch, function): the
+# host's enqueue of a trip's parts, and read_obs, where the host waits
+# for the device.
 PAIR_STAGES = {
-    "xla": (("solver.smo", "select_working_set"),
+    "xla": (("solver.smo", "pair_kernel_rows"),
             ("solver.smo", "apply_pair_update"),
+            ("solver.smo", "_advance"),
             ("solver.smo", "read_obs")),
     "pallas": (("solver.smo", "pallas_pair_update"),
                ("solver.smo", "pair_dots"),  # runs inside the stage above
                ("ops.fused_update", "fused_update_select"),
                ("solver.smo", "read_obs")),
 }
+# The device loop's bitwise check: these engines on the first
+# TRIPS_CHECK_ROWS rows, with smo.TRIPS = 1 and = 256.
+TRIPS_CHECK_ROWS = 16384
+
+
+def pair_launches(cfg, res) -> dict:
+    """The launches a per-pair solve must make: B6 once a trip queued on
+    engine="pallas" (masked trips too), cache_fill once a lookup (one a
+    trip, two on the second-order rule) with the row cache, nothing
+    else."""
+    expect = {k: 0 for k in counters()}
+    trips = res.stats["trips_queued"]
+    if cfg.engine == "pallas":
+        expect["fused_update_select"] = trips
+    if cfg.cache_lines and not res.stats["gram_resident"] \
+            and cfg.pair_batch == 1:
+        expect["cache_fill"] = trips * (
+            2 if cfg.selection == "second_order" else 1)
+    return expect
+
+
+def check_trips(label: str, res, k: int = 1) -> None:
+    """The device loop's accounting: every pair update is an active trip
+    (k pairs a micro trip) and the masked ones are fewer than a batch a
+    chunk; one host read a batch of TRIPS, plus the chunk's own."""
+    from dpsvm_tpu_torch.solver import smo
+
+    st = res.stats
+    trips, reads, chunks = st["trips_queued"], st["host_reads"], st["chunks"]
+    active = -(-res.iterations // k)
+    if not active <= trips < active + smo.TRIPS * chunks \
+            or reads > -(-trips // smo.TRIPS) + 2 * chunks:
+        raise AssertionError(f"per-pair {label}: {trips} trips queued, "
+                             f"{reads} host reads for {res.iterations} "
+                             f"pairs in {chunks} chunks")
+
+
+@contextlib.contextmanager
+def caught_syncs(sites: list):
+    """Append the Python call stack of every synchronizing call that
+    torch.cuda.set_sync_debug_mode("warn") reports inside the block to
+    `sites` (the caller switches the mode)."""
+    import warnings
+
+    def show(message, *rest):
+        # torch's own words (c10/cuda warn_or_error_on_sync); its
+        # one-time note that the mode is a prototype is not a sync.
+        if "called a synchronizing CUDA operation" in str(message):
+            sites.append(traceback.extract_stack()[:-1])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        yield sites
+
+
+@contextlib.contextmanager
+def syncs_in_trips():
+    """caught_syncs with the mode on while the per-pair runners queue
+    their trips (smo.queue_trips) and off for the runners' one read a
+    batch (smo.read_obs) and outside the runners (staging, the chunk
+    loop's read, the finish). Yields the list of stacks."""
+    import torch
+
+    from dpsvm_tpu_torch.solver import smo
+
+    orig = (smo.queue_trips, smo.read_obs)
+
+    def switched(fn, on, off):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode(on)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(off)
+        return run
+
+    smo.queue_trips = switched(orig[0], "warn", 0)
+    smo.read_obs = switched(orig[1], 0, "warn")
+    try:
+        with caught_syncs([]) as sites:
+            yield sites
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        smo.queue_trips, smo.read_obs = orig
 
 
 def train_pair_counted(x, y, cfg, label: str) -> tuple:
     """Train a per-pair engine with every launch count set to 0 just
-    before and read just after: it must converge, and launch B6 once per
-    pair update on engine="pallas" and no kernel at all otherwise.
-    Returns (model, result, counts)."""
+    before and read just after: it must converge, launch B6 once a trip
+    queued on engine="pallas" and cache_fill once a lookup with the row
+    cache, and nothing else; its trips and host reads are the device
+    loop's (check_trips); and no trip synchronizes with the host
+    (syncs_in_trips). Returns (model, result, counts)."""
     from dpsvm_tpu_torch import train
 
     reset_counts()
-    model, res = train(x, y, cfg)
+    with syncs_in_trips() as sites:
+        model, res = train(x, y, cfg)
     counts = read_counts()
-    expect = {k: 0 for k in counts}
-    if cfg.engine == "pallas":
-        expect["fused_update_select"] = res.iterations
+    expect = pair_launches(cfg, res)
     st = res.stats
     print(f"[perpair] {label}: converged={res.converged} "
-          f"pairs={res.iterations} train_seconds={res.train_seconds:.4f} "
+          f"pairs={res.iterations} trips_queued={st['trips_queued']} "
+          f"host_reads={st['host_reads']} "
+          f"train_seconds={res.train_seconds:.4f} "
           f"us_per_pair={1e6 * res.train_seconds / max(res.iterations, 1):.2f}"
           f" gram_resident={st['gram_resident']} cache_lookups="
           f"{st['cache_lookups']} cache_hit_rate={st['cache_hit_rate']:.4f} "
-          f"n_sv={res.n_sv} b={res.b:.6f} launches={counts}", flush=True)
+          f"n_sv={res.n_sv} b={res.b:.6f} launches={_nonzero(counts)} "
+          f"syncs_inside_trips={len(sites)}", flush=True)
+    if sites:
+        print(f"[perpair] {label}: first synchronizing call inside a "
+              "trip:\n" + "".join(traceback.format_list(sites[0][-8:])),
+              flush=True)
+        raise AssertionError(f"per-pair {label}: {len(sites)} "
+                             "synchronizing calls inside its trips")
     if not res.converged:
         raise AssertionError(f"per-pair {label} solve did not converge")
     if counts != expect:
         raise AssertionError(f"per-pair {label}: launches {counts}, "
                              f"expected {expect}")
+    check_trips(label, res, cfg.pair_batch)
     return model, res, counts
 
 
 def phase_pair_stages(x, y, cfg, stages, label: str) -> dict:
     """Solve once more with the per-pair loop's stage functions timed on
-    the host clock (the loop reads its observations once a trip, so
-    read_obs holds the wait for the device). Prints each stage's host
-    ms per pair update and share of train_seconds (a stage called from
-    inside another is part of that one's time too); the rest is the
-    loop's own Python and small ops. Returns {stage: ms per pair}."""
+    the host clock. The loop queues its trips on the device and reads
+    the host once a batch of smo.TRIPS trips, so a stage's time is the
+    host's ENQUEUE of that part of a trip (the device runs it later),
+    and read_obs holds the host's WAIT for the device at each read.
+    Prints each enqueue stage's host us a trip queued and share of
+    train_seconds (a stage called from inside another is part of that
+    one's time too), and the wait: its seconds, ms a read and share; the
+    rest is the loop's own Python. Returns {stage: us a trip, and the
+    wait's ms a read}."""
     import importlib
 
     from dpsvm_tpu_torch import train
@@ -1109,13 +1237,180 @@ def phase_pair_stages(x, y, cfg, stages, label: str) -> dict:
             setattr(mods[m], name, fn)
     if not res.converged:
         raise AssertionError(f"stage-timed {label} solve did not converge")
-    pairs = res.iterations
-    print(f"[pair stages] {label}: pairs={pairs} "
-          f"train_seconds={res.train_seconds:.4f} | " + " ".join(
-              f"{k}={1e3 * v / pairs:.4f}ms"
-              f"({100 * v / res.train_seconds:.1f}%)"
-              for k, v in spent.items()), flush=True)
-    return {k: 1e3 * v / pairs for k, v in spent.items()}
+    trips = res.stats["trips_queued"]
+    # The runners' reads (the chunk loop's own read follows a sync).
+    reads = res.stats["host_reads"] - res.stats["chunks"]
+    wait = spent.pop("read_obs")
+    ts = res.train_seconds
+    print(f"[pair stages] {label}: pairs={res.iterations} trips_queued="
+          f"{trips} batch_reads={reads} train_seconds={ts:.4f} | enqueue "
+          "us a trip: " + " ".join(
+              f"{k}={1e6 * v / trips:.1f}({100 * v / ts:.1f}%)"
+              for k, v in spent.items())
+          + f" | wait at reads: {wait:.4f}s, {1e3 * wait / reads:.3f}ms a "
+          f"read ({100 * wait / ts:.1f}%)", flush=True)
+    return {**{k: 1e6 * v / trips for k, v in spent.items()},
+            "read_wait_ms": 1e3 * wait / reads}
+
+
+def capture_pairs(smo_mod) -> tuple:
+    """Wrap smo.lookup_pair so each lookup also keeps its (i_hi, i_lo,
+    active) on the device (no host read). Returns (restore(), read())
+    where read() pulls the active trips' pairs in one copy."""
+    import torch
+
+    kept = []
+    orig = smo_mod.lookup_pair
+
+    def hooked(cache, x, i_hi, i_lo, it, active):
+        kept.append(torch.stack([i_hi, i_lo, active.long()]))
+        return orig(cache, x, i_hi, i_lo, it, active)
+
+    smo_mod.lookup_pair = hooked
+
+    def restore():
+        smo_mod.lookup_pair = orig
+
+    def read():
+        trips = torch.stack(kept).cpu().numpy()
+        return trips[trips[:, 2] == 1, :2]
+
+    return restore, read
+
+
+def host_rule_hits(pairs, lines: int) -> int:
+    """The hits of the pair sequence on the host-keyed cache's rules
+    (solver/cache.py _pair_slots / _pair_stamp: the per-pair cache's
+    rules before it moved to the device)."""
+    from dpsvm_tpu_torch.solver import cache as tcache
+
+    hc = tcache.init_host_cache(lines, 0, "cpu")
+    hits = 0
+    for it, (i_hi, i_lo) in enumerate(pairs.tolist()):
+        hits += tcache._pair_stamp(hc, i_hi, i_lo,
+                                   tcache._pair_slots(hc, i_hi, i_lo), it)
+    return hits
+
+
+def phase_cache_fill(xs: dict, reps: int) -> dict:
+    """7b. Kernel cache_fill against its plain version at the headline's
+    X (60000 x 784), float32 and bfloat16, in each case of a lookup:
+    both rows miss, either one, both hit, and lookup_one's miss. Each
+    computed row within 2 d 2^-24 of its sum of |products| (another
+    order than cuBLAS's), the other lines bitwise untouched, two launches
+    the same bits. Timed (X exceeds L2) beside the plain version, the
+    bound (X read once, the computed rows written once) and cuBLAS's
+    row_dots over the same queries. Returns the JSON record's fields:
+    the bfloat16 double miss (the per-pair headline's case) timed, the
+    largest error over every case."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import cache_fill as cf
+    from dpsvm_tpu_torch.ops.kernels import row_dots
+
+    cases = {"double_miss": ([1, 1, 0], [1, 4]), "hi_miss": ([1, 0, 0],
+                                                             [1, 4]),
+             "lo_miss": ([0, 1, 0], [1, 4]), "both_hit": ([0, 0, 0],
+                                                          [1, 4]),
+             "one_miss": ([1], [3])}
+    worst = 0.0
+    rec = {}
+    for dname, x in xs.items():
+        n, d = x.shape
+        dev = x.device
+        on = functools.partial(torch.tensor, device=dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        store0 = torch.randn((6, n), generator=g, device=dev)
+        xf = x.float()
+        for cname, (flags, dest) in cases.items():
+            k = len(dest)
+            ids = on([17, 2 * n // 3][:k], dtype=torch.int64)
+            args = (ids, on(dest, dtype=torch.int64),
+                    on(flags, dtype=torch.bool))
+            want = store0.clone()
+            cf._cache_fill(x, want, *args)
+            got, again = store0.clone(), store0.clone()
+            cf.cache_fill(x, got, *args)
+            cf.cache_fill(x, again, *args)
+            torch.cuda.synchronize()
+            computed = [dest[r] for r in range(k) if flags[r]]
+            untouched = all(torch.equal(got[i], store0[i])
+                            for i in range(6) if i not in computed)
+            err = 0.0
+            within = True
+            for r in range(k):
+                if not flags[r]:
+                    continue
+                scale = (xf.abs() @ xf[int(ids[r])].abs()).double()
+                diff = (got[dest[r]].double() - want[dest[r]].double()).abs()
+                within &= bool((diff <= 2 * d * 2.0 ** -24 * scale).all())
+                err = max(err, float(diff.max()))
+            worst = max(worst, err)
+            same = torch.equal(got, again)
+            print(f"[cache_fill] {dname} {cname}: max|d row|={err:.3g} "
+                  f"within 2 d 2^-24 sum|q x|={within} other lines "
+                  f"untouched={untouched} repeat bitwise={same} plan "
+                  f"{tuple(cf.cache_fill_plan(x))}", flush=True)
+            if not (within and untouched and same):
+                raise AssertionError(f"cache_fill {dname} {cname}")
+            rows = sum(flags[:k])
+            ms = time_ms(functools.partial(cf.cache_fill, x, got, *args),
+                         reps)
+            plain_ms = time_ms(functools.partial(cf._cache_fill, x, got,
+                                                 *args), reps)
+            lib = None
+            if rows:
+                q = x.index_select(0, ids[[r for r in range(k)
+                                           if flags[r]]])
+                lib = time_ms(functools.partial(row_dots, x, q), reps)
+            b_ms, b_by = bound(rows and (x.numel() * x.element_size()
+                                         + 4 * rows * n),
+                               2.0 * rows * n * d, F32_FLOPS)
+            print(f"[cache_fill] timed {dname} {cname}: ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
+                  f"(row_dots: cuBLAS)", flush=True)
+            if (dname, cname) == ("bfloat16", "double_miss"):
+                rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib)
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def phase_trips_bitwise(x, y, cfg) -> None:
+    """7c. The device loop on the card: engine="xla" (on the resident
+    Gram at this size) and "pallas" on the first TRIPS_CHECK_ROWS rows,
+    solved with smo.TRIPS = 1 (a host read every trip) and = 256: the
+    same alpha, f, pairs and b, bit for bit."""
+    from dpsvm_tpu_torch.solver import smo
+    from dpsvm_tpu_torch.solver.solve import solve
+
+    xs, ys = x[:TRIPS_CHECK_ROWS], y[:TRIPS_CHECK_ROWS]
+    keep = smo.TRIPS
+    try:
+        for eng in ("xla", "pallas"):
+            out = {}
+            for trips in (1, 256):
+                smo.TRIPS = trips
+                out[trips] = solve(xs, ys, cfg.replace(engine=eng))
+            a, b = out[1], out[256]
+            same = (np.array_equal(a.alpha.view(np.int32),
+                                   b.alpha.view(np.int32))
+                    and np.array_equal(a.stats["f"].view(np.int32),
+                                       b.stats["f"].view(np.int32))
+                    and a.iterations == b.iterations and a.b == b.b)
+            print(f"[perpair] TRIPS 1 vs 256, {eng} on {TRIPS_CHECK_ROWS} "
+                  f"rows: pairs {a.iterations} / {b.iterations}, trips "
+                  f"{a.stats['trips_queued']} / {b.stats['trips_queued']}, "
+                  f"host reads {a.stats['host_reads']} / "
+                  f"{b.stats['host_reads']}, train_seconds "
+                  f"{a.train_seconds:.4f} / {b.train_seconds:.4f}; bitwise "
+                  f"(alpha, f, pairs, b): {same}", flush=True)
+            if not (same and a.converged and b.converged):
+                raise AssertionError(f"[perpair] {eng}: TRIPS 1 and 256 "
+                                     "differ")
+    finally:
+        smo.TRIPS = keep
 
 
 def phase_b6(x, y, valid, states: dict, c, tau, reps: int) -> dict:
@@ -1144,8 +1439,11 @@ def phase_b6(x, y, valid, states: dict, c, tau, reps: int) -> dict:
             i_hi, b_hi, i_lo, b_lo = select_working_set(f, alpha, y, c, valid)
             (ih, il), _ = read_obs((i_hi, i_lo))
             a = alpha.clone()
-            d_hi, d_lo, sc, _ = pallas_pair_update(
-                x, y, x_sq, kp, c, tau, None, a, ih, il, b_hi, b_lo, 0)
+            d2, sc, _ = pallas_pair_update(
+                x, y, x_sq, kp, c, tau, None, a, i_hi, i_lo, b_hi, b_lo,
+                torch.zeros((), dtype=torch.int64, device=y.device),
+                torch.ones((), dtype=torch.bool, device=y.device))
+            d_hi, d_lo = d2[0], d2[1]
             args = (f.view(shp), a.view(shp), y2d, valid2d, d_hi.view(shp),
                     d_lo.view(shp), x_sq2d, sc, kp, c)
             got = fu.fused_update_select(*args)
@@ -1798,7 +2096,8 @@ STATE_MIN_CHUNKS = 8
 # The oracle-configuration runs of [state], chunked, stopped after chunk
 # 3 and resumed: (label, knobs, kernel -> launches over both calls from
 # (n, chunks)); n is the outer rounds on the block engines (16 a chunk),
-# the pairs on pallas (1024 a chunk). The fused fold seeds each chunk
+# the trips queued on pallas (B6 once a trip; 1024 a chunk, which ends
+# on its budget with no masked trip). The fused fold seeds each chunk
 # with a plain selection; the pipelined engine with one B3 prefetch.
 STATE_ORACLE = (
     ("fused_fold", dict(fused_fold=True, chunk_iters=8192),
@@ -2110,7 +2409,8 @@ def phase_state(x, y, cfg, head_res, mesh, oracle, sk_dec) -> dict:
         counts = read_counts()
         launches[f"state {label}"] = counts
         n_run = (ores.stats["outer_rounds"] if "outer_rounds" in ores.stats
-                 else ores.iterations)
+                 else part.stats["trips_queued"]
+                 + ores.stats["trips_queued"])
         n_chunks = part.stats["chunks"] + ores.stats["chunks"]
         expect = {k: want.get(k, lambda n, c: 0)(n_run, n_chunks)
                   for k in counts}
@@ -4456,9 +4756,6 @@ def phase_lint(smi: str) -> dict:
     gated: ops, dtypes and memory on the CPU and on the card, and the
     card's peak allocation per entry. Every violation is printed, then
     the phase fails. Returns the launch counts of the recorded pass."""
-    import contextlib
-    import traceback
-    import warnings
 
     import torch
 
@@ -4475,16 +4772,7 @@ def phase_lint(smi: str) -> dict:
         torch.cuda.synchronize()
         before = read_counts()
         sites = []  # each reported sync's Python call stack
-
-        def show(message, *rest):
-            # torch's own words (c10/cuda warn_or_error_on_sync); its
-            # one-time note that the mode is a prototype is not a sync.
-            if "called a synchronizing CUDA operation" in str(message):
-                sites.append(traceback.extract_stack()[:-1])
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = show
+        with caught_syncs(sites):
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 yield
@@ -4493,7 +4781,7 @@ def phase_lint(smi: str) -> dict:
         torch.cuda.synchronize()
         after = read_counts()
         seen[unit.name] = ({LINT_IDS[k]: after[k] - before[k]
-                            for k in after}, sites)
+                            for k in LINT_IDS}, sites)
         for k in after:
             total[k] += after[k] - before[k]
 
@@ -5240,11 +5528,36 @@ def main() -> int:
     print(f"[perpair] warm-up solves on 16384 rows in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     pair_res = {}
+    from dpsvm_tpu_torch.solver import smo as smo_mod
+
     for label, kw in PER_PAIR:
-        _, pres, counts = train_pair_counted(x, y, cfg.replace(**kw), label)
+        cached = bool(kw.get("cache_lines"))
+        if cached:  # its pairs, to replay on the host-keyed rules
+            restore, read_pairs = capture_pairs(smo_mod)
+        try:
+            _, pres, counts = train_pair_counted(x, y, cfg.replace(**kw),
+                                                 label)
+        finally:
+            if cached:
+                restore()
         pair_res[label] = pres
         if label == "pallas":
             launches["fused_update_select"] = counts["fused_update_select"]
+        if cached:
+            launches["cache_fill"] = counts["cache_fill"]
+            pairs = read_pairs()
+            host_hits = host_rule_hits(pairs, kw["cache_lines"])
+            lookups = pres.stats["cache_lookups"]
+            print(f"[perpair] {label}: device-resident cache "
+                  f"{pres.stats['cache_hits']} hits of {lookups} lookups (rate "
+                  f"{pres.stats['cache_hit_rate']:.4f}); the same run's "
+                  f"{len(pairs)} pairs on the host-keyed rules: "
+                  f"{host_hits} hits (rate {host_hits / lookups:.4f})",
+                  flush=True)
+            if len(pairs) != pres.iterations \
+                    or host_hits != pres.stats["cache_hits"]:
+                raise AssertionError(f"[perpair] {label}: the device cache's"
+                                     " hits are not the host rules'")
     if not pair_res["xla"].stats["gram_resident"]:
         raise AssertionError("engine='xla' did not run on the resident Gram "
                              "at 60000 rows")
@@ -5266,8 +5579,12 @@ def main() -> int:
          "perpair_end": (pad_rows(a_pp, n_pad6, 0.0),
                          pad_rows(f_pp, n_pad6, -1.0))},
         c, tau, reps=20)
+    rec["cache_fill"] = phase_cache_fill(
+        {"float32": torch.as_tensor(x, device=dev), "bfloat16": x_dev},
+        reps=20)
+    phase_trips_bitwise(x, y, cfg)
 
-    lap("per-pair engines, B6")
+    lap("per-pair engines, B6, cache_fill")
 
     # ---- 8. the ring kernels on logical shards
     rec["ring_gather"] = phase_ring_gather(dev, reps=20)
@@ -5441,6 +5758,9 @@ def main() -> int:
                                 "dpsvm_tpu/ops/pallas_fused.py:105"),
         "ring_gather": ("ring.cu", "dpsvm_tpu/ops/ring.py:139"),
         "ring_fold_window": ("ring.cu", "dpsvm_tpu/ops/ring.py:241"),
+        # Not a TPU kernel: the device form of the cache's hit/miss branch.
+        "cache_fill": ("cache_fill.cu",
+                       "dpsvm_tpu/solver/cache.py:49 lookup_pair"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -5735,28 +6055,34 @@ def turns_b23_plans(fs, rows: int, dev, reps: int) -> dict:
 
 # The engines --turns trains on the headline (B2 and B3's main paths).
 TURNS_ENGINES = ("fused_fold", "pipeline_rounds")
+# The per-pair engines timed in turns too (engine=...).
+TURNS_PAIR = ("xla", "pallas")
 
 
 def turns_engines(rec: dict, solves: int = 3) -> None:
     """The headline (60000 x 784, HEADLINE) trained through the package's
-    train() with each of TURNS_ENGINES, after a warm-up solve of each on
-    16384 rows: `solves` solves an engine, the engines alternating, each
-    solve's train_seconds, pairs and rounds added to `rec`."""
+    train() with each of TURNS_ENGINES and with the per-pair engines of
+    TURNS_PAIR, after a warm-up solve of each on 16384 rows: `solves`
+    solves an engine, the engines alternating, each solve's
+    train_seconds and pairs (rounds on the block engines) added to
+    `rec`."""
     from dpsvm_tpu_torch import SVMConfig, train
     from dpsvm_tpu_torch.data.synth import make_mnist_like
 
     x, y = make_mnist_like(n=60_000, d=784, seed=7, noise=0.1)
     cfg = SVMConfig(**HEADLINE)
-    for knob in TURNS_ENGINES:
-        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **{knob: True}))
-    for knob in TURNS_ENGINES:
-        rec[f"{knob}_train_seconds"] = []
+    runs = {**{knob: {knob: True} for knob in TURNS_ENGINES},
+            **{eng: {"engine": eng} for eng in TURNS_PAIR}}
+    for name, kw in runs.items():
+        train(x[:16384], y[:16384], cfg.replace(max_iter=2048, **kw))
+        rec[f"{name}_train_seconds"] = []
     for _ in range(solves):
-        for knob in TURNS_ENGINES:
-            _, res = train(x, y, cfg.replace(**{knob: True}))
-            rec[f"{knob}_train_seconds"].append(res.train_seconds)
-            rec[f"{knob}_pairs"] = res.iterations
-            rec[f"{knob}_rounds"] = res.stats["outer_rounds"]
+        for name, kw in runs.items():
+            _, res = train(x, y, cfg.replace(**kw))
+            rec[f"{name}_train_seconds"].append(res.train_seconds)
+            rec[f"{name}_pairs"] = res.iterations
+            if "outer_rounds" in res.stats:
+                rec[f"{name}_rounds"] = res.stats["outer_rounds"]
 
 
 def turns(package, reps: int) -> int:
@@ -5768,8 +6094,8 @@ def turns(package, reps: int) -> int:
     compensated at each of B23_ROWS behind both flushes, warm and in the
     pair each forms with the kernel ahead of it, with their bytes bound
     and the wrapper's host us a call (host_us); then the headline's
-    train_seconds with the fused fold and the pipelined engine
-    (turns_engines). For this checkout's package it also times the plans
+    train_seconds with the fused fold, the pipelined engine and the
+    per-pair engines xla and pallas (turns_engines). For this checkout's package it also times the plans
     of B6_THREADS, B5_PLANS and B23_WARPS in two passes, the second in
     the reverse order, each checked against the kept plan (B6, B2 and B3
     bitwise; B5 within its tolerance, candidates bitwise), and splits B2

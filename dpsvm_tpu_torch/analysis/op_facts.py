@@ -108,6 +108,18 @@ def kernel_wrappers() -> dict:
             "B8": ring.ring_fold_window}
 
 
+def _hooked_kernels() -> dict:
+    """{id: wrapper} of every hooked kernel: the eight, and cache_fill
+    (ops/cache_fill.py, the per-pair row cache's fill, which replaces a
+    branch and no TPU kernel). A call of any of them is one fact and
+    nothing inside it is recorded (on the CPU cache_fill's plain version
+    reads its flags there); the ``kernels`` family reports the eight, the
+    JAX manifest's, and no manifest entry runs cache_fill."""
+    from dpsvm_tpu_torch.ops.cache_fill import cache_fill
+
+    return {**kernel_wrappers(), "cache_fill": cache_fill}
+
+
 def _collectives() -> dict:
     """{function: collective kind} of the hooked collectives."""
     import torch.distributed as dist
@@ -506,7 +518,7 @@ class _Hooks:
         if self.installed:
             return
         mon = sys.monitoring
-        for kid, fn in kernel_wrappers().items():
+        for kid, fn in _hooked_kernels().items():
             self.codes[fn.__code__] = ("kernel", kid)
         for fn, kind in _collectives().items():
             self.codes[fn.__code__] = ("coll", kind)

@@ -85,7 +85,7 @@ from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh, pad_rows,
                                            shard_padded_rows, unshard)
 from dpsvm_tpu_torch.solver import chunks
 from dpsvm_tpu_torch.solver.block import autotune_gate_resolver, scatter_alpha
-from dpsvm_tpu_torch.solver.cache import (CacheState, init_cache,
+from dpsvm_tpu_torch.solver.cache import (CacheState, init_host_cache,
                                           lookup_one_sharded,
                                           lookup_pair_sharded)
 from dpsvm_tpu_torch.solver.result import SolveResult
@@ -707,7 +707,7 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
         cache_lines = min(config.cache_lines, n_loc)
         cache = None
         if cache_lines > 0:
-            cache = init_cache(cache_lines, 0, "cpu")  # keys and ticks
+            cache = init_host_cache(cache_lines, 0, "cpu")  # keys, ticks
             cache.data = [torch.zeros((cache_lines, n_loc),
                                       dtype=torch.float32, device=dv)
                           for dv in mesh.devices]

@@ -91,7 +91,8 @@ from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                          warn_if_bf16_degrades)
 from dpsvm_tpu_torch.ops.select import refresh_extrema_host, shrink_view
 from dpsvm_tpu_torch.solver import block, chunks
-from dpsvm_tpu_torch.solver.cache import init_cache, probe_rows, refresh_rows
+from dpsvm_tpu_torch.solver.cache import (init_host_cache, probe_rows,
+                                          refresh_rows)
 from dpsvm_tpu_torch.solver.result import SolveResult
 from dpsvm_tpu_torch.solver.smo import (gap_open, maybe_kahan,
                                         run_with_fault_retry)
@@ -344,7 +345,7 @@ def _solve_ooc_impl(x, y, config: SVMConfig, callback, dev, checkpoint_path,
     f = torch.as_tensor(start.f, device=dev)
     f_err = (None if start.f_err is None
              else torch.as_tensor(start.f_err, device=dev))
-    cache = init_cache(lines, n, dev) if use_cache else None
+    cache = init_host_cache(lines, n, dev) if use_cache else None
 
     c = config.c_bounds()
     eps_run = _BUDGET_EPS if config.budget_mode else float(config.epsilon)

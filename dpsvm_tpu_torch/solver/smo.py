@@ -8,16 +8,20 @@ elementwise steps agree bit for bit on identical float32 inputs. Where
 XLA contracts a multiply and an add into one fused multiply-add (the
 rank-2 gradient update under jit), the port does too (fma32).
 
-The per-pair loop. JAX runs it as one lax.while_loop on the device; here
-the host drives it, one trip per pair update (pair_batch pairs on the
-micro path), and reads each trip's observations -- the pair ids and the
-extrema the loop condition tests -- in ONE small device-to-host copy
-(read_obs). With the ids on the host, a kernel row is a view (x[i], a
-row of the resident Gram), the row cache decides hits on the host, and
-the condition ``it < max_iter and b_lo > b_hi + 2 eps`` is evaluated
-there in float32, so the loop makes as many trips as JAX's cond. The
-second-order rule needs its second id before it can fetch the second row,
-so its trip reads twice.
+The per-pair loop. JAX runs a chunk as one lax.while_loop on the
+device, and so does the port, as far as eager torch can: every trip
+(one pair update; pair_batch pairs on the micro path) is queued on the
+solve's device with no host read inside it. The pair ids, the carried
+extrema, the pair and hit counters, the row cache's keys and ticks
+(solver/cache.py) and the loop's condition ``it < end and b_lo > b_hi +
+2 eps`` (float32, trip_active) all stay there; kernel rows are taken
+with index_select. The host queues TRIPS trips, reads (it, b_hi, b_lo,
+the stop flag) once, and repeats until the chunk's end or a closed gap
+(queue_trips). A trip queued after the stop is masked: every write it
+makes is gated with torch.where (as solver/fleet.py masks its frozen
+problems), so it leaves alpha, f, f_err, the extrema, the counters and
+the cache bit for bit as they were, and the loop's result does not
+depend on TRIPS.
 """
 
 from __future__ import annotations
@@ -123,19 +127,29 @@ def pair_alpha_update(a_hi_old, a_lo_old, y_hi, y_lo, b_hi_pair, b_lo_pair,
 # ---------------------------------------------------------------------
 # The per-pair engines.
 
+#: Trips a per-pair runner queues between two host reads. A trip queued
+#: after the loop's stop is masked and changes nothing, so the value
+#: moves no result, only how many trips the host enqueues blind (up to
+#: TRIPS - 1 a stop) against how often it waits for the device. 8 was
+#: the fastest or within the spread of the fastest of 1, 8, 32 and 256
+#: on an H100 for the headline, the reconstruction leg and the
+#: multiclass twins (tools/perpair_trips.py): at 256 the many short
+#: solves of a multiclass job pay the masked trips.
+TRIPS = 8
+
+
 class SMOState(NamedTuple):
-    """The per-pair loop's carry. alpha and f live on the solve's device
-    (alpha is updated in place by the loop); the extrema of the last
-    selection, the counters and the cache's bookkeeping live on the
-    host."""
+    """The per-pair loop's carry, all of it on the solve's device (alpha
+    is updated in place by the loop, the cache's lines, keys and ticks
+    too)."""
 
     alpha: torch.Tensor  # (n,) float32
     f: torch.Tensor  # (n,) float32
-    b_hi: float  # float32 values; (-inf, inf) before the first trip
-    b_lo: float
-    it: int  # pair updates (attempted slots on the micro path)
+    b_hi: torch.Tensor  # 0-d float32; (-inf, inf) before the first trip
+    b_lo: torch.Tensor
+    it: torch.Tensor  # 0-d int64 pair updates (attempted micro slots)
     cache: Optional[CacheState]
-    hits: int  # cache hits
+    hits: torch.Tensor  # 0-d int64 cache hits
     f_err: Optional[torch.Tensor] = None  # Kahan residual (compensated)
 
 
@@ -143,17 +157,18 @@ def init_pair_state(y: torch.Tensor, cache_lines: int = 0,
                     compensated: bool = False) -> SMOState:
     """The per-pair start point: alpha = 0, f = -y, an open gap, and an
     empty row cache of `cache_lines` lines (none when 0)."""
-    alpha, f, _, _ = init_state(y)
+    alpha, f, b_hi, b_lo = init_state(y)
     cache = (init_cache(cache_lines, y.shape[0], y.device)
              if cache_lines else None)
-    return SMOState(alpha, f, -_INF, _INF, 0, cache, 0,
+    zero = torch.zeros((), dtype=torch.int64, device=y.device)
+    return SMOState(alpha, f, b_hi, b_lo, zero, cache, zero.clone(),
                     torch.zeros_like(f) if compensated else None)
 
 
 def read_obs(ids=(), vals=()) -> tuple:
-    """ONE device-to-host copy of a trip's observations: `ids` 0-d
-    integer tensors, `vals` 0-d float32 tensors. Returns (ints, floats)
-    as Python lists; the floats are the float32 values exactly."""
+    """ONE device-to-host copy of observations: `ids` 0-d integer (or
+    bool) tensors, `vals` 0-d float32 tensors. Returns (ints, floats) as
+    Python lists; the floats are the float32 values exactly."""
     parts = ([t.reshape(1).to(torch.int32) for t in ids]
              + [t.reshape(1).float().view(torch.int32) for t in vals])
     arr = torch.cat(parts).cpu().numpy()
@@ -168,42 +183,129 @@ def gap_open(b_hi: float, b_lo: float, eps: float) -> bool:
     return bool(np.float32(b_lo) > np.float32(b_hi) + np.float32(2.0 * eps))
 
 
-def pair_dots(x, cache, i_hi: int, i_lo: int, it: int) -> tuple:
-    """(d_hi, d_lo, n_hits): the pair's dot rows, through the cache when
-    there is one, else one (2, d) x (d, n) product."""
+def trip_active(state: SMOState, end: int,
+                eps2: torch.Tensor) -> torch.Tensor:
+    """The loop's condition for the next trip, on the device (0-d bool):
+    pairs left (it < end) and the carried gap open, b_lo > b_hi + eps2
+    with eps2 = 2 eps rounded to float32 (two_eps), so the decision is
+    gap_open's and the JAX package's bit for bit."""
+    return (state.it < end) & (state.b_lo > state.b_hi + eps2)
+
+
+def two_eps(eps: float, device) -> torch.Tensor:
+    """2 eps rounded to float32, as a 0-d tensor on `device` (filled
+    there: no host-to-device copy, which would synchronize)."""
+    return torch.full((), float(np.float32(2.0 * eps)), dtype=torch.float32,
+                      device=device)
+
+
+def queue_trips(trip, carry, end: int, eps: float, *, state_of=None,
+                it_host: Optional[int] = None, pairs_a_trip: int = 1,
+                tally: Optional[dict] = None):
+    """The per-pair loop of one chunk, on the device: ``trip(carry,
+    active)`` is queued TRIPS times (the module's value at the call),
+    then the host reads (it, the stop
+    flag, b_hi, b_lo) in ONE read_obs, and again until the chunk's end
+    (`end` pairs) or a closed gap. A trip queued after the stop gets
+    active False and leaves the carry bit for bit as it was. With the
+    carry's pair count known on the host (`it_host`), a batch is cut to
+    the trips the pairs left can take (`pairs_a_trip` pairs a trip), so
+    a budget exit queues no masked trip. `state_of(carry)` is the
+    carry's SMOState (the carry itself by default); `tally` gains the
+    trips queued ("trips") and host reads ("reads")."""
+    state_of = state_of or (lambda cr: cr)
+    eps2 = two_eps(eps, state_of(carry).alpha.device)
+    left = None if it_host is None else end - it_host
+    trips = TRIPS
+    while left is None or left > 0:
+        batch = trips if left is None else min(trips,
+                                               -(-left // pairs_a_trip))
+        for _ in range(batch):
+            carry = trip(carry, trip_active(state_of(carry), end, eps2))
+        st = state_of(carry)
+        (it, go), _ = read_obs((st.it, trip_active(st, end, eps2)),
+                               (st.b_hi, st.b_lo))
+        if tally is not None:
+            tally["trips"] = tally.get("trips", 0) + batch
+            tally["reads"] = tally.get("reads", 0) + 1
+        if not go:
+            break
+        left = end - it
+    return carry
+
+
+def _advance(state: SMOState, alpha, f, f_err, b_hi, b_lo, pairs, n_hits,
+             active) -> SMOState:
+    """The carry after a trip: f, f_err, the extrema and the pair count
+    move only where the trip is active (torch.where, never a zero
+    coefficient: a -0.0 gradient does not survive a +0.0 term); alpha,
+    the cache and the hits (`n_hits`, 0 on a masked trip) were written
+    under the same gate."""
+    keep = (lambda new, old: old if new is None
+            else torch.where(active, new, old))
+    hits = state.hits if n_hits is None else state.hits + n_hits
+    step = active if isinstance(pairs, int) and pairs == 1 \
+        else torch.where(active, pairs, 0)
+    return SMOState(alpha, keep(f, state.f), keep(b_hi, state.b_hi),
+                    keep(b_lo, state.b_lo), state.it + step, state.cache,
+                    hits, keep(f_err, state.f_err))
+
+
+def pair_dots(x, cache, pair, it, active) -> tuple:
+    """(dot rows (2, n), n_hits or None): the pair's dot rows, through
+    the cache when there is one, else one (2, d) x (d, n) product.
+    `pair` is the (2,) device tensor (i_hi, i_lo), `it` a 0-d one."""
     if cache is not None:
-        return lookup_pair(cache, x, i_hi, i_lo, it)
-    d2 = row_dots(x, torch.stack([x[i_hi], x[i_lo]]))
-    return d2[0], d2[1], 0
+        return lookup_pair(cache, x, pair[0], pair[1], it, active)
+    return row_dots(x, x.index_select(0, pair)), None
 
 
-def _pair_step(alpha, y, i_hi: int, i_lo: int, b_hi_pair, b_lo_pair, eta,
-               c, gate=None) -> tuple:
+def pair_kernel_rows(x, x_sq, kp: KernelParams, cache, pair, it,
+                     active) -> tuple:
+    """(k_hi, k_lo, n_hits or None): the pair's kernel rows. With
+    kp.kind == "precomputed" x is the resident Gram and they are its
+    rows."""
+    if kp.kind == "precomputed":
+        k2 = x.index_select(0, pair)
+        return k2[0], k2[1], None
+    d2, n_hits = pair_dots(x, cache, pair, it, active)
+    qsq = x_sq.index_select(0, pair)
+    return (kernel_from_dots(d2[0], x_sq, qsq[0], kp),
+            kernel_from_dots(d2[1], x_sq, qsq[1], kp), n_hits)
+
+
+def _pair_step(alpha, y, pair, b_hi_pair, b_lo_pair, eta, c,
+               gate) -> tuple:
     """The pair algebra and the alpha scatter (in place; lo first, then
-    hi, so hi wins when i_hi == i_lo). Returns the rank-2 update's
-    coefficients (coef_hi, coef_lo) = (delta alpha * y) of the pair."""
+    hi, so hi wins when i_hi == i_lo; a closed `gate` writes the old
+    values back). `pair` is the (2,) device tensor (i_hi, i_lo).
+    Returns the rank-2 update's coefficients (coef_hi, coef_lo) =
+    (delta alpha * y) of the pair."""
     cp, cn = split_c(c)
-    y_hi, y_lo = y[i_hi], y[i_lo]
-    a_hi_old, a_lo_old = alpha[i_hi], alpha[i_lo]
+    y2, a2 = y.index_select(0, pair), alpha.index_select(0, pair)
+    y_hi, y_lo, a_hi_old, a_lo_old = y2[0], y2[1], a2[0], a2[1]
     a_hi_new, a_lo_new = pair_alpha_update(
         a_hi_old, a_lo_old, y_hi, y_lo, b_hi_pair, b_lo_pair, eta,
         c_of(y_hi, cp, cn), c_of(y_lo, cp, cn), gate)
     coef_hi = (a_hi_new - a_hi_old) * y_hi
     coef_lo = (a_lo_new - a_lo_old) * y_lo
     # Every read of the old values is queued before these writes.
-    alpha[i_lo] = a_lo_new
-    alpha[i_hi] = a_hi_new
+    alpha.index_copy_(0, pair[1:], a_lo_new.reshape(1))
+    alpha.index_copy_(0, pair[:1], a_hi_new.reshape(1))
     return coef_hi, coef_lo
 
 
-def apply_pair_update(state: SMOState, y, i_hi: int, i_lo: int, b_hi_pair,
-                      b_lo_pair, k_hi, k_lo, eta, c, gate=None) -> tuple:
+def apply_pair_update(state: SMOState, y, pair, b_hi_pair, b_lo_pair,
+                      k_hi, k_lo, eta, c, active, gate=None) -> tuple:
     """The shared tail of a per-pair iteration: the pair step and the
     rank-2 gradient update, in two fused multiply-adds as XLA computes
-    it (Kahan-compensated when the state carries f_err). Returns
-    (alpha, f, f_err)."""
-    coef_hi, coef_lo = _pair_step(state.alpha, y, i_hi, i_lo, b_hi_pair,
-                                  b_lo_pair, eta, c, gate)
+    it (Kahan-compensated when the state carries f_err). `gate` closes
+    the pair algebra only (the update still runs, with zero deltas, as
+    in JAX); an inactive trip changes nothing. Returns (alpha, f,
+    f_err), f and f_err before the trip's gate (_advance applies it)."""
+    coef_hi, coef_lo = _pair_step(state.alpha, y, pair, b_hi_pair,
+                                  b_lo_pair, eta, c,
+                                  active if gate is None else active & gate)
     if state.f_err is None:
         return state.alpha, fma32(coef_lo, k_lo,
                                   fma32(coef_hi, k_hi, state.f)), None
@@ -213,71 +315,68 @@ def apply_pair_update(state: SMOState, y, i_hi: int, i_lo: int, b_hi_pair,
 
 
 def smo_iteration(x, y, x_sq, k_diag, valid, state: SMOState,
-                  kp: KernelParams, c, tau: float,
+                  kp: KernelParams, c, tau: float, active,
                   select_fn=select_working_set) -> SMOState:
-    """One maximal-violating-pair iteration (JAX _smo_iteration). With
-    kp.kind == "precomputed" x is the resident Gram and the pair's kernel
-    rows are its rows. `select_fn` swaps the pairing rule:
+    """One maximal-violating-pair iteration (JAX _smo_iteration), gated
+    by `active`. `select_fn` swaps the pairing rule:
     select_working_set_nu keeps the pair within one class (the nu
     duals); everything after the selection is the same."""
     i_hi, b_hi, i_lo, b_lo = select_fn(eff_f(state), state.alpha, y, c,
                                        valid)
-    (ih, il), (bh, bl) = read_obs((i_hi, i_lo), (b_hi, b_lo))
-    if kp.kind == "precomputed":
-        k_hi, k_lo, n_hits = x[ih], x[il], 0
-    else:
-        d_hi, d_lo, n_hits = pair_dots(x, state.cache, ih, il, state.it)
-        k_hi = kernel_from_dots(d_hi, x_sq, x_sq[ih], kp)
-        k_lo = kernel_from_dots(d_lo, x_sq, x_sq[il], kp)
+    pair = torch.stack([i_hi, i_lo])
+    k_hi, k_lo, n_hits = pair_kernel_rows(x, x_sq, kp, state.cache, pair,
+                                          state.it, active)
     # eta = K(hi,hi) + K(lo,lo) - 2 K(hi,lo), clamped below at tau.
-    eta = torch.clamp(k_hi[ih] + k_lo[il] - 2.0 * k_hi[il], min=tau)
-    alpha, f, f_err = apply_pair_update(state, y, ih, il, b_hi, b_lo, k_hi,
-                                        k_lo, eta, c)
-    return SMOState(alpha, f, bh, bl, state.it + 1, state.cache,
-                    state.hits + n_hits, f_err)
+    eta = torch.clamp(take(k_hi, i_hi) + take(k_lo, i_lo)
+                      - 2.0 * take(k_hi, i_lo), min=tau)
+    alpha, f, f_err = apply_pair_update(state, y, pair, b_hi, b_lo, k_hi,
+                                        k_lo, eta, c, active)
+    return _advance(state, alpha, f, f_err, b_hi, b_lo, 1, n_hits, active)
 
 
-def _wss2_row(x, x_sq, kp, cache, i: int, stamp: int) -> tuple:
-    """(kernel row of row i, hit) for the second-order rule."""
+def _wss2_row(x, x_sq, kp, cache, i, stamp, active) -> tuple:
+    """(kernel row of row i, hit or None) for the second-order rule."""
     if kp.kind == "precomputed":
-        return x[i], False
+        return x.index_select(0, i.reshape(1))[0], None
     if cache is not None:
-        d, hit = lookup_one(cache, x, i, stamp)
+        d, hit = lookup_one(cache, x, i, stamp, active)
     else:
-        d, hit = row_dots(x, x[i]), False
-    return kernel_from_dots(d, x_sq, x_sq[i], kp), hit
+        d, hit = row_dots(x, x.index_select(0, i.reshape(1)))[0], None
+    return kernel_from_dots(d, x_sq, take(x_sq, i), kp), hit
 
 
 def smo_iteration_wss2(x, y, x_sq, k_diag, valid, state: SMOState,
-                       kp: KernelParams, c, tau: float) -> SMOState:
-    """One second-order (WSS2) iteration (JAX _smo_iteration_wss2): i by
-    maximal violation, j by the largest gain (f_j - f_i)^2 / eta_ij over
-    the eligible I_low; with no eligible j the update degenerates to a
-    no-op on (i, i)."""
+                       kp: KernelParams, c, tau: float,
+                       active) -> SMOState:
+    """One second-order (WSS2) iteration (JAX _smo_iteration_wss2), gated
+    by `active`: i by maximal violation, j by the largest gain
+    (f_j - f_i)^2 / eta_ij over the eligible I_low; with no eligible j
+    the update degenerates to a no-op on (i, i). The two rows are
+    looked up in turn, both on the device."""
     f_cur = eff_f(state)
     up, low = set_masks(state.alpha, y, c, valid)
     f_up = torch.where(up, f_cur, _INF)
     i_hi = torch.argmin(f_up)
     b_hi = take(f_up, i_hi)
     b_lo = ieee_max(torch.where(low, f_cur, -_INF))
-    (ih,), (bh, bl) = read_obs((i_hi,), (b_hi, b_lo))
     stamp = 2 * state.it
-    k_hi, hit_hi = _wss2_row(x, x_sq, kp, state.cache, ih, stamp + 1)
-    if state.cache is not None and k_hi.untyped_storage().data_ptr() == \
-            state.cache.data.untyped_storage().data_ptr():
-        k_hi = k_hi.clone()  # the lo lookup may rewrite the line it views
+    k_hi, hit_hi = _wss2_row(x, x_sq, kp, state.cache, i_hi, stamp + 1,
+                             active)
+    kd_hi = take(k_diag, i_hi)
     diff = f_cur - b_hi
-    eta_j = torch.clamp(k_diag[ih] + k_diag - 2.0 * k_hi, min=tau)
+    eta_j = torch.clamp(kd_hi + k_diag - 2.0 * k_hi, min=tau)
     gain = torch.where(low & (diff > 0), diff * diff / eta_j, -_INF)
     any_elig = (gain > -_INF).any()
-    (j, elig), _ = read_obs((torch.argmax(gain), any_elig))
-    il = j if elig else ih
-    k_lo, hit_lo = _wss2_row(x, x_sq, kp, state.cache, il, stamp + 2)
-    eta = torch.clamp(k_diag[ih] + k_diag[il] - 2.0 * k_hi[il], min=tau)
-    alpha, f, f_err = apply_pair_update(state, y, ih, il, b_hi, f_cur[il],
-                                        k_hi, k_lo, eta, c, gate=any_elig)
-    return SMOState(alpha, f, bh, bl, state.it + 1, state.cache,
-                    state.hits + int(hit_hi) + int(hit_lo), f_err)
+    i_lo = torch.where(any_elig, torch.argmax(gain), i_hi)
+    k_lo, hit_lo = _wss2_row(x, x_sq, kp, state.cache, i_lo, stamp + 2,
+                             active)
+    eta = torch.clamp(kd_hi + take(k_diag, i_lo) - 2.0 * take(k_hi, i_lo),
+                      min=tau)
+    alpha, f, f_err = apply_pair_update(
+        state, y, torch.stack([i_hi, i_lo]), b_hi, take(f_cur, i_lo), k_hi,
+        k_lo, eta, c, active, gate=any_elig)
+    n_hits = None if hit_hi is None else hit_hi.long() + hit_lo.long()
+    return _advance(state, alpha, f, f_err, b_hi, b_lo, 1, n_hits, active)
 
 
 _ITERATION_FNS = {
@@ -290,25 +389,29 @@ _ITERATION_FNS = {
 
 def run_chunk(x, y, x_sq, k_diag, valid, state: SMOState, max_iter: int,
               kp: KernelParams, c, eps: float, tau: float,
-              selection: str = "mvp") -> SMOState:
+              selection: str = "mvp", *,
+              it_host: Optional[int] = None,
+              tally: Optional[dict] = None) -> SMOState:
     """Per-pair iterations while it < max_iter and the gap of the last
-    selection is open (JAX _run_chunk, run unobserved). The last trip is
-    the one whose selection shows the closed gap: its update still runs
-    (the reference's final degenerate update) and counts."""
+    selection is open (JAX _run_chunk), queued TRIPS at a time with one
+    host read between batches (queue_trips). The last trip is the one
+    whose selection shows the closed gap: its update still runs (the
+    reference's final degenerate update) and counts."""
     step = _ITERATION_FNS[selection]
     state = state._replace(alpha=state.alpha.clone())
-    while state.it < max_iter and gap_open(state.b_hi, state.b_lo, eps):
-        state = step(x, y, x_sq, k_diag, valid, state, kp, c, tau)
-    return state
+    return queue_trips(
+        lambda st, active: step(x, y, x_sq, k_diag, valid, st, kp, c, tau,
+                                active),
+        state, max_iter, eps, it_host=it_host, tally=tally)
 
 
 def _micro_trip(x, y, x_sq, k_diag, valid, state: SMOState, end: int,
-                kp: KernelParams, c, eps: float, tau: float,
-                k: int) -> SMOState:
+                kp: KernelParams, c, eps: float, tau: float, k: int,
+                active) -> SMOState:
     """One trip of the micro-batched executor (JAX _run_chunk_micro's
-    body): the k most-violating disjoint pairs from ONE selection, their
-    2k kernel rows in one pass, k corrected-gradient pair updates against
-    the (2k, 2k) cross block, one rank-2k fold."""
+    body), gated by `active`: the k most-violating disjoint pairs from
+    ONE selection, their 2k kernel rows in one pass, k corrected-gradient
+    pair updates against the (2k, 2k) cross block, one rank-2k fold."""
     from dpsvm_tpu_torch.solver.block import _top_h
 
     cp, cn = split_c(c)
@@ -330,12 +433,8 @@ def _micro_trip(x, y, x_sq, k_diag, valid, state: SMOState, end: int,
     m = rows[:, idx]  # (2k, 2k)
     kd, a, fv, yv = k_diag[idx], state.alpha[idx], f_cur[idx], y[idx]
     coef = torch.zeros(2 * k, dtype=torch.float32, device=y.device)
-    # Pair j is attempted while it + j < end; attempted slots count even
-    # when gated to a no-op, and the rest never run.
-    tried = min(k, end - state.it)
-    no = torch.zeros((), dtype=torch.bool, device=y.device)
     applied = []
-    for j in range(tried):
+    for j in range(k):
         i_s, l_s = j, k + j
         bad = collide[j, j]
         for p in range(j):
@@ -343,7 +442,11 @@ def _micro_trip(x, y, x_sq, k_diag, valid, state: SMOState, end: int,
         ok = up_ok[j] & low_ok[j] & ~bad
         fe_i = fv[i_s] + coef @ m[:, i_s]  # corrected gradient
         fe_l = fv[l_s] + coef @ m[:, l_s]
-        gate = ok if j == 0 else ok & (fe_l > fe_i + 2.0 * eps)
+        # Pair j is attempted while it + j < end (pair 0 always, on an
+        # active trip); attempted slots count even when gated to a
+        # no-op, and the rest never apply.
+        gate = ok if j == 0 else (ok & (state.it + j < end)
+                                  & (fe_l > fe_i + 2.0 * eps))
         eta = torch.clamp(kd[i_s] + kd[l_s] - 2.0 * m[i_s, l_s], min=tau)
         na_i, na_l = pair_alpha_update(
             a[i_s], a[l_s], yv[i_s], yv[l_s], fe_i, fe_l, eta,
@@ -353,62 +456,72 @@ def _micro_trip(x, y, x_sq, k_diag, valid, state: SMOState, end: int,
         a[i_s] = na_i
         a[l_s] = na_l
         applied.append(gate)
-    applied += [no] * (k - tried)
     f, f_err = maybe_kahan(state.f, state.f_err, coef @ rows)
     # Scatter: dead filler never writes; of two pairs sharing a
     # coordinate at most one applied, and the other's stale slots are
-    # dropped.
+    # dropped; a masked trip writes nothing.
     applied_v = torch.stack(applied)
     share = collide | collide.T
     conflict = ~applied_v & (share & applied_v[None, :]).any(dim=1)
-    slot_ok = torch.cat([up_ok, low_ok]) & (~conflict).repeat(2)
+    slot_ok = (torch.cat([up_ok, low_ok]) & (~conflict).repeat(2)
+               & active)
     buf = torch.cat([state.alpha, state.alpha.new_zeros(1)])
     buf[torch.where(slot_ok, idx, n)] = torch.where(slot_ok, a, 0.0)
-    _, (bh, bl) = read_obs((), (-up_v[0], low_v[0]))
-    return SMOState(buf[:n], f, bh, bl, state.it + tried, state.cache,
-                    state.hits, f_err)
+    tried = torch.clamp(end - state.it, max=k)
+    return _advance(state, buf[:n], f, f_err, -up_v[0], low_v[0], tried,
+                    None, active)
 
 
 def run_chunk_micro(x, y, x_sq, k_diag, valid, state: SMOState,
                     max_iter: int, kp: KernelParams, c, eps: float,
-                    tau: float, k: int) -> SMOState:
+                    tau: float, k: int, *,
+                    it_host: Optional[int] = None,
+                    tally: Optional[dict] = None) -> SMOState:
     """Micro-batched per-pair trips (pair_batch = k > 1 on
     engine="xla", mvp selection; JAX _run_chunk_micro): stale rank-j
     pairs with every update's extrema corrected to the post-previous-
     updates gradient. Pairs j >= 1 also gate on the stopping margin;
-    the top-k is clamped to n."""
+    the top-k is clamped to n. Queued as run_chunk's trips are."""
     k = min(k, int(y.shape[0]))
-    while state.it < max_iter and gap_open(state.b_hi, state.b_lo, eps):
-        state = _micro_trip(x, y, x_sq, k_diag, valid, state, max_iter, kp,
-                            c, eps, tau, k)
-    return state
+    return queue_trips(
+        lambda st, active: _micro_trip(x, y, x_sq, k_diag, valid, st,
+                                       max_iter, kp, c, eps, tau, k,
+                                       active),
+        state, max_iter, eps, it_host=it_host, pairs_a_trip=k, tally=tally)
 
 
 def pallas_pair_update(x, y, x_sq, kp: KernelParams, c, tau: float,
-                       cache, alpha, i_hi: int, i_lo: int, b_hi, b_lo,
-                       it: int) -> tuple:
-    """The part of a pipelined trip before kernel B6: the pair's dot
-    rows (through the cache), eta from the three kernel values, the pair
-    algebra and the alpha scatter (in place, lo first, then hi). Returns
-    (d_hi, d_lo, scalars, n_hits), scalars = (coef_hi, coef_lo, qsq_hi,
-    qsq_lo) as B6 takes them."""
-    d_hi, d_lo, n_hits = pair_dots(x, cache, i_hi, i_lo, it)
-    qsq_hi, qsq_lo = x_sq[i_hi], x_sq[i_lo]
-    k_hh = kernel_from_dots(d_hi[i_hi], qsq_hi, qsq_hi, kp)
-    k_ll = kernel_from_dots(d_lo[i_lo], qsq_lo, qsq_lo, kp)
-    k_hl = kernel_from_dots(d_hi[i_lo], qsq_lo, qsq_hi, kp)
+                       cache, alpha, i_hi, i_lo, b_hi, b_lo, it,
+                       active) -> tuple:
+    """The part of a pipelined trip before kernel B6, gated by `active`:
+    the pair's dot rows (through the cache), eta from the three kernel
+    values, the pair algebra and the alpha scatter (in place, lo first,
+    then hi). The ids and `it` are 0-d device tensors. Returns (dot rows
+    (2, n), scalars, n_hits or None), scalars = (coef_hi, coef_lo,
+    qsq_hi, qsq_lo) as B6 takes them."""
+    pair = torch.stack([i_hi, i_lo])
+    d2, n_hits = pair_dots(x, cache, pair, it, active)
+    qsq = x_sq.index_select(0, pair)
+    qsq_hi, qsq_lo = qsq[0], qsq[1]
+    k_hh = kernel_from_dots(take(d2[0], i_hi), qsq_hi, qsq_hi, kp)
+    k_ll = kernel_from_dots(take(d2[1], i_lo), qsq_lo, qsq_lo, kp)
+    k_hl = kernel_from_dots(take(d2[0], i_lo), qsq_lo, qsq_hi, kp)
     eta = torch.clamp(k_hh + k_ll - 2.0 * k_hl, min=tau)
-    coef_hi, coef_lo = _pair_step(alpha, y, i_hi, i_lo, b_hi, b_lo, eta, c)
-    return (d_hi, d_lo, torch.stack([coef_hi, coef_lo, qsq_hi, qsq_lo]),
-            n_hits)
+    coef_hi, coef_lo = _pair_step(alpha, y, pair, b_hi, b_lo, eta, c,
+                                  active)
+    return d2, torch.stack([coef_hi, coef_lo, qsq_hi, qsq_lo]), n_hits
 
 
 def run_chunk_pallas(x, y, x_sq, valid, state: SMOState, max_iter: int,
-                     kp: KernelParams, c, eps: float, tau: float) -> SMOState:
+                     kp: KernelParams, c, eps: float, tau: float, *,
+                     it_host: Optional[int] = None,
+                     tally: Optional[dict] = None) -> SMOState:
     """The software-pipelined per-pair loop on kernel B6 (JAX
     _run_chunk_pallas): each trip applies pair t's rank-2 update AND
     selects pair t+1 in one pass over f (ops/fused_update.py
-    fused_update_select). One select_working_set seeds the carried pair.
+    fused_update_select), launched once a queued trip; its outputs are
+    kept only where the trip is active. One select_working_set seeds the
+    carried pair, which stays on the device.
 
     Needs n padded to a multiple of 128 with `valid` marking real rows.
     The loop stops as soon as a post-update selection shows convergence,
@@ -422,22 +535,24 @@ def run_chunk_pallas(x, y, x_sq, valid, state: SMOState, max_iter: int,
     valid2d = valid.float().view(shp)
     x_sq2d = x_sq.view(shp)
     alpha = state.alpha.clone()
-    f = state.f
-    i_hi, b_hi, i_lo, b_lo = select_working_set(f, alpha, y, c, valid)
-    (ih, il), (bh, bl) = read_obs((i_hi, i_lo), (b_hi, b_lo))
-    it, hits = state.it, state.hits
-    while it < max_iter and gap_open(bh, bl, eps):
-        d_hi, d_lo, scalars, n_hits = pallas_pair_update(
-            x, y, x_sq, kp, c, tau, state.cache, alpha, ih, il, b_hi, b_lo,
-            it)
-        f2d, b_hi, i_hi, b_lo, i_lo = fused_update_select(
-            f.view(shp), alpha.view(shp), y2d, valid2d, d_hi.view(shp),
-            d_lo.view(shp), x_sq2d, scalars, kp, c)
-        f = f2d.view(n_pad)
-        it += 1
-        hits += n_hits
-        (ih, il), (bh, bl) = read_obs((i_hi, i_lo), (b_hi, b_lo))
-    return SMOState(alpha, f, bh, bl, it, state.cache, hits)
+    i_hi, b_hi, i_lo, b_lo = select_working_set(state.f, alpha, y, c, valid)
+
+    def trip(carry, active):
+        st, i_hi, i_lo = carry
+        d2, scalars, n_hits = pallas_pair_update(
+            x, y, x_sq, kp, c, tau, st.cache, st.alpha, i_hi, i_lo, st.b_hi,
+            st.b_lo, st.it, active)
+        f2d, b_hi, i_hi_n, b_lo, i_lo_n = fused_update_select(
+            st.f.view(shp), st.alpha.view(shp), y2d, valid2d,
+            d2[0].view(shp), d2[1].view(shp), x_sq2d, scalars, kp, c)
+        st = _advance(st, st.alpha, f2d.view(n_pad), None, b_hi, b_lo, 1,
+                      n_hits, active)
+        return (st, torch.where(active, i_hi_n, i_hi),
+                torch.where(active, i_lo_n, i_lo))
+
+    carry = (state._replace(alpha=alpha, b_hi=b_hi, b_lo=b_lo), i_hi, i_lo)
+    return queue_trips(trip, carry, max_iter, eps, state_of=lambda cr: cr[0],
+                       it_host=it_host, tally=tally)[0]
 
 
 # ---------------------------------------------------------------------

@@ -625,25 +625,38 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
     use_cache = cache_lines > 0 and not use_gram and not use_micro
     alpha0, f0, err0 = (_on(dev, a) for a in start.padded(n_pad))
     state = smo.init_pair_state(y_dev, cache_lines if use_cache else 0)
+    scalar = functools.partial(torch.tensor, device=dev)
     state = state._replace(alpha=alpha0, f=f0, f_err=err0,
-                           b_hi=float(np.float32(start.b_hi)),
-                           b_lo=float(np.float32(start.b_lo)),
-                           it=start.pairs)
+                           b_hi=scalar(np.float32(start.b_hi)),
+                           b_lo=scalar(np.float32(start.b_lo)),
+                           it=scalar(start.pairs, dtype=torch.int64))
     start_iter = start.pairs
     c = config.c_bounds()
     tau = float(config.tau)
+    # The pair count the host last read (each runner reads it between
+    # its batches, the chunk loop at each chunk's end): it cuts a batch
+    # to the trips the chunk has left.
+    seen = {"it": start_iter}
+    tally = {"trips": 0, "reads": 0}
 
     def run_chunk(s):
-        end = chunks.pair_end(config, observe, s.it)
+        end = chunks.pair_end(config, observe, seen["it"])
+        kw = dict(it_host=seen["it"], tally=tally)
         if use_pallas:
             return smo.run_chunk_pallas(x_dev, y_dev, x_sq, valid, s, end,
-                                        kp, c, eps_run, tau)
+                                        kp, c, eps_run, tau, **kw)
         if use_micro:
             return smo.run_chunk_micro(x_dev, y_dev, x_sq, k_diag, valid, s,
                                        end, kp, c, eps_run, tau,
-                                       config.pair_batch)
+                                       config.pair_batch, **kw)
         return smo.run_chunk(x_dev, y_dev, x_sq, k_diag, valid, s, end, kp,
-                             c, eps_run, tau, config.selection)
+                             c, eps_run, tau, config.selection, **kw)
+
+    def read(s):
+        (it,), (bh, bl) = read_obs((s.it,), (s.b_hi, s.b_lo))
+        seen["it"] = it
+        tally["reads"] += 1
+        return it, bh, bl
 
     def payload(s):
         err = None if s.f_err is None else s.f_err[:n].cpu().numpy()
@@ -651,41 +664,42 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
 
     obs = chunks.open_run_obs("solve", config, _run_meta(
         x, n_pad, config, observe, gram_resident=use_gram), dev)
-    out = loop(run_chunk, state, lambda s: (s.it, s.b_hi, s.b_lo),
-               payload=payload, tensors=lambda s: ((s.f,), (s.alpha,)),
-               obs=obs)
+    out = loop(run_chunk, state, read, payload=payload,
+               tensors=lambda s: ((s.f,), (s.alpha,)), obs=obs)
     t_fin = time.perf_counter()
     state = out.state
     alpha, f_final, b_hi, b_lo, converged = _finish(
-        state.alpha, eff_f(state), n, y_np, config, eps_run, state.b_hi,
-        state.b_lo, refresh=config.budget_mode)
+        state.alpha, eff_f(state), n, y_np, config, eps_run, out.b_hi,
+        out.b_lo, refresh=config.budget_mode)
     # Lookups of THIS run (a resumed run counts from its restore point).
-    lookups = 2 * (state.it - start_iter) if use_cache else 0
-    evictions = 0
+    lookups = 2 * (out.it - start_iter) if use_cache else 0
+    hits = evictions = 0
     if use_cache:
         # Every miss fills a line and a line leaves "empty" at most once,
         # so evictions = misses - lines filled from empty.
-        filled = int(np.count_nonzero(state.cache.keys >= 0))
-        evictions = max(0, lookups - state.hits - filled)
+        (hits, filled), _ = read_obs((state.hits,
+                                      (state.cache.keys >= 0).sum()))
+        evictions = max(0, lookups - hits - filled)
     out.phase_seconds["finalize"] = time.perf_counter() - t_fin
     res = SolveResult(
         alpha=alpha,
         b=float((b_lo + b_hi) / 2.0),
         b_hi=b_hi,
         b_lo=b_lo,
-        iterations=state.it,
+        iterations=out.it,
         converged=converged,
         train_seconds=out.train_seconds,
         dispatches=out.chunks,
         stats={"f": f_final, "device": str(dev), "n_pad": n_pad,
-               "gram_resident": use_gram, "cache_hits": state.hits,
+               "gram_resident": use_gram, "cache_hits": hits,
                "cache_lookups": lookups,
-               "cache_hit_rate": state.hits / lookups if lookups else 0.0,
+               "cache_hit_rate": hits / lookups if lookups else 0.0,
                "cache_evictions": evictions, "chunks": out.chunks,
+               "trips_queued": tally["trips"], "host_reads": tally["reads"],
                "phase_seconds": out.phase_seconds},
     )
     chunks.finish_run_obs(obs, res, out.chunks, **(
-        {"cache_hits": state.hits, "cache_lookups": lookups,
+        {"cache_hits": hits, "cache_lookups": lookups,
          "cache_hit_rate": round(res.stats["cache_hit_rate"], 6),
          "cache_evictions": evictions} if use_cache else {}))
     return res

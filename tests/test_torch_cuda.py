@@ -7,6 +7,8 @@ nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import torch
 from dpsvm_tpu_torch.autotune import use_profile
 from dpsvm_tpu_torch import Mesh, SVMConfig, solve, solve_mesh
 from dpsvm_tpu_torch.data.synth import make_blobs_binary
+from dpsvm_tpu_torch.ops import cache_fill as tcf
 from dpsvm_tpu_torch.ops import fold_select as tfs
 from dpsvm_tpu_torch.ops import fused_update as tfu
 from dpsvm_tpu_torch.ops import ring as tring
@@ -614,15 +617,22 @@ PER_PAIR = [dict(engine="xla"), dict(engine="xla", gram_resident=True),
 def test_per_pair_engine_on_card_reaches_cpu_optimum(cuda, kw):
     """Each per-pair variant on the card converges to the optimum of the
     same variant on the CPU: dual objective within rel 1e-4, SVs within
-    2%; engine="pallas" launches B6 once per pair update."""
+    2%; engine="pallas" launches B6 once per trip queued (a masked trip
+    too), the cache launches cache_fill once a lookup."""
     x, y = make_blobs_binary(n=3000, d=24, seed=11, sep=1.0)
     cfg = SVMConfig(c=1.0, gamma=0.1, **kw)
     tfu.fused_update_select.launches = 0
+    tcf.cache_fill.launches = 0
     rg = solve(x, y, cfg)
     launches = tfu.fused_update_select.launches
+    trips = rg.stats["trips_queued"]
     rc = solve(x, y, cfg, device="cpu")
     assert rg.converged and rc.converged
-    assert launches == (rg.iterations if kw["engine"] == "pallas" else 0)
+    assert launches == (trips if kw["engine"] == "pallas" else 0)
+    assert rg.iterations <= trips * kw.get("pair_batch", 1)
+    lookups = 2 if kw.get("selection") == "second_order" else 1
+    assert tcf.cache_fill.launches == (
+        lookups * trips if kw.get("cache_lines") else 0)
     assert rg.stats["gram_resident"] == bool(kw.get("gram_resident"))
 
     def obj(r):
@@ -844,3 +854,68 @@ def test_mesh_engines_on_logical_shards_of_the_card(cuda, p_dev, kw):
     for r in (r0, r1):
         assert abs(obj(r) - obj(rc)) <= 1e-4 * abs(obj(rc))
         assert abs(r.n_sv - rc.n_sv) <= 0.02 * rc.n_sv
+
+
+def _fill_case(cuda, n, d, dtype, case, seed=0):
+    """A store of 5 lines plus the spare, filled with seeded values, and
+    the arguments of one lookup's fill in `case`."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                        device=cuda).to(dtype)
+    store = torch.as_tensor(rng.normal(size=(6, n)).astype(np.float32),
+                            device=cuda)
+    i_hi, i_lo = int(rng.integers(0, n)), int(rng.integers(0, n))
+    flags = {"double_miss": [1, 1, 0], "hi_miss": [1, 0, 0],
+             "lo_miss": [0, 1, 0], "both_hit": [0, 0, 0],
+             "masked": [0, 0, 0], "one_line_save": [0, 1, 1],
+             "one": [1]}[case]
+    dest = {"one_line_save": [5, 0], "one": [3]}.get(case, [1, 4])
+    ids = [i_hi] if case == "one" else [i_hi, i_lo]
+    on = functools.partial(torch.tensor, device=cuda)
+    return (x, store, on(ids, dtype=torch.int64), on(dest, dtype=torch.int64),
+            on(flags, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["double_miss", "hi_miss", "lo_miss",
+                                  "both_hit", "masked", "one_line_save",
+                                  "one"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 1), (37, 7), (1000, 24), (4099, 784),
+                                 (3000, 13)])
+def test_cache_fill_kernel_matches_plain(cuda, n, d, dtype, case):
+    """Kernel cache_fill against its plain version on the same inputs, in
+    every case of a lookup (both miss, either miss, both hit, a masked
+    trip, the one-line save, lookup_one): the lines it must not write
+    bitwise untouched, the saved line bitwise, each computed row within
+    2 d 2^-24 of the sum of |products| (another summation order than
+    cuBLAS's); two launches give the same bits. d = 7 and 13 take the
+    kernel's one-value loads, the others its 16-byte loads."""
+    x, store, ids, dest, flags = _fill_case(cuda, n, d, dtype, case)
+    want = store.clone()
+    tcf._cache_fill(x, want, ids, dest, flags)
+    got = store.clone()
+    tcf.cache_fill.launches = 0
+    tcf.cache_fill(x, got, ids, dest, flags)
+    again = store.clone()
+    tcf.cache_fill(x, again, ids, dest, flags)
+    torch.cuda.synchronize()
+    assert tcf.cache_fill.launches == 2
+    assert torch.equal(got, again)
+    xf = x.float()
+    fl = flags.tolist()
+    written = {int(dest[r]) for r in range(ids.shape[0]) if fl[r]}
+    if len(fl) == 3 and fl[2]:
+        written.add(int(dest[0]))
+    for line in range(store.shape[0]):
+        if line not in written:
+            assert torch.equal(got[line], store[line]), line
+    if len(fl) == 3 and fl[2]:
+        assert torch.equal(got[int(dest[0])], store[int(dest[1])])
+    for r in range(ids.shape[0]):
+        if not fl[r]:
+            continue
+        line = int(dest[r])
+        scale = (xf.abs() @ xf[int(ids[r])].abs()).double()
+        err = (got[line].double() - want[line].double()).abs()
+        assert bool((err <= 2 * d * 2.0 ** -24 * scale + 1e-30).all())

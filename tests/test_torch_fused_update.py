@@ -169,11 +169,15 @@ def _plan_ok(n: int) -> bool:
     shared memory."""
     p = tfu.fused_update_plan(n)
     groups = n // 4
-    grp = (np.arange(p.blocks)[:, None] * p.threads
-           + np.arange(p.threads)).ravel()
-    hits = np.bincount(grp[grp < groups], minlength=groups)
+    # Block b takes the run of groups [b threads, (b + 1) threads) below
+    # n / 4: the runs are disjoint and each starts where the last one
+    # ends, so every group is taken exactly once when the runs reach
+    # n / 4 together (counted a block, not a group).
     first = np.arange(p.blocks) * p.threads  # each block's first group
-    return (bool((hits == 1).all()) and bool((first < groups).all())
+    stop = np.minimum(first + p.threads, groups)
+    once = bool(first[0] == 0 and (first[1:] == stop[:-1]).all()
+                and stop[-1] == groups)
+    return (once and bool((first < groups).all())
             and 32 <= p.threads <= 1024 and p.threads % 32 == 0
             and p.smem == 20 * (p.threads // 32) and p.smem <= SMEM_LIMIT)
 

@@ -206,7 +206,7 @@ def test_cache_probe_and_refresh_are_jaxs():
 
     rng = np.random.default_rng(5)
     lines, q, n = 8, 4, 16
-    port = tcache.init_cache(lines, n, torch.device("cpu"))
+    port = tcache.init_host_cache(lines, n, torch.device("cpu"))
     jax = jcache.init_cache(lines, n)
     for stamp in range(1, 40):
         w = rng.choice(12, size=q, replace=False).astype(np.int32)

@@ -54,6 +54,22 @@ def data(request, blobs_small, blobs_medium):
     return blobs_small if request.param == "small" else blobs_medium
 
 
+# Whole solves on the blobs fixtures, shared by the tests of this module
+# that run the same configuration: {(package, id of X, config): result}.
+_SOLVES = {}
+
+
+def _solved(x, y, cfg):
+    """solve() of the package `cfg` belongs to (the port on the CPU), once
+    per data and configuration."""
+    key = (type(cfg), id(x), cfg)
+    if key not in _SOLVES:
+        _SOLVES[key] = (solve(x, y, cfg, device="cpu")
+                        if isinstance(cfg, SVMConfig)
+                        else jax_solve(x, y, cfg))
+    return _SOLVES[key]
+
+
 CASES = [
     ("small", dict()),
     ("small", dict(selection="second_order")),
@@ -88,8 +104,8 @@ CASES = [
 def test_solve_matches_jax(data, kw):
     x, y = data
     cfg = {**BASE, **kw}
-    rj = jax_solve(x, y, JaxConfig(**cfg))
-    rt = solve(x, y, SVMConfig(**cfg), device="cpu")
+    rj = _solved(x, y, JaxConfig(**cfg))
+    rt = _solved(x, y, SVMConfig(**cfg))
     _assert_same_optimum(rt, rj, y)
     assert "outer_rounds" not in rt.stats
     assert rt.stats["gram_resident"] == bool(kw.get("gram_resident"))
@@ -144,10 +160,10 @@ def test_pallas_and_xla_counts_differ_by_at_most_one(data):
     x, y = data
     counts = {}
     for eng in ("xla", "pallas"):
-        counts[eng] = (
-            solve(x, y, SVMConfig(**BASE, engine=eng), device="cpu")
-            .iterations,
-            jax_solve(x, y, JaxConfig(**BASE, engine=eng)).iterations)
+        counts[eng] = (_solved(x, y, SVMConfig(**BASE, engine=eng))
+                       .iterations,
+                       _solved(x, y, JaxConfig(**BASE, engine=eng))
+                       .iterations)
     for side in (0, 1):
         assert abs(counts["xla"][side] - counts["pallas"][side]) <= 1
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a round's time goes on the card, read from the run's own trace.
 
-    python3 tools/obs_idle_share.py [--rows 60000]
+    python3 tools/obs_idle_share.py [--rows 60000] [--perpair]
 
 Trains the headline configuration (c=10, gamma=0.125, eps=0.01, q=256,
 bfloat16 X, block engine) of chip_smoke.py on the 60000 x 784
@@ -15,6 +15,14 @@ activity inside it (kernels, copies, memsets, their intervals merged),
 and prints the device's busy and idle share of the window, the busy
 time by kind and the five longest kernels by total time. One JSON line
 a run, then the card's name and power limit. Needs a CUDA card.
+
+--perpair runs the per-pair engines instead: engine="xla" (on the
+resident Gram) and "pallas" on the same data and hyper-parameters, one
+chunk of PAIR_DEPTH pairs each (a depth cut: the trace holds every
+trip's ~100 launches), the window the solver/chunk span. Each line also
+gives the trips queued and host reads, and the device's busy and the
+window's us a trip. The trace slows the host, so the window's share is
+the traced run's; the busy us a trip is the device's own.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ sys.path.insert(0, ROOT)
 
 HEADLINE = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=150_000,
                 engine="block", working_set_size=256, dtype="bfloat16")
+# --perpair: the pairs of the one traced chunk.
+PAIR_DEPTH = 1024
 DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "copy",
                "gpu_memset": "memset"}
 
@@ -107,6 +117,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=60_000)
+    ap.add_argument("--perpair", action="store_true")
     args = ap.parse_args()
 
     # The runs are the plain engine and the full stream: no device
@@ -124,15 +135,21 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     x, y = make_mnist_like(n=args.rows, d=784, seed=7, noise=0.1)
     cfg = SVMConfig(**HEADLINE)
-    train(x[:16384], y[:16384], cfg.replace(max_iter=2048))  # warm-up
     work = tempfile.mkdtemp(prefix="obs_idle_")
-    ooc = dict(ooc=True, ooc_tile_rows=8192)
-    runs = (("in-core plain", {}, {}, "solver/chunk"),
-            ("ooc one device", ooc, {}, "solver/ooc_round"),
-            ("ooc mesh 4 logical shards", ooc,
-             {"backend": "mesh",
-              "mesh": Mesh([torch.device("cuda:0")] * 4)},
-             "solver/ooc_round"))
+    if args.perpair:
+        pair = dict(max_iter=PAIR_DEPTH, chunk_iters=PAIR_DEPTH)
+        runs = tuple((f"per-pair {eng}", dict(pair, engine=eng), {},
+                      "solver/chunk") for eng in ("xla", "pallas"))
+    else:
+        ooc = dict(ooc=True, ooc_tile_rows=8192)
+        runs = (("in-core plain", {}, {}, "solver/chunk"),
+                ("ooc one device", ooc, {}, "solver/ooc_round"),
+                ("ooc mesh 4 logical shards", ooc,
+                 {"backend": "mesh",
+                  "mesh": Mesh([torch.device("cuda:0")] * 4)},
+                 "solver/ooc_round"))
+    for kw in ([r[1] for r in runs] if args.perpair else [{}]):  # warm-up
+        train(x[:16384], y[:16384], cfg.replace(**{**kw, "max_iter": 2048}))
     for label, kw, where, span in runs:
         obs = ObsConfig(enabled=True, runlog_dir=os.path.join(work, "runs"),
                         trace_dir=os.path.join(work, "trace"))
@@ -141,10 +158,18 @@ def main() -> int:
         wall = time.perf_counter() - t0
         final = read_runlog(res.stats["obs_runlog"])[-1]
         rec = {"run": label, "pairs": res.iterations,
-               "rounds": res.stats["outer_rounds"],
                "train_seconds": round(res.train_seconds, 4),
                "wall_seconds": round(wall, 4),
                **analyze(final["trace_path"], span)}
+        if args.perpair:
+            trips = res.stats["trips_queued"]
+            rec.update(trips_queued=trips,
+                       host_reads=res.stats["host_reads"],
+                       busy_us_a_trip=round(1e3 * rec["busy_ms"] / trips, 2),
+                       window_us_a_trip=round(
+                           1e3 * rec["window_ms"] / trips, 2))
+        else:
+            rec["rounds"] = res.stats["outer_rounds"]
         print(json.dumps(rec), flush=True)
         os.remove(final["trace_path"])
     print(smi)
