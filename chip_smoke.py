@@ -109,8 +109,14 @@ result line is printed:
                 lookup_one's miss): computed rows within 2 d 2^-24 of
                 their sum of |products|, other lines untouched, repeat
                 launches bitwise; timed beside the plain version, the
-                bound and cuBLAS's row_dots. Then engine="xla" and
-                "pallas" on 16384 rows with smo.TRIPS = 1 and = 256:
+                bound and cuBLAS's row_dots. Its query form (the mesh's:
+                the pair's rows passed, no ids) in the same cases on the
+                whole X and on a shard of its first 15000 rows: the same
+                checks, and each line bit for bit the id form's (its
+                columns on the shard); timed on the shard beside the id
+                form there, the plain version, the bound and row_dots.
+                Then engine="xla" and
+                "pallas" on 8192 rows with smo.TRIPS = 1 and = 256:
                 alpha, f, pairs and b bitwise;
   8. ring    -- kernels B7 and B8 on logical shards of the card. B7
                 (ring_gather) at P = 2, 4, 8 on seeded (256, 792) blocks:
@@ -196,7 +202,7 @@ result line is printed:
  17. reconstruct -- the covtype stress configuration (c = 2048, gamma =
                 0.03125, Kahan carry) on make_covtype_like's 2000 rows
                 in float64 reconstruction legs on the block engine (B1)
-                and on 1000 rows with engine="xla" (a depth cut):
+                and on 500 rows with engine="xla" (a depth cut):
                 certified true gap <= 2 eps,
                 matched by an independent float64 gradient of the
                 returned alpha;
@@ -215,8 +221,9 @@ result line is printed:
                 n_sv, train_seconds, predict seconds, held-out accuracy,
                 the .npz bundle reloaded predicting the same labels; each
                 fleet's held-out labels >= 99.8% its block run's; each
-                fleet submodel within the whole-solve contract (dual
-                rel 1e-4, n_sv 2%, |db| 5e-3) of its sequential twin;
+                fleet submodel of classes 0-4 (OvR 5, OvO 10 pairs: a
+                depth cut) within the whole-solve contract (dual rel
+                1e-4, n_sv 2%, |db| 5e-3) of its sequential twin;
  20. multiclass oracle -- OvO on the first 10000 rows (float32, eps
                 0.005) against artifacts/oracle_multiclass10k.json: the
                 SV union within 3% of its n_sv, train accuracy >= its
@@ -279,19 +286,28 @@ result line is printed:
                 `cli learn --smoke`; `cli train --ooc` on [cli]'s CSV
                 under gate (a).
 
- 28. mesh (d)-(g) -- beside [mesh] (a)-(c), each after a warm-up on
+ 28. mesh (d)-(h) -- beside [mesh] (a)-(c), each after a warm-up on
                 16384 rows and with every count set to 0 just before:
                 (d) pipeline_rounds=True, ring_exchange=True (B1 once a
                 round, B7 once a prefetch: rounds + chunks), (e)
                 fused_fold=True on two logical shards (q = 256 needs
                 n_loc >= 16384; B1 once a round, B2 once a shard and
                 round), (f) active_set_size=2048 (B1 once an inner
-                round), (g) engine="xla" (no kernel): converged, gate (a)
+                round), (g) engine="xla" (no kernel), (h) engine="xla"
+                with cache_lines=512 (cache_fill's query form once a
+                lookup and shard: 4 a trip queued): converged, gate (a)
                 of [ooc] against the plain headline (SV count 3%, signs
                 99.8% on all rows; for (f) the SV count is reported and
-                gated at the oracle's eps in [mesh oracle]; (g) is gated
-                against phase 6's one-device per-pair run, its twin, and
-                reported against the block headline); then fused_round=True with the fused
+                gated at the oracle's eps in [mesh oracle]; (g) and (h)
+                are gated against phase 6's one-device per-pair runs
+                xla and xla cache512, their twins, with the pairs, b and
+                hits compared, and reported against the block headline;
+                each prints its trips queued (masked ones fewer than
+                smo.TRIPS a chunk), host reads (at most one a batch of
+                smo.TRIPS, plus one a chunk), cache_fill launches and
+                hits, and no trip makes a call that
+                set_sync_debug_mode("warn") reports); then
+                fused_round=True with the fused
                 fold: its warning, and (e)'s launches;
  29. active  -- the one-device headline with active_set_size=2048: its
                 warning, B1 once an inner round, signs at 99.8% of the
@@ -362,7 +378,7 @@ result line is printed:
                 and n_sv bitwise [mesh] (a) (4 shards in one process),
                 B1 once a round in each process, the exchange's ms a
                 round and share of train_seconds; (b) the per-pair engine
-                at full width on rows 0-499 ([cli]'s test.csv, -x)
+                at full width on rows 0-249 ([cli]'s test.csv, -x)
                 bitwise its one-process twin, no kernel; (c) the block
                 engine on rows 0-9999 stopped at --max-iter, relaunched
                 with --resume: bitwise the one-process resume of the same
@@ -1073,8 +1089,12 @@ PAIR_STAGES = {
                ("solver.smo", "read_obs")),
 }
 # The device loop's bitwise check: these engines on the first
-# TRIPS_CHECK_ROWS rows, with smo.TRIPS = 1 and = 256.
-TRIPS_CHECK_ROWS = 16384
+# TRIPS_CHECK_ROWS rows, with smo.TRIPS = 1 and = 256 (8192: the
+# resident Gram's least rows; a depth cut from 16384).
+TRIPS_CHECK_ROWS = 8192
+# cache_fill's query form on a shard of this many rows: one of the four
+# ranks of [mesh] (h) on the headline's 60000.
+CACHE_SHARD_ROWS = 15_000
 
 
 def pair_launches(cfg, res) -> dict:
@@ -1373,8 +1393,103 @@ def phase_cache_fill(xs: dict, reps: int) -> dict:
             if (dname, cname) == ("bfloat16", "double_miss"):
                 rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib)
-    rec["max_abs_err"] = worst
+    query, q_worst = query_form_cache_fill(xs, cases, reps)
+    rec["query_form"] = query
+    rec["max_abs_err"] = max(worst, q_worst)
     return rec
+
+
+def query_form_cache_fill(xs: dict, cases: dict, reps: int) -> tuple:
+    """cache_fill's query form (the per-pair mesh engine's: the pair's
+    rows passed, no ids) in the five cases, float32 and bfloat16, on the
+    whole X and on a shard of its first CACHE_SHARD_ROWS rows (one of
+    [mesh] (h)'s four): within 2 d 2^-24 of its plain version, the other
+    lines untouched, repeat launches bitwise, and each line bit for bit
+    the id form's on the whole X (its columns, on the shard). Timed on
+    the shard beside the id form on the same shard, the plain version,
+    the bound and cuBLAS's row_dots. Returns (the bfloat16 double miss's
+    record on the shard, the largest error)."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import cache_fill as cf
+    from dpsvm_tpu_torch.ops.kernels import row_dots
+
+    worst = 0.0
+    rec = {}
+    for dname, x in xs.items():
+        n, d = x.shape
+        dev = x.device
+        on = functools.partial(torch.tensor, device=dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        store0 = torch.randn((6, n), generator=g, device=dev)
+        xf = x.float()
+        for cname, (flags, dest) in cases.items():
+            k = len(dest)
+            ids = on([17, 2 * n // 3][:k], dtype=torch.int64)
+            q = x.index_select(0, ids)
+            args = (on(dest, dtype=torch.int64), on(flags, dtype=torch.bool))
+            by_id = store0.clone()
+            cf.cache_fill(x, by_id, ids, *args)
+            for where, xl in (("whole", x), ("shard", x[:CACHE_SHARD_ROWS])):
+                n_l = xl.shape[0]
+                s0 = store0[:, :n_l].contiguous()
+                want, got, again = s0.clone(), s0.clone(), s0.clone()
+                cf._cache_fill(xl, want, None, *args, q=q)
+                cf.cache_fill(xl, got, None, *args, q=q)
+                cf.cache_fill(xl, again, None, *args, q=q)
+                torch.cuda.synchronize()
+                computed = [dest[r] for r in range(k) if flags[r]]
+                untouched = all(torch.equal(got[i], s0[i]) for i in range(6)
+                                if i not in computed and not (
+                                    k == 2 and flags[2] and i == dest[0]))
+                err, within = 0.0, True
+                for r in range(k):
+                    if not flags[r]:
+                        continue
+                    scale = (xf[:n_l].abs() @ xf[int(ids[r])].abs()).double()
+                    diff = (got[dest[r]].double()
+                            - want[dest[r]].double()).abs()
+                    within &= bool((diff <= 2 * d * 2.0 ** -24 * scale).all())
+                    err = max(err, float(diff.max()))
+                worst = max(worst, err)
+                same = torch.equal(got, again)
+                as_id = torch.equal(got, by_id[:, :n_l])
+                print(f"[cache_fill] query form, {where} ({n_l} rows) "
+                      f"{dname} {cname}: max|d row|={err:.3g} within 2 d "
+                      f"2^-24 sum|q x|={within} other lines untouched="
+                      f"{untouched} repeat bitwise={same} the id form's "
+                      f"line bitwise={as_id}", flush=True)
+                if not (within and untouched and same and as_id):
+                    raise AssertionError(f"cache_fill query form {where} "
+                                         f"{dname} {cname}")
+            xl = x[:CACHE_SHARD_ROWS]
+            n_l = xl.shape[0]
+            rows = sum(flags[:k])
+            ids_l = on([17, 2 * n_l // 3][:k], dtype=torch.int64)
+            sl = store0[:, :n_l].contiguous()
+            ms = time_ms(functools.partial(cf.cache_fill, xl, sl, None, *args,
+                                           q=q), reps)
+            id_ms = time_ms(functools.partial(cf.cache_fill, xl, sl, ids_l,
+                                              *args), reps)
+            plain_ms = time_ms(functools.partial(cf._cache_fill, xl, sl, None,
+                                                 *args, q=q), reps)
+            lib = None
+            if rows:
+                qm = q[[r for r in range(k) if flags[r]]]
+                lib = time_ms(functools.partial(row_dots, xl, qm), reps)
+            b_ms, b_by = bound(rows and (xl.numel() * xl.element_size()
+                                         + 4 * rows * n_l),
+                               2.0 * rows * n_l * d, F32_FLOPS)
+            print(f"[cache_fill] timed query form, shard of {n_l} rows, "
+                  f"{dname} {cname}: ms={ms:.4f} id_form_ms={id_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
+                  f"(row_dots: cuBLAS)", flush=True)
+            if (dname, cname) == ("bfloat16", "double_miss"):
+                rec = dict(n_loc=n_l, ms=ms, id_form_ms=id_ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib)
+    return rec, worst
 
 
 def phase_trips_bitwise(x, y, cfg) -> None:
@@ -1750,8 +1865,13 @@ def mesh_expect(st: dict, cfg, p_dev: int, kernels, start_rounds: int = 0
     Shard-local rounds: B1 once a shard and local round, B8 once a sync.
     Ring: B7 once a global round, or once a prefetch under the pipelined
     runner (a round's, plus each chunk's seed). Fused fold: B2 once a
-    shard and round. The per-pair engine: none."""
+    shard and round. The per-pair engine: cache_fill once a lookup and
+    shard with the row cache (a lookup a trip queued, two on the
+    second-order rule), else none."""
     expect = {k: 0 for k in kernels}
+    if cfg.engine == "xla" and cfg.cache_lines:
+        expect["cache_fill"] = p_dev * st["trips_queued"] * (
+            2 if cfg.selection == "second_order" else 1)
     rounds = st.get("outer_rounds", 0) - start_rounds
     syncs = st.get("shardlocal_syncs", 0)
     local = syncs * cfg.sync_rounds
@@ -1770,20 +1890,27 @@ def train_mesh_counted(x, y, cfg, mesh, label: str, tag: str = "mesh",
                        start_rounds: int = 0, **kw) -> tuple:
     """Train on the mesh with every launch count set to 0 just before and
     read just after: it must converge and launch what its loops derive
-    (mesh_expect). Returns (model, result, counts, warning texts)."""
+    (mesh_expect). The per-pair engine also: no synchronizing call
+    inside a trip (syncs_in_trips), its trips queued and host reads
+    (check_trips; at most one read a batch of smo.TRIPS plus one a
+    chunk). Returns (model, result, counts, warning texts)."""
     import warnings
 
     from dpsvm_tpu_torch import train
+    from dpsvm_tpu_torch.solver import smo
 
+    pair = cfg.engine == "xla"
     reset_counts()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings(record=True) as caught, (
+            syncs_in_trips() if pair else contextlib.nullcontext([])) \
+            as sites:
         warnings.simplefilter("always")
         model, res = train(x, y, cfg, backend="mesh", mesh=mesh, **kw)
     counts = read_counts()
     texts = [str(w.message) for w in caught]
     st = res.stats
     expect = mesh_expect(st, cfg, mesh.size, counts, start_rounds)
-    engine = ("per-pair" if cfg.engine == "xla" else
+    engine = ("per-pair" if pair else
               [k for k in ("pipelined", "fused_fold", "active_set_size",
                            "shardlocal_syncs", "ring_exchange")
                if st.get(k)] or ["global"])
@@ -1794,10 +1921,33 @@ def train_mesh_counted(x, y, cfg, mesh, label: str, tag: str = "mesh",
           f"demoted={st.get('shardlocal_demotion', 'none')} "
           f"train_seconds={res.train_seconds:.4f} n_sv={res.n_sv} "
           f"b={res.b:.6f} launches={counts}", flush=True)
+    if pair:
+        print(f"[{tag}] {label}: trips_queued={st['trips_queued']} "
+              f"host_reads={st['host_reads']} (ceil(trips / {smo.TRIPS}) "
+              f"+ chunks = "
+              f"{-(-st['trips_queued'] // smo.TRIPS) + st['chunks']}) "
+              f"masked_trips={st['trips_queued'] - res.iterations} "
+              f"cache_fill={counts['cache_fill']} (lookups "
+              f"{st['cache_lookups']} x {mesh.size} shards) cache_hits="
+              f"{st['cache_hits']} hit_rate={st['cache_hit_rate']:.4f} "
+              f"us_per_pair="
+              f"{1e6 * res.train_seconds / max(res.iterations, 1):.2f} "
+              f"syncs_inside_trips={len(sites)}", flush=True)
     for t in texts:
         print(f"[{tag}] {label}: warning: {t}", flush=True)
+    if sites:
+        print(f"[{tag}] {label}: first synchronizing call inside a trip:\n"
+              + "".join(traceback.format_list(sites[0][-8:])), flush=True)
+        raise AssertionError(f"mesh run {label}: {len(sites)} "
+                             "synchronizing calls inside its trips")
     if not res.converged:
         raise AssertionError(f"mesh run {label} did not converge")
+    if pair:
+        check_trips(f"mesh {label}", res)
+        if st["host_reads"] > -(-st["trips_queued"] // smo.TRIPS) \
+                + st["chunks"]:
+            raise AssertionError(f"mesh run {label}: {st['host_reads']} "
+                                 "host reads")
     if counts != expect or (cfg.engine == "block"
                             and st["outer_rounds"] == start_rounds):
         raise AssertionError(f"mesh run {label}: launches {counts}, "
@@ -2118,8 +2268,9 @@ RECON_RUN = dict(c=2048.0, gamma=0.03125, epsilon=1e-3, max_iter=2_000_000,
                  working_set_size=256, compensated=True)
 # The per-pair leg on a draw of RECON_XLA_ROWS rows (a
 # depth cut: on RECON_ROWS it runs 50000 pairs at ~1.4 ms each; on 1000
-# rows ~16000 pairs), the block leg on RECON_ROWS.
-RECON_XLA_ROWS = 1000
+# rows ~16000 pairs, 30.5 s beside an NVIDIA H100 80GB HBM3 at 700 W on
+# a slow host; on 500 ~5700), the block leg on RECON_ROWS.
+RECON_XLA_ROWS = 500
 RECON_LEGS = (("block", RECON_ROWS,
                dict(engine="block", reconstruct_every=200_000)),
               ("xla", RECON_XLA_ROWS,
@@ -2598,6 +2749,11 @@ MC_AGREE = 0.998
 # The whole-solve contract of a fleet submodel against its sequential
 # twin (the same config, use_fleet=False): dual, n_sv, b.
 TWIN_DUAL_RTOL, TWIN_SV_RTOL, TWIN_DB = 1e-4, 0.02, 5e-3
+# The fleet submodels held against their twins: those of the first
+# MC_TWIN_CLASSES classes (a depth cut: OvR 5 of 10, OvO 10 of 45; all
+# of them took 95 s beside an NVIDIA H100 80GB HBM3 at 700 W whose host
+# ran the per-pair engines 1.5x slower than usual).
+MC_TWIN_CLASSES = 5
 # [multiclass oracle]: the first 10000 rows (tools/bench_multiclass.py's
 # anchor), OvO, float32, at eps = tol / 2 of the oracle's LibSVM tol 0.01.
 MC_ORACLE_ROWS = 10_000
@@ -2727,12 +2883,13 @@ def phase_multiclass(x_all, y_all) -> dict:
     train_seconds, predict seconds and held-out accuracy; its .npz bundle
     reloads and predicts the same labels bit for bit. Each fleet agrees
     with its strategy's block run on >= MC_AGREE of the held-out labels,
-    and each fleet submodel meets the whole-solve contract of its
-    sequential twin. The fleet's CUDA graph is first held bitwise against
-    its eager trips (fleet_graph_check). Returns the launches of each
+    and each fleet submodel of the first MC_TWIN_CLASSES classes meets
+    the whole-solve contract of its sequential twin. The fleet's CUDA
+    graph is first held bitwise against its eager trips
+    (fleet_graph_check). Returns the launches of each
     run and {"ovr" | "ovo": (model, .npz path)} of the plain block runs,
     which [serve] serves."""
-    from dpsvm_tpu_torch import SVMConfig
+    from dpsvm_tpu_torch import SVMConfig, train
     from dpsvm_tpu_torch.models.multiclass import (MulticlassSVM,
                                                    predict_multiclass,
                                                    train_multiclass)
@@ -2778,15 +2935,25 @@ def phase_multiclass(x_all, y_all) -> dict:
         if agree < MC_AGREE:
             raise AssertionError(f"{strategy}: fleet and block agree on "
                                  f"{agree:.4f} < {MC_AGREE}")
+    keep = np.unique(y)[:MC_TWIN_CLASSES]
     for strategy, (cfg, results) in fleets.items():
         t0 = time.perf_counter()
-        _, twins = train_multiclass(x, y, cfg, strategy=strategy,
-                                    use_fleet=False)
+        if strategy == "ovo":
+            # A pair's problem is its two classes' rows, the same on the
+            # rows of the kept classes alone.
+            sub = np.isin(y, keep)
+            _, twins = train_multiclass(x[sub], y[sub], cfg, strategy="ovo",
+                                        use_fleet=False)
+            tags = [("ovo", a, b) for i, a in enumerate(keep)
+                    for b in keep[i + 1:]]
+        else:  # the sequential reduction's solve of each kept class
+            twins = [train(x, np.where(y == k, 1, -1).astype(np.int32),
+                           cfg)[1] for k in keep]
+            tags = [("ovr", k) for k in keep]
         wall = time.perf_counter() - t0
-        classes = np.unique(y)
         worst = [0.0, 0, 0.0]
-        for res, twin in zip(results, twins):
-            tag = res.stats["tag"]
+        for tag, twin in zip(tags, twins):
+            res = next(r for r in results if r.stats["tag"] == tag)
             if tag[0] == "ovr":
                 yk = np.where(y == tag[1], 1, -1)
             else:
@@ -2798,7 +2965,8 @@ def phase_multiclass(x_all, y_all) -> dict:
               f"twins (engine xla, {wall:.2f}s, train_seconds sum "
               f"{sum(t.train_seconds for t in twins):.4f}): worst dual rel "
               f"{worst[0]:.3g}, n_sv gap {worst[1]}, |db| {worst[2]:.3g} "
-              f"over {len(classes)} classes", flush=True)
+              f"over classes {keep.tolist()} of {len(np.unique(y))}",
+              flush=True)
     return launches, served
 
 
@@ -3904,6 +4072,8 @@ MESH_MORE = (
     ("e fused fold", dict(fused_fold=True)),
     ("f active", dict(active_set_size=2048)),
     ("g xla", dict(engine="xla")),
+    ("h xla cache512", dict(engine="xla", gram_resident=False,
+                            cache_lines=512)),
 )
 ACTIVE_M = 2048  # reconcile_rounds stays at its default, 8
 # The fused fold needs q/2 <= n_loc/128 with n_loc padded to 1024: four
@@ -3920,16 +4090,20 @@ PREDICT_ROWS = (50_000, 60_000)
 PREDICT_TOL = 1e-5  # rtol and atol (ROADMAP C.24)
 
 
-def phase_mesh_more(x, y, cfg, mesh, head_model, pair_model) -> dict:
-    """[mesh] (d)-(g): the pipelined runner with the ring (B1 a round, B7
+def phase_mesh_more(x, y, cfg, mesh, head_model, twins: dict) -> dict:
+    """[mesh] (d)-(h): the pipelined runner with the ring (B1 a round, B7
     a prefetch), the fused fold (on FUSED_SHARDS logical shards; B1 a
     round, B2 a shard and round), the
     active runner with m = ACTIVE_M (B1 an inner round) and the per-pair
-    mesh engine (no kernel), each after a warm-up on 16384 rows: every
-    one converged with its derived launches and under gate (a) against
-    the plain single-device headline. Then fused_round=True with the
-    fused fold: the warning, and (e)'s launches. Returns the launches
-    per path."""
+    mesh engine, uncached (g, no kernel) and with 512 cache lines (h,
+    cache_fill's query form once a lookup and shard), each after a
+    warm-up on 16384 rows: every one converged with its derived
+    launches and under gate (a) against the plain single-device
+    headline, (g) and (h) against their one-device twins of phase 6
+    (`twins`: label -> (model, result)), with their trips, host reads
+    and no synchronizing call inside a trip (train_mesh_counted). Then
+    fused_round=True with the fused fold: the warning, and (e)'s
+    launches. Returns the launches per path."""
     from dpsvm_tpu_torch import train
     from dpsvm_tpu_torch.parallel.mesh import Mesh
 
@@ -3944,7 +4118,7 @@ def phase_mesh_more(x, y, cfg, mesh, head_model, pair_model) -> dict:
         warm = 64 if kw.get("engine") == "xla" else 2048
         train(x[:16384], y[:16384], cfg.replace(max_iter=warm, **kw),
               backend="mesh", mesh=on(kw))
-    print(f"[mesh] warm-up solves of (d)-(g) on 16384 rows in "
+    print(f"[mesh] warm-up solves of (d)-(h) on 16384 rows in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     paths = {}
     for label, kw in MESH_MORE:
@@ -3955,10 +4129,23 @@ def phase_mesh_more(x, y, cfg, mesh, head_model, pair_model) -> dict:
             # The per-pair engine's optimum at eps 0.01 has its own SV
             # set (phase 6's one-device run keeps 5.7% fewer than the
             # block headline, ROADMAP C.35): its twin is that run.
+            twin = "xla cache512" if kw.get("cache_lines") else "xla"
+            twin_model, twin_res = twins[twin]
             agree_gate(f"mesh {label} vs the block headline", model,
                        head_model, x, res.converged, gate=False)
-            agree_gate(f"mesh {label} vs the one-device per-pair run",
-                       model, pair_model, x, res.converged)
+            agree_gate(f"mesh {label} vs the one-device per-pair run "
+                       f"{twin}", model, twin_model, x, res.converged)
+            same = {k: a == b for k, a, b in (
+                ("pairs", res.iterations, twin_res.iterations),
+                ("b", res.b, twin_res.b),
+                ("hits", res.stats["cache_hits"],
+                 twin_res.stats["cache_hits"]))}
+            print(f"[mesh] {label} against one-device {twin}: pairs "
+                  f"{res.iterations} / {twin_res.iterations}, b "
+                  f"{res.b!r} / {twin_res.b!r}, hits "
+                  f"{res.stats['cache_hits']} / "
+                  f"{twin_res.stats['cache_hits']}; equal: {same}",
+                  flush=True)
             continue
         # The active cycles stop at eps 0.01 with more small-alpha SVs
         # than the plain engine (ROADMAP C.34): the SV count is reported
@@ -4723,7 +4910,7 @@ MP_DEVICE = "cuda:0"
 MP_LOCAL = 2  # logical shards of MP_DEVICE in each of the two processes
 # (b) reads the first MP_PAIR_ROWS rows of [cli]'s test.csv (rows 0-9999
 # at full width; -x cuts it), (c), (h) and (i)'s -v all of them.
-MP_PAIR_ROWS = 500
+MP_PAIR_ROWS = 250  # a depth cut from 500
 MP_STOP_PAIRS = 2048  # (c)'s --max-iter: four chunks of 512 pairs
 MP_TIMEOUT_S = 300  # a child's hard limit
 MP_HEAD_ARGV = ["-c", "10", "-g", "0.125", "-e", "0.01",
@@ -5699,10 +5886,11 @@ def main() -> int:
 
     # ---- 28-35. the rest of the mesh and the active-set engine
     print(f"[mesh] {smi}", flush=True)
-    pair_model = SVMModel.from_dense(x, y, pair_res["xla"].alpha,
-                                     pair_res["xla"].b, head_model.kernel)
-    paths.update(phase_mesh_more(x, y, cfg, mesh, head_model, pair_model))
-    lap("mesh (d)-(g)")
+    twins = {k: (SVMModel.from_dense(x, y, pair_res[k].alpha, pair_res[k].b,
+                                     head_model.kernel), pair_res[k])
+             for k in ("xla", "xla cache512")}
+    paths.update(phase_mesh_more(x, y, cfg, mesh, head_model, twins))
+    lap("mesh (d)-(h)")
     paths.update(phase_active(x, y, cfg, head_model, oracle, sk_dec))
     lap("active")
     paths.update(phase_mesh_oracle_nu(x, y, mesh))
@@ -5773,7 +5961,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("launch_floor_ms", "contraction_ms",
-                                 "serial_trips") if k in r},
+                                 "serial_trips", "query_form") if k in r},
             "path_launches": {p: c[name] for p, c in paths.items()
                               if c[name]},
             **({"nu": r["nu"]} if "nu" in r else {})})

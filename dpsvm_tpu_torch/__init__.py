@@ -30,12 +30,15 @@ from dpsvm_tpu_torch.models import (OneClassModel, SVMModel, SVRModel,
 from dpsvm_tpu_torch.ops.kernels import KernelParams
 from dpsvm_tpu_torch.parallel.dist_smo import solve_mesh
 from dpsvm_tpu_torch.parallel.mesh import Mesh, make_data_mesh
-from dpsvm_tpu_torch.predict import accuracy, decision_function, predict
+from dpsvm_tpu_torch.predict import (accuracy, decision_function,
+                                     decision_risk, predict)
 from dpsvm_tpu_torch.serve import PredictServer
 from dpsvm_tpu_torch.solver.result import SolveResult
 from dpsvm_tpu_torch.solver.solve import solve
 from dpsvm_tpu_torch.train import train
+from dpsvm_tpu_torch import data
 
+__version__ = "0.1.0"
 
 
 def __getattr__(name):
@@ -51,6 +54,7 @@ def __getattr__(name):
 
 __all__ = ["SVMConfig", "SVMModel", "KernelParams", "SolveResult", "solve",
            "solve_mesh", "Mesh", "make_data_mesh", "train",
-           "decision_function", "predict", "accuracy", "SVRModel",
-           "OneClassModel", "train_svr", "train_oneclass", "train_nusvc",
-           "train_nusvr", "estimators", "ServeConfig", "PredictServer"]
+           "decision_function", "decision_risk", "predict", "accuracy",
+           "SVRModel", "OneClassModel", "train_svr", "train_oneclass",
+           "train_nusvc", "train_nusvr", "estimators", "ServeConfig",
+           "PredictServer", "data", "__version__"]

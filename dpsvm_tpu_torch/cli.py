@@ -1689,5 +1689,21 @@ def main(argv=None) -> int:
     return _cmd_test(args)
 
 
+def train_main() -> int:
+    """The `svmtrain` console entry (the reference's ./svmTrain role):
+    `train` with this process's arguments."""
+    return main(["train"] + sys.argv[1:])
+
+
+def test_main() -> int:
+    """The `svmtest` console entry (the reference's svmTest role)."""
+    return main(["test"] + sys.argv[1:])
+
+
+def serve_main() -> int:
+    """The `svmserve` console entry: the persistent serving engine."""
+    return main(["serve"] + sys.argv[1:])
+
+
 if __name__ == "__main__":
     sys.exit(main())

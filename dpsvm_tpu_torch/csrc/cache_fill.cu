@@ -10,12 +10,21 @@
 // know which case a trip is in, and computing both rows every trip and
 // discarding the hits would undo the cache. This kernel reads the case
 // from device memory instead: for each query r with flags[r] (its miss)
-// set it writes the dot row x[ids[r]] . X^T into line dest[r] of the
-// cache's store; a hit line is left as it is, and a trip with no miss
-// (both hit, or a masked trip) returns at once. A pair's third flag
-// (save) covers the one-line cache: query 0 hit the line query 1's row
-// is about to replace, so that line is first copied to line dest[0] (the
-// spare), entry by entry in the warp that then overwrites it.
+// set it writes the dot row q_r . X^T into line dest[r] of the cache's
+// store; a hit line is left as it is, and a trip with no miss (both hit,
+// or a masked trip) returns at once. A pair's third flag (save) covers
+// the one-line cache: query 0 hit the line query 1's row is about to
+// replace, so that line is first copied to line dest[0] (the spare),
+// entry by entry in the warp that then overwrites it.
+//
+// Two forms of the query rows, one kernel body. The id form (the
+// single-device engines) reads query r at x + ids[r] * d, a row of X.
+// The query form (the per-pair mesh engine, parallel/dist_smo.py) reads
+// it at q + r * d: on a row shard the pair's rows are not in the local
+// X, they arrive through the mesh's masked sum, and each shard fills its
+// own columns of the line. Both forms sum a dot entry over d in the same
+// order, so a shard's line is bit for bit the same columns of the
+// one-device line.
 //
 // What bounds it on this card: bytes. A miss reads X once (n x d values,
 // 94 MB at 60000 x 784 in bfloat16: 28 us at 3.35 TB/s) for 2 d flops a
@@ -84,17 +93,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-    cache_fill_kernel(const T* __restrict__ x, float* __restrict__ store,
-                      const int64_t* __restrict__ ids, const int64_t* __restrict__ dest,
-                      const bool* __restrict__ flags, int nq, long long n, int d) {
+    cache_fill_kernel(const T* __restrict__ x, const T* __restrict__ q,
+                      float* __restrict__ store, const int64_t* __restrict__ ids,
+                      const int64_t* __restrict__ dest, const bool* __restrict__ flags, int nq,
+                      long long n, int d) {
   const bool m0 = flags[0];
   const bool m1 = nq > 1 && flags[1];
   const bool save = nq > 1 && flags[2];  // implies m1 and not m0
   if (!m0 && !m1) return;  // every query hit, or the trip is masked
-  const T* q0 = x + (size_t)ids[0] * d;
-  const T* q1 = x + (size_t)ids[nq > 1 ? 1 : 0] * d;
+  const int r1 = nq > 1 ? 1 : 0;
+  // The query form's rows, else the id form's rows of X.
+  const T* q0 = q != nullptr ? q : x + (size_t)ids[0] * d;
+  const T* q1 = q != nullptr ? q + (size_t)r1 * d : x + (size_t)ids[r1] * d;
   float* out0 = store + (size_t)dest[0] * n;
-  float* out1 = store + (size_t)dest[nq > 1 ? 1 : 0] * n;
+  float* out1 = store + (size_t)dest[r1] * n;
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)gridDim.x * kWarps;
   for (long long j = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); j < n; j += stride) {
@@ -134,16 +146,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <typename T>
-int launch(const void* x, float* store, const int64_t* ids, const int64_t* dest,
-           const bool* flags, int nq, long long n, int d, int vec, int blocks,
-           cudaStream_t stream) {
+int launch(const void* x, const void* q, float* store, const int64_t* ids,
+           const int64_t* dest, const bool* flags, int nq, long long n, int d, int vec,
+           int blocks, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
+  const T* qt = static_cast<const T*>(q);
   if (vec) {
-    cache_fill_kernel<T, true><<<blocks, kWarps * 32, 0, stream>>>(xt, store, ids, dest, flags,
-                                                                   nq, n, d);
+    cache_fill_kernel<T, true>
+        <<<blocks, kWarps * 32, 0, stream>>>(xt, qt, store, ids, dest, flags, nq, n, d);
   } else {
-    cache_fill_kernel<T, false><<<blocks, kWarps * 32, 0, stream>>>(xt, store, ids, dest, flags,
-                                                                    nq, n, d);
+    cache_fill_kernel<T, false>
+        <<<blocks, kWarps * 32, 0, stream>>>(xt, qt, store, ids, dest, flags, nq, n, d);
   }
   return (int)cudaGetLastError();
 }
@@ -151,19 +164,22 @@ int launch(const void* x, float* store, const int64_t* ids, const int64_t* dest,
 }  // namespace
 
 // x: (n, d) row-major, float32 (bf16 == 0) or bfloat16 (bf16 == 1);
-// store: (lines, n) float32 row-major; ids, dest: (nq,) int64; flags:
-// nq == 1: (1,) bool {miss}; nq == 2: (3,) bool {miss0, miss1, save}.
-// vec: each row starts 16-byte aligned and d is a multiple of
-// 16 / sizeof(value) (the wrapper checks both). blocks: the
+// q: null (the id form: query r is row ids[r] of x) or (nq, d)
+// row-major in x's type (the query form; ids is then unread and may be
+// null); store: (lines, n) float32 row-major; ids, dest: (nq,) int64;
+// flags: nq == 1: (1,) bool {miss}; nq == 2: (3,) bool {miss0, miss1,
+// save}. vec: every row of x and q starts 16-byte aligned and d is a
+// multiple of 16 / sizeof(value) (the wrapper checks both). blocks: the
 // grid (ops/cache_fill.py cache_fill_plan). Returns the launch's CUDA
 // error code.
-extern "C" int dpsvm_cache_fill(const void* x, float* store, const int64_t* ids,
+extern "C" int dpsvm_cache_fill(const void* x, const void* q, float* store, const int64_t* ids,
                                 const int64_t* dest, const bool* flags, int nq, long long n,
                                 int d, int bf16, int vec, int blocks, void* stream) {
-  if (nq < 1 || nq > 2 || n < 1 || d < 1 || blocks < 1 || (bf16 != 0 && bf16 != 1)) {
+  if (nq < 1 || nq > 2 || n < 1 || d < 1 || blocks < 1 || (bf16 != 0 && bf16 != 1) ||
+      (q == nullptr && ids == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(x, store, ids, dest, flags, nq, n, d, vec, blocks, s)
-              : launch<float>(x, store, ids, dest, flags, nq, n, d, vec, blocks, s);
+  return bf16 ? launch<__nv_bfloat16>(x, q, store, ids, dest, flags, nq, n, d, vec, blocks, s)
+              : launch<float>(x, q, store, ids, dest, flags, nq, n, d, vec, blocks, s);
 }

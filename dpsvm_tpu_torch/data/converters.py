@@ -1,5 +1,11 @@
-"""LIBSVM-format conversion (counterpart of dpsvm_tpu/data/converters.py
-parse_libsvm and libsvm_to_csv; the same file gives the same arrays)."""
+"""Data-prep converters (counterpart of dpsvm_tpu/data/converters.py):
+LIBSVM parsing and conversion (the same file gives the same arrays), the
+MNIST even/odd relabelling, and the module's CLI, which writes what the
+JAX package's writes:
+
+    python -m dpsvm_tpu_torch.data.converters adult in.libsvm out.csv
+    python -m dpsvm_tpu_torch.data.converters mnist_even_odd in.csv out.csv
+"""
 
 from __future__ import annotations
 
@@ -76,3 +82,57 @@ def libsvm_to_csv(src: str, dst: str,
     x, y = parse_libsvm(src, num_features)
     save_csv(dst, x, y)
     return x.shape
+
+
+def mnist_to_odd_even(x: np.ndarray, digits: np.ndarray,
+                      scale: float = 255.0):
+    """Digit labels -> +1 (even) / -1 (odd); pixels scaled by 1/scale,
+    the relabelling of the reference's convert_mnist_to_odd_even.py."""
+    y = np.where(np.asarray(digits) % 2 == 0, 1, -1).astype(np.int32)
+    return (np.asarray(x, np.float32) / scale), y
+
+
+def mnist_to_odd_even_csv(src: str, dst: str) -> tuple[int, int]:
+    """CSV of ``digit,p1,...,p784`` -> the ``label,f1,...`` CSV of its
+    even/odd relabelling. Returns (n, d)."""
+    from dpsvm_tpu_torch.data.loader import load_csv, save_csv
+
+    x, digits = load_csv(src)
+    x, y = mnist_to_odd_even(x * 1.0, digits, scale=255.0)
+    save_csv(dst, x, y)
+    return x.shape
+
+
+def main(argv=None) -> int:
+    """The module's CLI (the reference's prep scripts
+    scripts/convert_adult.py and scripts/convert_mnist_to_odd_even.py
+    are directly runnable): `adult SRC DST [--num-features D]` or
+    `mnist_even_odd SRC DST`."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="dpsvm_tpu_torch.data.converters",
+                                 description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p_a = sub.add_parser("adult",
+                         help="sparse LIBSVM -> dense reference CSV")
+    p_a.add_argument("src")
+    p_a.add_argument("dst")
+    p_a.add_argument("--num-features", type=int, default=None,
+                     help="pad/clip feature width (default: max index "
+                          "seen; the reference pins Adult to 123)")
+    p_m = sub.add_parser("mnist_even_odd",
+                         help="digit,pixels CSV -> +-1 even/odd CSV "
+                              "with pixels scaled /255")
+    p_m.add_argument("src")
+    p_m.add_argument("dst")
+    args = ap.parse_args(argv)
+    if args.cmd == "adult":
+        n, d = libsvm_to_csv(args.src, args.dst, args.num_features)
+    else:
+        n, d = mnist_to_odd_even_csv(args.src, args.dst)
+    print(f"wrote {args.dst}: {n} rows x {d} features")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

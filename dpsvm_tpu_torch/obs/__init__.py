@@ -40,14 +40,14 @@ import weakref
 from typing import Optional
 
 from dpsvm_tpu_torch.obs import compilelog, metrics, runlog, trace
-from dpsvm_tpu_torch.obs.metrics import Registry
+from dpsvm_tpu_torch.obs.metrics import Registry, enable, get_registry
 from dpsvm_tpu_torch.obs.runlog import SCHEMA_VERSION, RunLog, read_runlog
 from dpsvm_tpu_torch.obs.trace import TraceSession, span
 
 __all__ = [
     "compilelog", "metrics", "runlog", "trace", "Registry", "RunLog",
-    "TraceSession", "SCHEMA_VERSION", "read_runlog", "span", "obs_enabled",
-    "run_obs", "RunObs", "NULL_OBS",
+    "TraceSession", "SCHEMA_VERSION", "enable", "get_registry",
+    "read_runlog", "span", "obs_enabled", "run_obs", "RunObs", "NULL_OBS",
 ]
 
 

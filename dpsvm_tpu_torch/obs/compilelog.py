@@ -13,7 +13,8 @@ builds the port does pay for at run time are
 Each is reported through :func:`record` and becomes
 
 * a process-level counter (:func:`compiles_total`), which the serving
-  /metrics endpoint exports as ``serve_compiles``, and
+  /metrics endpoint exports as ``serve_compiles``, and their seconds
+  (:func:`compile_seconds_total`), and
 * a ``compile`` run-log record ``{entrypoint, shape, seconds}`` in every
   registered sink (obs/__init__.py RunObs registers one while a run is
   live), with ``shape`` taken from the innermost active :func:`label`
@@ -31,6 +32,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 _compiles = 0
+_seconds = 0.0
 # (entrypoint, shape) labels, innermost last. Builds happen on the
 # thread that first launches a kernel; a plain list under the GIL is
 # enough.
@@ -44,8 +46,9 @@ def record(entrypoint: str, seconds: float,
     sink as (entrypoint, shape, seconds). The innermost label names the
     dispatch that triggered it: its name leads the entrypoint, and its
     shape stands in when the reporter has none."""
-    global _compiles
+    global _compiles, _seconds
     _compiles += 1
+    _seconds += float(seconds)
     if not _sinks:
         return
     if _labels:
@@ -63,6 +66,13 @@ def record(entrypoint: str, seconds: float,
 def compiles_total() -> int:
     """Builds and graph captures recorded in this process."""
     return _compiles
+
+
+def compile_seconds_total() -> float:
+    """The seconds of the builds and captures compiles_total counts,
+    rounded to the microsecond as the JAX package rounds its compile
+    seconds."""
+    return round(_seconds, 6)
 
 
 def add_sink(sink: Callable) -> None:

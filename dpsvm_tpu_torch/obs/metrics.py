@@ -6,12 +6,15 @@ with nothing allocated on the hot path (the histogram's ring is
 allocated once), so a serving dispatch can observe a latency without
 perturbing what it measures. A histogram holds a fixed log2 bin array
 and a ring of the most recent ``window`` raw samples: memory is O(bins
-+ window) however many observations arrive.
++ window) however many observations arrive. ``get_registry`` is the
+process-default registry, which ``DPSVM_OBS=1`` enables; disabled, a
+registry hands out the shared no-op instrument ``NULL``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -129,14 +132,53 @@ class Histogram:
         return out
 
 
+class _Null:
+    """The shared do-nothing instrument (all three APIs), which a
+    disabled registry hands out."""
+
+    __slots__ = ()
+    name = "<null>"
+    value = 0
+    count = 0
+
+    def add(self, v: int = 1) -> None:
+        pass
+
+    def set(self, v) -> None:
+        pass
+
+    def observe(self, v: float) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return 0
+
+    def percentiles(self, qs=(50, 95, 99), last=None) -> dict:
+        return {}
+
+    def window_values(self, last=None):
+        return np.empty((0,), np.float64)
+
+    def snapshot(self):
+        return None
+
+
+NULL = _Null()
+
+
 class Registry:
     """Name -> instrument map; asking for a name again returns the same
-    instrument."""
+    instrument. A disabled registry hands out NULL (the strict no-op
+    mode); the mode is read when an instrument is asked for, so
+    long-lived holders keep the mode they were created under."""
 
-    def __init__(self):
+    def __init__(self, enabled: bool = True):
+        self.enabled = bool(enabled)
         self._m: dict = {}
 
     def _get(self, name: str, cls, **kw):
+        if not self.enabled:
+            return NULL
         inst = self._m.get(name)
         if inst is None or inst.__class__ is not cls:
             inst = cls(name, **kw)
@@ -158,3 +200,27 @@ class Registry:
 
     def reset(self) -> None:
         self._m.clear()
+
+
+_DEFAULT: Optional[Registry] = None
+
+
+def _env_enabled() -> bool:
+    return os.environ.get("DPSVM_OBS", "") not in ("", "0")
+
+
+def get_registry() -> Registry:
+    """The process-default registry, made at first use: enabled when
+    the environment sets ``DPSVM_OBS`` (to anything but 0)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Registry(enabled=_env_enabled())
+    return _DEFAULT
+
+
+def enable(on: bool = True) -> Registry:
+    """Switch the default registry's mode (tests; a programmatic
+    opt-in). Returns the registry."""
+    reg = get_registry()
+    reg.enabled = bool(on)
+    return reg

@@ -42,11 +42,17 @@ candidates ON THE DEVICE (lowest global id on ties), gathers its rows
 and per-row scalars from the owning shard with masked sums (eta and the
 squared norms come from the owner, so mesh and single-device
 trajectories stay aligned), computes the kernel rows shard by shard and
-updates f locally. Without the cache no id leaves the device: a trip
-past the loop's end is a gated no-op, and the host reads the loop
-condition once every PAIR_TRIPS trips. The row cache keeps its keys on
-the host (solver/cache.py), so a cached trip reads its pair's ids, as
-the single-device engine does.
+updates f locally. No id leaves the device: the chunk runs through
+solver/smo.py queue_trips as the single-device engines' chunks do, the
+host reading (it, the stop flag, b_hi, b_lo) of the first device once
+every smo.TRIPS trips, and a trip queued after the stop is masked: it
+still calls every collective of a trip in every rank and every process
+(each process stops at the same read of the same replicated values), and
+changes nothing. The row cache is the sharded device form of
+solver/cache.py (init_mesh_cache): each rank holds its columns of the
+lines, each device one replicated copy of the keys and ticks, the slots
+are decided on the device with the single-device rules, and kernel
+cache_fill fills each shard's columns from the pair's query rows.
 
 config.ooc routes to the out-of-core mesh stream (solver/ooc.py
 solve_ooc_mesh). Every solve runs inside the fault retry and the
@@ -83,14 +89,14 @@ from dpsvm_tpu_torch.parallel.dist_block import (
 from dpsvm_tpu_torch.parallel.mesh import (Mesh, make_data_mesh, pad_rows,
                                            process_count, replicate_array,
                                            shard_padded_rows, unshard)
-from dpsvm_tpu_torch.solver import chunks
+from dpsvm_tpu_torch.solver import chunks, smo
 from dpsvm_tpu_torch.solver.block import autotune_gate_resolver, scatter_alpha
-from dpsvm_tpu_torch.solver.cache import (CacheState, init_host_cache,
-                                          lookup_one_sharded,
-                                          lookup_pair_sharded)
+from dpsvm_tpu_torch.solver.cache import (MeshCacheState, init_mesh_cache,
+                                          lookup_one_mesh, lookup_pair_mesh)
 from dpsvm_tpu_torch.solver.result import SolveResult
-from dpsvm_tpu_torch.solver.smo import (fma32, gap_open, maybe_kahan,
-                                        pair_alpha_update, read_obs)
+from dpsvm_tpu_torch.solver.smo import (fma32, maybe_kahan,
+                                        pair_alpha_update, read_obs,
+                                        two_eps)
 from dpsvm_tpu_torch.solver.solve import (_BUDGET_EPS, active_set_height,
                                           storage_dtype)
 from dpsvm_tpu_torch.utils.checkpoint import PeriodicCheckpointer
@@ -100,11 +106,6 @@ from dpsvm_tpu_torch.utils.checkpoint import PeriodicCheckpointer
 # that a stalled engine is demoted promptly; large enough that the check
 # is amortized over thousands of pair updates.
 _SHARDLOCAL_WINDOWS_PER_CHUNK = 8
-
-# Per-pair mesh trips queued between two host reads of the loop
-# condition (uncached): at most this many gated no-op trips run after
-# the loop's end.
-PAIR_TRIPS = 256
 
 # One-time flag of _warn_multihost_retry_dropped: a job of many solves
 # (the model families' legs) warns once.
@@ -138,19 +139,34 @@ _ID_MAX = 2 ** 62
 # The per-pair mesh engine.
 
 class MeshPairState(NamedTuple):
-    """The per-pair mesh loop's carry: alpha, f (and f_err) one tensor
-    per rank; the carried extrema and the pair count one tensor per
-    distinct device; the sharded row cache (keys and ticks on the host)
-    and the hits on the host."""
+    """The per-pair mesh loop's carry, all of it on the devices: alpha,
+    f (and f_err) one tensor per rank; the carried extrema, the pair
+    count and the cache hits one tensor per distinct device (replicated
+    values); the sharded row cache (lines per rank, keys and ticks per
+    device)."""
 
     alpha: list
     f: list
     b_hi: list
     b_lo: list
     it: list  # int32
-    cache: Optional[CacheState]
-    hits: int
+    cache: Optional[MeshCacheState]
+    hits: list  # 0-d int64
     f_err: Optional[list] = None
+
+
+class _Lead(NamedTuple):
+    """The first device's view of a MeshPairState: what queue_trips reads
+    (its it, b_hi and b_lo; alpha names the device)."""
+
+    alpha: torch.Tensor
+    it: torch.Tensor
+    b_hi: torch.Tensor
+    b_lo: torch.Tensor
+
+
+def _lead(st: MeshPairState) -> _Lead:
+    return _Lead(st.alpha[0], st.it[0], st.b_hi[0], st.b_lo[0])
 
 
 def _ieee_min(v: torch.Tensor) -> torch.Tensor:
@@ -284,25 +300,28 @@ def _on_ranks(mesh: Mesh, x, per_group) -> list:
 def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
                            tau: float, selection: str = "mvp"):
     """The per-pair mesh engine (engine="xla" on the mesh):
-    run(x, y, x_sq, k_diag, valid, state, end) -> state runs trips while
-    it < end and the gap of the last selection is open; the trip that
-    sees the closed gap still runs its (degenerate) update and counts,
-    as on one device. selection "mvp", "nu" (the per-class pair) or
-    "second_order" (i by violation, j by the largest gain over the
-    sharded candidates: two gathers a trip). A trip is three exchanges
-    (four under second_order): the candidates, then the pair's rows with
-    their per-row scalars in one masked sum, then the kernel entries
-    eta reads."""
+    run(x, y, x_sq, k_diag, valid, state, end, it_host=None, tally=None)
+    -> state runs trips while it < end and the gap of the last selection
+    is open; the trip that sees the closed gap still runs its
+    (degenerate) update and counts, as on one device. The trips are
+    queued smo.TRIPS at a time between host reads (smo.queue_trips,
+    with `it_host` and `tally` as there); a trip never reads the host.
+    selection "mvp", "nu" (the per-class pair) or "second_order" (i by
+    violation, j by the largest gain over the sharded candidates: two
+    gathers a trip). A trip is three exchanges (four under
+    second_order): the candidates, then the pair's rows with their
+    per-row scalars in one masked sum, then the kernel entries eta
+    reads."""
     p_loc = len(mesh.devices)
 
     def owners_of(ids, n_loc):
         return [_owner(ids[mesh.group_of[i]], r, n_loc)
                 for i, r in enumerate(mesh.local_ranks)]
 
-    def first_order(x, y, x_sq, valid, st, f_cur, it_h):
+    def first_order(x, y, x_sq, valid, st, f_cur, active):
         """mvp / nu: (pair, extrema, pair scalars, own_hi, own_lo, k_hi,
         k_lo, eta, elig, hits); pair = (i_hi, b_hi, i_lo, b_lo) per
-        group."""
+        group, hits per group (None uncached)."""
         n_loc = y[0].shape[0]
         sel = _select_pair_mesh(mesh, f_cur, st.alpha, y, valid, c,
                                 selection)
@@ -316,12 +335,12 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             _scalar_parts(x_sq, own_hi), _scalar_parts(x_sq, own_lo),
             _scalar_parts(y, own_hi), _scalar_parts(y, own_lo),
             _scalar_parts(st.alpha, own_hi), _scalar_parts(st.alpha, own_lo))
-        hits = 0
+        hits = None
         if st.cache is not None:
-            (ih, il), _ = read_obs((sel[0][0], sel[0][2]))
-            d_hi, d_lo, hits = lookup_pair_sharded(
-                st.cache, x, ih, il, _on_ranks(mesh, x, q_hi),
-                _on_ranks(mesh, x, q_lo), it_h)
+            d_hi, d_lo, hits = lookup_pair_mesh(
+                st.cache, x, [s[0] for s in sel], [s[2] for s in sel],
+                _on_ranks(mesh, x, q_hi), _on_ranks(mesh, x, q_lo), st.it,
+                active)
             k_hi = _kernel_rows(mesh, x, x_sq, kp, None, sq_hi, d_hi)
             k_lo = _kernel_rows(mesh, x, x_sq, kp, None, sq_lo, d_lo)
         else:
@@ -339,7 +358,7 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
         return (sel, [(s[1], s[3]) for s in sel], pair_scal, own_hi, own_lo,
                 k_hi, k_lo, eta, None, hits)
 
-    def second_order(x, y, x_sq, k_diag, valid, st, f_cur, it_h):
+    def second_order(x, y, x_sq, k_diag, valid, st, f_cur, active):
         """The second-order pair (the JAX package's _iteration_wss2): i
         and the global b_lo from the first gather, j from the second;
         the update runs on (b_hi, f_j), gated on an eligible j."""
@@ -364,14 +383,13 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             _row_parts(x, own_hi), _scalar_parts(x_sq, own_hi),
             _scalar_parts(k_diag, own_hi), _scalar_parts(y, own_hi),
             _scalar_parts(st.alpha, own_hi))
-        hits = 0
+        hits = None
         if st.cache is not None:
-            (ih,), _ = read_obs((first[0][0],))
-            d_hi, hit = lookup_one_sharded(
-                st.cache, x, ih, _on_ranks(mesh, x, q_hi), 2 * it_h + 1)
-            # The lo lookup may rewrite the line these rows view.
-            d_hi = [d.clone() for d in d_hi]
-            hits += int(hit)
+            # JAX's stamps: 2 it + 1 for hi, 2 it + 2 for lo.
+            stamp = [2 * it for it in st.it]
+            d_hi, hits = lookup_one_mesh(
+                st.cache, x, [s[0] for s in first], _on_ranks(mesh, x, q_hi),
+                [s + 1 for s in stamp], active)
             k_hi = _kernel_rows(mesh, x, x_sq, kp, None, sq_hi, d_hi)
         else:
             k_hi = [k[0] for k in _kernel_rows(
@@ -401,10 +419,10 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             _scalar_parts(k_hi, own_lo), _scalar_parts(y, own_lo),
             _scalar_parts(st.alpha, own_lo))
         if st.cache is not None:
-            (il,), _ = read_obs((i_lo[0],))
-            d_lo, hit = lookup_one_sharded(
-                st.cache, x, il, _on_ranks(mesh, x, q_lo), 2 * it_h + 2)
-            hits += int(hit)
+            d_lo, hit_lo = lookup_one_mesh(
+                st.cache, x, i_lo, _on_ranks(mesh, x, q_lo),
+                [s + 2 for s in stamp], active)
+            hits = [h.long() + hl.long() for h, hl in zip(hits, hit_lo)]
             k_lo = _kernel_rows(mesh, x, x_sq, kp, None, sq_lo, d_lo)
         else:
             k_lo = [k[0] for k in _kernel_rows(
@@ -417,18 +435,21 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
                                                        a_lo0),
                 own_hi, own_lo, k_hi, k_lo, eta, elig, hits)
 
-    def trip(x, y, x_sq, k_diag, valid, st: MeshPairState, end: int):
+    def trip(x, y, x_sq, k_diag, valid, st: MeshPairState, end: int,
+             eps2, active0):
+        """One trip, gated by the loop's condition on every device
+        (`active0` the first device's, as queue_trips computed it)."""
         f_cur = (st.f if st.f_err is None
                  else [f - e for f, e in zip(st.f, st.f_err)])
-        active = [(it < end) & (bl > bh + 2.0 * eps)
-                  for it, bh, bl in zip(st.it, st.b_hi, st.b_lo)]
-        it_h = None
-        if st.cache is not None:
-            (it_h,), _ = read_obs((st.it[0],))
+        active = [active0] + [
+            (it < end) & (bl > bh + e2)
+            for it, bh, bl, e2 in zip(st.it[1:], st.b_hi[1:], st.b_lo[1:],
+                                      eps2[1:])]
         if selection == "second_order":
-            out = second_order(x, y, x_sq, k_diag, valid, st, f_cur, it_h)
+            out = second_order(x, y, x_sq, k_diag, valid, st, f_cur,
+                               active)
         else:
-            out = first_order(x, y, x_sq, valid, st, f_cur, it_h)
+            out = first_order(x, y, x_sq, valid, st, f_cur, active)
         pair, ext, pair_scal, own_hi, own_lo, k_hi, k_lo, eta, elig, \
             hits = out
         gate = active if elig is None else [a & e for a, e in
@@ -447,21 +468,20 @@ def make_pair_chunk_runner(mesh: Mesh, kp: KernelParams, c, eps: float,
             [torch.where(a, e[1], bl) for a, e, bl in zip(active, ext,
                                                           st.b_lo)],
             [it + a.to(torch.int32) for it, a in zip(st.it, active)],
-            st.cache, st.hits + hits, f_err)
+            st.cache,
+            st.hits if hits is None else [h + n for h, n in zip(st.hits,
+                                                                hits)],
+            f_err)
 
-    def run(x, y, x_sq, k_diag, valid, state: MeshPairState, end: int):
-        # Without the cache, up to PAIR_TRIPS trips between two reads
-        # (never more than the pairs left to `end`); the row cache needs
-        # each pair's ids on the host, so a cached loop reads its
-        # condition with them, once a trip.
-        trips = 1 if state.cache is not None else PAIR_TRIPS
-        while True:
-            (it,), (bh, bl) = read_obs((state.it[0],),
-                                       (state.b_hi[0], state.b_lo[0]))
-            if not (it < end and gap_open(bh, bl, eps)):
-                return state
-            for _ in range(min(trips, end - it)):
-                state = trip(x, y, x_sq, k_diag, valid, state, end)
+    def run(x, y, x_sq, k_diag, valid, state: MeshPairState, end: int,
+            it_host: Optional[int] = None, tally: Optional[dict] = None):
+        # 2 eps in float32 on each device, so every device's condition
+        # is queue_trips's (smo.trip_active) bit for bit.
+        eps2 = [two_eps(eps, dev) for dev, _ in mesh.groups]
+        return smo.queue_trips(
+            lambda st, active: trip(x, y, x_sq, k_diag, valid, st, end,
+                                    eps2, active),
+            state, end, eps, state_of=_lead, it_host=it_host, tally=tally)
 
     return run
 
@@ -705,21 +725,22 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
         run_chunk = engine.run_chunk(args)
     else:
         cache_lines = min(config.cache_lines, n_loc)
-        cache = None
-        if cache_lines > 0:
-            cache = init_host_cache(cache_lines, 0, "cpu")  # keys, ticks
-            cache.data = [torch.zeros((cache_lines, n_loc),
-                                      dtype=torch.float32, device=dv)
-                          for dv in mesh.devices]
-        state = MeshPairState(*common_state, cache=cache, hits=0,
-                              f_err=err_sh)
+        cache = (init_mesh_cache(cache_lines, n_loc, mesh)
+                 if cache_lines > 0 else None)
+        state = MeshPairState(*common_state, cache=cache,
+                              hits=rep(0, np.int64), f_err=err_sh)
         runner = make_pair_chunk_runner(mesh, kp, config.c_bounds(),
                                         eps_run, float(config.tau),
                                         config.selection)
+        # The pair count the chunk loop last read: it cuts a batch to the
+        # trips the chunk has left, as on one device.
+        seen = {"it": start.pairs}
+        tally = {"trips": 0, "reads": 0}
 
         def run_chunk(st):
-            (it,), _ = read_obs((st.it[0],))
-            return runner(*args, st, chunks.pair_end(config, observe, it))
+            return runner(*args, st,
+                          chunks.pair_end(config, observe, seen["it"]),
+                          it_host=seen["it"], tally=tally)
 
     def read(st):
         pairs = st.pairs if use_block else st.it
@@ -727,6 +748,9 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
                                                      st.b_lo[0]))
         if use_block:
             engine.obs = (it, b_hi, b_lo)
+        else:
+            seen["it"] = it
+            tally["reads"] += 1
         return it, b_hi, b_lo
 
     def payload(st):
@@ -794,8 +818,10 @@ def _solve_mesh_impl(x, y, config: SVMConfig, mesh: Mesh, callback,
         stats.update(engine.stats(state))
     else:
         lookups = 2 * (it - start.pairs) if state.cache is not None else 0
-        stats.update(cache_hits=state.hits, cache_lookups=lookups,
-                     cache_hit_rate=state.hits / lookups if lookups else 0.0)
+        (hits,), _ = read_obs((state.hits[0],))
+        stats.update(cache_hits=hits, cache_lookups=lookups,
+                     cache_hit_rate=hits / lookups if lookups else 0.0,
+                     trips_queued=tally["trips"], host_reads=tally["reads"])
     out.phase_seconds["finalize"] = time.perf_counter() - t_fin
     res = SolveResult(
         alpha=alpha, b=float((b_lo + b_hi) / 2.0), b_hi=b_hi, b_lo=b_lo,

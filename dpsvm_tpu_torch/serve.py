@@ -220,6 +220,16 @@ def resolve_union_storage(ens, kp, requested: str, stacklevel: int = 4):
     return "bf16", entry
 
 
+def warn_if_bf16_serving_risky(ens, kp, stacklevel: int = 4) -> None:
+    """The serving analog of ops/kernels.py warn_if_bf16_degrades, for
+    every feature kernel family: resolve_union_storage's 'bf16' arm,
+    which warns when max-column ||coef||_1 * p90|dK| crosses
+    BF16_RISK_THRESHOLD. A precomputed kernel has no rows to round."""
+    if kp.kind == "precomputed":
+        return
+    resolve_union_storage(ens, kp, "bf16", stacklevel=stacklevel + 1)
+
+
 # ------------------------------------------------------------ executors
 
 def dense_partial(qb, sv, sv_sq, coef, kp) -> torch.Tensor:

@@ -7,7 +7,7 @@ dpsvm_tpu/solver/cache.py).
     keys  (L,)   int32   -- training row per line (-1 empty)
     ticks (L,)   int32   -- last-use stamp; eviction = argmin
 
-Two forms share the state's shape.
+Three forms share these rules.
 
 The per-pair engines' cache (``init_cache``, ``lookup_pair``,
 ``lookup_one``) lives wholly on the solve's device, keys and ticks
@@ -27,11 +27,20 @@ misses and its victim is the line lo hits (or the cache has one line),
 hi's row is computed there, since the line keeps lo's (or, hi hitting
 the one line, saved there first).
 
+The sharded device form (``init_mesh_cache``, ``lookup_pair_mesh``,
+``lookup_one_mesh``) is the per-pair mesh engine's
+(parallel/dist_smo.py), the JAX package's CacheState with its data
+sharded along the columns: one (L + 1, n_loc) store per rank, the keys
+and ticks replicated, one copy per distinct device. The slot rules above
+run once a device; each rank fills its own columns with cache_fill's
+query form, from the pair's rows as the mesh's masked sum delivers
+them.
+
 The host-keyed form (``init_host_cache``: keys and ticks NumPy arrays)
-serves the loops that read every step on the host anyway: the mesh
-per-pair runner (parallel/dist_smo.py, through ``lookup_pair_sharded``
-/ ``lookup_one_sharded``, data one (L, n_loc) block per shard) and the
-out-of-core block cache (``probe_rows`` / ``refresh_rows``).
+serves the out-of-core block cache (``probe_rows`` / ``refresh_rows``),
+whose loop reads every round on the host anyway. Its pair lookups
+(``lookup_pair_sharded`` / ``lookup_one_sharded``) keep the rules the
+device forms replaced, for replaying a run's pairs on the host.
 """
 
 from __future__ import annotations
@@ -92,6 +101,49 @@ def _first_or(match: torch.Tensor, fallback: torch.Tensor) -> tuple:
     return hit, torch.where(hit, match.to(torch.uint8).argmax(), fallback)
 
 
+def _plan_pair(keys, ticks, i_hi, i_lo, active) -> tuple:
+    """The slot rules of a pair lookup on the device (JAX lookup_pair):
+    the hit slot is the first matching key, the victim the least recent
+    tick, lo's victim found with hi's slot masked out. Returns ((slot_hi,
+    slot_lo), dest (2,) int64, flags (3,) bool, n_hits 0-d int64) for
+    cache_fill: where hi and lo land on one line (hi misses and its
+    victim is the line lo hits, or the cache has one line) the line
+    keeps lo's row and hi's row goes to the spare line L (computed, or
+    on a one-line hi hit saved there before lo's row replaces it)."""
+    lines = keys.shape[0]
+    hit_hi, slot_hi = _first_or(keys == i_hi, ticks.argmin())
+    masked = ticks.index_fill(0, slot_hi.reshape(1), _I32_MAX)
+    hit_lo, slot_lo = _first_or(keys == i_lo, masked.argmin())
+    one = (slot_hi == slot_lo) & ~(hit_hi & hit_lo)
+    dest = torch.stack([torch.where(one, lines, slot_hi), slot_lo])
+    flags = torch.stack([~hit_hi, ~hit_lo, hit_hi & one]) & active
+    n_hits = torch.where(active, hit_hi.long() + hit_lo.long(), 0)
+    return (slot_hi, slot_lo), dest, flags, n_hits
+
+
+def _stamp_pair(keys, ticks, slots, i_hi, i_lo, it, active) -> None:
+    """Key and stamp the pair's lines, 2 it + 1 hi and 2 it + 2 lo (lo's
+    write wins where both land on one line), where the trip is active."""
+    stamp = 2 * it
+    for slot, i, t in ((slots[0], i_hi, stamp + 1),
+                       (slots[1], i_lo, stamp + 2)):
+        _stamp(keys, slot.reshape(1), i, active)
+        _stamp(ticks, slot.reshape(1), t, active)
+
+
+def _plan_one(keys, ticks, i, active) -> tuple:
+    """The slot rule of lookup_one (its hit line, else the least recent
+    one): (slot (1,) int64, flags (1,) bool, hit 0-d bool)."""
+    hit, slot = _first_or(keys == i, ticks.argmin())
+    return slot.reshape(1), (~hit & active).reshape(1), hit
+
+
+def _stamp_one(keys, ticks, slot, i, stamp, active) -> None:
+    """Key and stamp lookup_one's line where the trip is active."""
+    _stamp(keys, slot, i, active)
+    _stamp(ticks, slot, stamp, active)
+
+
 def lookup_pair(cache: CacheState, x: torch.Tensor, i_hi: torch.Tensor,
                 i_lo: torch.Tensor, it: torch.Tensor,
                 active: torch.Tensor) -> tuple:
@@ -100,26 +152,12 @@ def lookup_pair(cache: CacheState, x: torch.Tensor, i_hi: torch.Tensor,
     active a 0-d bool tensor (False: a masked trip, which changes
     nothing). Returns (rows (2, n) float32, n_hits 0-d int64): the rows
     are copies, valid after later lookups."""
-    lines = cache.keys.shape[0]
-    hit_hi, slot_hi = _first_or(cache.keys == i_hi, cache.ticks.argmin())
-    masked = cache.ticks.index_fill(0, slot_hi.reshape(1), _I32_MAX)
-    hit_lo, slot_lo = _first_or(cache.keys == i_lo, masked.argmin())
-    # hi and lo land on one line where hi misses and its victim is the
-    # line lo hits, or the cache has one line: the line keeps lo's row,
-    # and hi's row goes to the spare line (computed, or on a one-line
-    # hi hit saved there before lo's row replaces it).
-    one = (slot_hi == slot_lo) & ~(hit_hi & hit_lo)
-    dest = torch.stack([torch.where(one, lines, slot_hi), slot_lo])
+    slots, dest, flags, n_hits = _plan_pair(cache.keys, cache.ticks, i_hi,
+                                            i_lo, active)
     ids = torch.stack([i_hi, i_lo]).to(torch.int64)
-    flags = torch.stack([~hit_hi, ~hit_lo, hit_hi & one]) & active
     cache_fill(x, cache.store, ids, dest, flags)
     rows = cache.store.index_select(0, dest)
-    stamp = 2 * it
-    for slot, i, t in ((slot_hi, i_hi, stamp + 1), (slot_lo, i_lo,
-                                                    stamp + 2)):
-        _stamp(cache.keys, slot.reshape(1), i, active)
-        _stamp(cache.ticks, slot.reshape(1), t, active)
-    n_hits = torch.where(active, hit_hi.long() + hit_lo.long(), 0)
+    _stamp_pair(cache.keys, cache.ticks, slots, i_hi, i_lo, it, active)
     return rows, n_hits
 
 
@@ -129,20 +167,90 @@ def lookup_one(cache: CacheState, x: torch.Tensor, i: torch.Tensor,
     (the second-order rule passes 2 it + 1, then 2 it + 2), on the
     device (JAX lookup_one). Returns (row (n,) float32, hit 0-d bool,
     False on a masked trip); the row is a copy."""
-    hit, slot = _first_or(cache.keys == i, cache.ticks.argmin())
-    slot1 = slot.reshape(1)
-    cache_fill(x, cache.store, i.reshape(1).to(torch.int64), slot1,
-               (~hit & active).reshape(1))
-    row = cache.store.index_select(0, slot1)[0]
-    _stamp(cache.keys, slot1, i, active)
-    _stamp(cache.ticks, slot1, stamp, active)
+    slot, flags, hit = _plan_one(cache.keys, cache.ticks, i, active)
+    cache_fill(x, cache.store, i.reshape(1).to(torch.int64), slot, flags)
+    row = cache.store.index_select(0, slot)[0]
+    _stamp_one(cache.keys, cache.ticks, slot, i, stamp, active)
     return row, hit & active
 
 
 # ---------------------------------------------------------------------
-# The host-keyed form: the mesh per-pair runner's, which reads each
-# trip's pair ids on the host, so the host decides hits and victims with
-# the same rules and only the rows live on the devices.
+# The sharded device form: the per-pair mesh engine's
+# (parallel/dist_smo.py). The JAX package's CacheState with its data
+# sharded along the columns and its keys and ticks replicated: each rank
+# holds its columns of every line, and each distinct device one copy of
+# the keys and ticks, on which the slot rules above run once a lookup.
+
+@dataclasses.dataclass
+class MeshCacheState:
+    stores: list  # per rank (L + 1, n_loc) float32: the lines and a spare
+    keys: list  # per distinct device (L,) int32, replicated
+    ticks: list  # per distinct device (L,) int32, replicated
+    group_of: tuple  # rank -> index of its device into keys and ticks
+
+
+def init_mesh_cache(lines: int, n_loc: int, mesh) -> MeshCacheState:
+    """The sharded cache of a row-sharded solve: for each local rank of
+    `mesh` (parallel/mesh.py Mesh: its devices, groups and group_of) an
+    (L + 1, n_loc) store on the rank's device, and the keys and ticks of
+    init_cache once per distinct device."""
+    return MeshCacheState(
+        stores=[torch.zeros((lines + 1, n_loc), dtype=torch.float32,
+                            device=dev) for dev in mesh.devices],
+        keys=[torch.full((lines,), -1, dtype=torch.int32, device=dev)
+              for dev, _ in mesh.groups],
+        ticks=[torch.arange(lines, dtype=torch.int32, device=dev) - lines
+               for dev, _ in mesh.groups],
+        group_of=tuple(mesh.group_of))
+
+
+def lookup_pair_mesh(cache: MeshCacheState, xs, i_hi, i_lo, q_hi, q_lo,
+                     it, active) -> tuple:
+    """lookup_pair over the sharded cache: i_hi, i_lo, it and active
+    are per distinct device (0-d tensors, replicated), xs the ranks'
+    shards of X and q_hi / q_lo the pair's query rows per rank, (d,) in
+    X's dtype. The slots are decided once a device; each rank fills its
+    own columns (kernel cache_fill's query form). Returns (rows_hi,
+    rows_lo, per rank (n_loc,) copies; n_hits per device, 0-d int64)."""
+    plans = [_plan_pair(*st, h, lo, a) for st, h, lo, a in zip(
+        zip(cache.keys, cache.ticks), i_hi, i_lo, active)]
+    rows_hi, rows_lo = [], []
+    for r, (store, x) in enumerate(zip(cache.stores, xs)):
+        _, dest, flags, _ = plans[cache.group_of[r]]
+        cache_fill(x, store, None, dest, flags,
+                   q=torch.stack([q_hi[r], q_lo[r]]))
+        rows = store.index_select(0, dest)
+        rows_hi.append(rows[0])
+        rows_lo.append(rows[1])
+    for g, (slots, _, _, _) in enumerate(plans):
+        _stamp_pair(cache.keys[g], cache.ticks[g], slots, i_hi[g], i_lo[g],
+                    it[g], active[g])
+    return rows_hi, rows_lo, [p[3] for p in plans]
+
+
+def lookup_one_mesh(cache: MeshCacheState, xs, i, qs, stamp,
+                    active) -> tuple:
+    """lookup_one over the sharded cache: i, stamp and active per
+    distinct device, qs the query row per rank. Returns (rows per rank,
+    hit per device: 0-d bool, False on a masked trip)."""
+    plans = [_plan_one(k, t, ii, a) for k, t, ii, a in zip(
+        cache.keys, cache.ticks, i, active)]
+    rows = []
+    for r, (store, x) in enumerate(zip(cache.stores, xs)):
+        slot, flags, _ = plans[cache.group_of[r]]
+        cache_fill(x, store, None, slot, flags, q=qs[r].reshape(1, -1))
+        rows.append(store.index_select(0, slot)[0])
+    for g, (slot, _, _) in enumerate(plans):
+        _stamp_one(cache.keys[g], cache.ticks[g], slot, i[g], stamp[g],
+                   active[g])
+    return rows, [hit & a for (_, _, hit), a in zip(plans, active)]
+
+
+# ---------------------------------------------------------------------
+# The host-keyed pair lookups: the same rules decided on the host from
+# host ints, the rows on the devices. No solver calls them since the mesh
+# per-pair runner moved to the sharded device form; chip_smoke.py replays
+# a run's pairs on _pair_slots / _pair_stamp.
 
 def _hit_slot(keys: np.ndarray, i: int):
     """The first line holding row i, or None."""

@@ -9,7 +9,7 @@ package and are compiled with g++ at first use into
 built at import time. A failed build returns None and records the
 compiler's diagnostic in ``build_errors``; the callers say what they do
 then (the CSV loader warns and parses with NumPy; backend="native"
-raises).
+raises). ``build_all`` is the explicit build, which raises instead.
 """
 
 from __future__ import annotations
@@ -74,6 +74,25 @@ def build_so(stem: str) -> str | None:
         fh.write(flags)
     build_errors.pop(stem, None)
     return out
+
+
+def build_all() -> list[str]:
+    """Build both native components (``make native``'s counterpart);
+    raises RuntimeError with each compiler diagnostic on any failure:
+    unlike the lazy runtime path, an explicit build must not succeed
+    silently. The CUDA sources are not among them: ops/_build.py builds
+    those at first use. Returns the libraries' paths."""
+    built, failed = [], {}
+    for stem in ("fastcsv", "seqsmo"):
+        so = build_so(stem)
+        if so:
+            built.append(so)
+        else:
+            failed[stem] = build_errors[stem]
+    if failed:
+        detail = "\n".join(f"[{k}] {v}" for k, v in failed.items())
+        raise RuntimeError(f"native build failed:\n{detail}")
+    return built
 
 
 class FastCsv:

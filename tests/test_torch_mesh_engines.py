@@ -9,11 +9,16 @@ families on the mesh.
 Contracts: the per-pair engine's first 20 trips update the coordinates
 JAX's update (ROADMAP C.12); whole solves meet the port's contract (both
 converge, dual rel 1e-4, SV count 2%, |b - b_jax| <= 5e-3); within the
-port the ring changes nothing (bitwise) and the budget is exact.
+port the ring changes nothing (bitwise) and the budget is exact. The
+per-pair mesh chunk runs on the devices (solver/smo.py queue_trips): a
+solve is bitwise the same at smo.TRIPS 1, 8 and 256, the cached mesh
+retraces the cached single device bit for bit, and a chunk reads the
+host once a batch of TRIPS trips plus once at its end.
 Mirrors tests/test_dist_smo.py:33-110 and 163-226,
 tests/test_pipelined.py:268-330, tests/test_fused_fold.py:155-190 and
 tests/test_nusvm.py:73-140."""
 
+import math
 import warnings
 
 import numpy as np
@@ -26,7 +31,11 @@ from dpsvm_tpu.models.oneclass import train_oneclass as jax_oneclass
 from dpsvm_tpu.parallel.dist_smo import solve_mesh as jax_solve_mesh
 from dpsvm_tpu_torch import (Mesh, SVMConfig, solve, solve_mesh,
                              train_oneclass, train_svr)
+from dpsvm_tpu_torch.analysis.op_facts import Recorder
 from dpsvm_tpu_torch.models import nusvm as tnusvm
+from dpsvm_tpu_torch.parallel import dist_smo as tdist
+from dpsvm_tpu_torch.solver import chunks as tchunks
+from dpsvm_tpu_torch.solver import smo as tsmo
 from dpsvm_tpu.models import nusvm as jnusvm
 
 BASE = dict(c=5.0, gamma=0.1, epsilon=1e-3, max_iter=200_000,
@@ -91,7 +100,18 @@ def _changed(steps):
 
 PAIR = {"mvp": dict(), "cache": dict(cache_lines=16),
         "second_order": dict(selection="second_order"),
-        "nu": dict(selection="nu", c=1.0)}
+        "nu": dict(selection="nu", c=1.0),
+        "cache-second_order": dict(cache_lines=16,
+                                   selection="second_order"),
+        "cache-nu": dict(cache_lines=16, selection="nu", c=1.0),
+        "cache1": dict(cache_lines=1)}
+
+
+def _init_of(rule, x, y) -> dict:
+    """The nu rule's feasible start (alpha_init / f_init), else none."""
+    if PAIR[rule].get("selection") != "nu":
+        return {}
+    return dict(zip(("alpha_init", "f_init"), _nu_start(x, y)))
 
 
 @pytest.mark.parametrize("rule", list(PAIR))
@@ -102,9 +122,7 @@ def test_pair_mesh_first_pairs_are_jaxs(tiny, rule):
     x, y = tiny
     kw = {**BASE, "engine": "xla", "chunk_iters": 1, "max_iter": 20,
           **PAIR[rule]}
-    init = {}
-    if rule == "nu":
-        init = dict(zip(("alpha_init", "f_init"), _nu_start(x, y)))
+    init = _init_of(rule, x, y)
     steps = {}
     for name, fn, cfg, mkw in (
             ("port", solve_mesh, SVMConfig(**kw), dict(mesh=Mesh(["cpu"] * 2))),
@@ -124,31 +142,127 @@ def test_pair_mesh_first_pairs_are_jaxs(tiny, rule):
 
 @pytest.mark.parametrize("p_dev,rule,kw", [
     (2, "mvp", dict()), (4, "second_order", dict(compensated=True)),
-    (4, "cache", dict()), (2, "mvp", dict(dtype="bfloat16"))])
+    (4, "cache", dict()), (2, "mvp", dict(dtype="bfloat16")),
+    (2, "cache-second_order", dict()), (4, "cache-second_order", dict()),
+    (2, "cache-nu", dict()), (4, "cache-nu", dict()),
+    (2, "cache1", dict()), (4, "cache1", dict())])
 def test_pair_mesh_matches_jax(blobs, p_dev, rule, kw):
     x, y = blobs
-    rt, rj = both(x, y, {**BASE, "engine": "xla", **PAIR[rule], **kw}, p_dev)
+    rt, rj = both(x, y, {**BASE, "engine": "xla", **PAIR[rule], **kw}, p_dev,
+                  **_init_of(rule, x, y))
     _contract(rt, rj, y)
     assert "outer_rounds" not in rt.stats
-    if rule == "cache":
-        assert rt.stats["cache_hit_rate"] > 0
+    if PAIR[rule].get("cache_lines"):
         assert rt.stats["cache_lookups"] == 2 * rt.iterations
+        assert rt.stats["cache_hits"] == int(rj.stats["cache_hits"]) \
+            or rt.iterations != rj.iterations
+        if rule != "cache1":
+            assert rt.stats["cache_hit_rate"] > 0
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.int32)
 
 
 def test_pair_mesh_cache_and_single_device(tiny):
     """The cache changes no pair (the JAX test holds the trajectory
     length and alpha); with P shards of n_loc a multiple of 16 the mesh
     retraces the single device's trajectory to the pair (ROADMAP C.26:
-    the CPU's GEMV orders the last n mod 16 columns otherwise)."""
+    the CPU's GEMV orders the last n mod 16 columns otherwise), cached
+    or not: the cached mesh fills its lines with the single device's
+    products (kernel cache_fill's plain version), so alpha, f, the pairs
+    and the hits are the cached single device's bit for bit."""
     x, y = tiny  # 160 rows: P = 2 gives n_loc 80
     kw = {**BASE, "engine": "xla"}
     r0 = solve_mesh(x, y, SVMConfig(**kw), mesh=Mesh(["cpu"] * 2))
     rc = solve_mesh(x, y, SVMConfig(**kw, cache_lines=32),
                     mesh=Mesh(["cpu"] * 2))
     r1 = solve(x, y, SVMConfig(**kw), device="cpu")
+    r1c = solve(x, y, SVMConfig(**kw, cache_lines=32), device="cpu")
     assert r0.iterations == rc.iterations == r1.iterations
     np.testing.assert_allclose(rc.alpha, r0.alpha, atol=1e-5)
     np.testing.assert_array_equal(r0.alpha, r1.alpha)
+    assert rc.iterations == r1c.iterations
+    assert rc.stats["cache_hits"] == r1c.stats["cache_hits"] > 0
+    np.testing.assert_array_equal(_bits(rc.alpha), _bits(r1c.alpha))
+    np.testing.assert_array_equal(_bits(rc.stats["f"]),
+                                  _bits(r1c.stats["f"]))
+    assert rc.b == r1c.b
+
+
+TRIPS_RULES = ("mvp", "cache", "second_order", "nu", "cache-second_order")
+
+
+@pytest.mark.parametrize("rule", TRIPS_RULES)
+def test_pair_mesh_trips_between_reads_do_not_move_the_result(
+        monkeypatch, tiny, rule):
+    """The mesh chunk queues smo.TRIPS trips between host reads; a trip
+    after the stop is masked and changes nothing, so TRIPS 1, 8 and 256
+    give the same alpha, f, pairs, b and hits bit for bit; the trips
+    queued past the last pair are fewer than TRIPS, and the host reads
+    once a batch plus once at the chunk's end."""
+    x, y = tiny
+    kw = {**BASE, "engine": "xla", **PAIR[rule]}
+    out = {}
+    for trips in (1, 8, 256):
+        monkeypatch.setattr(tsmo, "TRIPS", trips)
+        res = solve_mesh(x, y, SVMConfig(**kw), mesh=Mesh(["cpu"] * 2),
+                         **_init_of(rule, x, y))
+        st = res.stats
+        assert res.converged
+        assert res.iterations <= st["trips_queued"] < res.iterations + trips
+        assert st["host_reads"] == math.ceil(st["trips_queued"] / trips) + 1
+        out[trips] = res
+    a = out[1]
+    for b in (out[8], out[256]):
+        assert b.iterations == a.iterations and b.b == a.b
+        assert b.stats["cache_hits"] == a.stats["cache_hits"]
+        np.testing.assert_array_equal(_bits(b.alpha), _bits(a.alpha))
+        np.testing.assert_array_equal(_bits(b.stats["f"]),
+                                      _bits(a.stats["f"]))
+    if PAIR[rule].get("cache_lines"):
+        assert a.stats["cache_hits"] > 0
+
+
+@pytest.mark.parametrize("rule", ["cache", "cache-second_order"])
+def test_pair_mesh_host_reads_per_chunk(monkeypatch, tiny, rule):
+    """A cached mesh solve observed in chunks of 40 pairs at TRIPS = 8:
+    every read_obs call (counted by a spy) is a batch's read or the
+    chunk's own, host_reads <= ceil(trips / TRIPS) + chunks, the recorder
+    sees no other host read and no implicit synchronization, and a chunk
+    that ends on the pair budget queues no masked trip."""
+    monkeypatch.setattr(tsmo, "TRIPS", 8)
+    calls = {"read_obs": 0}
+    for mod in (tsmo, tdist):
+        def spy(*args, _fn=mod.read_obs, **kw):
+            calls["read_obs"] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, "read_obs", spy)
+    seen = {}
+    run_chunks = tchunks.run_chunks
+
+    def recorded(*args, **kw):
+        calls["read_obs"] = 0
+        with Recorder() as rec:
+            out = run_chunks(*args, **kw)
+        seen.update(reads=rec.host_reads, syncs=rec.syncs,
+                    spied=calls["read_obs"])
+        return out
+
+    monkeypatch.setattr(tchunks, "run_chunks", recorded)
+    x, y = tiny
+    res = solve_mesh(x, y, SVMConfig(**{**BASE, "engine": "xla",
+                                        "chunk_iters": 40, **PAIR[rule]}),
+                     mesh=Mesh(["cpu"] * 2),
+                     callback=lambda it, b_hi, b_lo, state: None)
+    st = res.stats
+    assert res.converged and st["chunks"] > 2
+    assert st["cache_lookups"] == 2 * res.iterations
+    assert seen["spied"] == seen["reads"] == st["host_reads"]
+    assert st["host_reads"] <= math.ceil(st["trips_queued"] / 8) + \
+        st["chunks"]
+    assert seen["syncs"] == 0
+    assert st["trips_queued"] - res.iterations < 8
 
 
 def test_pair_mesh_budget_mode_exact(blobs):
