@@ -2,7 +2,9 @@
 
 * :mod:`~dpsvm_tpu_torch.obs.trace`      spans and trace sessions (a host
   timeline; a ``torch.profiler`` trace with named spans and NVTX ranges
-  when a trace directory is given);
+  when a trace directory is given; under any running profiler the spans
+  are its annotations too; the process's span table, ``span_totals``,
+  with the device spans' stream times);
 * :mod:`~dpsvm_tpu_torch.obs.metrics`    bounded counters, gauges and
   histograms (a run's instruments and the serving engines' always-on
   ones);
@@ -16,11 +18,15 @@
 
 THE CONTRACT: observation reads only values the host already holds
 (chunk-boundary scalars it read anyway, host clocks) and never issues a
-kernel launch, copy or synchronisation of its own. An observed solve
-runs the same launches, chunk cadence and host reads as an unobserved
-one, and its result is bitwise the same (tests/test_torch_obs.py).
-Disabled, the default, every entry here is a no-op: ``run_obs`` returns
-the shared :data:`NULL_OBS` and ``span`` the shared null context.
+kernel launch, copy or synchronisation of its own inside a solve; a
+device span (``span(name, device=dev)`` on a CUDA device) adds two
+CUDA event records, which are resolved only when ``span_totals()`` is
+read. An observed solve runs the same launches, chunk cadence and host
+reads as an unobserved one, and its result is bitwise the same
+(tests/test_torch_obs.py, tests/test_torch_spans.py). Off, the default
+(no obs and no profiler recording), every entry here is a no-op:
+``run_obs`` returns the shared :data:`NULL_OBS` and ``span`` the shared
+null context, with no clock read, allocation or event.
 
 Enablement: ``config.obs.enabled`` (SVMConfig / ServeConfig), the CLI's
 ``--obs``, or ``DPSVM_OBS=1``. ``DPSVM_OBS_DIR`` overrides the run-log
@@ -66,8 +72,8 @@ def _trace_dir(obs_config=None) -> Optional[str]:
 
 class _NullObs:
     """Disabled-mode run handle: every method is a no-op; ``span`` is the
-    shared null context unless an outer session is live. One shared
-    instance."""
+    shared null context unless an outer session is live or a profiler
+    records. One shared instance."""
 
     __slots__ = ()
     run_id = None
@@ -164,9 +170,6 @@ class RunObs:
         self.registry = Registry()
         self._pairs = self.registry.counter(f"{tool}.pairs_total")
         self._dispatches = self.registry.counter(f"{tool}.dispatches_total")
-        self._gap = self.registry.gauge(f"{tool}.gap")
-        self._chunk_s = self.registry.histogram(f"{tool}.chunk_seconds")
-        self._events = self.registry.counter(f"{tool}.events_total")
         self._compiles = self.registry.counter(f"{tool}.compiles_total")
         self._last_pairs = None
         self._finished = False
@@ -201,8 +204,6 @@ class RunObs:
         self._last_pairs = pairs
         self._pairs.add(max(delta, 0))
         self._dispatches.add(1)
-        self._gap.set(b_lo - b_hi)
-        self._chunk_s.observe(device_seconds)
         self._log.record("chunk", pairs=int(pairs), pairs_delta=int(delta),
                          b_hi=float(b_hi), b_lo=float(b_lo),
                          gap=float(b_lo - b_hi),
@@ -210,7 +211,6 @@ class RunObs:
                          dispatch=int(dispatch), **fields)
 
     def event(self, name: str, **fields) -> None:
-        self._events.add(1)
         self._log.record("event", name=name, **fields)
 
     def finish(self, **fields) -> None:

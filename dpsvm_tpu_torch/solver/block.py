@@ -14,7 +14,10 @@ Each outer round:
 
 run_local_round is the JAX package's _round_core and run_local_round in
 one, built from the four stage functions so each stage can also be timed
-alone.
+alone; each stage is a span (``block/select``, ``block/gather``,
+``block/subproblem``, ``block/fold``; obs/trace.py), timed on the device
+where it runs there, and the loop condition's host read is the span
+``block/read``.
 
 The active-set engine (run_chunk_block_active, the JAX package's
 _run_chunk_block_active) runs CYCLES: one select_block with q = m picks
@@ -55,6 +58,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dpsvm_tpu_torch.obs.trace import span
 from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
                                              fold_select, select_rows)
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
@@ -294,32 +298,40 @@ def run_local_round(x, y, x_sq, k_diag, valid, alpha, f, f_err,
     as in the JAX package), the executed pair count, and the fold's
     (coef, rows, norms), so a caller can replay the fold against other
     row sets (the mesh's shard-local sync)."""
-    f_cur = f if f_err is None else f - f_err
-    w, slot_ok, b_hi, b_lo = select_block(f_cur, alpha, y, c, q,
-                                          valid=valid, rule=selection)
-    gap_open = b_lo > b_hi + 2.0 * eps
-    qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0 = gather_block(
-        x, y, x_sq, k_diag, f_cur, alpha, w, kp)
-    # Per-round pair budget, clamped to what the solve has left and gated
-    # to 0 on the terminal round (which still counts as a round).
-    limit = torch.clamp(budget_left, max=inner_iters)
-    limit = torch.where(gap_open, limit, 0).to(torch.int32)
-    a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0,
-                                       c, eps, tau, limit, selection,
-                                       pair_batch)
-    alpha, f, f_err = fold_block(x, x_sq, qx, qsq, kp, f, f_err, coef,
-                                 alpha, w, slot_ok, a_w)
+    dev = x.device
+    with span("block/select", device=dev):
+        f_cur = f if f_err is None else f - f_err
+        w, slot_ok, b_hi, b_lo = select_block(f_cur, alpha, y, c, q,
+                                              valid=valid, rule=selection)
+        gap_open = b_lo > b_hi + 2.0 * eps
+    with span("block/gather", device=dev):
+        qx, qsq, kb_w, kd_w, a_w0, y_w, f_w0 = gather_block(
+            x, y, x_sq, k_diag, f_cur, alpha, w, kp)
+    with span("block/subproblem", device=dev):
+        # Per-round pair budget, clamped to what the solve has left and
+        # gated to 0 on the terminal round (which still counts as a
+        # round).
+        limit = torch.clamp(budget_left, max=inner_iters)
+        limit = torch.where(gap_open, limit, 0).to(torch.int32)
+        a_w, coef, t = dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w,
+                                           f_w0, c, eps, tau, limit,
+                                           selection, pair_batch)
+    with span("block/fold", device=dev):
+        alpha, f, f_err = fold_block(x, x_sq, qx, qsq, kp, f, f_err, coef,
+                                     alpha, w, slot_ok, a_w)
     return alpha, f, f_err, b_hi, b_lo, t, coef, qx, qsq
 
 
 def _more(state: BlockState, done: int, max_rounds: Optional[int],
           max_iter: int, eps: float) -> bool:
     """The round loop's condition: rounds left in the chunk, then (one
-    host read) pairs < max_iter and the CARRIED gap open, evaluated on
-    the device in float32."""
-    return ((max_rounds is None or done < max_rounds)
-            and bool((state.pairs < max_iter)
-                     & (state.b_lo > state.b_hi + 2.0 * eps)))
+    host read, the span ``block/read``) pairs < max_iter and the CARRIED
+    gap open, evaluated on the device in float32."""
+    if max_rounds is not None and done >= max_rounds:
+        return False
+    with span("block/read"):
+        return bool((state.pairs < max_iter)
+                    & (state.b_lo > state.b_hi + 2.0 * eps))
 
 
 def run_chunk_block(x, y, x_sq, k_diag, state: BlockState, max_iter: int,

@@ -17,6 +17,7 @@ import torch
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import (precision_ctx, resolve_device,
                                     synchronize)
+from dpsvm_tpu_torch.obs.trace import span
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                          resident_gram, resolve_bf16_gram,
                                          squared_norms,
@@ -257,15 +258,17 @@ def device_x_cached(x, n_pad: int, dtype: str, dev: torch.device) -> tuple:
     """(x_dev, x_sq) of a feature-kernel solve: X padded to n_pad rows
     (zero features), stored in `dtype`, and its squared norms from the
     STORED (possibly rounded) rows; memoized across solves on the same
-    host array (_XDEV_MEMO)."""
+    host array (_XDEV_MEMO). A miss's padding, copy and cast are the
+    span ``solver/upload``; the norms lie outside it."""
     key = ((n_pad, x.shape[1]), dtype, _dev_key(dev))
     hit = _memo_get(_XDEV_MEMO, key, x)
     if hit is not None:
         MEMO_STATS["x_hits"] += 1
         return hit
     MEMO_STATS["x_uploads"] += 1
-    x_dev = torch.as_tensor(_pad_host(x, n_pad), device=dev).to(
-        _tdtype(dtype))
+    with span("solver/upload", device=dev):
+        x_dev = torch.as_tensor(_pad_host(x, n_pad), device=dev).to(
+            _tdtype(dtype))
     x_sq = squared_norms(x_dev)
     _memo_insert(_XDEV_MEMO, key, x, (x_dev, x_sq))
     return x_dev, x_sq

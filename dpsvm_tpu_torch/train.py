@@ -7,6 +7,7 @@ import numpy as np
 
 from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.models.svm_model import SVMModel
+from dpsvm_tpu_torch.obs.trace import span
 from dpsvm_tpu_torch.ops.kernels import KernelParams
 from dpsvm_tpu_torch.solver.result import SolveResult
 from dpsvm_tpu_torch.solver.solve import solve
@@ -128,27 +129,34 @@ def train(x, y, config: SVMConfig = SVMConfig(), backend: str = "auto",
 
     `callback`, `checkpoint_path`, `resume` and `pad_to` follow
     solver/solve.py solve's contract; on the host backends the callback
-    gets one final record."""
-    backend = resolve_backend(backend, config, device, num_devices, mesh)
-    x = np.asarray(x, np.float32)  # a float32 memmap stays a lazy view
-    y = np.asarray(y, np.int32)
-    labels = set(np.unique(y).tolist())
-    if labels != {-1, 1}:
-        raise ValueError(
-            f"labels must contain both classes -1 and +1, got {sorted(labels)}")
-    if config.kernel == "precomputed":
-        raise ValueError(
-            "kernel='precomputed' models carry SV indices, not feature "
-            "rows — the reference-format model file cannot represent "
-            "them. Solve directly (dpsvm_tpu_torch.solver.solve.solve) or "
-            "use the sklearn facade (dpsvm_tpu_torch.estimators.SVC)")
-    if backend in ("reference", "native"):
-        result = _solve_host(backend, x, y, config, callback,
-                             checkpoint_path, resume)
-    else:
-        result = solve_on(backend, x, y, config, device, num_devices, mesh,
-                          callback=callback, checkpoint_path=checkpoint_path,
-                          resume=resume, pad_to=pad_to)
-    kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
-                      config.degree, config.coef0)
-    return SVMModel.from_dense(x, y, result.alpha, result.b, kp), result
+    gets one final record. The call is the span ``train``, the model's
+    assembly ``model/assemble`` (obs/trace.py)."""
+    with span("train"):
+        backend = resolve_backend(backend, config, device, num_devices,
+                                  mesh)
+        x = np.asarray(x, np.float32)  # a float32 memmap stays a lazy view
+        y = np.asarray(y, np.int32)
+        labels = set(np.unique(y).tolist())
+        if labels != {-1, 1}:
+            raise ValueError(
+                "labels must contain both classes -1 and +1, got "
+                f"{sorted(labels)}")
+        if config.kernel == "precomputed":
+            raise ValueError(
+                "kernel='precomputed' models carry SV indices, not feature "
+                "rows — the reference-format model file cannot represent "
+                "them. Solve directly (dpsvm_tpu_torch.solver.solve.solve) "
+                "or use the sklearn facade (dpsvm_tpu_torch.estimators.SVC)")
+        if backend in ("reference", "native"):
+            result = _solve_host(backend, x, y, config, callback,
+                                 checkpoint_path, resume)
+        else:
+            result = solve_on(backend, x, y, config, device, num_devices,
+                              mesh, callback=callback,
+                              checkpoint_path=checkpoint_path,
+                              resume=resume, pad_to=pad_to)
+        kp = KernelParams(config.kernel, config.resolve_gamma(x.shape[1]),
+                          config.degree, config.coef0)
+        with span("model/assemble"):
+            model = SVMModel.from_dense(x, y, result.alpha, result.b, kp)
+        return model, result
