@@ -5,6 +5,7 @@
     python3 chip_smoke.py --turns [--package DIR] [--reps N]
     python3 chip_smoke.py --serve-profile
     python3 chip_smoke.py --lint
+    python3 chip_smoke.py --fold
 
 With no arguments it runs the phases below. --turns runs none of them: it
 times kernels B5 and B6 at the headline shapes and B2 and B3 at the
@@ -17,7 +18,8 @@ dpsvm_tpu_torch found in DIR instead of this checkout's, so an earlier
 commit unpacked there (git archive) and this one can be timed in turns on
 one card. --serve-profile runs none of the phases either: it prints where
 a serving dispatch spends its time (serve_profile). --lint builds the
-kernels and runs phase 41 alone.
+kernels and runs phase 41 alone. --fold builds the fold kernel
+(kernel_fold) and runs its part of phase 4 alone (phase_kernel_fold).
 
 Phases, each printed on its own lines; any failure exits non-zero and no
 result line is printed:
@@ -26,7 +28,7 @@ result line is printed:
                 device is a failure;
   2. build   -- every kernel built from csrc/ with nvcc (subproblem.cu,
                 fold_select.cu, gather_gram.cu, fused_update.cu, ring.cu,
-                cache_fill.cu; one nvcc each, in parallel), with each kernel's registers
+                cache_fill.cu, kernel_fold.cu; one nvcc each, in parallel), with each kernel's registers
                 and static shared memory from ptxas; the SASS of B4 and of
                 B8's fold (cuobjdump) must hold bf16 HMMAs for bfloat16 X
                 and 3 x 2 times as many tf32 HMMAs for float32 X (3xTF32);
@@ -34,8 +36,10 @@ result line is printed:
                 gamma=0.125, eps=0.01, q=256, bfloat16 X) on the 60000 x
                 784 MNIST-shaped data, trained through dpsvm_tpu_torch.train
                 with every launch count set to 0 just before: it must
-                converge, and the subproblem kernel (B1) must have run once
-                per outer round and no other kernel at all;
+                converge, the subproblem kernel (B1) must have run once
+                per outer round and no other of B1-B8 and cache_fill at
+                all, and every round's fold must have taken the fold
+                kernel (stats["fold_kernel_rounds"] = outer rounds);
   4. kernels -- each kernel held against its plain PyTorch version on the
                 card. B1 on working sets that select_block picks from the
                 same data at the start point and at the headline's end
@@ -57,7 +61,15 @@ result line is printed:
                 rounding bound (ops/round.py gram_tolerance) and, for
                 float32 X, its error against the float64 Gram within 4x
                 the plain version's own plus the 3xTF32 product error
-                (ops/round.py tf32x3_check: one-pass TF32 fails it). Times of
+                (ops/round.py tf32x3_check: one-pass TF32 fails it). The
+                fold kernel (kernel_fold) at the benchmark cell's shape (q
+                256, n 2,400,000) for each feature kernel: the delta
+                within the 4-ulp term of gram_tolerance carried through
+                the sum plus q 2^-24 sum_k |coef_k K_kj| of the float64
+                contraction of the plain version's kernel values, and a
+                column slice bitwise the same columns of the whole fold;
+                rbf timed beside the floor, the bound, the plain version
+                and its two parts (phase_kernel_fold). Times of
                 kernel, plain version and, for B4, the library product,
                 with L2 flushed before every launch (every timed call is
                 queued behind a device-side spin, so the host's enqueue
@@ -458,7 +470,7 @@ EARLIER_US_PER_PAIR = {"mvp": 1.010, "nu": 1.434}
 MMA_KERNELS = (("gather_gram", "gather_gram_kernel"),
                ("ring", "ring_fold_kernel"))
 SOURCES = ("subproblem", "fold_select", "gather_gram", "fused_update",
-           "ring", "cache_fill")
+           "ring", "cache_fill", "kernel_fold")
 
 HEADLINE = dict(c=10.0, gamma=0.125, epsilon=0.01, max_iter=150_000,
                 engine="block", working_set_size=256, dtype="bfloat16")
@@ -989,6 +1001,93 @@ def phase_fused_kernels(xs: dict, y, valid, states: dict, kp, c, tau,
                                  "their plain versions")
     for name, v in worst.items():
         rec[name]["max_abs_err"] = v
+    return rec
+
+
+# The fold after the kernel-row GEMM at the mnist8m.block cell's round
+# (benchmark/configs/mnist8m.json): q 256 working-set rows against
+# 2,400,000 data rows.
+FOLD_Q, FOLD_N = 256, 2_400_000
+
+
+def phase_kernel_fold(dev, reps: int) -> dict:
+    """The fold kernel (ops/kernel_fold.py fold_dots) against its plain
+    version (kernel_from_dots' elementwise passes, then cuBLAS's gemv) at
+    the benchmark cell's shape, q 256 and n 2,400,000, on the dots of
+    seeded 64-wide rows, coefficients with dead slots, each feature
+    kernel: the delta within the 4-ulp term of gram_tolerance carried
+    through the sum plus q 2^-24 sum_k |coef_k K_kj| of the float64
+    contraction of the plain version's kernel values (twice that of the
+    plain delta), and a column slice at an odd offset (the 4-byte path)
+    bitwise the same columns of the whole fold. rbf timed with L2 flushed
+    beside the launch floor, the bytes bound, the plain version and its
+    two parts. Returns the JSON record's fields."""
+    import torch
+
+    from dpsvm_tpu_torch.ops import kernel_fold as kf
+    from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
+                                             row_dots, squared_norms)
+
+    q, n = FOLD_Q, FOLD_N
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x = 0.25 * torch.randn((n, 64), generator=gen, device=dev)
+    x_sq = squared_norms(x)
+    w = torch.randint(0, n, (q,), generator=gen, device=dev)
+    qsq = x_sq[w].contiguous()
+    coef = torch.randn((q,), generator=gen, device=dev)
+    coef[torch.rand((q,), generator=gen, device=dev) < 0.1] = 0.0
+    dots = row_dots(x, x[w])
+    del x
+    worst = 0.0
+    for kp in (KernelParams("rbf", 0.125), KernelParams("linear"),
+               KernelParams("poly", 0.125, 3, 1.0),
+               KernelParams("sigmoid", 0.125, coef0=-1.0)):
+        got = kf.fold_dots(dots, x_sq, qsq, coef, kp)
+        kv = kernel_from_dots(dots, x_sq, qsq, kp)
+        plain = coef @ kv
+        ref = coef.double() @ kv.double()
+        scale = coef.abs().double() @ kv.abs().double()
+        del kv
+        tol = 4 * 2.0 ** -23 * scale + q * 2.0 ** -24 * scale
+        err = (got.double() - ref).abs()
+        dp = (got - plain).abs()
+        worst = max(worst, float(dp.max()))
+        in_ref = bool((err <= tol).all())
+        in_plain = bool((dp.double() <= 2 * tol).all())
+        lo = 3  # an odd offset and length: the 4-byte path
+        part = kf.fold_dots(dots[:, lo:n - 2].contiguous(), x_sq[lo:n - 2],
+                            qsq, coef, kp)
+        sliced = same_bits(part, got[lo:n - 2])
+        print(f"[kernels] kernel_fold {kp.kind} q={q} n={n}: against the "
+              f"float64 contraction max|d|={float(err.max()):.3g} (within "
+              f"the bound: {in_ref}); against the plain delta max|d|="
+              f"{float(dp.max()):.3g} (within twice the sum's term: "
+              f"{in_plain}); columns {lo}..{n - 3} alone bitwise={sliced}",
+              flush=True)
+        if not (in_ref and in_plain and sliced):
+            raise AssertionError(f"kernel_fold {kp.kind}: off its bound or "
+                                 "not column invariant")
+        del err, ref, scale, part, dp
+    kp = KernelParams("rbf", 0.125)
+    args = (dots, x_sq, qsq, coef, kp)
+    floor_ms = launch_floor_ms(reps)
+    ms = time_cold_ms(functools.partial(kf.fold_dots, *args), reps)
+    plain_ms = time_cold_ms(functools.partial(kf._fold_dots, *args),
+                            max(1, reps // 4))
+    kv = kernel_from_dots(*args[:3], kp)
+    passes_ms = time_cold_ms(functools.partial(kernel_from_dots, *args[:3],
+                                               kp), max(1, reps // 4))
+    gemv_ms = time_cold_ms(functools.partial(torch.mv, kv.t(), coef), reps)
+    del kv
+    b_ms, b_by = bound(4 * q * n + 8 * n + 8 * q, 2 * q * n, F32_FLOPS)
+    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, launch_floor_ms=floor_ms,
+               passes_ms=passes_ms, gemv_ms=gemv_ms, max_abs_err=worst)
+    print(f"[kernels] kernel_fold rbf q={q} n={n} timed: ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} (elementwise passes {passes_ms:.4f} + "
+          f"gemv {gemv_ms:.4f}) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{100 * b_ms / ms:.1f}% of it) launch_floor_ms={floor_ms:.4f} "
+          f"library_ms=none", flush=True)
     return rec
 
 
@@ -5054,6 +5153,31 @@ def _nonzero(d: dict) -> dict:
     return {k: v for k, v in d.items() if v}
 
 
+def fold_only(reps: int) -> int:
+    """--fold: the device line, the fold kernel's build and its part of
+    phase 4 alone, then its JSON record."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from dpsvm_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    for line in _build.build(["kernel_fold"]).get("kernel_fold",
+                                                  "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] kernel_fold: {line.strip()}", flush=True)
+    rec = phase_kernel_fold(torch.device("cuda", 0), reps)
+    print(json.dumps({"kernel_fold": rec, "card": smi}), flush=True)
+    return 0
+
+
 def lint_only() -> int:
     """--lint: the device line, the kernel builds and phase 41 alone."""
     import torch
@@ -5663,6 +5787,10 @@ def main() -> int:
         "headline", lambda: train(x, y, cfg),
         {"solve_subproblem": lambda r: r})
     head_model, head_res = model, res
+    if res.stats["fold_kernel_rounds"] != res.stats["outer_rounds"]:
+        raise AssertionError(
+            f"headline: {res.stats['fold_kernel_rounds']} rounds folded "
+            f"through the fold kernel, of {res.stats['outer_rounds']}")
     launches = {"solve_subproblem": counts["solve_subproblem"]}
     f_end = torch.as_tensor(res.stats["f"], device=dev)
     a_end = torch.as_tensor(res.alpha, device=dev)
@@ -5683,6 +5811,7 @@ def main() -> int:
     rec.update(phase_fused_kernels(xs, y_pad, valid, padded, kp, c, tau, q,
                                    reps=10))
     del xs, padded
+    rec["kernel_fold"] = phase_kernel_fold(dev, reps=10)
     stages = {"plain": phase_stages(x, y, cfg, PLAIN_STAGES, "headline")}
 
     lap("headline, kernels B1-B5, stages")
@@ -5965,6 +6094,14 @@ def main() -> int:
             "path_launches": {p: c[name] for p, c in paths.items()
                               if c[name]},
             **({"nu": r["nu"]} if "nu" in r else {})})
+    # Not a TPU kernel either: the plain round's fold after the dots GEMM
+    # (the JAX package leaves coef @ kernel_rows to XLA); its launches are
+    # the headline's rounds (stats["fold_kernel_rounds"]).
+    kernels.append({"name": "kernel_fold", "route": "cuda",
+                    "source": "dpsvm_tpu_torch/csrc/kernel_fold.cu",
+                    "replaces": "dpsvm_tpu/solver/block.py coef @ kernel_rows",
+                    "launches": head_res.stats["fold_kernel_rounds"],
+                    **rec["kernel_fold"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6455,6 +6592,9 @@ def cli() -> int:
                     help="profile serving dispatches only (10 a reading)")
     ap.add_argument("--lint", action="store_true",
                     help="build the kernels and run phase 41 [lint] only")
+    ap.add_argument("--fold", action="store_true",
+                    help="build and time the fold kernel (kernel_fold) "
+                    "at the benchmark cell's shape only")
     if sys.argv[1:2] == ["--cli-child"]:
         # A process of [multiproc]'s jobs: the profile stays off there too.
         os.environ["DPSVM_AUTOTUNE_PROFILE"] = "off"
@@ -6470,6 +6610,8 @@ def cli() -> int:
         return serve_profile(10)
     if args.lint:
         return lint_only()
+    if args.fold:
+        return fold_only(max(args.reps // 20, 1))
     if not args.turns:
         return main()
     return turns(args.package, args.reps)

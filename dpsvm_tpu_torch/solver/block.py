@@ -10,7 +10,9 @@ Each outer round:
      kernel on CUDA; on the CPU its plain version _solve_subproblem, the
      counterpart of the JAX package's block._solve_subproblem);
   4. folds the alpha deltas into the global gradient with one (q, n)
-     kernel-row pass, f += (dalpha * y)_W @ K(W, :), and scatters alpha_W.
+     kernel-row pass, f += (dalpha * y)_W @ K(W, :), and scatters alpha_W
+     (on the card the kernel transform and the contraction after the dots
+     GEMM are one hand-written kernel: ops/kernel_fold.py).
 
 run_local_round is the JAX package's _round_core and run_local_round in
 one, built from the four stage functions so each stage can also be timed
@@ -61,6 +63,7 @@ import torch
 from dpsvm_tpu_torch.obs.trace import span
 from dpsvm_tpu_torch.ops.fold_select import (LANES, assemble_working_set,
                                              fold_select, select_rows)
+from dpsvm_tpu_torch.ops.kernel_fold import fold_kernel_rows
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_from_dots,
                                          kernel_rows, mm_f32)
 from dpsvm_tpu_torch.ops.round import fused_round
@@ -182,9 +185,11 @@ def dispatch_subproblem(kb_w, kd_w, slot_ok, a_w0, y_w, f_w0, c,
 def fold_block(x, x_sq, qx, qsq, kp: KernelParams, f, f_err, coef,
                alpha, w, slot_ok, a_w):
     """f += coef @ K(W, :) (Kahan when f_err is carried) and scatter the
-    live slots of a_w into alpha. Returns (alpha, f, f_err)."""
-    k_rows = kernel_rows(x, x_sq, qx, qsq, kp)  # (q, n) float32
-    f, f_err = maybe_kahan(f, f_err, coef @ k_rows)
+    live slots of a_w into alpha. The delta is fold_kernel_rows': on the
+    card one pass of the hand-written kernel after the dots GEMM, on the
+    CPU coef @ kernel_rows. Returns (alpha, f, f_err)."""
+    f, f_err = maybe_kahan(f, f_err,
+                           fold_kernel_rows(x, x_sq, qx, qsq, coef, kp))
     return scatter_alpha(alpha, w, slot_ok, a_w), f, f_err
 
 

@@ -18,6 +18,7 @@ from dpsvm_tpu_torch.config import SVMConfig
 from dpsvm_tpu_torch.device import (precision_ctx, resolve_device,
                                     synchronize)
 from dpsvm_tpu_torch.obs.trace import span
+from dpsvm_tpu_torch.ops.kernel_fold import fold_dots
 from dpsvm_tpu_torch.ops.kernels import (KernelParams, kernel_diag,
                                          resident_gram, resolve_bf16_gram,
                                          squared_norms,
@@ -579,6 +580,7 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         x, n_pad, config, observe, gram_resident=use_gram,
         **{k: eng[k] for k in ("pipelined", "fused_fold", "fused_round")}),
         **autotune_embed()}, dev)
+    folds0 = fold_dots.launches
     out = loop(run_chunk, state, read, payload=payload,
                tensors=lambda s: ((s.f,), (s.alpha,)), obs=obs)
     t_fin = time.perf_counter()
@@ -599,6 +601,11 @@ def _solve_block(x, y_np, kp, config, dev, store_dtype, eps_run, start,
         train_seconds=out.train_seconds,
         dispatches=out.chunks,
         stats={"f": f_final, "outer_rounds": int(state.rounds),
+               # This call's rounds whose fold took the hand-written
+               # kernel (ops/kernel_fold.py): 0 on the CPU, for a
+               # precomputed Gram and on the fused, pipelined and
+               # active-set engines.
+               "fold_kernel_rounds": fold_dots.launches - folds0,
                "device": str(dev), "n_pad": n_pad, "chunks": out.chunks,
                "phase_seconds": out.phase_seconds,
                **{k: eng[k] for k in ("pipelined", "fused_fold",
@@ -667,6 +674,7 @@ def _solve_pair(x, y_np, kp, config, dev, store_dtype, eps_run, start,
 
     obs = chunks.open_run_obs("solve", config, _run_meta(
         x, n_pad, config, observe, gram_resident=use_gram), dev)
+    folds0 = fold_dots.launches
     out = loop(run_chunk, state, read, payload=payload,
                tensors=lambda s: ((s.f,), (s.alpha,)), obs=obs)
     t_fin = time.perf_counter()
